@@ -13,7 +13,7 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    layout, per-graph 3-D layouts, dead rows, a full layout); O and lse
    are compared, kernel and plain timed with CUDA events; one
    ``scaled_dot_product_attention`` with the dense additive mask is timed
-   beside the kernel at the 8192-node graph, where that mask fits;
+   beside the kernel at the 8192-node graph and at the serve shape;
 4. serve (the main path): GraphServe on Graphormer-Large at full width,
    seeded random weights, on the 32768-node SBM — 64 node and 2x64 link
    queries, answered twice (the second time from the layout cache). The
@@ -259,52 +259,85 @@ def main() -> int:
     if dead_o[:, 3 * 32:4 * 32].any() or dead_o[:, 5 * 32:6 * 32].any():
         raise AssertionError("dead rows must output 0")
 
-    # yardstick: SDPA with the dense (1, H, S, S) additive mask, at the
-    # 8192-node graph (at 32768 nodes the mask alone would take ~69 GB)
-    g8 = degree_scaled_sbm(YARDSTICK_NODES, CLUSTERS, large, seed=0)
-    p8 = prepare_node_task(g8, large, bq=32, bk=32, d_b=8)
-    l8 = p8.layout
-    bi8, bu8 = to_dev(l8.block_idx), to_dev(l8.buckets)
-    q, k, v, bias = random_qkv(1, l8.seq_len, H, KV, Dh, l8.n_buckets,
-                               torch.bfloat16, seed=2)
-    S8, bq8 = l8.seq_len, l8.bq
-    nq8 = S8 // bq8
-    dense = torch.full((S8, S8), -1, dtype=torch.int8, device=dev)
-    ii, mm = torch.nonzero(bi8 >= 0, as_tuple=True)
-    jj = bi8[ii, mm].long()
-    dense.view(nq8, bq8, nq8, bq8).permute(0, 2, 1, 3)[ii, jj] = bu8[ii, mm]
-    mask = bias[:, dense.clamp_min(0).long()]
-    mask = mask.masked_fill(dense < 0, float("-inf")).to(torch.bfloat16)
-    del dense
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # yardstick: one SDPA call with the dense (1, H, S, S) additive mask,
+    # at the 8192-node graph and at the serve shape, on the backend that
+    # PyTorch's own dispatch picks for it on the H100 (cuDNN) and on the
+    # memory-efficient one. Both are named, so neither falls back to the
+    # math backend, which would materialise H * S^2 fp32 scores.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt,
-                                              attn_mask=mask[None])
-    live = g8.n + large.n_global       # rows past the last node are dead
-    ref8 = sdpa().transpose(1, 2)[:, :live].float()
-    o8 = ops.cluster_attention(q, k, v, bi8, bu8, bias)[:, :live].float()
-    y_err = (o8 - ref8).abs().max().item()
-    if not y_err <= TOL_O["bfloat16"]:
-        raise AssertionError(f"kernel vs SDPA at {YARDSTICK_NODES} nodes: "
-                             f"max|dO|={y_err}")
-    yard = {"graph_nodes": YARDSTICK_NODES, "S": S8,
-            "active_blocks": l8.stats["active_blocks"],
-            "ms": cuda_ms(lambda: ops.cluster_attention(q, k, v, bi8, bu8,
-                                                        bias), 20),
-            "plain_ms": cuda_ms(lambda: ops.cluster_attention(
-                q, k, v, bi8, bu8, bias, impl="plain"), 5),
-            "library_ms": cuda_ms(sdpa, 5),
-            "bound_ms": bound(q, k, v, bi8, bu8)[0],
-            "mask_bytes": mask.numel() * mask.element_size(),
-            "max_abs_err_vs_library": y_err}
-    log(f"[yardstick] {YARDSTICK_NODES} nodes S={S8}: kernel "
-        f"{yard['ms']:.4f} ms, plain {yard['plain_ms']:.4f} ms, "
-        f"SDPA(dense mask, {yard['mask_bytes'] / 1e9:.2f} GB) "
-        f"{yard['library_ms']:.4f} ms, bound {yard['bound_ms']:.4f} ms, "
-        f"max|kernel-SDPA|={y_err:.3g}")
-    del q, k, v, qt, kt, vt, mask, ref8, o8
+    def sdpa_yardstick(graph, lay_, seed):
+        bi_, bu_ = to_dev(lay_.block_idx), to_dev(lay_.buckets)
+        q, k, v, bias = random_qkv(1, lay_.seq_len, H, KV, Dh,
+                                   lay_.n_buckets, torch.bfloat16, seed=seed)
+        S_, bq_ = lay_.seq_len, lay_.bq
+        nq_ = S_ // bq_
+        assert lay_.bk == bq_
+        dense = torch.full((S_, S_), -1, dtype=torch.int8, device=dev)
+        ii, mm = torch.nonzero(bi_ >= 0, as_tuple=True)
+        dense.view(nq_, bq_, nq_, bq_).permute(0, 2, 1, 3)[
+            ii, bi_[ii, mm].long()] = bu_[ii, mm]
+        live = graph.n + large.n_global    # rows past the last node are dead
+        o = ops.cluster_attention(q, k, v, bi_, bu_, bias)[:, :live].float()
+        rec = {"graph_nodes": graph.n, "S": S_,
+               "active_blocks": lay_.stats["active_blocks"],
+               "ms": cuda_ms(lambda: ops.cluster_attention(
+                   q, k, v, bi_, bu_, bias), 20),
+               "plain_ms": cuda_ms(lambda: ops.cluster_attention(
+                   q, k, v, bi_, bu_, bias, impl="plain"), 5),
+               "bound_ms": bound(q, k, v, bi_, bu_)[0]}
+        del bi_, bu_, ii, mm
+        torch.cuda.empty_cache()
+        # the mask, filled head by head and a band of rows at a time, so
+        # no temporary outgrows one band
+        mask = torch.empty((1, H, S_, S_), dtype=torch.bfloat16, device=dev)
+        for r in range(0, S_, 2048):
+            band = dense[r:r + 2048]
+            idx, dead = band.clamp_min(0).long(), band < 0
+            for h in range(H):
+                mask[0, h, r:r + 2048] = bias[h][idx].masked_fill_(
+                    dead, float("-inf"))
+            del idx, dead
+        del dense
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa(backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        tol = TOL_O["bfloat16"]
+        for key, backend in (("library", SDPBackend.CUDNN_ATTENTION),
+                             ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+            ref_o = sdpa(backend).transpose(1, 2)[:, :live].float()
+            err = (o - ref_o).abs().max().item()
+            if not torch.allclose(o, ref_o, atol=tol, rtol=tol):
+                raise AssertionError(f"kernel vs SDPA ({backend}) at "
+                                     f"{graph.n} nodes: max|dO|={err}")
+            rec[f"{key}_ms"] = cuda_ms(lambda: sdpa(backend), 5)
+            rec[f"max_abs_err_vs_{key}"] = err
+            del ref_o
+        rec.update(mask_bytes=mask.numel() * mask.element_size(),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        log(f"[yardstick] {graph.n} nodes S={S_}: kernel {rec['ms']:.4f} "
+            f"ms, plain {rec['plain_ms']:.4f} ms, SDPA with the dense mask "
+            f"({rec['mask_bytes'] / 1e9:.2f} GB, peak "
+            f"{rec['peak_bytes'] / 1e9:.2f} GB): cuDNN "
+            f"{rec['library_ms']:.4f} ms (max|dO| "
+            f"{rec['max_abs_err_vs_library']:.3g}), memory-efficient "
+            f"{rec['efficient_ms']:.4f} ms (max|dO| "
+            f"{rec['max_abs_err_vs_efficient']:.3g}); bound "
+            f"{rec['bound_ms']:.4f} ms")
+        del q, k, v, qt, kt, vt, mask, o
+        torch.cuda.empty_cache()
+        return rec
+
+    del bi, bu
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g8 = degree_scaled_sbm(YARDSTICK_NODES, CLUSTERS, large, seed=0)
+    yard = {str(YARDSTICK_NODES): sdpa_yardstick(
+        g8, prepare_node_task(g8, large, bq=32, bk=32, d_b=8).layout, seed=2),
+        str(SERVE_NODES): sdpa_yardstick(g, lay, seed=2)}
 
     # ------------------------------------------------- 4. serve (main path)
     def device_breakdown(fn, wall_ms):
@@ -421,9 +454,8 @@ def main() -> int:
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
-        # no single library call computes this at the serve shape: the
-        # dense mask SDPA needs does not fit; see "yardstick"
-        "library_ms": None,
+        # SDPA (cuDNN) with the dense additive mask, at the serve shape
+        "library_ms": yard[str(SERVE_NODES)]["library_ms"],
         "float32": serve_rec["float32"], "yardstick": yard,
         "serve": {"graphormer_large": main_path,
                   "graphormer_slim": slim_run}}]

@@ -7,9 +7,10 @@ shared library with a plain C entry point, loaded with ``ctypes``. The
 build lands in ``_build/<key>/`` next to this file, keyed on a hash of
 the source and the flags, so a fresh checkout builds it once.
 
-On a CPU tensor the wrapper computes the plain version
-(``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
-Build and launch errors propagate: nothing falls back.
+The wrapper takes CUDA tensors only: it launches the kernel or raises.
+``kernels/ops.py`` sends CPU tensors to the plain version
+(``kernels/ref.py``). Build and launch errors propagate: nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -24,15 +25,11 @@ import time
 
 import torch
 
-from repro_torch.kernels import ref as _ref
-
 _HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "cluster_attention_fwd.cu"
 BUILD_ROOT = _HERE / "_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# the card's per-block limit on dynamic shared memory (H100: 227 KB)
-MAX_SMEM_BYTES = 232448
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,13 +88,13 @@ def _library():
         lib.cluster_attention_fwd.argtypes = (
             [vp] * 8 + [i32] * 12 + [ctypes.c_float, vp])
         lib.cluster_attention_fwd.restype = i32
-        lib.cluster_attention_fwd_smem_bytes.argtypes = [i32] * 4
-        lib.cluster_attention_fwd_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
 
-def _check(q, k, v, block_idx, buckets, bias_table):
+def check_args(q, k, v, block_idx, buckets, bias_table):
+    """Raise unless the arguments meet the op's dtype, device and shape
+    contract (``kernels/ref.py``)."""
     B, S, H, Dh = q.shape
     if q.dtype not in _DTYPES:
         raise NotImplementedError(
@@ -140,16 +137,13 @@ def _check(q, k, v, block_idx, buckets, bias_table):
 
 def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
                           return_lse: bool = False):
-    """Biased cluster-sparse attention forward (shape contract in
-    ``kernels/ref.py``). CPU tensors take the plain version; CUDA tensors
-    launch the kernel. ``block_idx`` entries are -1 or k-block ids below
-    ``S // bk``, as the layout builders emit them; the kernel reads
-    whatever block an entry names, so the values are the caller's
-    contract (checking them would cost a device sync per call)."""
-    _check(q, k, v, block_idx, buckets, bias_table)
-    if q.device.type == "cpu":
-        return _ref.cluster_sparse_attention(
-            q, k, v, block_idx, buckets, bias_table, return_lse=return_lse)
+    """Biased cluster-sparse attention forward on CUDA tensors (shape
+    contract in ``kernels/ref.py``): launches the kernel, or raises.
+    ``block_idx`` entries are -1 or k-block ids below ``S // bk``, as the
+    layout builders emit them; the kernel reads whatever block an entry
+    names, so the values are the caller's contract (checking them would
+    cost a device sync per call)."""
+    check_args(q, k, v, block_idx, buckets, bias_table)
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"cluster_attention has no kernel for device {q.device}")
@@ -159,12 +153,6 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
     bq, bk = S // nq, buckets.shape[-1]
     nb = bias_table.shape[1]
     lib = _library()
-    smem = lib.cluster_attention_fwd_smem_bytes(bq, bk, Dh, nb)
-    if smem > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"cluster_attention kernel needs {smem} B of shared memory for "
-            f"bq={bq}, bk={bk}, Dh={Dh}, n_buckets={nb}; the card allows "
-            f"{MAX_SMEM_BYTES}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     block_idx, buckets = block_idx.contiguous(), buckets.contiguous()
     bias = bias_table.float().contiguous()
@@ -180,7 +168,10 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
             B, S, H, KV, Dh, nq, mb, bq, bk, nb, int(block_idx.dim() == 3),
             Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
     if err != 0:
+        # e.g. 1 (invalid value): the tiles of bq, bk, Dh and n_buckets
+        # need more shared memory than one block may have on this card
         raise RuntimeError(f"cluster_attention_fwd launch failed: CUDA "
-                           f"error {err}")
+                           f"error {err} (bq={bq}, bk={bk}, Dh={Dh}, "
+                           f"n_buckets={nb})")
     launches += 1
     return (out, lse) if return_lse else out

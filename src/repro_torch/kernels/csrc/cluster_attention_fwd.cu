@@ -229,16 +229,11 @@ int launch(const void* q, const void* k, const void* v, const void* block_idx,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA needs; the wrapper checks it
-// against the card's limit before launching.
-size_t cluster_attention_fwd_smem_bytes(int bq, int bk, int dh, int nb) {
-  return smem_floats(bq, bk, dh, nb) * sizeof(float) + (size_t)bq * bk;
-}
-
 // dtype: 0 = float32, 1 = bfloat16. q (B,S,H,Dh), k/v (B,S,KV,Dh), out like
 // q; block_idx (nq,mb) or (B,nq,mb) int32 (per_graph selects), buckets the
 // matching (...,bq,bk) int8; bias (H,nb) fp32; lse (B*H,S) fp32 or NULL.
-// Returns the CUDA error code of the launch (0 = launched).
+// Returns the CUDA error code of the launch (0 = launched); a tile set
+// that needs more shared memory than the card allows fails as invalid value.
 int cluster_attention_fwd(const void* q, const void* k, const void* v,
                           const void* block_idx, const void* buckets,
                           const void* bias, void* out, void* lse, int dtype,

@@ -42,14 +42,17 @@ def cluster_attention(q, k, v, block_idx, buckets=None, bias_table=None, *,
     if buckets is not None and bias_table is None:
         bias_table = torch.zeros((q.shape[2], 1), dtype=torch.float32,
                                  device=q.device)
-    if impl == "plain" or (buckets is None and q.device.type == "cpu"):
-        return _ref.cluster_sparse_attention(
-            q, k, v, block_idx, buckets, bias_table, causal=causal,
-            return_lse=return_lse)
-    if buckets is None:
+    plain = impl == "plain" or q.device.type == "cpu"
+    if buckets is None and not plain:
         raise NotImplementedError(
             "cluster_attention without buckets needs the unbiased kernel "
             "(_cluster_kernel, row 2 of the kernel table in PERF.md), which "
             "is not ported yet")
-    return _ca.cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table,
-                                     return_lse=return_lse)
+    if not plain:
+        return _ca.cluster_attention_fwd(q, k, v, block_idx, buckets,
+                                         bias_table, return_lse=return_lse)
+    if buckets is not None:     # the kernel's shape contract holds here too
+        _ca.check_args(q, k, v, block_idx, buckets, bias_table)
+    return _ref.cluster_sparse_attention(
+        q, k, v, block_idx, buckets, bias_table, causal=causal,
+        return_lse=return_lse)

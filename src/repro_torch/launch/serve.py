@@ -2,7 +2,7 @@
 ``repro.launch.serve``).
 
 Builds a degree-scaled SBM graph (expected intra-cluster degree
-``--deg-in``, inter-cluster degree ``--deg-out``), answers node and link
+``DEG_IN``, inter-cluster degree ``DEG_OUT``), answers node and link
 queries through :class:`repro_torch.serve.GraphServe`, answers them again
 from the layout cache, and reports prep and forward times.
 
@@ -26,12 +26,17 @@ from repro_torch.core.graph_model import GraphModel
 from repro_torch.serve import GraphServe
 
 
-def degree_scaled_sbm(n: int, clusters: int, cfg, *, deg_in: float = 16.0,
-                      deg_out: float = 2.0, seed: int = 0):
+# the served graph's recipe (PERF.md, section 4): each node expects 16
+# neighbours inside its cluster and 2 outside, whatever the graph's size
+DEG_IN = 16.0
+DEG_OUT = 2.0
+
+
+def degree_scaled_sbm(n: int, clusters: int, cfg, *, seed: int = 0):
     """SBM whose expected degrees stay fixed as ``n`` grows:
-    ``p_in = deg_in / (n / clusters)``, ``p_out = deg_out / n``."""
-    return sbm_graph(n, clusters, p_in=min(1.0, deg_in * clusters / n),
-                     p_out=min(1.0, deg_out / n), feat_dim=cfg.feat_dim,
+    ``p_in = DEG_IN / (n / clusters)``, ``p_out = DEG_OUT / n``."""
+    return sbm_graph(n, clusters, p_in=min(1.0, DEG_IN * clusters / n),
+                     p_out=min(1.0, DEG_OUT / n), feat_dim=cfg.feat_dim,
                      n_classes=cfg.n_classes, seed=seed)
 
 
@@ -45,7 +50,6 @@ def serve_graph(args) -> None:
     model = GraphModel(cfg, device=args.device, seed=args.seed)
     dev = model.device
     g = degree_scaled_sbm(args.graph_nodes, args.graph_clusters, cfg,
-                          deg_in=args.deg_in, deg_out=args.deg_out,
                           seed=args.seed)
     srv = GraphServe(model)
     rng = np.random.default_rng(args.seed)
@@ -84,8 +88,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--graph-nodes", type=int, default=96)
     ap.add_argument("--graph-clusters", type=int, default=4)
-    ap.add_argument("--deg-in", type=float, default=16.0)
-    ap.add_argument("--deg-out", type=float, default=2.0)
     ap.add_argument("--queries", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     serve_graph(ap.parse_args(argv))

@@ -197,3 +197,15 @@ def test_cpu_call_takes_plain_version_and_counts_no_launch():
                                    t(lay.buckets), t(bias), impl="plain")
     assert tca.launches == 0
     assert torch.equal(out, plain)
+
+
+def test_kernel_wrapper_takes_cuda_tensors_only():
+    """The device decision lives in ``ops``: the kernel wrapper itself
+    raises on CPU tensors rather than computing the plain version."""
+    lay = graph_layout()
+    q, k, v, bias = qkv(1, lay.seq_len, 4, 4, 8, n_buckets=lay.n_buckets)
+    tca.reset_count()
+    with pytest.raises(NotImplementedError, match="no kernel for device cpu"):
+        tca.cluster_attention_fwd(t(q), t(k), t(v), t(lay.block_idx),
+                                  t(lay.buckets), t(bias))
+    assert tca.launches == 0
