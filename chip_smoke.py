@@ -6,20 +6,37 @@
 Phases, each failing loudly (an uncaught exception, non-zero exit):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile every kernel of the path from the checkout with nvcc;
+2. build: compile every kernel of the paths from the checkout, one nvcc
+   per source, all started together;
 3. kernels vs their plain PyTorch versions on the card: the cluster
    attention forward at the serve shape (32768-node SBM, Graphormer-Large
    heads) in bf16 and fp32, and small cases (GQA, Dh 8, a shared 2-D
    layout, per-graph 3-D layouts, dead rows, a full layout); O and lse
    are compared, kernel and plain timed with CUDA events; one
    ``scaled_dot_product_attention`` with the dense additive mask is timed
-   beside the kernel at the 8192-node graph and at the serve shape;
-4. serve (the main path): GraphServe on Graphormer-Large at full width,
-   seeded random weights, on the 32768-node SBM — 64 node and 2x64 link
-   queries, answered twice (the second time from the layout cache). The
-   kernel's launch count is reset just before and read just after; the
-   same forward with the plain attention must give the same logits.
-   Then Graphormer-Slim (Dh=8) on the same graph.
+   beside the kernel at the 8192-node graph and at the serve shape, its
+   forward and its backward;
+3b. the dQ and dK/dV backward kernels vs the plain backward, on the same
+   cases (and without a transposed layout: the derived one); dq, dk, dv
+   and the bias gradient are compared, each kernel and each plain half
+   timed;
+4. serve (the first main path): GraphServe on Graphormer-Large at full
+   width, seeded random weights, on the 32768-node SBM — 64 node and 2x64
+   link queries, answered twice (the second time from the layout cache).
+   The same forward with the plain attention must give the same logits.
+   Then Graphormer-Slim (Dh=8) on the same graph;
+5. train (this slice's main path): Graphormer-Large at full width, bf16
+   compute, fp32 parameters and moments, on the 8192-node SBM through
+   ``NodeTask`` and ``Trainer``: 16 steps, dense at 0 and 8, an AutoTuner
+   epoch every step. Losses must be finite and fall. On every ladder rung
+   a sparse step ran on, with the trainer's own device batch, the op's
+   kernels (forward, dQ, dK/dV) must agree with its plain versions on
+   random inputs, and the kernel path and the plain path must give the
+   same loss and gradients on one sparse step; one sparse and one dense
+   step are profiled.
+
+Each main path runs with every kernel's launch count set to 0 just
+before it and read just after.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -45,6 +62,16 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # of values near 1 (2e-2), fp32 sums in another order (2e-5). lse: fp32.
 TOL_O = {"bfloat16": 2e-2, "float32": 2e-5}
 TOL_LSE = 1e-4
+# gradients, backward kernels vs plain backward on identical inputs: max
+# |kernel - plain| over max |plain|, per gradient. bf16: one rounding of
+# each output (and of each per-q-head dk/dv before the GQA sum); fp32:
+# sums in another order
+TOL_GRAD = {"bfloat16": 1e-2, "float32": 1e-4}
+# one sparse training step at full width, kernel path vs plain path
+# through 12 bf16 layers: loss within 1e-2 relative, every parameter's
+# gradient at a cosine of at least 0.99 with the plain one
+TOL_STEP_LOSS_REL = 1e-2
+MIN_GRAD_COSINE = 0.99
 # served logits, kernel path vs plain path through 12 bf16 layers: max
 # difference relative to the largest logit, and argmax agreement
 TOL_LOGITS_REL = 5e-2
@@ -52,6 +79,8 @@ MIN_ARGMAX_AGREE = 0.98
 
 SERVE_NODES = 32768
 YARDSTICK_NODES = 8192
+TRAIN_NODES = 8192      # the dense step's fp32 (1, H, S, S) bias must fit
+TRAIN_STEPS = 16
 CLUSTERS = 32
 QUERIES = 64
 
@@ -74,12 +103,18 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.graph_model import (GraphModel, graph_forward,
                                               graph_predict)
-    from repro_torch.core.reformation import build_layout
+    from repro_torch.core.reformation import (build_layout,
+                                              transpose_block_idx)
     from repro_torch.data.graph_pipeline import prepare_node_task
+    from repro_torch.core.graph_model import graph_loss
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import cluster_attention as tca
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cluster_attention_bwd as tcab
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.serve import degree_scaled_sbm
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.serve import GraphServe
+    from repro_torch.tasks import NodeTask
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -98,11 +133,16 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     # ----------------------------------------------------------- 2. build
-    lib = tca.build()
-    log(f"[build] {os.path.relpath(lib, ROOT)} in {tca.build_seconds:.2f}s")
-    for line in tca.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    libs = (tca.LIBRARY, tcab.LIBRARY)
+    t0 = time.perf_counter()
+    kbuild.build_all(libs)
+    log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
+    for lib in libs:
+        log(f"[build] {os.path.relpath(lib.path(), ROOT)} "
+            f"({lib.seconds:.2f}s of nvcc)")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build]   {line.strip()}")
 
     # -------------------------------------------- 3. kernels vs plain
     def cuda_ms(fn, reps):
@@ -173,6 +213,110 @@ def main() -> int:
     def to_dev(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
+    def bound_bwd(kind, q, k, bi, bu, bit, nb):
+        """Least time of one backward kernel: each input read once (only
+        the visited bucket tiles), each output written once, and the
+        recompute + gradient arithmetic of the visited blocks at the peak
+        rate of q's dtype. dQ: q, k, v, dO, lse, delta, block_idx and the
+        tiles in; dq and the (B, H, nq, nb) bucket partials out; s, dp and
+        dq products (6 flop per entry per Dh). dK/dV: q, k, v, dO, lse,
+        delta, block_idx_t and the tiles in; per-q-head dk and dv out; s,
+        dp, dv and dk products (8). Returns (ms, "bytes" | "operations")."""
+        B, S, H, Dh = q.shape
+        nq = bi.shape[-2]
+        bq, bk = S // nq, bu.shape[-1]
+        active = int((bi >= 0).sum()) * (B if bi.dim() == 2 else 1)
+        elt = q.element_size()
+        n_in = (2 * q.numel() + 2 * k.numel()) * elt + 2 * B * H * S * 4 \
+            + active * bq * bk
+        if kind == "dq":
+            n_bytes = n_in + bi.numel() * 4 + q.numel() * elt \
+                + B * H * nq * nb * 4
+            flops = 6.0 * active * bq * bk * Dh * H
+        else:
+            n_bytes = n_in + bit.numel() * 4 + 2 * q.numel() * elt
+            flops = 8.0 * active * bq * bk * Dh * H
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[1]] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    def bwd_inputs(q, k, v, bi, bu, bias, seed):
+        """The forward kernel's O and lse and a random dO: the inputs
+        both backwards take."""
+        out, lse = tca.cluster_attention_fwd(q, k, v, bi, bu, bias,
+                                             return_lse=True)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dout = torch.randn(out.shape, generator=gen, device=dev).to(q.dtype)
+        return out, lse, dout
+
+    def compare_bwd(tag, q, k, v, bi, bu, bias, bit, seed=0):
+        """Backward kernels vs the plain backward on identical inputs:
+        dq, dk, dv and dbias, each as max|diff| over max|plain|; returns
+        the max abs errors of (dq, max of dk and dv). Where every bucket
+        is equal, softmax cancels the bias, so dbias is zero up to
+        rounding: it must then be below TOL_GRAD in absolute value."""
+        uniform = bool((bu == bu.flatten()[0]).all())
+        dt = str(q.dtype).split(".")[1]
+        out, lse, dout = bwd_inputs(q, k, v, bi, bu, bias, seed)
+        got = tcab.cluster_attention_bwd(q, k, v, dout, out, lse, bi, bu,
+                                         bias, bit)
+        want = ref.cluster_attention_bwd(q, k, v, dout, out, lse, bi, bu,
+                                         bias, bit)
+        torch.cuda.synchronize()
+        rels, errs = [], []
+        for i, (x, y) in enumerate(zip(got, want)):
+            d = (x.float() - y.float()).abs().max().item()
+            errs.append(d)
+            den = 1.0 if uniform and i == 3 else y.float().abs().max().item()
+            rels.append(d / max(den, 1e-30))
+        ok = all(r <= TOL_GRAD[dt] for r in rels) and all(
+            torch.isfinite(x).all() for x in got)
+        log(f"[bwd] {tag} {dt}{'' if bit is not None else ', derived layout'}"
+            f": rel dq {rels[0]:.3g} dk {rels[1]:.3g} dv {rels[2]:.3g} "
+            f"dbias {rels[3]:.3g} (tol {TOL_GRAD[dt]}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"backward kernels disagree with the plain "
+                                 f"backward: {tag} {dt}")
+        return errs[0], max(errs[1], errs[2])
+
+    def compare_op(tag, q, k, v, bi, bu, bias, bit, seed):
+        """``ops.cluster_attention`` forward and autograd backward, kernels
+        vs ``impl="plain"``, on identical inputs and a random dO: O within
+        TOL_O, then dq, dk, dv and dbias as max|diff| over max|plain|
+        within TOL_GRAD; returns the max abs error over the gradients."""
+        dt = str(q.dtype).split(".")[1]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        res = []
+        for impl in (None, "plain"):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+            o = ops.cluster_attention(*leaves[:3], bi, bu, leaves[3], bit,
+                                      impl=impl)
+            res.append((o.detach(), *torch.autograd.grad(o, leaves, dout)))
+            del o, leaves
+        torch.cuda.synchronize()
+        (o, *got), (po, *want) = res
+        o_ok = torch.allclose(o.float(), po.float(), atol=TOL_O[dt],
+                              rtol=TOL_O[dt])
+        rels, errs = [], []
+        for x, y in zip(got, want):
+            d = (x.float() - y.float()).abs().max().item()
+            errs.append(d)
+            rels.append(d / max(y.float().abs().max().item(), 1e-30))
+        ok = o_ok and all(r <= TOL_GRAD[dt] for r in rels) and all(
+            torch.isfinite(x).all() for x in (o, *got))
+        log(f"[bwd] {tag} {dt}, op forward + autograd: max|dO|="
+            f"{(o.float() - po.float()).abs().max().item():.3g} (tol "
+            f"{TOL_O[dt]}); rel dq {rels[0]:.3g} dk {rels[1]:.3g} dv "
+            f"{rels[2]:.3g} dbias {rels[3]:.3g} (tol {TOL_GRAD[dt]}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"the op's kernels disagree with its plain "
+                                 f"versions: {tag} {dt}")
+        return max(errs)
+
     large = get_config("graphormer_large")
     slim = get_config("graphormer_slim")
     H, KV, Dh = large.n_heads, large.kv_heads, large.head_dim
@@ -188,6 +332,57 @@ def main() -> int:
         f"{(lay.block_idx >= 0).sum(1).min()}/"
         f"{(lay.block_idx >= 0).sum(1).mean():.1f}/"
         f"{(lay.block_idx >= 0).sum(1).max()}")
+    bit = to_dev(lay.block_idx_t)
+    col_visits = (lay.block_idx_t[..., 0] >= 0).sum(1)
+    log(f"[bwd] serve transposed layout: nk={lay.block_idx_t.shape[0]} "
+        f"mt={lay.mt} column visits min/mean/max={col_visits.min()}/"
+        f"{col_visits.mean():.1f}/{col_visits.max()}")
+
+    def bwd_serve(q, k, v, bias, dt):
+        """Backward kernels vs plain at the serve shape: agreement, then
+        each kernel and each plain half timed alone on the same inputs."""
+        err_dq, err_dkv = compare_bwd("serve shape", q, k, v, bi, bu, bias,
+                                      bit, seed=3)
+        out, lse, dout = bwd_inputs(q, k, v, bi, bu, bias, seed=3)
+        delta = ref.row_delta(dout, out)
+        rec = {"dq": {"max_abs_err": err_dq}, "dkv": {"max_abs_err": err_dkv}}
+        runs = {
+            "dq": (lambda: tcab.dq_kernel(q, k, v, dout, lse, delta, bi, bu,
+                                          bias),
+                   lambda: ref.bwd_dq(q, k, v, dout, lse, delta, bi, bu,
+                                      bias)),
+            "dkv": (lambda: tcab.dkv_kernel(q, k, v, dout, lse, delta, bi,
+                                            bit, bu, bias),
+                    lambda: ref.bwd_dkv(q, k, v, dout, lse, delta, bi, bit,
+                                        bu, bias))}
+        for kind, (kern, plain) in runs.items():
+            r = rec[kind]
+            r["ms"] = cuda_ms(kern, 10)
+            r["plain_ms"] = cuda_ms(plain, 3)
+            r["bound_ms"], r["bound_by"] = bound_bwd(kind, q, k, bi, bu, bit,
+                                                     bias.shape[1])
+            log(f"[bwd] serve shape {dt} {kind}: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2%} of bound")
+        if dt == "bfloat16":
+            # diagnostics: the heavy dQ row and dK/dV column cut away
+            trim = bi.clone()
+            trim[0, 0, 1:] = -1
+            rec["dq"]["ms_without_global_row"] = cuda_ms(
+                lambda: tcab.dq_kernel(q, k, v, dout, lse, delta, trim, bu,
+                                       bias), 10)
+            trim_t = bit.clone()
+            trim_t[0, 1:] = -1
+            rec["dkv"]["ms_without_global_column"] = cuda_ms(
+                lambda: tcab.dkv_kernel(q, k, v, dout, lse, delta, bi,
+                                        trim_t, bu, bias), 10)
+            log(f"[bwd] serve shape {dt}, heavy row / column cut to one "
+                f"slot: dq {rec['dq']['ms_without_global_row']:.4f} ms, "
+                f"dkv {rec['dkv']['ms_without_global_column']:.4f} ms")
+        del out, lse, dout, delta
+        torch.cuda.empty_cache()
+        return rec
+
     serve_rec = {}
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[1]
@@ -213,6 +408,9 @@ def main() -> int:
                 lambda: ops.cluster_attention(q, k, v, trim, bu, bias), 20)
             log(f"[kernel] serve shape {dt}, global row cut to one slot: "
                 f"kernel {serve_rec[dt]['ms_without_global_row']:.4f} ms")
+        # 3b. the backward kernels at the serve shape, with the host-built
+        # transposed layout the training path threads through
+        serve_rec[dt]["bwd"] = bwd_serve(q, k, v, bias, dt)
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -253,6 +451,12 @@ def main() -> int:
         q, k, v, bias = random_qkv(B, S_, H_, KV_, Dh_, 3, dtype,
                                    seed=10 + i)
         compare(tag, q, k, v, to_dev(bi_np), to_dev(bu_np), bias)
+        # the shared layouts bring the host-built transposed layout; the
+        # per-graph ones and the dead rows go without (derived in the op)
+        bit_np = transpose_block_idx(bi_np, S_ // bu_np.shape[-1]) \
+            if bi_np.ndim == 2 and "dead" not in tag else None
+        compare_bwd(tag, q, k, v, to_dev(bi_np), to_dev(bu_np), bias,
+                    None if bit_np is None else to_dev(bit_np), seed=i)
     dead_o = ops.cluster_attention(*random_qkv(1, S, 4, 4, 24, 3,
                                                torch.float32, seed=99)[:3],
                                    to_dev(dead_bi), to_dev(dead_bu))
@@ -286,7 +490,17 @@ def main() -> int:
                "plain_ms": cuda_ms(lambda: ops.cluster_attention(
                    q, k, v, bi_, bu_, bias, impl="plain"), 5),
                "bound_ms": bound(q, k, v, bi_, bu_)[0]}
-        del bi_, bu_, ii, mm
+        # the two backward kernels on this layout, beside SDPA's backward
+        out_, lse_, dout_ = bwd_inputs(q, k, v, bi_, bu_, bias, seed=5)
+        delta_ = ref.row_delta(dout_, out_)
+        bit_ = to_dev(lay_.block_idx_t)
+        rec["dq_ms"] = cuda_ms(lambda: tcab.dq_kernel(
+            q, k, v, dout_, lse_, delta_, bi_, bu_, bias), 10)
+        rec["dkv_ms"] = cuda_ms(lambda: tcab.dkv_kernel(
+            q, k, v, dout_, lse_, delta_, bi_, bit_, bu_, bias), 10)
+        log(f"[yardstick] {graph.n} nodes: backward kernels dq "
+            f"{rec['dq_ms']:.4f} ms + dkv {rec['dkv_ms']:.4f} ms")
+        del bi_, bu_, ii, mm, out_, lse_, dout_, delta_, bit_
         torch.cuda.empty_cache()
         # the mask, filled head by head and a band of rows at a time, so
         # no temporary outgrows one band
@@ -316,6 +530,25 @@ def main() -> int:
             rec[f"{key}_ms"] = cuda_ms(lambda: sdpa(backend), 5)
             rec[f"max_abs_err_vs_{key}"] = err
             del ref_o
+        # the backward of one such call (gradients for q, k and v; the mask
+        # takes none), on the backend PyTorch's own dispatch picks: the
+        # library figure for the dQ and dK/dV kernels together
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        try:
+            og = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            gout = torch.randn_like(og)
+            rec["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                og, leaves, gout, retain_graph=True), 5)
+            del og, gout
+        except RuntimeError as e:   # out of memory included: recorded
+            rec["library_bwd_error"] = \
+                f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+        del leaves
+        torch.cuda.empty_cache()
+        log(f"[yardstick] {graph.n} nodes: SDPA backward with the dense "
+            f"mask (PyTorch's pick): " + (
+                f"{rec['library_bwd_ms']:.4f} ms" if "library_bwd_ms" in rec
+                else rec["library_bwd_error"]))
         rec.update(mask_bytes=mask.numel() * mask.element_size(),
                    peak_bytes=torch.cuda.max_memory_allocated())
         log(f"[yardstick] {graph.n} nodes S={S_}: kernel {rec['ms']:.4f} "
@@ -339,8 +572,17 @@ def main() -> int:
         g8, prepare_node_task(g8, large, bq=32, bk=32, d_b=8).layout, seed=2),
         str(SERVE_NODES): sdpa_yardstick(g, lay, seed=2)}
 
-    # ------------------------------------------------- 4. serve (main path)
-    def device_breakdown(fn, wall_ms):
+    # ------------------------------------------- 4. serve (first main path)
+    def reset_counts():
+        tca.reset_count()
+        tcab.reset_count()
+
+    def read_counts():
+        return {"cluster_attention_fwd": tca.launches,
+                "cluster_attention_bwd_dq": tcab.dq_launches,
+                "cluster_attention_bwd_dkv": tcab.dkv_launches}
+
+    def device_breakdown(fn, wall_ms, tag="serve", what="one forward"):
         """Device time of one ``fn()`` by kernel name (torch.profiler),
         and the busy share of ``wall_ms``; None when the profiler shows no
         device time."""
@@ -358,16 +600,16 @@ def main() -> int:
                     e.self_device_time_total > 0:
                 rows.append((e.self_device_time_total / 1e3, e.key))
         if not rows:
-            log("[serve] profiler: no device time (not measured)")
+            log(f"[{tag}] profiler: no device time (not measured)")
             return None
         rows.sort(reverse=True)
         total = sum(ms for ms, _ in rows)
-        log(f"[serve] profiler: device time {total:.3f} ms in one forward "
+        log(f"[{tag}] profiler: device time {total:.3f} ms in {what} "
             f"of {wall_ms:.3f} ms wall ({total / wall_ms:.1%} busy)")
-        for ms, name in rows[:6]:
-            log(f"[serve]   {ms:9.3f} ms {ms / total:6.1%}  {name[:90]}")
+        for ms, name in rows[:8]:
+            log(f"[{tag}]   {ms:9.3f} ms {ms / total:6.1%}  {name[:90]}")
         return {"device_ms": total, "busy_share": total / wall_ms,
-                "top": [[name[:90], ms] for ms, name in rows[:6]]}
+                "top": [[name[:90], ms] for ms, name in rows[:8]]}
 
     def serve(cfg, seed):
         model = GraphModel(cfg, device=dev, seed=seed)
@@ -382,7 +624,7 @@ def main() -> int:
         rnd = rng.integers(0, g.n, (2, QUERIES))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        tca.reset_count()
+        reset_counts()
         passes, outs = [], []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -393,14 +635,17 @@ def main() -> int:
             outs.append(out)
             if len(passes) == 1:
                 first = srv.prepared(g)
-        launches = tca.launches
+        counts = read_counts()
+        launches = counts["cluster_attention_fwd"]
         peak = torch.cuda.max_memory_allocated()
         if srv.n_cached_layouts() != 1 or srv.prepared(g) is not first:
             raise AssertionError("the second pass missed the layout cache")
         want = 2 * 3 * cfg.n_layers
-        if launches != want:
-            raise AssertionError(f"{cfg.name}: {launches} kernel launches in "
-                                 f"2 passes x 3 forwards, want {want}")
+        if counts != {"cluster_attention_fwd": want,
+                      "cluster_attention_bwd_dq": 0,
+                      "cluster_attention_bwd_dkv": 0}:
+            raise AssertionError(f"{cfg.name}: launches {counts} in 2 passes "
+                                 f"x 3 forwards, want {want} forwards")
         node = outs[0][0]
         if node["logits"].shape != (QUERIES, cfg.n_classes) or \
                 not np.isfinite(node["logits"]).all() or \
@@ -434,7 +679,7 @@ def main() -> int:
         if not (rel <= TOL_LOGITS_REL and agree >= MIN_ARGMAX_AGREE):
             raise AssertionError(f"{cfg.name}: kernel path and plain path "
                                  f"disagree")
-        rec = {"launches": launches, "passes_s": passes,
+        rec = {"launches": counts, "passes_s": passes,
                "prep_s": prep_s.prep_seconds, "forward_ms": fwd_ms,
                "peak_bytes": peak, "device_breakdown": breakdown}
         del srv, model, batch
@@ -444,21 +689,190 @@ def main() -> int:
     main_path = serve(large, seed=0)
     slim_run = serve(slim, seed=0)
 
-    # -------------------------------------------------------- 5. results
+    # ------------------------------------------ 5. train (this slice's path)
+    def train():
+        g8 = degree_scaled_sbm(TRAIN_NODES, CLUSTERS, large, seed=0)
+        train_mask = np.random.default_rng(0).random(g8.n) < 0.5
+        model = GraphModel(large, device=dev, seed=0)
+        params = list(model.parameters())
+        t0 = time.perf_counter()
+        task = NodeTask(g8, large, train_mask=train_mask, bq=32, bk=32,
+                        d_b=8, device=dev)
+        prep_s = time.perf_counter() - t0
+        lay8 = task.layout
+        log(f"[train] {large.name}: {sum(p.numel() for p in params):,} "
+            f"params, {g8.n} nodes, {g8.e} edges, S={lay8.seq_len}; "
+            f"{len(task._preps)} ladder rungs "
+            f"{[round(b, 5) for b in task._preps]} prepared in "
+            f"{prep_s:.2f}s (mb_cap={task.mb_cap}, mt_cap={lay8.mt}); "
+            f"active blocks by rung "
+            f"{[p[0].layout.stats['active_blocks'] for p in task._preps.values()]}")
+        tr = Trainer(model, TrainerConfig(
+            steps=TRAIN_STEPS, lr=1e-3, warmup=2,
+            interleave_period=large.interleave_period,
+            elastic_every=large.elastic_every), task=task)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        hist = tr.history
+        for h in hist:
+            log(f"[train] step {h['step']:2d} [{h['variant']:6s}] loss "
+                f"{h['loss']:.4f} acc {h['acc']:.4f} "
+                f"{h['seconds'] * 1e3:9.2f} ms beta_thre "
+                f"{h['beta_thre']:.5f}")
+        for m in task.moves:
+            log(f"[train] ladder move @ step {m.step}: pos={m.pos} "
+                f"beta_thre={m.beta_thre:.5f} (LDR {m.ldr:+.3e})")
+        ev = task.eval(model)
+        n_sparse = sum(1 for h in hist if h["variant"] == "sparse")
+        dense_at = [i for i, h in enumerate(hist) if h["dense"]]
+        log(f"[train] {TRAIN_STEPS} steps in {run_s:.2f}s, dense at "
+            f"{dense_at}, peak {peak / 2**30:.2f} GiB, launches {counts}; "
+            f"eval acc {ev['acc']:.4f} xent {ev['xent']:.4f}")
+        losses = [h["loss"] for h in hist]
+        want = n_sparse * large.n_layers
+        if counts != {"cluster_attention_fwd": want,
+                      "cluster_attention_bwd_dq": want,
+                      "cluster_attention_bwd_dkv": want}:
+            raise AssertionError(f"launches {counts}: want {want} of each "
+                                 f"({n_sparse} sparse steps x "
+                                 f"{large.n_layers} layers)")
+        if dense_at != [0, 8] or not np.isfinite(losses).all() or any(
+                h["skipped"] for h in hist):
+            raise AssertionError(f"dense steps {dense_at}, losses {losses}")
+        tail = float(np.mean(losses[-4:]))
+        if not tail < min(losses[0], losses[1]):
+            raise AssertionError(f"loss did not fall: last 4 mean {tail} vs "
+                                 f"steps 0 and 1 {losses[:2]}")
+
+        # the rungs the sparse steps ran on, with the device batches the
+        # trainer gave them: the kernels are held to the plain versions on
+        # exactly these layouts (rung 1 is nearly dense and padded to
+        # mb_cap, the others sparse)
+        rungs = sorted({h["beta_thre"] for h in hist
+                        if h["variant"] == "sparse"})
+        checks = []
+        torch.cuda.reset_peak_memory_stats()
+        for bt in rungs:
+            b = task._batches_dev[(bt, 0)]
+            active = int((b["block_idx"] >= 0).sum())
+            tag = f"rung beta_thre={bt:.5f} ({active} active blocks)"
+            # the op alone, forward and autograd backward, random inputs
+            # at the Large heads
+            q, k, v, bias = random_qkv(1, lay8.seq_len, H, KV, Dh,
+                                       model.bias_table.shape[1],
+                                       torch.bfloat16, seed=11)
+            op_err = compare_op(f"train {tag}", q, k, v, b["block_idx"],
+                                b["buckets"], bias, b["block_idx_t"],
+                                seed=12)
+            del q, k, v, bias
+            # one sparse step of the model, same parameters
+
+            def loss_grads(impl):
+                loss, _ = graph_loss(model, b, impl=impl)
+                return loss.detach().float(), torch.autograd.grad(loss,
+                                                                  params)
+            kl, kg = loss_grads(None)
+            pl_, pg = loss_grads("plain")
+            loss_rel = (abs(kl - pl_) / abs(pl_)).item()
+            names = [n for n, _ in model.named_parameters()]
+            cos = {n: F.cosine_similarity(a.flatten().float(),
+                                          c.flatten().float(), dim=0,
+                                          eps=1e-30).item()
+                   for n, a, c in zip(names, kg, pg)}
+            worst = min(cos, key=cos.get)
+            log(f"[train] one sparse step on {tag}, kernel vs plain path: "
+                f"loss {kl.item():.6f} vs {pl_.item():.6f} (rel "
+                f"{loss_rel:.3g}, tol {TOL_STEP_LOSS_REL}); gradient cosine "
+                f"min {cos[worst]:.6f} ({worst}), bias_table "
+                f"{cos['bias_table']:.6f} (min {MIN_GRAD_COSINE})")
+            if not (loss_rel <= TOL_STEP_LOSS_REL
+                    and cos[worst] >= MIN_GRAD_COSINE):
+                raise AssertionError(f"kernel and plain training paths "
+                                     f"disagree on {tag}")
+            checks.append({"beta_thre": bt, "active_blocks": active,
+                           "op_max_abs_err": op_err, "loss_rel": loss_rel,
+                           "min_grad_cosine": [worst, cos[worst]],
+                           "bias_table_cosine": cos["bias_table"]})
+            del kg, pg
+            torch.cuda.empty_cache()
+        check_peak = torch.cuda.max_memory_allocated()
+        log(f"[train] checks on {len(rungs)} rungs: peak "
+            f"{check_peak / 2**30:.2f} GiB")
+
+        # profile one sparse and one dense step, on the active rung
+        batch = task.batches(0)
+        prof = {}
+        for variant in ("sparse", "dense"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step(variant, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof[variant] = device_breakdown(
+                lambda: tr.step(variant, batch), wall, tag="train",
+                what=f"one {variant} step")
+        rec = {"launches": counts, "steps": hist, "moves": [
+            vars(m) for m in task.moves], "eval": ev, "run_s": run_s,
+            "prep_s": prep_s, "peak_bytes": peak, "checks": checks,
+            "check_peak_bytes": check_peak, "profile": prof}
+        del tr, task, model, batch, params
+        torch.cuda.empty_cache()
+        return rec
+
+    train_run = train()
+
+    # -------------------------------------------------------- 6. results
     rec = serve_rec["bfloat16"]
+    yard8 = yard[str(YARDSTICK_NODES)]
+    yard_s = yard[str(SERVE_NODES)]
+
+    def launches(name):
+        return main_path["launches"][name] + train_run["launches"][name]
+
     kernels = [{
         "name": "cluster_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cluster_attention_fwd.cu",
         "replaces": "src/repro/kernels/cluster_attention.py:127",
-        "launches": main_path["launches"],
+        "launches": launches("cluster_attention_fwd"),
+        "launches_by_path": {
+            "serve": main_path["launches"]["cluster_attention_fwd"],
+            "train": train_run["launches"]["cluster_attention_fwd"]},
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         # SDPA (cuDNN) with the dense additive mask, at the serve shape
-        "library_ms": yard[str(SERVE_NODES)]["library_ms"],
-        "float32": serve_rec["float32"], "yardstick": yard,
+        "library_ms": yard_s["library_ms"],
+        "float32": {k: v for k, v in serve_rec["float32"].items()
+                    if k != "bwd"},
+        "yardstick": yard,
         "serve": {"graphormer_large": main_path,
                   "graphormer_slim": slim_run}}]
+    for half, name, line in (("dq", "cluster_attention_bwd_dq", 152),
+                             ("dkv", "cluster_attention_bwd_dkv", 244)):
+        b = rec["bwd"][half]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cluster_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/cluster_attention_bwd.py:{line}",
+            "launches": launches(name),
+            "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            # one SDPA backward with the dense mask (dq, dk and dv
+            # together) at the serve shape, or null with the error it hit
+            "library_ms": yard_s.get("library_bwd_ms"),
+            "library_error": yard_s.get("library_bwd_error"),
+            "library_ms_8192": yard8.get("library_bwd_ms"),
+            "float32": serve_rec["float32"]["bwd"][half],
+            **{k: v for k, v in b.items() if k.startswith("ms_without")}})
+    kernels[0]["train"] = train_run
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-"""Graphormer on the port: degree encodings + cluster-sparse attention
-over the reformation layout — the serving half of
-``repro.core.graph_model`` (``graph_defs``, ``graph_forward`` with
-``dense=False``, ``apply_head``, ``graph_predict``).
+"""Graphormer on the port: degree encodings + dual-interleaved attention
+(cluster-sparse over the reformation layout, or dense with the
+structural bias) — the port of ``repro.core.graph_model``
+(``graph_defs``, ``graph_forward``, ``apply_head``, ``graph_predict``,
+``graph_loss``, ``with_dense_bias``, ``graph_loss_dense`` and the
+model's ``loss_variants``).
 
 Batch layout (built by data/graph_pipeline.py, moved to the device by
 :func:`batch_to_torch`):
@@ -10,9 +12,11 @@ Batch layout (built by data/graph_pipeline.py, moved to the device by
   out_deg    (B, S)
   block_idx  (B, nq, mb)    cluster-sparse layout, int32
   buckets    (B, nq, mb, bq, bk) int8 bias/mask buckets
+  block_idx_t (B, nk, mt, 2) transposed layout (the dK/dV backward)
+  labels     (B, S)         -1 = masked (global tokens, padding, test nodes)
+  dense_buckets (B, S, S) int8  scattered buckets (the dense step's bias)
 
-Parameters are fp32; compute runs in ``cfg.dtype``. The dense interleave
-step and the losses wait for the training slice.
+Parameters are fp32; compute runs in ``cfg.dtype``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.dual_attention import dense_bias_from_buckets
 from repro_torch.device import resolve
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
@@ -28,7 +33,8 @@ from repro_torch.models import layers as L
 # numpy batch arrays -> the torch dtype each lives in on the device
 _BATCH_DTYPES = {"feat": torch.float32, "in_deg": torch.long,
                  "out_deg": torch.long, "block_idx": torch.int32,
-                 "buckets": torch.int8}
+                 "buckets": torch.int8, "block_idx_t": torch.int32,
+                 "labels": torch.long, "dense_buckets": torch.int8}
 
 
 def _n_buckets(cfg) -> int:
@@ -126,32 +132,56 @@ class GraphModel(nn.Module):
                 scale = shape[0] ** -0.5 if init == "fan_in" else 0.02
                 p.copy_(torch.randn(shape, generator=gen) * scale)
 
+    @property
+    def loss_variants(self) -> dict:
+        """The named losses a task trains: ``{"sparse", "dense"}``, each
+        ``fn(model, batch) -> (loss, metrics)``."""
+        return LOSS_VARIANTS
+
     def forward(self, batch: dict, *, impl: str | None = None):
         return graph_forward(self, batch, impl=impl)
 
 
-def batch_to_torch(batch: dict, device) -> dict:
+def batch_to_torch(batch: dict, device, uploads: dict | None = None) -> dict:
     """The numpy batch of ``prepare_node_task`` as tensors on ``device``
-    (the keys the forward reads)."""
+    (the keys the model reads). ``uploads`` (``id(host array) -> tensor``)
+    dedupes uploads of arrays shared between batches; the caller keeps
+    the host arrays alive while the dict is in use."""
     dev = resolve(device)
-    return {key: torch.from_numpy(np.ascontiguousarray(batch[key])).to(
-        device=dev, dtype=dt) for key, dt in _BATCH_DTYPES.items()
-        if key in batch}
+    out = {}
+    for key, dt in _BATCH_DTYPES.items():
+        if key not in batch:
+            continue
+        arr = batch[key]
+        if uploads is not None and id(arr) in uploads:
+            out[key] = uploads[id(arr)]
+            continue
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=dev, dtype=dt)
+        if uploads is not None:
+            uploads[id(arr)] = out[key]
+    return out
 
 
-def _graph_attn(p: L.Attention, h, batch, bias_table, impl):
+def _graph_attn(p: L.Attention, h, batch, bias_table, dense, impl):
     q, k, v = L.project_qkv(p, h)
-    o = kops.cluster_attention(q, k, v, batch["block_idx"],
-                               batch.get("buckets"), bias_table,
-                               causal=False, impl=impl)
+    if dense:
+        o = L.chunked_attention(q, k, v, bias=batch.get("dense_bias"))
+    else:
+        o = kops.cluster_attention(q, k, v, batch["block_idx"],
+                                   batch.get("buckets"), bias_table,
+                                   batch.get("block_idx_t"), causal=False,
+                                   impl=impl)
     return L.out_proj(p, o)
 
 
-def graph_forward(model: GraphModel, batch: dict, *,
+def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
                   impl: str | None = None):
-    """(B, S, D) final-normed hidden states. ``impl="plain"`` runs the
-    attention's plain version on any device (for holding the kernel
-    against it)."""
+    """(B, S, D) final-normed hidden states. ``dense`` runs the dense
+    interleave step (``batch["dense_bias"]`` biases it, see
+    :func:`with_dense_bias`). ``impl="plain"`` runs the sparse
+    attention's plain versions on any device (for holding the kernels
+    against them)."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
     feat = batch["feat"].to(dtype)
@@ -160,12 +190,15 @@ def graph_forward(model: GraphModel, batch: dict, *,
         h = h + model.z_in[batch["in_deg"]].to(dtype)
         h = h + model.z_out[batch["out_deg"]].to(dtype)
     if cfg.n_global:
-        # the leading n_global positions are the global tokens
-        h[:, :cfg.n_global] = model.global_tok[:cfg.n_global].to(dtype)
+        # the leading n_global positions are the global tokens (a new
+        # tensor rather than a write into h, so autograd sees a plain op)
+        g = model.global_tok[:cfg.n_global].to(dtype)
+        h = torch.cat([g.expand(h.shape[0], -1, -1), h[:, cfg.n_global:]],
+                      dim=1)
     bias_table = getattr(model, "bias_table", None)
     for layer in model.layers:
         a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
-        h = h + _graph_attn(layer.attn, a, batch, bias_table, impl)
+        h = h + _graph_attn(layer.attn, a, batch, bias_table, dense, impl)
         m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
         h = h + L.mlp(layer.mlp, m)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps)
@@ -180,3 +213,40 @@ def graph_predict(model: GraphModel, batch: dict, *,
                   impl: str | None = None):
     return apply_head(model, graph_forward(model, batch, impl=impl))
 
+
+
+def graph_loss(model: GraphModel, batch: dict, *, dense: bool = False,
+               impl: str | None = None):
+    """Node-level masked cross-entropy (labels -1 ignored) and accuracy,
+    on fp32 logits: ``(loss, {"xent": loss, "acc": acc})``."""
+    h = graph_forward(model, batch, dense=dense, impl=impl)
+    logits = apply_head(model, h).float()
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    n = mask.sum().clamp_min(1.0)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    loss = ((logz - ll) * mask).sum() / n
+    acc = ((logits.argmax(-1) == labels).float() * mask).sum() / n
+    return loss, {"xent": loss, "acc": acc}
+
+
+def with_dense_bias(model: GraphModel, batch: dict) -> dict:
+    """Batch copy with ``dense_bias`` built from the scattered
+    ``dense_buckets`` (when present) and the model's ``bias_table``."""
+    b = dict(batch)
+    bias_table = getattr(model, "bias_table", None)
+    if "dense_bias" not in b and b.get("dense_buckets") is not None \
+            and bias_table is not None:
+        b["dense_bias"] = dense_bias_from_buckets(
+            b["dense_buckets"], bias_table, model.cfg.n_heads)
+    return b
+
+
+def graph_loss_dense(model: GraphModel, batch: dict):
+    """Dense interleave step (§III-B): fully-connected attention, biased
+    where the sparse pattern defines structure."""
+    return graph_loss(model, with_dense_bias(model, batch), dense=True)
+
+
+LOSS_VARIANTS = {"sparse": graph_loss, "dense": graph_loss_dense}

@@ -2,8 +2,8 @@
 elastic reformation layout -> batch of numpy arrays.
 
 The port's copy of the node-task half of ``repro.data.graph_pipeline``:
-the same arrays, byte for byte. The multi-graph packer, Laplacian
-positional encodings and the dense-step bucket matrix wait for the
+the same arrays, byte for byte, the dense step's bucket matrix included.
+The multi-graph packer and Laplacian positional encodings wait for the
 slices that use them.
 """
 
@@ -16,6 +16,7 @@ import numpy as np
 
 from repro_torch.core.auto_tuner import choose_cluster_dim
 from repro_torch.core.conditions import ConditionReport, check_conditions
+from repro_torch.core.dual_attention import dense_buckets_from_layout
 from repro_torch.core.encodings import degree_clip, spd_matrix
 from repro_torch.core.graph import Graph
 from repro_torch.core.reformation import (BUCKET_MASKED, ClusterLayout,
@@ -41,6 +42,7 @@ def prepare_node_task(g: Graph, cfg, *, beta_thre: float | None = None,
                       k_clusters: int | None = None,
                       train_mask: np.ndarray | None = None,
                       with_buckets: bool = True,
+                      with_dense_buckets: bool = False,
                       mb_pad: int | None = None,
                       mt_pad: int | None = None,
                       seed: int = 0) -> PreparedGraph:
@@ -49,10 +51,12 @@ def prepare_node_task(g: Graph, cfg, *, beta_thre: float | None = None,
 
     ``mb_pad`` / ``mt_pad`` pad the layout's selected-k-block axis and
     the transposed pattern's visiting-q-block axis to fixed capacities
-    (see :func:`pad_layout_mb`)."""
+    (see :func:`pad_layout_mb`). ``with_dense_buckets`` adds the scattered
+    (1, S, S) int8 bucket matrix the dense interleave step biases with."""
     prep = prepare_node_task_ladder(
         g, cfg, [beta_thre], bq=bq, bk=bk, d_b=d_b, k_clusters=k_clusters,
-        train_mask=train_mask, with_buckets=with_buckets, seed=seed)[0]
+        train_mask=train_mask, with_buckets=with_buckets,
+        with_dense_buckets=with_dense_buckets, seed=seed)[0]
     if mb_pad is not None or mt_pad is not None:
         prep = pad_layout_mb(prep, mb_pad or prep.layout.mb, mt_pad)
     return prep
@@ -63,12 +67,15 @@ def prepare_node_task_ladder(g: Graph, cfg, beta_thres,
                              d_b: int = 16, k_clusters: int | None = None,
                              train_mask: np.ndarray | None = None,
                              with_buckets: bool = True,
+                             with_dense_buckets: bool = False,
                              seed: int = 0) -> list[PreparedGraph]:
     """One PreparedGraph per ``beta_thre`` in ``beta_thres``, sharing all
     rung-invariant work — cluster reorder, condition check, SPD encodings
     and the feature/degree/label arrays — so probing a whole AutoTuner
-    ladder costs one prep plus a layout per rung. The shared batch arrays
-    are aliased across rungs (treat as read-only)."""
+    ladder costs one prep plus a layout per rung (only ``block_idx``,
+    ``block_idx_t``, ``buckets`` and ``dense_buckets`` depend on the
+    threshold). The shared batch arrays are aliased across rungs (treat
+    as read-only)."""
     t0 = time.perf_counter()
     while bq > 8 and (g.n + cfg.n_global) < 4 * bq:
         bq //= 2
@@ -124,6 +131,8 @@ def prepare_node_task_ladder(g: Graph, cfg, beta_thres,
             batch["block_idx_t"] = layout.block_idx_t[None]
         if layout.buckets is not None:
             batch["buckets"] = layout.buckets[None]
+        if with_dense_buckets:
+            batch["dense_buckets"] = dense_buckets_from_layout(layout)[None]
         now = time.perf_counter()
         out.append(PreparedGraph(batch, layout, report, cut, now - t_prev,
                                  perm=perm))

@@ -2,10 +2,8 @@
 forward (``csrc/cluster_attention_fwd.cu``), the port of the TPU kernel
 ``_cluster_kernel_biased`` (``src/repro/kernels/cluster_attention.py``).
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point, loaded with ``ctypes``. The
-build lands in ``_build/<key>/`` next to this file, keyed on a hash of
-the source and the flags, so a fresh checkout builds it once.
+The kernel is compiled at first use (``kernels/build.py``: nvcc for
+``sm_90a``, a plain C entry point, ``ctypes``).
 
 The wrapper takes CUDA tensors only: it launches the kernel or raises.
 ``kernels/ops.py`` sends CPU tensors to the plain version
@@ -16,27 +14,15 @@ back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import time
 
 import torch
 
-_HERE = pathlib.Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "cluster_attention_fwd.cu"
-BUILD_ROOT = _HERE / "_build"
-NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from repro_torch.kernels.build import CudaLibrary
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # kernel launches since the last reset_count()
-_lib = None
-build_log = ""        # nvcc's output of the build this process loaded
-build_seconds = 0.0   # 0.0 when the library was already on disk
 
 
 def reset_count() -> None:
@@ -44,52 +30,15 @@ def reset_count() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
-        path = pathlib.Path(cand) / "bin" / "nvcc"
-        if cand and path.exists():
-            return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and on PATH)")
-    return found
+def _bind(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_fwd.argtypes = (
+        [vp] * 8 + [i32] * 12 + [ctypes.c_float, vp])
+    lib.cluster_attention_fwd.restype = i32
 
 
-def build() -> pathlib.Path:
-    """Compile the kernel library if it is not already built; returns its
-    path. Raises with nvcc's output if compilation fails."""
-    global build_log, build_seconds
-    nvcc = _nvcc()
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(
-        [nvcc] + NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / key
-    lib = out_dir / "libcluster_attention_fwd.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".tmp-{os.getpid()}.so"
-    t0 = time.perf_counter()
-    r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.cluster_attention_fwd.argtypes = (
-            [vp] * 8 + [i32] * 12 + [ctypes.c_float, vp])
-        lib.cluster_attention_fwd.restype = i32
-        _lib = lib
-    return _lib
+LIBRARY = CudaLibrary(pathlib.Path(__file__).resolve().parent / "csrc"
+                      / "cluster_attention_fwd.cu", _bind)
 
 
 def check_args(q, k, v, block_idx, buckets, bias_table):
@@ -152,7 +101,7 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
     nq, mb = block_idx.shape[-2:]
     bq, bk = S // nq, buckets.shape[-1]
     nb = bias_table.shape[1]
-    lib = _library()
+    lib = LIBRARY.lib()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     block_idx, buckets = block_idx.contiguous(), buckets.contiguous()
     bias = bias_table.float().contiguous()

@@ -1,0 +1,176 @@
+"""Wrapper, build and launch counters of the CUDA cluster-sparse attention
+backward (``csrc/cluster_attention_bwd.cu``): the ports of the TPU
+kernels ``_dq_kernel_biased`` and ``_dkv_kernel_biased``
+(``src/repro/kernels/cluster_attention_bwd.py``).
+
+The dQ kernel walks the forward layout ``block_idx``; the dK/dV kernel
+walks the transposed one, ``block_idx_t`` (per k-block, the (q-row,
+forward slot) pairs that visit it), which ``core/reformation.py``
+emits beside the forward one. A caller without it gets one derived here at
+the dense bound ``mt = nq`` (``ref.derive_block_idx_t``).
+
+Around the two launches, in plain PyTorch as the reference does it in
+jnp: ``delta = rowsum(dO * O)`` in fp32 before, and after, the sum of
+the kernel's ``(B, H, nq, n_buckets)`` bucket partials into the
+``bias_table`` gradient and the GQA group sum of the per-q-head dK/dV.
+
+The wrapper takes CUDA tensors only: it launches the kernels or raises.
+``kernels/ops.py`` sends CPU tensors to the plain backward
+(``kernels/ref.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+
+import torch
+
+from repro_torch.kernels import cluster_attention as _ca
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import CudaLibrary
+
+dq_launches = 0       # dQ kernel launches since the last reset_count()
+dkv_launches = 0      # dK/dV kernel launches since the last reset_count()
+
+
+def reset_count() -> None:
+    global dq_launches, dkv_launches
+    dq_launches = dkv_launches = 0
+
+
+def _bind(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_bwd_dq.argtypes = (
+        [vp] * 11 + [i32] * 12 + [ctypes.c_float, vp])
+    lib.cluster_attention_bwd_dq.restype = i32
+    lib.cluster_attention_bwd_dkv.argtypes = (
+        [vp] * 11 + [i32] * 15 + [ctypes.c_float, vp])
+    lib.cluster_attention_bwd_dkv.restype = i32
+
+
+LIBRARY = CudaLibrary(pathlib.Path(__file__).resolve().parent / "csrc"
+                      / "cluster_attention_bwd.cu", _bind)
+
+
+def check_args(q, k, v, dout, out, lse, block_idx, buckets, bias_table,
+               block_idx_t):
+    """Raise unless the arguments meet the backward's contract: the
+    forward's (``cluster_attention.check_args``), plus dO and O shaped
+    like q, lse ``(B*H, S)`` fp32 and, when given, an int32
+    ``block_idx_t`` ``(nk, mt, 2)`` or ``(B, nk, mt, 2)``."""
+    _ca.check_args(q, k, v, block_idx, buckets, bias_table)
+    B, S, H, _ = q.shape
+    for name, x in (("dout", dout), ("out", out)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must match q's shape, dtype and "
+                             f"device, got {x.dtype} {tuple(x.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, S) \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be float32 ({B * H}, {S}) on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    if block_idx_t is not None:
+        check_block_idx_t(q, buckets, block_idx_t)
+
+
+def check_block_idx_t(q, buckets, block_idx_t):
+    """Raise unless ``block_idx_t`` is int32 ``(nk, mt, 2)`` or
+    ``(B, nk, mt, 2)`` on q's device."""
+    B, S = q.shape[:2]
+    nk = S // buckets.shape[-1]
+    if block_idx_t.dtype != torch.int32 or block_idx_t.dim() not in (3, 4) \
+            or block_idx_t.shape[-1] != 2 or block_idx_t.shape[-3] != nk \
+            or (block_idx_t.dim() == 4 and block_idx_t.shape[0] != B) \
+            or block_idx_t.device != q.device:
+        raise ValueError(f"block_idx_t must be int32 ({nk}, mt, 2) or "
+                         f"({B}, {nk}, mt, 2) on {q.device}, got "
+                         f"{block_idx_t.dtype} {tuple(block_idx_t.shape)}")
+
+
+def _sizes(q, k, block_idx, buckets, bias):
+    B, S, H, Dh = q.shape
+    nq, mb = block_idx.shape[-2:]
+    return B, S, H, k.shape[2], Dh, nq, mb, S // nq, buckets.shape[-1], \
+        bias.shape[1]
+
+
+def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias):
+    """Launch the dQ kernel on checked, contiguous CUDA operands (``bias``
+    fp32, ``delta`` from ``ref.row_delta``); returns ``dq`` in q's dtype
+    and the ``(B, H, nq, n_buckets)`` fp32 bucket partials of ds."""
+    B, S, H, KV, Dh, nq, mb, bq, bk, nb = _sizes(q, k, block_idx, buckets,
+                                                 bias)
+    dq = torch.empty_like(q)
+    db_part = torch.empty((B, H, nq, nb), dtype=torch.float32,
+                          device=q.device)
+    with torch.cuda.device(q.device):
+        err = LIBRARY.lib().cluster_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), block_idx.data_ptr(),
+            buckets.data_ptr(), bias.data_ptr(), dq.data_ptr(),
+            db_part.data_ptr(), _ca._DTYPES[q.dtype], B, S, H, KV, Dh, nq,
+            mb, bq, bk, nb, int(block_idx.dim() == 3), Dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_attention_bwd dQ launch failed: CUDA "
+                           f"error {err} (bq={bq}, bk={bk}, Dh={Dh}, "
+                           f"n_buckets={nb})")
+    global dq_launches
+    dq_launches += 1
+    return dq, db_part
+
+
+def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
+               bias):
+    """Launch the dK/dV kernel on checked, contiguous CUDA operands;
+    returns per-q-head ``(B, S, H, Dh)`` dk and dv in q's dtype.
+    ``block_idx`` only lends its shape (the buckets' ``nq``, ``mb``)."""
+    B, S, H, KV, Dh, nq, mb, bq, bk, nb = _sizes(q, k, block_idx, buckets,
+                                                 bias)
+    dkh = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
+    dvh = torch.empty_like(dkh)
+    with torch.cuda.device(q.device):
+        err = LIBRARY.lib().cluster_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), block_idx_t.data_ptr(),
+            buckets.data_ptr(), bias.data_ptr(), dkh.data_ptr(),
+            dvh.data_ptr(), _ca._DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb,
+            S // bk, block_idx_t.shape[-2], bq, bk, nb,
+            int(block_idx.dim() == 3), int(block_idx_t.dim() == 4),
+            Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_attention_bwd dK/dV launch failed: "
+                           f"CUDA error {err} (bq={bq}, bk={bk}, Dh={Dh}, "
+                           f"n_buckets={nb})")
+    global dkv_launches
+    dkv_launches += 1
+    return dkh, dvh
+
+
+def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
+                          bias_table, block_idx_t=None):
+    """Gradients ``(dq, dk, dv, dbias)`` of the biased cluster-sparse
+    attention on CUDA tensors (shape contract in ``kernels/ref.py``):
+    launches the dQ and dK/dV kernels, or raises. ``out`` and ``lse`` are
+    the forward's output and logsumexp residual."""
+    check_args(q, k, v, dout, out, lse, block_idx, buckets, bias_table,
+               block_idx_t)
+    if q.device.type != "cuda":
+        raise NotImplementedError(
+            f"cluster_attention_bwd has no kernel for device {q.device}")
+    if block_idx_t is None:
+        block_idx_t = _ref.derive_block_idx_t(block_idx,
+                                              q.shape[1] // buckets.shape[-1])
+    q, k, v, dout, lse, block_idx, block_idx_t, buckets = (
+        x.contiguous() for x in (q, k, v, dout, lse, block_idx, block_idx_t,
+                                 buckets))
+    delta = _ref.row_delta(dout, out)
+    bias = bias_table.float().contiguous()
+    dq, db_part = dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets,
+                            bias)
+    dkh, dvh = dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
+                          buckets, bias)
+    KV = k.shape[2]
+    return (dq, _ref.group_sum(dkh, KV).to(k.dtype),
+            _ref.group_sum(dvh, KV).to(v.dtype),
+            db_part.sum(dim=(0, 2)).to(bias_table.dtype))

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the cluster-sparse attention op.
+"""Plain PyTorch versions of the cluster-sparse attention op and of its
+backward.
 
 The port's counterpart of ``repro.core.dual_attention.
 cluster_sparse_attention``, in its conventions:
@@ -18,11 +19,19 @@ oracle's order: q/k/v are upcast to fp32, the score is
 the PV product (the JAX oracle rounds them to the input dtype first).
 
 Work is organised by *active block*: every ``(graph, q-block, slot)``
-with ``block_idx >= 0`` is gathered once, so memory and time scale with
-the number of visited blocks, not with ``nq * mb``. That matters because
-the global token's q-block visits almost every k-block while the other
-rows visit a handful, which makes ``mb`` (the padded row width) far
-larger than the mean row.
+with ``block_idx >= 0`` is gathered once, so time scales with the number
+of visited blocks, not with ``nq * mb``. That matters because the global
+token's q-block visits almost every k-block while the other rows visit a
+handful, which makes ``mb`` (the padded row width) far larger than the
+mean row. The active blocks are processed in chunks of at most
+``MAX_CHUNK_ENTRIES`` score entries, so memory stays bounded however many
+blocks a layout visits (a nearly dense layout of the 8192-node training
+graph visits 64729).
+
+The backward (:func:`cluster_attention_bwd`) recomputes the scores of
+every visited block from q, k and the forward's logsumexp, as the CUDA
+kernels do: dQ and the ``bias_table`` gradient over the forward layout,
+dK and dV over the transposed one.
 """
 
 from __future__ import annotations
@@ -30,6 +39,14 @@ from __future__ import annotations
 import torch
 
 NEG_INF = float("-inf")
+# fp32 score entries (blocks x heads x bq x bk) computed at once
+MAX_CHUNK_ENTRIES = 1 << 26
+
+
+def _chunks(n: int, per_block: int):
+    """Slices of ``range(n)`` active blocks, each within the chunk bound."""
+    step = max(1, MAX_CHUNK_ENTRIES // per_block)
+    return [slice(a, min(a + step, n)) for a in range(0, n, step)]
 
 
 def _batched(block_idx, buckets, B):
@@ -50,7 +67,7 @@ def cluster_sparse_attention(q, k, v, block_idx, buckets=None,
     KV = k.shape[2]
     G = H // KV
     block_idx, buckets = _batched(block_idx, buckets, B)
-    nq, mb = block_idx.shape[1:]
+    nq = block_idx.shape[1]
     bq = S // nq
     bk = buckets.shape[-1] if buckets is not None else bq
     nk = S // bk
@@ -59,42 +76,58 @@ def cluster_sparse_attention(q, k, v, block_idx, buckets=None,
 
     bb, ii, mm = torch.nonzero(block_idx >= 0, as_tuple=True)
     jj = block_idx[bb, ii, mm].long()
-    A = bb.numel()
-    qa = q.float().view(B, nq, bq, KV, G, Dh)[bb, ii]      # (A,bq,KV,G,Dh)
-    ka = k.float().view(B, nk, bk, KV, Dh)[bb, jj]         # (A,bk,KV,Dh)
-    va = v.float().view(B, nk, bk, KV, Dh)[bb, jj]
-    s = torch.einsum("aqkgd,ackd->akgqc", qa, ka) * scale
-    s = s.reshape(A, H, bq, bk)
-    valid = None
-    if buckets is not None:
-        bkt = buckets[bb, ii, mm].long()                    # (A,bq,bk)
-        valid = (bkt >= 0)[:, None]
-        if bias_table is not None:
-            nb = bias_table.shape[1]
-            bias = bias_table.float()[:, bkt.clamp(0, nb - 1)]  # (H,A,bq,bk)
-            s = s + bias.permute(1, 0, 2, 3)
-    if causal:
-        qpos = ii[:, None] * bq + torch.arange(bq, device=dev)
-        kpos = jj[:, None] * bk + torch.arange(bk, device=dev)
-        cm = (qpos[:, :, None] >= kpos[:, None, :])[:, None]
-        valid = cm if valid is None else valid & cm
-    if valid is not None:
-        s = s.masked_fill(~valid, NEG_INF)
-
-    # row statistics over every block the row visits
     row = bb * nq + ii                                      # (A,)
-    bmax = s.amax(-1)                                       # (A,H,bq)
+    qv = q.reshape(B, nq, bq, KV, G, Dh)
+    kv_, vv = k.reshape(B, nk, bk, KV, Dh), v.reshape(B, nk, bk, KV, Dh)
+
+    def scores(c):
+        """Masked, biased scores ``(a, H, bq, bk)`` of the chunk ``c``."""
+        b_, i_, j_ = bb[c], ii[c], jj[c]
+        a = b_.numel()
+        qa = qv[b_, i_].float()                             # (a,bq,KV,G,Dh)
+        ka = kv_[b_, j_].float()                            # (a,bk,KV,Dh)
+        s = torch.einsum("aqkgd,ackd->akgqc", qa, ka) * scale
+        s = s.reshape(a, H, bq, bk)
+        valid = None
+        if buckets is not None:
+            bkt = buckets[b_, i_, mm[c]].long()             # (a,bq,bk)
+            valid = (bkt >= 0)[:, None]
+            if bias_table is not None:
+                nb = bias_table.shape[1]
+                bias = bias_table.float()[:, bkt.clamp(0, nb - 1)]
+                s = s + bias.permute(1, 0, 2, 3)
+        if causal:
+            qpos = i_[:, None] * bq + torch.arange(bq, device=dev)
+            kpos = j_[:, None] * bk + torch.arange(bk, device=dev)
+            cm = (qpos[:, :, None] >= kpos[:, None, :])[:, None]
+            valid = cm if valid is None else valid & cm
+        if valid is not None:
+            s = s.masked_fill(~valid, NEG_INF)
+        return s
+
+    # pass 1: row maxima over every block the row visits. The max only
+    # shifts the softmax (its gradient cancels), so it carries none
+    chunks = _chunks(bb.numel(), H * bq * bk)
     m = torch.full((B * nq, H, bq), NEG_INF, device=dev)
-    m.scatter_reduce_(0, row[:, None, None].expand_as(bmax), bmax, "amax")
+    with torch.no_grad():
+        for c in chunks:
+            bmax = scores(c).amax(-1)                       # (a,H,bq)
+            m.scatter_reduce_(0, row[c, None, None].expand_as(bmax), bmax,
+                              "amax")
     dead = torch.isneginf(m)
     m = m.masked_fill(dead, 0.0)
-    p = torch.exp(s - m[row][..., None])                    # masked -> 0
+    # pass 2: the scores again, their exponentials, the PV products
     l = torch.zeros((B * nq, H, bq), device=dev)
-    l.index_add_(0, row, p.sum(-1))
-    pv = torch.einsum("akgqc,ackd->aqkgd",
-                      p.view(A, KV, G, bq, bk), va).reshape(A, bq, H, Dh)
     acc = torch.zeros((B * nq, bq, H, Dh), device=dev)
-    acc.index_add_(0, row, pv)
+    for c in chunks:
+        s = scores(c)
+        a = s.shape[0]
+        p = torch.exp(s - m[row[c]][..., None])             # masked -> 0
+        l.index_add_(0, row[c], p.sum(-1))
+        va = vv[bb[c], jj[c]].float()
+        pv = torch.einsum("akgqc,ackd->aqkgd",
+                          p.view(a, KV, G, bq, bk), va).reshape(a, bq, H, Dh)
+        acc.index_add_(0, row[c], pv)
     out = acc / l.clamp_min(1e-30).permute(0, 2, 1)[..., None]
     out = out.view(B, S, H, Dh).to(q.dtype)
     if not return_lse:
@@ -103,3 +136,172 @@ def cluster_sparse_attention(q, k, v, block_idx, buckets=None,
                       torch.zeros((), device=dev))
     lse = lse.view(B, nq, H, bq).permute(0, 2, 1, 3).reshape(B * H, S)
     return out, lse
+
+
+def derive_block_idx_t(block_idx, nk: int):
+    """Transposed layout at the dense bound ``mt = nq``: ``(nq, mb) ->
+    (nk, nq, 2)`` (or ``(B, nq, mb) -> (B, nk, nq, 2)``) int32, -1
+    padded; each k-block row lists the (q-row, forward slot) pairs that
+    visit it, q-rows ascending. The torch twin of the reference's
+    ``derive_block_idx_t`` (``core/reformation.transpose_block_idx``
+    builds the same pairs with a tighter ``mt`` on the host).
+
+    Precondition: no q-row lists the same k-block twice
+    (``core/reformation.py`` never emits duplicates)."""
+    shared = block_idx.dim() == 2
+    bi = (block_idx[None] if shared else block_idx).long()
+    G, nq, mb = bi.shape
+    dev = bi.device
+    valid = bi >= 0
+    cols = torch.where(valid, bi, nk)                # pads land in col nk
+    slots = torch.where(valid, torch.arange(mb, device=dev), -1)
+    slot_of = torch.full((G, nq, nk + 1), -1, dtype=torch.long, device=dev)
+    slot_of.scatter_(2, cols, slots)
+    slot_of = slot_of[..., :nk].transpose(1, 2)      # (G, nk, nq)
+    has = slot_of >= 0
+    key = torch.where(has, torch.arange(nq, device=dev), nq)
+    order = torch.argsort(key, dim=-1, stable=True)  # visiting rows first
+    qrow = torch.where(has.gather(-1, order), order, -1)
+    slot = torch.where(qrow >= 0, slot_of.gather(-1, order), -1)
+    out = torch.stack([qrow, slot], dim=-1).to(torch.int32)
+    return out[0] if shared else out
+
+
+def row_delta(dout, out):
+    """``rowsum(dO * O)`` in fp32, in the lse layout ``(B*H, S)``."""
+    B, S, H, _ = out.shape
+    d = (dout.float() * out.float()).sum(-1)                # (B, S, H)
+    return d.permute(0, 2, 1).reshape(B * H, S).contiguous()
+
+
+def group_sum(x, KV: int):
+    """Per-q-head ``(B, S, H, Dh)`` gradients -> the ``KV`` heads they
+    share (GQA), summed in fp32."""
+    B, S, H, Dh = x.shape
+    if H == KV:
+        return x
+    return x.float().view(B, S, KV, H // KV, Dh).sum(3)
+
+
+def bucket_sums(x, buckets, nb: int):
+    """``(H, nb)`` fp32 sums of ``x`` ``(N, H, *r)`` by ``buckets``
+    ``(N, *r)``: column ``j`` sums the entries whose bucket is ``j``, the
+    last column also those above it (the kernels clip buckets to
+    ``nb - 1``); entries with a negative bucket count nowhere. One
+    reduction over ``x`` per bucket, deterministic, and no scatter of
+    millions of values onto ``nb`` slots."""
+    N, H = x.shape[:2]
+    xf = x.reshape(N, H, -1).float()
+    bf = buckets.reshape(N, -1)
+    cols = [torch.einsum("nhr,nr->h", xf,
+                         ((bf == j) if j < nb - 1 else (bf >= j)).float())
+            for j in range(nb)]
+    return torch.stack(cols, dim=1)
+
+
+def _block_terms(q, k, v, dout, lse, delta, bb, ii, mm, jj, buckets,
+                 bias_table):
+    """Recomputed ``p`` and ``ds`` ``(A, H, bq, bk)`` of the active blocks
+    ``(graph bb, q-row ii, slot mm, k-block jj)``, with the gathered
+    fp32 q, dO, k tiles and the blocks' bucket tiles."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    nq = buckets.shape[1]
+    bq, bk = S // nq, buckets.shape[-1]
+    nk = S // bk
+    nb = bias_table.shape[1]
+    A = bb.numel()
+    qa = q.reshape(B, nq, bq, KV, G, Dh)[bb, ii].float()   # (A,bq,KV,G,Dh)
+    doa = dout.reshape(B, nq, bq, KV, G, Dh)[bb, ii].float()
+    ka = k.reshape(B, nk, bk, KV, Dh)[bb, jj].float()       # (A,bk,KV,Dh)
+    va = v.reshape(B, nk, bk, KV, Dh)[bb, jj].float()
+    s = torch.einsum("aqkgd,ackd->akgqc", qa, ka).reshape(A, H, bq, bk)
+    s = s * Dh ** -0.5
+    bkt = buckets[bb, ii, mm].long()                        # (A,bq,bk)
+    s = s + bias_table.float()[:, bkt.clamp(0, nb - 1)].permute(1, 0, 2, 3)
+    s = s.masked_fill((bkt < 0)[:, None], NEG_INF)
+    rows = (bb, slice(None), ii)
+    p = torch.exp(s - lse.view(B, H, nq, bq)[rows][..., None])
+    dp = torch.einsum("aqkgd,ackd->akgqc", doa, va).reshape(A, H, bq, bk)
+    ds = p * (dp - delta.view(B, H, nq, bq)[rows][..., None])
+    return p, ds, qa, doa, ka, bkt
+
+
+def bwd_dq(q, k, v, dout, lse, delta, block_idx, buckets, bias_table):
+    """dq ``(B, S, H, Dh)`` fp32 and the ``(H, n_buckets)`` fp32 bias
+    gradient, over the forward layout: the dQ kernel's function."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    bi, bu = _batched(block_idx, buckets, B)
+    nq = bi.shape[1]
+    bq, bk = S // nq, bu.shape[-1]
+    nb = bias_table.shape[1]
+    bb, ii, mm = torch.nonzero(bi >= 0, as_tuple=True)
+    jj = bi[bb, ii, mm].long()
+    dq = torch.zeros((B * nq, bq, H, Dh), device=q.device)
+    dbias = torch.zeros((H, nb), device=q.device)
+    for c in _chunks(bb.numel(), H * bq * bk):
+        _, ds, _, _, ka, bkt = _block_terms(q, k, v, dout, lse, delta, bb[c],
+                                            ii[c], mm[c], jj[c], bu,
+                                            bias_table)
+        a = ds.shape[0]
+        dqa = torch.einsum("akgqc,ackd->aqkgd",
+                           ds.view(a, KV, H // KV, bq, bk), ka)
+        dq.index_add_(0, bb[c] * nq + ii[c],
+                      dqa.reshape(a, bq, H, Dh) * Dh ** -0.5)
+        dbias += bucket_sums(ds, bkt, nb)
+    return dq.view(B, S, H, Dh), dbias
+
+
+def bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
+            bias_table):
+    """Per-q-head dk and dv ``(B, S, H, Dh)`` fp32 over the transposed
+    layout: the dK/dV kernel's function."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    _, bu = _batched(block_idx, buckets, B)
+    bq, bk = S // bu.shape[1], bu.shape[-1]
+    nk = S // bk
+    bit = block_idx_t if block_idx_t.dim() == 4 else \
+        block_idx_t.unsqueeze(0).expand(B, -1, -1, -1)
+    bb, jj, tt = torch.nonzero(bit[..., 0] >= 0, as_tuple=True)
+    ii = bit[bb, jj, tt, 0].long()
+    mm = bit[bb, jj, tt, 1].long()
+    dkh = torch.zeros((B * nk, bk, H, Dh), device=q.device)
+    dvh = torch.zeros((B * nk, bk, H, Dh), device=q.device)
+    for c in _chunks(bb.numel(), H * bq * bk):
+        p, ds, qa, doa, _, _ = _block_terms(q, k, v, dout, lse, delta, bb[c],
+                                            ii[c], mm[c], jj[c], bu,
+                                            bias_table)
+        a = p.shape[0]
+        dva = torch.einsum("akgqc,aqkgd->ackgd", p.view(a, KV, G, bq, bk),
+                           doa)
+        dka = torch.einsum("akgqc,aqkgd->ackgd", ds.view(a, KV, G, bq, bk),
+                           qa)
+        dst = bb[c] * nk + jj[c]
+        dkh.index_add_(0, dst, dka.reshape(a, bk, H, Dh) * Dh ** -0.5)
+        dvh.index_add_(0, dst, dva.reshape(a, bk, H, Dh))
+    return dkh.view(B, S, H, Dh), dvh.view(B, S, H, Dh)
+
+
+def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
+                          bias_table, block_idx_t=None):
+    """Gradients ``(dq, dk, dv, dbias)`` of the biased op, in the dtypes
+    of q, k, v and ``bias_table``. ``out`` and ``lse`` are the forward's
+    output and logsumexp; ``block_idx_t`` is the transposed layout the
+    dK/dV pass walks (derived at the dense bound when omitted). Rows the
+    forward found dead carry ``lse = 0``, so their ``p`` underflows to 0,
+    as in the kernels."""
+    KV = k.shape[2]
+    delta = row_delta(dout, out)
+    dq, dbias = bwd_dq(q, k, v, dout, lse, delta, block_idx, buckets,
+                       bias_table)
+    if block_idx_t is None:
+        block_idx_t = derive_block_idx_t(block_idx,
+                                         q.shape[1] // buckets.shape[-1])
+    dkh, dvh = bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t,
+                       buckets, bias_table)
+    return (dq.to(q.dtype), group_sum(dkh, KV).to(k.dtype),
+            group_sum(dvh, KV).to(v.dtype), dbias.to(bias_table.dtype))

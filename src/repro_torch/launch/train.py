@@ -1,0 +1,100 @@
+"""Training CLI for the graph archs on the port (the node-task half of
+``repro.launch.train``'s graph mode).
+
+Builds the reference's synthetic graph (SBM, ``p_in=0.04``,
+``p_out=0.002``, seed 0), wraps it in a :class:`NodeTask` and trains
+through the :class:`Trainer`: the dense interleave step every
+``--interleave-period`` steps, an AutoTuner epoch every
+``--elastic-every`` steps. Prints every step's variant, loss, accuracy
+and ``beta_thre``, the ladder moves and the held-out evaluation.
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch graphormer_slim --smoke --steps 20 --graph-nodes 96 \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch graphormer_large --steps 16 --graph-nodes 8192
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.core.graph import sbm_graph
+from repro_torch.core.graph_model import GraphModel
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from repro_torch.tasks import NodeTask
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="graphormer_slim", choices=ARCHS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--dtype", default=None,
+                    choices=["float32", "bfloat16"],
+                    help="override the config's activation dtype")
+    ap.add_argument("--task", default="node",
+                    choices=["node", "graph", "link"],
+                    help="workload (the port trains node classification)")
+    ap.add_argument("--graph-nodes", type=int, default=512,
+                    help="synthetic SBM graph size")
+    ap.add_argument("--graph-clusters", type=int, default=4)
+    ap.add_argument("--interleave-period", type=int, default=-1,
+                    help="dense step every k steps (-1 = config default, "
+                         "0 = never)")
+    ap.add_argument("--elastic-every", type=int, default=-1,
+                    help="steps per AutoTuner epoch / re-layout boundary "
+                         "(-1 = config default, 0 = frozen layout)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.task != "node":
+        raise NotImplementedError(
+            f"--task {args.task} is not ported yet (ROADMAP.md A.7); the "
+            f"port trains --task node")
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.dtype:
+        cfg = cfg.replace(dtype=args.dtype)
+    model = GraphModel(cfg, device=args.device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"arch={cfg.name} params={n_params:,} device={model.device}")
+
+    interleave = cfg.interleave_period if args.interleave_period < 0 \
+        else args.interleave_period
+    elastic_every = cfg.elastic_every if args.elastic_every < 0 \
+        else args.elastic_every
+    g = sbm_graph(args.graph_nodes, args.graph_clusters, p_in=0.04,
+                  p_out=0.002, feat_dim=cfg.feat_dim,
+                  n_classes=cfg.n_classes, seed=0)
+    task = NodeTask(g, cfg, device=model.device)
+    lay = task.layout
+    print(f"task={task.name} seq={lay.seq_len} "
+          f"ladder={[round(b, 4) for b in task.tuner.ladder]} "
+          f"mb_cap={task.mb_cap} prep={task.prep_seconds:.2f}s")
+
+    tc = TrainerConfig(steps=args.steps, lr=args.lr,
+                       warmup=max(2, args.steps // 10),
+                       interleave_period=interleave,
+                       elastic_every=elastic_every)
+    trainer = Trainer(model, tc, task=task)
+    status = trainer.run()
+    for h in trainer.history:
+        print(f"step {h['step']:4d} [{h['variant']:6s}] "
+              f"loss {h['loss']:.4f} acc {h['acc']:.3f} "
+              f"beta_thre {h['beta_thre']:.4f} {h['seconds'] * 1e3:.0f}ms")
+    for m in task.moves:
+        print(f"ladder move @ step {m.step}: pos={m.pos} "
+              f"beta_thre={m.beta_thre:.4f} (LDR {m.ldr:+.2e})")
+    ev = task.eval(model)
+    print("eval: " + " ".join(f"{k}={v:.4f}" for k, v in ev.items()))
+    print(f"status={status} final_loss={trainer.history[-1]['loss']:.4f} "
+          f"moves={len(task.moves)} "
+          f"dense_steps={sum(1 for h in trainer.history if h['dense'])}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()
