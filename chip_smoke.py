@@ -20,12 +20,22 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    cases (and without a transposed layout: the derived one); dq, dk, dv
    and the bias gradient are compared, each kernel and each plain half
    timed;
+3c. the unbiased kernels of the LM path (the forward, dQ and dK/dV, with
+   the positional causal mask) vs their plain versions: at the Qwen3-0.6B
+   training shape (S=16384, 16 q heads over 8 KV heads, Dh=128, the
+   causal local+global layout) in bf16 and fp32, and on small cases
+   (non-causal, Dh 64 with 9 heads over 3, a short window, B=2 on the
+   shared layout, the derived transposed layout); each kernel and each
+   plain half
+   timed; one ``scaled_dot_product_attention`` with the layout as a dense
+   boolean mask, and one with ``is_causal``, timed beside them, forward
+   and backward;
 4. serve (the first main path): GraphServe on Graphormer-Large at full
    width, seeded random weights, on the 32768-node SBM — 64 node and 2x64
    link queries, answered twice (the second time from the layout cache).
    The same forward with the plain attention must give the same logits.
    Then Graphormer-Slim (Dh=8) on the same graph;
-5. train (this slice's main path): Graphormer-Large at full width, bf16
+5. train (the second main path): Graphormer-Large at full width, bf16
    compute, fp32 parameters and moments, on the 8192-node SBM through
    ``NodeTask`` and ``Trainer``: 16 steps, dense at 0 and 8, an AutoTuner
    epoch every step. Losses must be finite and fall. On every ladder rung
@@ -33,7 +43,14 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    kernels (forward, dQ, dK/dV) must agree with its plain versions on
    random inputs, and the kernel path and the plain path must give the
    same loss and gradients on one sparse step; one sparse and one dense
-   step are profiled.
+   step are profiled;
+6. LM train (this slice's main path): Qwen3-0.6B at full width and depth
+   with the cluster-sparse attention backend, bf16 compute, fp32
+   parameters and moments, seeded init, on the synthetic token stream
+   (S=16384, batch 1) through ``BatchFnTask`` and ``Trainer``: 4 steps,
+   finite and falling losses, 28 launches of each unbiased kernel a step.
+   One step by the kernel path and one by the plain path on the same
+   batch must agree; one step is profiled.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after.
@@ -62,16 +79,27 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # of values near 1 (2e-2), fp32 sums in another order (2e-5). lse: fp32.
 TOL_O = {"bfloat16": 2e-2, "float32": 2e-5}
 TOL_LSE = 1e-4
+# the unbiased (LM) forward's O, beside TOL_O, element by element:
+# |kernel - plain| <= atol + rtol |plain|. Most of its rows average
+# thousands of keys, so most |O| lie far below TOL_O's 2e-2. bf16: both
+# sides round an fp32 O once, and two roundings of nearly equal values
+# differ by at most one bf16 ulp, at most 2^-7 of the value, plus the
+# fp32 difference of the sums (atol); fp32: TOL_O
+TOL_O_ELEM = {"bfloat16": (1e-5, 2 ** -7), "float32": (2e-5, 2e-5)}
 # gradients, backward kernels vs plain backward on identical inputs: max
 # |kernel - plain| over max |plain|, per gradient. bf16: one rounding of
 # each output (and of each per-q-head dk/dv before the GQA sum); fp32:
 # sums in another order
 TOL_GRAD = {"bfloat16": 1e-2, "float32": 1e-4}
 # one sparse training step at full width, kernel path vs plain path
-# through 12 bf16 layers: loss within 1e-2 relative, every parameter's
-# gradient at a cosine of at least 0.99 with the plain one
+# through 12 (Graphormer) or 28 (Qwen3) bf16 layers: Graphormer's loss
+# within 1e-2 relative, every parameter's gradient at a cosine of at
+# least 0.99 with the plain one
 TOL_STEP_LOSS_REL = 1e-2
 MIN_GRAD_COSINE = 0.99
+# the Qwen3 step's loss is a mean over 16384 tokens, so the per-token
+# differences of one bf16 rounding average out: within 1e-4 relative
+TOL_LM_STEP_LOSS_REL = 1e-4
 # served logits, kernel path vs plain path through 12 bf16 layers: max
 # difference relative to the largest logit, and argmax agreement
 TOL_LOGITS_REL = 5e-2
@@ -83,6 +111,8 @@ TRAIN_NODES = 8192      # the dense step's fp32 (1, H, S, S) bias must fit
 TRAIN_STEPS = 16
 CLUSTERS = 32
 QUERIES = 64
+LM_SEQ = 16384          # Qwen3-0.6B training sequence (window 4096)
+LM_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -104,17 +134,20 @@ def main() -> int:
     from repro_torch.core.graph_model import (GraphModel, graph_forward,
                                               graph_predict)
     from repro_torch.core.reformation import (build_layout,
+                                              lm_local_global_layout,
                                               transpose_block_idx)
     from repro_torch.data.graph_pipeline import prepare_node_task
+    from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
     from repro_torch.core.graph_model import graph_loss
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import cluster_attention as tca
     from repro_torch.kernels import cluster_attention_bwd as tcab
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.serve import degree_scaled_sbm
+    from repro_torch.models.lm import LMModel, lm_loss
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.serve import GraphServe
-    from repro_torch.tasks import NodeTask
+    from repro_torch.tasks import BatchFnTask, NodeTask
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -133,7 +166,8 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     # ----------------------------------------------------------- 2. build
-    libs = (tca.LIBRARY, tcab.LIBRARY)
+    libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_UNBIASED,
+            tcab.LIBRARY_UNBIASED)
     t0 = time.perf_counter()
     kbuild.build_all(libs)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
@@ -572,6 +606,256 @@ def main() -> int:
         g8, prepare_node_task(g8, large, bq=32, bk=32, d_b=8).layout, seed=2),
         str(SERVE_NODES): sdpa_yardstick(g, lay, seed=2)}
 
+    # ------------------------- 3c. unbiased kernels of the LM path vs plain
+    def unbiased_entries(bi, bq, causal):
+        """Score entries one head of one sequence needs over the visited
+        blocks of a batch-shared (nq, mb) layout with bq = bk: every
+        entry of a block, or with the causal mask only the (qpos, kpos)
+        pairs with qpos >= kpos."""
+        live = bi >= 0
+        j = bi[live].long()
+        if not causal:
+            return j.numel() * bq * bq
+        i = torch.arange(bi.shape[0], device=bi.device)[:, None].expand_as(
+            bi)[live]
+        a = torch.arange(bq, device=bi.device)
+        # q-row a of block (i, j) keeps the k-columns b <= (i - j) bq + a
+        return int(((i - j)[:, None] * bq + a[None] + 1).clamp(0, bq).sum())
+
+    def bound_unbiased(kind, q, k, bi, bit, causal):
+        """Least time of one unbiased kernel: each input read once, each
+        output written once, and the arithmetic of the score entries the
+        function needs (``unbiased_entries``: the causal mask's upper
+        triangles excluded) at the peak rate of q's dtype. Forward: q,
+        k, v, block_idx in, O and lse out, 4 flop per score entry per Dh
+        (scores, PV). dQ: q, k, v, dO, lse, delta, block_idx in, dq out,
+        6 (scores, dp, dq). dK/dV: the same inputs with block_idx_t,
+        per-q-head dk and dv out, 8 (scores, dp, dv, dk). Returns (ms,
+        "bytes" | "operations")."""
+        B, S, H, Dh = q.shape
+        bq = S // bi.shape[0]
+        entries = B * unbiased_entries(bi, bq, causal)
+        elt = q.element_size()
+        rows = B * H * S * 4
+        qkv_b = (q.numel() + 2 * k.numel()) * elt
+        if kind == "fwd":
+            n_bytes = qkv_b + bi.numel() * 4 + q.numel() * elt + rows
+            per = 4.0
+        elif kind == "dq":
+            n_bytes = qkv_b + q.numel() * elt + 2 * rows + bi.numel() * 4 \
+                + q.numel() * elt
+            per = 6.0
+        else:
+            n_bytes = qkv_b + q.numel() * elt + 2 * rows + bit.numel() * 4 \
+                + 2 * q.numel() * elt
+            per = 8.0
+        flops = per * entries * Dh * H
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[1]] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    def compare_unbiased(tag, q, k, v, bi, bit, causal, seed):
+        """The unbiased forward kernel vs the plain forward (O, lse), then
+        the dQ and dK/dV kernels vs the plain backward on the forward
+        kernel's O and lse and a random dO (dq, dk, dv as max|diff| over
+        max|plain|). O is held to TOL_O and to TOL_O_ELEM. Returns
+        (max|dO|, max|ddq|, max of max|ddk|, max|ddv|) and the forward's
+        O, lse, dO."""
+        dt = str(q.dtype).split(".")[1]
+        o, lse = ops.cluster_attention(q, k, v, bi, causal=causal,
+                                       return_lse=True)
+        po, plse = ops.cluster_attention(q, k, v, bi, causal=causal,
+                                         return_lse=True, impl="plain")
+        torch.cuda.synchronize()
+        diff = (o.float() - po.float()).abs()
+        err = diff.max().item()
+        atol, rtol = TOL_O_ELEM[dt]
+        # the worst element's share of its limit (ok at most 1)
+        o_share = (diff / (atol + rtol * po.float().abs())).max().item()
+        del diff
+        lerr = (lse - plse).abs().max().item()
+        ok = torch.allclose(o.float(), po.float(), atol=TOL_O[dt],
+                            rtol=TOL_O[dt]) and o_share <= 1.0 \
+            and torch.allclose(lse, plse, atol=TOL_LSE, rtol=1e-5) and bool(
+                torch.isfinite(o).all())
+        del po, plse
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dout = torch.randn(o.shape, generator=gen, device=dev).to(q.dtype)
+        got = tcab.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None,
+                                         None, bit, causal=causal)
+        want = ref.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None,
+                                         None, bit, causal=causal)
+        torch.cuda.synchronize()
+        rels, errs = [], []
+        for x, y in zip(got[:3], want[:3]):
+            d = (x.float() - y.float()).abs().max().item()
+            errs.append(d)
+            rels.append(d / max(y.float().abs().max().item(), 1e-30))
+        ok = ok and all(r <= TOL_GRAD[dt] for r in rels) and all(
+            bool(torch.isfinite(x).all()) for x in got[:3])
+        log(f"[lm-kernel] {tag} {dt}"
+            f"{'' if bit is not None else ', derived layout'}: max|dO|="
+            f"{err:.3g} (tol {TOL_O[dt]}), worst element at {o_share:.3g} "
+            f"of {atol:g} + {rtol:g}|O| max|dlse|={lerr:.3g} (tol "
+            f"{TOL_LSE}); rel dq {rels[0]:.3g} dk {rels[1]:.3g} dv "
+            f"{rels[2]:.3g} (tol {TOL_GRAD[dt]}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"unbiased kernels disagree with their "
+                                 f"plain versions: {tag} {dt}")
+        del got, want
+        return (err, errs[0], max(errs[1], errs[2])), (o, lse, dout)
+
+    def lm_qkv(B, S, H, KV, Dh, dtype, seed):
+        return random_qkv(B, S, H, KV, Dh, 1, dtype, seed)[:3]
+
+    lm_cfg = get_config("qwen3_0_6b")
+    lm_lay = lm_local_global_layout(LM_SEQ, window=lm_cfg.window,
+                                    n_global=lm_cfg.n_global)
+    lm_bi, lm_bit = to_dev(lm_lay.block_idx), to_dev(lm_lay.block_idx_t)
+    col = (lm_lay.block_idx_t[..., 0] >= 0).sum(1)
+    log(f"[lm-kernel] layout S={LM_SEQ} window={lm_cfg.window} "
+        f"n_global={lm_cfg.n_global}: nq={lm_lay.nq} mb={lm_lay.mb} "
+        f"active={int((lm_lay.block_idx >= 0).sum())} density="
+        f"{lm_lay.stats['density']:.4f}; transposed mt={lm_lay.mt}, column "
+        f"visits min/mean/max={col.min()}/{col.mean():.2f}/{col.max()}")
+    lm_rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        q, k, v = lm_qkv(1, LM_SEQ, lm_cfg.n_heads, lm_cfg.kv_heads,
+                         lm_cfg.head_dim, dtype, seed=21)
+        errs, (o, lse, dout) = compare_unbiased(
+            "Qwen3-0.6B training shape, causal", q, k, v, lm_bi, lm_bit,
+            True, seed=22)
+        delta = ref.row_delta(dout, o)
+        qa, ka, va, da = (tca.aligned(x) for x in (q, k, v, dout))
+        runs = {
+            "fwd": (lambda: tca.cluster_attention_fwd(
+                        q, k, v, lm_bi, None, None, causal=True,
+                        return_lse=True),
+                    lambda: ref.cluster_sparse_attention(
+                        q, k, v, lm_bi, causal=True, return_lse=True)),
+            "dq": (lambda: tcab.dq_unbiased_kernel(qa, ka, va, da, lse,
+                                                   delta, lm_bi, True),
+                   lambda: ref.bwd_dq(q, k, v, dout, lse, delta, lm_bi,
+                                      None, None, causal=True)),
+            "dkv": (lambda: tcab.dkv_unbiased_kernel(
+                        qa, ka, va, da, lse, delta, lm_bi, lm_bit, True),
+                    lambda: ref.bwd_dkv(q, k, v, dout, lse, delta, lm_bi,
+                                        lm_bit, None, None, causal=True))}
+        lm_rec[dt] = {}
+        for (half, (kern, plain)), err in zip(runs.items(), errs):
+            r = lm_rec[dt][half] = {"max_abs_err": err}
+            r["ms"] = cuda_ms(kern, 5)
+            r["plain_ms"] = cuda_ms(plain, 2)
+            r["bound_ms"], r["bound_by"] = bound_unbiased(half, q, k, lm_bi,
+                                                          lm_bit, True)
+            log(f"[lm-kernel] training shape {dt} {half}: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['ms']:.2%} of bound")
+        if dtype == torch.bfloat16:
+            # diagnostic: the heavy column (k-block 0, every q-row visits
+            # it) cut to its first visitor
+            trim_t = lm_bit.clone()
+            trim_t[0, 1:] = -1
+            lm_rec[dt]["dkv"]["ms_without_global_column"] = cuda_ms(
+                lambda: tcab.dkv_unbiased_kernel(qa, ka, va, da, lse, delta,
+                                                 lm_bi, trim_t, True), 5)
+            log(f"[lm-kernel] training shape {dt}, heavy column cut to one "
+                f"visit: dkv "
+                f"{lm_rec[dt]['dkv']['ms_without_global_column']:.4f} ms")
+            lm_o = o
+        del q, k, v, o, lse, dout, delta, qa, ka, va, da
+        torch.cuda.empty_cache()
+
+    lm_cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        lm_cases += [
+            ("non-causal layout S=2048 window 512, H=16 KV=8 Dh=128", dtype,
+             1, 2048, 16, 8, 128, 512, False, True),
+            ("SmolLM heads H=9 KV=3 Dh=64, S=2048 window 512", dtype, 1,
+             2048, 9, 3, 64, 512, True, True),
+            ("S=512 window 64, H=16 KV=8 Dh=128", dtype, 1, 512, 16, 8,
+             128, 64, True, False),
+            ("B=2, H=9 KV=3 Dh=64, S=1024 window 256", dtype, 2, 1024, 9, 3,
+             64, 256, True, False)]
+    for i, (tag, dtype, B, S_, H_, KV_, Dh_, win, causal, with_bit) in \
+            enumerate(lm_cases):
+        lay_ = lm_local_global_layout(S_, window=win, n_global=128,
+                                      causal=causal)
+        q, k, v = lm_qkv(B, S_, H_, KV_, Dh_, dtype, seed=30 + i)
+        compare_unbiased(tag, q, k, v, to_dev(lay_.block_idx),
+                         to_dev(lay_.block_idx_t) if with_bit else None,
+                         causal, seed=40 + i)
+        del q, k, v
+
+    def lm_sdpa_yardstick():
+        """One SDPA call at the training shape with the local+global
+        causal layout as a dense boolean (S, S) mask and ``enable_gqa``,
+        forward and backward (dq, dk, dv), on PyTorch's own pick of
+        backend; and the dense causal one (``is_causal``) beside it. The
+        masked forward must agree with the kernel's."""
+        H, KV, Dh = lm_cfg.n_heads, lm_cfg.kv_heads, lm_cfg.head_dim
+        q, k, v = lm_qkv(1, LM_SEQ, H, KV, Dh, torch.bfloat16, seed=21)
+        nq, bq = lm_lay.nq, lm_lay.bq
+        mask = torch.zeros((LM_SEQ, LM_SEQ), dtype=torch.bool, device=dev)
+        ii, mm = torch.nonzero(lm_bi >= 0, as_tuple=True)
+        mask.view(nq, bq, nq, bq).permute(0, 2, 1, 3)[
+            ii, lm_bi[ii, mm].long()] = True
+        mask &= torch.ones_like(mask).tril_()
+        rec = {"mask_bytes": mask.numel()}
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        gout = torch.randn_like(leaves[0])
+        for key, kw in (("library", {"attn_mask": mask}),
+                        ("causal_dense", {"is_causal": True})):
+            def fwd():
+                return F.scaled_dot_product_attention(*leaves, **kw,
+                                                      enable_gqa=True)
+            try:
+                with torch.no_grad():
+                    o = fwd()
+                if key == "library":
+                    o = o.transpose(1, 2).float()
+                    err = (o - lm_o.float()).abs().max().item()
+                    rec["max_abs_err_vs_kernel"] = err
+                    tol = TOL_O["bfloat16"]
+                    if not torch.allclose(o, lm_o.float(), atol=tol,
+                                          rtol=tol):
+                        raise AssertionError(f"kernel vs SDPA with the "
+                                             f"layout mask: max|dO|={err}")
+                del o
+                rec[f"{key}_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        *(x.detach() for x in leaves), **kw,
+                        enable_gqa=True), 5)
+                og = fwd()
+                rec[f"{key}_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    og, leaves, gout, retain_graph=True), 5)
+                del og
+            except RuntimeError as e:   # out of memory included: recorded
+                rec[f"{key}_error"] = \
+                    f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+            torch.cuda.empty_cache()
+        log(f"[lm-yardstick] SDPA at S={LM_SEQ}, H={H} over KV={KV}, bf16: "
+            + "; ".join(
+                f"{key}: " + (f"fwd {rec[key + '_ms']:.4f} ms, bwd "
+                              f"{rec[key + '_bwd_ms']:.4f} ms"
+                              if key + "_bwd_ms" in rec
+                              else rec.get(key + "_error", "not measured"))
+                for key in ("library", "causal_dense"))
+            + f" (layout-mask max|dO| vs kernel "
+            f"{rec.get('max_abs_err_vs_kernel', float('nan')):.3g})")
+        del q, k, v, mask, leaves, gout
+        torch.cuda.empty_cache()
+        return rec
+
+    lm_yard = lm_sdpa_yardstick()
+    del lm_o, lm_bi, lm_bit
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- 4. serve (first main path)
     def reset_counts():
         tca.reset_count()
@@ -580,12 +864,24 @@ def main() -> int:
     def read_counts():
         return {"cluster_attention_fwd": tca.launches,
                 "cluster_attention_bwd_dq": tcab.dq_launches,
-                "cluster_attention_bwd_dkv": tcab.dkv_launches}
+                "cluster_attention_bwd_dkv": tcab.dkv_launches,
+                "cluster_attention_fwd_unbiased": tca.unbiased_launches,
+                "cluster_attention_bwd_dq_unbiased":
+                    tcab.dq_unbiased_launches,
+                "cluster_attention_bwd_dkv_unbiased":
+                    tcab.dkv_unbiased_launches}
 
-    def device_breakdown(fn, wall_ms, tag="serve", what="one forward"):
+    def only(**want):
+        """The launch counts of a path that launches ``want`` and nothing
+        else."""
+        return {name: want.get(name, 0) for name in read_counts()}
+
+    def device_breakdown(fn, wall_ms, tag="serve", what="one forward",
+                         focus=None):
         """Device time of one ``fn()`` by kernel name (torch.profiler),
-        and the busy share of ``wall_ms``; None when the profiler shows no
-        device time."""
+        and the busy share of ``wall_ms``; with ``focus`` (a substring of
+        kernel names) also the time and share of the kernels it names.
+        None when the profiler shows no device time."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -608,8 +904,16 @@ def main() -> int:
             f"of {wall_ms:.3f} ms wall ({total / wall_ms:.1%} busy)")
         for ms, name in rows[:8]:
             log(f"[{tag}]   {ms:9.3f} ms {ms / total:6.1%}  {name[:90]}")
-        return {"device_ms": total, "busy_share": total / wall_ms,
-                "top": [[name[:90], ms] for ms, name in rows[:8]]}
+        rec = {"device_ms": total, "busy_share": total / wall_ms,
+               "top": [[name[:90], ms] for ms, name in rows[:8]]}
+        if focus:
+            rec["focus_ms"] = {name[:90]: ms for ms, name in rows
+                               if focus in name}
+            fms = sum(rec["focus_ms"].values())
+            rec["focus_share"] = fms / total
+            log(f"[{tag}] kernels named *{focus}*: {fms:.3f} ms, "
+                f"{fms / total:.1%} of device time")
+        return rec
 
     def serve(cfg, seed):
         model = GraphModel(cfg, device=dev, seed=seed)
@@ -641,9 +945,7 @@ def main() -> int:
         if srv.n_cached_layouts() != 1 or srv.prepared(g) is not first:
             raise AssertionError("the second pass missed the layout cache")
         want = 2 * 3 * cfg.n_layers
-        if counts != {"cluster_attention_fwd": want,
-                      "cluster_attention_bwd_dq": 0,
-                      "cluster_attention_bwd_dkv": 0}:
+        if counts != only(cluster_attention_fwd=want):
             raise AssertionError(f"{cfg.name}: launches {counts} in 2 passes "
                                  f"x 3 forwards, want {want} forwards")
         node = outs[0][0]
@@ -737,9 +1039,9 @@ def main() -> int:
             f"eval acc {ev['acc']:.4f} xent {ev['xent']:.4f}")
         losses = [h["loss"] for h in hist]
         want = n_sparse * large.n_layers
-        if counts != {"cluster_attention_fwd": want,
-                      "cluster_attention_bwd_dq": want,
-                      "cluster_attention_bwd_dkv": want}:
+        if counts != only(cluster_attention_fwd=want,
+                          cluster_attention_bwd_dq=want,
+                          cluster_attention_bwd_dkv=want):
             raise AssertionError(f"launches {counts}: want {want} of each "
                                  f"({n_sparse} sparse steps x "
                                  f"{large.n_layers} layers)")
@@ -828,7 +1130,97 @@ def main() -> int:
 
     train_run = train()
 
-    # -------------------------------------------------------- 6. results
+    # ----------------------------------------- 6. LM train (this slice's path)
+    def train_lm():
+        cfg = get_config("qwen3_0_6b").replace(attn_backend="cluster_sparse")
+        model = LMModel(cfg, device=dev, seed=0)
+        params = list(model.parameters())
+        names = [n for n, _ in model.named_parameters()]
+        dc = LMDataConfig(cfg.vocab_size, LM_SEQ, 1, seed=0)
+        task = BatchFnTask(lambda s: lm_batch(dc, s))
+        tr = Trainer(model, TrainerConfig(steps=LM_STEPS, lr=1e-3, warmup=2),
+                     task=task)
+        log(f"[lm-train] {cfg.name}: {sum(p.numel() for p in params):,} "
+            f"params, {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.kv_heads}, d_head {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+            f"{cfg.vocab_padded}), {cfg.dtype} compute; S={LM_SEQ}, batch 1")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        hist = tr.history
+        for h in hist:
+            log(f"[lm-train] step {h['step']} loss {h['loss']:.4f} "
+                f"{h['seconds'] * 1e3:10.2f} ms")
+        log(f"[lm-train] {LM_STEPS} steps in {run_s:.2f}s, peak "
+            f"{peak / 2**30:.2f} GiB, launches {counts}, per step "
+            f"{ {n: c / LM_STEPS for n, c in counts.items() if c} }")
+        want = LM_STEPS * cfg.n_layers
+        if counts != only(cluster_attention_fwd_unbiased=want,
+                          cluster_attention_bwd_dq_unbiased=want,
+                          cluster_attention_bwd_dkv_unbiased=want):
+            raise AssertionError(f"launches {counts}: want {want} of each "
+                                 f"unbiased kernel ({LM_STEPS} steps x "
+                                 f"{cfg.n_layers} layers) and no other")
+        losses = [h["loss"] for h in hist]
+        if not np.isfinite(losses).all() or any(h["skipped"] for h in hist) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"LM losses not finite and falling: "
+                                 f"{losses}")
+
+        # one step by the kernel path and one by the plain path, the same
+        # parameters and batch
+        batch = task.batches(0)
+
+        def loss_grads(impl):
+            loss, _ = lm_loss(model, batch, impl=impl)
+            return loss.detach().float(), torch.autograd.grad(loss, params)
+        kl, kg = loss_grads(None)
+        pl_, pg = loss_grads("plain")
+        loss_rel = (abs(kl - pl_) / abs(pl_)).item()
+        cos = {n: F.cosine_similarity(a.flatten().float(),
+                                      c.flatten().float(), dim=0,
+                                      eps=1e-30).item()
+               for n, a, c in zip(names, kg, pg)}
+        worst = min(cos, key=cos.get)
+        log(f"[lm-train] one step, kernel vs plain path: loss "
+            f"{kl.item():.6f} vs {pl_.item():.6f} (rel {loss_rel:.3g}, tol "
+            f"{TOL_LM_STEP_LOSS_REL}); gradient cosine min {cos[worst]:.6f} "
+            f"({worst}; min {MIN_GRAD_COSINE}), layers.0.attn.wq "
+            f"{cos['layers.0.attn.wq']:.6f}")
+        if not (loss_rel <= TOL_LM_STEP_LOSS_REL
+                and cos[worst] >= MIN_GRAD_COSINE):
+            raise AssertionError("kernel and plain LM training paths "
+                                 "disagree")
+        del kg, pg
+        torch.cuda.empty_cache()
+
+        # profile one step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step("sparse", batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof = device_breakdown(lambda: tr.step("sparse", batch), wall,
+                                tag="lm-train", what="one step",
+                                focus="unbiased")
+        rec = {"launches": counts, "steps": hist, "run_s": run_s,
+               "peak_bytes": peak, "loss_rel": loss_rel,
+               "min_grad_cosine": [worst, cos[worst]], "step_wall_ms": wall,
+               "profile": prof}
+        del tr, task, model, batch, params
+        torch.cuda.empty_cache()
+        return rec
+
+    lm_run = train_lm()
+
+    # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
     yard8 = yard[str(YARDSTICK_NODES)]
     yard_s = yard[str(SERVE_NODES)]
@@ -873,10 +1265,42 @@ def main() -> int:
             "float32": serve_rec["float32"]["bwd"][half],
             **{k: v for k, v in b.items() if k.startswith("ms_without")}})
     kernels[0]["train"] = train_run
+    # the unbiased kernels of the LM path: times at the Qwen3-0.6B training
+    # shape in bf16, launches from the LM training run
+    for half, name, src, line in (
+            ("fwd", "cluster_attention_fwd_unbiased", "fwd",
+             "cluster_attention.py:80"),
+            ("dq", "cluster_attention_bwd_dq_unbiased", "bwd",
+             "cluster_attention_bwd.py:118"),
+            ("dkv", "cluster_attention_bwd_dkv_unbiased", "bwd",
+             "cluster_attention_bwd.py:206")):
+        b = lm_rec["bfloat16"][half]
+        lib = "library" if half == "fwd" else "library_bwd"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"cluster_attention_unbiased_{src}.cu",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": lm_run["launches"][name],
+            "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            # one SDPA call with the layout as a dense boolean mask and
+            # enable_gqa (its backward, dq + dk + dv, for dQ and dK/dV),
+            # or null with the error it hit
+            "library_ms": lm_yard.get(f"{lib}_ms"),
+            "library_error": lm_yard.get("library_error"),
+            "causal_dense_ms": lm_yard.get(
+                "causal_dense_ms" if half == "fwd" else
+                "causal_dense_bwd_ms"),
+            "float32": lm_rec["float32"][half],
+            **{k: v for k, v in b.items() if k.startswith("ms_without")}})
+    kernels[3]["lm_yardstick"] = lm_yard
+    kernels[3]["lm_train"] = lm_run
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,6 +1,7 @@
 """Model configuration: the port's copy of ``repro.configs.base.ModelConfig``
 (field for field, so a config compares equal to its JAX counterpart) and
-a registry of the graph archs the port serves so far.
+a registry of the archs the port runs so far: the graph archs and the
+dense token LMs.
 """
 
 from __future__ import annotations
@@ -66,6 +67,13 @@ class ModelConfig:
     attn_chunk_k: int = 1024
 
     @property
+    def vocab_padded(self) -> int:
+        """Vocab padded to 512 (Megatron-style) so the vocab dim shards
+        evenly on any production mesh axis combo; pad logits are masked in
+        the loss and sliced off at sampling."""
+        return -(-self.vocab_size // 512) * 512
+
+    @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
 
@@ -77,8 +85,10 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# the archs the port serves so far (graph family only)
-ARCHS = ["graphormer_slim", "graphormer_large"]
+# the archs the port runs so far: graph family, and the dense LMs
+GRAPH_ARCHS = ["graphormer_slim", "graphormer_large"]
+LM_ARCHS = ["qwen3_0_6b", "smollm_135m"]
+ARCHS = GRAPH_ARCHS + LM_ARCHS
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

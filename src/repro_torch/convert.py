@@ -1,11 +1,13 @@
 """Parameters of the JAX package -> the port's module state.
 
-The JAX graph model keeps its parameters as a nested dict with the
-per-layer leaves stacked on a leading ``layers`` axis (``nn/param.stack``
-in the reference). :func:`params_from_jax` takes that tree with numpy
-leaves (``jax.tree.map(np.asarray, params)``) and returns the flat
-state dict of :class:`repro_torch.core.graph_model.GraphModel`, with the
-layer axis unstacked into ``layers.<i>.*`` entries.
+The JAX graph model and the JAX LMs keep their parameters as a nested
+dict with the per-layer leaves stacked on a leading ``layers`` axis
+(``nn/param.stack`` in the reference). :func:`params_from_jax` takes such
+a tree with numpy leaves (``jax.tree.map(np.asarray, params)``) and
+returns the flat state dict of
+:class:`repro_torch.core.graph_model.GraphModel` or
+:class:`repro_torch.models.lm.LMModel`, with the layer axis unstacked
+into ``layers.<i>.*`` entries.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ def _flatten(tree, prefix=""):
 
 def params_from_jax(tree: dict) -> dict:
     """Nested numpy parameter tree -> ``{name: fp32 tensor}`` for
-    ``GraphModel.load_state_dict``. Arrays are copied, so read-only
-    views of JAX buffers are fine."""
+    ``GraphModel.load_state_dict`` or ``LMModel.load_state_dict``. Arrays
+    are copied, so read-only views of JAX buffers are fine."""
     state = {}
     for name, arr in _flatten(tree):
         arr = np.array(arr, dtype=np.float32, copy=True)

@@ -71,14 +71,6 @@ def graph_defs(cfg) -> dict:
     return defs
 
 
-def _def_name(name: str) -> str:
-    """``layers.3.attn.wq`` -> ``layers.attn.wq``."""
-    parts = name.split(".")
-    if parts[0] == "layers":
-        del parts[1]
-    return ".".join(parts)
-
-
 class GraphLayer(nn.Module):
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -115,22 +107,9 @@ class GraphModel(nn.Module):
     def device(self) -> torch.device:
         return self.head.device
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        """Seeded init, drawn on the CPU in registration order so the
-        weights do not depend on the device."""
-        gen = torch.Generator().manual_seed(seed)
-        defs = graph_defs(self.cfg)
-        for name, p in self.named_parameters():
-            shape, init = defs[_def_name(name)]
-            assert tuple(p.shape) == shape, (name, p.shape, shape)
-            if init == "zeros":
-                p.zero_()
-            elif init == "ones":
-                p.fill_(1.0)
-            else:
-                scale = shape[0] ** -0.5 if init == "fan_in" else 0.02
-                p.copy_(torch.randn(shape, generator=gen) * scale)
+        """Seeded init (``layers.seeded_init``)."""
+        L.seeded_init(self, graph_defs(self.cfg), seed)
 
     @property
     def loss_variants(self) -> dict:
@@ -163,8 +142,9 @@ def batch_to_torch(batch: dict, device, uploads: dict | None = None) -> dict:
     return out
 
 
-def _graph_attn(p: L.Attention, h, batch, bias_table, dense, impl):
-    q, k, v = L.project_qkv(p, h)
+def _graph_attn(p: L.Attention, cfg, h, batch, bias_table, dense, impl):
+    # the graph configs run no RoPE (rope_theta=0): no positions needed
+    q, k, v = L.project_qkv(p, cfg, h, None)
     if dense:
         o = L.chunked_attention(q, k, v, bias=batch.get("dense_bias"))
     else:
@@ -198,7 +178,8 @@ def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
     bias_table = getattr(model, "bias_table", None)
     for layer in model.layers:
         a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
-        h = h + _graph_attn(layer.attn, a, batch, bias_table, dense, impl)
+        h = h + _graph_attn(layer.attn, cfg, a, batch, bias_table, dense,
+                            impl)
         m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
         h = h + L.mlp(layer.mlp, m)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps)

@@ -276,3 +276,30 @@ def build_layout(g: Graph, *, bq: int = 128, bk: int = 128,
     }
     return ClusterLayout(S, bq, bk, block_idx, bucket_arr, n_buckets, stats,
                          block_idx_t=transpose_block_idx(block_idx, nk))
+
+
+def lm_local_global_layout(seq_len: int, *, bq: int = 128, bk: int = 128,
+                           window: int = 4096, n_global: int = 128,
+                           causal: bool = True) -> ClusterLayout:
+    """Degenerate cluster layout for token LMs (DESIGN.md §4): each q-block
+    attends to its local window of k-blocks plus the leading global blocks.
+    Static in shape only — no graph, no buckets (causal masking is computed
+    positionally in the attention fn)."""
+    S = _pad_to(seq_len, max(bq, bk))
+    nq, nk = S // bq, S // bk
+    wb = max(1, window // bk)
+    gb = max(1, -(-n_global // bk)) if n_global else 0
+    mb = min(nk, wb + gb)
+    block_idx = np.full((nq, mb), -1, np.int32)
+    for i in range(nq):
+        j_hi = (i * bq) // bk + 1  # blocks up to the diagonal
+        lo = max(0, j_hi - wb)
+        js = list(range(lo, min(j_hi, nk) if causal else min(lo + wb, nk)))
+        gs = [j for j in range(gb) if j < lo]
+        sel = (gs + js)[:mb]
+        block_idx[i, :len(sel)] = sel
+    return ClusterLayout(S, bq, bk, block_idx, None, 0,
+                         {"window": window, "n_global": n_global,
+                          "density": (block_idx >= 0).sum() * bq * bk
+                          / float(S) ** 2},
+                         block_idx_t=transpose_block_idx(block_idx, nk))

@@ -3,7 +3,8 @@
 and loaded with ``ctypes``.
 
 A build lands in ``_build/<key>/`` next to this file, keyed on a hash of
-the source and the flags, so a fresh checkout builds each source once.
+the source, the ``csrc/*.cuh`` headers it may include and the flags, so a
+fresh checkout builds each source once.
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
 for them together. Build errors raise with nvcc's output: nothing falls
 back.
@@ -49,7 +50,9 @@ class CudaLibrary:
         self.seconds = 0.0     # 0.0 when the library was already on disk
 
     def path(self) -> pathlib.Path:
-        key = hashlib.sha256(self.source.read_bytes() + " ".join(
+        text = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
+        key = hashlib.sha256(text + " ".join(
             [_nvcc()] + NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_ROOT / key / f"lib{self.source.stem}.so"
 

@@ -1,11 +1,17 @@
-"""Wrapper, build and launch counter of the CUDA cluster-sparse attention
-forward (``csrc/cluster_attention_fwd.cu``), the port of the TPU kernel
-``_cluster_kernel_biased`` (``src/repro/kernels/cluster_attention.py``).
+"""Wrappers, builds and launch counters of the CUDA cluster-sparse
+attention forwards:
 
-The kernel is compiled at first use (``kernels/build.py``: nvcc for
+* ``csrc/cluster_attention_fwd.cu``, the port of the TPU kernel
+  ``_cluster_kernel_biased`` (``src/repro/kernels/cluster_attention.py``):
+  int8 bias buckets, the graph transformer's path;
+* ``csrc/cluster_attention_unbiased_fwd.cu``, the port of
+  ``_cluster_kernel``: no buckets, an optional positional causal mask,
+  the token LM's local+global path.
+
+The kernels are compiled at first use (``kernels/build.py``: nvcc for
 ``sm_90a``, a plain C entry point, ``ctypes``).
 
-The wrapper takes CUDA tensors only: it launches the kernel or raises.
+The wrapper takes CUDA tensors only: it launches a kernel or raises.
 ``kernels/ops.py`` sends CPU tensors to the plain version
 (``kernels/ref.py``). Build and launch errors propagate: nothing falls
 back.
@@ -21,13 +27,18 @@ import torch
 from repro_torch.kernels.build import CudaLibrary
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# what the unbiased kernels take: head dims, and q/k-blocks in multiples
+# of their 64 x 64 score tiles
+UNBIASED_HEAD_DIMS = (64, 128)
+UNBIASED_TILE = 64
 
-launches = 0          # kernel launches since the last reset_count()
+launches = 0           # biased kernel launches since the last reset_count()
+unbiased_launches = 0  # unbiased kernel launches since the last reset_count()
 
 
 def reset_count() -> None:
-    global launches
-    launches = 0
+    global launches, unbiased_launches
+    launches = unbiased_launches = 0
 
 
 def _bind(lib) -> None:
@@ -37,13 +48,23 @@ def _bind(lib) -> None:
     lib.cluster_attention_fwd.restype = i32
 
 
-LIBRARY = CudaLibrary(pathlib.Path(__file__).resolve().parent / "csrc"
-                      / "cluster_attention_fwd.cu", _bind)
+def _bind_unbiased(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_fwd_unbiased.argtypes = (
+        [vp] * 6 + [i32] * 11 + [ctypes.c_float, vp])
+    lib.cluster_attention_fwd_unbiased.restype = i32
+
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+LIBRARY = CudaLibrary(_CSRC / "cluster_attention_fwd.cu", _bind)
+LIBRARY_UNBIASED = CudaLibrary(_CSRC / "cluster_attention_unbiased_fwd.cu",
+                               _bind_unbiased)
 
 
 def check_args(q, k, v, block_idx, buckets, bias_table):
     """Raise unless the arguments meet the op's dtype, device and shape
-    contract (``kernels/ref.py``)."""
+    contract (``kernels/ref.py``). ``buckets`` and ``bias_table`` are
+    both given (the biased op) or both None (the unbiased one)."""
     B, S, H, Dh = q.shape
     if q.dtype not in _DTYPES:
         raise NotImplementedError(
@@ -63,39 +84,75 @@ def check_args(q, k, v, block_idx, buckets, bias_table):
     if block_idx.dim() == 3 and block_idx.shape[0] != B:
         raise ValueError(f"per-graph block_idx batch {block_idx.shape[0]} "
                          f"!= {B}")
-    nq, mb = block_idx.shape[-2:]
+    nq = block_idx.shape[-2]
     if S % nq:
         raise ValueError(f"sequence {S} is not tiled by {nq} q-block rows")
-    bq = S // nq
-    want = tuple(block_idx.shape) + (bq, buckets.shape[-1])
-    if buckets.dtype != torch.int8 or tuple(buckets.shape) != want:
-        raise ValueError(f"buckets must be int8 {tuple(block_idx.shape)} + "
-                         f"({bq}, bk), got {buckets.dtype} "
-                         f"{tuple(buckets.shape)}")
-    if S % buckets.shape[-1]:
-        raise ValueError(f"sequence {S} is not tiled by k-blocks of "
-                         f"{buckets.shape[-1]}")
-    if bias_table.dim() != 2 or bias_table.shape[0] != H:
-        raise ValueError(f"bias_table must be (H={H}, n_buckets), got "
-                         f"{tuple(bias_table.shape)}")
-    for name, x in (("block_idx", block_idx), ("buckets", buckets),
-                    ("bias_table", bias_table)):
+    if (buckets is None) != (bias_table is None):
+        raise ValueError("buckets and bias_table come together: the "
+                         "unbiased op takes neither")
+    devs = [("block_idx", block_idx)]
+    if buckets is not None:
+        bq = S // nq
+        want = tuple(block_idx.shape) + (bq, buckets.shape[-1])
+        if buckets.dtype != torch.int8 or tuple(buckets.shape) != want:
+            raise ValueError(f"buckets must be int8 "
+                             f"{tuple(block_idx.shape)} + ({bq}, bk), got "
+                             f"{buckets.dtype} {tuple(buckets.shape)}")
+        if S % buckets.shape[-1]:
+            raise ValueError(f"sequence {S} is not tiled by k-blocks of "
+                             f"{buckets.shape[-1]}")
+        if bias_table.dim() != 2 or bias_table.shape[0] != H:
+            raise ValueError(f"bias_table must be (H={H}, n_buckets), got "
+                             f"{tuple(bias_table.shape)}")
+        devs += [("buckets", buckets), ("bias_table", bias_table)]
+    for name, x in devs:
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
+def check_unbiased_kernel(q, block_idx, block_idx_t=None):
+    """Raise ``NotImplementedError`` with the shapes unless the unbiased
+    kernels take them: Dh in ``UNBIASED_HEAD_DIMS``, ``bq`` a multiple of
+    ``UNBIASED_TILE``, and the batch-shared layout of the LM path
+    (``block_idx`` (nq, mb), ``block_idx_t`` (nk, mt, 2))."""
+    Dh = q.shape[3]
+    bq = q.shape[1] // block_idx.shape[-2]
+    shared = block_idx.dim() == 2 and (block_idx_t is None
+                                       or block_idx_t.dim() == 3)
+    if Dh not in UNBIASED_HEAD_DIMS or bq % UNBIASED_TILE or not shared:
+        t_shape = None if block_idx_t is None else tuple(block_idx_t.shape)
+        raise NotImplementedError(
+            f"the unbiased cluster_attention kernels take Dh in "
+            f"{UNBIASED_HEAD_DIMS}, bq = bk a multiple of {UNBIASED_TILE} "
+            f"and a batch-shared (nq, mb) layout; got Dh={Dh}, bq=bk={bq} "
+            f"(q {tuple(q.shape)}, block_idx {tuple(block_idx.shape)}, "
+            f"block_idx_t {t_shape})")
+
+
+def aligned(x):
+    """``x`` contiguous at a 16-byte aligned address (the kernels read
+    rows in 16-byte pieces): a copy only when it is not already."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
-                          return_lse: bool = False):
-    """Biased cluster-sparse attention forward on CUDA tensors (shape
-    contract in ``kernels/ref.py``): launches the kernel, or raises.
-    ``block_idx`` entries are -1 or k-block ids below ``S // bk``, as the
-    layout builders emit them; the kernel reads whatever block an entry
-    names, so the values are the caller's contract (checking them would
-    cost a device sync per call)."""
+                          causal: bool = False, return_lse: bool = False):
+    """Cluster-sparse attention forward on CUDA tensors (shape contract in
+    ``kernels/ref.py``): launches the biased kernel, or without buckets
+    the unbiased one, or raises. ``block_idx`` entries are -1 or k-block
+    ids below ``S // bk``, as the layout builders emit them; the kernels
+    read whatever block an entry names, so the values are the caller's
+    contract (checking them would cost a device sync per call)."""
     check_args(q, k, v, block_idx, buckets, bias_table)
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"cluster_attention has no kernel for device {q.device}")
+    if buckets is None:
+        return _fwd_unbiased(q, k, v, block_idx, causal, return_lse)
+    if causal:
+        raise ValueError("the bucketed cluster kernel has no causal mask "
+                         "(masking lives in the buckets)")
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     nq, mb = block_idx.shape[-2:]
@@ -123,4 +180,31 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
                            f"error {err} (bq={bq}, bk={bk}, Dh={Dh}, "
                            f"n_buckets={nb})")
     launches += 1
+    return (out, lse) if return_lse else out
+
+
+def _fwd_unbiased(q, k, v, block_idx, causal, return_lse):
+    check_unbiased_kernel(q, block_idx)
+    B, S, H, Dh = q.shape
+    nq, mb = block_idx.shape[-2:]
+    bq = S // nq
+    lib = LIBRARY_UNBIASED.lib()
+    q, k, v = aligned(q), aligned(k), aligned(v)
+    block_idx = block_idx.contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    global unbiased_launches
+    with torch.cuda.device(q.device):
+        err = lib.cluster_attention_fwd_unbiased(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
+            out.data_ptr(), lse.data_ptr() if lse is not None else None,
+            _DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nq, mb, bq, bq,
+            int(causal), Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_attention_fwd_unbiased launch failed: "
+                           f"CUDA error {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, block_idx "
+                           f"{tuple(block_idx.shape)}, causal={causal})")
+    unbiased_launches += 1
     return (out, lse) if return_lse else out

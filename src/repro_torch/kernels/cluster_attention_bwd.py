@@ -1,17 +1,22 @@
-"""Wrapper, build and launch counters of the CUDA cluster-sparse attention
-backward (``csrc/cluster_attention_bwd.cu``): the ports of the TPU
-kernels ``_dq_kernel_biased`` and ``_dkv_kernel_biased``
-(``src/repro/kernels/cluster_attention_bwd.py``).
+"""Wrappers, builds and launch counters of the CUDA cluster-sparse
+attention backward kernels:
 
-The dQ kernel walks the forward layout ``block_idx``; the dK/dV kernel
+* ``csrc/cluster_attention_bwd.cu``, the ports of the TPU kernels
+  ``_dq_kernel_biased`` and ``_dkv_kernel_biased``
+  (``src/repro/kernels/cluster_attention_bwd.py``): int8 bias buckets and
+  the ``bias_table`` gradient;
+* ``csrc/cluster_attention_unbiased_bwd.cu``, the ports of ``_dq_kernel``
+  and ``_dkv_kernel``: no buckets, an optional positional causal mask.
+
+Each dQ kernel walks the forward layout ``block_idx``; each dK/dV kernel
 walks the transposed one, ``block_idx_t`` (per k-block, the (q-row,
-forward slot) pairs that visit it), which ``core/reformation.py``
-emits beside the forward one. A caller without it gets one derived here at
-the dense bound ``mt = nq`` (``ref.derive_block_idx_t``).
+forward slot) pairs that visit it), which ``core/reformation.py`` emits
+beside the forward one. A caller without it gets one derived here at the
+dense bound ``mt = nq`` (``ref.derive_block_idx_t``).
 
-Around the two launches, in plain PyTorch as the reference does it in
-jnp: ``delta = rowsum(dO * O)`` in fp32 before, and after, the sum of
-the kernel's ``(B, H, nq, n_buckets)`` bucket partials into the
+Around the launches, in plain PyTorch as the reference does it in jnp:
+``delta = rowsum(dO * O)`` in fp32 before, and after, the sum of the
+biased dQ kernel's ``(B, H, nq, n_buckets)`` bucket partials into the
 ``bias_table`` gradient and the GQA group sum of the per-q-head dK/dV.
 
 The wrapper takes CUDA tensors only: it launches the kernels or raises.
@@ -30,13 +35,18 @@ from repro_torch.kernels import cluster_attention as _ca
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import CudaLibrary
 
-dq_launches = 0       # dQ kernel launches since the last reset_count()
-dkv_launches = 0      # dK/dV kernel launches since the last reset_count()
+# kernel launches since the last reset_count(), one count per kernel
+dq_launches = 0
+dkv_launches = 0
+dq_unbiased_launches = 0
+dkv_unbiased_launches = 0
 
 
 def reset_count() -> None:
-    global dq_launches, dkv_launches
+    global dq_launches, dkv_launches, dq_unbiased_launches, \
+        dkv_unbiased_launches
     dq_launches = dkv_launches = 0
+    dq_unbiased_launches = dkv_unbiased_launches = 0
 
 
 def _bind(lib) -> None:
@@ -49,8 +59,20 @@ def _bind(lib) -> None:
     lib.cluster_attention_bwd_dkv.restype = i32
 
 
-LIBRARY = CudaLibrary(pathlib.Path(__file__).resolve().parent / "csrc"
-                      / "cluster_attention_bwd.cu", _bind)
+def _bind_unbiased(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_bwd_dq_unbiased.argtypes = (
+        [vp] * 8 + [i32] * 11 + [ctypes.c_float, vp])
+    lib.cluster_attention_bwd_dq_unbiased.restype = i32
+    lib.cluster_attention_bwd_dkv_unbiased.argtypes = (
+        [vp] * 9 + [i32] * 11 + [ctypes.c_float, vp])
+    lib.cluster_attention_bwd_dkv_unbiased.restype = i32
+
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+LIBRARY = CudaLibrary(_CSRC / "cluster_attention_bwd.cu", _bind)
+LIBRARY_UNBIASED = CudaLibrary(_CSRC / "cluster_attention_unbiased_bwd.cu",
+                               _bind_unbiased)
 
 
 def check_args(q, k, v, dout, out, lse, block_idx, buckets, bias_table,
@@ -70,14 +92,14 @@ def check_args(q, k, v, dout, out, lse, block_idx, buckets, bias_table,
         raise ValueError(f"lse must be float32 ({B * H}, {S}) on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
     if block_idx_t is not None:
-        check_block_idx_t(q, buckets, block_idx_t)
+        check_block_idx_t(q, block_idx, buckets, block_idx_t)
 
 
-def check_block_idx_t(q, buckets, block_idx_t):
+def check_block_idx_t(q, block_idx, buckets, block_idx_t):
     """Raise unless ``block_idx_t`` is int32 ``(nk, mt, 2)`` or
     ``(B, nk, mt, 2)`` on q's device."""
     B, S = q.shape[:2]
-    nk = S // buckets.shape[-1]
+    nk = S // _ref.block_dims(q, block_idx, buckets)[2]
     if block_idx_t.dtype != torch.int32 or block_idx_t.dim() not in (3, 4) \
             or block_idx_t.shape[-1] != 2 or block_idx_t.shape[-3] != nk \
             or (block_idx_t.dim() == 4 and block_idx_t.shape[0] != B) \
@@ -147,30 +169,96 @@ def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
     return dkh, dvh
 
 
+def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal):
+    """Launch the unbiased dQ kernel on checked, aligned CUDA operands;
+    returns ``dq`` in q's dtype."""
+    B, S, H, Dh = q.shape
+    nq, mb = block_idx.shape[-2:]
+    bq = S // nq
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dq_unbiased(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), block_idx.data_ptr(),
+            dq.data_ptr(), _ca._DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nq,
+            mb, bq, bq, int(causal), Dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_attention_bwd unbiased dQ launch "
+                           f"failed: CUDA error {err} (q {tuple(q.shape)}, "
+                           f"block_idx {tuple(block_idx.shape)})")
+    global dq_unbiased_launches
+    dq_unbiased_launches += 1
+    return dq
+
+
+def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
+                        causal):
+    """Launch the unbiased dK/dV kernel on checked, aligned CUDA operands;
+    returns per-q-head ``(B, S, H, Dh)`` dk and dv in q's dtype.
+    ``block_idx`` only lends its shape (``bq``)."""
+    B, S, H, Dh = q.shape
+    bq = S // block_idx.shape[-2]
+    nk, mt = block_idx_t.shape[-3:-1]
+    dkh = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
+    dvh = torch.empty_like(dkh)
+    with torch.cuda.device(q.device):
+        err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dkv_unbiased(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), block_idx_t.data_ptr(),
+            dkh.data_ptr(), dvh.data_ptr(), _ca._DTYPES[q.dtype], B, S, H,
+            k.shape[2], Dh, nk, mt, bq, bq, int(causal), Dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_attention_bwd unbiased dK/dV launch "
+                           f"failed: CUDA error {err} (q {tuple(q.shape)}, "
+                           f"block_idx_t {tuple(block_idx_t.shape)})")
+    global dkv_unbiased_launches
+    dkv_unbiased_launches += 1
+    return dkh, dvh
+
+
 def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
-                          bias_table, block_idx_t=None):
-    """Gradients ``(dq, dk, dv, dbias)`` of the biased cluster-sparse
-    attention on CUDA tensors (shape contract in ``kernels/ref.py``):
-    launches the dQ and dK/dV kernels, or raises. ``out`` and ``lse`` are
-    the forward's output and logsumexp residual."""
+                          bias_table, block_idx_t=None, *,
+                          causal: bool = False):
+    """Gradients ``(dq, dk, dv, dbias)`` of the cluster-sparse attention on
+    CUDA tensors (shape contract in ``kernels/ref.py``): launches the dQ
+    and dK/dV kernels, or raises. Without buckets the unbiased kernels run
+    (``causal`` masks positionally) and ``dbias`` is None. ``out`` and
+    ``lse`` are the forward's output and logsumexp residual."""
     check_args(q, k, v, dout, out, lse, block_idx, buckets, bias_table,
                block_idx_t)
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"cluster_attention_bwd has no kernel for device {q.device}")
+    if buckets is not None and causal:
+        raise ValueError("the bucketed cluster kernels have no causal mask "
+                         "(masking lives in the buckets)")
+    if buckets is None:
+        _ca.check_unbiased_kernel(q, block_idx, block_idx_t)
     if block_idx_t is None:
-        block_idx_t = _ref.derive_block_idx_t(block_idx,
-                                              q.shape[1] // buckets.shape[-1])
+        block_idx_t = _ref.derive_block_idx_t(
+            block_idx, q.shape[1] // _ref.block_dims(q, block_idx,
+                                                     buckets)[2])
+    delta = _ref.row_delta(dout, out)
+    KV = k.shape[2]
+    if buckets is None:
+        q, k, v, dout = (_ca.aligned(x) for x in (q, k, v, dout))
+        lse, block_idx, block_idx_t = (
+            x.contiguous() for x in (lse, block_idx, block_idx_t))
+        dq = dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal)
+        dkh, dvh = dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx,
+                                       block_idx_t, causal)
+        return (dq, _ref.group_sum(dkh, KV).to(k.dtype),
+                _ref.group_sum(dvh, KV).to(v.dtype), None)
     q, k, v, dout, lse, block_idx, block_idx_t, buckets = (
         x.contiguous() for x in (q, k, v, dout, lse, block_idx, block_idx_t,
                                  buckets))
-    delta = _ref.row_delta(dout, out)
     bias = bias_table.float().contiguous()
     dq, db_part = dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets,
                             bias)
     dkh, dvh = dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
                           buckets, bias)
-    KV = k.shape[2]
     return (dq, _ref.group_sum(dkh, KV).to(k.dtype),
             _ref.group_sum(dvh, KV).to(v.dtype),
             db_part.sum(dim=(0, 2)).to(bias_table.dtype))

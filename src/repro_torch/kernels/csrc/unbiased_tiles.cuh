@@ -1,0 +1,181 @@
+// Register-tiled fp32 building blocks of the unbiased cluster-sparse
+// attention kernels (cluster_attention_unbiased_{fwd,bwd}.cu).
+//
+// A CTA of 256 threads works on 64 x 64 tiles of scores. Thread `tid`
+// owns rows `tr + 16 i` and columns `tc + 16 j` (i, j < 4) of a score
+// tile, with tr = tid / 16 and tc = tid % 16, so the 16 threads that
+// share a row sit in one half-warp and reduce it with shuffles. Of a
+// (64 x Dh) output tile it owns the same four rows and Dh / 16 columns
+// (`Shape<DH>::col`).
+//
+// Operand tiles live in shared memory in fp32, row-major, rows padded by
+// 4 floats: a row stride of Dh + 4 puts the 16 rows a half-warp reads at
+// once on distinct groups of four banks, so the float4 reads along Dh in
+// `dot_tile` are free of bank conflicts, and the float4 reads of
+// `acc_tile` along a score row or an operand row are contiguous.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace unbiased {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;           // score tile rows and columns
+constexpr int kLP = kTile + 4;      // padded row stride of a score tile
+constexpr float kNegInf = -1e30f;   // finite sentinel, as the TPU kernels
+
+template <int DH>
+struct Shape {
+  static_assert(DH == 64 || DH == 128, "Dh in {64, 128}");
+  static constexpr int LD = DH + 4;                 // padded operand row
+  static constexpr int VW = 4;                      // owned in runs of VW
+  static constexpr int NG = DH / (16 * VW);         // runs per thread
+  // first column of run g of thread column tc: runs of neighbouring
+  // threads are contiguous
+  static __device__ __forceinline__ int col(int g, int tc) {
+    return g * 16 * VW + tc * VW;
+  }
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(p2[0]);
+  const float2 b = __bfloat1622float2(p2[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+
+// Reductions over the 16 threads of a half-warp (one score row).
+__device__ __forceinline__ float row_max(float x) {
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// `rows` rows of Dh elements, `stride` elements apart in device memory
+// (q, k, v, dO are (B, S, heads, Dh): one row per position), into a
+// padded fp32 tile. 16-byte (fp32) or 8-byte (bf16) loads, neighbouring
+// threads on neighbouring addresses.
+template <int DH, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          size_t stride, int rows) {
+  constexpr int Q = DH / 4;
+  for (int e = threadIdx.x; e < rows * Q; e += kThreads) {
+    const int r = e / Q, c = (e - r * Q) * 4;
+    *reinterpret_cast<float4*>(dst + r * Shape<DH>::LD + c) =
+        ld4(src + (size_t)r * stride + c);
+  }
+}
+
+// acc[i][j] += A[ra + 16 i, :] . B[rb + 16 j, :] over Dh, both padded
+// (rows x Dh) tiles.
+template <int DH>
+__device__ __forceinline__ void dot_tile(const float* __restrict__ A,
+                                         int ra,
+                                         const float* __restrict__ B,
+                                         int rb, float (&acc)[4][4]) {
+  constexpr int LD = Shape<DH>::LD;
+#pragma unroll 2
+  for (int d = 0; d < DH; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ra + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (rb + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float s = acc[i][j];
+        s = fmaf(a[i].x, b[j].x, s);
+        s = fmaf(a[i].y, b[j].y, s);
+        s = fmaf(a[i].z, b[j].z, s);
+        s = fmaf(a[i].w, b[j].w, s);
+        acc[i][j] = s;
+      }
+    }
+  }
+}
+
+// acc[i][g][e] += sum_c P[rp + 16 i, c] * V[c, col(g, tc) + e]: P a
+// (64 x 64) score tile (row stride kLP), V a padded (64 x Dh) tile.
+template <int DH>
+__device__ __forceinline__ void acc_tile(
+    const float* __restrict__ P, int rp, const float* __restrict__ V,
+    int tc, float (&acc)[4][Shape<DH>::NG][Shape<DH>::VW]) {
+  using Sh = Shape<DH>;
+  constexpr int LD = Sh::LD, NG = Sh::NG, VW = Sh::VW;
+#pragma unroll 2
+  for (int c = 0; c < kTile; c += 4) {
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(P + (rp + 16 * i) * kLP + c);
+      p[i][0] = x.x;
+      p[i][1] = x.y;
+      p[i][2] = x.z;
+      p[i][3] = x.w;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float w[NG][VW];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            V + (c + cc) * LD + Sh::col(g, tc));
+        w[g][0] = x.x;
+        w[g][1] = x.y;
+        w[g][2] = x.z;
+        w[g][3] = x.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+#pragma unroll
+          for (int e = 0; e < VW; ++e)
+            acc[i][g][e] = fmaf(p[i][cc], w[g][e], acc[i][g][e]);
+    }
+  }
+}
+
+// Write the (64 x Dh) tile `acc * mul` to rows `row0 + tr + 16 i` of a
+// (B, S, heads, Dh) tensor whose row `r` starts at `base + r * stride`.
+template <int DH, typename T>
+__device__ __forceinline__ void store_rows(
+    T* base, size_t stride, int tr, int tc,
+    const float (&acc)[4][Shape<DH>::NG][Shape<DH>::VW], float mul) {
+  using Sh = Shape<DH>;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    T* row = base + (size_t)(tr + 16 * i) * stride;
+#pragma unroll
+    for (int g = 0; g < Sh::NG; ++g)
+#pragma unroll
+      for (int e = 0; e < Sh::VW; ++e)
+        row[Sh::col(g, tc) + e] = from_f32<T>(acc[i][g][e] * mul);
+  }
+}
+
+}  // namespace unbiased

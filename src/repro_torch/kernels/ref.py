@@ -31,7 +31,8 @@ graph visits 64729).
 The backward (:func:`cluster_attention_bwd`) recomputes the scores of
 every visited block from q, k and the forward's logsumexp, as the CUDA
 kernels do: dQ and the ``bias_table`` gradient over the forward layout,
-dK and dV over the transposed one.
+dK and dV over the transposed one. Without buckets it is the unbiased
+op's backward (the LM path), the positional causal mask included.
 """
 
 from __future__ import annotations
@@ -47,6 +48,15 @@ def _chunks(n: int, per_block: int):
     """Slices of ``range(n)`` active blocks, each within the chunk bound."""
     step = max(1, MAX_CHUNK_ENTRIES // per_block)
     return [slice(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def _causal_keep(ii, jj, bq: int, bk: int):
+    """``(A, bq, bk)`` bool: True where the q position of q-block ``ii``
+    is at or after the k position of k-block ``jj`` (the positional
+    causal mask, ``qpos >= kpos``)."""
+    qpos = ii[:, None] * bq + torch.arange(bq, device=ii.device)
+    kpos = jj[:, None] * bk + torch.arange(bk, device=jj.device)
+    return qpos[:, :, None] >= kpos[:, None, :]
 
 
 def _batched(block_idx, buckets, B):
@@ -97,9 +107,7 @@ def cluster_sparse_attention(q, k, v, block_idx, buckets=None,
                 bias = bias_table.float()[:, bkt.clamp(0, nb - 1)]
                 s = s + bias.permute(1, 0, 2, 3)
         if causal:
-            qpos = i_[:, None] * bq + torch.arange(bq, device=dev)
-            kpos = j_[:, None] * bk + torch.arange(bk, device=dev)
-            cm = (qpos[:, :, None] >= kpos[:, None, :])[:, None]
+            cm = _causal_keep(i_, j_, bq, bk)[:, None]
             valid = cm if valid is None else valid & cm
         if valid is not None:
             s = s.masked_fill(~valid, NEG_INF)
@@ -199,18 +207,17 @@ def bucket_sums(x, buckets, nb: int):
     return torch.stack(cols, dim=1)
 
 
-def _block_terms(q, k, v, dout, lse, delta, bb, ii, mm, jj, buckets,
-                 bias_table):
+def _block_terms(q, k, v, dout, lse, delta, bb, ii, mm, jj, nq, bk,
+                 buckets, bias_table, causal):
     """Recomputed ``p`` and ``ds`` ``(A, H, bq, bk)`` of the active blocks
     ``(graph bb, q-row ii, slot mm, k-block jj)``, with the gathered
-    fp32 q, dO, k tiles and the blocks' bucket tiles."""
+    fp32 q, dO, k tiles and the blocks' bucket tiles (None without
+    buckets)."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
-    nq = buckets.shape[1]
-    bq, bk = S // nq, buckets.shape[-1]
+    bq = S // nq
     nk = S // bk
-    nb = bias_table.shape[1]
     A = bb.numel()
     qa = q.reshape(B, nq, bq, KV, G, Dh)[bb, ii].float()   # (A,bq,KV,G,Dh)
     doa = dout.reshape(B, nq, bq, KV, G, Dh)[bb, ii].float()
@@ -218,9 +225,15 @@ def _block_terms(q, k, v, dout, lse, delta, bb, ii, mm, jj, buckets,
     va = v.reshape(B, nk, bk, KV, Dh)[bb, jj].float()
     s = torch.einsum("aqkgd,ackd->akgqc", qa, ka).reshape(A, H, bq, bk)
     s = s * Dh ** -0.5
-    bkt = buckets[bb, ii, mm].long()                        # (A,bq,bk)
-    s = s + bias_table.float()[:, bkt.clamp(0, nb - 1)].permute(1, 0, 2, 3)
-    s = s.masked_fill((bkt < 0)[:, None], NEG_INF)
+    bkt = None
+    if buckets is not None:
+        nb = bias_table.shape[1]
+        bkt = buckets[bb, ii, mm].long()                    # (A,bq,bk)
+        s = s + bias_table.float()[:, bkt.clamp(0, nb - 1)].permute(
+            1, 0, 2, 3)
+        s = s.masked_fill((bkt < 0)[:, None], NEG_INF)
+    if causal:
+        s = s.masked_fill(~_causal_keep(ii, jj, bq, bk)[:, None], NEG_INF)
     rows = (bb, slice(None), ii)
     p = torch.exp(s - lse.view(B, H, nq, bq)[rows][..., None])
     dp = torch.einsum("aqkgd,ackd->akgqc", doa, va).reshape(A, H, bq, bk)
@@ -228,42 +241,54 @@ def _block_terms(q, k, v, dout, lse, delta, bb, ii, mm, jj, buckets,
     return p, ds, qa, doa, ka, bkt
 
 
-def bwd_dq(q, k, v, dout, lse, delta, block_idx, buckets, bias_table):
+def block_dims(q, block_idx, buckets):
+    """``(nq, bq, bk)`` implied by the shapes: ``bq = S // nq``, ``bk``
+    from the buckets, or ``bk = bq`` without them."""
+    nq = block_idx.shape[-2]
+    bq = q.shape[1] // nq
+    return nq, bq, (buckets.shape[-1] if buckets is not None else bq)
+
+
+def bwd_dq(q, k, v, dout, lse, delta, block_idx, buckets, bias_table, *,
+           causal: bool = False):
     """dq ``(B, S, H, Dh)`` fp32 and the ``(H, n_buckets)`` fp32 bias
-    gradient, over the forward layout: the dQ kernel's function."""
+    gradient (None without buckets), over the forward layout: the dQ
+    kernels' function."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
+    nq, bq, bk = block_dims(q, block_idx, buckets)
     bi, bu = _batched(block_idx, buckets, B)
-    nq = bi.shape[1]
-    bq, bk = S // nq, bu.shape[-1]
-    nb = bias_table.shape[1]
     bb, ii, mm = torch.nonzero(bi >= 0, as_tuple=True)
     jj = bi[bb, ii, mm].long()
     dq = torch.zeros((B * nq, bq, H, Dh), device=q.device)
-    dbias = torch.zeros((H, nb), device=q.device)
+    dbias = None
+    if bu is not None:
+        nb = bias_table.shape[1]
+        dbias = torch.zeros((H, nb), device=q.device)
     for c in _chunks(bb.numel(), H * bq * bk):
-        _, ds, _, _, ka, bkt = _block_terms(q, k, v, dout, lse, delta, bb[c],
-                                            ii[c], mm[c], jj[c], bu,
-                                            bias_table)
+        _, ds, _, _, ka, bkt = _block_terms(
+            q, k, v, dout, lse, delta, bb[c], ii[c], mm[c], jj[c], nq, bk,
+            bu, bias_table, causal)
         a = ds.shape[0]
         dqa = torch.einsum("akgqc,ackd->aqkgd",
                            ds.view(a, KV, H // KV, bq, bk), ka)
         dq.index_add_(0, bb[c] * nq + ii[c],
                       dqa.reshape(a, bq, H, Dh) * Dh ** -0.5)
-        dbias += bucket_sums(ds, bkt, nb)
+        if dbias is not None:
+            dbias += bucket_sums(ds, bkt, nb)
     return dq.view(B, S, H, Dh), dbias
 
 
 def bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
-            bias_table):
+            bias_table, *, causal: bool = False):
     """Per-q-head dk and dv ``(B, S, H, Dh)`` fp32 over the transposed
-    layout: the dK/dV kernel's function."""
+    layout: the dK/dV kernels' function."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
-    _, bu = _batched(block_idx, buckets, B)
-    bq, bk = S // bu.shape[1], bu.shape[-1]
+    nq, bq, bk = block_dims(q, block_idx, buckets)
     nk = S // bk
+    _, bu = _batched(block_idx, buckets, B)
     bit = block_idx_t if block_idx_t.dim() == 4 else \
         block_idx_t.unsqueeze(0).expand(B, -1, -1, -1)
     bb, jj, tt = torch.nonzero(bit[..., 0] >= 0, as_tuple=True)
@@ -272,9 +297,9 @@ def bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
     dkh = torch.zeros((B * nk, bk, H, Dh), device=q.device)
     dvh = torch.zeros((B * nk, bk, H, Dh), device=q.device)
     for c in _chunks(bb.numel(), H * bq * bk):
-        p, ds, qa, doa, _, _ = _block_terms(q, k, v, dout, lse, delta, bb[c],
-                                            ii[c], mm[c], jj[c], bu,
-                                            bias_table)
+        p, ds, qa, doa, _, _ = _block_terms(
+            q, k, v, dout, lse, delta, bb[c], ii[c], mm[c], jj[c], nq, bk,
+            bu, bias_table, causal)
         a = p.shape[0]
         dva = torch.einsum("akgqc,aqkgd->ackgd", p.view(a, KV, G, bq, bk),
                            doa)
@@ -287,21 +312,24 @@ def bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
 
 
 def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
-                          bias_table, block_idx_t=None):
-    """Gradients ``(dq, dk, dv, dbias)`` of the biased op, in the dtypes
-    of q, k, v and ``bias_table``. ``out`` and ``lse`` are the forward's
-    output and logsumexp; ``block_idx_t`` is the transposed layout the
-    dK/dV pass walks (derived at the dense bound when omitted). Rows the
-    forward found dead carry ``lse = 0``, so their ``p`` underflows to 0,
-    as in the kernels."""
+                          bias_table, block_idx_t=None, *,
+                          causal: bool = False):
+    """Gradients ``(dq, dk, dv, dbias)`` of the op, in the dtypes of q, k,
+    v and ``bias_table`` (``dbias`` is None without buckets; ``causal``
+    masks positionally, as the unbiased forward). ``out`` and ``lse`` are
+    the forward's output and logsumexp; ``block_idx_t`` is the transposed
+    layout the dK/dV pass walks (derived at the dense bound when
+    omitted). Rows the forward found dead carry ``lse = 0``, so their
+    ``p`` underflows to 0, as in the kernels."""
     KV = k.shape[2]
     delta = row_delta(dout, out)
     dq, dbias = bwd_dq(q, k, v, dout, lse, delta, block_idx, buckets,
-                       bias_table)
+                       bias_table, causal=causal)
     if block_idx_t is None:
-        block_idx_t = derive_block_idx_t(block_idx,
-                                         q.shape[1] // buckets.shape[-1])
+        block_idx_t = derive_block_idx_t(
+            block_idx, q.shape[1] // block_dims(q, block_idx, buckets)[2])
     dkh, dvh = bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t,
-                       buckets, bias_table)
+                       buckets, bias_table, causal=causal)
     return (dq.to(q.dtype), group_sum(dkh, KV).to(k.dtype),
-            group_sum(dvh, KV).to(v.dtype), dbias.to(bias_table.dtype))
+            group_sum(dvh, KV).to(v.dtype),
+            None if dbias is None else dbias.to(bias_table.dtype))

@@ -20,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs import GRAPH_ARCHS, get_config, get_smoke_config
 from repro_torch.core.graph import sbm_graph
 from repro_torch.core.graph_model import GraphModel
 from repro_torch.serve import GraphServe
@@ -82,7 +82,8 @@ def serve_graph(args) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="graphormer_slim", choices=ARCHS)
+    ap.add_argument("--arch", default="graphormer_slim",
+                    choices=GRAPH_ARCHS)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda")

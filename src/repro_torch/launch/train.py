@@ -1,18 +1,28 @@
-"""Training CLI for the graph archs on the port (the node-task half of
-``repro.launch.train``'s graph mode).
+"""Training CLI on the port: the graph archs' node task and the dense
+LMs (the port of ``repro.launch.train`` without meshes, checkpoints and
+fault plans).
 
-Builds the reference's synthetic graph (SBM, ``p_in=0.04``,
+Graph archs: builds the reference's synthetic graph (SBM, ``p_in=0.04``,
 ``p_out=0.002``, seed 0), wraps it in a :class:`NodeTask` and trains
 through the :class:`Trainer`: the dense interleave step every
 ``--interleave-period`` steps, an AutoTuner epoch every
 ``--elastic-every`` steps. Prints every step's variant, loss, accuracy
 and ``beta_thre``, the ladder moves and the held-out evaluation.
 
+LM archs (``qwen3_0_6b``, ``smollm_135m``): trains the config as
+published on the synthetic token stream of ``data/lm_pipeline.py``
+(``--seq`` tokens, ``--batch`` sequences a step) through
+:class:`BatchFnTask`, and prints the loss every tenth of the run. The
+published LM configs run dense attention; the cluster-sparse backend is
+``cfg.replace(attn_backend="cluster_sparse")``, as in the reference.
+
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch graphormer_slim --smoke --steps 20 --graph-nodes 96 \\
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch graphormer_large --steps 16 --graph-nodes 8192
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
+      --smoke --steps 20 --seq 128 --batch 4 --device cpu
 """
 
 from __future__ import annotations
@@ -22,8 +32,10 @@ import argparse
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.graph import sbm_graph
 from repro_torch.core.graph_model import GraphModel
+from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+from repro_torch.models.lm import LMModel
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
-from repro_torch.tasks import NodeTask
+from repro_torch.tasks import BatchFnTask, NodeTask
 
 
 def main(argv=None):
@@ -32,13 +44,18 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="[LM archs] tokens per sequence")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="[LM archs] sequences per step")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--dtype", default=None,
                     choices=["float32", "bfloat16"],
                     help="override the config's activation dtype")
     ap.add_argument("--task", default="node",
                     choices=["node", "graph", "link"],
-                    help="workload (the port trains node classification)")
+                    help="[graph archs] workload (the port trains node "
+                         "classification)")
     ap.add_argument("--graph-nodes", type=int, default=512,
                     help="synthetic SBM graph size")
     ap.add_argument("--graph-clusters", type=int, default=4)
@@ -50,14 +67,16 @@ def main(argv=None):
                          "(-1 = config default, 0 = frozen layout)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.dtype:
+        cfg = cfg.replace(dtype=args.dtype)
+    if cfg.family != "graph":
+        return _lm_main(args, cfg)
     if args.task != "node":
         raise NotImplementedError(
             f"--task {args.task} is not ported yet (ROADMAP.md A.7); the "
             f"port trains --task node")
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if args.dtype:
-        cfg = cfg.replace(dtype=args.dtype)
     model = GraphModel(cfg, device=args.device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"arch={cfg.name} params={n_params:,} device={model.device}")
@@ -93,6 +112,26 @@ def main(argv=None):
     print(f"status={status} final_loss={trainer.history[-1]['loss']:.4f} "
           f"moves={len(task.moves)} "
           f"dense_steps={sum(1 for h in trainer.history if h['dense'])}")
+    return trainer
+
+
+def _lm_main(args, cfg):
+    model = LMModel(cfg, device=args.device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"arch={cfg.name} params={n_params:,} device={model.device} "
+          f"attn_backend={cfg.attn_backend} seq={args.seq} "
+          f"batch={args.batch}")
+    dc = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                      global_batch=args.batch)
+    tc = TrainerConfig(steps=args.steps, lr=args.lr,
+                       warmup=max(2, args.steps // 10))
+    trainer = Trainer(model, tc, task=BatchFnTask(lambda s: lm_batch(dc, s)))
+    status = trainer.run()
+    hist = trainer.history
+    for h in hist[:: max(1, len(hist) // 10)]:
+        print(f"step {h['step']:4d} loss {h['loss']:.4f} "
+              f"{h['seconds'] * 1e3:.0f}ms")
+    print(f"status={status} final_loss={hist[-1]['loss']:.4f}")
     return trainer
 
 

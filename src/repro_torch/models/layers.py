@@ -1,13 +1,17 @@
-"""Transformer layers the graph models use: RMSNorm, the attention
-projections, the SwiGLU MLP and the dense chunked attention of the
-interleave step — the port's counterparts of ``repro.models.layers``
-(``rmsnorm``, ``project_qkv``, ``out_proj``, ``mlp``,
+"""Transformer layers of the graph models and the token LMs: RMSNorm,
+the per-head qk-norm, RoPE, the attention projections, the SwiGLU MLP,
+the token embedding and its tied unembedding, the chunked cross-entropy,
+and the dense chunked attention (the graph model's interleave step, the
+LM's dense backend) — the port's counterparts of ``repro.models.layers``
+(``rmsnorm``, ``headnorm``, ``rope``, ``project_qkv``, ``out_proj``,
+``mlp``, ``embed_tokens``, ``logits_fn``, ``chunked_softmax_xent``,
 ``chunked_attention``).
 
 Parameters keep the reference's shapes (``wq`` is ``(D, H, Dh)``, ``wo``
-``(H, Dh, D)``), so a JAX parameter tree loads as it is. Parameters are
-fp32; compute runs in the activations' dtype, with fp32 inside the norm
-and the SiLU, as the reference does.
+``(H, Dh, D)``, ``tok`` ``(vocab_padded, D)``), so a JAX parameter tree
+loads as it is. Parameters are fp32; compute runs in the activations'
+dtype, with fp32 inside the norms, RoPE, the SiLU and the loss, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -31,21 +35,59 @@ def rmsnorm(p: RMSNorm, x, eps: float = 1e-6):
     return (y * p.scale.float()).to(x.dtype)
 
 
+def headnorm(scale, x, eps: float = 1e-6):
+    """Per-head RMSNorm over head_dim (qwen3 qk_norm). x: (..., H, Dh)."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_cos_sin(pos, d: int, theta: float):
+    """The rotation of :func:`rope` for positions ``pos`` ((B, S) or (S,)
+    int) and head dim ``d``: fp32 ``(cos, sin)``, each
+    ``(B or 1, S, 1, d // 2)``. Computed once per forward and shared by
+    every layer."""
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=pos.device) / half)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    ang = pos.float()[:, :, None] * freq[None, None, :]      # (B, S, half)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rope(x, pos, theta: float):
+    """Rotary embedding, llama split-half convention.
+
+    x: (B, S, H, Dh); pos: (B, S) or (S,) int positions, or the
+    ``(cos, sin)`` pair :func:`rope_cos_sin` made of them. theta==0 ->
+    no-op (NoPE).
+    """
+    if not theta:
+        return x
+    half = x.shape[-1] // 2
+    cos, sin = pos if isinstance(pos, tuple) else rope_cos_sin(
+        pos, x.shape[-1], theta)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 class Attention(nn.Module):
     """``wq`` ``(D, H, Dh)``, ``wk``/``wv`` ``(D, KV, Dh)``, ``wo``
-    ``(H, Dh, D)``. RoPE and qk-norm are not ported: the graph configs run
-    neither (``rope_theta=0``, ``qk_norm=False``)."""
+    ``(H, Dh, D)``; with ``qk_norm`` also the per-head ``q_norm`` and
+    ``k_norm`` scales ``(Dh,)``."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        if cfg.qk_norm or cfg.rope_theta:
-            raise NotImplementedError(
-                f"{cfg.name}: qk_norm / RoPE are not ported yet")
         D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
         self.wq = nn.Parameter(torch.empty(D, H, Dh, device=device))
         self.wk = nn.Parameter(torch.empty(D, KV, Dh, device=device))
         self.wv = nn.Parameter(torch.empty(D, KV, Dh, device=device))
         self.wo = nn.Parameter(torch.empty(H, Dh, D, device=device))
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.ones(Dh, device=device))
+            self.k_norm = nn.Parameter(torch.ones(Dh, device=device))
 
 
 def _proj(x, w):
@@ -54,9 +96,17 @@ def _proj(x, w):
     return out.view(*x.shape[:-1], *w.shape[1:])
 
 
-def project_qkv(p: Attention, x):
-    """x (B, S, D) -> q (B, S, H, Dh), k/v (B, S, KV, Dh)."""
-    return _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+def project_qkv(p: Attention, cfg, x, pos):
+    """x (B, S, D) -> q (B, S, H, Dh), k/v (B, S, KV, Dh), with qk_norm +
+    rope. ``pos`` as :func:`rope` takes it (unused when
+    ``cfg.rope_theta`` is 0)."""
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.qk_norm:
+        q = headnorm(p.q_norm, q, cfg.norm_eps)
+        k = headnorm(p.k_norm, k, cfg.norm_eps)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    return q, k, v
 
 
 def out_proj(p: Attention, x):
@@ -83,13 +133,16 @@ def mlp(p: MLP, x):
     return h @ p.w_down.to(dt)
 
 
-def _attend_q_chunk(qblk, kb, vb, q0: int, Sq: int, Sk: int, *bias_tiles):
+def _attend_q_chunk(qblk, kb, vb, q0: int, Sq: int, Sk: int, causal: bool,
+                    *bias_tiles):
     """Online softmax of one q-chunk ``(B, cq, KV, G, Dh)`` over every
     k-chunk of ``kb``/``vb`` ``(B, nk, ck, KV, Dh)``, with one bias tile
     per k-chunk (or none); returns ``(B, KV, G, cq, Dh)`` fp32. Scores and
     the PV product accumulate in fp32 from the inputs' values (the
     reference's ``preferred_element_type=F32``); the probabilities are
-    rounded to v's dtype before the PV product, as in the reference."""
+    rounded to v's dtype before the PV product, as in the reference.
+    ``causal`` masks ``qpos < kpos`` and skips the k-chunks it empties
+    (they would add nothing)."""
     B, cq, KV, G, Dh = qblk.shape
     nk, ck = kb.shape[1], kb.shape[2]
     dev = qblk.device
@@ -99,10 +152,14 @@ def _attend_q_chunk(qblk, kb, vb, q0: int, Sq: int, Sk: int, *bias_tiles):
     l = torch.zeros((B, KV, G, cq), device=dev)
     acc = torch.zeros((B, KV, G, cq, Dh), device=dev)
     for ki in range(nk):
+        if causal and ki * ck > q0 + cq - 1:
+            break
         s = torch.einsum("bqkgd,bckd->bkgqc", qf, kb[:, ki].float())
         s = s * Dh ** -0.5
         kpos = ki * ck + torch.arange(ck, device=dev)
         valid = (kpos < Sk)[None, :] & (qpos < Sq)[:, None]    # (cq, ck)
+        if causal:
+            valid = valid & (qpos[:, None] >= kpos[None, :])
         if bias_tiles:
             # zero-padded at the ragged edges (the padding is masked below)
             bb = bias_tiles[ki]
@@ -124,11 +181,12 @@ def _attend_q_chunk(qblk, kb, vb, q0: int, Sq: int, Sk: int, *bias_tiles):
     return acc / l.clamp_min(1e-30)[..., None]
 
 
-def chunked_attention(q, k, v, *, chunk_q: int = 2048, chunk_k: int = 1024,
-                      bias=None):
-    """Memory-bounded flash-style attention in plain PyTorch, non-causal
-    (the dense interleave step; the reference computes it in jnp, outside
-    any Pallas kernel; its causal form waits for the LM slice).
+def chunked_attention(q, k, v, *, causal: bool = False, chunk_q: int = 2048,
+                      chunk_k: int = 1024, bias=None):
+    """Memory-bounded flash-style attention in plain PyTorch (the graph
+    model's dense interleave step, and the LM's dense backend and short
+    sequences; the reference computes it in jnp, outside any Pallas
+    kernel). ``causal`` masks ``qpos < kpos``.
 
     q ``(B, Sq, H, Dh)``, k/v ``(B, Sk, KV, Dh)`` with ``H % KV == 0``
     (GQA; k/v are never repeated); ``bias`` an optional
@@ -152,7 +210,95 @@ def chunked_attention(q, k, v, *, chunk_q: int = 2048, chunk_k: int = 1024,
     tiles = [[] for _ in range(nq)] if bias is None else \
         [t.split(ck, dim=3) for t in bias.split(cq, dim=2)]
     outs = [checkpoint(_attend_q_chunk, qb[:, i], kb, vb, i * cq, Sq, Sk,
-                       *tiles[i], use_reentrant=False) for i in range(nq)]
+                       causal, *tiles[i], use_reentrant=False)
+            for i in range(nq)]
     out = torch.stack(outs, 1)                    # (B, nq, KV, G, cq, Dh)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, nq * cq, H, Dh)[:, :Sq]
     return out.to(q.dtype)
+
+
+class Embedding(nn.Module):
+    """``tok`` ``(vocab_padded, D)``, and ``unembed`` ``(D, vocab_padded)``
+    when the embeddings are not tied."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        D, Vp = cfg.d_model, cfg.vocab_padded
+        self.tok = nn.Parameter(torch.empty(Vp, D, device=device))
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(torch.empty(D, Vp, device=device))
+
+
+def embed_tokens(p: Embedding, tokens, dtype):
+    """tokens (B, S) int -> (B, S, D) in ``dtype`` (the decoder-only
+    families: no encoder-decoder scaling)."""
+    return F.embedding(tokens, p.tok).to(dtype)
+
+
+def _unembed(p: Embedding, cfg, dtype):
+    """The ``(D, vocab_padded)`` output projection in ``dtype``."""
+    w = p.tok.t() if cfg.tie_embeddings else p.unembed
+    return w.to(dtype)
+
+
+def logits_fn(p: Embedding, cfg, h):
+    """(B, S, D) -> (B, S, vocab_padded) logits in h's dtype."""
+    return h @ _unembed(p, cfg, h.dtype)
+
+
+def _xent_chunk(h, labels, w, vocab_size: int):
+    """Summed cross-entropy and label count of one chunk: fp32 logits of
+    ``h @ w``, the vocab padding masked to -1e30, labels -1 ignored."""
+    logits = (h @ w).float()
+    if w.shape[1] != vocab_size:    # mask vocab padding
+        pad = torch.arange(w.shape[1], device=h.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - ll) * mask).sum(), mask.sum()
+
+
+def chunked_softmax_xent(p: Embedding, cfg, h, labels, chunk: int = 512):
+    """Cross-entropy without materializing full (B, S, V) logits: one
+    sequence chunk at a time, each under ``torch.utils.checkpoint`` so the
+    backward recomputes its logits instead of keeping them (the
+    reference's ``@jax.checkpoint``). labels==-1 positions are masked
+    out. Returns the mean loss (fp32)."""
+    w = _unembed(p, cfg, h.dtype)
+    tot = cnt = 0.0
+    for a in range(0, h.shape[1], chunk):
+        t, c = checkpoint(_xent_chunk, h[:, a:a + chunk],
+                          labels[:, a:a + chunk], w, cfg.vocab_size,
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _def_name(name: str) -> str:
+    """``layers.3.attn.wq`` -> ``layers.attn.wq``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        del parts[1]
+    return ".".join(parts)
+
+
+@torch.no_grad()
+def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
+    """Initialise ``model``'s parameters from ``defs`` (``{name: (shape,
+    init)}``, per layer for ``layers.*`` names), drawn on the CPU in
+    registration order so the weights do not depend on the device. The
+    init families are the reference's: ``fan_in`` is a normal scaled by
+    ``shape[0] ** -0.5``, ``normal``/``embed`` a normal scaled by 0.02;
+    the random numbers are the port's own."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        shape, init = defs[_def_name(name)]
+        assert tuple(p.shape) == shape, (name, p.shape, shape)
+        if init == "zeros":
+            p.zero_()
+        elif init == "ones":
+            p.fill_(1.0)
+        else:
+            scale = shape[0] ** -0.5 if init == "fan_in" else 0.02
+            p.copy_(torch.randn(shape, generator=gen) * scale)

@@ -12,12 +12,16 @@ the port of ``repro.tasks.base.Task``.
 * ``state_dict`` / ``load_state_dict``  durable task state
 * ``log_extras() -> dict``     per-step scalars for the history record
 
-The reference's ``BatchFnTask`` (LM streams) waits for the LM slice.
+``BatchFnTask`` wraps a seekable ``step -> numpy batch`` stream (the LM
+families).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
+
+import numpy as np
+import torch
 
 from repro_torch.core.dual_attention import use_dense_step
 
@@ -74,3 +78,31 @@ class Task:
 
     def load_state_dict(self, d: dict) -> None:
         pass
+
+
+class BatchFnTask(Task):
+    """The trivial task: a seekable ``step -> host batch`` stream (numpy
+    arrays, e.g. ``data/lm_pipeline.lm_batch``) and the model's primary
+    ("sparse") loss, as the reference's ``BatchFnTask``. Integer arrays
+    reach the model's device as int64 (token ids, labels), float arrays
+    as they are."""
+
+    name = "stream"
+
+    def __init__(self, batch_fn: Callable[[int], dict]):
+        self.batch_fn = batch_fn
+
+    def batches(self, step: int) -> dict:
+        out = {}
+        for key, arr in self.batch_fn(step).items():
+            x = torch.from_numpy(np.ascontiguousarray(arr))
+            if not x.is_floating_point():
+                x = x.long()
+            out[key] = x.to(self.model.device)
+        return out
+
+    @property
+    def loss_variants(self) -> dict[str, Callable]:
+        # streams train the primary variant only: the interleave schedule
+        # belongs to tasks that own a layout to interleave against
+        return {"sparse": self.model.loss_variants["sparse"]}

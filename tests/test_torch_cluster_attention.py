@@ -158,7 +158,8 @@ def test_full_layout_equals_dense(jax_mode, mode):
 
 def test_unbiased_causal_plain_matches_jax_ref(jax_mode):
     """Without buckets the CPU op is the plain version, causal mask
-    included (the kernel for this case is not ported yet)."""
+    included (tests/test_torch_cluster_attention_causal.py covers the
+    unbiased op's LM layouts and gradients)."""
     S, bq = 128, 32
     nq = S // bq
     bi = np.full((nq, 2), -1, np.int32)

@@ -1,13 +1,17 @@
-"""The CUDA cluster-attention kernels (the forward, and the dQ and dK/dV
-backward kernels) against their plain PyTorch versions, on the card. Skipped where there is no CUDA device. This file imports
-neither jax nor the JAX package, so it also runs on a machine without
-them:
+"""The CUDA cluster-attention kernels (the biased forward, dQ and dK/dV
+kernels of the graph path, and the unbiased, optionally causal ones of
+the LM path) against their plain PyTorch versions, on the card. Skipped
+where there is no CUDA device. This file imports neither jax nor the
+JAX package, so it also runs on a machine without them:
 
   PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \\
       -m cuda tests/test_torch_cuda.py
 
 Tolerances: O within 2e-5 in fp32 and 2e-2 in bf16 (one bf16 rounding of
-outputs near 1), lse within 1e-4 (fp32 sums in another order). Gradients
+outputs near 1); the unbiased O, whose rows average many keys and lie
+mostly far below 1, also element by element within 1e-5 + 2^-7 |plain|
+in bf16 (both sides round an fp32 value once: at most one bf16 ulp
+apart); lse within 1e-4 (fp32 sums in another order). Gradients
 dq, dk, dv and dbias: max |kernel - plain| within 1e-4 (fp32) or 1e-2
 (bf16: one rounding of each output, and of each per-q-head dk/dv before
 the GQA sum) of max |plain|.
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.reformation import lm_local_global_layout
 from repro_torch.kernels import cluster_attention as tca
 from repro_torch.kernels import cluster_attention_bwd as tcab
 from repro_torch.kernels import ops, ref
@@ -27,6 +32,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 TOL_GRAD = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+TOL_O_BF16 = (1e-5, 2 ** -7)   # unbiased O, bf16: (atol, rtol)
 
 
 @pytest.fixture
@@ -87,11 +93,24 @@ def test_kernel_dead_rows_and_full_layout(dev):
 
 
 def test_kernel_rejects_unported_variants(dev):
+    """fp16 is no kernel's dtype; the unbiased kernels take Dh 64 or 128,
+    q-blocks in multiples of 64 rows and the batch-shared 2-D layout,
+    and say so with the shapes."""
     lay = graph_layout()
     q, k, v, bias = qkv(1, lay.seq_len, 4, 4, 8)
     args = [torch.from_numpy(x).to(dev) for x in (q, k, v, lay.block_idx)]
-    with pytest.raises(NotImplementedError, match="row 2"):
+    with pytest.raises(NotImplementedError, match="Dh in"):
         ops.cluster_attention(*args)
+    lm = lm_local_global_layout(512, window=128, n_global=128)
+    bi = torch.from_numpy(lm.block_idx).to(dev)
+    q, k, v, _ = qkv(2, lm.seq_len, 4, 2, 32)
+    q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
+    with pytest.raises(NotImplementedError, match="Dh in"):
+        ops.cluster_attention(q, k, v, bi, causal=True)
+    q, k, v, _ = qkv(2, lm.seq_len, 4, 2, 64)
+    q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
+    with pytest.raises(NotImplementedError, match="batch-shared"):
+        ops.cluster_attention(q, k, v, torch.stack([bi, bi]), causal=True)
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         ops.cluster_attention(*[a.half() for a in args[:3]], args[3],
                               torch.from_numpy(lay.buckets).to(dev))
@@ -166,3 +185,76 @@ def test_bwd_kernels_dead_rows_and_full_layout(dev):
     # one bucket everywhere shifts every score of a row alike, which the
     # softmax cancels: the bias gradient is zero up to rounding
     assert dbias.abs().max().item() < 1e-4
+
+
+def _run_unbiased(dev, dtype, q, k, v, bi, bit, causal):
+    """The unbiased op on the card (forward kernel, then under autograd
+    the dQ and dK/dV kernels) against the plain versions on the same
+    inputs: O, lse, dq, dk and dv."""
+    q, k, v = (torch.from_numpy(x).to(dev).to(dtype) for x in (q, k, v))
+    bi = torch.from_numpy(np.array(bi, copy=True)).to(dev)
+    bit = None if bit is None else torch.from_numpy(
+        np.array(bit, copy=True)).to(dev)
+    before = tca.unbiased_launches
+    o, lse = ops.cluster_attention(q, k, v, bi, causal=causal,
+                                   return_lse=True)
+    assert tca.unbiased_launches == before + 1
+    po, plse = ops.cluster_attention(q, k, v, bi, causal=causal,
+                                     return_lse=True, impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        atol, rtol = TOL_O_BF16
+        torch.testing.assert_close(o.float(), po.float(), atol=atol,
+                                   rtol=rtol)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dout = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    counts = (tca.unbiased_launches, tcab.dq_unbiased_launches,
+              tcab.dkv_unbiased_launches)
+    out = ops.cluster_attention(*leaves, bi, None, None, bit, causal=causal)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (tca.unbiased_launches, tcab.dq_unbiased_launches,
+            tcab.dkv_unbiased_launches) == tuple(c + 1 for c in counts)
+    want = ref.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None, None,
+                                     bit, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= TOL_GRAD[dtype], (name, rel)
+    return o, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV,Dh", [(4, 2, 128), (9, 3, 64), (4, 4, 64)])
+@pytest.mark.parametrize("with_bit", [True, False])
+def test_unbiased_kernels_match_plain_lm_layout(dev, dtype, causal, H, KV,
+                                                Dh, with_bit):
+    """The LM local+global layout (S=1024, window 256, one global
+    block), causal or not, GQA and not, Dh 128/64, with the host-built
+    transposed layout and without (derived)."""
+    lay = lm_local_global_layout(1024, window=256, n_global=128,
+                                 causal=causal)
+    q, k, v, _ = qkv(1, lay.seq_len, H, KV, Dh)
+    _run_unbiased(dev, dtype, q, k, v, lay.block_idx,
+                  lay.block_idx_t if with_bit else None, causal)
+
+
+def test_unbiased_kernels_batch_and_dead_row(dev):
+    """B=2 on the shared 2-D layout, then with a dead q-block row (O, dq
+    zero there in both sequences)."""
+    lay = lm_local_global_layout(512, window=128, n_global=128)
+    q, k, v, _ = qkv(2, lay.seq_len, 4, 2, 64, seed=3)
+    _run_unbiased(dev, torch.float32, q, k, v, lay.block_idx,
+                  lay.block_idx_t, True)
+    bi = np.array(lay.block_idx, copy=True)
+    bi[2] = -1
+    o, (dq, _, _) = _run_unbiased(dev, torch.float32, q, k, v, bi, None,
+                                  True)
+    assert not o[:, 256:384].any() and not dq[:, 256:384].any()

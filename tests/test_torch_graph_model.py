@@ -22,7 +22,8 @@ from repro.core.graph import sbm_graph as jax_sbm
 from repro.data.graph_pipeline import prepare_node_task as jax_prepare
 from repro.models import build
 from repro.nn import param as nnp
-from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs import GRAPH_ARCHS as ARCHS
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import graph_model as tgm
 from repro_torch.core.graph import sbm_graph
