@@ -30,6 +30,14 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    timed; one ``scaled_dot_product_attention`` with the layout as a dense
    boolean mask, and one with ``is_causal``, timed beside them, forward
    and backward;
+3d. the dense flash forward, dQ and dK/dV kernels and the Mamba2 SSD
+   scan vs their plain versions: at full width (Qwen3-0.6B's attention,
+   S=16384, 16 q heads over 8, Dh 128, causal; Mamba2-2.7B's 80 heads of
+   dh 64, N 128, chunk 256, S=16384) in bf16 and fp32, and on small cases
+   (non-causal, ragged S, Dh 32 and 64, B=2, hoist_scale, the SSD
+   default case); each kernel and each plain half timed, one
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+   timed beside the flash kernels, forward and backward;
 4. serve (the first main path): GraphServe on Graphormer-Large at full
    width, seeded random weights, on the 32768-node SBM — 64 node and 2x64
    link queries, answered twice (the second time from the layout cache).
@@ -44,13 +52,19 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    random inputs, and the kernel path and the plain path must give the
    same loss and gradients on one sparse step; one sparse and one dense
    step are profiled;
-6. LM train (this slice's main path): Qwen3-0.6B at full width and depth
+6. LM train (slice 3's main path): Qwen3-0.6B at full width and depth
    with the cluster-sparse attention backend, bf16 compute, fp32
    parameters and moments, seeded init, on the synthetic token stream
    (S=16384, batch 1) through ``BatchFnTask`` and ``Trainer``: 4 steps,
    finite and falling losses, 28 launches of each unbiased kernel a step.
    One step by the kernel path and one by the plain path on the same
-   batch must agree; one step is profiled.
+   batch must agree; one step is profiled;
+7. tune (this slice's main path): the autotuner on the card as
+   ``python -m repro_torch.tune`` runs it (wall-clock search of every op
+   on its default case), then the full-width flash and SSD cases, then
+   ``check_regression`` (the cluster entry, the full-width flash and SSD
+   winners); every winner gated kernel-vs-plain, the table read back by
+   CUDA dispatch, each flash and SSD kernel launched.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after.
@@ -119,6 +133,417 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def cuda_ms(fn, reps):
+    """Median of ``reps`` CUDA-event timings of ``fn`` (after one warm-up
+    call), in ms."""
+    import numpy as np
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+# ---------------------------------- the flash and SSD kernels (rows 7-10)
+
+FLASH_SEQ = 16384     # Qwen3-0.6B's training shape, dense causal
+SSD_SEQ = 16384       # Mamba2-2.7B's shape at the same length
+# SSD, kernel vs plain: y as max|diff| over max|plain| (bf16: one rounding
+# of the output; fp32: sums in another order), the fp32 state likewise
+TOL_SSD_Y = {"bfloat16": 2e-2, "float32": 1e-4}
+TOL_SSD_STATE = 1e-4
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).split(".")[1]
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def flash_entries(Sq: int, Sk: int, causal: bool) -> int:
+    """Score entries one head needs: every (q, k) pair, or with the causal
+    mask the pairs with qpos >= kpos."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
+
+
+def flash_bound(kind, q, k, causal):
+    """Least time of one flash kernel: each input read once, each output
+    written once, and the arithmetic of the score entries the function
+    needs at the peak rate of q's dtype. Forward: q, k, v in, O and lse
+    out, 4 flop per entry per Dh (scores, PV). dQ: q, k, v, dO, lse,
+    delta in, dq out, 6 (scores, dp, dq). dK/dV: the same inputs,
+    per-q-head dk and dv out, 8 (scores, dp, dv, dk). Returns (ms,
+    "bytes" | "operations")."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    elt = q.element_size()
+    rows = B * H * Sq * 4
+    qkv_b = (q.numel() + 2 * k.numel()) * elt
+    if kind == "fwd":
+        n_bytes, per = qkv_b + q.numel() * elt + rows, 4.0
+    elif kind == "dq":
+        n_bytes, per = qkv_b + 2 * q.numel() * elt + 2 * rows, 6.0
+    else:
+        n_bytes = qkv_b + q.numel() * elt + 2 * rows + 2 * B * Sk * H * Dh \
+            * elt
+        per = 8.0
+    flops = per * B * H * flash_entries(Sq, Sk, causal) * Dh
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[_dtype_name(q)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bound(x, b, chunk):
+    """Least time of the SSD scan: x, dt, a, b, c read once, y and the
+    final state written once, and the arithmetic the function needs at
+    the peak rate of x's dtype: C B^T over each chunk's lower triangle
+    once per (batch, chunk) (the heads share b and c), and per head the
+    intra-chunk product over the lower triangle, C S^T and the state
+    update (2 flop per multiply-add). Returns (ms, "bytes" |
+    "operations")."""
+    B, S, H, dh = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, S)
+    nc = S // Q
+    tri = Q * (Q + 1) // 2
+    elt = x.element_size()
+    n_bytes = (2 * x.numel() + 2 * b.numel()) * elt + B * S * H * 4 + H * 4 \
+        + B * H * dh * N * 4
+    flops = 2.0 * (B * nc * tri * N + B * H * nc * tri * dh
+                   + 2 * B * H * S * N * dh)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[_dtype_name(x)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flash_inputs(dev, dtype, B, Sq, Sk, H, KV, Dh, seed):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh),
+                          (B, Sq, H, Dh))]
+
+
+def _ssd_inputs(dev, dtype, B, S, H, dh, N, seed):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device=dev) - 2)
+    a = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.3)
+    b = torch.randn(B, S, N, generator=gen, device=dev).to(dtype)
+    c = torch.randn(B, S, N, generator=gen, device=dev).to(dtype)
+    return x, dt, a, b, c
+
+
+def compare_flash(tag, q, k, v, dout, kw):
+    """The flash forward kernel against the plain forward (O, lse), then
+    the dQ and dK/dV kernels against the plain dQ and dK/dV on the
+    forward kernel's O and lse and ``dout``: O held to TOL_O and, element
+    by element, to TOL_O_ELEM; dq and the per-q-head dk and dv as
+    max|diff| over max|plain| to TOL_GRAD. Returns the max abs errors
+    {"fwd", "dq", "dkv"} and the backward's operands."""
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+
+    dt = _dtype_name(q)
+    o, lse = tfa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    po, plse = ref.flash_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    diff = (o.float() - po.float()).abs()
+    atol, rtol = TOL_O_ELEM[dt]
+    share = (diff / (atol + rtol * po.float().abs())).max().item()
+    err, lerr = diff.max().item(), (lse - plse).abs().max().item()
+    del diff
+    ok = torch.allclose(o.float(), po.float(), atol=TOL_O[dt],
+                        rtol=TOL_O[dt]) and share <= 1.0 and torch.allclose(
+        lse, plse, atol=TOL_LSE, rtol=1e-5) and bool(torch.isfinite(o).all())
+    del po, plse
+    delta = ref.row_delta(dout, o)
+    ops_ = [tfa.aligned(x) for x in (q, k, v, dout)]
+    flags = (kw["causal"], kw["hoist_scale"])
+    got = (tfa.dq_kernel(*ops_, lse, delta, *flags),) + tfa.dkv_kernel(
+        *ops_, lse, delta, *flags)
+    want = (ref.flash_bwd_dq(q, k, v, dout, lse, delta, **kw),) + \
+        ref.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    rels = [_rel(x, y) for x, y in zip(got, want)]
+    errs = [(x.float() - y.float()).abs().max().item()
+            for x, y in zip(got, want)]
+    ok = ok and all(r <= TOL_GRAD[dt] for r in rels) and all(
+        bool(torch.isfinite(x).all()) for x in got)
+    log(f"[flash-kernel] {tag} {dt} ({kw['block_q']}x{kw['block_k']}"
+        f"{', hoist_scale' if kw['hoist_scale'] else ''}): max|dO|={err:.3g}"
+        f", worst element at {share:.3g} of {atol:g} + {rtol:g}|O|, "
+        f"max|dlse|={lerr:.3g}; rel dq {rels[0]:.3g} dk {rels[1]:.3g} dv "
+        f"{rels[2]:.3g} (tol {TOL_GRAD[dt]}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions: {tag} {dt}")
+    del got, want
+    return ({"fwd": err, "dq": errs[0], "dkv": max(errs[1], errs[2])},
+            (o, lse, delta, ops_))
+
+
+def compare_ssd(tag, x, dt, a, b, c, chunk):
+    """The SSD kernel against ``ssd_chunked``: y and the final state as
+    max|diff| over max|plain| within TOL_SSD_Y and TOL_SSD_STATE. Returns
+    the max abs error of y."""
+    import torch
+    from repro_torch.kernels import ssd as tks
+    from repro_torch.models.ssm import ssd_chunked
+
+    name = _dtype_name(x)
+    y, state = tks.ssd_fwd(x, dt, a, b, c, chunk=chunk)
+    py, pstate = ssd_chunked(x, dt, a, b, c, chunk)
+    torch.cuda.synchronize()
+    ry, rs = _rel(y, py), _rel(state, pstate)
+    ok = ry <= TOL_SSD_Y[name] and rs <= TOL_SSD_STATE and bool(
+        torch.isfinite(y).all())
+    log(f"[ssd-kernel] {tag} {name} (chunk {chunk}): rel y {ry:.3g} (tol "
+        f"{TOL_SSD_Y[name]}), rel state {rs:.3g} (tol {TOL_SSD_STATE}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"SSD kernel disagrees with ssd_chunked: {tag} "
+                             f"{name}")
+    return (y.float() - py.float()).abs().max().item()
+
+
+def flash_yardstick(dev, dtype):
+    """One ``scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` at the flash kernels' full-width shape on the same
+    inputs (the same function), on PyTorch's own pick of backend: its
+    forward, and its backward (dq, dk and dv together: no library call
+    computes one alone). Returns {library_ms, library_bwd_ms,
+    library_max_abs_diff_vs_plain} or the error it hit."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+
+    q, k, v, dout = _flash_inputs(dev, dtype, 1, FLASH_SEQ, FLASH_SEQ, 16, 8,
+                                  128, seed=51)
+    rec = {}
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    gout = dout.transpose(1, 2)
+    try:
+        with torch.no_grad():
+            so = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                enable_gqa=True)
+        po = ref.flash_fwd(q, k, v, causal=True, block_q=128, block_k=128)
+        rec["library_max_abs_diff_vs_plain"] = (
+            so.transpose(1, 2).float() - po.float()).abs().max().item()
+        del so, po
+        rec["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                *(x.detach() for x in leaves), is_causal=True,
+                enable_gqa=True), 5)
+        og = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                            enable_gqa=True)
+        rec["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            og, leaves, gout, retain_graph=True), 5)
+        del og
+    except RuntimeError as e:   # out of memory included: recorded
+        rec["library_error"] = \
+            f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+    log(f"[flash-yardstick] SDPA is_causal enable_gqa S={FLASH_SEQ} "
+        f"{_dtype_name(q)}: "
+        + (f"fwd {rec['library_ms']:.4f} ms, bwd {rec['library_bwd_ms']:.4f} "
+           f"ms, max|O - plain O| {rec['library_max_abs_diff_vs_plain']:.3g}"
+           if "library_bwd_ms" in rec
+           else rec.get("library_error", "not measured")))
+    del q, k, v, dout, leaves, gout
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flash_ssd_kernels(dev):
+    """Phase 3d: the flash forward, dQ and dK/dV kernels and the SSD scan
+    against their plain versions, at full width in bf16 and fp32 (flash:
+    Qwen3-0.6B's attention at S=16384, 16 q heads over 8, Dh 128, causal,
+    B=1, the default 128 x 128 schedule; SSD: Mamba2-2.7B's 80 heads of
+    dh 64, N 128, chunk 256, S=16384, B=1, x/b/c in the dtype, dt and a
+    fp32), each kernel and each plain half timed, the SDPA yardstick
+    (``flash_yardstick``, bf16) beside the flash kernels; then small
+    cases. Returns {dtype: {half: record}}."""
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as tks
+    from repro_torch.models.ssm import ssd_chunked
+
+    rec = {}
+    kw = {"causal": True, "block_q": 128, "block_k": 128,
+          "hoist_scale": False}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        q, k, v, dout = _flash_inputs(dev, dtype, 1, FLASH_SEQ, FLASH_SEQ,
+                                      16, 8, 128, seed=51)
+        errs, (o, lse, delta, (qa, ka, va, da)) = compare_flash(
+            "Qwen3-0.6B attention, S=16384, causal", q, k, v, dout, kw)
+        runs = {
+            "fwd": (lambda: tfa.flash_attention_fwd(
+                        q, k, v, return_lse=True, **kw),
+                    lambda: ref.flash_fwd(q, k, v, return_lse=True, **kw)),
+            "dq": (lambda: tfa.dq_kernel(qa, ka, va, da, lse, delta, True,
+                                         False),
+                   lambda: ref.flash_bwd_dq(q, k, v, dout, lse, delta,
+                                            **kw)),
+            "dkv": (lambda: tfa.dkv_kernel(qa, ka, va, da, lse, delta, True,
+                                           False),
+                    lambda: ref.flash_bwd_dkv(q, k, v, dout, lse, delta,
+                                              **kw))}
+        rec[dt] = {}
+        for half, (kern, plain) in runs.items():
+            r = rec[dt][half] = {"max_abs_err": errs[half]}
+            r["ms"] = cuda_ms(kern, 5)
+            r["plain_ms"] = cuda_ms(plain, 2)
+            r["bound_ms"], r["bound_by"] = flash_bound(half, q, k, True)
+            log(f"[flash-kernel] S={FLASH_SEQ} {dt} {half}: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['ms']:.2%} of bound")
+        del q, k, v, dout, o, lse, delta, qa, ka, va, da
+        torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            rec[dt].update(flash_yardstick(dev, dtype))
+        x, dtv, a, b, c = _ssd_inputs(dev, dtype, 1, SSD_SEQ, 80, 64, 128,
+                                      seed=52)
+        r = rec[dt]["ssd"] = {"max_abs_err": compare_ssd(
+            "Mamba2-2.7B, S=16384", x, dtv, a, b, c, 256)}
+        r["ms"] = cuda_ms(lambda: tks.ssd_fwd(x, dtv, a, b, c, chunk=256), 5)
+        r["plain_ms"] = cuda_ms(lambda: ssd_chunked(x, dtv, a, b, c, 256), 2)
+        r["bound_ms"], r["bound_by"] = ssd_bound(x, b, 256)
+        log(f"[ssd-kernel] S={SSD_SEQ} {dt}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2%} of bound")
+        del x, dtv, a, b, c
+        torch.cuda.empty_cache()
+
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        for j, (tag, B, Sq, Sk, H, KV, Dh, causal, bq, bk, hoist) in \
+                enumerate((
+                    ("non-causal S=2048, H=16 KV=8 Dh=128", 1, 2048, 2048,
+                     16, 8, 128, False, 128, 128, False),
+                    ("ragged S=1000, H=4 KV=2 Dh=64", 1, 1000, 1000, 4, 2,
+                     64, True, 128, 128, False),
+                    ("Dh 32, B=2, S=512, H=4 KV=4", 2, 512, 512, 4, 4, 32,
+                     True, 128, 128, True),
+                    ("Dh 64, B=2, Sq=300 Sk=500, H=8 KV=2", 2, 300, 500, 8,
+                     2, 64, True, 64, 256, True),
+                    ("the tuner's default case, S=256 H=4 Dh=32", 1, 256,
+                     256, 4, 4, 32, True, 128, 128, False))):
+            q, k, v, dout = _flash_inputs(dev, dtype, B, Sq, Sk, H, KV, Dh,
+                                          seed=60 + 10 * i + j)
+            compare_flash(tag, q, k, v, dout,
+                          {"causal": causal, "block_q": bq, "block_k": bk,
+                           "hoist_scale": hoist})
+        for j, (tag, B, S, H, dh, N, chunk) in enumerate((
+                ("the tuner's default case, 2 heads dh 8 N 4", 1, 256, 2, 8,
+                 4, 256),
+                ("B=2, 3 heads dh 64 N 128", 2, 512, 3, 64, 128, 128),
+                ("chunk 48, dh 16 N 20", 1, 96, 2, 16, 20, 48))):
+            compare_ssd(tag, *_ssd_inputs(dev, dtype, B, S, H, dh, N,
+                                          seed=80 + 10 * i + j), chunk)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tune_phase(dev, reset_counts, read_counts):
+    """Phase 7, the slice's main path: the autotuner on the card, as
+    ``python -m repro_torch.tune`` runs it (wall-clock search of every op
+    on its default case), then the full-width cases (flash: S=16384, 16
+    heads, Dh 128, self-attention; SSD: S=16384, 80 heads, dh 64, N 128),
+    then ``check_regression`` of the cluster entry (the reference's check)
+    and of the full-width flash and SSD winners. Every winner is gated
+    kernel-vs-plain; the table and BENCH file go to a temporary
+    directory, and dispatch of CUDA tensors must read the card's winners
+    back from the table. The kernels' launch counts are set to 0 just
+    before and read just after; rows 7-10 must each have launched."""
+    import tempfile
+
+    import torch
+    from repro_torch.tune import cases, runtime, search
+    from repro_torch.tune.schedule import Schedule
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    table, records = search.tune_all(device=dev, log=log)
+    full = [cases.flash_case(FLASH_SEQ, heads=16, d_head=128, device=dev),
+            cases.ssd_case(SSD_SEQ, heads=80, d_head=64, n_state=128,
+                           device=dev)]
+    for case in full:
+        winner, rec = search.tune_op(case["op"], case=case, log=log)
+        table.put(rec["bucket"], winner, source=rec["source"],
+                  mode=rec["mode"], fwd_us=rec["fwd_us"],
+                  bwd_us=rec["bwd_us"], default_fwd_us=rec["default_fwd_us"],
+                  default_bwd_us=rec["default_bwd_us"])
+        records.append(rec)
+    # the reference's check (the cluster op's default case, whose winner
+    # is the default: timed once), and the same check of the full-width
+    # flash and SSD winners (3 rounds of 3 calls a side)
+    checks = [search.check_regression(table, device=dev, iters=20, rounds=5,
+                                      log=log)]
+    checks += [search.check_regression(table, op=case["op"], case=case,
+                                       device=dev, iters=3, rounds=3,
+                                       log=log) for case in full]
+    del full, case
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, runtime.DEFAULT_TABLE_PATH)
+        table.save(path)
+        with open(os.path.join(tmp, "BENCH_autotune_torch.json"), "w") as fh:
+            json.dump({"schema": list(search.AUTOTUNE_SCHEMA),
+                       "backend": table.backend, "records": records,
+                       "checks": checks}, fh)
+        if not runtime.refresh(path):
+            raise AssertionError("the winner table did not load back")
+        for rec in records:
+            got = runtime.lookup(rec["op"], rec["bucket"], device_type="cuda")
+            if got != Schedule.from_json(rec["schedule"]):
+                raise AssertionError(f"CUDA dispatch resolved {got} for "
+                                     f"{rec['bucket']}, not the winner")
+        runtime.reset()
+    for rec in records:
+        log(f"[tune] {rec['bucket']}: "
+            f"{Schedule.from_json(rec['schedule']).describe()} ({rec['mode']}"
+            f"), fwd {rec['fwd_us']} us, fwd+grads {rec['bwd_us']} us; "
+            f"default {rec['default_fwd_us']} / {rec['default_bwd_us']} us; "
+            f"speedup {rec['speedup']}x")
+    rows = ("flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv", "ssd_fwd")
+    log(f"[tune] {seconds:.1f}s, table gated on {table.backend}, launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    if not all(counts[n] > 0 for n in rows):
+        raise AssertionError(f"the tune phase did not launch every kernel of "
+                             f"rows 7-10: {counts}")
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"a tuned schedule regressed: {checks}")
+    return {"launches": counts, "records": records, "checks": checks,
+            "seconds": seconds, "backend": table.backend}
+
+
 def main() -> int:
     import torch
 
@@ -142,7 +567,9 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import cluster_attention as tca
     from repro_torch.kernels import cluster_attention_bwd as tcab
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as tks
     from repro_torch.launch.serve import degree_scaled_sbm
     from repro_torch.models.lm import LMModel, lm_loss
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -167,7 +594,7 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_UNBIASED,
-            tcab.LIBRARY_UNBIASED)
+            tcab.LIBRARY_UNBIASED, tfa.LIBRARY, tfa.LIBRARY_BWD, tks.LIBRARY)
     t0 = time.perf_counter()
     kbuild.build_all(libs)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
@@ -179,22 +606,6 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     # -------------------------------------------- 3. kernels vs plain
-    def cuda_ms(fn, reps):
-        """Median of ``reps`` CUDA-event timings of ``fn`` (after one
-        warm-up call), in ms."""
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
-
     def bound(q, k, v, block_idx, buckets, with_lse=False):
         """Least time the card could take: each input read once (only the
         bucket tiles the layout visits), each output written once, and
@@ -856,10 +1267,15 @@ def main() -> int:
     del lm_o, lm_bi, lm_bit
     torch.cuda.empty_cache()
 
+    # -------------- 3d. the flash and SSD kernels (rows 7-10) vs plain
+    flash_rec = flash_ssd_kernels(dev)
+
     # ------------------------------------------- 4. serve (first main path)
     def reset_counts():
         tca.reset_count()
         tcab.reset_count()
+        tfa.reset_count()
+        tks.reset_count()
 
     def read_counts():
         return {"cluster_attention_fwd": tca.launches,
@@ -869,7 +1285,11 @@ def main() -> int:
                 "cluster_attention_bwd_dq_unbiased":
                     tcab.dq_unbiased_launches,
                 "cluster_attention_bwd_dkv_unbiased":
-                    tcab.dkv_unbiased_launches}
+                    tcab.dkv_unbiased_launches,
+                "flash_attention_fwd": tfa.launches,
+                "flash_attention_bwd_dq": tfa.dq_launches,
+                "flash_attention_bwd_dkv": tfa.dkv_launches,
+                "ssd_fwd": tks.launches}
 
     def only(**want):
         """The launch counts of a path that launches ``want`` and nothing
@@ -991,7 +1411,7 @@ def main() -> int:
     main_path = serve(large, seed=0)
     slim_run = serve(slim, seed=0)
 
-    # ------------------------------------------ 5. train (this slice's path)
+    # --------------------------------------------- 5. train (slice 2's path)
     def train():
         g8 = degree_scaled_sbm(TRAIN_NODES, CLUSTERS, large, seed=0)
         train_mask = np.random.default_rng(0).random(g8.n) < 0.5
@@ -1130,7 +1550,7 @@ def main() -> int:
 
     train_run = train()
 
-    # ----------------------------------------- 6. LM train (this slice's path)
+    # ---------------------------------------- 6. LM train (slice 3's path)
     def train_lm():
         cfg = get_config("qwen3_0_6b").replace(attn_backend="cluster_sparse")
         model = LMModel(cfg, device=dev, seed=0)
@@ -1220,6 +1640,9 @@ def main() -> int:
 
     lm_run = train_lm()
 
+    # ------------------------------------ 7. tune (this slice's main path)
+    tune_run = tune_phase(dev, reset_counts, read_counts)
+
     # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
     yard8 = yard[str(YARDSTICK_NODES)]
@@ -1297,6 +1720,34 @@ def main() -> int:
             **{k: v for k, v in b.items() if k.startswith("ms_without")}})
     kernels[3]["lm_yardstick"] = lm_yard
     kernels[3]["lm_train"] = lm_run
+    # the flash kernels and the SSD scan: times at full width in bf16,
+    # launches from the tune phase
+    for half, name, src, line in (
+            ("fwd", "flash_attention_fwd", "flash_attention_fwd.cu",
+             "flash_attention.py:34"),
+            ("dq", "flash_attention_bwd_dq", "flash_attention_bwd.cu",
+             "flash_attention.py:175"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+             "flash_attention.py:224"),
+            ("ssd", "ssd_fwd", "ssd.cu", "ssd.py:29")):
+        b = flash_rec["bfloat16"]
+        lib = None if half == "ssd" else b.get(
+            "library_ms" if half == "fwd" else "library_bwd_ms")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": tune_run["launches"][name],
+            "max_abs_err": b[half]["max_abs_err"], "ms": b[half]["ms"],
+            "plain_ms": b[half]["plain_ms"], "bound_ms": b[half]["bound_ms"],
+            "bound_by": b[half]["bound_by"],
+            # one SDPA call with is_causal and enable_gqa (its backward,
+            # dq + dk + dv, for dQ and dK/dV); the SSD scan has none
+            "library_ms": lib,
+            "library_error": None if half == "ssd" else b.get(
+                "library_error"),
+            "float32": flash_rec["float32"][half]})
+    kernels[-1]["tune"] = tune_run
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 // Register-tiled fp32 building blocks of the unbiased cluster-sparse
-// attention kernels (cluster_attention_unbiased_{fwd,bwd}.cu).
+// attention kernels (cluster_attention_unbiased_{fwd,bwd}.cu) and of the
+// dense flash attention kernels (flash_attention_{fwd,bwd}.cu).
 //
 // A CTA of 256 threads works on 64 x 64 tiles of scores. Thread `tid`
 // owns rows `tr + 16 i` and columns `tc + 16 j` (i, j < 4) of a score
 // tile, with tr = tid / 16 and tc = tid % 16, so the 16 threads that
 // share a row sit in one half-warp and reduce it with shuffles. Of a
 // (64 x Dh) output tile it owns the same four rows and Dh / 16 columns
-// (`Shape<DH>::col`).
+// (`Shape<DH>::col`): runs of four at Dh 64 and 128, of two at Dh 32.
 //
 // Operand tiles live in shared memory in fp32, row-major, rows padded by
 // 4 floats: a row stride of Dh + 4 puts the 16 rows a half-warp reads at
@@ -29,9 +30,9 @@ constexpr float kNegInf = -1e30f;   // finite sentinel, as the TPU kernels
 
 template <int DH>
 struct Shape {
-  static_assert(DH == 64 || DH == 128, "Dh in {64, 128}");
+  static_assert(DH == 32 || DH == 64 || DH == 128, "Dh in {32, 64, 128}");
   static constexpr int LD = DH + 4;                 // padded operand row
-  static constexpr int VW = 4;                      // owned in runs of VW
+  static constexpr int VW = DH >= 64 ? 4 : 2;       // owned in runs of VW
   static constexpr int NG = DH / (16 * VW);         // runs per thread
   // first column of run g of thread column tc: runs of neighbouring
   // threads are contiguous
@@ -82,6 +83,28 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
     const int r = e / Q, c = (e - r * Q) * 4;
     *reinterpret_cast<float4*>(dst + r * Shape<DH>::LD + c) =
         ld4(src + (size_t)r * stride + c);
+  }
+}
+
+// As `load_rows`, for a tile at a ragged edge: rows at and past `valid`
+// are zero-filled and never read, and every value is multiplied by `mul`
+// (the flash kernels' hoisted softmax scale; 1 elsewhere).
+template <int DH, typename T>
+__device__ __forceinline__ void load_rows_upto(float* dst, const T* src,
+                                               size_t stride, int rows,
+                                               int valid, float mul) {
+  constexpr int Q = DH / 4;
+  for (int e = threadIdx.x; e < rows * Q; e += kThreads) {
+    const int r = e / Q, c = (e - r * Q) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid) {
+      x = ld4(src + (size_t)r * stride + c);
+      x.x *= mul;
+      x.y *= mul;
+      x.z *= mul;
+      x.w *= mul;
+    }
+    *reinterpret_cast<float4*>(dst + r * Shape<DH>::LD + c) = x;
   }
 }
 
@@ -142,12 +165,18 @@ __device__ __forceinline__ void acc_tile(
       float w[NG][VW];
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            V + (c + cc) * LD + Sh::col(g, tc));
-        w[g][0] = x.x;
-        w[g][1] = x.y;
-        w[g][2] = x.z;
-        w[g][3] = x.w;
+        const float* src = V + (c + cc) * LD + Sh::col(g, tc);
+        if constexpr (VW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(src);
+          w[g][0] = x.x;
+          w[g][1] = x.y;
+          w[g][2] = x.z;
+          w[g][3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(src);
+          w[g][0] = x.x;
+          w[g][1] = x.y;
+        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -169,6 +198,26 @@ __device__ __forceinline__ void store_rows(
   using Sh = Shape<DH>;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    T* row = base + (size_t)(tr + 16 * i) * stride;
+#pragma unroll
+    for (int g = 0; g < Sh::NG; ++g)
+#pragma unroll
+      for (int e = 0; e < Sh::VW; ++e)
+        row[Sh::col(g, tc) + e] = from_f32<T>(acc[i][g][e] * mul);
+  }
+}
+
+// As `store_rows`, writing only the tile rows below `valid` (a ragged
+// edge).
+template <int DH, typename T>
+__device__ __forceinline__ void store_rows_upto(
+    T* base, size_t stride, int tr, int tc,
+    const float (&acc)[4][Shape<DH>::NG][Shape<DH>::VW], float mul,
+    int valid) {
+  using Sh = Shape<DH>;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (tr + 16 * i >= valid) continue;
     T* row = base + (size_t)(tr + 16 * i) * stride;
 #pragma unroll
     for (int g = 0; g < Sh::NG; ++g)

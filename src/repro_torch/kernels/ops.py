@@ -1,13 +1,14 @@
 """Kernel dispatch: one call site per op, the implementation picked by the
 device of the tensors.
 
-The port's counterpart of ``repro.kernels.ops.cluster_attention``, with
-one rule instead of the reference's modes and fallbacks:
+The port's counterpart of ``repro.kernels.ops`` (``cluster_attention``,
+``flash_attention``, ``ssd``), with one rule instead of the reference's
+modes and fallbacks:
 
 * a CUDA tensor launches the hand-written kernels (the forward, and in
-  the backward the dQ and dK/dV kernels; the biased ones with buckets,
-  the unbiased ones without), or raises on a call the kernels do not
-  take;
+  the backward the dQ and dK/dV kernels; for the cluster op the biased
+  ones with buckets, the unbiased ones without), or raises on a call the
+  kernels do not take;
 * a CPU tensor takes the plain PyTorch versions (``kernels/ref.py``);
 * ``impl="plain"`` forces the plain versions on any device. It exists
   for ``chip_smoke.py``, which holds the kernels against them on the
@@ -15,6 +16,11 @@ one rule instead of the reference's modes and fallbacks:
 
 There is no environment knob and no warn-and-fall-back: on the card a
 fallback would hide the kernel.
+
+The flash block sizes and the SSD chunk come from the autotuner's winner
+table (:func:`resolve_schedule`, ``repro_torch.tune.runtime``), or from
+``DEFAULT_SCHEDULES`` without one. A table gated on the CPU is stale for
+CUDA tensors: no entry that was not gated on the kernels reaches them.
 """
 
 from __future__ import annotations
@@ -23,7 +29,11 @@ import torch
 
 from repro_torch.kernels import cluster_attention as _ca
 from repro_torch.kernels import cluster_attention_bwd as _cab
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
+from repro_torch.tune import runtime as _tune_rt
+from repro_torch.tune.schedule import DEFAULT_SCHEDULES, shape_bucket
 
 IMPLS = (None, "plain")
 
@@ -100,3 +110,125 @@ def cluster_attention(q, k, v, block_idx, buckets=None, bias_table=None,
     out, lse = _ClusterAttention.apply(q, k, v, bias_table, block_idx,
                                        buckets, block_idx_t, causal, plain)
     return (out, lse) if return_lse else out
+
+
+# -------------------------------------------------------------- schedules
+
+# (op, shape signature, device type, tune generation) -> Schedule
+_SCHED_MEMO: dict = {}
+
+
+def resolve_schedule(op: str, *, seq_len: int, heads: int | None = None,
+                     d_head: int | None = None, dtype="float32",
+                     device_type: str = "cpu"):
+    """The effective ``Schedule`` for this op and shape: the winner
+    table's entry for its bucket, else ``DEFAULT_SCHEDULES`` (a missing,
+    stale or corrupt table, a bucket miss, or a CPU-gated table for a
+    CUDA call warns once; none raises). Memoized per shape signature,
+    device type and tune generation, so a table swap changes what later
+    calls resolve."""
+    key = (op, int(seq_len), heads, d_head, str(dtype), device_type,
+           _tune_rt.generation())
+    sched = _SCHED_MEMO.get(key)
+    if sched is None:
+        if len(_SCHED_MEMO) > 4096:   # stale generations never hit again
+            _SCHED_MEMO.clear()
+        bucket = shape_bucket(op, seq_len=seq_len, heads=heads,
+                              d_head=d_head, dtype=dtype)
+        sched = _tune_rt.lookup(op, bucket, device_type=device_type)
+        _SCHED_MEMO[key] = sched
+    return sched
+
+
+def _sched_field(sched, name: str):
+    """A schedule field with the op default as backstop (a hand-written
+    table entry may omit fields)."""
+    val = getattr(sched, name)
+    return getattr(DEFAULT_SCHEDULES[sched.op], name) if val is None else val
+
+
+# ------------------------------------------------------------------ flash
+
+class _FlashAttention(torch.autograd.Function):
+    """Dense flash attention with the recomputation backward: saves q, k,
+    v, O and the logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k, hoist, plain):
+        fwd = _ref.flash_fwd if plain else _fa.flash_attention_fwd
+        out, lse = fwd(q, k, v, causal=causal, block_q=block_q,
+                       block_k=block_k, hoist_scale=hoist, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.meta = (causal, block_q, block_k, hoist, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, block_q, block_k, hoist, plain = ctx.meta
+        bwd = _ref.flash_bwd if plain else _fa.flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, dout.contiguous(), out, lse, causal=causal,
+                         block_q=block_q, block_k=block_k, hoist_scale=hoist)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q=None,
+                    block_k=None, impl: str | None = None):
+    """Dense flash attention. q ``(B, Sq, H, Dh)``, k/v ``(B, Sk, KV, Dh)``
+    (GQA, ragged ``Sq``/``Sk``); returns ``(B, Sq, H, Dh)`` in q's dtype.
+    Differentiable in q, k, v.
+
+    ``block_q``/``block_k`` default to the autotuner's answer for this
+    shape bucket; passing them overrides the tile sizes while
+    ``hoist_scale`` still comes from the resolved schedule. On a CUDA
+    tensor they must be a launch the kernels take
+    (``flash_attention.check_launch``), or the call raises; the plain
+    version on the CPU takes them as its chunk sizes."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    _fa.check_args(q, k, v)
+    sched = resolve_schedule("flash_attention", seq_len=q.shape[1],
+                             heads=q.shape[2], d_head=q.shape[3],
+                             dtype=q.dtype, device_type=q.device.type)
+    block_q = _sched_field(sched, "block_q") if block_q is None else block_q
+    block_k = _sched_field(sched, "block_k") if block_k is None else block_k
+    plain = impl == "plain" or q.device.type == "cpu"
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    if not grad:
+        fwd = _ref.flash_fwd if plain else _fa.flash_attention_fwd
+        return fwd(q, k, v, causal=causal, block_q=block_q, block_k=block_k,
+                   hoist_scale=sched.hoist_scale)
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_k,
+                                 sched.hoist_scale, plain)
+
+
+# -------------------------------------------------------------------- ssd
+
+def ssd(x, dt, a, b, c, *, chunk=None, impl: str | None = None):
+    """Mamba2 SSD chunked scan: x ``(B, S, H, dh)``, dt ``(B, S, H)``, a
+    ``(H,)``, b/c ``(B, S, N)``; returns y ``(B, S, H, dh)`` in x's dtype
+    and the final state ``(B, H, dh, N)`` fp32. ``chunk`` defaults to the
+    autotuner's answer for this shape bucket; a chunk that does not tile
+    the sequence raises (the reference falls back).
+
+    The CUDA kernel is forward only, as the reference's: a CUDA call that
+    needs a gradient raises. The plain version on the CPU is
+    differentiable."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if chunk is None:
+        sched = resolve_schedule("ssd", seq_len=x.shape[1], heads=x.shape[2],
+                                 d_head=x.shape[3], dtype=x.dtype,
+                                 device_type=x.device.type)
+        chunk = _sched_field(sched, "chunk")
+    Q = _ssd.check_args(x, dt, a, b, c, chunk)
+    if impl == "plain" or x.device.type == "cpu":
+        return _ref.ssd_ref(x, dt, a, b, c, Q)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c)):
+        raise NotImplementedError(
+            "ssd on CUDA is forward only: the SSD scan has no backward "
+            "kernel (neither has the reference's Pallas _ssd_kernel); call "
+            "it under torch.no_grad() or on CPU tensors")
+    return _ssd.ssd_fwd(x, dt, a, b, c, chunk=Q)

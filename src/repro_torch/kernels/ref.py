@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the cluster-sparse attention op and of its
-backward.
+"""Plain PyTorch versions of the kernelled ops: the cluster-sparse
+attention op and its backward, the dense flash attention forward and
+backward (:func:`flash_fwd`, :func:`flash_bwd`) and the SSD scan
+(:func:`ssd_ref`).
 
 The port's counterpart of ``repro.core.dual_attention.
 cluster_sparse_attention``, in its conventions:
@@ -38,6 +40,9 @@ op's backward (the LM path), the positional causal mask included.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.layers import chunked_attention
+from repro_torch.models.ssm import ssd_chunked
 
 NEG_INF = float("-inf")
 # fp32 score entries (blocks x heads x bq x bk) computed at once
@@ -333,3 +338,168 @@ def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
     return (dq.to(q.dtype), group_sum(dkh, KV).to(k.dtype),
             group_sum(dvh, KV).to(v.dtype),
             None if dbias is None else dbias.to(bias_table.dtype))
+
+
+# ------------------------------------------------------------------ flash
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """The reference's oracle of the flash kernels
+    (``repro.kernels.ref.flash_attention_ref``): ``chunked_attention`` at
+    chunks of ``max(16, S // 4)``, differentiable by autograd."""
+    return chunked_attention(q, k, v, causal=causal,
+                             chunk_q=max(16, q.shape[1] // 4),
+                             chunk_k=max(16, k.shape[1] // 4))
+
+
+def _k_end(Sk: int, q1: int, causal: bool) -> int:
+    """Keys a q-block ending before ``q1`` can see: the causal mask hides
+    every key at or past ``q1``."""
+    return min(Sk, q1) if causal else Sk
+
+
+def _flash_scores(qs, kf, q0, k0, causal, scale):
+    """fp32 scores ``(B, KV, G, cq, ck)`` of a q tile ``qs`` ``(B, cq, KV,
+    G, Dh)`` (pre-scaled when ``scale`` is None) against a k tile ``kf``
+    ``(B, ck, KV, Dh)``, -inf where ``qpos < kpos`` when causal."""
+    s = torch.einsum("bqkgd,bckd->bkgqc", qs, kf)
+    if scale is not None:
+        s = s * scale
+    cq, ck = s.shape[-2:]
+    if causal and k0 + ck - 1 > q0:
+        qpos = q0 + torch.arange(cq, device=s.device)
+        kpos = k0 + torch.arange(ck, device=s.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+    return s
+
+
+def flash_fwd(q, k, v, *, causal: bool = True, block_q: int, block_k: int,
+              hoist_scale: bool = False, return_lse: bool = False):
+    """Dense attention forward, the plain version of the flash forward
+    kernel: q ``(B, Sq, H, Dh)``, k/v ``(B, Sk, KV, Dh)`` (GQA: head ``h``
+    reads KV head ``h // (H // KV)``). It follows the kernel's arithmetic:
+    fp32 scores ``(q . k) * Dh**-0.5`` (``(q * Dh**-0.5) . k`` with
+    ``hoist_scale``), an online softmax over k-blocks of ``block_k`` for
+    each q-block of ``block_q``, the probabilities fp32 through the PV
+    product. Returns O in q's dtype and, with ``return_lse``, the
+    logsumexp ``(B*H, Sq)`` fp32 (0 on rows with no unmasked key)."""
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = Dh ** -0.5
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    lse = torch.zeros((B, KV, G, Sq), device=q.device)
+    for q0 in range(0, Sq, block_q):
+        q1 = min(q0 + block_q, Sq)
+        qs = q[:, q0:q1].float().view(B, q1 - q0, KV, G, Dh)
+        if hoist_scale:
+            qs = qs * scale
+        m = torch.full((B, KV, G, q1 - q0), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, q1 - q0), device=q.device)
+        acc = torch.zeros((B, KV, G, q1 - q0, Dh), device=q.device)
+        for k0 in range(0, _k_end(Sk, q1, causal), block_k):
+            k1 = min(k0 + block_k, _k_end(Sk, q1, causal))
+            s = _flash_scores(qs, kf[:, k0:k1], q0, k0, causal,
+                              None if hoist_scale else scale)
+            m_new = torch.maximum(m, s.amax(-1))
+            # dead rows (all -inf so far) shift by 0: p and corr come out 0
+            m_safe = m_new.masked_fill(torch.isneginf(m_new), 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(m - m_safe)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bckd->bkgqd", p, vf[:, k0:k1])
+            m = m_new
+        o = acc / l.clamp_min(1e-30)[..., None]
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(
+            B, q1 - q0, H, Dh).to(q.dtype)
+        lse[..., q0:q1] = torch.where(
+            l > 0, m.masked_fill(torch.isneginf(m), 0.0)
+            + torch.log(l.clamp_min(1e-30)), torch.zeros((), device=q.device))
+    lse = lse.reshape(B * H, Sq)
+    return (out, lse) if return_lse else out
+
+
+def _flash_bwd_tiles(q, k, v, dout, lse, delta, causal, block_q, block_k,
+                     hoist_scale):
+    """Every (q-block, k-block) tile with an unmasked entry, as the
+    backward kernels rebuild it: yields ``(q0, q1, k0, k1, qf, dof, kf,
+    p, ds)`` with fp32 ``(B, c, KV, G, Dh)`` q and dO tiles, the fp32
+    ``(B, c, KV, Dh)`` k tile, and ``p = exp(s - lse)``, ``ds = p * (dO .
+    v - delta)`` ``(B, KV, G, cq, ck)``."""
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = Dh ** -0.5
+    kf, vf = k.float(), v.float()
+    lse_v = lse.view(B, KV, G, Sq)
+    dl = delta.view(B, KV, G, Sq)
+    for q0 in range(0, Sq, block_q):
+        q1 = min(q0 + block_q, Sq)
+        qf = q[:, q0:q1].float().view(B, q1 - q0, KV, G, Dh)
+        qs = qf * scale if hoist_scale else qf
+        dof = dout[:, q0:q1].float().view(B, q1 - q0, KV, G, Dh)
+        for k0 in range(0, _k_end(Sk, q1, causal), block_k):
+            k1 = min(k0 + block_k, _k_end(Sk, q1, causal))
+            s = _flash_scores(qs, kf[:, k0:k1], q0, k0, causal,
+                              None if hoist_scale else scale)
+            p = torch.exp(s - lse_v[..., q0:q1, None])
+            dp = torch.einsum("bqkgd,bckd->bkgqc", dof, vf[:, k0:k1])
+            yield (q0, q1, k0, k1, qf, dof, kf[:, k0:k1], p,
+                   p * (dp - dl[..., q0:q1, None]))
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
+                 block_q: int, block_k: int, hoist_scale: bool = False):
+    """dq ``(B, Sq, H, Dh)`` fp32 from the forward's ``lse`` and ``delta =
+    rowsum(dO * O)`` (both ``(B*H, Sq)``): the dQ kernel's function."""
+    B, Sq, H, Dh = q.shape
+    dq = torch.zeros((B, Sq, k.shape[2], H // k.shape[2], Dh),
+                     device=q.device)
+    for q0, q1, _, _, _, _, kf, _, ds in _flash_bwd_tiles(
+            q, k, v, dout, lse, delta, causal, block_q, block_k,
+            hoist_scale):
+        dq[:, q0:q1] += torch.einsum("bkgqc,bckd->bqkgd", ds, kf)
+    return dq.view(B, Sq, H, Dh) * Dh ** -0.5
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
+                  block_q: int, block_k: int, hoist_scale: bool = False):
+    """Per-q-head dk and dv ``(B, Sk, H, Dh)`` fp32: the dK/dV kernel's
+    function (the GQA group sum is the caller's)."""
+    B, _, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dkh = torch.zeros((B, Sk, KV, H // KV, Dh), device=q.device)
+    dvh = torch.zeros_like(dkh)
+    for _, _, k0, k1, qf, dof, _, p, ds in _flash_bwd_tiles(
+            q, k, v, dout, lse, delta, causal, block_q, block_k,
+            hoist_scale):
+        dkh[:, k0:k1] += torch.einsum("bkgqc,bqkgd->bckgd", ds, qf)
+        dvh[:, k0:k1] += torch.einsum("bkgqc,bqkgd->bckgd", p, dof)
+    return (dkh.view(B, Sk, H, Dh) * Dh ** -0.5, dvh.view(B, Sk, H, Dh))
+
+
+def flash_bwd(q, k, v, dout, out, lse, *, causal: bool = True,
+              block_q: int, block_k: int, hoist_scale: bool = False):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_fwd`, in the dtypes of q,
+    k, v: the plain version of the dQ and dK/dV kernels. Every
+    (q-block, k-block) tile's scores are rebuilt as the forward built
+    them (:func:`flash_bwd_dq`, :func:`flash_bwd_dkv`: explicit
+    gradients in fp32, not autograd through the forward), then the GQA
+    group sum."""
+    KV = k.shape[2]
+    kw = {"causal": causal, "block_q": block_q, "block_k": block_k,
+          "hoist_scale": hoist_scale}
+    delta = row_delta(dout, out)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dkh, dvh = flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    return (dq.to(q.dtype), group_sum(dkh, KV).to(k.dtype),
+            group_sum(dvh, KV).to(v.dtype))
+
+
+# -------------------------------------------------------------------- ssd
+
+def ssd_ref(x, dt, a, b, c, chunk: int):
+    """The SSD kernel's plain version (``repro.kernels.ref.ssd_ref``):
+    :func:`repro_torch.models.ssm.ssd_chunked`."""
+    return ssd_chunked(x, dt, a, b, c, chunk)

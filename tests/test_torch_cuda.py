@@ -1,7 +1,8 @@
-"""The CUDA cluster-attention kernels (the biased forward, dQ and dK/dV
-kernels of the graph path, and the unbiased, optionally causal ones of
-the LM path) against their plain PyTorch versions, on the card. Skipped
-where there is no CUDA device. This file imports neither jax nor the
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+cluster-attention kernels (the biased forward, dQ and dK/dV kernels of
+the graph path, and the unbiased, optionally causal ones of the LM
+path), the dense flash forward, dQ and dK/dV kernels, and the SSD scan.
+Skipped where there is no CUDA device. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
 
   PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \\
@@ -14,7 +15,8 @@ in bf16 (both sides round an fp32 value once: at most one bf16 ulp
 apart); lse within 1e-4 (fp32 sums in another order). Gradients
 dq, dk, dv and dbias: max |kernel - plain| within 1e-4 (fp32) or 1e-2
 (bf16: one rounding of each output, and of each per-q-head dk/dv before
-the GQA sum) of max |plain|.
+the GQA sum) of max |plain|; the flash kernels the same. SSD: y within
+1e-4 (fp32) or 2e-2 (bf16) of max |plain|, the fp32 state within 1e-4.
 """
 
 import numpy as np
@@ -24,7 +26,9 @@ import torch
 from repro_torch.core.reformation import lm_local_global_layout
 from repro_torch.kernels import cluster_attention as tca
 from repro_torch.kernels import cluster_attention_bwd as tcab
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd as tkssd
 
 from _torch_cases import graph_layout, per_graph_layout, qkv
 
@@ -258,3 +262,140 @@ def test_unbiased_kernels_batch_and_dead_row(dev):
     o, (dq, _, _) = _run_unbiased(dev, torch.float32, q, k, v, bi, None,
                                   True)
     assert not o[:, 256:384].any() and not dq[:, 256:384].any()
+
+
+# ------------------------------------------- flash kernels (rows 7, 8, 9)
+
+def _flash_inputs(dev, dtype, B, Sq, Sk, H, KV, Dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dev).to(dtype)
+            for shape in ((B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dh),
+                          (B, Sq, H, Dh))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dh,causal,bq,bk,hoist", [
+    (1, 256, 256, 4, 4, 32, True, 128, 128, False),    # the default case
+    (2, 1000, 1000, 4, 2, 64, True, 128, 128, True),   # ragged, GQA
+    (1, 1000, 700, 4, 2, 128, False, 64, 64, False),   # Sq != Sk
+    (1, 300, 500, 8, 2, 128, True, 64, 128, True),
+    (2, 77, 77, 2, 1, 32, True, 128, 256, False),      # one short tile
+])
+def test_flash_kernels_match_plain(dev, dtype, B, Sq, Sk, H, KV, Dh, causal,
+                                   bq, bk, hoist):
+    """The forward kernel, then under autograd the dQ and dK/dV kernels,
+    against the plain versions at the same schedule: O, lse, dq, dk, dv;
+    one launch of each kernel."""
+    q, k, v, dout = _flash_inputs(dev, dtype, B, Sq, Sk, H, KV, Dh)
+    kw = {"causal": causal, "block_q": bq, "block_k": bk,
+          "hoist_scale": hoist}
+    before = tfa.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    assert tfa.launches == before + 1
+    po, plse = ref.flash_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    counts = (tfa.dq_launches, tfa.dkv_launches)
+    got = tfa.flash_attention_bwd(q, k, v, dout, o, lse, **kw)
+    assert (tfa.dq_launches, tfa.dkv_launches) == tuple(
+        c + 1 for c in counts)
+    want = ref.flash_bwd(q, k, v, dout, o, lse, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= TOL_GRAD[dtype], (name, rel)
+
+
+def test_flash_op_autograd_on_the_kernels(dev):
+    """``ops.flash_attention`` on CUDA tensors runs the three kernels,
+    forward and backward, and agrees with its ``impl="plain"`` path."""
+    q, k, v, dout = _flash_inputs(dev, torch.float32, 1, 300, 300, 4, 2, 64)
+    counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    grads = {}
+    for impl in (None, "plain"):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = ops.flash_attention(*leaves, causal=True, impl=impl)
+        grads[impl] = (out,) + torch.autograd.grad(out, leaves, dout)
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == tuple(
+        c + 1 for c in counts)
+    for a, b in zip(grads[None], grads["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_check_launch_agrees_with_the_kernels(dev):
+    """Every (Dh, block_q, block_k) of the tuner's grid: the kernels run
+    where ``check_launch`` admits it and refuse where it does not."""
+    for Dh in (32, 64, 128):
+        q, k, v, _ = _flash_inputs(dev, torch.bfloat16, 1, 200, 200, 2, 2,
+                                   Dh)
+        for bq in (32, 64, 128, 256):
+            for bk in (32, 64, 128, 256):
+                reason = tfa.check_launch(Dh, bq, bk, torch.bfloat16)
+                if reason is None:
+                    o = tfa.flash_attention_fwd(q, k, v, block_q=bq,
+                                                block_k=bk)
+                    po = ref.flash_fwd(q, k, v, block_q=bq, block_k=bk)
+                    torch.testing.assert_close(o.float(), po.float(),
+                                               atol=2e-2, rtol=2e-2)
+                else:
+                    with pytest.raises(NotImplementedError, match="Dh|block"):
+                        tfa.flash_attention_fwd(q, k, v, block_q=bq,
+                                                block_k=bk)
+    # what check_launch admits fits the card's shared memory
+    props = torch.cuda.get_device_properties(dev)
+    optin = getattr(props, "shared_memory_per_block_optin", tfa.SMEM_LIMIT)
+    assert tfa.SMEM_LIMIT <= optin and tkssd.SMEM_LIMIT <= optin
+
+
+# -------------------------------------------------- SSD kernel (row 10)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dh,N,chunk", [
+    (1, 256, 2, 8, 4, 256),      # the tuner's default case
+    (2, 512, 3, 64, 128, 128),
+    (1, 1024, 2, 64, 128, 512),
+    (1, 96, 2, 16, 20, 48),      # a chunk that is no multiple of 64
+])
+def test_ssd_kernel_matches_plain(dev, dtype, B, S, H, dh, N, chunk):
+    """y and the final state against ``ssd_chunked``: y within 1e-4 of
+    max |plain| in fp32 and 2e-2 in bf16 (one rounding of the output),
+    the fp32 state within 1e-4 of max |plain|."""
+    rng = np.random.default_rng(1)
+
+    def t(x, dt=torch.float32):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev).to(dt)
+    x = t(rng.standard_normal((B, S, H, dh)), dtype)
+    dtv = t(np.log1p(np.exp(rng.standard_normal((B, S, H)) - 2)))
+    a = t(-np.exp(rng.standard_normal(H) * 0.3))
+    b = t(rng.standard_normal((B, S, N)), dtype)
+    c = t(rng.standard_normal((B, S, N)), dtype)
+    before = tkssd.launches
+    y, state = ops.ssd(x, dtv, a, b, c, chunk=chunk)
+    assert tkssd.launches == before + 1
+    py, pstate = ops.ssd(x, dtv, a, b, c, chunk=chunk, impl="plain")
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want, lim in ((y, py, tol), (state, pstate, 1e-4)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert rel <= lim, rel
+
+
+def test_ssd_kernel_refuses_gradients_and_unported_shapes(dev):
+    x = torch.randn(1, 128, 2, 8, device=dev)
+    dtv = torch.rand(1, 128, 2, device=dev)
+    a = -torch.rand(2, device=dev)
+    b = torch.randn(1, 128, 4, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.ssd(x.requires_grad_(), dtv, a, b, b, chunk=64)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="dh=128"):
+        ops.ssd(torch.randn(1, 128, 2, 128, device=dev), dtv, a, b, b,
+                chunk=64)
+    with pytest.raises(ValueError, match="not tiled"):
+        ops.ssd(x.detach(), dtv, a, b, b, chunk=48)
