@@ -392,6 +392,7 @@ def flash_ssd_kernels(dev):
     rec = {}
     kw = {"causal": True, "block_q": 128, "block_k": 128,
           "hoist_scale": False}
+    tfa.reset_count()
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[1]
         q, k, v, dout = _flash_inputs(dev, dtype, 1, FLASH_SEQ, FLASH_SEQ,
@@ -449,7 +450,9 @@ def flash_ssd_kernels(dev):
                     ("Dh 64, B=2, Sq=300 Sk=500, H=8 KV=2", 2, 300, 500, 8,
                      2, 64, True, 64, 256, True),
                     ("the tuner's default case, S=256 H=4 Dh=32", 1, 256,
-                     256, 4, 4, 32, True, 128, 128, False))):
+                     256, 4, 4, 32, True, 128, 128, False),
+                    ("cancellation, S=4096, H=16 KV=8 Dh=128", 1, 4096,
+                     4096, 16, 8, 128, True, 128, 128, False))):
             q, k, v, dout = _flash_inputs(dev, dtype, B, Sq, Sk, H, KV, Dh,
                                           seed=60 + 10 * i + j)
             compare_flash(tag, q, k, v, dout,
@@ -463,6 +466,14 @@ def flash_ssd_kernels(dev):
             compare_ssd(tag, *_ssd_inputs(dev, dtype, B, S, H, dh, N,
                                           seed=80 + 10 * i + j), chunk)
     torch.cuda.empty_cache()
+    # every bf16 forward and dK/dV launch above ran the tensor-core kernels
+    rec["launches"] = {"fwd": tfa.launches, "fwd_sm90": tfa.sm90_launches,
+                       "dkv": tfa.dkv_launches,
+                       "dkv_sm90": tfa.dkv_sm90_launches}
+    log(f"[flash-kernel] phase 3d launches {rec['launches']}")
+    if not (tfa.sm90_launches > 0 and tfa.dkv_sm90_launches > 0):
+        raise AssertionError("phase 3d did not launch the bf16 tensor-core "
+                             "flash kernels")
     return rec
 
 
@@ -594,7 +605,8 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_UNBIASED,
-            tcab.LIBRARY_UNBIASED, tfa.LIBRARY, tfa.LIBRARY_BWD, tks.LIBRARY)
+            tcab.LIBRARY_UNBIASED, tfa.LIBRARY, tfa.LIBRARY_BWD,
+            tfa.LIBRARY_SM90, tfa.LIBRARY_DKV_SM90, tks.LIBRARY)
     t0 = time.perf_counter()
     kbuild.build_all(libs)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
@@ -1289,6 +1301,8 @@ def main() -> int:
                 "flash_attention_fwd": tfa.launches,
                 "flash_attention_bwd_dq": tfa.dq_launches,
                 "flash_attention_bwd_dkv": tfa.dkv_launches,
+                "flash_attention_fwd_sm90": tfa.sm90_launches,
+                "flash_attention_bwd_dkv_sm90": tfa.dkv_sm90_launches,
                 "ssd_fwd": tks.launches}
 
     def only(**want):
@@ -1721,23 +1735,30 @@ def main() -> int:
     kernels[3]["lm_yardstick"] = lm_yard
     kernels[3]["lm_train"] = lm_run
     # the flash kernels and the SSD scan: times at full width in bf16,
-    # launches from the tune phase
-    for half, name, src, line in (
-            ("fwd", "flash_attention_fwd", "flash_attention_fwd.cu",
+    # launches from the tune phase, the main path. Rows 7 and 9 have a
+    # kernel for each dtype: `source` is the bf16 tensor-core one, timed
+    # here, whose count from the tune phase is 0 (the tuner's cases are
+    # fp32; phase 3d, a kernel-vs-plain check, is the only place it runs);
+    # `source_float32` is the CUDA-core one the tune phase launched,
+    # counted in `launches_float32`, and timed under `float32`.
+    for half, name, sm90, src32, line in (
+            ("fwd", "flash_attention_fwd", True, "flash_attention_fwd.cu",
              "flash_attention.py:34"),
-            ("dq", "flash_attention_bwd_dq", "flash_attention_bwd.cu",
+            ("dq", "flash_attention_bwd_dq", False, "flash_attention_bwd.cu",
              "flash_attention.py:175"),
-            ("dkv", "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+            ("dkv", "flash_attention_bwd_dkv", True, "flash_attention_bwd.cu",
              "flash_attention.py:224"),
-            ("ssd", "ssd_fwd", "ssd.cu", "ssd.py:29")):
+            ("ssd", "ssd_fwd", False, "ssd.cu", "ssd.py:29")):
         b = flash_rec["bfloat16"]
         lib = None if half == "ssd" else b.get(
             "library_ms" if half == "fwd" else "library_bwd_ms")
-        kernels.append({
+        src = f"{name}_sm90.cu" if sm90 else src32
+        rec = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/{line}",
-            "launches": tune_run["launches"][name],
+            "launches": tune_run["launches"][
+                f"{name}_sm90" if sm90 else name],
             "max_abs_err": b[half]["max_abs_err"], "ms": b[half]["ms"],
             "plain_ms": b[half]["plain_ms"], "bound_ms": b[half]["bound_ms"],
             "bound_by": b[half]["bound_by"],
@@ -1746,7 +1767,13 @@ def main() -> int:
             "library_ms": lib,
             "library_error": None if half == "ssd" else b.get(
                 "library_error"),
-            "float32": flash_rec["float32"][half]})
+            "float32": flash_rec["float32"][half]}
+        if sm90:
+            rec["main_path"] = ("none: the tune phase runs fp32 cases only, "
+                                "so it launched the float32 source")
+            rec["source_float32"] = f"src/repro_torch/kernels/csrc/{src32}"
+            rec["launches_float32"] = tune_run["launches"][name]
+        kernels.append(rec)
     kernels[-1]["tune"] = tune_run
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

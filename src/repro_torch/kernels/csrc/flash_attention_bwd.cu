@@ -1,9 +1,13 @@
-// Dense flash attention backward for Hopper (sm_90a): the dQ kernel and
-// the dK/dV kernel.
+// Dense flash attention backward for Hopper (sm_90a): the dQ kernel (fp32
+// and bf16) and the fp32 dK/dV kernel.
 //
 // Replace the TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel` in
 // src/repro/kernels/flash_attention.py: the recomputation backward of
-// flash_attention_fwd.cu. Each kernel rebuilds a tile's scores exactly as
+// flash_attention_fwd.cu (bf16 dK/dV is flash_attention_bwd_dkv_sm90.cu,
+// on the tensor cores, which rebuilds the scores as
+// flash_attention_fwd_sm90.cu does; the bf16 dQ kernel here takes that
+// forward's lse, which matches the fp32 arithmetic below to fp32
+// rounding). Each kernel rebuilds a tile's scores exactly as
 // the forward built them (`(q . k) * Dh^-0.5`, or `(q * Dh^-0.5) . k`
 // under the `hoist_scale` rewrite, in fp32; -1e30 where `kpos >= Sk` or,
 // when causal, `qpos < kpos`) and, with the forward's per-row logsumexp
@@ -36,7 +40,9 @@
 // compute. Chunks the causal mask empties are skipped: dQ stops at the
 // diagonal and runs its q-blocks heaviest first, dK/dV starts at it (its
 // heaviest k-blocks come first in the grid). All arithmetic is fp32 on
-// CUDA cores.
+// CUDA cores (TF32 would miss the fp32 tolerances).
+
+#include <type_traits>
 
 #include "unbiased_tiles.cuh"
 
@@ -282,7 +288,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// One entry per (dtype, Dh, hoist): `which` 0 = dQ, 1 = dK/dV.
+// One entry per (dtype, Dh): `which` 0 = dQ, 1 = dK/dV (fp32 only).
 template <typename T, int DH>
 int launch_hoist(int which, int hoist, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse,
@@ -295,12 +301,15 @@ int launch_hoist(int which, int hoist, const void* q, const void* k,
                  : launch_dq<T, DH, false>(q, k, v, dout, lse, delta, d0, B,
                                            Sq, Sk, H, KV, causal, sm_scale,
                                            st);
-  return hoist ? launch_dkv<T, DH, true>(q, k, v, dout, lse, delta, d0, d1,
-                                         B, Sq, Sk, H, KV, causal, sm_scale,
-                                         st)
-               : launch_dkv<T, DH, false>(q, k, v, dout, lse, delta, d0, d1,
-                                          B, Sq, Sk, H, KV, causal, sm_scale,
-                                          st);
+  // bf16 dK/dV is flash_attention_bwd_dkv_sm90.cu's
+  if constexpr (std::is_same_v<T, float>)
+    return hoist ? launch_dkv<T, DH, true>(q, k, v, dout, lse, delta, d0,
+                                           d1, B, Sq, Sk, H, KV, causal,
+                                           sm_scale, st)
+                 : launch_dkv<T, DH, false>(q, k, v, dout, lse, delta, d0,
+                                            d1, B, Sq, Sk, H, KV, causal,
+                                            sm_scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -358,7 +367,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                          nullptr, B, Sq, Sk, H, KV, causal, sm_scale, stream);
 }
 
-// As above; dk/dv (B,Sk,H,Dh) per q-head, in q's dtype.
+// As above, for float32 only (bfloat16 is
+// flash_attention_bwd_dkv_sm90's); dk/dv (B,Sk,H,Dh) per q-head.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int dtype,

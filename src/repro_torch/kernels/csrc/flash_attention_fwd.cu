@@ -1,8 +1,10 @@
 // Dense flash attention forward (online softmax, optional causal mask,
-// GQA, ragged sequence tails) for Hopper (sm_90a).
+// GQA, ragged sequence tails) for Hopper (sm_90a), for fp32 inputs.
 //
 // Replaces the TPU kernel `_flash_kernel` in
-// src/repro/kernels/flash_attention.py, the GP-FLASH baseline. Every
+// src/repro/kernels/flash_attention.py, the GP-FLASH baseline, for fp32
+// q, k and v, as the autotuner runs it; bf16 inputs go to the
+// tensor-core kernel of flash_attention_fwd_sm90.cu. Every
 // score is `(q . k) * Dh^-0.5` in fp32 (or, with the `hoist_scale`
 // rewrite, `(q * Dh^-0.5) . k`: the scale multiplied onto the q tile once
 // as it is loaded), set to the finite sentinel -1e30 where `kpos >= Sk`
@@ -33,7 +35,8 @@
 // (kernels/flash_attention.py `check_launch` states what fits). Chunks
 // the causal mask empties are skipped, stages past the last live q row
 // are never loaded, and the q-blocks run heaviest first. All arithmetic
-// is fp32 on CUDA cores (no tensor cores yet).
+// is fp32 on CUDA cores: TF32 on the tensor cores keeps about three
+// decimal digits, short of the fp32 tolerances (2e-5 on O).
 
 #include "unbiased_tiles.cuh"
 
@@ -242,8 +245,9 @@ int launch_dh(int dh, int block_q, int hoist, const void* q, const void* k,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q (B,Sq,H,Dh), k/v (B,Sk,KV,Dh), out
-// like q, all contiguous and 16-byte aligned; lse (B*H,Sq) fp32 or NULL.
+// dtype: 0 = float32 (bfloat16 is flash_attention_fwd_sm90's). q
+// (B,Sq,H,Dh), k/v (B,Sk,KV,Dh), out like q, all contiguous and 16-byte
+// aligned; lse (B*H,Sq) fp32 or NULL.
 // Takes Dh in {32, 64, 128}, block_q in {64, 128}, block_k a positive
 // multiple of 64 whose tiles fit shared memory. Returns the CUDA error
 // code of the launch (0 = launched).
@@ -255,15 +259,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (block_k <= 0 || block_k % flash::kTile || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return flash::launch_dh<float>(dh, block_q, hoist, q, k, v, out, lse, B,
-                                   Sq, Sk, H, KV, block_k, causal, sm_scale,
-                                   st);
-  if (dtype == 1)
-    return flash::launch_dh<__nv_bfloat16>(dh, block_q, hoist, q, k, v, out,
-                                           lse, B, Sq, Sk, H, KV, block_k,
-                                           causal, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return flash::launch_dh<float>(dh, block_q, hoist, q, k, v, out, lse, B,
+                                 Sq, Sk, H, KV, block_k, causal, sm_scale,
+                                 st);
 }
 
 }  // extern "C"

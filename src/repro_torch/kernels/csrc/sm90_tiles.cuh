@@ -1,0 +1,368 @@
+// Hopper (sm_90a) building blocks of the tensor-core flash kernels
+// (flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu): the
+// mbarrier ring that a producer warp fills with TMA copies, the
+// shared-memory matrix descriptors and `wgmma` instructions that read
+// those tiles, and the host-side encoding of the TMA tensor maps.
+//
+// Tiles. A (rows x Dh) bf16 tile of q, k, v or dO is copied by TMA with a
+// 128-byte swizzle (Dh 64 and 128) or a 64-byte swizzle (Dh 32): one
+// "atom" holds SWE = SWB / 2 columns of every row, SWB bytes a row, eight
+// rows a 1024- (or 512-) byte swizzle period. Dh 128 is two atoms, stored
+// one after the other (columns 0-63 of all rows, then columns 64-127).
+// One tile serves two kinds of `wgmma` operand:
+//   K-major (the reduction runs along Dh, a row's contiguous dimension):
+//     the A and B of S = Q K^T; a 16-column step moves the start address
+//     32 bytes along the row, or to the next atom; SBO = 8 rows;
+//   MN-major (the reduction runs along the rows): the B of O = P V; a
+//     16-row step moves the start address 16 rows; SBO = 8 rows, LBO =
+//     the distance between two atoms (Dh 128 spans two).
+// Out-of-range rows (a ragged tail) are zero-filled by TMA: the maps have
+// rank 4, (Dh, heads, S, B), so a tile never reads the next sequence.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the driver call is looked
+                   // up at run time, so nothing links against libcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The swizzle of a (rows x DH) bf16 tile: its span SWB in bytes, the
+// SWE columns of an atom, the NATOM atoms a row spans.
+template <int DH>
+struct Atom {
+  static_assert(DH == 32 || DH == 64 || DH == 128, "Dh in {32, 64, 128}");
+  static constexpr int SWB = DH >= 64 ? 128 : 64;
+  static constexpr int SWE = SWB / 2;
+  static constexpr int NATOM = DH / SWE;
+};
+
+// ------------------------------------------------------------ addresses
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once and expect `bytes` of TMA transactions on `bar`
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`. A
+// wait that lasts 2^34 cycles (seconds; no stage takes that long) traps,
+// so a broken protocol fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > (1LL << 34))
+      __trap();
+  }
+}
+
+// ------------------------------------------------------------------ TMA
+
+// a box of the rank-4 map at (c0, c1, c2, c3) into shared memory, its
+// bytes counted on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- wgmma
+
+// The shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle (1 = 128 bytes, 2 = 64).
+template <int SWB>
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  static_assert(SWB == 128 || SWB == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t layout = SWB == 128 ? 1 : 2;
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand: 16 columns from column `k` of rows starting at `tile`
+// (an atom-aligned tile of `rows` rows); the LBO is unused (1)
+template <int SWB>
+__device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int rows,
+                                           int k) {
+  const int byte = k * 2;
+  return desc<SWB>(tile + (byte / SWB) * rows * SWB + byte % SWB, 16,
+                   8 * SWB);
+}
+
+// MN-major operand: 16 rows from row `r` of a tile of `rows` rows, all
+// its Dh columns
+template <int SWB>
+__device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int rows,
+                                            int r) {
+  return desc<SWB>(tile + r * SWB, rows * SWB, 8 * SWB);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of an accumulator across the
+// asynchronous instructions that own it
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <uint32_t REGS>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <uint32_t REGS>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// two fp32 values as the bf16 pair of an A fragment register (x low)
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The accumulator of a 64 x N product: thread t of the warpgroup holds
+// rows 16 (t / 32) + (t % 32) / 4 + 8 i and columns 8 j + 2 (t % 4) + c
+// in d[4 j + 2 i + c] (i, c in {0, 1}). The A fragment of a 64 x 16
+// register operand holds the same rows and columns 2 (t % 4) + {0, 1}
+// (+8): the accumulator's columns 16 kk .. 16 kk + 15 are, packed in
+// pairs, registers {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]},
+// {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]} of the fragment.
+template <int R>
+__device__ __forceinline__ void to_a_frag(const float (&p)[R],
+                                          uint32_t (&a)[R / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+}
+
+#define ACC8(i)                                                         \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]),             \
+      "+f"(d[(i) + 7])
+
+// D (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), A and B K-major in
+// shared memory; `accumulate` 0 overwrites D
+__device__ __forceinline__ void ss_n64(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16) B (16 x 128), A and B K-major in
+// shared memory; `accumulate` 0 overwrites D
+__device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x
+// 32), B MN-major in shared memory
+__device__ __forceinline__ void rs_n32(float (&d)[16],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x
+// 64), B MN-major in shared memory
+__device__ __forceinline__ void rs_n64(float (&d)[32],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x
+// 128), B MN-major in shared memory
+__device__ __forceinline__ void rs_n128(float (&d)[64],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+
+template <int N>
+__device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da,
+                                   uint64_t db, int accumulate) {
+  if constexpr (N == 64)
+    ss_n64(d, da, db, accumulate);
+  else
+    ss_n128(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                   uint64_t db) {
+  if constexpr (N == 32)
+    rs_n32(d, a, db);
+  else if constexpr (N == 64)
+    rs_n64(d, a, db);
+  else
+    rs_n128(d, a, db);
+}
+
+// ------------------------------------------------- tensor maps (host)
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (B, S, heads, Dh) bf16 tensor as a rank-4 map whose box is `rows`
+// rows of one head and one swizzle atom (SWB bytes) of columns.
+inline int encode_rows(CUtensorMap* map, const void* base, int B, int S,
+                       int heads, int dh, int rows, int swb) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)S * heads * dh * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)swb / 2, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(base), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  swb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace sm90

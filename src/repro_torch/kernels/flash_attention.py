@@ -2,19 +2,31 @@
 kernels, the ports of the TPU kernels in
 ``src/repro/kernels/flash_attention.py`` (the GP-FLASH baseline):
 
-* ``csrc/flash_attention_fwd.cu``: ``_flash_kernel``, the forward with
-  the online softmax, the optional causal mask, GQA, ragged ``Sq``/``Sk``
-  and the ``hoist_scale`` rewrite, at the schedule's ``block_q`` /
-  ``block_k``;
-* ``csrc/flash_attention_bwd.cu``: ``_flash_dq_kernel`` and
-  ``_flash_dkv_kernel``, the recomputation backward (per-q-head dK/dV;
-  the GQA sum and ``delta = rowsum(dO * O)`` are plain PyTorch around the
-  launches, as the reference's jnp epilogue and prologue).
+* ``_flash_kernel``, the forward with the online softmax, the optional
+  causal mask, GQA, ragged ``Sq``/``Sk`` and the ``hoist_scale`` rewrite,
+  at the schedule's ``block_q`` / ``block_k``;
+* ``_flash_dq_kernel`` and ``_flash_dkv_kernel``, the recomputation
+  backward (per-q-head dK/dV; the GQA sum and ``delta = rowsum(dO * O)``
+  are plain PyTorch around the launches, as the reference's jnp epilogue
+  and prologue).
 
-The kernels are compiled at first use (``kernels/build.py``: nvcc for
-``sm_90a``, a plain C entry point, ``ctypes``). The wrappers take CUDA
-tensors only: they launch a kernel or raise. ``kernels/ops.py`` sends
-CPU tensors to the plain versions (``kernels/ref.py``).
+Each dtype has exactly one kernel, with no fallback between them:
+
+* bfloat16 runs on the tensor cores: ``csrc/flash_attention_fwd_sm90.cu``
+  (the forward) and ``csrc/flash_attention_bwd_dkv_sm90.cu`` (dK/dV), TMA
+  copies into a ring of shared-memory stages feeding ``wgmma``;
+* float32 runs on CUDA cores, in fp32 throughout (TF32 would miss the
+  fp32 tolerances): ``csrc/flash_attention_fwd.cu`` and
+  ``flash_dkv_kernel`` in ``csrc/flash_attention_bwd.cu``. The autotuner
+  runs its cases in fp32, so it times these;
+* the dQ kernel (``flash_dq_kernel`` in ``csrc/flash_attention_bwd.cu``)
+  takes both dtypes on CUDA cores.
+
+``check_launch`` states what each dtype's forward takes. The kernels are
+compiled at first use (``kernels/build.py``: nvcc for ``sm_90a``, a plain
+C entry point, ``ctypes``). The wrappers take CUDA tensors only: they
+launch a kernel or raise. ``kernels/ops.py`` sends CPU tensors to the
+plain versions (``kernels/ref.py``).
 """
 
 from __future__ import annotations
@@ -32,17 +44,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 TILE = 64                  # the kernels' score tiles are TILE x TILE
 BLOCK_QS = (64, 128)       # q rows a forward CTA holds: one or two tiles
+# bf16 k/v stages: whole TILE-row chunks, one TMA box (at most 256 rows)
+SM90_BLOCK_KS = (64, 128, 256)
 # shared memory one block may have on sm_90 (the card's opt-in limit)
 SMEM_LIMIT = 232448
 
-launches = 0      # forward launches since the last reset_count()
-dq_launches = 0   # dQ launches
-dkv_launches = 0  # dK/dV launches
+# launches of each kernel since the last reset_count()
+launches = 0           # the fp32 forward, flash_attention_fwd.cu
+dq_launches = 0        # dQ, both dtypes, flash_attention_bwd.cu
+dkv_launches = 0       # the fp32 dK/dV, flash_attention_bwd.cu
+sm90_launches = 0      # the bf16 forward, flash_attention_fwd_sm90.cu
+dkv_sm90_launches = 0  # the bf16 dK/dV, flash_attention_bwd_dkv_sm90.cu
 
 
 def reset_count() -> None:
-    global launches, dq_launches, dkv_launches
+    global launches, dq_launches, dkv_launches, sm90_launches, \
+        dkv_sm90_launches
     launches = dq_launches = dkv_launches = 0
+    sm90_launches = dkv_sm90_launches = 0
 
 
 def _bind(lib) -> None:
@@ -50,6 +69,20 @@ def _bind(lib) -> None:
     lib.flash_attention_fwd.argtypes = (
         [vp] * 5 + [i32] * 11 + [ctypes.c_float, vp])
     lib.flash_attention_fwd.restype = i32
+
+
+def _bind_sm90(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd_sm90.argtypes = (
+        [vp] * 5 + [i32] * 9 + [ctypes.c_float, vp])
+    lib.flash_attention_fwd_sm90.restype = i32
+
+
+def _bind_dkv_sm90(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_dkv_sm90.argtypes = (
+        [vp] * 8 + [i32] * 7 + [ctypes.c_float, vp])
+    lib.flash_attention_bwd_dkv_sm90.restype = i32
 
 
 def _bind_bwd(lib) -> None:
@@ -65,11 +98,18 @@ def _bind_bwd(lib) -> None:
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "flash_attention_fwd.cu", _bind)
 LIBRARY_BWD = CudaLibrary(_CSRC / "flash_attention_bwd.cu", _bind_bwd)
+LIBRARY_SM90 = CudaLibrary(_CSRC / "flash_attention_fwd_sm90.cu", _bind_sm90)
+LIBRARY_DKV_SM90 = CudaLibrary(_CSRC / "flash_attention_bwd_dkv_sm90.cu",
+                               _bind_dkv_sm90)
 
 
-def fwd_smem_bytes(d_head: int, block_q: int, block_k: int) -> int:
-    """Shared memory of one forward CTA: the q tiles, a k and a v stage
-    (fp32 rows padded by 4) and the 64 x 68 probability tile."""
+def fwd_smem_bytes(d_head: int, block_q: int, block_k: int, dtype) -> int:
+    """Shared memory of one forward CTA. fp32: the q tiles, a k and a v
+    stage (fp32 rows padded by 4) and the 64 x 68 probability tile. bf16:
+    the q tile and two stages of k and v, plus 2 KB for the barriers and
+    the 1024-byte alignment of the swizzled tiles."""
+    if torch_dtype(dtype) == torch.bfloat16:
+        return 2 * d_head * (block_q + 4 * block_k) + 2048
     return 4 * ((block_q + 2 * block_k) * (d_head + 4) + TILE * (TILE + 4))
 
 
@@ -93,11 +133,14 @@ def check_launch(d_head: int, block_q: int, block_k: int,
         return f"Dh={d_head} (the kernels take Dh in {HEAD_DIMS})"
     if block_q not in BLOCK_QS:
         return (f"block_q={block_q} (a CTA holds one or two {TILE}-row q "
-                f"tiles in registers: block_q in {BLOCK_QS})")
+                f"tiles: block_q in {BLOCK_QS})")
     if block_k <= 0 or block_k % TILE:
         return (f"block_k={block_k} (k/v stages are whole {TILE}-row "
                 f"chunks)")
-    smem = fwd_smem_bytes(d_head, block_q, block_k)
+    if dt == torch.bfloat16 and block_k not in SM90_BLOCK_KS:
+        return (f"block_k={block_k} (a bf16 k/v stage is one TMA box of "
+                f"at most 256 rows: block_k in {SM90_BLOCK_KS})")
+    smem = fwd_smem_bytes(d_head, block_q, block_k, dt)
     if smem > SMEM_LIMIT:
         return (f"block_q={block_q}, block_k={block_k} at Dh={d_head} need "
                 f"{smem} bytes of shared memory, above the {SMEM_LIMIT} a "
@@ -146,24 +189,31 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, block_q: int,
     _check_kernel(q, k, block_q, block_k)
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    lib = LIBRARY.lib()
     q, k, v = aligned(q), aligned(k), aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    global launches
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None)
+    stream = torch.cuda.current_stream().cuda_stream
+    global launches, sm90_launches
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None, _DTYPES[q.dtype],
-            B, Sq, Sk, H, KV, Dh, block_q, block_k, int(causal),
-            int(hoist_scale), Dh ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+        if q.dtype == torch.bfloat16:
+            err = LIBRARY_SM90.lib().flash_attention_fwd_sm90(
+                *ptrs, B, Sq, Sk, H, KV, Dh, block_q, block_k, int(causal),
+                Dh ** -0.5, stream)
+        else:
+            err = LIBRARY.lib().flash_attention_fwd(
+                *ptrs, _DTYPES[q.dtype], B, Sq, Sk, H, KV, Dh, block_q,
+                block_k, int(causal), int(hoist_scale), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"block_q={block_q}, block_k={block_k})")
-    launches += 1
+    if q.dtype == torch.bfloat16:
+        sm90_launches += 1
+    else:
+        launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -193,22 +243,29 @@ def dkv_kernel(q, k, v, dout, lse, delta, causal, hoist_scale):
     CUDA operands."""
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
-    lib = LIBRARY_BWD.lib()
     dkh = torch.empty((B, Sk, H, Dh), dtype=q.dtype, device=q.device)
     dvh = torch.empty_like(dkh)
-    global dkv_launches
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dkh.data_ptr(), dvh.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    global dkv_launches, dkv_sm90_launches
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dkh.data_ptr(),
-            dvh.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, k.shape[2], Dh,
-            int(causal), int(hoist_scale), Dh ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+        if q.dtype == torch.bfloat16:
+            err = LIBRARY_DKV_SM90.lib().flash_attention_bwd_dkv_sm90(
+                *ptrs, B, Sq, Sk, H, k.shape[2], Dh, int(causal),
+                Dh ** -0.5, stream)
+        else:
+            err = LIBRARY_BWD.lib().flash_attention_bwd_dkv(
+                *ptrs, _DTYPES[q.dtype], B, Sq, Sk, H, k.shape[2], Dh,
+                int(causal), int(hoist_scale), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)})")
-    dkv_launches += 1
+    if q.dtype == torch.bfloat16:
+        dkv_sm90_launches += 1
+    else:
+        dkv_launches += 1
     return dkh, dvh
 
 

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 cluster-attention kernels (the biased forward, dQ and dK/dV kernels of
 the graph path, and the unbiased, optionally causal ones of the LM
-path), the dense flash forward, dQ and dK/dV kernels, and the SSD scan.
+path), the dense flash forward, dQ and dK/dV kernels (bf16 forward and
+dK/dV on the tensor cores, fp32 on CUDA cores), and the SSD scan.
 Skipped where there is no CUDA device. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
 
@@ -12,7 +13,7 @@ Tolerances: O within 2e-5 in fp32 and 2e-2 in bf16 (one bf16 rounding of
 outputs near 1); the unbiased O, whose rows average many keys and lie
 mostly far below 1, also element by element within 1e-5 + 2^-7 |plain|
 in bf16 (both sides round an fp32 value once: at most one bf16 ulp
-apart); lse within 1e-4 (fp32 sums in another order). Gradients
+apart), and the bf16 flash O the same; lse within 1e-4 (fp32 sums in another order). Gradients
 dq, dk, dv and dbias: max |kernel - plain| within 1e-4 (fp32) or 1e-2
 (bf16: one rounding of each output, and of each per-q-head dk/dv before
 the GQA sum) of max |plain|; the flash kernels the same. SSD: y within
@@ -281,27 +282,38 @@ def _flash_inputs(dev, dtype, B, Sq, Sk, H, KV, Dh, seed=0):
     (1, 1000, 700, 4, 2, 128, False, 64, 64, False),   # Sq != Sk
     (1, 300, 500, 8, 2, 128, True, 64, 128, True),
     (2, 77, 77, 2, 1, 32, True, 128, 256, False),      # one short tile
+    # full-width heads at S=4096: bf16 O cancels near 0 on many elements,
+    # where a probability rounded to bf16 before PV would miss 1e-5
+    (1, 4096, 4096, 16, 8, 128, True, 128, 128, False),
 ])
 def test_flash_kernels_match_plain(dev, dtype, B, Sq, Sk, H, KV, Dh, causal,
                                    bq, bk, hoist):
     """The forward kernel, then under autograd the dQ and dK/dV kernels,
-    against the plain versions at the same schedule: O, lse, dq, dk, dv;
-    one launch of each kernel."""
+    against the plain versions at the same schedule: O (bf16 also element
+    by element, as the unbiased O), lse, dq, dk, dv; one launch of each
+    kernel. bf16 runs the tensor-core forward and dK/dV, fp32 the
+    CUDA-core ones: each launch counts on its own kernel's counter."""
     q, k, v, dout = _flash_inputs(dev, dtype, B, Sq, Sk, H, KV, Dh)
     kw = {"causal": causal, "block_q": bq, "block_k": bk,
           "hoist_scale": hoist}
-    before = tfa.launches
+    sm90 = dtype == torch.bfloat16
+    before = (tfa.launches, tfa.sm90_launches)
     o, lse = tfa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-    assert tfa.launches == before + 1
+    assert (tfa.launches, tfa.sm90_launches) == (
+        before[0] + (not sm90), before[1] + sm90)
     po, plse = ref.flash_fwd(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        atol, rtol = TOL_O_BF16
+        torch.testing.assert_close(o.float(), po.float(), atol=atol,
+                                   rtol=rtol)
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
-    counts = (tfa.dq_launches, tfa.dkv_launches)
+    counts = (tfa.dq_launches, tfa.dkv_launches, tfa.dkv_sm90_launches)
     got = tfa.flash_attention_bwd(q, k, v, dout, o, lse, **kw)
-    assert (tfa.dq_launches, tfa.dkv_launches) == tuple(
-        c + 1 for c in counts)
+    assert (tfa.dq_launches, tfa.dkv_launches, tfa.dkv_sm90_launches) == (
+        counts[0] + 1, counts[1] + (not sm90), counts[2] + sm90)
     want = ref.flash_bwd(q, k, v, dout, o, lse, **kw)
     torch.cuda.synchronize()
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -327,21 +339,23 @@ def test_flash_op_autograd_on_the_kernels(dev):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
-def test_flash_check_launch_agrees_with_the_kernels(dev):
-    """Every (Dh, block_q, block_k) of the tuner's grid: the kernels run
-    where ``check_launch`` admits it and refuse where it does not."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_check_launch_agrees_with_the_kernels(dev, dtype):
+    """Every (Dh, block_q, block_k) of the tuner's grid, in each dtype
+    (bf16: the tensor-core forward, fp32: the CUDA-core one): the kernels
+    run where ``check_launch`` admits it and refuse where it does not."""
     for Dh in (32, 64, 128):
-        q, k, v, _ = _flash_inputs(dev, torch.bfloat16, 1, 200, 200, 2, 2,
-                                   Dh)
+        q, k, v, _ = _flash_inputs(dev, dtype, 1, 200, 200, 2, 2, Dh)
         for bq in (32, 64, 128, 256):
-            for bk in (32, 64, 128, 256):
-                reason = tfa.check_launch(Dh, bq, bk, torch.bfloat16)
+            for bk in (32, 64, 128, 256, 512):
+                reason = tfa.check_launch(Dh, bq, bk, dtype)
                 if reason is None:
                     o = tfa.flash_attention_fwd(q, k, v, block_q=bq,
                                                 block_k=bk)
                     po = ref.flash_fwd(q, k, v, block_q=bq, block_k=bk)
                     torch.testing.assert_close(o.float(), po.float(),
-                                               atol=2e-2, rtol=2e-2)
+                                               atol=TOL[dtype],
+                                               rtol=TOL[dtype])
                 else:
                     with pytest.raises(NotImplementedError, match="Dh|block"):
                         tfa.flash_attention_fwd(q, k, v, block_q=bq,

@@ -217,6 +217,41 @@ def test_check_launch_admits_defaults_and_refuses_the_rest():
     assert "dtype" in tfa.check_launch(32, 64, 64, torch.float16)
 
 
+@pytest.mark.parametrize("dtype,d_head,block_q,block_k,reason", [
+    # bf16 runs the tensor-core forward: Dh 32/64/128, one or two
+    # consumer warpgroups, a k/v stage of one TMA box (64, 128 or 256
+    # rows) whose two-stage ring fits shared memory
+    ("bfloat16", 128, 128, 128, None),
+    ("bfloat16", 128, 64, 64, None),
+    ("bfloat16", 128, 64, 128, None),
+    ("bfloat16", 64, 64, 256, None),
+    ("bfloat16", 64, 128, 256, None),
+    ("bfloat16", 32, 128, 256, None),
+    ("bfloat16", 32, 64, 64, None),
+    ("bfloat16", 128, 128, 256, "shared memory"),
+    ("bfloat16", 128, 64, 256, "shared memory"),
+    ("bfloat16", 32, 64, 512, "TMA box"),
+    ("bfloat16", 64, 128, 192, "block_k in (64, 128, 256)"),
+    ("bfloat16", 32, 64, 96, "whole 64-row chunks"),
+    ("bfloat16", 32, 32, 64, "block_q=32"),
+    ("bfloat16", 32, 256, 64, "block_q=256"),
+    ("bfloat16", 48, 64, 64, "Dh=48"),
+    # fp32 stays on the CUDA-core forward, which takes wider stages
+    ("float32", 32, 64, 512, None),
+    ("float32", 64, 64, 192, None),
+])
+def test_check_launch_per_dtype(dtype, d_head, block_q, block_k, reason):
+    """What each dtype's forward admits, and the reason it gives for what
+    it refuses."""
+    got = tfa.check_launch(d_head, block_q, block_k, dtype)
+    if reason is None:
+        assert got is None
+    else:
+        assert got is not None and reason in got, got
+    assert tfa.check_launch(d_head, block_q, block_k,
+                            getattr(torch, dtype)) == got
+
+
 def test_op_checks_arguments_and_wrapper_takes_cuda_only():
     q, k, v, _ = _inputs(1, 64, 64, 4, 2, 32)
     qt, kt, vt = (_t(x) for x in (q, k, v))
