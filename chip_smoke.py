@@ -25,8 +25,9 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    training shape (S=16384, 16 q heads over 8 KV heads, Dh=128, the
    causal local+global layout) in bf16 and fp32, and on small cases
    (non-causal, Dh 64 with 9 heads over 3, a short window, B=2 on the
-   shared layout, the derived transposed layout); each kernel and each
-   plain half
+   shared layout, the derived transposed layout); the bf16 forward runs
+   the tensor-core kernel, fp32 the CUDA-core one (each launch checked
+   on its own counter); each kernel and each plain half
    timed; one ``scaled_dot_product_attention`` with the layout as a dense
    boolean mask, and one with ``is_causal``, timed beside them, forward
    and backward;
@@ -35,7 +36,9 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    S=16384, 16 q heads over 8, Dh 128, causal; Mamba2-2.7B's 80 heads of
    dh 64, N 128, chunk 256, S=16384) in bf16 and fp32, and on small cases
    (non-causal, ragged S, Dh 32 and 64, B=2, hoist_scale, the SSD
-   default case); each kernel and each plain half timed, one
+   default case); bf16 flash runs the tensor-core forward, dQ and dK/dV
+   (each dQ launch checked on its dtype's counter); each kernel and each
+   plain half timed, one
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    timed beside the flash kernels, forward and backward;
 4. serve (the first main path): GraphServe on Graphormer-Large at full
@@ -56,7 +59,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    with the cluster-sparse attention backend, bf16 compute, fp32
    parameters and moments, seeded init, on the synthetic token stream
    (S=16384, batch 1) through ``BatchFnTask`` and ``Trainer``: 4 steps,
-   finite and falling losses, 28 launches of each unbiased kernel a step.
+   finite and falling losses, 28 launches of each unbiased kernel a step
+   (the forward: the bf16 tensor-core kernel).
    One step by the kernel path and one by the plain path on the same
    batch must agree; one step is profiled;
 7. tune (this slice's main path): the autotuner on the card as
@@ -280,8 +284,14 @@ def compare_flash(tag, q, k, v, dout, kw):
     delta = ref.row_delta(dout, o)
     ops_ = [tfa.aligned(x) for x in (q, k, v, dout)]
     flags = (kw["causal"], kw["hoist_scale"])
-    got = (tfa.dq_kernel(*ops_, lse, delta, *flags),) + tfa.dkv_kernel(
-        *ops_, lse, delta, *flags)
+    before = (tfa.dq_launches, tfa.dq_sm90_launches)
+    got = (tfa.dq_kernel(*ops_, lse, delta, *flags),)
+    bf16 = q.dtype == torch.bfloat16
+    if (tfa.dq_launches, tfa.dq_sm90_launches) != (before[0] + (not bf16),
+                                                   before[1] + bf16):
+        raise AssertionError(f"the {dt} dQ launch went to the other dtype's "
+                             f"kernel: {tag}")
+    got += tfa.dkv_kernel(*ops_, lse, delta, *flags)
     want = (ref.flash_bwd_dq(q, k, v, dout, lse, delta, **kw),) + \
         ref.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     torch.cuda.synchronize()
@@ -466,12 +476,16 @@ def flash_ssd_kernels(dev):
             compare_ssd(tag, *_ssd_inputs(dev, dtype, B, S, H, dh, N,
                                           seed=80 + 10 * i + j), chunk)
     torch.cuda.empty_cache()
-    # every bf16 forward and dK/dV launch above ran the tensor-core kernels
+    # every bf16 forward, dQ and dK/dV launch above ran the tensor-core
+    # kernels
     rec["launches"] = {"fwd": tfa.launches, "fwd_sm90": tfa.sm90_launches,
+                       "dq": tfa.dq_launches,
+                       "dq_sm90": tfa.dq_sm90_launches,
                        "dkv": tfa.dkv_launches,
                        "dkv_sm90": tfa.dkv_sm90_launches}
     log(f"[flash-kernel] phase 3d launches {rec['launches']}")
-    if not (tfa.sm90_launches > 0 and tfa.dkv_sm90_launches > 0):
+    if not (tfa.sm90_launches > 0 and tfa.dq_sm90_launches > 0
+            and tfa.dkv_sm90_launches > 0):
         raise AssertionError("phase 3d did not launch the bf16 tensor-core "
                              "flash kernels")
     return rec
@@ -605,8 +619,9 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_UNBIASED,
-            tcab.LIBRARY_UNBIASED, tfa.LIBRARY, tfa.LIBRARY_BWD,
-            tfa.LIBRARY_SM90, tfa.LIBRARY_DKV_SM90, tks.LIBRARY)
+            tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED, tfa.LIBRARY,
+            tfa.LIBRARY_BWD, tfa.LIBRARY_SM90, tfa.LIBRARY_DQ_SM90,
+            tfa.LIBRARY_DKV_SM90, tks.LIBRARY)
     t0 = time.perf_counter()
     kbuild.build_all(libs)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
@@ -1086,8 +1101,14 @@ def main() -> int:
         (max|dO|, max|ddq|, max of max|ddk|, max|ddv|) and the forward's
         O, lse, dO."""
         dt = str(q.dtype).split(".")[1]
+        before = (tca.unbiased_launches, tca.unbiased_sm90_launches)
         o, lse = ops.cluster_attention(q, k, v, bi, causal=causal,
                                        return_lse=True)
+        bf16 = q.dtype == torch.bfloat16
+        if (tca.unbiased_launches, tca.unbiased_sm90_launches) != (
+                before[0] + (not bf16), before[1] + bf16):
+            raise AssertionError(f"the {dt} unbiased forward went to the "
+                                 f"other dtype's kernel: {tag}")
         po, plse = ops.cluster_attention(q, k, v, bi, causal=causal,
                                          return_lse=True, impl="plain")
         torch.cuda.synchronize()
@@ -1294,6 +1315,8 @@ def main() -> int:
                 "cluster_attention_bwd_dq": tcab.dq_launches,
                 "cluster_attention_bwd_dkv": tcab.dkv_launches,
                 "cluster_attention_fwd_unbiased": tca.unbiased_launches,
+                "cluster_attention_fwd_unbiased_sm90":
+                    tca.unbiased_sm90_launches,
                 "cluster_attention_bwd_dq_unbiased":
                     tcab.dq_unbiased_launches,
                 "cluster_attention_bwd_dkv_unbiased":
@@ -1302,6 +1325,7 @@ def main() -> int:
                 "flash_attention_bwd_dq": tfa.dq_launches,
                 "flash_attention_bwd_dkv": tfa.dkv_launches,
                 "flash_attention_fwd_sm90": tfa.sm90_launches,
+                "flash_attention_bwd_dq_sm90": tfa.dq_sm90_launches,
                 "flash_attention_bwd_dkv_sm90": tfa.dkv_sm90_launches,
                 "ssd_fwd": tks.launches}
 
@@ -1596,7 +1620,8 @@ def main() -> int:
             f"{peak / 2**30:.2f} GiB, launches {counts}, per step "
             f"{ {n: c / LM_STEPS for n, c in counts.items() if c} }")
         want = LM_STEPS * cfg.n_layers
-        if counts != only(cluster_attention_fwd_unbiased=want,
+        # bf16 compute: the forward is the tensor-core kernel
+        if counts != only(cluster_attention_fwd_unbiased_sm90=want,
                           cluster_attention_bwd_dq_unbiased=want,
                           cluster_attention_bwd_dkv_unbiased=want):
             raise AssertionError(f"launches {counts}: want {want} of each "
@@ -1713,12 +1738,16 @@ def main() -> int:
              "cluster_attention_bwd.py:206")):
         b = lm_rec["bfloat16"][half]
         lib = "library" if half == "fwd" else "library_bwd"
+        # the forward has a kernel for each dtype: `source` is the bf16
+        # tensor-core one, which the bf16 LM run launched; the fp32
+        # CUDA-core one is `source_float32`, timed under `float32`
+        sm90 = "_sm90" if half == "fwd" else ""
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/"
-                      f"cluster_attention_unbiased_{src}.cu",
+                      f"cluster_attention_unbiased_{src}{sm90}.cu",
             "replaces": f"src/repro/kernels/{line}",
-            "launches": lm_run["launches"][name],
+            "launches": lm_run["launches"][name + sm90],
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
@@ -1732,10 +1761,15 @@ def main() -> int:
                 "causal_dense_bwd_ms"),
             "float32": lm_rec["float32"][half],
             **{k: v for k, v in b.items() if k.startswith("ms_without")}})
+        if sm90:
+            kernels[-1]["source_float32"] = (
+                f"src/repro_torch/kernels/csrc/"
+                f"cluster_attention_unbiased_{src}.cu")
+            kernels[-1]["launches_float32"] = lm_run["launches"][name]
     kernels[3]["lm_yardstick"] = lm_yard
     kernels[3]["lm_train"] = lm_run
     # the flash kernels and the SSD scan: times at full width in bf16,
-    # launches from the tune phase, the main path. Rows 7 and 9 have a
+    # launches from the tune phase, the main path. Rows 7-9 have a
     # kernel for each dtype: `source` is the bf16 tensor-core one, timed
     # here, whose count from the tune phase is 0 (the tuner's cases are
     # fp32; phase 3d, a kernel-vs-plain check, is the only place it runs);
@@ -1744,7 +1778,7 @@ def main() -> int:
     for half, name, sm90, src32, line in (
             ("fwd", "flash_attention_fwd", True, "flash_attention_fwd.cu",
              "flash_attention.py:34"),
-            ("dq", "flash_attention_bwd_dq", False, "flash_attention_bwd.cu",
+            ("dq", "flash_attention_bwd_dq", True, "flash_attention_bwd.cu",
              "flash_attention.py:175"),
             ("dkv", "flash_attention_bwd_dkv", True, "flash_attention_bwd.cu",
              "flash_attention.py:224"),

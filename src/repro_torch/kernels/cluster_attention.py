@@ -4,9 +4,14 @@ attention forwards:
 * ``csrc/cluster_attention_fwd.cu``, the port of the TPU kernel
   ``_cluster_kernel_biased`` (``src/repro/kernels/cluster_attention.py``):
   int8 bias buckets, the graph transformer's path;
-* ``csrc/cluster_attention_unbiased_fwd.cu``, the port of
-  ``_cluster_kernel``: no buckets, an optional positional causal mask,
-  the token LM's local+global path.
+* the ports of ``_cluster_kernel``: no buckets, an optional positional
+  causal mask, the token LM's local+global path. Each dtype has exactly
+  one kernel, with no fallback between them: bfloat16 runs on the tensor
+  cores (``csrc/cluster_attention_unbiased_fwd_sm90.cu``: TMA copies of
+  the visited k-blocks into a ring of shared-memory stages feeding
+  ``wgmma``), float32 on CUDA cores in fp32 throughout
+  (``csrc/cluster_attention_unbiased_fwd.cu``; TF32 would miss the fp32
+  tolerances). ``check_unbiased_kernel`` states what each takes.
 
 The kernels are compiled at first use (``kernels/build.py``: nvcc for
 ``sm_90a``, a plain C entry point, ``ctypes``).
@@ -27,18 +32,22 @@ import torch
 from repro_torch.kernels.build import CudaLibrary
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# what the unbiased kernels take: head dims, and q/k-blocks in multiples
-# of their 64 x 64 score tiles
+# what the unbiased kernels take: head dims; fp32 (and the bf16 backward)
+# q/k-blocks in multiples of their 64 x 64 score tiles; the bf16 forward
+# the LM's q/k-blocks of 128 rows, one TMA box each
 UNBIASED_HEAD_DIMS = (64, 128)
 UNBIASED_TILE = 64
+UNBIASED_SM90_BLOCK = 128
 
-launches = 0           # biased kernel launches since the last reset_count()
-unbiased_launches = 0  # unbiased kernel launches since the last reset_count()
+# kernel launches since the last reset_count(), one count per kernel
+launches = 0                # biased, cluster_attention_fwd.cu
+unbiased_launches = 0       # fp32 unbiased, cluster_attention_unbiased_fwd.cu
+unbiased_sm90_launches = 0  # bf16 unbiased, ..._unbiased_fwd_sm90.cu
 
 
 def reset_count() -> None:
-    global launches, unbiased_launches
-    launches = unbiased_launches = 0
+    global launches, unbiased_launches, unbiased_sm90_launches
+    launches = unbiased_launches = unbiased_sm90_launches = 0
 
 
 def _bind(lib) -> None:
@@ -55,10 +64,19 @@ def _bind_unbiased(lib) -> None:
     lib.cluster_attention_fwd_unbiased.restype = i32
 
 
+def _bind_unbiased_sm90(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_fwd_unbiased_sm90.argtypes = (
+        [vp] * 6 + [i32] * 8 + [ctypes.c_float, vp])
+    lib.cluster_attention_fwd_unbiased_sm90.restype = i32
+
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "cluster_attention_fwd.cu", _bind)
 LIBRARY_UNBIASED = CudaLibrary(_CSRC / "cluster_attention_unbiased_fwd.cu",
                                _bind_unbiased)
+LIBRARY_UNBIASED_SM90 = CudaLibrary(
+    _CSRC / "cluster_attention_unbiased_fwd_sm90.cu", _bind_unbiased_sm90)
 
 
 def check_args(q, k, v, block_idx, buckets, bias_table):
@@ -110,23 +128,46 @@ def check_args(q, k, v, block_idx, buckets, bias_table):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
-def check_unbiased_kernel(q, block_idx, block_idx_t=None):
+def unbiased_kernel_reason(dtype, d_head: int, bq: int, shared: bool, *,
+                           backward: bool = False) -> str | None:
+    """Why the unbiased kernel of ``dtype`` (a torch dtype) does not take
+    head dim ``d_head``, q/k-blocks of ``bq`` rows and a batch-shared
+    layout (``shared``), or None when it does. ``backward`` asks about
+    the dQ and dK/dV kernels, which stay on CUDA cores in both dtypes."""
+    if d_head not in UNBIASED_HEAD_DIMS:
+        return f"Dh={d_head} (the kernels take Dh in {UNBIASED_HEAD_DIMS})"
+    if dtype == torch.bfloat16 and not backward:
+        if bq != UNBIASED_SM90_BLOCK:
+            return (f"bq=bk={bq} (the bf16 forward takes bq = bk = "
+                    f"{UNBIASED_SM90_BLOCK}, one TMA box a block)")
+    elif bq % UNBIASED_TILE:
+        return (f"bq=bk={bq} (the kernels take bq = bk a multiple of "
+                f"{UNBIASED_TILE})")
+    if not shared:
+        return "a per-sequence layout (the kernels take a batch-shared one)"
+    return None
+
+
+def check_unbiased_kernel(q, block_idx, block_idx_t=None, *,
+                          backward: bool = False):
     """Raise ``NotImplementedError`` with the shapes unless the unbiased
-    kernels take them: Dh in ``UNBIASED_HEAD_DIMS``, ``bq`` a multiple of
-    ``UNBIASED_TILE``, and the batch-shared layout of the LM path
+    kernels of q's dtype take them (``unbiased_kernel_reason``): Dh in
+    ``UNBIASED_HEAD_DIMS``; the bf16 forward ``bq`` = bk =
+    ``UNBIASED_SM90_BLOCK``, fp32 and the backward ``bq`` a multiple of
+    ``UNBIASED_TILE``; and the batch-shared layout of the LM path
     (``block_idx`` (nq, mb), ``block_idx_t`` (nk, mt, 2))."""
     Dh = q.shape[3]
     bq = q.shape[1] // block_idx.shape[-2]
     shared = block_idx.dim() == 2 and (block_idx_t is None
                                        or block_idx_t.dim() == 3)
-    if Dh not in UNBIASED_HEAD_DIMS or bq % UNBIASED_TILE or not shared:
+    reason = unbiased_kernel_reason(q.dtype, Dh, bq, shared,
+                                    backward=backward)
+    if reason is not None:
         t_shape = None if block_idx_t is None else tuple(block_idx_t.shape)
         raise NotImplementedError(
-            f"the unbiased cluster_attention kernels take Dh in "
-            f"{UNBIASED_HEAD_DIMS}, bq = bk a multiple of {UNBIASED_TILE} "
-            f"and a batch-shared (nq, mb) layout; got Dh={Dh}, bq=bk={bq} "
-            f"(q {tuple(q.shape)}, block_idx {tuple(block_idx.shape)}, "
-            f"block_idx_t {t_shape})")
+            f"the unbiased cluster_attention kernels do not take {reason}: "
+            f"{str(q.dtype).split('.')[-1]} q {tuple(q.shape)}, block_idx "
+            f"{tuple(block_idx.shape)}, block_idx_t {t_shape}")
 
 
 def aligned(x):
@@ -186,25 +227,35 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
 def _fwd_unbiased(q, k, v, block_idx, causal, return_lse):
     check_unbiased_kernel(q, block_idx)
     B, S, H, Dh = q.shape
+    KV = k.shape[2]
     nq, mb = block_idx.shape[-2:]
     bq = S // nq
-    lib = LIBRARY_UNBIASED.lib()
     q, k, v = aligned(q), aligned(k), aligned(v)
     block_idx = block_idx.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    global unbiased_launches
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
+            out.data_ptr(), lse.data_ptr() if lse is not None else None)
+    stream = torch.cuda.current_stream().cuda_stream
+    global unbiased_launches, unbiased_sm90_launches
     with torch.cuda.device(q.device):
-        err = lib.cluster_attention_fwd_unbiased(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
-            out.data_ptr(), lse.data_ptr() if lse is not None else None,
-            _DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nq, mb, bq, bq,
-            int(causal), Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+        if q.dtype == torch.bfloat16:
+            err = LIBRARY_UNBIASED_SM90.lib() \
+                .cluster_attention_fwd_unbiased_sm90(
+                    *ptrs, B, S, H, KV, Dh, nq, mb, int(causal), Dh ** -0.5,
+                    stream)
+        else:
+            err = LIBRARY_UNBIASED.lib().cluster_attention_fwd_unbiased(
+                *ptrs, _DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, bq, bq,
+                int(causal), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_fwd_unbiased launch failed: "
                            f"CUDA error {err} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, block_idx "
                            f"{tuple(block_idx.shape)}, causal={causal})")
-    unbiased_launches += 1
+    if q.dtype == torch.bfloat16:
+        unbiased_sm90_launches += 1
+    else:
+        unbiased_launches += 1
     return (out, lse) if return_lse else out

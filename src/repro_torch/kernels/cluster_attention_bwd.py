@@ -235,7 +235,8 @@ def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
         raise ValueError("the bucketed cluster kernels have no causal mask "
                          "(masking lives in the buckets)")
     if buckets is None:
-        _ca.check_unbiased_kernel(q, block_idx, block_idx_t)
+        _ca.check_unbiased_kernel(q, block_idx, block_idx_t,
+                                  backward=True)
     if block_idx_t is None:
         block_idx_t = _ref.derive_block_idx_t(
             block_idx, q.shape[1] // _ref.block_dims(q, block_idx,

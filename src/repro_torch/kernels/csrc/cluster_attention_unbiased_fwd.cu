@@ -1,9 +1,11 @@
 // Unbiased cluster-sparse attention forward, optional positional causal
-// mask, for Hopper (sm_90a).
+// mask, for Hopper (sm_90a), for fp32 inputs.
 //
 // Replaces the TPU kernel `_cluster_kernel` in
-// src/repro/kernels/cluster_attention.py: the token LM's local+global
-// layout (core/reformation.lm_local_global_layout, bq = bk = 128). For
+// src/repro/kernels/cluster_attention.py for fp32 q, k and v: the token
+// LM's local+global layout (core/reformation.lm_local_global_layout,
+// bq = bk = 128); bf16 inputs go to the tensor-core kernel of
+// cluster_attention_unbiased_fwd_sm90.cu. For
 // each q-block row the layout lists the k-blocks to visit (`block_idx`,
 // -1 padded); inside a visited block every score is `(q . k) * Dh^-0.5`
 // in fp32, masked to the finite sentinel -1e30 where `qpos < kpos` when
@@ -12,10 +14,10 @@
 //
 // What bounds it on the card. At the Qwen3-0.6B training shape (S=16384,
 // H=16 over KV=8, Dh=128, window 4096 + one global block: 3696 visited
-// blocks of 128 x 128) the score and PV products are 4 * 3696 * 128^3 *
-// 16 = 496 GFLOP, 0.50 ms at the bf16 tensor-core peak (7.4 ms at the
-// fp32 CUDA-core peak this kernel computes at), against ~202 MB of q, k,
-// v, O and lse (0.06 ms at 3.35 TB/s): bound by operations.
+// blocks of 128 x 128, the causal diagonal blocks half full) the score
+// and PV products are ~488 GFLOP, 7.3 ms at the fp32 CUDA-core peak of
+// 67 TFLOP/s, against ~0.4 GB of fp32 q, k, v, O and lse (0.12 ms at
+// 3.35 TB/s): bound by operations.
 //
 // What this design does about it. The slice-1/2 kernels keep a whole
 // block's fp32 tiles in shared memory, which at bq = bk = Dh = 128 would
@@ -28,7 +30,8 @@
 // spills). Each thread holds a 4 x 4 block of scores and a 4 x Dh/16
 // block of the output accumulator in registers (unbiased_tiles.cuh), so
 // a float4 read from shared memory feeds four multiply-adds instead of
-// one. All arithmetic is fp32 on CUDA cores (no tensor cores yet).
+// one. All arithmetic is fp32 on CUDA cores: TF32 on the tensor cores
+// would miss the fp32 tolerances.
 // Chunks that the causal mask empties for all 64 rows are skipped. Heads
 // vary fastest in the grid, so the CTAs of one q-block read the same k/v
 // rows through L2.
@@ -201,11 +204,11 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q (B,S,H,Dh), k/v (B,S,KV,Dh), out
-// like q, all contiguous and 16-byte aligned; block_idx (nq,mb) int32,
-// shared by the batch; lse (B*H,S) fp32 or NULL. Takes Dh in {64, 128},
-// bq = bk a multiple of 64. Returns the CUDA error code of the launch
-// (0 = launched).
+// dtype: 0 = float32 (bfloat16 is cluster_attention_fwd_unbiased_sm90's).
+// q (B,S,H,Dh), k/v (B,S,KV,Dh), out like q, all contiguous and 16-byte
+// aligned; block_idx (nq,mb) int32, shared by the batch; lse (B*H,S) fp32
+// or NULL. Takes Dh in {64, 128}, bq = bk a multiple of 64. Returns the
+// CUDA error code of the launch (0 = launched).
 int cluster_attention_fwd_unbiased(const void* q, const void* k,
                                    const void* v, const void* block_idx,
                                    void* out, void* lse, int dtype, int B,
@@ -213,17 +216,11 @@ int cluster_attention_fwd_unbiased(const void* q, const void* k,
                                    int mb, int bq, int bk, int causal,
                                    float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bq % unbiased::kTile || bk % unbiased::kTile)
+  if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return unbiased::launch_dh<float>(dh, q, k, v, block_idx, out, lse, B, S,
-                                      H, KV, nq, mb, bq, bk, causal,
-                                      sm_scale, st);
-  if (dtype == 1)
-    return unbiased::launch_dh<__nv_bfloat16>(dh, q, k, v, block_idx, out,
-                                              lse, B, S, H, KV, nq, mb, bq,
-                                              bk, causal, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  return unbiased::launch_dh<float>(dh, q, k, v, block_idx, out, lse, B, S,
+                                    H, KV, nq, mb, bq, bk, causal, sm_scale,
+                                    st);
 }
 
 }  // extern "C"

@@ -1,18 +1,17 @@
-// Dense flash attention backward for Hopper (sm_90a): the dQ kernel (fp32
-// and bf16) and the fp32 dK/dV kernel.
+// Dense flash attention backward for Hopper (sm_90a), for fp32 inputs:
+// the dQ and dK/dV kernels.
 //
 // Replace the TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel` in
-// src/repro/kernels/flash_attention.py: the recomputation backward of
-// flash_attention_fwd.cu (bf16 dK/dV is flash_attention_bwd_dkv_sm90.cu,
-// on the tensor cores, which rebuilds the scores as
-// flash_attention_fwd_sm90.cu does; the bf16 dQ kernel here takes that
-// forward's lse, which matches the fp32 arithmetic below to fp32
-// rounding). Each kernel rebuilds a tile's scores exactly as
-// the forward built them (`(q . k) * Dh^-0.5`, or `(q * Dh^-0.5) . k`
-// under the `hoist_scale` rewrite, in fp32; -1e30 where `kpos >= Sk` or,
-// when causal, `qpos < kpos`) and, with the forward's per-row logsumexp
-// `lse` and `delta = rowsum(dO * O)` (both fp32, computed by the caller),
-// forms
+// src/repro/kernels/flash_attention.py for fp32 q, k, v and dO, as the
+// autotuner runs them: the recomputation backward of
+// flash_attention_fwd.cu. bf16 inputs go to the tensor-core kernels of
+// flash_attention_bwd_dq_sm90.cu and flash_attention_bwd_dkv_sm90.cu,
+// which rebuild the scores as flash_attention_fwd_sm90.cu does. Each
+// kernel here rebuilds a tile's scores exactly as the fp32 forward built
+// them (`(q . k) * Dh^-0.5`, or `(q * Dh^-0.5) . k` under the
+// `hoist_scale` rewrite, in fp32; -1e30 where `kpos >= Sk` or, when
+// causal, `qpos < kpos`) and, with the forward's per-row logsumexp `lse`
+// and `delta = rowsum(dO * O)` (both fp32, computed by the caller), forms
 //   p  = exp(s - lse)   (0 on the ragged tail's q rows, which add nothing)
 //   dp = dO . v
 //   ds = p * (dp - delta)
@@ -26,9 +25,9 @@
 //
 // What bounds them on the card. At the Qwen3-0.6B training shape (S=16384,
 // 16 q heads over 8, Dh 128, causal: 1.342e8 score entries a head) dQ does
-// 6 * 1.342e8 * 128 * 16 = 1.65 TFLOP (1.67 ms at the bf16 tensor-core
-// peak) and dK/dV 8 * ... = 2.20 TFLOP (2.22 ms), against ~0.3 GB of
-// operands each: bound by operations.
+// 6 * 1.342e8 * 128 * 16 = 1.65 TFLOP (24.6 ms at the fp32 CUDA-core
+// peak of 67 TFLOP/s) and dK/dV 8 * ... = 2.20 TFLOP (32.8 ms), against
+// ~0.5-0.7 GB of fp32 operands each: bound by operations.
 //
 // What this design does about it. The tiles of the unbiased cluster
 // backward (unbiased_tiles.cuh): fp32 operand tiles in shared memory
@@ -41,8 +40,6 @@
 // diagonal and runs its q-blocks heaviest first, dK/dV starts at it (its
 // heaviest k-blocks come first in the grid). All arithmetic is fp32 on
 // CUDA cores (TF32 would miss the fp32 tolerances).
-
-#include <type_traits>
 
 #include "unbiased_tiles.cuh"
 
@@ -288,7 +285,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// One entry per (dtype, Dh): `which` 0 = dQ, 1 = dK/dV (fp32 only).
+// One entry per Dh: `which` 0 = dQ, 1 = dK/dV.
 template <typename T, int DH>
 int launch_hoist(int which, int hoist, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse,
@@ -301,15 +298,12 @@ int launch_hoist(int which, int hoist, const void* q, const void* k,
                  : launch_dq<T, DH, false>(q, k, v, dout, lse, delta, d0, B,
                                            Sq, Sk, H, KV, causal, sm_scale,
                                            st);
-  // bf16 dK/dV is flash_attention_bwd_dkv_sm90.cu's
-  if constexpr (std::is_same_v<T, float>)
-    return hoist ? launch_dkv<T, DH, true>(q, k, v, dout, lse, delta, d0,
-                                           d1, B, Sq, Sk, H, KV, causal,
-                                           sm_scale, st)
-                 : launch_dkv<T, DH, false>(q, k, v, dout, lse, delta, d0,
-                                            d1, B, Sq, Sk, H, KV, causal,
-                                            sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  return hoist ? launch_dkv<T, DH, true>(q, k, v, dout, lse, delta, d0, d1,
+                                         B, Sq, Sk, H, KV, causal, sm_scale,
+                                         st)
+               : launch_dkv<T, DH, false>(q, k, v, dout, lse, delta, d0, d1,
+                                          B, Sq, Sk, H, KV, causal, sm_scale,
+                                          st);
 }
 
 template <typename T>
@@ -338,15 +332,9 @@ int dispatch(int which, int dtype, int dh, int hoist, const void* q,
              const void* delta, void* d0, void* d1, int B, int Sq, int Sk,
              int H, int KV, int causal, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_dh<float>(which, dh, hoist, q, k, v, dout, lse, delta, d0,
-                            d1, B, Sq, Sk, H, KV, causal, sm_scale, st);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(which, dh, hoist, q, k, v, dout, lse,
-                                    delta, d0, d1, B, Sq, Sk, H, KV, causal,
-                                    sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (Sq <= 0 || Sk <= 0 || dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch_dh<float>(which, dh, hoist, q, k, v, dout, lse, delta, d0,
+                          d1, B, Sq, Sk, H, KV, causal, sm_scale, st);
 }
 
 }  // namespace
@@ -354,10 +342,10 @@ int dispatch(int which, int dtype, int dh, int hoist, const void* q,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q, dout and dq (B,Sq,H,Dh); k/v
-// (B,Sk,KV,Dh), all contiguous and 16-byte aligned; lse, delta (B*H,Sq)
-// fp32. Takes Dh in {32, 64, 128}. Returns the CUDA error code of the
-// launch (0 = launched).
+// dtype: 0 = float32 (bfloat16 is flash_attention_bwd_dq_sm90's). q, dout
+// and dq (B,Sq,H,Dh); k/v (B,Sk,KV,Dh), all contiguous and 16-byte
+// aligned; lse, delta (B*H,Sq) fp32. Takes Dh in {32, 64, 128}. Returns
+// the CUDA error code of the launch (0 = launched).
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int dtype, int B,
@@ -367,8 +355,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                          nullptr, B, Sq, Sk, H, KV, causal, sm_scale, stream);
 }
 
-// As above, for float32 only (bfloat16 is
-// flash_attention_bwd_dkv_sm90's); dk/dv (B,Sk,H,Dh) per q-head.
+// As above (bfloat16 is flash_attention_bwd_dkv_sm90's); dk/dv
+// (B,Sk,H,Dh) per q-head.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int dtype,

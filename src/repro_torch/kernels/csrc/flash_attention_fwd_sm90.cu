@@ -40,15 +40,15 @@
 //   fp32 accumulate; registers do not grow with block_k); the online
 //   softmax on the accumulator's register layout (the four threads of a
 //   row reduce with two shuffles; scale * log2 e folds into one exp2
-//   argument); O += P V by `wgmma` with P from registers.
+//   argument); O += P V by `wgmma` with P from registers. The softmax,
+//   P V and the epilogue are sm90_tiles.cuh's, shared with the cluster
+//   forward (cluster_attention_unbiased_fwd_sm90.cu).
 // * The P split. The port's check holds bf16 O element by element within
-//   1e-5 + 2^-7 |O| of the plain version, which multiplies fp32
-//   probabilities by V. Rounding P to bf16 would err by about
-//   2^-9 sqrt(sum p^2 v^2) / l, ~2.5e-5 at S = 16384, above the 1e-5
-//   floor where O cancels near 0. So P = P_hi + P_lo, P_hi = bf16(P),
-//   P_lo = bf16(P - P_hi), and two register-operand `wgmma`s accumulate
-//   into the same O: 1.5x the tensor-core work of the function, an error
-//   near 2^-17.
+//   1e-5 + 2^-7 |O| of the plain version, which a P rounded once to bf16
+//   misses where O cancels near 0. So P = P_hi + P_lo and two
+//   register-operand `wgmma`s accumulate into the same O
+//   (`sm90::softmax_chunk`): 1.5x the tensor-core work of the function,
+//   an error near 2^-17.
 // * Only the chunks on the causal diagonal or the ragged tail are masked.
 //   Shared memory: 64 NWG Dh + 2 stages x 2 block_k Dh bf16 values, e.g.
 //   160 KB at Dh 128, block_q = block_k = 128
@@ -63,7 +63,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;    // q rows of one consumer warpgroup
 constexpr int kStages = 2;   // k/v stages in the ring
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH, int NWG, int BK>
 struct Cfg : sm90::Atom<DH> {
@@ -187,78 +186,22 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
         sm90::wgmma_wait<0>();
         sm90::fence_acc(sc);
 
-        // masks on the diagonal and the ragged tail; the row maxima
+        // masks on the diagonal and the ragged tail; the online softmax
         const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > r0);
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float& v = sc[4 * j + 2 * i + e];
-              const int kp = k0 + 8 * j + col + e;
-              if (edge && (kp >= Sk || (causal && kp > row + 8 * i)))
-                v = -INFINITY;
-              mx[i] = fmaxf(mx[i], v);
-            }
-        float base[2], corr[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-          // base-2 logits: s * scale * log2 e; a row with nothing
-          // unmasked so far shifts by 0, so its p and corr are 0
-          const float m_new = fmaxf(m[i], mx[i] * c2);
-          base[i] = m_new == -INFINITY ? 0.f : m_new;
-          corr[i] = exp2f(m[i] - base[i]);
-          m[i] = m_new;
-          l[i] *= corr[i];
-        }
-        // p = exp2(s c2 - m), its row sums (the quad's partial sums), and
-        // the split P = P_hi + P_lo as A fragments
         uint32_t phi[BN / 16][4], plo[BN / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int i = r & 1;  // registers 1 and 3 hold row + 8
-            const float p0 = exp2f(fmaf(sc[8 * kk + 2 * r], c2, -base[i]));
-            const float p1 =
-                exp2f(fmaf(sc[8 * kk + 2 * r + 1], c2, -base[i]));
-            l[i] += p0 + p1;
-            const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-            const float2 hf = __bfloat1622float2(hi);
-            const __nv_bfloat162 lo =
-                __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-            phi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
-            plo[kk][r] = *reinterpret_cast<const uint32_t*>(&lo);
-          }
-#pragma unroll
-        for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            o[4 * j + 2 * i] *= corr[i];
-            o[4 * j + 2 * i + 1] *= corr[i];
-          }
+        sm90::softmax_chunk<BN, DH>(
+            sc, o, m, l, c2, col, edge,
+            [&](int kc, int i) {
+              return k0 + kc >= Sk || (causal && k0 + kc > row + 8 * i);
+            },
+            phi, plo);
 
         // O += P_hi V + P_lo V
         if (!have_v) {
           sm90::mbar_wait(full_v + s, par);
           have_v = true;
         }
-        sm90::wgmma_fence();
-        sm90::fence_acc(o);
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-          const uint64_t dv =
-              sm90::desc_mn<SWB>(sv, BK, c * BN + kk * 16);
-          sm90::rs<DH>(o, phi[kk], dv);
-          sm90::rs<DH>(o, plo[kk], dv);
-        }
-        sm90::wgmma_commit();
-        sm90::wgmma_wait<0>();
-        sm90::fence_acc(o);
+        sm90::pv_split<BN, DH, SWB>(o, phi, plo, sv, BK, c * BN);
       }
       if (!have_v) sm90::mbar_wait(full_v + s, par);
       // the stage's k and v are read: hand it back to the producer
@@ -266,27 +209,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) sm90::mbar_arrive(empty + s);
     }
 
-    // ---------------------------------------------------------- epilogue
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row + 8 * i;
-      if (r >= Sq) continue;
-      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-      bf16* orow = out + (((size_t)b * Sq + r) * H + h) * DH;
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col) =
-            __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
-                                  o[4 * j + 2 * i + 1] * inv);
-      if (lse != nullptr && lane % 4 == 0)
-        lse[((size_t)b * H + h) * Sq + r] =
-            l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : 0.f;
-    }
+    sm90::store_rows<DH>(o, m, l, out, lse, b, h, H, Sq, row, col);
   }
 }
 

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu): the
-// mbarrier ring that a producer warp fills with TMA copies, the
-// shared-memory matrix descriptors and `wgmma` instructions that read
-// those tiles, and the host-side encoding of the TMA tensor maps.
+// Hopper (sm_90a) building blocks of the tensor-core kernels
+// (flash_attention_{fwd,bwd_dq,bwd_dkv}_sm90.cu,
+// cluster_attention_unbiased_fwd_sm90.cu): the mbarrier ring that a
+// producer warp fills with TMA copies, the shared-memory matrix
+// descriptors and `wgmma` instructions that read those tiles, the online
+// softmax, P V and epilogue the two forwards share, and the host-side
+// encoding of the TMA tensor maps.
 //
 // Tiles. A (rows x Dh) bf16 tile of q, k, v or dO is copied by TMA with a
 // 128-byte swizzle (Dh 64 and 128) or a 64-byte swizzle (Dh 32): one
@@ -311,6 +313,129 @@ __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],
     rs_n64(d, a, db);
   else
     rs_n128(d, a, db);
+}
+
+// ------------------------------------------ the forwards' online softmax
+
+// One chunk of BN keys of the online softmax of the bf16 forwards
+// (flash_attention_fwd_sm90.cu, cluster_attention_unbiased_fwd_sm90.cu),
+// on the accumulator `sc` of a 64 x BN product S = Q K^T. Where `edge`
+// holds, the entries for which `masked(kc, i)` holds (key kc of the
+// chunk, the thread's row + 8 i) become -inf. The running row maxima `m`
+// are base-2 logits (s * c2, c2 = scale * log2 e); `l` holds the
+// thread's partial row sums (its quad's share); O is rescaled; and
+// P = exp2(s c2 - m) comes out split as P = P_hi + P_lo, bf16 A
+// fragments for `pv_split`. A row with nothing unmasked so far shifts by
+// 0, so its p and rescale factor are 0.
+//
+// The split: the port's check holds bf16 O element by element within
+// 1e-5 + 2^-7 |O| of the plain version, which multiplies fp32
+// probabilities by V. Rounding P once to bf16 would err by about
+// 2^-9 sqrt(sum p^2 v^2) / l, ~2.5e-5 over 16384 keys, above the 1e-5
+// floor where O cancels near 0. P_hi = bf16(P), P_lo = bf16(P - P_hi):
+// two register-operand `wgmma`s, 1.5x the tensor-core work of the
+// function, an error near 2^-17.
+template <int BN, int DH, typename Masked>
+__device__ __forceinline__ void softmax_chunk(
+    float (&sc)[BN / 2], float (&o)[DH / 2], float (&m)[2], float (&l)[2],
+    float c2, int col, bool edge, Masked masked,
+    uint32_t (&phi)[BN / 16][4], uint32_t (&plo)[BN / 16][4]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = sc[4 * j + 2 * i + e];
+        if (edge && masked(8 * j + col + e, i)) v = -INFINITY;
+        mx[i] = fmaxf(mx[i], v);
+      }
+  float base[2], corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * c2);
+    base[i] = m_new == -INFINITY ? 0.f : m_new;
+    corr[i] = exp2f(m[i] - base[i]);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = r & 1;  // registers 1 and 3 hold row + 8
+      const float p0 = exp2f(fmaf(sc[8 * kk + 2 * r], c2, -base[i]));
+      const float p1 = exp2f(fmaf(sc[8 * kk + 2 * r + 1], c2, -base[i]));
+      l[i] += p0 + p1;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+      phi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+      plo[kk][r] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      o[4 * j + 2 * i] *= corr[i];
+      o[4 * j + 2 * i + 1] *= corr[i];
+    }
+}
+
+// O += P_hi V + P_lo V over BN keys: rows r .. r + BN - 1 of the
+// MN-major V tile `sv` of `rows` rows
+template <int BN, int DH, int SWB>
+__device__ __forceinline__ void pv_split(float (&o)[DH / 2],
+                                         const uint32_t (&phi)[BN / 16][4],
+                                         const uint32_t (&plo)[BN / 16][4],
+                                         const uint8_t* sv, int rows, int r) {
+  wgmma_fence();
+  fence_acc(o);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t dv = desc_mn<SWB>(sv, rows, r + kk * 16);
+    rs<DH>(o, phi[kk], dv);
+    rs<DH>(o, plo[kk], dv);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(o);
+}
+
+// The forwards' epilogue: the quads' row sums, then O / l in bf16 and the
+// natural logsumexp m ln 2 + log l of the thread's rows `row` and
+// `row` + 8 below S (a row with l = 0, nothing unmasked, writes O = 0
+// and lse = 0). `out` (B, S, H, DH), `lse` (B*H, S) or NULL.
+template <int DH>
+__device__ __forceinline__ void store_rows(const float (&o)[DH / 2],
+                                           const float (&m)[2], float (&l)[2],
+                                           __nv_bfloat16* out, float* lse,
+                                           int b, int h, int H, int S,
+                                           int row, int col) {
+  constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    if (r >= S) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    __nv_bfloat16* orow = out + (((size_t)b * S + r) * H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
+                                o[4 * j + 2 * i + 1] * inv);
+    if (lse != nullptr && col == 0)
+      lse[((size_t)b * H + h) * S + r] =
+          l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : 0.f;
+  }
 }
 
 // ------------------------------------------------- tensor maps (host)

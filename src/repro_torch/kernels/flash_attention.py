@@ -13,14 +13,14 @@ kernels, the ports of the TPU kernels in
 Each dtype has exactly one kernel, with no fallback between them:
 
 * bfloat16 runs on the tensor cores: ``csrc/flash_attention_fwd_sm90.cu``
-  (the forward) and ``csrc/flash_attention_bwd_dkv_sm90.cu`` (dK/dV), TMA
-  copies into a ring of shared-memory stages feeding ``wgmma``;
+  (the forward), ``csrc/flash_attention_bwd_dq_sm90.cu`` (dQ) and
+  ``csrc/flash_attention_bwd_dkv_sm90.cu`` (dK/dV), TMA copies into a
+  ring of shared-memory stages feeding ``wgmma``;
 * float32 runs on CUDA cores, in fp32 throughout (TF32 would miss the
   fp32 tolerances): ``csrc/flash_attention_fwd.cu`` and
-  ``flash_dkv_kernel`` in ``csrc/flash_attention_bwd.cu``. The autotuner
-  runs its cases in fp32, so it times these;
-* the dQ kernel (``flash_dq_kernel`` in ``csrc/flash_attention_bwd.cu``)
-  takes both dtypes on CUDA cores.
+  ``flash_dq_kernel`` / ``flash_dkv_kernel`` in
+  ``csrc/flash_attention_bwd.cu``. The autotuner runs its cases in fp32,
+  so it times these.
 
 ``check_launch`` states what each dtype's forward takes. The kernels are
 compiled at first use (``kernels/build.py``: nvcc for ``sm_90a``, a plain
@@ -51,17 +51,18 @@ SMEM_LIMIT = 232448
 
 # launches of each kernel since the last reset_count()
 launches = 0           # the fp32 forward, flash_attention_fwd.cu
-dq_launches = 0        # dQ, both dtypes, flash_attention_bwd.cu
+dq_launches = 0        # the fp32 dQ, flash_attention_bwd.cu
 dkv_launches = 0       # the fp32 dK/dV, flash_attention_bwd.cu
 sm90_launches = 0      # the bf16 forward, flash_attention_fwd_sm90.cu
+dq_sm90_launches = 0   # the bf16 dQ, flash_attention_bwd_dq_sm90.cu
 dkv_sm90_launches = 0  # the bf16 dK/dV, flash_attention_bwd_dkv_sm90.cu
 
 
 def reset_count() -> None:
     global launches, dq_launches, dkv_launches, sm90_launches, \
-        dkv_sm90_launches
+        dq_sm90_launches, dkv_sm90_launches
     launches = dq_launches = dkv_launches = 0
-    sm90_launches = dkv_sm90_launches = 0
+    sm90_launches = dq_sm90_launches = dkv_sm90_launches = 0
 
 
 def _bind(lib) -> None:
@@ -76,6 +77,13 @@ def _bind_sm90(lib) -> None:
     lib.flash_attention_fwd_sm90.argtypes = (
         [vp] * 5 + [i32] * 9 + [ctypes.c_float, vp])
     lib.flash_attention_fwd_sm90.restype = i32
+
+
+def _bind_dq_sm90(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_dq_sm90.argtypes = (
+        [vp] * 7 + [i32] * 7 + [ctypes.c_float, vp])
+    lib.flash_attention_bwd_dq_sm90.restype = i32
 
 
 def _bind_dkv_sm90(lib) -> None:
@@ -99,6 +107,8 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "flash_attention_fwd.cu", _bind)
 LIBRARY_BWD = CudaLibrary(_CSRC / "flash_attention_bwd.cu", _bind_bwd)
 LIBRARY_SM90 = CudaLibrary(_CSRC / "flash_attention_fwd_sm90.cu", _bind_sm90)
+LIBRARY_DQ_SM90 = CudaLibrary(_CSRC / "flash_attention_bwd_dq_sm90.cu",
+                              _bind_dq_sm90)
 LIBRARY_DKV_SM90 = CudaLibrary(_CSRC / "flash_attention_bwd_dkv_sm90.cu",
                                _bind_dkv_sm90)
 
@@ -168,10 +178,14 @@ def check_args(q, k, v):
                          f"{q.dtype}")
 
 
-def _check_kernel(q, k, block_q, block_k):
+def _check_device(q):
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"flash_attention has no kernel for device {q.device}")
+
+
+def _check_kernel(q, k, block_q, block_k):
+    _check_device(q)
     reason = check_launch(q.shape[3], block_q, block_k, q.dtype)
     if reason is not None:
         raise NotImplementedError(
@@ -219,28 +233,37 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, block_q: int,
 
 def dq_kernel(q, k, v, dout, lse, delta, causal, hoist_scale):
     """dq ``(B, Sq, H, Dh)`` in q's dtype from aligned CUDA operands."""
+    _check_device(q)
     B, Sq, H, Dh = q.shape
-    lib = LIBRARY_BWD.lib()
+    Sk, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    global dq_launches
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    global dq_launches, dq_sm90_launches
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _DTYPES[q.dtype], B, Sq, k.shape[1], H, k.shape[2], Dh,
-            int(causal), int(hoist_scale), Dh ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+        if q.dtype == torch.bfloat16:
+            err = LIBRARY_DQ_SM90.lib().flash_attention_bwd_dq_sm90(
+                *ptrs, B, Sq, Sk, H, KV, Dh, int(causal), Dh ** -0.5, stream)
+        else:
+            err = LIBRARY_BWD.lib().flash_attention_bwd_dq(
+                *ptrs, _DTYPES[q.dtype], B, Sq, Sk, H, KV, Dh, int(causal),
+                int(hoist_scale), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)})")
-    dq_launches += 1
+    if q.dtype == torch.bfloat16:
+        dq_sm90_launches += 1
+    else:
+        dq_launches += 1
     return dq
 
 
 def dkv_kernel(q, k, v, dout, lse, delta, causal, hoist_scale):
     """Per-q-head dk and dv ``(B, Sk, H, Dh)`` in q's dtype from aligned
     CUDA operands."""
+    _check_device(q)
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
     dkh = torch.empty((B, Sk, H, Dh), dtype=q.dtype, device=q.device)

@@ -203,3 +203,59 @@ def test_op_rejects_a_bias_table_without_buckets():
     with pytest.raises(ValueError, match="together"):
         tops.cluster_attention(t(q), t(k), t(v), t(lay.block_idx), None,
                                torch.zeros(4, 3), causal=True)
+
+
+@pytest.mark.parametrize("dtype,d_head,bq,shared,backward,reason", [
+    # the bf16 forward (tensor cores) takes the LM's 128-row blocks only
+    (torch.bfloat16, 128, 128, True, False, None),
+    (torch.bfloat16, 64, 128, True, False, None),
+    (torch.bfloat16, 128, 64, True, False, "bq = bk = 128"),
+    (torch.bfloat16, 64, 256, True, False, "bq = bk = 128"),
+    (torch.bfloat16, 32, 128, True, False, "Dh=32"),
+    (torch.bfloat16, 128, 128, False, False, "batch-shared"),
+    # the bf16 backward stays on CUDA cores: multiples of 64
+    (torch.bfloat16, 128, 64, True, True, None),
+    (torch.bfloat16, 64, 96, True, True, "a multiple of 64"),
+    # fp32, forward and backward, as before: multiples of 64
+    (torch.float32, 128, 64, True, False, None),
+    (torch.float32, 64, 256, True, False, None),
+    (torch.float32, 128, 128, True, True, None),
+    (torch.float32, 128, 96, True, False, "a multiple of 64"),
+    (torch.float32, 48, 128, True, False, "Dh=48"),
+    (torch.float32, 128, 128, False, True, "batch-shared"),
+])
+def test_unbiased_kernel_reason_per_dtype(dtype, d_head, bq, shared,
+                                          backward, reason):
+    """What each dtype's unbiased kernels take, and the reason they give
+    for what they refuse."""
+    got = tca.unbiased_kernel_reason(dtype, d_head, bq, shared,
+                                     backward=backward)
+    if reason is None:
+        assert got is None
+    else:
+        assert got is not None and reason in got, got
+
+
+def test_check_unbiased_kernel_names_dtype_and_shapes():
+    """The op's check raises with the dtype and the shapes: the bf16
+    forward refuses the 64-row blocks that fp32 and the bf16 backward
+    take."""
+    lay = lm_local_global_layout(512, bq=64, bk=64, window=128,
+                                 n_global=64)
+    bi, bit = t(lay.block_idx), t(lay.block_idx_t)
+    q = torch.zeros(2, 512, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError,
+                       match=r"bq=bk=64 .*bfloat16 q \(2, 512, 4, 64\), "
+                             r"block_idx \(8, 3\)"):
+        tca.check_unbiased_kernel(q, bi)
+    tca.check_unbiased_kernel(q, bi, bit, backward=True)
+    tca.check_unbiased_kernel(q.float(), bi)
+    tca.check_unbiased_kernel(q.float(), bi, bit, backward=True)
+
+
+def test_reset_count_zeroes_the_unbiased_counters():
+    """One counter per forward kernel, the bf16 tensor-core one included."""
+    tca.launches = tca.unbiased_launches = tca.unbiased_sm90_launches = 2
+    tca.reset_count()
+    assert (tca.launches, tca.unbiased_launches,
+            tca.unbiased_sm90_launches) == (0, 0, 0)

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 cluster-attention kernels (the biased forward, dQ and dK/dV kernels of
 the graph path, and the unbiased, optionally causal ones of the LM
-path), the dense flash forward, dQ and dK/dV kernels (bf16 forward and
-dK/dV on the tensor cores, fp32 on CUDA cores), and the SSD scan.
+path; the bf16 unbiased forward on the tensor cores), the dense flash
+forward, dQ and dK/dV kernels (bf16 on the tensor cores, fp32 on CUDA
+cores), and the SSD scan.
 Skipped where there is no CUDA device. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
 
@@ -99,8 +100,9 @@ def test_kernel_dead_rows_and_full_layout(dev):
 
 def test_kernel_rejects_unported_variants(dev):
     """fp16 is no kernel's dtype; the unbiased kernels take Dh 64 or 128,
-    q-blocks in multiples of 64 rows and the batch-shared 2-D layout,
-    and say so with the shapes."""
+    q-blocks in multiples of 64 rows (the bf16 forward: of 128 rows
+    exactly) and the batch-shared 2-D layout, and say so with the
+    shapes."""
     lay = graph_layout()
     q, k, v, bias = qkv(1, lay.seq_len, 4, 4, 8)
     args = [torch.from_numpy(x).to(dev) for x in (q, k, v, lay.block_idx)]
@@ -116,6 +118,24 @@ def test_kernel_rejects_unported_variants(dev):
     q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
     with pytest.raises(NotImplementedError, match="batch-shared"):
         ops.cluster_attention(q, k, v, torch.stack([bi, bi]), causal=True)
+    bf = [x.bfloat16() for x in (q, k, v)]
+    with pytest.raises(NotImplementedError, match=r"batch-shared.*"
+                       r"bfloat16 q \(2, 512, 4, 64\)"):
+        ops.cluster_attention(*bf, torch.stack([bi, bi]), causal=True)
+    lm64 = lm_local_global_layout(512, bq=64, bk=64, window=128,
+                                  n_global=64)
+    bi64 = torch.from_numpy(lm64.block_idx).to(dev)
+    with pytest.raises(NotImplementedError, match=r"bq=bk=64 \(the bf16 "
+                       r"forward takes bq = bk = 128.*\(2, 512, 4, 64\)"):
+        ops.cluster_attention(*bf, bi64, causal=True)
+    q32, k32, v32, _ = qkv(2, lm.seq_len, 4, 2, 32)
+    with pytest.raises(NotImplementedError, match=r"Dh=32.*bfloat16"):
+        ops.cluster_attention(*(torch.from_numpy(x).to(dev).bfloat16()
+                                for x in (q32, k32, v32)), bi, causal=True)
+    # fp32 takes the 64-row blocks the bf16 forward refuses
+    before = tca.unbiased_launches
+    ops.cluster_attention(q, k, v, bi64, causal=True)
+    assert tca.unbiased_launches == before + 1
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         ops.cluster_attention(*[a.half() for a in args[:3]], args[3],
                               torch.from_numpy(lay.buckets).to(dev))
@@ -200,10 +220,13 @@ def _run_unbiased(dev, dtype, q, k, v, bi, bit, causal):
     bi = torch.from_numpy(np.array(bi, copy=True)).to(dev)
     bit = None if bit is None else torch.from_numpy(
         np.array(bit, copy=True)).to(dev)
-    before = tca.unbiased_launches
+    sm90 = dtype == torch.bfloat16
+    before = (tca.unbiased_launches, tca.unbiased_sm90_launches)
     o, lse = ops.cluster_attention(q, k, v, bi, causal=causal,
                                    return_lse=True)
-    assert tca.unbiased_launches == before + 1
+    # bf16 runs the tensor-core forward, fp32 the CUDA-core one
+    assert (tca.unbiased_launches, tca.unbiased_sm90_launches) == (
+        before[0] + (not sm90), before[1] + sm90)
     po, plse = ops.cluster_attention(q, k, v, bi, causal=causal,
                                      return_lse=True, impl="plain")
     torch.cuda.synchronize()
@@ -217,13 +240,15 @@ def _run_unbiased(dev, dtype, q, k, v, bi, bit, causal):
     gen = torch.Generator(device=dev).manual_seed(7)
     dout = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    counts = (tca.unbiased_launches, tcab.dq_unbiased_launches,
-              tcab.dkv_unbiased_launches)
+    counts = (tca.unbiased_launches, tca.unbiased_sm90_launches,
+              tcab.dq_unbiased_launches, tcab.dkv_unbiased_launches)
     out = ops.cluster_attention(*leaves, bi, None, None, bit, causal=causal)
     got = torch.autograd.grad(out, leaves, dout)
     torch.cuda.synchronize()
-    assert (tca.unbiased_launches, tcab.dq_unbiased_launches,
-            tcab.dkv_unbiased_launches) == tuple(c + 1 for c in counts)
+    assert (tca.unbiased_launches, tca.unbiased_sm90_launches,
+            tcab.dq_unbiased_launches, tcab.dkv_unbiased_launches) == (
+        counts[0] + (not sm90), counts[1] + sm90, counts[2] + 1,
+        counts[3] + 1)
     want = ref.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None, None,
                                      bit, causal=causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -251,18 +276,32 @@ def test_unbiased_kernels_match_plain_lm_layout(dev, dtype, causal, H, KV,
                   lay.block_idx_t if with_bit else None, causal)
 
 
-def test_unbiased_kernels_batch_and_dead_row(dev):
-    """B=2 on the shared 2-D layout, then with a dead q-block row (O, dq
-    zero there in both sequences)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unbiased_kernels_batch_and_dead_row(dev, dtype):
+    """B=2 on the shared 2-D layout, then with a dead q-block row (O, lse
+    and dq zero there in both sequences), in each dtype's forward."""
     lay = lm_local_global_layout(512, window=128, n_global=128)
     q, k, v, _ = qkv(2, lay.seq_len, 4, 2, 64, seed=3)
-    _run_unbiased(dev, torch.float32, q, k, v, lay.block_idx,
-                  lay.block_idx_t, True)
+    _run_unbiased(dev, dtype, q, k, v, lay.block_idx, lay.block_idx_t, True)
     bi = np.array(lay.block_idx, copy=True)
     bi[2] = -1
-    o, (dq, _, _) = _run_unbiased(dev, torch.float32, q, k, v, bi, None,
-                                  True)
+    o, (dq, _, _) = _run_unbiased(dev, dtype, q, k, v, bi, None, True)
     assert not o[:, 256:384].any() and not dq[:, 256:384].any()
+    _, lse = ops.cluster_attention(
+        *(torch.from_numpy(x).to(dev).to(dtype) for x in (q, k, v)),
+        torch.from_numpy(bi).to(dev), causal=True, return_lse=True)
+    assert not lse.view(2, 4, 512)[..., 256:384].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unbiased_kernels_full_qwen3_heads(dev, dtype):
+    """Qwen3-0.6B's heads (16 over 8, Dh 128) at S=4096, window 1024: the
+    rows average about a thousand keys, so bf16 O cancels near 0 on many
+    elements, where a probability rounded once to bf16 before PV would
+    miss the element-wise 1e-5 + 2^-7 |O|."""
+    lay = lm_local_global_layout(4096, window=1024, n_global=128)
+    q, k, v, _ = qkv(1, lay.seq_len, 16, 8, 128, seed=5)
+    _run_unbiased(dev, dtype, q, k, v, lay.block_idx, lay.block_idx_t, True)
 
 
 # ------------------------------------------- flash kernels (rows 7, 8, 9)
@@ -291,7 +330,7 @@ def test_flash_kernels_match_plain(dev, dtype, B, Sq, Sk, H, KV, Dh, causal,
     """The forward kernel, then under autograd the dQ and dK/dV kernels,
     against the plain versions at the same schedule: O (bf16 also element
     by element, as the unbiased O), lse, dq, dk, dv; one launch of each
-    kernel. bf16 runs the tensor-core forward and dK/dV, fp32 the
+    kernel. bf16 runs the tensor-core forward, dQ and dK/dV, fp32 the
     CUDA-core ones: each launch counts on its own kernel's counter."""
     q, k, v, dout = _flash_inputs(dev, dtype, B, Sq, Sk, H, KV, Dh)
     kw = {"causal": causal, "block_q": bq, "block_k": bk,
@@ -310,10 +349,13 @@ def test_flash_kernels_match_plain(dev, dtype, B, Sq, Sk, H, KV, Dh, causal,
         torch.testing.assert_close(o.float(), po.float(), atol=atol,
                                    rtol=rtol)
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
-    counts = (tfa.dq_launches, tfa.dkv_launches, tfa.dkv_sm90_launches)
+    counts = (tfa.dq_launches, tfa.dq_sm90_launches, tfa.dkv_launches,
+              tfa.dkv_sm90_launches)
     got = tfa.flash_attention_bwd(q, k, v, dout, o, lse, **kw)
-    assert (tfa.dq_launches, tfa.dkv_launches, tfa.dkv_sm90_launches) == (
-        counts[0] + 1, counts[1] + (not sm90), counts[2] + sm90)
+    assert (tfa.dq_launches, tfa.dq_sm90_launches, tfa.dkv_launches,
+            tfa.dkv_sm90_launches) == (
+        counts[0] + (not sm90), counts[1] + sm90, counts[2] + (not sm90),
+        counts[3] + sm90)
     want = ref.flash_bwd(q, k, v, dout, o, lse, **kw)
     torch.cuda.synchronize()
     for name, g, w in zip(("dq", "dk", "dv"), got, want):

@@ -264,3 +264,29 @@ def test_op_checks_arguments_and_wrapper_takes_cuda_only():
         tops.flash_attention(qt, kt.double(), vt.double())
     with pytest.raises(NotImplementedError, match="no kernel for device"):
         tfa.flash_attention_fwd(qt, kt, vt, block_q=128, block_k=128)
+
+
+def test_reset_count_zeroes_every_counter():
+    """One counter per kernel, the bf16 dQ's included, all zeroed."""
+    names = ("launches", "dq_launches", "dkv_launches", "sm90_launches",
+             "dq_sm90_launches", "dkv_sm90_launches")
+    for i, name in enumerate(names):
+        setattr(tfa, name, i + 1)
+    tfa.reset_count()
+    assert [getattr(tfa, name) for name in names] == [0] * len(names)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_wrappers_refuse_cpu_tensors(dtype):
+    """The dQ and dK/dV wrappers launch a kernel or raise: on CPU tensors
+    (bf16, whose dQ is the tensor-core kernel, and fp32) they raise
+    before any build, and count nothing."""
+    q, k, v, g = (_t(x, dtype=dtype) for x in _inputs(1, 64, 64, 4, 2, 32))
+    lse = torch.zeros(4, 64)
+    delta = torch.zeros(4, 64)
+    tfa.reset_count()
+    for wrapper in (tfa.dq_kernel, tfa.dkv_kernel):
+        with pytest.raises(NotImplementedError, match="no kernel for device"):
+            wrapper(q, k, v, g, lse, delta, True, False)
+    assert (tfa.dq_launches, tfa.dq_sm90_launches, tfa.dkv_launches,
+            tfa.dkv_sm90_launches) == (0, 0, 0, 0)
