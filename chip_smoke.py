@@ -25,9 +25,9 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    training shape (S=16384, 16 q heads over 8 KV heads, Dh=128, the
    causal local+global layout) in bf16 and fp32, and on small cases
    (non-causal, Dh 64 with 9 heads over 3, a short window, B=2 on the
-   shared layout, the derived transposed layout); the bf16 forward runs
-   the tensor-core kernel, fp32 the CUDA-core one (each launch checked
-   on its own counter); each kernel and each plain half
+   shared layout, the derived transposed layout); bf16 runs the
+   tensor-core forward, dQ and dK/dV, fp32 the CUDA-core ones (each
+   launch checked on its own counter); each kernel and each plain half
    timed; one ``scaled_dot_product_attention`` with the layout as a dense
    boolean mask, and one with ``is_causal``, timed beside them, forward
    and backward;
@@ -60,7 +60,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    parameters and moments, seeded init, on the synthetic token stream
    (S=16384, batch 1) through ``BatchFnTask`` and ``Trainer``: 4 steps,
    finite and falling losses, 28 launches of each unbiased kernel a step
-   (the forward: the bf16 tensor-core kernel).
+   (bf16: the tensor-core forward, dQ and dK/dV, none of the CUDA-core
+   ones).
    One step by the kernel path and one by the plain path on the same
    batch must agree; one step is profiled;
 7. tune (this slice's main path): the autotuner on the card as
@@ -122,6 +123,15 @@ TOL_LM_STEP_LOSS_REL = 1e-4
 # difference relative to the largest logit, and argmax agreement
 TOL_LOGITS_REL = 5e-2
 MIN_ARGMAX_AGREE = 0.98
+
+# kinds of device kernel in a profile, by a substring of the name: the
+# port's attention kernels, cuBLAS's matrix products, PyTorch's
+# elementwise passes and copies, its reductions (softmax, norms, sums)
+KERNEL_KINDS = (
+    ("attention kernels", ("cluster", "flash_sm90::", "flash::", "ssd::")),
+    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("elementwise and copies", ("elementwise", "copy", "Functor", "fill")),
+    ("reductions", ("reduce", "softmax", "SoftMax", "norm", "scan")))
 
 SERVE_NODES = 32768
 YARDSTICK_NODES = 8192
@@ -619,9 +629,10 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_UNBIASED,
-            tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED, tfa.LIBRARY,
-            tfa.LIBRARY_BWD, tfa.LIBRARY_SM90, tfa.LIBRARY_DQ_SM90,
-            tfa.LIBRARY_DKV_SM90, tks.LIBRARY)
+            tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED,
+            tcab.LIBRARY_UNBIASED_SM90, tfa.LIBRARY, tfa.LIBRARY_BWD,
+            tfa.LIBRARY_SM90, tfa.LIBRARY_DQ_SM90, tfa.LIBRARY_DKV_SM90,
+            tks.LIBRARY)
     t0 = time.perf_counter()
     kbuild.build_all(libs)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
@@ -1126,8 +1137,18 @@ def main() -> int:
         del po, plse
         gen = torch.Generator(device=dev).manual_seed(seed)
         dout = torch.randn(o.shape, generator=gen, device=dev).to(q.dtype)
+
+        def bwd_counts():
+            return (tcab.dq_unbiased_launches, tcab.dq_unbiased_sm90_launches,
+                    tcab.dkv_unbiased_launches,
+                    tcab.dkv_unbiased_sm90_launches)
+        before = bwd_counts()
         got = tcab.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None,
                                          None, bit, causal=causal)
+        if bwd_counts() != tuple(c + d for c, d in zip(
+                before, (not bf16, bf16) * 2)):
+            raise AssertionError(f"the {dt} unbiased dQ or dK/dV went to "
+                                 f"the other dtype's kernel: {tag}")
         want = ref.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None,
                                          None, bit, causal=causal)
         torch.cuda.synchronize()
@@ -1321,6 +1342,10 @@ def main() -> int:
                     tcab.dq_unbiased_launches,
                 "cluster_attention_bwd_dkv_unbiased":
                     tcab.dkv_unbiased_launches,
+                "cluster_attention_bwd_dq_unbiased_sm90":
+                    tcab.dq_unbiased_sm90_launches,
+                "cluster_attention_bwd_dkv_unbiased_sm90":
+                    tcab.dkv_unbiased_sm90_launches,
                 "flash_attention_fwd": tfa.launches,
                 "flash_attention_bwd_dq": tfa.dq_launches,
                 "flash_attention_bwd_dkv": tfa.dkv_launches,
@@ -1337,9 +1362,11 @@ def main() -> int:
     def device_breakdown(fn, wall_ms, tag="serve", what="one forward",
                          focus=None):
         """Device time of one ``fn()`` by kernel name (torch.profiler),
-        and the busy share of ``wall_ms``; with ``focus`` (a substring of
-        kernel names) also the time and share of the kernels it names.
-        None when the profiler shows no device time."""
+        and the busy share of ``wall_ms``; the time by kind of kernel
+        (``KERNEL_KINDS``: the first kind whose substring the name
+        holds); with ``focus`` (a substring of kernel names) also the
+        time and share of the kernels it names. None when the profiler
+        shows no device time."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -1362,8 +1389,17 @@ def main() -> int:
             f"of {wall_ms:.3f} ms wall ({total / wall_ms:.1%} busy)")
         for ms, name in rows[:8]:
             log(f"[{tag}]   {ms:9.3f} ms {ms / total:6.1%}  {name[:90]}")
+        kinds = {}
+        for ms, name in rows:
+            kind = next((k for k, subs in KERNEL_KINDS
+                         if any(x in name for x in subs)), "other")
+            kinds[kind] = kinds.get(kind, 0.0) + ms
+        log(f"[{tag}] by kind: " + ", ".join(
+            f"{k} {ms:.3f} ms ({ms / total:.1%})" for k, ms in sorted(
+                kinds.items(), key=lambda kv: -kv[1])))
         rec = {"device_ms": total, "busy_share": total / wall_ms,
-               "top": [[name[:90], ms] for ms, name in rows[:8]]}
+               "top": [[name[:90], ms] for ms, name in rows[:8]],
+               "by_kind_ms": kinds}
         if focus:
             rec["focus_ms"] = {name[:90]: ms for ms, name in rows
                                if focus in name}
@@ -1620,10 +1656,10 @@ def main() -> int:
             f"{peak / 2**30:.2f} GiB, launches {counts}, per step "
             f"{ {n: c / LM_STEPS for n, c in counts.items() if c} }")
         want = LM_STEPS * cfg.n_layers
-        # bf16 compute: the forward is the tensor-core kernel
+        # bf16 compute: the tensor-core forward, dQ and dK/dV
         if counts != only(cluster_attention_fwd_unbiased_sm90=want,
-                          cluster_attention_bwd_dq_unbiased=want,
-                          cluster_attention_bwd_dkv_unbiased=want):
+                          cluster_attention_bwd_dq_unbiased_sm90=want,
+                          cluster_attention_bwd_dkv_unbiased_sm90=want):
             raise AssertionError(f"launches {counts}: want {want} of each "
                                  f"unbiased kernel ({LM_STEPS} steps x "
                                  f"{cfg.n_layers} layers) and no other")
@@ -1660,19 +1696,29 @@ def main() -> int:
         del kg, pg
         torch.cuda.empty_cache()
 
-        # profile one step
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr.step("sparse", batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        # profile one step, against the median wall of three unprofiled
+        # steps after a warm-up step (the first after the kernel-vs-plain
+        # check regrows the allocator's cache)
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step("sparse", batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = float(np.median(walls[1:]))
+        log(f"[lm-train] unprofiled steps after the check: "
+            f"{', '.join(f'{w:.2f}' for w in walls)} ms (median of the "
+            f"last 3: {wall:.2f})")
+        # the cluster kernels: cluster_sm90 (forward), cluster_bwd_sm90
+        # (dQ, dK/dV) in bf16
         prof = device_breakdown(lambda: tr.step("sparse", batch), wall,
                                 tag="lm-train", what="one step",
-                                focus="unbiased")
+                                focus="cluster")
         rec = {"launches": counts, "steps": hist, "run_s": run_s,
                "peak_bytes": peak, "loss_rel": loss_rel,
                "min_grad_cosine": [worst, cos[worst]], "step_wall_ms": wall,
-               "profile": prof}
+               "step_walls_ms": walls, "profile": prof}
         del tr, task, model, batch, params
         torch.cuda.empty_cache()
         return rec
@@ -1738,16 +1784,15 @@ def main() -> int:
              "cluster_attention_bwd.py:206")):
         b = lm_rec["bfloat16"][half]
         lib = "library" if half == "fwd" else "library_bwd"
-        # the forward has a kernel for each dtype: `source` is the bf16
+        # each has a kernel for each dtype: `source` is the bf16
         # tensor-core one, which the bf16 LM run launched; the fp32
         # CUDA-core one is `source_float32`, timed under `float32`
-        sm90 = "_sm90" if half == "fwd" else ""
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/"
-                      f"cluster_attention_unbiased_{src}{sm90}.cu",
+                      f"cluster_attention_unbiased_{src}_sm90.cu",
             "replaces": f"src/repro/kernels/{line}",
-            "launches": lm_run["launches"][name + sm90],
+            "launches": lm_run["launches"][name + "_sm90"],
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
@@ -1760,12 +1805,10 @@ def main() -> int:
                 "causal_dense_ms" if half == "fwd" else
                 "causal_dense_bwd_ms"),
             "float32": lm_rec["float32"][half],
-            **{k: v for k, v in b.items() if k.startswith("ms_without")}})
-        if sm90:
-            kernels[-1]["source_float32"] = (
-                f"src/repro_torch/kernels/csrc/"
-                f"cluster_attention_unbiased_{src}.cu")
-            kernels[-1]["launches_float32"] = lm_run["launches"][name]
+            **{k: v for k, v in b.items() if k.startswith("ms_without")},
+            "source_float32": f"src/repro_torch/kernels/csrc/"
+                              f"cluster_attention_unbiased_{src}.cu",
+            "launches_float32": lm_run["launches"][name]})
     kernels[3]["lm_yardstick"] = lm_yard
     kernels[3]["lm_train"] = lm_run
     # the flash kernels and the SSD scan: times at full width in bf16,

@@ -32,9 +32,9 @@ import torch
 from repro_torch.kernels.build import CudaLibrary
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# what the unbiased kernels take: head dims; fp32 (and the bf16 backward)
-# q/k-blocks in multiples of their 64 x 64 score tiles; the bf16 forward
-# the LM's q/k-blocks of 128 rows, one TMA box each
+# what the unbiased kernels take: head dims; fp32 q/k-blocks in multiples
+# of their 64 x 64 score tiles; bf16 (forward and backward) the LM's
+# q/k-blocks of 128 rows, one TMA box each
 UNBIASED_HEAD_DIMS = (64, 128)
 UNBIASED_TILE = 64
 UNBIASED_SM90_BLOCK = 128
@@ -133,12 +133,14 @@ def unbiased_kernel_reason(dtype, d_head: int, bq: int, shared: bool, *,
     """Why the unbiased kernel of ``dtype`` (a torch dtype) does not take
     head dim ``d_head``, q/k-blocks of ``bq`` rows and a batch-shared
     layout (``shared``), or None when it does. ``backward`` asks about
-    the dQ and dK/dV kernels, which stay on CUDA cores in both dtypes."""
+    the dQ and dK/dV kernels, which take what the forward of the same
+    dtype takes."""
     if d_head not in UNBIASED_HEAD_DIMS:
         return f"Dh={d_head} (the kernels take Dh in {UNBIASED_HEAD_DIMS})"
-    if dtype == torch.bfloat16 and not backward:
+    if dtype == torch.bfloat16:
         if bq != UNBIASED_SM90_BLOCK:
-            return (f"bq=bk={bq} (the bf16 forward takes bq = bk = "
+            half = "backward" if backward else "forward"
+            return (f"bq=bk={bq} (the bf16 {half} takes bq = bk = "
                     f"{UNBIASED_SM90_BLOCK}, one TMA box a block)")
     elif bq % UNBIASED_TILE:
         return (f"bq=bk={bq} (the kernels take bq = bk a multiple of "
@@ -152,9 +154,9 @@ def check_unbiased_kernel(q, block_idx, block_idx_t=None, *,
                           backward: bool = False):
     """Raise ``NotImplementedError`` with the shapes unless the unbiased
     kernels of q's dtype take them (``unbiased_kernel_reason``): Dh in
-    ``UNBIASED_HEAD_DIMS``; the bf16 forward ``bq`` = bk =
-    ``UNBIASED_SM90_BLOCK``, fp32 and the backward ``bq`` a multiple of
-    ``UNBIASED_TILE``; and the batch-shared layout of the LM path
+    ``UNBIASED_HEAD_DIMS``; bf16 ``bq`` = bk = ``UNBIASED_SM90_BLOCK``,
+    fp32 ``bq`` a multiple of ``UNBIASED_TILE``; and the batch-shared
+    layout of the LM path
     (``block_idx`` (nq, mb), ``block_idx_t`` (nk, mt, 2))."""
     Dh = q.shape[3]
     bq = q.shape[1] // block_idx.shape[-2]

@@ -5,8 +5,16 @@ attention backward kernels:
   ``_dq_kernel_biased`` and ``_dkv_kernel_biased``
   (``src/repro/kernels/cluster_attention_bwd.py``): int8 bias buckets and
   the ``bias_table`` gradient;
-* ``csrc/cluster_attention_unbiased_bwd.cu``, the ports of ``_dq_kernel``
-  and ``_dkv_kernel``: no buckets, an optional positional causal mask.
+* the ports of ``_dq_kernel`` and ``_dkv_kernel``: no buckets, an
+  optional positional causal mask, the token LM's path. Each dtype has
+  exactly one dQ and one dK/dV kernel, with no fallback between them:
+  bfloat16 runs on the tensor cores
+  (``csrc/cluster_attention_unbiased_bwd_sm90.cu``: TMA copies of the
+  visited blocks into a ring of shared-memory stages feeding ``wgmma``),
+  float32 on CUDA cores in fp32 throughout
+  (``csrc/cluster_attention_unbiased_bwd.cu``; TF32 would miss the fp32
+  tolerances). ``cluster_attention.check_unbiased_kernel`` states what
+  each takes.
 
 Each dQ kernel walks the forward layout ``block_idx``; each dK/dV kernel
 walks the transposed one, ``block_idx_t`` (per k-block, the (q-row,
@@ -38,15 +46,19 @@ from repro_torch.kernels.build import CudaLibrary
 # kernel launches since the last reset_count(), one count per kernel
 dq_launches = 0
 dkv_launches = 0
-dq_unbiased_launches = 0
+dq_unbiased_launches = 0        # fp32, cluster_attention_unbiased_bwd.cu
 dkv_unbiased_launches = 0
+dq_unbiased_sm90_launches = 0   # bf16, ..._unbiased_bwd_sm90.cu
+dkv_unbiased_sm90_launches = 0
 
 
 def reset_count() -> None:
     global dq_launches, dkv_launches, dq_unbiased_launches, \
-        dkv_unbiased_launches
+        dkv_unbiased_launches, dq_unbiased_sm90_launches, \
+        dkv_unbiased_sm90_launches
     dq_launches = dkv_launches = 0
     dq_unbiased_launches = dkv_unbiased_launches = 0
+    dq_unbiased_sm90_launches = dkv_unbiased_sm90_launches = 0
 
 
 def _bind(lib) -> None:
@@ -69,10 +81,22 @@ def _bind_unbiased(lib) -> None:
     lib.cluster_attention_bwd_dkv_unbiased.restype = i32
 
 
+def _bind_unbiased_sm90(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_bwd_dq_unbiased_sm90.argtypes = (
+        [vp] * 8 + [i32] * 8 + [ctypes.c_float, vp])
+    lib.cluster_attention_bwd_dq_unbiased_sm90.restype = i32
+    lib.cluster_attention_bwd_dkv_unbiased_sm90.argtypes = (
+        [vp] * 9 + [i32] * 8 + [ctypes.c_float, vp])
+    lib.cluster_attention_bwd_dkv_unbiased_sm90.restype = i32
+
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "cluster_attention_bwd.cu", _bind)
 LIBRARY_UNBIASED = CudaLibrary(_CSRC / "cluster_attention_unbiased_bwd.cu",
                                _bind_unbiased)
+LIBRARY_UNBIASED_SM90 = CudaLibrary(
+    _CSRC / "cluster_attention_unbiased_bwd_sm90.cu", _bind_unbiased_sm90)
 
 
 def check_args(q, k, v, dout, out, lse, block_idx, buckets, bias_table,
@@ -170,51 +194,77 @@ def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
 
 
 def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal):
-    """Launch the unbiased dQ kernel on checked, aligned CUDA operands;
-    returns ``dq`` in q's dtype."""
+    """Launch the unbiased dQ kernel of q's dtype (bf16: tensor cores,
+    fp32: CUDA cores) on checked, aligned CUDA operands; returns ``dq`` in
+    q's dtype."""
     B, S, H, Dh = q.shape
     nq, mb = block_idx.shape[-2:]
     bq = S // nq
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dq_unbiased(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx.data_ptr(),
-            dq.data_ptr(), _ca._DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nq,
-            mb, bq, bq, int(causal), Dh ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+            dq.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    sm90 = q.dtype == torch.bfloat16
+    with torch.cuda.device(q.device):
+        if sm90:
+            err = LIBRARY_UNBIASED_SM90.lib() \
+                .cluster_attention_bwd_dq_unbiased_sm90(
+                    *ptrs, B, S, H, k.shape[2], Dh, nq, mb, int(causal),
+                    Dh ** -0.5, stream)
+        else:
+            err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dq_unbiased(
+                *ptrs, _ca._DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nq, mb,
+                bq, bq, int(causal), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd unbiased dQ launch "
-                           f"failed: CUDA error {err} (q {tuple(q.shape)}, "
-                           f"block_idx {tuple(block_idx.shape)})")
-    global dq_unbiased_launches
-    dq_unbiased_launches += 1
+                           f"failed: CUDA error {err} ({q.dtype} q "
+                           f"{tuple(q.shape)}, block_idx "
+                           f"{tuple(block_idx.shape)})")
+    global dq_unbiased_launches, dq_unbiased_sm90_launches
+    if sm90:
+        dq_unbiased_sm90_launches += 1
+    else:
+        dq_unbiased_launches += 1
     return dq
 
 
 def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
                         causal):
-    """Launch the unbiased dK/dV kernel on checked, aligned CUDA operands;
-    returns per-q-head ``(B, S, H, Dh)`` dk and dv in q's dtype.
-    ``block_idx`` only lends its shape (``bq``)."""
+    """Launch the unbiased dK/dV kernel of q's dtype (bf16: tensor cores,
+    fp32: CUDA cores) on checked, aligned CUDA operands; returns
+    per-q-head ``(B, S, H, Dh)`` dk and dv in q's dtype. ``block_idx``
+    only lends its shape (``bq``)."""
     B, S, H, Dh = q.shape
     bq = S // block_idx.shape[-2]
     nk, mt = block_idx_t.shape[-3:-1]
     dkh = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     dvh = torch.empty_like(dkh)
-    with torch.cuda.device(q.device):
-        err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dkv_unbiased(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx_t.data_ptr(),
-            dkh.data_ptr(), dvh.data_ptr(), _ca._DTYPES[q.dtype], B, S, H,
-            k.shape[2], Dh, nk, mt, bq, bq, int(causal), Dh ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+            dkh.data_ptr(), dvh.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    sm90 = q.dtype == torch.bfloat16
+    with torch.cuda.device(q.device):
+        if sm90:
+            err = LIBRARY_UNBIASED_SM90.lib() \
+                .cluster_attention_bwd_dkv_unbiased_sm90(
+                    *ptrs, B, S, H, k.shape[2], Dh, nk, mt, int(causal),
+                    Dh ** -0.5, stream)
+        else:
+            err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dkv_unbiased(
+                *ptrs, _ca._DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nk, mt,
+                bq, bq, int(causal), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd unbiased dK/dV launch "
-                           f"failed: CUDA error {err} (q {tuple(q.shape)}, "
-                           f"block_idx_t {tuple(block_idx_t.shape)})")
-    global dkv_unbiased_launches
-    dkv_unbiased_launches += 1
+                           f"failed: CUDA error {err} ({q.dtype} q "
+                           f"{tuple(q.shape)}, block_idx_t "
+                           f"{tuple(block_idx_t.shape)})")
+    global dkv_unbiased_launches, dkv_unbiased_sm90_launches
+    if sm90:
+        dkv_unbiased_sm90_launches += 1
+    else:
+        dkv_unbiased_launches += 1
     return dkh, dvh
 
 

@@ -1,9 +1,12 @@
 // Unbiased cluster-sparse attention backward, optional positional causal
-// mask, for Hopper (sm_90a): the dQ kernel and the dK/dV kernel.
+// mask, for Hopper (sm_90a), for fp32 inputs: the dQ kernel and the dK/dV
+// kernel.
 //
 // Replace the TPU kernels `_dq_kernel` and `_dkv_kernel` in
-// src/repro/kernels/cluster_attention_bwd.py: the recomputation backward
-// of cluster_attention_unbiased_fwd.cu. Each kernel rebuilds a visited
+// src/repro/kernels/cluster_attention_bwd.py for fp32 q, k, v and dO: the
+// recomputation backward of cluster_attention_unbiased_fwd.cu; bf16
+// inputs go to the tensor-core kernels of
+// cluster_attention_unbiased_bwd_sm90.cu. Each kernel rebuilds a visited
 // block's scores exactly as the forward built them (`(q . k) * Dh^-0.5`
 // in fp32, -1e30 where `qpos < kpos` when causal) and, with the forward's
 // per-row logsumexp `lse` and `delta = rowsum(dO * O)` (both fp32,
@@ -22,10 +25,10 @@
 //                per q-head (the GQA group sum is the caller's).
 //
 // What bounds them on the card. At the Qwen3-0.6B training shape
-// (S=16384, H=16 over KV=8, Dh=128, 3696 visited 128 x 128 blocks) dQ
-// does 6 * 3696 * 128^3 * 16 = 744 GFLOP (0.75 ms at the bf16
-// tensor-core peak) and dK/dV 8 * ... = 992 GFLOP (1.00 ms), against
-// ~0.3 GB of operands each: bound by operations.
+// (S=16384, H=16 over KV=8, Dh=128, 3696 visited 128 x 128 blocks, the
+// causal diagonal blocks half full) dQ does ~732 GFLOP (10.9 ms at the
+// fp32 CUDA-core peak of 67 TFLOP/s) and dK/dV ~976 GFLOP (14.6 ms),
+// against ~0.6 GB of fp32 operands each: bound by operations.
 //
 // What this design does about it. As in the forward: tiles of 64 rows
 // and 64 columns inside the 128 x 128 block, fp32 in shared memory with
@@ -36,7 +39,8 @@
 // pairs, 170,496 bytes: one CTA per SM. ptxas -v for sm_90a: dQ 168
 // registers a thread at Dh 128 (160 at 64), dK/dV 200 (166), no
 // spills. Chunks the causal mask empties are skipped. All arithmetic is
-// fp32 on CUDA cores. The global k-block 0 is visited by
+// fp32 on CUDA cores: TF32 on the tensor cores would miss the fp32
+// tolerances. The global k-block 0 is visited by
 // every q-row, so the dK/dV CTAs of that column walk `nq` pairs against
 // ~29 elsewhere; heads vary fastest and k-block 0 comes first in the
 // grid, so they start first.
@@ -340,11 +344,11 @@ int dkv_dh(int dh, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q, dout and dq (B,S,H,Dh); k/v
-// (B,S,KV,Dh), all contiguous and 16-byte aligned; lse, delta (B*H,S)
-// fp32; block_idx (nq,mb) int32, shared by the batch. Takes Dh in {64,
-// 128}, bq = bk a multiple of 64. Returns the CUDA error code of the
-// launch (0 = launched).
+// dtype: 0 = float32 (bfloat16 is cluster_attention_bwd_dq_unbiased_sm90's).
+// q, dout and dq (B,S,H,Dh); k/v (B,S,KV,Dh), all contiguous and 16-byte
+// aligned; lse, delta (B*H,S) fp32; block_idx (nq,mb) int32, shared by
+// the batch. Takes Dh in {64, 128}, bq = bk a multiple of 64. Returns the
+// CUDA error code of the launch (0 = launched).
 int cluster_attention_bwd_dq_unbiased(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -354,22 +358,16 @@ int cluster_attention_bwd_dq_unbiased(const void* q, const void* k,
                                       int causal, float sm_scale,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bq % unbiased::kTile || bk % unbiased::kTile)
+  if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return unbiased::dq_dh<float>(dh, q, k, v, dout, lse, delta, block_idx,
-                                  dq, B, S, H, KV, nq, mb, bq, bk, causal,
-                                  sm_scale, st);
-  if (dtype == 1)
-    return unbiased::dq_dh<__nv_bfloat16>(dh, q, k, v, dout, lse, delta,
-                                          block_idx, dq, B, S, H, KV, nq, mb,
-                                          bq, bk, causal, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  return unbiased::dq_dh<float>(dh, q, k, v, dout, lse, delta, block_idx, dq,
+                                B, S, H, KV, nq, mb, bq, bk, causal, sm_scale,
+                                st);
 }
 
-// As above; block_idx_t (nk,mt,2) int32, shared by the batch, lists
-// (q-row, forward slot) pairs, -1 padded; dk/dv (B,S,H,Dh) per q-head,
-// in q's dtype.
+// As above (fp32 only); block_idx_t (nk,mt,2) int32, shared by the
+// batch, lists (q-row, forward slot) pairs, -1 padded; dk/dv (B,S,H,Dh)
+// fp32 per q-head.
 int cluster_attention_bwd_dkv_unbiased(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -379,18 +377,11 @@ int cluster_attention_bwd_dkv_unbiased(const void* q, const void* k,
                                        int bq, int bk, int causal,
                                        float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bq % unbiased::kTile || bk % unbiased::kTile)
+  if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return unbiased::dkv_dh<float>(dh, q, k, v, dout, lse, delta,
-                                   block_idx_t, dk, dv, B, S, H, KV, nk, mt,
-                                   bq, bk, causal, sm_scale, st);
-  if (dtype == 1)
-    return unbiased::dkv_dh<__nv_bfloat16>(dh, q, k, v, dout, lse, delta,
-                                           block_idx_t, dk, dv, B, S, H, KV,
-                                           nk, mt, bq, bk, causal, sm_scale,
-                                           st);
-  return (int)cudaErrorInvalidValue;
+  return unbiased::dkv_dh<float>(dh, q, k, v, dout, lse, delta, block_idx_t,
+                                 dk, dv, B, S, H, KV, nk, mt, bq, bk, causal,
+                                 sm_scale, st);
 }
 
 }  // extern "C"

@@ -40,6 +40,9 @@
 //   dV += P^T dO and dK += dS^T Q by `wgmma` with A from registers in bf16
 //   (q and dO read MN-major from the same tiles). The gradients are held
 //   norm-relative to 1e-2, which a bf16 P^T and dS^T meet: no split here.
+//   The stage body and the epilogue are sm90_tiles.cuh's `dkv_stage` and
+//   `store_scaled`, shared with the sparse dK/dV of
+//   cluster_attention_unbiased_bwd_sm90.cu.
 // * When causal, a k-block starts at its diagonal stage and the
 //   heaviest k-blocks come first in the grid; only stages on the diagonal
 //   or a ragged edge are masked.
@@ -57,7 +60,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;     // k rows of one consumer warpgroup
 constexpr int kBlock = 128;   // k rows of one CTA
-constexpr int kQRows = 64;    // q rows of one stage
+constexpr int kQRows = sm90::kStage;  // q rows of one stage
 constexpr int kStages = 2;
 constexpr int kThreads = 384;
 
@@ -181,86 +184,23 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::mbar_wait(full + s, (n / kStages) & 1);
       // a dead warpgroup (past Sk) or a stage wholly above the diagonal
       const bool skip = kr0 >= Sk || (causal && q0 + kQRows - 1 < kr0);
-      if (!skip) {
-        // S^T = K Q^T and dP^T = V dO^T, fp32
-        float st[32], dpt[32];
-        sm90::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
-          sm90::ss<64>(st, sm90::desc_k<SWB>(myk, kBlock, kk * 16),
-                       sm90::desc_k<SWB>(sq, kQRows, kk * 16), kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
-          sm90::ss<64>(dpt, sm90::desc_k<SWB>(myv, kBlock, kk * 16),
-                       sm90::desc_k<SWB>(sdo, kQRows, kk * 16), kk > 0);
-        sm90::wgmma_commit();
-        sm90::wgmma_wait<0>();
-        sm90::fence_acc(st);
-        sm90::fence_acc(dpt);
-
-        // P^T and dS^T in place: row = a key, column = a q row
-        const bool edge = q0 + kQRows > Sq || kr0 + kRows > Sk ||
-                          (causal && q0 < kr0 + kRows - 1);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qc = 8 * j + col + e, qp = q0 + qc;
-            const float lse2 = slse[qc] * sm90::kLog2e, dl = sdl[qc];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const int idx = 4 * j + 2 * i + e, kp = krow + 8 * i;
-              float p = exp2f(fmaf(st[idx], c2, -lse2));
-              // a padded q row carries lse = 0: masked here, not by the
-              // numbers
-              if (edge && (qp >= Sq || kp >= Sk || (causal && qp < kp)))
-                p = 0.f;
-              st[idx] = p;
-              dpt[idx] = p * (dpt[idx] - dl);
-            }
-          }
-        uint32_t pa[4][4], da[4][4];
-        sm90::to_a_frag(st, pa);
-        sm90::to_a_frag(dpt, da);
-
-        // dV += P^T dO, dK += dS^T Q
-        sm90::wgmma_fence();
-        sm90::fence_acc(acc_v);
-        sm90::fence_acc(acc_k);
-#pragma unroll
-        for (int kk = 0; kk < kQRows / 16; ++kk)
-          sm90::rs<DH>(acc_v, pa[kk],
-                       sm90::desc_mn<SWB>(sdo, kQRows, kk * 16));
-#pragma unroll
-        for (int kk = 0; kk < kQRows / 16; ++kk)
-          sm90::rs<DH>(acc_k, da[kk],
-                       sm90::desc_mn<SWB>(sq, kQRows, kk * 16));
-        sm90::wgmma_commit();
-        sm90::wgmma_wait<0>();
-        sm90::fence_acc(acc_v);
-        sm90::fence_acc(acc_k);
-      }
+      if (!skip)
+        // a padded q row carries lse = 0: masked here, not by the numbers
+        sm90::dkv_stage<DH, SWB>(
+            acc_k, acc_v, myk, myv, kBlock, sq, sdo, slse, sdl, c2, col,
+            q0 + kQRows > Sq || kr0 + kRows > Sk ||
+                (causal && q0 < kr0 + kRows - 1),
+            [&](int qc, int i) {
+              const int qp = q0 + qc, kp = krow + 8 * i;
+              return qp >= Sq || kp >= Sk || (causal && qp < kp);
+            });
       __syncwarp();
       if (lane == 0) sm90::mbar_arrive(empty + s);
     }
 
-    // ---------------------------------------------------------- epilogue
     // keys no q row sees (causal, k0 >= Sq) write dK = dV = 0
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = krow + 8 * i;
-      if (r >= Sk) continue;
-      const size_t off = (((size_t)b * Sk + r) * H + h) * DH;
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + col) =
-            __floats2bfloat162_rn(acc_k[4 * j + 2 * i] * sm_scale,
-                                  acc_k[4 * j + 2 * i + 1] * sm_scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + col) =
-            __floats2bfloat162_rn(acc_v[4 * j + 2 * i],
-                                  acc_v[4 * j + 2 * i + 1]);
-      }
-    }
+    sm90::store_scaled<DH>(acc_k, dk, b, h, H, Sk, krow, col, sm_scale);
+    sm90::store_scaled<DH>(acc_v, dv, b, h, H, Sk, krow, col, 1.f);
   }
 }
 

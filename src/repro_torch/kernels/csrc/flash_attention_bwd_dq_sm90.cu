@@ -41,6 +41,9 @@
 //   dQ += dS K by `wgmma` with A = dS from registers in bf16 and K read
 //   MN-major from the same tile, as the forward reads V for P V. dQ is
 //   held norm-relative to 1e-2, which a bf16 dS meets: no split here.
+//   The stage body and the epilogue are sm90_tiles.cuh's `dq_stage` and
+//   `store_scaled`, shared with the sparse dQ of
+//   cluster_attention_unbiased_bwd_sm90.cu.
 // * When causal, each warpgroup stops at its diagonal stage and the
 //   heaviest q-blocks come first in the grid; only stages on the diagonal
 //   or the ragged k tail are masked.
@@ -58,7 +61,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;     // q rows of one consumer warpgroup
 constexpr int kBlock = 128;   // q rows of one CTA
-constexpr int kKRows = 64;    // k rows of one stage
+constexpr int kKRows = sm90::kStage;  // k rows of one stage
 constexpr int kStages = 2;
 constexpr int kThreads = 384;
 
@@ -173,66 +176,19 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
       // every consumer waits for the stage before it hands it back, even
       // one it skips (see flash_attention_fwd_sm90.cu)
       sm90::mbar_wait(full + s, (n / kStages) & 1);
-      if (live && k0 < wk_end) {  // uniform over the warpgroup
-        // S = Q K^T and dP = dO V^T, fp32
-        float sc[32], dp[32];
-        sm90::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
-          sm90::ss<64>(sc, sm90::desc_k<SWB>(myq, kBlock, kk * 16),
-                       sm90::desc_k<SWB>(sk, kKRows, kk * 16), kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
-          sm90::ss<64>(dp, sm90::desc_k<SWB>(mydo, kBlock, kk * 16),
-                       sm90::desc_k<SWB>(sv, kKRows, kk * 16), kk > 0);
-        sm90::wgmma_commit();
-        sm90::wgmma_wait<0>();
-        sm90::fence_acc(sc);
-        sm90::fence_acc(dp);
-
-        // dS = P (dP - delta) in place of dP: row = a q row, column = a key
-        const bool edge = k0 + kKRows > Sk || (causal && k0 + kKRows - 1 > r0);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int idx = 4 * j + 2 * i + e, kp = k0 + 8 * j + col + e;
-              float p = exp2f(fmaf(sc[idx], c2, -lse2[i]));
-              if (edge && (kp >= Sk || (causal && kp > row + 8 * i)))
-                p = 0.f;
-              dp[idx] = p * (dp[idx] - dl[i]);
-            }
-        uint32_t da[4][4];
-        sm90::to_a_frag(dp, da);
-
-        // dQ += dS K
-        sm90::wgmma_fence();
-        sm90::fence_acc(acc);
-#pragma unroll
-        for (int kk = 0; kk < kKRows / 16; ++kk)
-          sm90::rs<DH>(acc, da[kk], sm90::desc_mn<SWB>(sk, kKRows, kk * 16));
-        sm90::wgmma_commit();
-        sm90::wgmma_wait<0>();
-        sm90::fence_acc(acc);
-      }
+      if (live && k0 < wk_end)  // uniform over the warpgroup
+        sm90::dq_stage<DH, SWB>(
+            acc, myq, mydo, kBlock, sk, sv, lse2, dl, c2, col,
+            k0 + kKRows > Sk || (causal && k0 + kKRows - 1 > r0),
+            [&](int kc, int i) {
+              const int kp = k0 + kc;
+              return kp >= Sk || (causal && kp > row + 8 * i);
+            });
       __syncwarp();
       if (lane == 0) sm90::mbar_arrive(empty + s);
     }
 
-    // ---------------------------------------------------------- epilogue
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row + 8 * i;
-      if (r >= Sq) continue;
-      const size_t off = (((size_t)b * Sq + r) * H + h) * DH;
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dq + off + 8 * j + col) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * i] * sm_scale,
-                                  acc[4 * j + 2 * i + 1] * sm_scale);
-    }
+    sm90::store_scaled<DH>(acc, dq, b, h, H, Sq, row, col, sm_scale);
   }
 }
 

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
 // (flash_attention_{fwd,bwd_dq,bwd_dkv}_sm90.cu,
-// cluster_attention_unbiased_fwd_sm90.cu): the mbarrier ring that a
+// cluster_attention_unbiased_{fwd,bwd}_sm90.cu): the mbarrier ring that a
 // producer warp fills with TMA copies, the shared-memory matrix
 // descriptors and `wgmma` instructions that read those tiles, the online
-// softmax, P V and epilogue the two forwards share, and the host-side
-// encoding of the TMA tensor maps.
+// softmax, P V and epilogue the two forwards share, the per-stage bodies
+// of dQ and of dK/dV the dense and sparse backwards share, and the
+// host-side encoding of the TMA tensor maps.
 //
 // Tiles. A (rows x Dh) bf16 tile of q, k, v or dO is copied by TMA with a
 // 128-byte swizzle (Dh 64 and 128) or a 64-byte swizzle (Dh 32): one
@@ -435,6 +436,163 @@ __device__ __forceinline__ void store_rows(const float (&o)[DH / 2],
     if (lse != nullptr && col == 0)
       lse[((size_t)b * H + h) * S + r] =
           l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : 0.f;
+  }
+}
+
+// ------------------------------------------ the backwards' stage bodies
+
+// The bf16 backwards rebuild the scores as the bf16 forwards built them,
+// p = exp(s - lse) as exp2(acc c2 - lse log2 e) with c2 = Dh^-0.5 log2 e.
+// A stage is kStage rows of the streamed operand (k and v for dQ, q and
+// dO for dK/dV) against a consumer warpgroup's 64 resident rows.
+constexpr int kStage = 64;
+
+// One stage of the bf16 dQ kernels (flash_attention_bwd_dq_sm90.cu,
+// cluster_attention_unbiased_bwd_sm90.cu) for one consumer warpgroup:
+// its 64 q rows (`sq`, `sdo`: rows of resident tiles of `q_rows` rows)
+// against the stage's kStage keys (`sk`, `sv`: tiles of kStage rows).
+// S = Q K^T and dP = dO V^T by `wgmma` m64n64k16 from shared memory
+// (K-major, fp32 accumulators); P and dS = P (dP - delta) on the
+// accumulators' register layout (row = a q row, column = a key); then
+// dQ += dS K by `wgmma` with A = dS from registers in bf16 and K read
+// MN-major from the tile S read K-major. Where `edge` holds, the entries
+// for which `masked(kc, i)` holds (key kc of the stage, the thread's row
+// + 8 i) get p = 0. `lse2` and `dl`: the base-2 lse and delta of the
+// thread's two rows.
+template <int DH, int SWB, typename Masked>
+__device__ __forceinline__ void dq_stage(
+    float (&acc)[DH / 2], const uint8_t* sq, const uint8_t* sdo, int q_rows,
+    const uint8_t* sk, const uint8_t* sv, const float (&lse2)[2],
+    const float (&dl)[2], float c2, int col, bool edge, Masked masked) {
+  // S = Q K^T and dP = dO V^T, fp32
+  float sc[kStage / 2], dp[kStage / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ss<kStage>(sc, desc_k<SWB>(sq, q_rows, kk * 16),
+               desc_k<SWB>(sk, kStage, kk * 16), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ss<kStage>(dp, desc_k<SWB>(sdo, q_rows, kk * 16),
+               desc_k<SWB>(sv, kStage, kk * 16), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(sc);
+  fence_acc(dp);
+
+  // dS = P (dP - delta) in place of dP
+#pragma unroll
+  for (int j = 0; j < kStage / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = 4 * j + 2 * i + e;
+        float p = exp2f(fmaf(sc[idx], c2, -lse2[i]));
+        if (edge && masked(8 * j + col + e, i)) p = 0.f;
+        dp[idx] = p * (dp[idx] - dl[i]);
+      }
+  uint32_t da[kStage / 16][4];
+  to_a_frag(dp, da);
+
+  // dQ += dS K
+  wgmma_fence();
+  fence_acc(acc);
+#pragma unroll
+  for (int kk = 0; kk < kStage / 16; ++kk)
+    rs<DH>(acc, da[kk], desc_mn<SWB>(sk, kStage, kk * 16));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// One stage of the bf16 dK/dV kernels (flash_attention_bwd_dkv_sm90.cu,
+// cluster_attention_unbiased_bwd_sm90.cu) for one consumer warpgroup:
+// its 64 key rows (`sk`, `sv`: rows of resident tiles of `kv_rows` rows)
+// against the stage's kStage q rows (`sq`, `sdo`: tiles of kStage rows;
+// `slse`, `sdl`: their natural lse and delta). S^T = K Q^T and dP^T =
+// V dO^T by `wgmma` m64n64k16 from shared memory (fp32 accumulators);
+// P^T and dS^T = P^T (dP^T - delta) on the accumulators' register layout
+// (row = a key, column = a q row); then dV += P^T dO and dK += dS^T Q by
+// `wgmma` with A from registers in bf16 (q and dO read MN-major from the
+// same tiles). Where `edge` holds, the entries for which `masked(qc, i)`
+// holds (q row qc of the stage, the thread's key + 8 i) get p = 0.
+template <int DH, int SWB, typename Masked>
+__device__ __forceinline__ void dkv_stage(
+    float (&acc_k)[DH / 2], float (&acc_v)[DH / 2], const uint8_t* sk,
+    const uint8_t* sv, int kv_rows, const uint8_t* sq, const uint8_t* sdo,
+    const float* slse, const float* sdl, float c2, int col, bool edge,
+    Masked masked) {
+  // S^T = K Q^T and dP^T = V dO^T, fp32
+  float st[kStage / 2], dpt[kStage / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ss<kStage>(st, desc_k<SWB>(sk, kv_rows, kk * 16),
+               desc_k<SWB>(sq, kStage, kk * 16), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ss<kStage>(dpt, desc_k<SWB>(sv, kv_rows, kk * 16),
+               desc_k<SWB>(sdo, kStage, kk * 16), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(st);
+  fence_acc(dpt);
+
+  // P^T and dS^T in place
+#pragma unroll
+  for (int j = 0; j < kStage / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qc = 8 * j + col + e;
+      const float lse2 = slse[qc] * kLog2e, dl = sdl[qc];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int idx = 4 * j + 2 * i + e;
+        float p = exp2f(fmaf(st[idx], c2, -lse2));
+        if (edge && masked(qc, i)) p = 0.f;
+        st[idx] = p;
+        dpt[idx] = p * (dpt[idx] - dl);
+      }
+    }
+  uint32_t pa[kStage / 16][4], da[kStage / 16][4];
+  to_a_frag(st, pa);
+  to_a_frag(dpt, da);
+
+  // dV += P^T dO, dK += dS^T Q
+  wgmma_fence();
+  fence_acc(acc_v);
+  fence_acc(acc_k);
+#pragma unroll
+  for (int kk = 0; kk < kStage / 16; ++kk)
+    rs<DH>(acc_v, pa[kk], desc_mn<SWB>(sdo, kStage, kk * 16));
+#pragma unroll
+  for (int kk = 0; kk < kStage / 16; ++kk)
+    rs<DH>(acc_k, da[kk], desc_mn<SWB>(sq, kStage, kk * 16));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc_v);
+  fence_acc(acc_k);
+}
+
+// The backwards' epilogue: the thread's rows `row` and `row` + 8 below S
+// of a 64 x DH fp32 accumulator, times `scale`, in bf16 into `out`
+// (B, S, H, DH).
+template <int DH>
+__device__ __forceinline__ void store_scaled(const float (&acc)[DH / 2],
+                                             __nv_bfloat16* out, int b,
+                                             int h, int H, int S, int row,
+                                             int col, float scale) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    if (r >= S) continue;
+    __nv_bfloat16* orow = out + (((size_t)b * S + r) * H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale,
+                                acc[4 * j + 2 * i + 1] * scale);
   }
 }
 

@@ -1,6 +1,7 @@
-// Register-tiled fp32 building blocks of the unbiased cluster-sparse
+// Register-tiled fp32 building blocks of the fp32 unbiased cluster-sparse
 // attention kernels (cluster_attention_unbiased_{fwd,bwd}.cu) and of the
-// dense flash attention kernels (flash_attention_{fwd,bwd}.cu).
+// fp32 dense flash attention kernels (flash_attention_{fwd,bwd}.cu); bf16
+// inputs run on the tensor-core kernels of sm90_tiles.cuh.
 //
 // A CTA of 256 threads works on 64 x 64 tiles of scores. Thread `tid`
 // owns rows `tr + 16 i` and columns `tc + 16 j` (i, j < 4) of a score
@@ -17,7 +18,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,20 +44,10 @@ struct Shape {
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
 // Reductions over the 16 threads of a half-warp (one score row).
@@ -73,8 +63,8 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // `rows` rows of Dh elements, `stride` elements apart in device memory
 // (q, k, v, dO are (B, S, heads, Dh): one row per position), into a
-// padded fp32 tile. 16-byte (fp32) or 8-byte (bf16) loads, neighbouring
-// threads on neighbouring addresses.
+// padded fp32 tile. 16-byte loads, neighbouring threads on neighbouring
+// addresses.
 template <int DH, typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           size_t stride, int rows) {

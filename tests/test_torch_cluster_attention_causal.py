@@ -184,8 +184,10 @@ def test_cpu_call_launches_no_kernel_and_wrappers_refuse_cpu():
     tca.reset_count()
     tcab.reset_count()
     _port_out_grads(q, k, v, lay.block_idx, lay.block_idx_t, g, True)
-    assert (tca.unbiased_launches, tcab.dq_unbiased_launches,
-            tcab.dkv_unbiased_launches) == (0, 0, 0)
+    assert (tca.unbiased_launches, tca.unbiased_sm90_launches,
+            tcab.dq_unbiased_launches, tcab.dkv_unbiased_launches,
+            tcab.dq_unbiased_sm90_launches,
+            tcab.dkv_unbiased_sm90_launches) == (0, 0, 0, 0, 0, 0)
     with pytest.raises(NotImplementedError, match="no kernel"):
         tca.cluster_attention_fwd(t(q), t(k), t(v), t(lay.block_idx), None,
                                   None, causal=True)
@@ -213,9 +215,14 @@ def test_op_rejects_a_bias_table_without_buckets():
     (torch.bfloat16, 64, 256, True, False, "bq = bk = 128"),
     (torch.bfloat16, 32, 128, True, False, "Dh=32"),
     (torch.bfloat16, 128, 128, False, False, "batch-shared"),
-    # the bf16 backward stays on CUDA cores: multiples of 64
-    (torch.bfloat16, 128, 64, True, True, None),
-    (torch.bfloat16, 64, 96, True, True, "a multiple of 64"),
+    # the bf16 backward (tensor cores) takes what the bf16 forward takes
+    (torch.bfloat16, 128, 64, True, True, "bq = bk = 128"),
+    (torch.bfloat16, 64, 96, True, True, "bq = bk = 128"),
+    (torch.bfloat16, 128, 128, True, True, None),
+    (torch.bfloat16, 64, 128, True, True, None),
+    (torch.bfloat16, 128, 256, True, True, "bq = bk = 128"),
+    (torch.bfloat16, 32, 128, True, True, "Dh=32"),
+    (torch.bfloat16, 128, 128, False, True, "batch-shared"),
     # fp32, forward and backward, as before: multiples of 64
     (torch.float32, 128, 64, True, False, None),
     (torch.float32, 64, 256, True, False, None),
@@ -238,8 +245,7 @@ def test_unbiased_kernel_reason_per_dtype(dtype, d_head, bq, shared,
 
 def test_check_unbiased_kernel_names_dtype_and_shapes():
     """The op's check raises with the dtype and the shapes: the bf16
-    forward refuses the 64-row blocks that fp32 and the bf16 backward
-    take."""
+    forward and backward refuse the 64-row blocks that fp32 takes."""
     lay = lm_local_global_layout(512, bq=64, bk=64, window=128,
                                  n_global=64)
     bi, bit = t(lay.block_idx), t(lay.block_idx_t)
@@ -248,14 +254,26 @@ def test_check_unbiased_kernel_names_dtype_and_shapes():
                        match=r"bq=bk=64 .*bfloat16 q \(2, 512, 4, 64\), "
                              r"block_idx \(8, 3\)"):
         tca.check_unbiased_kernel(q, bi)
-    tca.check_unbiased_kernel(q, bi, bit, backward=True)
+    with pytest.raises(NotImplementedError,
+                       match=r"bq=bk=64 \(the bf16 backward .*bfloat16 q "
+                             r"\(2, 512, 4, 64\), block_idx \(8, 3\), "
+                             r"block_idx_t \(8, 8, 2\)"):
+        tca.check_unbiased_kernel(q, bi, bit, backward=True)
     tca.check_unbiased_kernel(q.float(), bi)
     tca.check_unbiased_kernel(q.float(), bi, bit, backward=True)
 
 
 def test_reset_count_zeroes_the_unbiased_counters():
-    """One counter per forward kernel, the bf16 tensor-core one included."""
+    """One counter per kernel, the bf16 tensor-core forward, dQ and dK/dV
+    included."""
     tca.launches = tca.unbiased_launches = tca.unbiased_sm90_launches = 2
     tca.reset_count()
     assert (tca.launches, tca.unbiased_launches,
             tca.unbiased_sm90_launches) == (0, 0, 0)
+    tcab.dq_launches = tcab.dkv_launches = 3
+    tcab.dq_unbiased_launches = tcab.dkv_unbiased_launches = 3
+    tcab.dq_unbiased_sm90_launches = tcab.dkv_unbiased_sm90_launches = 3
+    tcab.reset_count()
+    assert (tcab.dq_launches, tcab.dkv_launches, tcab.dq_unbiased_launches,
+            tcab.dkv_unbiased_launches, tcab.dq_unbiased_sm90_launches,
+            tcab.dkv_unbiased_sm90_launches) == (0, 0, 0, 0, 0, 0)

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 cluster-attention kernels (the biased forward, dQ and dK/dV kernels of
 the graph path, and the unbiased, optionally causal ones of the LM
-path; the bf16 unbiased forward on the tensor cores), the dense flash
+path; in bf16 the unbiased forward, dQ and dK/dV on the tensor cores),
+the dense flash
 forward, dQ and dK/dV kernels (bf16 on the tensor cores, fp32 on CUDA
 cores), and the SSD scan.
 Skipped where there is no CUDA device. This file imports neither jax nor the
@@ -215,7 +216,9 @@ def test_bwd_kernels_dead_rows_and_full_layout(dev):
 def _run_unbiased(dev, dtype, q, k, v, bi, bit, causal):
     """The unbiased op on the card (forward kernel, then under autograd
     the dQ and dK/dV kernels) against the plain versions on the same
-    inputs: O, lse, dq, dk and dv."""
+    inputs: O, lse, dq, dk and dv. bf16 runs the tensor-core kernels,
+    fp32 the CUDA-core ones: each launch counts on its own kernel's
+    counter."""
     q, k, v = (torch.from_numpy(x).to(dev).to(dtype) for x in (q, k, v))
     bi = torch.from_numpy(np.array(bi, copy=True)).to(dev)
     bit = None if bit is None else torch.from_numpy(
@@ -240,15 +243,16 @@ def _run_unbiased(dev, dtype, q, k, v, bi, bit, causal):
     gen = torch.Generator(device=dev).manual_seed(7)
     dout = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    counts = (tca.unbiased_launches, tca.unbiased_sm90_launches,
-              tcab.dq_unbiased_launches, tcab.dkv_unbiased_launches)
+    def counts():
+        return (tca.unbiased_launches, tca.unbiased_sm90_launches,
+                tcab.dq_unbiased_launches, tcab.dq_unbiased_sm90_launches,
+                tcab.dkv_unbiased_launches, tcab.dkv_unbiased_sm90_launches)
+    before = counts()
     out = ops.cluster_attention(*leaves, bi, None, None, bit, causal=causal)
     got = torch.autograd.grad(out, leaves, dout)
     torch.cuda.synchronize()
-    assert (tca.unbiased_launches, tca.unbiased_sm90_launches,
-            tcab.dq_unbiased_launches, tcab.dkv_unbiased_launches) == (
-        counts[0] + (not sm90), counts[1] + sm90, counts[2] + 1,
-        counts[3] + 1)
+    assert counts() == tuple(c + d for c, d in zip(
+        before, (not sm90, sm90) * 3))
     want = ref.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None, None,
                                      bit, causal=causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -302,6 +306,74 @@ def test_unbiased_kernels_full_qwen3_heads(dev, dtype):
     lay = lm_local_global_layout(4096, window=1024, n_global=128)
     q, k, v, _ = qkv(1, lay.seq_len, 16, 8, 128, seed=5)
     _run_unbiased(dev, dtype, q, k, v, lay.block_idx, lay.block_idx_t, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unbiased_kernels_holes_in_both_layouts(dev, dtype):
+    """-1 entries in the middle of ``block_idx`` and, at the same (q-row,
+    slot) pairs, of the host's ``block_idx_t``: the walks skip them where
+    they stand. Then the derived transposed layout of the same holed
+    layout (``mt = nq``, every list -1 padded to nq)."""
+    lay = lm_local_global_layout(1024, window=512, n_global=128)
+    bi = np.array(lay.block_idx, copy=True)
+    bit = np.array(lay.block_idx_t, copy=True)
+    holes = [(3, 1), (4, 2), (5, 2)]    # slots inside live rows
+    for i, m in holes:
+        assert m > 0 and bi[i, m] >= 0 and bi[i, m + 1] >= 0
+        j = bi[i, m]
+        bi[i, m] = -1
+        (t,) = np.nonzero((bit[j, :, 0] == i) & (bit[j, :, 1] == m))[0]
+        bit[j, t] = -1
+        assert (bit[j, t + 1:, 0] >= 0).any()   # a -1 before live pairs
+    q, k, v, _ = qkv(1, lay.seq_len, 4, 2, 128, seed=11)
+    _run_unbiased(dev, dtype, q, k, v, bi, bit, True)
+    derived = ref.derive_block_idx_t(torch.from_numpy(bi), lay.nq)
+    assert derived.shape == (lay.nq, lay.nq, 2)
+    _run_unbiased(dev, dtype, q, k, v, bi, derived.numpy(), True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unbiased_kernels_causal_call_on_a_non_causal_layout(dev, dtype):
+    """A causal call over the non-causal window layout: rows list blocks
+    past the diagonal (blk > qi), and the transposed lists visitors
+    before it (qrow < ki). The causal mask empties those blocks, so the
+    walks skip them."""
+    lay = lm_local_global_layout(1024, window=512, n_global=128,
+                                 causal=False)
+    qi = np.arange(lay.nq)[:, None]
+    assert (lay.block_idx > qi).any()
+    rows = lay.block_idx_t[..., 0]
+    assert ((rows >= 0) & (rows < np.arange(lay.nq)[:, None])).any()
+    q, k, v, _ = qkv(1, lay.seq_len, 4, 2, 64, seed=13)
+    _run_unbiased(dev, dtype, q, k, v, lay.block_idx, lay.block_idx_t,
+                  True)
+
+
+def test_unbiased_bf16_backward_refuses_what_its_kernels_do_not_take(dev):
+    """The bf16 backward has no fallback: 64-row blocks and Dh 32 raise
+    with the shapes, before any launch."""
+    lay64 = lm_local_global_layout(512, bq=64, bk=64, window=128,
+                                   n_global=64)
+    lay = lm_local_global_layout(512, window=128, n_global=128)
+    for layout, Dh, match in (
+            (lay64, 64, r"bq=bk=64 \(the bf16 backward takes bq = bk = "
+                        r"128.*bfloat16 q \(2, 512, 4, 64\), block_idx "
+                        r"\(8, 3\)"),
+            (lay, 32, r"Dh=32.*bfloat16 q \(2, 512, 4, 32\)")):
+        q, k, v, _ = qkv(2, 512, 4, 2, Dh)
+        q, k, v = (torch.from_numpy(x).to(dev).bfloat16() for x in (q, k, v))
+        bi = torch.from_numpy(layout.block_idx).to(dev)
+        bit = torch.from_numpy(layout.block_idx_t).to(dev)
+        lse = torch.zeros((2 * 4, 512), device=dev)
+        before = (tcab.dq_unbiased_launches, tcab.dq_unbiased_sm90_launches,
+                  tcab.dkv_unbiased_launches,
+                  tcab.dkv_unbiased_sm90_launches)
+        with pytest.raises(NotImplementedError, match=match):
+            tcab.cluster_attention_bwd(q, k, v, q, q, lse, bi, None, None,
+                                       bit, causal=True)
+        assert (tcab.dq_unbiased_launches, tcab.dq_unbiased_sm90_launches,
+                tcab.dkv_unbiased_launches,
+                tcab.dkv_unbiased_sm90_launches) == before
 
 
 # ------------------------------------------- flash kernels (rows 7, 8, 9)
