@@ -11,15 +11,21 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
 3. kernels vs their plain PyTorch versions on the card: the cluster
    attention forward at the serve shape (32768-node SBM, Graphormer-Large
    heads) in bf16 and fp32, and small cases (GQA, Dh 8, a shared 2-D
-   layout, per-graph 3-D layouts, dead rows, a full layout); O and lse
+   layout, per-graph 3-D layouts, dead rows, a full layout); bf16 runs
+   the tensor-core forward (at the serve shape the global token's row
+   cut into pieces that a combine kernel merges), fp32 the CUDA-core one
+   (each launch checked on its own counter); O and lse
    are compared, kernel and plain timed with CUDA events; one
    ``scaled_dot_product_attention`` with the dense additive mask is timed
    beside the kernel at the 8192-node graph and at the serve shape, its
    forward and its backward;
 3b. the dQ and dK/dV backward kernels vs the plain backward, on the same
-   cases (and without a transposed layout: the derived one); dq, dk, dv
-   and the bias gradient are compared, each kernel and each plain half
-   timed;
+   cases (and without a transposed layout: the derived one); dQ runs on
+   CUDA cores in both dtypes, dK/dV on the tensor cores in bf16 and on
+   CUDA cores in fp32 (each launch checked on its own counter); dq, dk,
+   dv and the bias gradient are compared, each kernel and each plain
+   half timed, with its bound and its exp floor (one exp2 per score and
+   head at 16 a clock per SM);
 3c. the unbiased kernels of the LM path (the forward, dQ and dK/dV, with
    the positional causal mask) vs their plain versions: at the Qwen3-0.6B
    training shape (S=16384, 16 q heads over 8 KV heads, Dh=128, the
@@ -53,8 +59,11 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    a sparse step ran on, with the trainer's own device batch, the op's
    kernels (forward, dQ, dK/dV) must agree with its plain versions on
    random inputs, and the kernel path and the plain path must give the
-   same loss and gradients on one sparse step; one sparse and one dense
-   step are profiled;
+   same loss and gradients on one sparse step; on the nearly dense rung
+   the forward, dQ and dK/dV kernels are timed with the trainer's device
+   batch beside their plain versions, bounds, exp floor and one SDPA call
+   with the rung's layout as a dense additive mask (forward and
+   backward); one sparse and one dense step are profiled;
 6. LM train (slice 3's main path): Qwen3-0.6B at full width and depth
    with the cluster-sparse attention backend, bf16 compute, fp32
    parameters and moments, seeded init, on the synthetic token stream
@@ -93,6 +102,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tensor-core rate, fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# exp2 results a clock on one SM (the special-function units): the floor
+# under kernels that take one exponential per score
+EX2_PER_CLOCK_PER_SM = 16
 
 # tolerances, kernel vs plain on identical inputs. O: one bf16 rounding
 # of values near 1 (2e-2), fp32 sums in another order (2e-5). lse: fp32.
@@ -626,9 +638,16 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {kind} "
         f"count {torch.cuda.device_count()}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    log(f"{n_sm} SMs, max SM clock {sm_mhz:.0f} MHz")
 
     # ----------------------------------------------------------- 2. build
-    libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_UNBIASED,
+    libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_SM90,
+            tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED,
             tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED,
             tcab.LIBRARY_UNBIASED_SM90, tfa.LIBRARY, tfa.LIBRARY_BWD,
             tfa.LIBRARY_SM90, tfa.LIBRARY_DQ_SM90, tfa.LIBRARY_DKV_SM90,
@@ -663,15 +682,41 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
+    def exp_floor(q, block_idx, buckets):
+        """Least time of one exp2 per score and head of the visited blocks
+        at EX2_PER_CLOCK_PER_SM a clock on every SM, at the card's max SM
+        clock: the floor under the biased kernels' softmax, beside the
+        bytes and operations bound."""
+        B, S, H_ = q.shape[:3]
+        bq, bk = S // block_idx.shape[-2], buckets.shape[-1]
+        active = int((block_idx >= 0).sum()) * (
+            B if block_idx.dim() == 2 else 1)
+        return active * bq * bk * H_ / (
+            EX2_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6) * 1e3
+
+    def fwd_counts():
+        return tca.launches, tca.sm90_launches
+
+    def bwd_counts():
+        return tcab.dq_launches, tcab.dkv_launches, tcab.dkv_sm90_launches
+
     def compare(tag, q, k, v, bi, bu, bias):
-        """Kernel vs plain on identical inputs, O and lse; returns the max
+        """Kernel vs plain on identical inputs, O and lse; bf16 must run
+        the tensor-core forward, fp32 the CUDA-core one. Returns the max
         abs error of O."""
         dt = str(q.dtype).split(".")[1]
+        before = fwd_counts()
         o, lse = ops.cluster_attention(q, k, v, bi, bu, bias,
                                        return_lse=True)
         po, plse = ops.cluster_attention(q, k, v, bi, bu, bias,
                                          return_lse=True, impl="plain")
         torch.cuda.synchronize()
+        sm90 = dt == "bfloat16"
+        if fwd_counts() != (before[0] + (not sm90), before[1] + sm90):
+            raise AssertionError(f"{tag} {dt}: forward launches "
+                                 f"{fwd_counts()} from {before}, want one "
+                                 f"on the {'sm90' if sm90 else 'fp32'} "
+                                 f"kernel")
         err = (o.float() - po.float()).abs().max().item()
         lerr = (lse - plse).abs().max().item()
         ok = torch.allclose(o.float(), po.float(), atol=TOL_O[dt],
@@ -742,11 +787,19 @@ def main() -> int:
         uniform = bool((bu == bu.flatten()[0]).all())
         dt = str(q.dtype).split(".")[1]
         out, lse, dout = bwd_inputs(q, k, v, bi, bu, bias, seed)
+        before = bwd_counts()
         got = tcab.cluster_attention_bwd(q, k, v, dout, out, lse, bi, bu,
                                          bias, bit)
         want = ref.cluster_attention_bwd(q, k, v, dout, out, lse, bi, bu,
                                          bias, bit)
         torch.cuda.synchronize()
+        # dQ on CUDA cores in both dtypes; dK/dV on the tensor cores in
+        # bf16, on CUDA cores in fp32
+        sm90 = dt == "bfloat16"
+        if bwd_counts() != (before[0] + 1, before[1] + (not sm90),
+                            before[2] + sm90):
+            raise AssertionError(f"{tag} {dt}: backward launches "
+                                 f"{bwd_counts()} from {before}")
         rels, errs = [], []
         for i, (x, y) in enumerate(zip(got, want)):
             d = (x.float() - y.float()).abs().max().item()
@@ -844,9 +897,11 @@ def main() -> int:
             r["plain_ms"] = cuda_ms(plain, 3)
             r["bound_ms"], r["bound_by"] = bound_bwd(kind, q, k, bi, bu, bit,
                                                      bias.shape[1])
+            r["exp_floor_ms"] = exp_floor(q, bi, bu)
             log(f"[bwd] serve shape {dt} {kind}: kernel {r['ms']:.4f} ms, "
                 f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2%} of bound")
+                f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2%} of bound, "
+                f"exp floor {r['exp_floor_ms']:.4f} ms")
         if dt == "bfloat16":
             # diagnostics: the heavy dQ row and dK/dV column cut away
             trim = bi.clone()
@@ -877,12 +932,22 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: ops.cluster_attention(
             q, k, v, bi, bu, bias, impl="plain"), 5)
         bms, by = bound(q, k, v, bi, bu)
+        efl = exp_floor(q, bi, bu)
         log(f"[kernel] serve shape {dt}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"{bms / ms:.1%} of bound")
+            f"{bms / ms:.1%} of bound, exp floor {efl:.4f} ms")
         serve_rec[dt] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bms, "bound_by": by}
+                         "bound_ms": bms, "bound_by": by,
+                         "exp_floor_ms": efl}
         if dtype == torch.bfloat16:
+            plan = tca.fwd_plan(bi, 1)
+            serve_rec[dt]["split"] = None if plan is None else {
+                "pieces": len(plan[0]), "rows": len(plan[1]),
+                "slots": plan[2]}
+            log(f"[kernel] serve shape {dt}: split grid "
+                f"{serve_rec[dt]['split']} (rows above "
+                f"max({tca.SPLIT_MIN_PIECE}, {tca.SPLIT_MEAN_FACTOR} x the "
+                f"mean) visits cut into pieces)")
             # diagnostic: the same layout with the global token's q-block
             # row cut to one slot — what the other 1024 rows cost alone
             trim = bi.clone()
@@ -953,17 +1018,52 @@ def main() -> int:
     # math backend, which would materialise H * S^2 fp32 scores.
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    def dense_mask(bi_, bu_, bias, S_, bq_):
+        """The 2-D layout ``bi_``/``bu_`` as one dense (1, H, S, S) bf16
+        additive mask: each head's bias of the bucket, -inf where masked
+        or unvisited; filled head by head and a band of rows at a time, so
+        no temporary outgrows one band."""
+        nq_ = S_ // bq_
+        dense = torch.full((S_, S_), -1, dtype=torch.int8, device=dev)
+        ii, mm = torch.nonzero(bi_ >= 0, as_tuple=True)
+        dense.view(nq_, bq_, nq_, bq_).permute(0, 2, 1, 3)[
+            ii, bi_[ii, mm].long()] = bu_[ii, mm]
+        del ii, mm
+        mask = torch.empty((1, bias.shape[0], S_, S_), dtype=torch.bfloat16,
+                           device=dev)
+        for r in range(0, S_, 2048):
+            band = dense[r:r + 2048]
+            idx, dead = band.clamp_min(0).long(), band < 0
+            for h in range(bias.shape[0]):
+                mask[0, h, r:r + 2048] = bias[h][idx].masked_fill_(
+                    dead, float("-inf"))
+            del idx, dead
+        return mask
+
+    def sdpa_bwd_ms(qt, kt, vt, mask, rec):
+        """The backward of one SDPA call with the dense mask (gradients for
+        q, k and v; the mask takes none), on the backend PyTorch's own
+        dispatch picks, into ``rec["library_bwd_ms"]``, or the error it
+        hit (out of memory included) into ``rec["library_bwd_error"]``."""
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        try:
+            og = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            gout = torch.randn_like(og)
+            rec["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                og, leaves, gout, retain_graph=True), 5)
+            del og, gout
+        except RuntimeError as e:
+            rec["library_bwd_error"] = \
+                f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+        del leaves
+        torch.cuda.empty_cache()
+
     def sdpa_yardstick(graph, lay_, seed):
         bi_, bu_ = to_dev(lay_.block_idx), to_dev(lay_.buckets)
         q, k, v, bias = random_qkv(1, lay_.seq_len, H, KV, Dh,
                                    lay_.n_buckets, torch.bfloat16, seed=seed)
         S_, bq_ = lay_.seq_len, lay_.bq
-        nq_ = S_ // bq_
         assert lay_.bk == bq_
-        dense = torch.full((S_, S_), -1, dtype=torch.int8, device=dev)
-        ii, mm = torch.nonzero(bi_ >= 0, as_tuple=True)
-        dense.view(nq_, bq_, nq_, bq_).permute(0, 2, 1, 3)[
-            ii, bi_[ii, mm].long()] = bu_[ii, mm]
         live = graph.n + large.n_global    # rows past the last node are dead
         o = ops.cluster_attention(q, k, v, bi_, bu_, bias)[:, :live].float()
         rec = {"graph_nodes": graph.n, "S": S_,
@@ -983,19 +1083,10 @@ def main() -> int:
             q, k, v, dout_, lse_, delta_, bi_, bit_, bu_, bias), 10)
         log(f"[yardstick] {graph.n} nodes: backward kernels dq "
             f"{rec['dq_ms']:.4f} ms + dkv {rec['dkv_ms']:.4f} ms")
-        del bi_, bu_, ii, mm, out_, lse_, dout_, delta_, bit_
+        del out_, lse_, dout_, delta_, bit_
         torch.cuda.empty_cache()
-        # the mask, filled head by head and a band of rows at a time, so
-        # no temporary outgrows one band
-        mask = torch.empty((1, H, S_, S_), dtype=torch.bfloat16, device=dev)
-        for r in range(0, S_, 2048):
-            band = dense[r:r + 2048]
-            idx, dead = band.clamp_min(0).long(), band < 0
-            for h in range(H):
-                mask[0, h, r:r + 2048] = bias[h][idx].masked_fill_(
-                    dead, float("-inf"))
-            del idx, dead
-        del dense
+        mask = dense_mask(bi_, bu_, bias, S_, bq_)
+        del bi_, bu_
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def sdpa(backend):
@@ -1013,21 +1104,9 @@ def main() -> int:
             rec[f"{key}_ms"] = cuda_ms(lambda: sdpa(backend), 5)
             rec[f"max_abs_err_vs_{key}"] = err
             del ref_o
-        # the backward of one such call (gradients for q, k and v; the mask
-        # takes none), on the backend PyTorch's own dispatch picks: the
-        # library figure for the dQ and dK/dV kernels together
-        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-        try:
-            og = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-            gout = torch.randn_like(og)
-            rec["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                og, leaves, gout, retain_graph=True), 5)
-            del og, gout
-        except RuntimeError as e:   # out of memory included: recorded
-            rec["library_bwd_error"] = \
-                f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
-        del leaves
-        torch.cuda.empty_cache()
+        # the backward of one such call: the library figure for the dQ and
+        # dK/dV kernels together
+        sdpa_bwd_ms(qt, kt, vt, mask, rec)
         log(f"[yardstick] {graph.n} nodes: SDPA backward with the dense "
             f"mask (PyTorch's pick): " + (
                 f"{rec['library_bwd_ms']:.4f} ms" if "library_bwd_ms" in rec
@@ -1333,8 +1412,10 @@ def main() -> int:
 
     def read_counts():
         return {"cluster_attention_fwd": tca.launches,
+                "cluster_attention_fwd_sm90": tca.sm90_launches,
                 "cluster_attention_bwd_dq": tcab.dq_launches,
                 "cluster_attention_bwd_dkv": tcab.dkv_launches,
+                "cluster_attention_bwd_dkv_sm90": tcab.dkv_sm90_launches,
                 "cluster_attention_fwd_unbiased": tca.unbiased_launches,
                 "cluster_attention_fwd_unbiased_sm90":
                     tca.unbiased_sm90_launches,
@@ -1434,12 +1515,12 @@ def main() -> int:
             if len(passes) == 1:
                 first = srv.prepared(g)
         counts = read_counts()
-        launches = counts["cluster_attention_fwd"]
+        launches = counts["cluster_attention_fwd_sm90"]
         peak = torch.cuda.max_memory_allocated()
         if srv.n_cached_layouts() != 1 or srv.prepared(g) is not first:
             raise AssertionError("the second pass missed the layout cache")
         want = 2 * 3 * cfg.n_layers
-        if counts != only(cluster_attention_fwd=want):
+        if counts != only(cluster_attention_fwd_sm90=want):
             raise AssertionError(f"{cfg.name}: launches {counts} in 2 passes "
                                  f"x 3 forwards, want {want} forwards")
         node = outs[0][0]
@@ -1486,6 +1567,71 @@ def main() -> int:
     slim_run = serve(slim, seed=0)
 
     # --------------------------------------------- 5. train (slice 2's path)
+    def rung_kernels(bi_, bu_, bit_, nb, live, tag):
+        """Rows 1, 3 and 4 on one training rung, with the trainer's device
+        layout (per-graph 3-D, B=1) and random bf16 inputs at the Large
+        heads: each kernel timed beside its plain version, its bound and
+        its exp floor; then one SDPA call with the rung's layout as a dense
+        additive mask, forward (cuDNN, its O held to the kernel's on the
+        live rows) and backward (PyTorch's pick)."""
+        S_ = bi_.shape[-2] * 32
+        q, k, v, bias = random_qkv(1, S_, H, KV, Dh, nb, torch.bfloat16,
+                                   seed=21)
+        out_, lse_, dout_ = bwd_inputs(q, k, v, bi_, bu_, bias, seed=22)
+        delta_ = ref.row_delta(dout_, out_)
+        runs = {
+            "fwd": (lambda: tca.cluster_attention_fwd(q, k, v, bi_, bu_,
+                                                      bias),
+                    lambda: ref.cluster_sparse_attention(q, k, v, bi_, bu_,
+                                                         bias)),
+            "dq": (lambda: tcab.dq_kernel(q, k, v, dout_, lse_, delta_, bi_,
+                                          bu_, bias),
+                   lambda: ref.bwd_dq(q, k, v, dout_, lse_, delta_, bi_, bu_,
+                                      bias)),
+            "dkv": (lambda: tcab.dkv_kernel(q, k, v, dout_, lse_, delta_,
+                                            bi_, bit_, bu_, bias),
+                    lambda: ref.bwd_dkv(q, k, v, dout_, lse_, delta_, bi_,
+                                        bit_, bu_, bias))}
+        rec = {"active_blocks": int((bi_ >= 0).sum()), "S": S_}
+        for kind, (kern, plain) in runs.items():
+            r = rec[kind] = {"ms": cuda_ms(kern, 5),
+                             "plain_ms": cuda_ms(plain, 2),
+                             "exp_floor_ms": exp_floor(q, bi_, bu_)}
+            r["bound_ms"], r["bound_by"] = (
+                bound(q, k, v, bi_, bu_) if kind == "fwd" else
+                bound_bwd(kind, q, k, bi_, bu_, bit_, nb))
+            log(f"[rung] {tag} bfloat16 {kind}: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2%} of bound, "
+                f"exp floor {r['exp_floor_ms']:.4f} ms")
+        o = out_[:, :live].float()
+        del out_, lse_, dout_, delta_
+        torch.cuda.empty_cache()
+        mask = dense_mask(bi_[0], bu_[0], bias, S_, 32)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        ref_o = sdpa().transpose(1, 2)[:, :live].float()
+        err = (o - ref_o).abs().max().item()
+        tol = TOL_O["bfloat16"]
+        if not torch.allclose(o, ref_o, atol=tol, rtol=tol):
+            raise AssertionError(f"kernel vs SDPA on {tag}: max|dO|={err}")
+        rec["library_ms"] = cuda_ms(sdpa, 5)
+        rec["max_abs_err_vs_library"] = err
+        del ref_o, o
+        sdpa_bwd_ms(qt, kt, vt, mask, rec)
+        log(f"[rung] {tag}: SDPA with the dense mask, forward (cuDNN) "
+            f"{rec['library_ms']:.4f} ms (max|dO| {err:.3g}), backward "
+            f"(PyTorch's pick) " + (
+                f"{rec['library_bwd_ms']:.4f} ms" if "library_bwd_ms" in rec
+                else rec["library_bwd_error"]))
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+        return rec
+
     def train():
         g8 = degree_scaled_sbm(TRAIN_NODES, CLUSTERS, large, seed=0)
         train_mask = np.random.default_rng(0).random(g8.n) < 0.5
@@ -1533,11 +1679,12 @@ def main() -> int:
             f"eval acc {ev['acc']:.4f} xent {ev['xent']:.4f}")
         losses = [h["loss"] for h in hist]
         want = n_sparse * large.n_layers
-        if counts != only(cluster_attention_fwd=want,
+        if counts != only(cluster_attention_fwd_sm90=want,
                           cluster_attention_bwd_dq=want,
-                          cluster_attention_bwd_dkv=want):
-            raise AssertionError(f"launches {counts}: want {want} of each "
-                                 f"({n_sparse} sparse steps x "
+                          cluster_attention_bwd_dkv_sm90=want):
+            raise AssertionError(f"launches {counts}: want {want} of the "
+                                 f"tensor-core forward and dK/dV and the dQ "
+                                 f"kernel each ({n_sparse} sparse steps x "
                                  f"{large.n_layers} layers)")
         if dense_at != [0, 8] or not np.isfinite(losses).all() or any(
                 h["skipped"] for h in hist):
@@ -1601,6 +1748,13 @@ def main() -> int:
         check_peak = torch.cuda.max_memory_allocated()
         log(f"[train] checks on {len(rungs)} rungs: peak "
             f"{check_peak / 2**30:.2f} GiB")
+        # the nearly dense rung (most active blocks), kept for the kernel
+        # times after the model is gone
+        dense_bt = max(rungs, key=lambda bt: int(
+            (task._batches_dev[(bt, 0)]["block_idx"] >= 0).sum()))
+        rb = task._batches_dev[(dense_bt, 0)]
+        rung_layout = (rb["block_idx"], rb["buckets"], rb["block_idx_t"],
+                       model.bias_table.shape[1])
 
         # profile one sparse and one dense step, on the active rung
         batch = task.batches(0)
@@ -1618,8 +1772,12 @@ def main() -> int:
             vars(m) for m in task.moves], "eval": ev, "run_s": run_s,
             "prep_s": prep_s, "peak_bytes": peak, "checks": checks,
             "check_peak_bytes": check_peak, "profile": prof}
-        del tr, task, model, batch, params
+        del tr, task, model, batch, params, rb
         torch.cuda.empty_cache()
+        rec["rung"] = rung_kernels(
+            *rung_layout, g8.n + large.n_global,
+            f"nearly dense rung beta_thre={dense_bt:.5f}")
+        rec["rung"]["beta_thre"] = dense_bt
         return rec
 
     train_run = train()
@@ -1736,35 +1894,51 @@ def main() -> int:
     def launches(name):
         return main_path["launches"][name] + train_run["launches"][name]
 
+    rung = train_run["rung"]
+    csrc = "src/repro_torch/kernels/csrc/"
+    # rows 1 and 4 have a kernel for each dtype: `source` is the bf16
+    # tensor-core one, which the bf16 main paths launched; the fp32
+    # CUDA-core one is `source_float32`, counted in `launches_float32`
+    # (0 on the main paths) and timed under `float32`. Row 3 (dQ) runs
+    # one CUDA-core kernel for both dtypes. Times at the serve shape, and
+    # under `rung` at the nearly dense training rung.
     kernels = [{
         "name": "cluster_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/cluster_attention_fwd.cu",
+        "source": csrc + "cluster_attention_fwd_sm90.cu",
         "replaces": "src/repro/kernels/cluster_attention.py:127",
-        "launches": launches("cluster_attention_fwd"),
+        "launches": launches("cluster_attention_fwd_sm90"),
         "launches_by_path": {
-            "serve": main_path["launches"]["cluster_attention_fwd"],
-            "train": train_run["launches"]["cluster_attention_fwd"]},
+            "serve": main_path["launches"]["cluster_attention_fwd_sm90"],
+            "train": train_run["launches"]["cluster_attention_fwd_sm90"]},
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"],
+        "bound_by": rec["bound_by"], "exp_floor_ms": rec["exp_floor_ms"],
         # SDPA (cuDNN) with the dense additive mask, at the serve shape
         "library_ms": yard_s["library_ms"],
+        "rung": {**rung["fwd"], "library_ms": rung["library_ms"]},
+        "source_float32": csrc + "cluster_attention_fwd.cu",
+        "launches_float32": launches("cluster_attention_fwd"),
         "float32": {k: v for k, v in serve_rec["float32"].items()
                     if k != "bwd"},
         "yardstick": yard,
         "serve": {"graphormer_large": main_path,
                   "graphormer_slim": slim_run}}]
-    for half, name, line in (("dq", "cluster_attention_bwd_dq", 152),
-                             ("dkv", "cluster_attention_bwd_dkv", 244)):
+    for half, name, line, sm90 in (
+            ("dq", "cluster_attention_bwd_dq", 152, False),
+            ("dkv", "cluster_attention_bwd_dkv", 244, True)):
         b = rec["bwd"][half]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/cluster_attention_bwd.cu",
+            "source": csrc + ("cluster_attention_bwd_dkv_sm90.cu" if sm90
+                              else "cluster_attention_bwd.cu"),
             "replaces": f"src/repro/kernels/cluster_attention_bwd.py:{line}",
-            "launches": launches(name),
+            "launches": launches(name + "_sm90" if sm90 else name),
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"],
+            "bound_by": b["bound_by"], "exp_floor_ms": b["exp_floor_ms"],
+            "rung": {**rung[half], "library_ms": rung.get("library_bwd_ms")},
+            **({"source_float32": csrc + "cluster_attention_bwd.cu",
+                "launches_float32": launches(name)} if sm90 else {}),
             # one SDPA backward with the dense mask (dq, dk and dv
             # together) at the serve shape, or null with the error it hit
             "library_ms": yard_s.get("library_bwd_ms"),

@@ -1,9 +1,14 @@
 """Wrappers, builds and launch counters of the CUDA cluster-sparse
 attention forwards:
 
-* ``csrc/cluster_attention_fwd.cu``, the port of the TPU kernel
-  ``_cluster_kernel_biased`` (``src/repro/kernels/cluster_attention.py``):
-  int8 bias buckets, the graph transformer's path;
+* the ports of the TPU kernel ``_cluster_kernel_biased``
+  (``src/repro/kernels/cluster_attention.py``): int8 bias buckets, the
+  graph transformer's path. Each dtype has exactly one kernel, with no
+  fallback between them: bfloat16 runs on the tensor cores
+  (``csrc/cluster_attention_fwd_sm90.cu``: ``mma.sync`` on 32-row tiles,
+  one warp per head, a ``cp.async`` ring of visited k-blocks), float32
+  on CUDA cores in fp32 throughout (``csrc/cluster_attention_fwd.cu``).
+  ``biased_kernel_reason`` states what the bf16 kernel takes;
 * the ports of ``_cluster_kernel``: no buckets, an optional positional
   causal mask, the token LM's local+global path. Each dtype has exactly
   one kernel, with no fallback between them: bfloat16 runs on the tensor
@@ -25,8 +30,11 @@ back.
 from __future__ import annotations
 
 import ctypes
+import math
 import pathlib
+import weakref
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import CudaLibrary
@@ -38,16 +46,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 UNBIASED_HEAD_DIMS = (64, 128)
 UNBIASED_TILE = 64
 UNBIASED_SM90_BLOCK = 128
+# what the bf16 biased kernels (forward and dK/dV) take: the graph
+# layouts' 32 x 32 blocks and head dims a multiple of 8 up to 64
+BIASED_SM90_BLOCK = 32
+BIASED_SM90_HEAD_DIMS = tuple(range(8, 65, 8))
+# the bf16 forward cuts a q-block row with more visits than
+# max(SPLIT_MIN_PIECE, SPLIT_MEAN_FACTOR x the mean row) into pieces of
+# about that many visits (``split_plan``)
+SPLIT_MIN_PIECE = 64
+SPLIT_MEAN_FACTOR = 4
 
 # kernel launches since the last reset_count(), one count per kernel
-launches = 0                # biased, cluster_attention_fwd.cu
+launches = 0                # fp32 biased, cluster_attention_fwd.cu
+sm90_launches = 0           # bf16 biased, cluster_attention_fwd_sm90.cu
 unbiased_launches = 0       # fp32 unbiased, cluster_attention_unbiased_fwd.cu
 unbiased_sm90_launches = 0  # bf16 unbiased, ..._unbiased_fwd_sm90.cu
 
 
 def reset_count() -> None:
-    global launches, unbiased_launches, unbiased_sm90_launches
-    launches = unbiased_launches = unbiased_sm90_launches = 0
+    global launches, sm90_launches, unbiased_launches, unbiased_sm90_launches
+    launches = sm90_launches = unbiased_launches = unbiased_sm90_launches = 0
 
 
 def _bind(lib) -> None:
@@ -55,6 +73,13 @@ def _bind(lib) -> None:
     lib.cluster_attention_fwd.argtypes = (
         [vp] * 8 + [i32] * 12 + [ctypes.c_float, vp])
     lib.cluster_attention_fwd.restype = i32
+
+
+def _bind_sm90(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_fwd_sm90.argtypes = (
+        [vp] * 12 + [i32] * 13 + [ctypes.c_float, vp])
+    lib.cluster_attention_fwd_sm90.restype = i32
 
 
 def _bind_unbiased(lib) -> None:
@@ -73,6 +98,8 @@ def _bind_unbiased_sm90(lib) -> None:
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "cluster_attention_fwd.cu", _bind)
+LIBRARY_SM90 = CudaLibrary(_CSRC / "cluster_attention_fwd_sm90.cu",
+                           _bind_sm90)
 LIBRARY_UNBIASED = CudaLibrary(_CSRC / "cluster_attention_unbiased_fwd.cu",
                                _bind_unbiased)
 LIBRARY_UNBIASED_SM90 = CudaLibrary(
@@ -128,6 +155,103 @@ def check_args(q, k, v, block_idx, buckets, bias_table):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
+def biased_kernel_reason(dtype, d_head: int, bq: int,
+                         bk: int) -> str | None:
+    """Why the biased kernels of ``dtype`` (a torch dtype) do not take
+    head dim ``d_head`` and q/k-blocks of ``bq`` x ``bk``, or None when
+    they do. float32 runs the CUDA-core kernels, which take any tile
+    their shared memory holds; bfloat16 the tensor-core forward and
+    dK/dV, which take ``bq = bk = BIASED_SM90_BLOCK`` and Dh in
+    ``BIASED_SM90_HEAD_DIMS`` (the bf16 dQ, on CUDA cores, is held to
+    the same contract so that a call never splits between them)."""
+    if dtype not in _DTYPES:
+        return f"{dtype} (the kernels take float32 or bfloat16)"
+    if dtype != torch.bfloat16:
+        return None
+    if bq != BIASED_SM90_BLOCK or bk != BIASED_SM90_BLOCK:
+        return (f"bq={bq}, bk={bk} (the bf16 kernels take bq = bk = "
+                f"{BIASED_SM90_BLOCK})")
+    if d_head not in BIASED_SM90_HEAD_DIMS:
+        return (f"Dh={d_head} (the bf16 kernels take Dh a multiple of 8 "
+                f"from 8 to 64)")
+    return None
+
+
+def split_plan(visits, B: int, piece: int):
+    """The split grid of the bf16 forward, from the visit counts of the
+    q-block rows (``visits`` (nq,) for a layout shared by the batch, (B,
+    nq) per graph): every row with more than ``piece`` visits becomes
+    ceil(visits / piece) pieces of near-equal size, each with its own
+    partial slot. Returns ``(pieces, splits)`` int32 arrays, or None
+    when no row is cut: ``pieces`` (n, 4) the work items (b * nq + qi,
+    first visit, end visit, slot or -1 for a whole row), the split rows'
+    pieces first, heaviest row first; ``splits`` (m, 4) the split rows
+    (b * nq + qi, first slot, pieces, 0), whose slots the combine merges
+    in that order."""
+    nq = np.shape(visits)[-1]
+    v = np.broadcast_to(np.asarray(visits, np.int64), (B, nq))
+    heavy = np.flatnonzero(v.ravel() > piece)
+    if heavy.size == 0:
+        return None
+    heavy = heavy[np.argsort(-v.ravel()[heavy], kind="stable")]
+    pieces, splits, slot = [], [], 0
+    for row in heavy:
+        n = int(v.ravel()[row])
+        k = -(-n // piece)
+        splits.append((row, slot, k, 0))
+        pieces += [(row, j * n // k, (j + 1) * n // k, slot + j)
+                   for j in range(k)]
+        slot += k
+    whole = np.setdiff1d(np.arange(B * nq), heavy)
+    pieces += [(row, 0, int(v.ravel()[row]), -1) for row in whole]
+    return (np.asarray(pieces, np.int32).reshape(-1, 4),
+            np.asarray(splits, np.int32).reshape(-1, 4))
+
+
+# (id of a block_idx tensor) -> (weakref, its version, B, plan on its
+# device): the plan of a layout tensor is derived once, with the one host
+# sync its visit counts take, and reused by every later launch on it
+_PLANS: dict = {}
+
+
+def fwd_plan(block_idx, B: int):
+    """``split_plan`` of a device ``block_idx`` at the pieces the bf16
+    forward uses, as ``(pieces, splits, partial slots)`` with the two
+    tables on the layout's device, or None; cached per layout tensor
+    (and its version, so an in-place edit re-derives it)."""
+    key = id(block_idx)
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0]() is block_idx \
+            and hit[1] == block_idx._version and hit[2] == B:
+        return hit[3]
+    visits = (block_idx >= 0).sum(-1).cpu().numpy()
+    piece = max(SPLIT_MIN_PIECE, math.ceil(SPLIT_MEAN_FACTOR * visits.mean()))
+    plan = split_plan(visits, B, piece)
+    if plan is not None:
+        pieces, splits = plan
+        plan = (torch.from_numpy(pieces).to(block_idx.device),
+                torch.from_numpy(splits).to(block_idx.device),
+                int(splits[:, 2].sum()))
+    _PLANS[key] = (weakref.ref(block_idx, lambda _, k=key: _PLANS.pop(k,
+                                                                     None)),
+                   block_idx._version, B, plan)
+    return plan
+
+
+def check_biased_kernel(q, block_idx, buckets):
+    """Raise ``NotImplementedError`` with the dtype and the shapes unless
+    the biased kernels of q's dtype take them
+    (``biased_kernel_reason``)."""
+    bq = q.shape[1] // block_idx.shape[-2]
+    reason = biased_kernel_reason(q.dtype, q.shape[3], bq,
+                                  buckets.shape[-1])
+    if reason is not None:
+        raise NotImplementedError(
+            f"the biased cluster_attention kernels do not take {reason}: "
+            f"{str(q.dtype).split('.')[-1]} q {tuple(q.shape)}, block_idx "
+            f"{tuple(block_idx.shape)}, buckets {tuple(buckets.shape)}")
+
+
 def unbiased_kernel_reason(dtype, d_head: int, bq: int, shared: bool, *,
                            backward: bool = False) -> str | None:
     """Why the unbiased kernel of ``dtype`` (a torch dtype) does not take
@@ -172,6 +296,11 @@ def check_unbiased_kernel(q, block_idx, block_idx_t=None, *,
             f"{tuple(block_idx.shape)}, block_idx_t {t_shape}")
 
 
+def _ptr(x):
+    """A tensor's device address for a kernel argument, NULL for None."""
+    return None if x is None else x.data_ptr()
+
+
 def aligned(x):
     """``x`` contiguous at a 16-byte aligned address (the kernels read
     rows in 16-byte pieces): a copy only when it is not already."""
@@ -182,8 +311,9 @@ def aligned(x):
 def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
                           causal: bool = False, return_lse: bool = False):
     """Cluster-sparse attention forward on CUDA tensors (shape contract in
-    ``kernels/ref.py``): launches the biased kernel, or without buckets
-    the unbiased one, or raises. ``block_idx`` entries are -1 or k-block
+    ``kernels/ref.py``): launches the biased kernel of q's dtype (bf16:
+    tensor cores, fp32: CUDA cores), or without buckets the unbiased
+    one, or raises. ``block_idx`` entries are -1 or k-block
     ids below ``S // bk``, as the layout builders emit them; the kernels
     read whatever block an entry names, so the values are the caller's
     contract (checking them would cost a device sync per call)."""
@@ -196,33 +326,53 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
     if causal:
         raise ValueError("the bucketed cluster kernel has no causal mask "
                          "(masking lives in the buckets)")
+    check_biased_kernel(q, block_idx, buckets)
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     nq, mb = block_idx.shape[-2:]
     bq, bk = S // nq, buckets.shape[-1]
     nb = bias_table.shape[1]
-    lib = LIBRARY.lib()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    block_idx, buckets = block_idx.contiguous(), buckets.contiguous()
+    sm90 = q.dtype == torch.bfloat16
+    plan = fwd_plan(block_idx, B) if sm90 else None
+    q, k, v = aligned(q), aligned(k), aligned(v)
+    block_idx, buckets = aligned(block_idx), aligned(buckets)
     bias = bias_table.float().contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    global launches
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
+            buckets.data_ptr(), bias.data_ptr())
+    outs = (out.data_ptr(), _ptr(lse))
+    stream = torch.cuda.current_stream().cuda_stream
+    global launches, sm90_launches
     with torch.cuda.device(q.device):
-        err = lib.cluster_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
-            buckets.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None, _DTYPES[q.dtype],
-            B, S, H, KV, Dh, nq, mb, bq, bk, nb, int(block_idx.dim() == 3),
-            Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+        if sm90:
+            # the split rows' partial slots: fp32 O and (max, sum) per row
+            pieces, splits, slots = plan or (None, None, 0)
+            part_o = torch.empty((slots, H, bq, Dh), dtype=torch.float32,
+                                 device=q.device)
+            part_ml = torch.empty((slots, H, 2, bq), dtype=torch.float32,
+                                  device=q.device)
+            err = LIBRARY_SM90.lib().cluster_attention_fwd_sm90(
+                *ptrs, _ptr(pieces), _ptr(splits), *outs, part_o.data_ptr(),
+                part_ml.data_ptr(), B, S, H, KV, Dh, nq, mb, bq, bk, nb,
+                int(block_idx.dim() == 3), len(pieces) if plan else 0,
+                len(splits) if plan else 0, Dh ** -0.5, stream)
+        else:
+            err = LIBRARY.lib().cluster_attention_fwd(
+                *ptrs, *outs, _DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, bq,
+                bk, nb, int(block_idx.dim() == 3), Dh ** -0.5, stream)
     if err != 0:
         # e.g. 1 (invalid value): the tiles of bq, bk, Dh and n_buckets
-        # need more shared memory than one block may have on this card
+        # (and, in bf16, the visit list of mb slots) need more shared
+        # memory than one block may have on this card
         raise RuntimeError(f"cluster_attention_fwd launch failed: CUDA "
-                           f"error {err} (bq={bq}, bk={bk}, Dh={Dh}, "
-                           f"n_buckets={nb})")
-    launches += 1
+                           f"error {err} ({q.dtype}, bq={bq}, bk={bk}, "
+                           f"Dh={Dh}, n_buckets={nb}, mb={mb})")
+    if sm90:
+        sm90_launches += 1
+    else:
+        launches += 1
     return (out, lse) if return_lse else out
 
 

@@ -1,10 +1,15 @@
 """Wrappers, builds and launch counters of the CUDA cluster-sparse
 attention backward kernels:
 
-* ``csrc/cluster_attention_bwd.cu``, the ports of the TPU kernels
-  ``_dq_kernel_biased`` and ``_dkv_kernel_biased``
-  (``src/repro/kernels/cluster_attention_bwd.py``): int8 bias buckets and
-  the ``bias_table`` gradient;
+* the ports of the TPU kernels ``_dq_kernel_biased`` and
+  ``_dkv_kernel_biased`` (``src/repro/kernels/cluster_attention_bwd.py``):
+  int8 bias buckets and the ``bias_table`` gradient. The dQ kernel of
+  both dtypes runs on CUDA cores (``csrc/cluster_attention_bwd.cu``);
+  the dK/dV kernel has one per dtype, with no fallback between them:
+  bfloat16 on the tensor cores (``csrc/cluster_attention_bwd_dkv_sm90.cu``:
+  ``mma.sync`` on 32-row tiles, one warp per head, a ``cp.async`` ring
+  of visitors), float32 on CUDA cores (``csrc/cluster_attention_bwd.cu``).
+  ``cluster_attention.biased_kernel_reason`` states what bf16 takes;
 * the ports of ``_dq_kernel`` and ``_dkv_kernel``: no buckets, an
   optional positional causal mask, the token LM's path. Each dtype has
   exactly one dQ and one dK/dV kernel, with no fallback between them:
@@ -44,8 +49,9 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import CudaLibrary
 
 # kernel launches since the last reset_count(), one count per kernel
-dq_launches = 0
-dkv_launches = 0
+dq_launches = 0                 # both dtypes, cluster_attention_bwd.cu
+dkv_launches = 0                # fp32, cluster_attention_bwd.cu
+dkv_sm90_launches = 0           # bf16, cluster_attention_bwd_dkv_sm90.cu
 dq_unbiased_launches = 0        # fp32, cluster_attention_unbiased_bwd.cu
 dkv_unbiased_launches = 0
 dq_unbiased_sm90_launches = 0   # bf16, ..._unbiased_bwd_sm90.cu
@@ -53,10 +59,10 @@ dkv_unbiased_sm90_launches = 0
 
 
 def reset_count() -> None:
-    global dq_launches, dkv_launches, dq_unbiased_launches, \
-        dkv_unbiased_launches, dq_unbiased_sm90_launches, \
-        dkv_unbiased_sm90_launches
-    dq_launches = dkv_launches = 0
+    global dq_launches, dkv_launches, dkv_sm90_launches, \
+        dq_unbiased_launches, dkv_unbiased_launches, \
+        dq_unbiased_sm90_launches, dkv_unbiased_sm90_launches
+    dq_launches = dkv_launches = dkv_sm90_launches = 0
     dq_unbiased_launches = dkv_unbiased_launches = 0
     dq_unbiased_sm90_launches = dkv_unbiased_sm90_launches = 0
 
@@ -69,6 +75,13 @@ def _bind(lib) -> None:
     lib.cluster_attention_bwd_dkv.argtypes = (
         [vp] * 11 + [i32] * 15 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dkv.restype = i32
+
+
+def _bind_dkv_sm90(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_bwd_dkv_sm90.argtypes = (
+        [vp] * 11 + [i32] * 14 + [ctypes.c_float, vp])
+    lib.cluster_attention_bwd_dkv_sm90.restype = i32
 
 
 def _bind_unbiased(lib) -> None:
@@ -93,6 +106,8 @@ def _bind_unbiased_sm90(lib) -> None:
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "cluster_attention_bwd.cu", _bind)
+LIBRARY_DKV_SM90 = CudaLibrary(_CSRC / "cluster_attention_bwd_dkv_sm90.cu",
+                               _bind_dkv_sm90)
 LIBRARY_UNBIASED = CudaLibrary(_CSRC / "cluster_attention_unbiased_bwd.cu",
                                _bind_unbiased)
 LIBRARY_UNBIASED_SM90 = CudaLibrary(
@@ -168,28 +183,39 @@ def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias):
 
 def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
                bias):
-    """Launch the dK/dV kernel on checked, contiguous CUDA operands;
-    returns per-q-head ``(B, S, H, Dh)`` dk and dv in q's dtype.
-    ``block_idx`` only lends its shape (the buckets' ``nq``, ``mb``)."""
+    """Launch the dK/dV kernel of q's dtype (bf16: tensor cores, fp32:
+    CUDA cores) on checked, aligned CUDA operands; returns per-q-head
+    ``(B, S, H, Dh)`` dk and dv in q's dtype. ``block_idx`` only lends
+    its shape (the buckets' ``nq``, ``mb``)."""
     B, S, H, KV, Dh, nq, mb, bq, bk, nb = _sizes(q, k, block_idx, buckets,
                                                  bias)
     dkh = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     dvh = torch.empty_like(dkh)
-    with torch.cuda.device(q.device):
-        err = LIBRARY.lib().cluster_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx_t.data_ptr(),
             buckets.data_ptr(), bias.data_ptr(), dkh.data_ptr(),
-            dvh.data_ptr(), _ca._DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb,
-            S // bk, block_idx_t.shape[-2], bq, bk, nb,
-            int(block_idx.dim() == 3), int(block_idx_t.dim() == 4),
-            Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+            dvh.data_ptr())
+    sizes = (B, S, H, KV, Dh, nq, mb, S // bk, block_idx_t.shape[-2], bq,
+             bk, nb, int(block_idx.dim() == 3), int(block_idx_t.dim() == 4))
+    stream = torch.cuda.current_stream().cuda_stream
+    sm90 = q.dtype == torch.bfloat16
+    with torch.cuda.device(q.device):
+        if sm90:
+            err = LIBRARY_DKV_SM90.lib().cluster_attention_bwd_dkv_sm90(
+                *ptrs, *sizes, Dh ** -0.5, stream)
+        else:
+            err = LIBRARY.lib().cluster_attention_bwd_dkv(
+                *ptrs, _ca._DTYPES[q.dtype], *sizes, Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd dK/dV launch failed: "
-                           f"CUDA error {err} (bq={bq}, bk={bk}, Dh={Dh}, "
-                           f"n_buckets={nb})")
-    global dkv_launches
-    dkv_launches += 1
+                           f"CUDA error {err} ({q.dtype}, bq={bq}, bk={bk}, "
+                           f"Dh={Dh}, n_buckets={nb}, mt="
+                           f"{block_idx_t.shape[-2]})")
+    global dkv_launches, dkv_sm90_launches
+    if sm90:
+        dkv_sm90_launches += 1
+    else:
+        dkv_launches += 1
     return dkh, dvh
 
 
@@ -287,6 +313,8 @@ def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
     if buckets is None:
         _ca.check_unbiased_kernel(q, block_idx, block_idx_t,
                                   backward=True)
+    else:
+        _ca.check_biased_kernel(q, block_idx, buckets)
     if block_idx_t is None:
         block_idx_t = _ref.derive_block_idx_t(
             block_idx, q.shape[1] // _ref.block_dims(q, block_idx,
@@ -303,7 +331,7 @@ def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
         return (dq, _ref.group_sum(dkh, KV).to(k.dtype),
                 _ref.group_sum(dvh, KV).to(v.dtype), None)
     q, k, v, dout, lse, block_idx, block_idx_t, buckets = (
-        x.contiguous() for x in (q, k, v, dout, lse, block_idx, block_idx_t,
+        _ca.aligned(x) for x in (q, k, v, dout, lse, block_idx, block_idx_t,
                                  buckets))
     bias = bias_table.float().contiguous()
     dq, db_part = dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets,

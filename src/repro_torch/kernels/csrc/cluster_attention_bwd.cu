@@ -1,7 +1,8 @@
 // Cluster-sparse attention backward with int8 bias buckets, for Hopper
 // (sm_90a): the dQ kernel and the dK/dV kernel.
 //
-// Replace the TPU kernels `_dq_kernel_biased` and `_dkv_kernel_biased` in
+// Replace the TPU kernels `_dq_kernel_biased` (both dtypes) and
+// `_dkv_kernel_biased` (fp32) in
 // src/repro/kernels/cluster_attention_bwd.py: the FlashAttention-style
 // recomputation backward of the forward in cluster_attention_fwd.cu. Each
 // kernel rebuilds a visited block's scores exactly as the forward built
@@ -35,15 +36,19 @@
 // MB (~98 us) and does 82.6 GFLOP (~84 us). Both are memory-bound in
 // bf16.
 //
-// What this design does about it: nothing yet. These are the simple,
-// correct versions, built like the forward: 128 threads a CTA, all
-// arithmetic on CUDA cores in fp32, tiles staged through shared memory
-// with plain loads, heads fastest in the grid so the H CTAs of one block
-// row share k/v (dQ) or q/dO (dK/dV) rows in L2. The global token makes
-// one heavy row (its q-block visits 755 of 1025 k-blocks at the serve
-// shape, 59x the mean) and one heavy column (674 q-rows visit k-block 0,
-// 53x the mean); their CTAs run that much longer while the grid drains.
-// Splitting them across CTAs is later work.
+// What runs where. The dQ kernel below serves both dtypes: it is the
+// simple, correct version, 128 threads a CTA, all arithmetic on CUDA
+// cores in fp32, tiles staged through shared memory with plain loads,
+// heads fastest in the grid so the H CTAs of one block row share k/v
+// rows in L2 (its bf16 redesign on the tensor cores is the next step).
+// The dK/dV kernel below is fp32 only, built the same way: bf16 dK/dV
+// runs on the tensor cores (cluster_attention_bwd_dkv_sm90.cu), and in
+// fp32 the CUDA-core arithmetic bounds it (82.6 GFLOP at 67 TFLOP/s,
+// 1.23 ms at the serve shape; TF32 would miss the fp32 tolerances). The
+// global token makes one heavy row (its q-block visits 755 of 1025
+// k-blocks at the serve shape, 59x the mean) and one heavy column (674
+// q-rows visit k-block 0, 53x the mean); their CTAs run that much longer
+// while the grid drains.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -244,16 +249,17 @@ __host__ __device__ inline size_t dkv_smem_floats(int bq, int bk, int dh,
          (size_t)nb;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cluster_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+cluster_attn_dkv_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const int32_t* __restrict__ block_idx_t,
                         const int8_t* __restrict__ buckets,
-                        const float* __restrict__ bias, T* __restrict__ dk,
-                        T* __restrict__ dv, int S, int H, int KV, int dh,
+                        const float* __restrict__ bias, float* __restrict__ dk,
+                        float* __restrict__ dv, int S, int H, int KV, int dh,
                         int nq, int mb, int nk, int mt, int bq, int bk,
                         int nb, int per_graph, int per_graph_t,
                         float sm_scale) {
@@ -287,8 +293,8 @@ cluster_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int c = e / dh, d = e - c * dh;
     const size_t s_pos = (size_t)b * S + (size_t)ki * bk + c;
     const size_t off = (s_pos * KV + kvh) * dh + d;
-    sK[c * dhp + d] = to_f32(k[off]);
-    sV[c * dhp + d] = to_f32(v[off]);
+    sK[c * dhp + d] = k[off];
+    sV[c * dhp + d] = v[off];
     sDK[e] = 0.f;
     sDV[e] = 0.f;
   }
@@ -304,8 +310,8 @@ cluster_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / dh, d = e - r * dh;
       const size_t s_pos = (size_t)b * S + (size_t)qrow * bq + r;
       const size_t off = (s_pos * H + h) * dh + d;
-      sQ[e] = to_f32(q[off]);
-      sDO[e] = to_f32(dout[off]);
+      sQ[e] = q[off];
+      sDO[e] = dout[off];
     }
     const size_t row0 = ((size_t)b * H + h) * S + (size_t)qrow * bq;
     for (int r = tid; r < bq; r += kThreads) {
@@ -353,8 +359,8 @@ cluster_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int c = e / dh, d = e - c * dh;
     const size_t s_pos = (size_t)b * S + (size_t)ki * bk + c;
     const size_t off = (s_pos * H + h) * dh + d;
-    dk[off] = from_f32<T>(sDK[e]);
-    dv[off] = from_f32<T>(sDV[e]);
+    dk[off] = sDK[e];
+    dv[off] = sDV[e];
   }
 }
 
@@ -383,7 +389,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* block_idx_t, const void* buckets,
@@ -394,17 +399,18 @@ int launch_dkv(const void* q, const void* k, const void* v,
   const size_t smem =
       dkv_smem_floats(bq, bk, dh, nb) * sizeof(float) + (size_t)bq * bk;
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_dkv_kernel<T>,
+      cluster_attn_dkv_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nk * H;
-  cluster_attn_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  cluster_attn_dkv_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(block_idx_t),
       static_cast<const int8_t*>(buckets), static_cast<const float*>(bias),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, dh, nq, mb, nk, mt,
+      static_cast<float*>(dk), static_cast<float*>(dv), S, H, KV, dh, nq, mb,
+      nk, mt,
       bq, bk, nb, per_graph, per_graph_t, sm_scale);
   return (int)cudaGetLastError();
 }
@@ -439,9 +445,11 @@ int cluster_attention_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// As above; block_idx_t (nk,mt,2) or (B,nk,mt,2) int32 (per_graph_t
-// selects) lists (q-row, forward slot) pairs, -1 padded; dk/dv (B,S,H,Dh)
-// per q-head, in q's dtype.
+// As above, float32 only (dtype 0; bfloat16 has its own source,
+// cluster_attention_bwd_dkv_sm90.cu, and returns cudaErrorInvalidValue
+// here); block_idx_t (nk,mt,2) or (B,nk,mt,2) int32 (per_graph_t
+// selects) lists (q-row, forward slot) pairs, -1 padded; dk/dv
+// (B,S,H,Dh) fp32, per q-head.
 int cluster_attention_bwd_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* block_idx_t,
@@ -453,15 +461,9 @@ int cluster_attention_bwd_dkv(const void* q, const void* k, const void* v,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dkv<float>(q, k, v, dout, lse, delta, block_idx_t,
-                             buckets, bias, dk, dv, B, S, H, KV, dh, nq, mb,
-                             nk, mt, bq, bk, nb, per_graph, per_graph_t,
-                             sm_scale, st);
-  if (dtype == 1)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, block_idx_t,
-                                     buckets, bias, dk, dv, B, S, H, KV, dh,
-                                     nq, mb, nk, mt, bq, bk, nb, per_graph,
-                                     per_graph_t, sm_scale, st);
+    return launch_dkv(q, k, v, dout, lse, delta, block_idx_t, buckets, bias,
+                      dk, dv, B, S, H, KV, dh, nq, mb, nk, mt, bq, bk, nb,
+                      per_graph, per_graph_t, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

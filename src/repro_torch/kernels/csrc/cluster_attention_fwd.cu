@@ -1,31 +1,33 @@
-// Cluster-sparse attention forward with int8 bias buckets, for Hopper (sm_90a).
+// Cluster-sparse attention forward with int8 bias buckets, for Hopper
+// (sm_90a), in fp32 on CUDA cores.
 //
 // Replaces the TPU kernel `_cluster_kernel_biased` in
-// src/repro/kernels/cluster_attention.py: the Elastic Computation
-// Reformation kernel (paper §III-D) on the graph transformer's path. Same
-// function: for each q-block row the layout lists the k-blocks to visit
-// (`block_idx`, -1 padded); inside a visited block every score is
-// `(q . k) * Dh^-0.5 + bias[h, bucket]`, bucket -1 masks the position, and
-// an online softmax in fp32 accumulates O. Rows with no unmasked entry
-// write O = 0 and lse = 0.
+// src/repro/kernels/cluster_attention.py for fp32 inputs; bf16 inputs
+// run on the tensor cores (cluster_attention_fwd_sm90.cu). The Elastic
+// Computation Reformation kernel (paper §III-D) on the graph
+// transformer's path. Same function: for each q-block row the layout
+// lists the k-blocks to visit (`block_idx`, -1 padded); inside a visited
+// block every score is `(q . k) * Dh^-0.5 + bias[h, bucket]`, bucket -1
+// masks the position, and an online softmax in fp32 accumulates O. Rows
+// with no unmasked entry write O = 0 and lse = 0.
 //
-// What bounds it on the card. At the serve shape (32768-node SBM, S=32800,
-// H=KV=32, Dh=24, bq=bk=32, 13125 active blocks) q, k, v and O are about
-// 50 MB each in bf16 and the active bucket tiles 13.4 MB: ~215 MB moved,
-// ~64 us at 3.35 TB/s. The arithmetic (4 * 13125 * 32 * 32 * 24 * 32 = 41
-// GFLOP) is ~42 us at the bf16 tensor-core peak, so the function is
-// memory-bound.
+// What bounds it on the card. At the serve shape (32768-node SBM,
+// S=32800, H=KV=32, Dh=24, bq=bk=32, 13125 active blocks) q, k, v and O
+// are about 100 MB each in fp32 and the active bucket tiles 13.4 MB:
+// ~0.4 GB, 0.12 ms at 3.35 TB/s; the arithmetic (4 * 13125 * 32 * 32 *
+// 24 * 32 = 41 GFLOP) is 0.62 ms at the 67 TFLOP/s CUDA-core rate, so
+// in fp32 the function is bound by operations (TF32 on the tensor cores
+// would miss the fp32 tolerances).
 //
-// What this design does about it: nothing yet. It is the simple, correct
-// version: one CTA of 128 threads per (graph, head, q-block); all
-// arithmetic on CUDA cores in fp32; tiles staged through shared memory
-// with plain loads (no TMA, no wgmma, no double buffering). The grid puts
-// the heads of one q-block next to each other so they share the k/v rows
-// and bucket tiles in L2. The row of the global token visits nearly every
-// k-block while the other rows visit ~13, so a few CTAs run ~60x longer
-// than the rest; splitting heavy rows across CTAs is later work.
+// What this design does about it: little; it is the simple, correct
+// version, kept for fp32 (bf16, the dtype the model paths run, takes the
+// tensor-core kernel). One CTA of 128 threads per (graph, head,
+// q-block); all arithmetic on CUDA cores in fp32; tiles staged through
+// shared memory with plain loads. The grid puts the heads of one q-block
+// next to each other so they share the k/v rows and bucket tiles in L2.
+// The row of the global token visits nearly every k-block while the
+// other rows visit ~13, so a few CTAs run ~60x longer than the rest.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,19 +35,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;  // finite sentinel, as the TPU kernel
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -72,13 +61,13 @@ __host__ __device__ inline size_t smem_floats(int bq, int bk, int dh,
          (size_t)bq * (bk + 1) + (size_t)bq * 3 + (size_t)nb;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cluster_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
+cluster_attn_fwd_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
                         const int32_t* __restrict__ block_idx,
                         const int8_t* __restrict__ buckets,
-                        const float* __restrict__ bias, T* __restrict__ out,
+                        const float* __restrict__ bias, float* __restrict__ out,
                         float* __restrict__ lse, int S, int H, int KV,
                         int dh, int nq, int mb, int bq, int bk, int nb,
                         int per_graph, float sm_scale) {
@@ -111,7 +100,7 @@ cluster_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < bq * dh; e += kThreads) {
     const int r = e / dh, d = e - r * dh;
     const size_t s_pos = (size_t)b * S + (size_t)qi * bq + r;
-    sQ[e] = to_f32(q[(s_pos * H + h) * dh + d]);
+    sQ[e] = q[(s_pos * H + h) * dh + d];
     sAcc[e] = 0.f;
   }
   for (int e = tid; e < bq; e += kThreads) {
@@ -128,8 +117,8 @@ cluster_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / dh, d = e - c * dh;
       const size_t s_pos = (size_t)b * S + (size_t)blk * bk + c;
       const size_t off = (s_pos * KV + kvh) * dh + d;
-      sK[c * dhp + d] = to_f32(k[off]);
-      sV[c * dhp + d] = to_f32(v[off]);
+      sK[c * dhp + d] = k[off];
+      sV[c * dhp + d] = v[off];
     }
     const int8_t* tile = bkt_row + (size_t)m * bq * bk;
     for (int e = tid; e < bq * bk; e += kThreads) sBkt[e] = tile[e];
@@ -191,8 +180,7 @@ cluster_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < bq * dh; e += kThreads) {
     const int r = e / dh, d = e - r * dh;
     const size_t s_pos = (size_t)b * S + (size_t)qi * bq + r;
-    out[(s_pos * H + h) * dh + d] =
-        from_f32<T>(sAcc[e] / fmaxf(sL[r], 1e-30f));
+    out[(s_pos * H + h) * dh + d] = sAcc[e] / fmaxf(sL[r], 1e-30f);
   }
   if (lse != nullptr) {
     for (int r = tid; r < bq; r += kThreads) {
@@ -203,7 +191,6 @@ cluster_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* block_idx,
            const void* buckets, const void* bias, void* out, void* lse,
            int B, int S, int H, int KV, int dh, int nq, int mb, int bq,
@@ -212,15 +199,15 @@ int launch(const void* q, const void* k, const void* v, const void* block_idx,
   const size_t smem = smem_floats(bq, bk, dh, nb) * sizeof(float) +
                       (size_t)bq * bk;
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cluster_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nq * H;
-  cluster_attn_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(block_idx),
+  cluster_attn_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int32_t*>(block_idx),
       static_cast<const int8_t*>(buckets), static_cast<const float*>(bias),
-      static_cast<T*>(out), static_cast<float*>(lse), S, H, KV, dh, nq, mb,
+      static_cast<float*>(out), static_cast<float*>(lse), S, H, KV, dh, nq, mb,
       bq, bk, nb, per_graph, sm_scale);
   return (int)cudaGetLastError();
 }
@@ -229,7 +216,8 @@ int launch(const void* q, const void* k, const void* v, const void* block_idx,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q (B,S,H,Dh), k/v (B,S,KV,Dh), out like
+// dtype: 0 = float32 (bfloat16, 1, has its own source and returns
+// cudaErrorInvalidValue here). q (B,S,H,Dh), k/v (B,S,KV,Dh), out like
 // q; block_idx (nq,mb) or (B,nq,mb) int32 (per_graph selects), buckets the
 // matching (...,bq,bk) int8; bias (H,nb) fp32; lse (B*H,S) fp32 or NULL.
 // Returns the CUDA error code of the launch (0 = launched); a tile set
@@ -242,13 +230,8 @@ int cluster_attention_fwd(const void* q, const void* k, const void* v,
                           float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, block_idx, buckets, bias, out, lse, B, S,
-                         H, KV, dh, nq, mb, bq, bk, nb, per_graph, sm_scale,
-                         st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, block_idx, buckets, bias, out, lse,
-                                 B, S, H, KV, dh, nq, mb, bq, bk, nb,
-                                 per_graph, sm_scale, st);
+    return launch(q, k, v, block_idx, buckets, bias, out, lse, B, S, H, KV,
+                  dh, nq, mb, bq, bk, nb, per_graph, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

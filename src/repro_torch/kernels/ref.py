@@ -151,6 +151,78 @@ def cluster_sparse_attention(q, k, v, block_idx, buckets=None,
     return out, lse
 
 
+def split_partials(q, k, v, block_idx, buckets, bias_table, pieces):
+    """The partial slots the bf16 forward's split grid writes
+    (``cluster_attention.split_plan``), in plain fp32: for each piece
+    ``(b * nq + qi, v0, v1, slot >= 0)`` the base-2 scores of the row's
+    visits v0..v1-1 (its non -1 slots in order), their max m (the
+    sentinel -1e30 where nothing is unmasked), the sum l of p = exp2(s -
+    m) and the unnormalized O = p V. Returns ``part_o`` (slots, H, bq,
+    Dh) and ``part_ml`` (slots, H, 2, bq): m, then l."""
+    B, S, H, Dh = q.shape
+    nq = block_idx.shape[-2]
+    bq, bk, nb = S // nq, buckets.shape[-1], bias_table.shape[1]
+    rep = H // k.shape[2]
+    bi, bu = _batched(block_idx, buckets, B)
+    own = [p for p in pieces.tolist() if p[3] >= 0]
+    slots = max((p[3] for p in own), default=-1) + 1
+    part_o = torch.zeros((slots, H, bq, Dh), dtype=torch.float32)
+    part_ml = torch.zeros((slots, H, 2, bq), dtype=torch.float32)
+    log2e = 1.4426950408889634
+    for row, v0, v1, slot in own:
+        b, qi = divmod(row, nq)
+        ms = torch.nonzero(bi[b, qi] >= 0).flatten()[v0:v1]
+        kpos = (bi[b, qi, ms].long()[:, None] * bk
+                + torch.arange(bk)).flatten()
+        qs = q[b, qi * bq:(qi + 1) * bq].float()
+        ks = k[b, kpos].float().repeat_interleave(rep, dim=1)
+        vs = v[b, kpos].float().repeat_interleave(rep, dim=1)
+        bkt = bu[b, qi, ms].long().permute(1, 0, 2).reshape(bq, -1)
+        s = torch.einsum("qhd,khd->hqk", qs, ks) * Dh ** -0.5 \
+            + bias_table.float()[:, bkt.clamp(0, nb - 1)]
+        s = torch.where(bkt >= 0, s * log2e, torch.tensor(-1e30))
+        m = s.amax(-1).clamp_min(-1e30)
+        p = torch.where((m <= -1e30)[..., None], torch.zeros(()),
+                        torch.exp2(s - m[..., None]))
+        part_o[slot] = torch.einsum("hqk,khd->hqd", p, vs)
+        part_ml[slot, :, 0] = m
+        part_ml[slot, :, 1] = p.sum(-1)
+    return part_o, part_ml
+
+
+def cluster_sparse_attention_split(q, k, v, block_idx, buckets, bias_table,
+                                   pieces, splits):
+    """The bf16 forward's split grid in plain PyTorch, in fp32: whole rows
+    as ``cluster_sparse_attention`` computes them; each split row
+    ``(b * nq + qi, first slot, n, 0)`` merged from its pieces'
+    ``split_partials`` in slot order, as the combine kernel merges them
+    (O = sum_p O_p 2^(m_p - M) / max(L, 1e-30), L = sum_p l_p 2^(m_p -
+    M), M the largest m_p; lse = (M + log2 L) ln 2, or 0 where L = 0).
+    Returns O ``(B, S, H, Dh)`` fp32 and lse ``(B*H, S)``."""
+    B, S, H, Dh = q.shape
+    nq = block_idx.shape[-2]
+    bq = S // nq
+    out, lse = cluster_sparse_attention(q.float(), k.float(), v.float(),
+                                        block_idx, buckets, bias_table,
+                                        return_lse=True)
+    lse = lse.view(B, H, S)
+    part_o, part_ml = split_partials(q, k, v, block_idx, buckets,
+                                     bias_table, pieces)
+    for row, first, n, _ in splits.tolist():
+        b, qi = divmod(row, nq)
+        m, l = part_ml[first:first + n, :, 0], part_ml[first:first + n, :, 1]
+        mx = m.amax(0)
+        w = torch.exp2(m - mx)
+        tot = (l * w).sum(0)
+        o = (part_o[first:first + n] * w[..., None]).sum(0) \
+            / tot.clamp_min(1e-30)[..., None]
+        out[b, qi * bq:(qi + 1) * bq] = o.permute(1, 0, 2)
+        lse[b, :, qi * bq:(qi + 1) * bq] = torch.where(
+            tot > 0, (mx + torch.log2(tot.clamp_min(1e-30)))
+            * 0.6931471805599453, torch.zeros(()))
+    return out, lse.reshape(B * H, S)
+
+
 def derive_block_idx_t(block_idx, nk: int):
     """Transposed layout at the dense bound ``mt = nq``: ``(nq, mb) ->
     (nk, nq, 2)`` (or ``(B, nq, mb) -> (B, nk, nq, 2)``) int32, -1

@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import cluster_attention as tca
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref
 
 from _torch_cases import graph_layout, per_graph_layout, qkv, t
 
@@ -210,3 +211,119 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
         tca.cluster_attention_fwd(t(q), t(k), t(v), t(lay.block_idx),
                                   t(lay.buckets), t(bias))
     assert tca.launches == 0
+
+
+def _heads(name):
+    """Head dim of a graph config: Graphormer's from the port, GT's from
+    the JAX package (the port has no GT config)."""
+    if name == "gt":
+        from repro.configs import get_config as jax_config
+        return jax_config("gt").head_dim
+    from repro_torch.configs import get_config
+    return get_config(name).head_dim
+
+
+@pytest.mark.parametrize("name,d_head", [
+    ("graphormer_slim", 8), ("gt", 16), ("graphormer_large", 24)])
+def test_biased_kernels_take_the_graph_configs_heads(name, d_head):
+    """Slim's, GT's and Large's heads at the graph layouts' 32 x 32
+    blocks: the bf16 tensor-core kernels take them."""
+    assert _heads(name) == d_head
+    assert tca.biased_kernel_reason(torch.bfloat16, d_head, 32, 32) is None
+
+
+@pytest.mark.parametrize("dtype,d_head,bq,bk,reason", [
+    # bf16: bq = bk = 32 and Dh a multiple of 8 from 8 to 64
+    *[(torch.bfloat16, d, 32, 32, None) for d in range(8, 65, 8)],
+    (torch.bfloat16, 24, 16, 16, "bq=16, bk=16"),
+    (torch.bfloat16, 24, 64, 64, "bq=64, bk=64"),
+    (torch.bfloat16, 24, 32, 64, "bq=32, bk=64"),
+    (torch.bfloat16, 4, 32, 32, "Dh=4"),
+    (torch.bfloat16, 12, 32, 32, "Dh=12"),
+    (torch.bfloat16, 72, 32, 32, "Dh=72"),
+    (torch.bfloat16, 128, 32, 32, "Dh=128"),
+    # fp32 runs the CUDA-core kernels, which take any tile
+    (torch.float32, 24, 16, 16, None),
+    (torch.float32, 12, 64, 64, None),
+    (torch.float32, 128, 32, 32, None),
+    (torch.float16, 24, 32, 32, "float32 or bfloat16"),
+])
+def test_biased_kernel_reason_per_dtype(dtype, d_head, bq, bk, reason):
+    got = tca.biased_kernel_reason(dtype, d_head, bq, bk)
+    if reason is None:
+        assert got is None
+    else:
+        assert got is not None and reason in got, got
+
+
+def test_check_biased_kernel_names_dtype_and_shapes():
+    """The op's check raises before any launch with the dtype and the
+    shapes; fp32 passes it with the same shapes."""
+    lay = graph_layout(bq=16, d_b=4)
+    bi, bu = t(lay.block_idx), t(lay.buckets)
+    q = torch.zeros(2, lay.seq_len, 4, 24, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError,
+                       match=rf"bq=16, bk=16 \(the bf16 kernels take bq = "
+                             rf"bk = 32\): bfloat16 q \(2, {lay.seq_len}, 4, "
+                             rf"24\), block_idx \({lay.nq}, {lay.mb}\), "
+                             rf"buckets \({lay.nq}, {lay.mb}, 16, 16\)"):
+        tca.check_biased_kernel(q, bi, bu)
+    tca.check_biased_kernel(q.float(), bi, bu)
+    lay = graph_layout()
+    q = torch.zeros(1, lay.seq_len, 4, 12, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=r"Dh=12 .*bfloat16 q"):
+        tca.check_biased_kernel(q, t(lay.block_idx), t(lay.buckets))
+    tca.check_biased_kernel(q[..., :8].contiguous(), t(lay.block_idx),
+                            t(lay.buckets))
+
+
+def test_split_plan_cuts_heavy_rows_into_ordered_pieces():
+    """Rows above ``piece`` visits become near-equal pieces with their own
+    partial slots, heaviest row first; every other row is one whole
+    item; without such a row there is no plan."""
+    visits = np.array([[3, 9, 0, 4], [10, 1, 2, 2]])
+    pieces, splits = tca.split_plan(visits, 2, 4)
+    assert splits.tolist() == [[4, 0, 3, 0], [1, 3, 3, 0]]
+    assert pieces[:6].tolist() == [
+        [4, 0, 3, 0], [4, 3, 6, 1], [4, 6, 10, 2],
+        [1, 0, 3, 3], [1, 3, 6, 4], [1, 6, 9, 5]]
+    whole = pieces[6:]
+    assert sorted(whole[:, 0].tolist()) == [0, 2, 3, 5, 6, 7]
+    assert (whole[:, 3] == -1).all() and (whole[:, 1] == 0).all()
+    assert (whole[:, 2] == visits.ravel()[whole[:, 0]]).all()
+    # a layout shared by the batch repeats its rows per sequence
+    pieces, splits = tca.split_plan(np.array([2, 7]), 2, 4)
+    assert splits[:, 0].tolist() == [1, 3]
+    assert tca.split_plan(visits, 2, 10) is None
+
+
+@pytest.mark.parametrize("per_graph", [False, True])
+@pytest.mark.parametrize("masked_piece", [False, True])
+def test_split_twin_matches_jax_ref(jax_mode, per_graph, masked_piece):
+    """The plain twin of the bf16 forward's split grid (pieces, partial
+    slots, the combine's fixed-order merge) against the JAX op in ref
+    mode, fp32, with every row above 2 visits cut; one case whose first
+    piece of the global token's row is wholly masked."""
+    if per_graph:
+        S, bi, bu, nb = per_graph_layout()
+    else:
+        lay = graph_layout()
+        S, bi, bu, nb = lay.seq_len, lay.block_idx, lay.buckets, \
+            lay.n_buckets
+    bu = bu.copy()
+    if masked_piece:
+        bu[..., 0, :2, :, :] = -1
+    q, k, v, bias = qkv(2, S, 8, 2, 24, n_buckets=nb)
+    visits = (bi >= 0).sum(-1)
+    pieces, splits = tca.split_plan(visits, 2, 2)
+    assert len(splits) >= 2 and splits[:, 2].max() >= 3
+    jax_mode("ref")
+    want = _jax(q, k, v, bi, bu, bias, "float32")
+    got, lse = ref.cluster_sparse_attention_split(
+        t(q), t(k), t(v), t(bi), t(bu), t(bias), pieces, splits)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    _, plse = ref.cluster_sparse_attention(t(q), t(k), t(v), t(bi), t(bu),
+                                           t(bias), return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), plse.numpy(), atol=1e-4,
+                               rtol=1e-5)

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 cluster-attention kernels (the biased forward, dQ and dK/dV kernels of
-the graph path, and the unbiased, optionally causal ones of the LM
-path; in bf16 the unbiased forward, dQ and dK/dV on the tensor cores),
+the graph path, in bf16 the forward and dK/dV on the tensor cores; and
+the unbiased, optionally causal ones of the LM path, in bf16 the
+forward, dQ and dK/dV on the tensor cores),
 the dense flash
 forward, dQ and dK/dV kernels (bf16 on the tensor cores, fp32 on CUDA
 cores), and the SSD scan.
@@ -26,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.reformation import lm_local_global_layout
+from repro_torch.core.reformation import (lm_local_global_layout,
+                                          transpose_block_idx)
 from repro_torch.kernels import cluster_attention as tca
 from repro_torch.kernels import cluster_attention_bwd as tcab
 from repro_torch.kernels import flash_attention as tfa
@@ -51,25 +53,35 @@ def dev():
     return torch.device("cuda")
 
 
+def _fwd_counts():
+    return tca.launches, tca.sm90_launches
+
+
 def _run(dev, dtype, q, k, v, bi, bu, bias):
+    """The biased forward on the card against the plain version: bf16
+    runs the tensor-core kernel, fp32 the CUDA-core one, each counted on
+    its own counter. Returns O and lse."""
     args = [torch.from_numpy(np.array(x, copy=True)).to(dev)
             for x in (q, k, v, bi, bu, bias)]
     for i in range(3):
         args[i] = args[i].to(dtype)
-    before = tca.launches
+    before = _fwd_counts()
+    want = (before[0], before[1] + 1) if dtype == torch.bfloat16 else (
+        before[0] + 1, before[1])
     o, lse = ops.cluster_attention(*args, return_lse=True)
     torch.cuda.synchronize()
-    assert tca.launches == before + 1
+    assert _fwd_counts() == want
     po, plse = ops.cluster_attention(*args, return_lse=True, impl="plain")
-    assert tca.launches == before + 1
+    assert _fwd_counts() == want
     torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
-    return o
+    return o, lse
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,Dh", [(4, 4, 8), (8, 2, 24), (4, 1, 64)])
+@pytest.mark.parametrize("H,KV,Dh", [(4, 4, 8), (4, 4, 16), (8, 2, 24),
+                                     (4, 1, 64)])
 @pytest.mark.parametrize("per_graph", [False, True])
 def test_kernel_matches_plain_graph_layout(dev, dtype, H, KV, Dh,
                                            per_graph):
@@ -89,7 +101,7 @@ def test_kernel_dead_rows_and_full_layout(dev):
     bi[2] = -1
     bu[3] = -1
     q, k, v, bias = qkv(1, lay.seq_len, 4, 4, 8, n_buckets=lay.n_buckets)
-    o = _run(dev, torch.float32, q, k, v, bi, bu, bias)
+    o = _run(dev, torch.float32, q, k, v, bi, bu, bias)[0]
     assert not o[:, 2 * 16:4 * 16].any()
     S, bq = 256, 64
     nq = S // bq
@@ -142,6 +154,10 @@ def test_kernel_rejects_unported_variants(dev):
                               torch.from_numpy(lay.buckets).to(dev))
 
 
+def _bwd_counts():
+    return tcab.dq_launches, tcab.dkv_launches, tcab.dkv_sm90_launches
+
+
 def _run_bwd(dev, dtype, q, k, v, bi, bu, bias, bit=None, names=4):
     """Gradients through the op on the card (the forward kernel, then the
     dQ and dK/dV kernels) against the plain backward on the same inputs,
@@ -157,12 +173,15 @@ def _run_bwd(dev, dtype, q, k, v, bi, bu, bias, bit=None, names=4):
     gen = torch.Generator(device=dev).manual_seed(7)
     dout = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
     leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
-    before = (tcab.dq_launches, tcab.dkv_launches)
+    before = _bwd_counts()
     o = ops.cluster_attention(*leaves[:3], bi, bu, leaves[3], bit)
     got = torch.autograd.grad(o, leaves, dout)
     torch.cuda.synchronize()
-    assert (tcab.dq_launches, tcab.dkv_launches) == (before[0] + 1,
-                                                     before[1] + 1)
+    # dQ runs on CUDA cores in both dtypes; dK/dV on the tensor cores in
+    # bf16, on CUDA cores in fp32
+    sm90 = dtype == torch.bfloat16
+    assert _bwd_counts() == (before[0] + 1, before[1] + (not sm90),
+                             before[2] + sm90)
     want = ref.cluster_attention_bwd(q, k, v, dout, out, lse, bi, bu, bias,
                                      bit)
     for name, g, w in list(zip(("dq", "dk", "dv", "dbias"), got,
@@ -176,12 +195,13 @@ def _run_bwd(dev, dtype, q, k, v, bi, bu, bias, bit=None, names=4):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,Dh", [(4, 4, 8), (8, 2, 24)])
+@pytest.mark.parametrize("H,KV,Dh", [(4, 4, 8), (4, 4, 16), (8, 2, 24),
+                                     (4, 1, 64)])
 @pytest.mark.parametrize("per_graph", [False, True])
 def test_bwd_kernels_match_plain_graph_layout(dev, dtype, H, KV, Dh,
                                               per_graph):
     """Shared 2-D layout with the host-built transposed layout, per-graph
-    3-D layouts with the derived one; GQA and Dh 8/24."""
+    3-D layouts with the derived one; GQA and Dh 8/16/24/64."""
     if per_graph:
         S, bi, bu, nb = per_graph_layout()
         bit = None
@@ -211,6 +231,116 @@ def test_bwd_kernels_dead_rows_and_full_layout(dev):
     # one bucket everywhere shifts every score of a row alike, which the
     # softmax cancels: the bias gradient is zero up to rounding
     assert dbias.abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_biased_kernels_dead_and_fully_masked_rows(dev, dtype):
+    """A q-block row with no visit (row 2) and one whose visits are all
+    masked (row 3) write O = 0 and lse = 0 and get dq = 0; the rest of
+    the gradients match the plain backward, in both dtypes' kernels."""
+    lay = graph_layout()
+    bi, bu = lay.block_idx.copy(), lay.buckets.copy()
+    bi[2] = -1
+    bu[3] = -1
+    q, k, v, bias = qkv(2, lay.seq_len, 4, 2, 24, n_buckets=lay.n_buckets)
+    o, lse = _run(dev, dtype, q, k, v, bi, bu, bias)
+    assert not o[:, 2 * 32:4 * 32].any()
+    assert not lse.view(2, 4, -1)[:, :, 2 * 32:4 * 32].any()
+    dq = _run_bwd(dev, dtype, q, k, v, bi, bu, bias,
+                  transpose_block_idx(bi, lay.seq_len // 32))[0]
+    assert not dq[:, 2 * 32:4 * 32].any()
+
+
+def _heavy_layout(nq=24, nb=5, seed=3):
+    """q-block row 0 visits every k-block; every row visits k-block 0
+    (so k-block 0's column holds every q-row); the other rows visit
+    their own block and two more, in shuffled slots, -1 padded to
+    mb = nq; random buckets with some masked entries."""
+    rng = np.random.default_rng(seed)
+    bi = np.full((nq, nq), -1, np.int32)
+    bi[0] = rng.permutation(nq)
+    for i in range(1, nq):
+        row = [0, i] + list(rng.choice(np.arange(1, nq), 4, replace=False))
+        row = list(dict.fromkeys(row))[:4]
+        slots = rng.choice(nq, len(row), replace=False)
+        bi[i, slots] = row
+    bu = rng.integers(-1, nb + 1, (nq, nq, 32, 32)).astype(np.int8)
+    return 32 * nq, bi, bu, nb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bit", [True, False])
+def test_biased_kernels_heavy_row_and_column(dev, dtype, with_bit):
+    """One row that visits every k-block and one column that every q-row
+    visits, with -1 slots between the visits; buckets past nb - 1 clip
+    onto the last bias. The host-built and the derived transposed
+    layouts give the same gradients."""
+    S, bi, bu, nb = _heavy_layout()
+    q, k, v, bias = qkv(1, S, 8, 2, 24, n_buckets=nb)
+    _run(dev, dtype, q, k, v, bi, bu, bias)
+    _run_bwd(dev, dtype, q, k, v, bi, bu, bias,
+             transpose_block_idx(bi, S // 32) if with_bit else None)
+
+
+@pytest.mark.parametrize("per_graph", [False, True])
+def test_biased_bf16_forward_splits_the_heavy_row(dev, per_graph):
+    """A q-block row that visits 160 k-blocks among rows of at most 4:
+    the bf16 forward cuts it into pieces (its plan says so) and merges
+    their partial slots; O, lse and the gradients through it match the
+    plain versions. Per-graph layouts: one such row in each graph."""
+    layouts = [_heavy_layout(nq=160, seed=s) for s in (3, 4)]
+    S, nb = layouts[0][0], layouts[0][3]
+    if per_graph:
+        bi = np.stack([x[1] for x in layouts])
+        bu = np.stack([x[2] for x in layouts])
+    else:
+        bi, bu = layouts[0][1], layouts[0][2]
+    plan = tca.fwd_plan(torch.from_numpy(bi).to(dev), 2)
+    assert plan is not None and plan[2] >= 3
+    q, k, v, bias = qkv(2, S, 8, 2, 24, n_buckets=nb)
+    _run(dev, torch.bfloat16, q, k, v, bi, bu, bias)
+    _run_bwd(dev, torch.bfloat16, q, k, v, bi, bu, bias)
+
+
+def test_biased_bf16_refuses_what_its_kernels_do_not_take(dev):
+    """The bf16 kernels take bq = bk = 32 and Dh a multiple of 8 up to
+    64: anything else raises with the dtype and the shapes before any
+    launch, forward or backward; fp32 takes the same call on CUDA
+    cores."""
+    lay = graph_layout(bq=16, d_b=4)
+    q, k, v, bias = qkv(1, lay.seq_len, 4, 4, 8, n_buckets=lay.n_buckets)
+    q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
+    bi, bu, bias = (torch.from_numpy(x).to(dev)
+                    for x in (lay.block_idx, lay.buckets, bias))
+    bf = [x.bfloat16() for x in (q, k, v)]
+    before = (_fwd_counts(), _bwd_counts())
+    shapes = (rf"bfloat16 q \(1, {lay.seq_len}, 4, 8\), block_idx "
+              rf"\({lay.nq}, {lay.mb}\), buckets \({lay.nq}, {lay.mb}, "
+              rf"16, 16\)")
+    with pytest.raises(NotImplementedError,
+                       match=r"bq=16, bk=16 \(the bf16 kernels take bq = "
+                             r"bk = 32\): " + shapes):
+        ops.cluster_attention(*bf, bi, bu, bias)
+    leaves = [x.detach().requires_grad_() for x in bf]
+    with pytest.raises(NotImplementedError, match=shapes):
+        ops.cluster_attention(*leaves, bi, bu, bias)
+    out = torch.zeros_like(bf[0])
+    lse = torch.zeros((4, lay.seq_len), device=dev)
+    with pytest.raises(NotImplementedError, match=shapes):
+        tcab.cluster_attention_bwd(*bf, out, out, lse, bi, bu, bias)
+    assert (_fwd_counts(), _bwd_counts()) == before
+    lay = graph_layout()
+    S, bi, bu = lay.seq_len, lay.block_idx, lay.buckets
+    for Dh, want in ((12, "Dh=12"), (72, "Dh=72")):
+        x = torch.zeros((1, S, 4, Dh), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(NotImplementedError, match=want + ".*bfloat16 q"):
+            ops.cluster_attention(x, x, x, torch.from_numpy(bi).to(dev),
+                                  torch.from_numpy(bu).to(dev), bias)
+    assert (_fwd_counts(), _bwd_counts()) == before
+    ops.cluster_attention(q, k, v, torch.from_numpy(
+        graph_layout(bq=16, d_b=4).block_idx).to(dev), torch.from_numpy(
+        graph_layout(bq=16, d_b=4).buckets).to(dev), bias)
+    assert _fwd_counts() == (before[0][0] + 1, before[0][1])
 
 
 def _run_unbiased(dev, dtype, q, k, v, bi, bit, causal):

@@ -17,9 +17,11 @@ from repro_torch.kernels import ssd as tks
 
 LIBRARIES = {
     "cluster_attention_fwd": tca.LIBRARY,
+    "cluster_attention_fwd_sm90": tca.LIBRARY_SM90,
     "cluster_attention_unbiased_fwd": tca.LIBRARY_UNBIASED,
     "cluster_attention_unbiased_fwd_sm90": tca.LIBRARY_UNBIASED_SM90,
     "cluster_attention_bwd": tcab.LIBRARY,
+    "cluster_attention_bwd_dkv_sm90": tcab.LIBRARY_DKV_SM90,
     "cluster_attention_unbiased_bwd": tcab.LIBRARY_UNBIASED,
     "cluster_attention_unbiased_bwd_sm90": tcab.LIBRARY_UNBIASED_SM90,
     "flash_attention_fwd": tfa.LIBRARY,
