@@ -20,12 +20,13 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    beside the kernel at the 8192-node graph and at the serve shape, its
    forward and its backward;
 3b. the dQ and dK/dV backward kernels vs the plain backward, on the same
-   cases (and without a transposed layout: the derived one); dQ runs on
-   CUDA cores in both dtypes, dK/dV on the tensor cores in bf16 and on
-   CUDA cores in fp32 (each launch checked on its own counter); dq, dk,
-   dv and the bias gradient are compared, each kernel and each plain
-   half timed, with its bound and its exp floor (one exp2 per score and
-   head at 16 a clock per SM);
+   cases (and without a transposed layout: the derived one); both run on
+   the tensor cores in bf16 and on CUDA cores in fp32 (each launch
+   checked on its own counter); dq, dk, dv and the bias gradient are
+   compared, each kernel and each plain half timed, with its bound and
+   its exp floor (one exp2 per score and head at 16 a clock per SM); the
+   bf16 dQ also with its heavy row cut to one visit and with every row
+   whole (unsplit);
 3c. the unbiased kernels of the LM path (the forward, dQ and dK/dV, with
    the positional causal mask) vs their plain versions: at the Qwen3-0.6B
    training shape (S=16384, 16 q heads over 8 KV heads, Dh=128, the
@@ -63,7 +64,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    the forward, dQ and dK/dV kernels are timed with the trainer's device
    batch beside their plain versions, bounds, exp floor and one SDPA call
    with the rung's layout as a dense additive mask (forward and
-   backward); one sparse and one dense step are profiled;
+   backward), and on the sparse rung the dQ kernel with its heavy row cut
+   to one visit and unsplit; one sparse and one dense step are profiled;
 6. LM train (slice 3's main path): Qwen3-0.6B at full width and depth
    with the cluster-sparse attention backend, bf16 compute, fp32
    parameters and moments, seeded init, on the synthetic token stream
@@ -464,8 +466,26 @@ def flash_ssd_kernels(dev):
         r["ms"] = cuda_ms(lambda: tks.ssd_fwd(x, dtv, a, b, c, chunk=256), 5)
         r["plain_ms"] = cuda_ms(lambda: ssd_chunked(x, dtv, a, b, c, 256), 2)
         r["bound_ms"], r["bound_by"] = ssd_bound(x, b, 256)
-        log(f"[ssd-kernel] S={SSD_SEQ} {dt}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        # device time of each of the scan's four kernels, a mean over the
+        # launches the profiler caught in three calls (it may miss the
+        # first kernels of a session)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                tks.ssd_fwd(x, dtv, a, b, c, chunk=256)
+            torch.cuda.synchronize()
+        r["ms_by_kernel"] = {}
+        for name in ("ssd_cb", "ssd_states", "ssd_scan", "ssd_y"):
+            evs = [e for e in prof.key_averages()
+                   if f"{name}<" in e.key or f"{name}(" in e.key]
+            r["ms_by_kernel"][name] = sum(
+                e.device_time_total for e in evs) / max(
+                1, sum(e.count for e in evs)) / 1e3
+        parts = ", ".join(f"{k} {v:.4f}" for k, v in
+                          r["ms_by_kernel"].items())
+        log(f"[ssd-kernel] S={SSD_SEQ} {dt}: kernel {r['ms']:.4f} ms "
+            f"({parts}), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2%} of bound")
         del x, dtv, a, b, c
         torch.cuda.empty_cache()
@@ -494,7 +514,11 @@ def flash_ssd_kernels(dev):
                 ("the tuner's default case, 2 heads dh 8 N 4", 1, 256, 2, 8,
                  4, 256),
                 ("B=2, 3 heads dh 64 N 128", 2, 512, 3, 64, 128, 128),
-                ("chunk 48, dh 16 N 20", 1, 96, 2, 16, 20, 48))):
+                ("chunk 48, dh 16 N 20", 1, 96, 2, 16, 20, 48),
+                ("B=2, 4 heads dh 40 N 100, chunk 512", 2, 2048, 4, 40, 100,
+                 512),
+                ("B=2, 2 heads dh 24 N 16, chunk 64", 2, 1024, 2, 24, 16,
+                 64))):
             compare_ssd(tag, *_ssd_inputs(dev, dtype, B, S, H, dh, N,
                                           seed=80 + 10 * i + j), chunk)
     torch.cuda.empty_cache()
@@ -531,6 +555,7 @@ def tune_phase(dev, reset_counts, read_counts):
     from repro_torch.tune.schedule import Schedule
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     table, records = search.tune_all(device=dev, log=log)
@@ -556,6 +581,7 @@ def tune_phase(dev, reset_counts, read_counts):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, runtime.DEFAULT_TABLE_PATH)
@@ -580,7 +606,8 @@ def tune_phase(dev, reset_counts, read_counts):
             f"speedup {rec['speedup']}x")
     rows = ("flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv", "ssd_fwd")
-    log(f"[tune] {seconds:.1f}s, table gated on {table.backend}, launches "
+    log(f"[tune] {seconds:.1f}s, peak {peak / 2**30:.2f} GiB, table gated "
+        f"on {table.backend}, launches "
         f"{ {n: c for n, c in counts.items() if c} }")
     if not all(counts[n] > 0 for n in rows):
         raise AssertionError(f"the tune phase did not launch every kernel of "
@@ -588,7 +615,8 @@ def tune_phase(dev, reset_counts, read_counts):
     if not all(c["ok"] for c in checks):
         raise AssertionError(f"a tuned schedule regressed: {checks}")
     return {"launches": counts, "records": records, "checks": checks,
-            "seconds": seconds, "backend": table.backend}
+            "seconds": seconds, "peak_bytes": peak,
+            "backend": table.backend}
 
 
 def main() -> int:
@@ -647,7 +675,7 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_SM90,
-            tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED,
+            tcab.LIBRARY_DQ_SM90, tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED,
             tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED,
             tcab.LIBRARY_UNBIASED_SM90, tfa.LIBRARY, tfa.LIBRARY_BWD,
             tfa.LIBRARY_SM90, tfa.LIBRARY_DQ_SM90, tfa.LIBRARY_DKV_SM90,
@@ -698,7 +726,8 @@ def main() -> int:
         return tca.launches, tca.sm90_launches
 
     def bwd_counts():
-        return tcab.dq_launches, tcab.dkv_launches, tcab.dkv_sm90_launches
+        return (tcab.dq_launches, tcab.dq_sm90_launches, tcab.dkv_launches,
+                tcab.dkv_sm90_launches)
 
     def compare(tag, q, k, v, bi, bu, bias):
         """Kernel vs plain on identical inputs, O and lse; bf16 must run
@@ -793,11 +822,10 @@ def main() -> int:
         want = ref.cluster_attention_bwd(q, k, v, dout, out, lse, bi, bu,
                                          bias, bit)
         torch.cuda.synchronize()
-        # dQ on CUDA cores in both dtypes; dK/dV on the tensor cores in
-        # bf16, on CUDA cores in fp32
+        # dQ and dK/dV on the tensor cores in bf16, on CUDA cores in fp32
         sm90 = dt == "bfloat16"
-        if bwd_counts() != (before[0] + 1, before[1] + (not sm90),
-                            before[2] + sm90):
+        if bwd_counts() != (before[0] + (not sm90), before[1] + sm90,
+                            before[2] + (not sm90), before[3] + sm90):
             raise AssertionError(f"{tag} {dt}: backward launches "
                                  f"{bwd_counts()} from {before}")
         rels, errs = [], []
@@ -874,6 +902,55 @@ def main() -> int:
         f"mt={lay.mt} column visits min/mean/max={col_visits.min()}/"
         f"{col_visits.mean():.1f}/{col_visits.max()}")
 
+    def dq_whole(q, k, v, dout, lse, delta, bi_, bu_, bias):
+        """The bf16 dQ library called with no plan, every row whole: what
+        the heavy rows cost uncut (a diagnostic; no path launches it so,
+        and it adds nothing to the launch counts)."""
+        B, S, H, Dh = q.shape
+        nq, mb = bi_.shape[-2:]
+        dq = torch.empty_like(q)
+        db_part = torch.empty((B, H, nq, bias.shape[1]),
+                              dtype=torch.float32, device=q.device)
+        err = tcab.LIBRARY_DQ_SM90.lib().cluster_attention_bwd_dq_sm90(
+            *(t.data_ptr() for t in (q, k, v, dout, lse, delta, bi_, bu_,
+                                     bias)), None, None, dq.data_ptr(),
+            db_part.data_ptr(), None, None, B, S, H, k.shape[2], Dh, nq, mb,
+            S // nq, bu_.shape[-1], bias.shape[1], int(bi_.dim() == 3), 0,
+            0, Dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"unsplit bf16 dQ launch failed: CUDA error "
+                               f"{err}")
+
+    def dq_heavy_row(q, k, v, dout, lse, delta, bi_, bu_, bias):
+        """The bf16 dQ kernel as the path runs it (heavy rows split) beside
+        the same library with every row whole (``dq_whole``,
+        ``ms_unsplit``) and the kernel with the layout's heaviest row cut
+        to its first visit (``ms_without_heavy_row``: what the other rows
+        cost alone), CUDA events, 10 launches each."""
+        plan = tca.fwd_plan(bi_, q.shape[0])
+        visits = (bi_ >= 0).sum(-1).reshape(-1)
+        row = int(visits.argmax())
+        trim = bi_.clone().reshape(-1, bi_.shape[-1])
+        cut = torch.nonzero(trim[row] >= 0).flatten()[1:]
+        trim[row, cut] = -1
+        trim = trim.reshape(bi_.shape)
+        rec = {
+            "ms": cuda_ms(lambda: tcab.dq_kernel(
+                q, k, v, dout, lse, delta, bi_, bu_, bias), 10),
+            "ms_unsplit": cuda_ms(lambda: dq_whole(
+                q, k, v, dout, lse, delta, bi_, bu_, bias), 10),
+            "ms_without_heavy_row": cuda_ms(lambda: tcab.dq_kernel(
+                q, k, v, dout, lse, delta, trim, bu_, bias), 10),
+            "heavy_row_visits": int(visits[row]),
+            "mean_row_visits": float(visits.float().mean()),
+            "split": None if plan is None else {
+                "pieces": len(plan[0]), "rows": len(plan[1]),
+                "slots": plan[2]}}
+        rec["heavy_row_share_unsplit"] = 1 - rec["ms_without_heavy_row"] \
+            / rec["ms_unsplit"]
+        rec["heavy_row_share"] = 1 - rec["ms_without_heavy_row"] / rec["ms"]
+        return rec
+
     def bwd_serve(q, k, v, bias, dt):
         """Backward kernels vs plain at the serve shape: agreement, then
         each kernel and each plain half timed alone on the same inputs."""
@@ -904,19 +981,23 @@ def main() -> int:
                 f"exp floor {r['exp_floor_ms']:.4f} ms")
         if dt == "bfloat16":
             # diagnostics: the heavy dQ row and dK/dV column cut away
-            trim = bi.clone()
-            trim[0, 0, 1:] = -1
-            rec["dq"]["ms_without_global_row"] = cuda_ms(
-                lambda: tcab.dq_kernel(q, k, v, dout, lse, delta, trim, bu,
-                                       bias), 10)
+            heavy = dq_heavy_row(q, k, v, dout, lse, delta, bi, bu, bias)
+            rec["dq"]["heavy_row"] = heavy
+            rec["dq"]["ms_without_heavy_row"] = heavy["ms_without_heavy_row"]
             trim_t = bit.clone()
             trim_t[0, 1:] = -1
             rec["dkv"]["ms_without_global_column"] = cuda_ms(
                 lambda: tcab.dkv_kernel(q, k, v, dout, lse, delta, bi,
                                         trim_t, bu, bias), 10)
-            log(f"[bwd] serve shape {dt}, heavy row / column cut to one "
-                f"slot: dq {rec['dq']['ms_without_global_row']:.4f} ms, "
-                f"dkv {rec['dkv']['ms_without_global_column']:.4f} ms")
+            log(f"[bwd] serve shape {dt} dq: split {heavy['ms']:.4f} ms "
+                f"({heavy['split']}), unsplit {heavy['ms_unsplit']:.4f} ms, "
+                f"heavy row ({heavy['heavy_row_visits']} visits, mean "
+                f"{heavy['mean_row_visits']:.1f}) cut to one visit "
+                f"{heavy['ms_without_heavy_row']:.4f} ms: the row costs "
+                f"{heavy['heavy_row_share']:.1%} split, "
+                f"{heavy['heavy_row_share_unsplit']:.1%} unsplit; dkv heavy "
+                f"column cut to one slot "
+                f"{rec['dkv']['ms_without_global_column']:.4f} ms")
         del out, lse, dout, delta
         torch.cuda.empty_cache()
         return rec
@@ -1414,6 +1495,7 @@ def main() -> int:
         return {"cluster_attention_fwd": tca.launches,
                 "cluster_attention_fwd_sm90": tca.sm90_launches,
                 "cluster_attention_bwd_dq": tcab.dq_launches,
+                "cluster_attention_bwd_dq_sm90": tcab.dq_sm90_launches,
                 "cluster_attention_bwd_dkv": tcab.dkv_launches,
                 "cluster_attention_bwd_dkv_sm90": tcab.dkv_sm90_launches,
                 "cluster_attention_fwd_unbiased": tca.unbiased_launches,
@@ -1632,6 +1714,44 @@ def main() -> int:
         torch.cuda.empty_cache()
         return rec
 
+    def sparse_rung_dq(bi_, bu_, nb, tag):
+        """The bf16 dQ kernel on the sparse training rung, with the
+        trainer's device layout and random bf16 inputs at the Large heads:
+        against the plain dQ, timed beside it and its bound, split, unsplit
+        and with the heavy row cut to one visit (``dq_heavy_row``)."""
+        S_ = bi_.shape[-2] * 32
+        q, k, v, bias = random_qkv(1, S_, H, KV, Dh, nb, torch.bfloat16,
+                                   seed=23)
+        out_, lse_, dout_ = bwd_inputs(q, k, v, bi_, bu_, bias, seed=24)
+        delta_ = ref.row_delta(dout_, out_)
+        args = (q, k, v, dout_, lse_, delta_, bi_, bu_, bias)
+        dq, db_part = tcab.dq_kernel(*args)
+        want_dq, want_db = ref.bwd_dq(*args)
+        rels = [_rel(dq, want_dq), _rel(db_part.sum(dim=(0, 2)), want_db)]
+        if not all(r <= TOL_GRAD["bfloat16"] for r in rels):
+            raise AssertionError(f"dQ kernel vs plain on {tag}: rel dq, "
+                                 f"dbias {rels}")
+        rec = dq_heavy_row(*args)
+        rec.update(active_blocks=int((bi_ >= 0).sum()), S=S_,
+                   plain_ms=cuda_ms(lambda: ref.bwd_dq(*args), 2),
+                   rel_dq=rels[0], rel_dbias=rels[1])
+        rec["bound_ms"], rec["bound_by"] = bound_bwd("dq", q, k, bi_, bu_,
+                                                     None, nb)
+        log(f"[rung] {tag} bfloat16 dq: rel dq {rels[0]:.3g} dbias "
+            f"{rels[1]:.3g} (tol {TOL_GRAD['bfloat16']}); kernel "
+            f"{rec['ms']:.4f} ms ({rec['split']}), unsplit "
+            f"{rec['ms_unsplit']:.4f} ms, heavy row "
+            f"({rec['heavy_row_visits']} visits, mean "
+            f"{rec['mean_row_visits']:.1f}) cut to one visit "
+            f"{rec['ms_without_heavy_row']:.4f} ms: the row costs "
+            f"{rec['heavy_row_share']:.1%} split, "
+            f"{rec['heavy_row_share_unsplit']:.1%} unsplit; plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+        del q, k, v, out_, lse_, dout_, delta_, args, dq, db_part
+        torch.cuda.empty_cache()
+        return rec
+
     def train():
         g8 = degree_scaled_sbm(TRAIN_NODES, CLUSTERS, large, seed=0)
         train_mask = np.random.default_rng(0).random(g8.n) < 0.5
@@ -1680,11 +1800,11 @@ def main() -> int:
         losses = [h["loss"] for h in hist]
         want = n_sparse * large.n_layers
         if counts != only(cluster_attention_fwd_sm90=want,
-                          cluster_attention_bwd_dq=want,
+                          cluster_attention_bwd_dq_sm90=want,
                           cluster_attention_bwd_dkv_sm90=want):
             raise AssertionError(f"launches {counts}: want {want} of the "
-                                 f"tensor-core forward and dK/dV and the dQ "
-                                 f"kernel each ({n_sparse} sparse steps x "
+                                 f"tensor-core forward, dQ and dK/dV each "
+                                 f"({n_sparse} sparse steps x "
                                  f"{large.n_layers} layers)")
         if dense_at != [0, 8] or not np.isfinite(losses).all() or any(
                 h["skipped"] for h in hist):
@@ -1755,6 +1875,12 @@ def main() -> int:
         rb = task._batches_dev[(dense_bt, 0)]
         rung_layout = (rb["block_idx"], rb["buckets"], rb["block_idx_t"],
                        model.bias_table.shape[1])
+        # and the sparse rung (fewest active blocks), whose global-token
+        # row is the dQ kernel's heavy row
+        sparse_bt = min(rungs, key=lambda bt: int(
+            (task._batches_dev[(bt, 0)]["block_idx"] >= 0).sum()))
+        sb = task._batches_dev[(sparse_bt, 0)]
+        sparse_layout = (sb["block_idx"], sb["buckets"])
 
         # profile one sparse and one dense step, on the active rung
         batch = task.batches(0)
@@ -1772,12 +1898,16 @@ def main() -> int:
             vars(m) for m in task.moves], "eval": ev, "run_s": run_s,
             "prep_s": prep_s, "peak_bytes": peak, "checks": checks,
             "check_peak_bytes": check_peak, "profile": prof}
-        del tr, task, model, batch, params, rb
+        del tr, task, model, batch, params, rb, sb
         torch.cuda.empty_cache()
         rec["rung"] = rung_kernels(
             *rung_layout, g8.n + large.n_global,
             f"nearly dense rung beta_thre={dense_bt:.5f}")
         rec["rung"]["beta_thre"] = dense_bt
+        rec["sparse_rung"] = sparse_rung_dq(
+            *sparse_layout, rung_layout[3],
+            f"sparse rung beta_thre={sparse_bt:.5f}")
+        rec["sparse_rung"]["beta_thre"] = sparse_bt
         return rec
 
     train_run = train()
@@ -1896,12 +2026,12 @@ def main() -> int:
 
     rung = train_run["rung"]
     csrc = "src/repro_torch/kernels/csrc/"
-    # rows 1 and 4 have a kernel for each dtype: `source` is the bf16
+    # rows 1, 3 and 4 have a kernel for each dtype: `source` is the bf16
     # tensor-core one, which the bf16 main paths launched; the fp32
     # CUDA-core one is `source_float32`, counted in `launches_float32`
-    # (0 on the main paths) and timed under `float32`. Row 3 (dQ) runs
-    # one CUDA-core kernel for both dtypes. Times at the serve shape, and
-    # under `rung` at the nearly dense training rung.
+    # (0 on the main paths) and timed under `float32`. Times at the serve
+    # shape, under `rung` at the nearly dense training rung and, for dQ,
+    # under `sparse_rung` at the sparse one.
     kernels = [{
         "name": "cluster_attention_fwd", "route": "cuda",
         "source": csrc + "cluster_attention_fwd_sm90.cu",
@@ -1923,29 +2053,30 @@ def main() -> int:
         "yardstick": yard,
         "serve": {"graphormer_large": main_path,
                   "graphormer_slim": slim_run}}]
-    for half, name, line, sm90 in (
-            ("dq", "cluster_attention_bwd_dq", 152, False),
-            ("dkv", "cluster_attention_bwd_dkv", 244, True)):
+    for half, name, line in (
+            ("dq", "cluster_attention_bwd_dq", 152),
+            ("dkv", "cluster_attention_bwd_dkv", 244)):
         b = rec["bwd"][half]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": csrc + ("cluster_attention_bwd_dkv_sm90.cu" if sm90
-                              else "cluster_attention_bwd.cu"),
+            "source": csrc + f"{name}_sm90.cu",
             "replaces": f"src/repro/kernels/cluster_attention_bwd.py:{line}",
-            "launches": launches(name + "_sm90" if sm90 else name),
+            "launches": launches(name + "_sm90"),
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "exp_floor_ms": b["exp_floor_ms"],
             "rung": {**rung[half], "library_ms": rung.get("library_bwd_ms")},
-            **({"source_float32": csrc + "cluster_attention_bwd.cu",
-                "launches_float32": launches(name)} if sm90 else {}),
+            "source_float32": csrc + "cluster_attention_bwd.cu",
+            "launches_float32": launches(name),
             # one SDPA backward with the dense mask (dq, dk and dv
             # together) at the serve shape, or null with the error it hit
             "library_ms": yard_s.get("library_bwd_ms"),
             "library_error": yard_s.get("library_bwd_error"),
             "library_ms_8192": yard8.get("library_bwd_ms"),
             "float32": serve_rec["float32"]["bwd"][half],
-            **{k: v for k, v in b.items() if k.startswith("ms_without")}})
+            **{k: v for k, v in b.items() if k.startswith("ms_without")
+               or k == "heavy_row"}})
+    kernels[1]["sparse_rung"] = train_run["sparse_rung"]
     kernels[0]["train"] = train_run
     # the unbiased kernels of the LM path: times at the Qwen3-0.6B training
     # shape in bf16, launches from the LM training run
@@ -1991,7 +2122,10 @@ def main() -> int:
     # here, whose count from the tune phase is 0 (the tuner's cases are
     # fp32; phase 3d, a kernel-vs-plain check, is the only place it runs);
     # `source_float32` is the CUDA-core one the tune phase launched,
-    # counted in `launches_float32`, and timed under `float32`.
+    # counted in `launches_float32`, and timed under `float32`. Row 10's
+    # one source serves both dtypes (bf16 on the tensor cores, fp32 on
+    # CUDA cores); one launch is one call of its four chunk-parallel
+    # kernels, each timed under `ms_by_kernel`.
     for half, name, sm90, src32, line in (
             ("fwd", "flash_attention_fwd", True, "flash_attention_fwd.cu",
              "flash_attention.py:34"),
@@ -2019,6 +2153,8 @@ def main() -> int:
             "library_error": None if half == "ssd" else b.get(
                 "library_error"),
             "float32": flash_rec["float32"][half]}
+        if half == "ssd":
+            rec["ms_by_kernel"] = b[half]["ms_by_kernel"]
         if sm90:
             rec["main_path"] = ("none: the tune phase runs fp32 cases only, "
                                 "so it launched the float32 source")

@@ -46,11 +46,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 UNBIASED_HEAD_DIMS = (64, 128)
 UNBIASED_TILE = 64
 UNBIASED_SM90_BLOCK = 128
-# what the bf16 biased kernels (forward and dK/dV) take: the graph
+# what the bf16 biased kernels (forward, dQ and dK/dV) take: the graph
 # layouts' 32 x 32 blocks and head dims a multiple of 8 up to 64
 BIASED_SM90_BLOCK = 32
 BIASED_SM90_HEAD_DIMS = tuple(range(8, 65, 8))
-# the bf16 forward cuts a q-block row with more visits than
+# the bf16 forward and dQ cut a q-block row with more visits than
 # max(SPLIT_MIN_PIECE, SPLIT_MEAN_FACTOR x the mean row) into pieces of
 # about that many visits (``split_plan``)
 SPLIT_MIN_PIECE = 64
@@ -160,10 +160,9 @@ def biased_kernel_reason(dtype, d_head: int, bq: int,
     """Why the biased kernels of ``dtype`` (a torch dtype) do not take
     head dim ``d_head`` and q/k-blocks of ``bq`` x ``bk``, or None when
     they do. float32 runs the CUDA-core kernels, which take any tile
-    their shared memory holds; bfloat16 the tensor-core forward and
+    their shared memory holds; bfloat16 the tensor-core forward, dQ and
     dK/dV, which take ``bq = bk = BIASED_SM90_BLOCK`` and Dh in
-    ``BIASED_SM90_HEAD_DIMS`` (the bf16 dQ, on CUDA cores, is held to
-    the same contract so that a call never splits between them)."""
+    ``BIASED_SM90_HEAD_DIMS``."""
     if dtype not in _DTYPES:
         return f"{dtype} (the kernels take float32 or bfloat16)"
     if dtype != torch.bfloat16:
@@ -178,16 +177,16 @@ def biased_kernel_reason(dtype, d_head: int, bq: int,
 
 
 def split_plan(visits, B: int, piece: int):
-    """The split grid of the bf16 forward, from the visit counts of the
-    q-block rows (``visits`` (nq,) for a layout shared by the batch, (B,
-    nq) per graph): every row with more than ``piece`` visits becomes
+    """The split grid of the bf16 forward and dQ, from the visit counts of
+    the q-block rows (``visits`` (nq,) for a layout shared by the batch,
+    (B, nq) per graph): every row with more than ``piece`` visits becomes
     ceil(visits / piece) pieces of near-equal size, each with its own
     partial slot. Returns ``(pieces, splits)`` int32 arrays, or None
     when no row is cut: ``pieces`` (n, 4) the work items (b * nq + qi,
     first visit, end visit, slot or -1 for a whole row), the split rows'
     pieces first, heaviest row first; ``splits`` (m, 4) the split rows
-    (b * nq + qi, first slot, pieces, 0), whose slots the combine merges
-    in that order."""
+    (b * nq + qi, first slot, pieces, 0), whose slots the combine kernels
+    merge in that order."""
     nq = np.shape(visits)[-1]
     v = np.broadcast_to(np.asarray(visits, np.int64), (B, nq))
     heavy = np.flatnonzero(v.ravel() > piece)
@@ -216,8 +215,8 @@ _PLANS: dict = {}
 
 def fwd_plan(block_idx, B: int):
     """``split_plan`` of a device ``block_idx`` at the pieces the bf16
-    forward uses, as ``(pieces, splits, partial slots)`` with the two
-    tables on the layout's device, or None; cached per layout tensor
+    forward and dQ use, as ``(pieces, splits, partial slots)`` with the
+    two tables on the layout's device, or None; cached per layout tensor
     (and its version, so an in-place edit re-derives it)."""
     key = id(block_idx)
     hit = _PLANS.get(key)

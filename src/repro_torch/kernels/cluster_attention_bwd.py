@@ -3,12 +3,13 @@ attention backward kernels:
 
 * the ports of the TPU kernels ``_dq_kernel_biased`` and
   ``_dkv_kernel_biased`` (``src/repro/kernels/cluster_attention_bwd.py``):
-  int8 bias buckets and the ``bias_table`` gradient. The dQ kernel of
-  both dtypes runs on CUDA cores (``csrc/cluster_attention_bwd.cu``);
-  the dK/dV kernel has one per dtype, with no fallback between them:
-  bfloat16 on the tensor cores (``csrc/cluster_attention_bwd_dkv_sm90.cu``:
-  ``mma.sync`` on 32-row tiles, one warp per head, a ``cp.async`` ring
-  of visitors), float32 on CUDA cores (``csrc/cluster_attention_bwd.cu``).
+  int8 bias buckets and the ``bias_table`` gradient. Each dtype has
+  exactly one dQ and one dK/dV kernel, with no fallback between them:
+  bfloat16 runs on the tensor cores (``csrc/cluster_attention_bwd_dq_sm90.cu``
+  and ``csrc/cluster_attention_bwd_dkv_sm90.cu``: ``mma.sync`` on 32-row
+  tiles, one warp per head, a ``cp.async`` ring of visited blocks; the dQ
+  cuts heavy rows into pieces as the bf16 forward does), float32 on CUDA
+  cores (``csrc/cluster_attention_bwd.cu``).
   ``cluster_attention.biased_kernel_reason`` states what bf16 takes;
 * the ports of ``_dq_kernel`` and ``_dkv_kernel``: no buckets, an
   optional positional causal mask, the token LM's path. Each dtype has
@@ -49,7 +50,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import CudaLibrary
 
 # kernel launches since the last reset_count(), one count per kernel
-dq_launches = 0                 # both dtypes, cluster_attention_bwd.cu
+dq_launches = 0                 # fp32, cluster_attention_bwd.cu
+dq_sm90_launches = 0            # bf16, cluster_attention_bwd_dq_sm90.cu
 dkv_launches = 0                # fp32, cluster_attention_bwd.cu
 dkv_sm90_launches = 0           # bf16, cluster_attention_bwd_dkv_sm90.cu
 dq_unbiased_launches = 0        # fp32, cluster_attention_unbiased_bwd.cu
@@ -59,10 +61,10 @@ dkv_unbiased_sm90_launches = 0
 
 
 def reset_count() -> None:
-    global dq_launches, dkv_launches, dkv_sm90_launches, \
+    global dq_launches, dq_sm90_launches, dkv_launches, dkv_sm90_launches, \
         dq_unbiased_launches, dkv_unbiased_launches, \
         dq_unbiased_sm90_launches, dkv_unbiased_sm90_launches
-    dq_launches = dkv_launches = dkv_sm90_launches = 0
+    dq_launches = dq_sm90_launches = dkv_launches = dkv_sm90_launches = 0
     dq_unbiased_launches = dkv_unbiased_launches = 0
     dq_unbiased_sm90_launches = dkv_unbiased_sm90_launches = 0
 
@@ -75,6 +77,13 @@ def _bind(lib) -> None:
     lib.cluster_attention_bwd_dkv.argtypes = (
         [vp] * 11 + [i32] * 15 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dkv.restype = i32
+
+
+def _bind_dq_sm90(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cluster_attention_bwd_dq_sm90.argtypes = (
+        [vp] * 15 + [i32] * 13 + [ctypes.c_float, vp])
+    lib.cluster_attention_bwd_dq_sm90.restype = i32
 
 
 def _bind_dkv_sm90(lib) -> None:
@@ -106,6 +115,8 @@ def _bind_unbiased_sm90(lib) -> None:
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "cluster_attention_bwd.cu", _bind)
+LIBRARY_DQ_SM90 = CudaLibrary(_CSRC / "cluster_attention_bwd_dq_sm90.cu",
+                              _bind_dq_sm90)
 LIBRARY_DKV_SM90 = CudaLibrary(_CSRC / "cluster_attention_bwd_dkv_sm90.cu",
                                _bind_dkv_sm90)
 LIBRARY_UNBIASED = CudaLibrary(_CSRC / "cluster_attention_unbiased_bwd.cu",
@@ -156,28 +167,51 @@ def _sizes(q, k, block_idx, buckets, bias):
 
 
 def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias):
-    """Launch the dQ kernel on checked, contiguous CUDA operands (``bias``
-    fp32, ``delta`` from ``ref.row_delta``); returns ``dq`` in q's dtype
-    and the ``(B, H, nq, n_buckets)`` fp32 bucket partials of ds."""
+    """Launch the dQ kernel of q's dtype (bf16: tensor cores, fp32: CUDA
+    cores) on checked, aligned CUDA operands (``bias`` fp32, ``delta`` from
+    ``ref.row_delta``); returns ``dq`` in q's dtype and the ``(B, H, nq,
+    n_buckets)`` fp32 bucket partials of ds. In bf16 the rows the
+    forward's plan cuts (``cluster_attention.fwd_plan``) run as pieces
+    whose fp32 partials a combine kernel sums."""
     B, S, H, KV, Dh, nq, mb, bq, bk, nb = _sizes(q, k, block_idx, buckets,
                                                  bias)
     dq = torch.empty_like(q)
     db_part = torch.empty((B, H, nq, nb), dtype=torch.float32,
                           device=q.device)
-    with torch.cuda.device(q.device):
-        err = LIBRARY.lib().cluster_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx.data_ptr(),
-            buckets.data_ptr(), bias.data_ptr(), dq.data_ptr(),
-            db_part.data_ptr(), _ca._DTYPES[q.dtype], B, S, H, KV, Dh, nq,
-            mb, bq, bk, nb, int(block_idx.dim() == 3), Dh ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+            buckets.data_ptr(), bias.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    sm90 = q.dtype == torch.bfloat16
+    with torch.cuda.device(q.device):
+        if sm90:
+            plan = _ca.fwd_plan(block_idx, B)
+            pieces, splits, slots = plan or (None, None, 0)
+            # the split rows' partial slots: fp32 dq and bucket sums
+            part_dq = torch.empty((slots, H, bq, Dh), dtype=torch.float32,
+                                  device=q.device)
+            part_db = torch.empty((slots, H, nb), dtype=torch.float32,
+                                  device=q.device)
+            err = LIBRARY_DQ_SM90.lib().cluster_attention_bwd_dq_sm90(
+                *ptrs, _ca._ptr(pieces), _ca._ptr(splits), dq.data_ptr(),
+                db_part.data_ptr(), part_dq.data_ptr(), part_db.data_ptr(),
+                B, S, H, KV, Dh, nq, mb, bq, bk, nb,
+                int(block_idx.dim() == 3), len(pieces) if plan else 0,
+                len(splits) if plan else 0, Dh ** -0.5, stream)
+        else:
+            err = LIBRARY.lib().cluster_attention_bwd_dq(
+                *ptrs, dq.data_ptr(), db_part.data_ptr(),
+                _ca._DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, bq, bk, nb,
+                int(block_idx.dim() == 3), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd dQ launch failed: CUDA "
-                           f"error {err} (bq={bq}, bk={bk}, Dh={Dh}, "
-                           f"n_buckets={nb})")
-    global dq_launches
-    dq_launches += 1
+                           f"error {err} ({q.dtype}, bq={bq}, bk={bk}, "
+                           f"Dh={Dh}, n_buckets={nb}, mb={mb})")
+    global dq_launches, dq_sm90_launches
+    if sm90:
+        dq_sm90_launches += 1
+    else:
+        dq_launches += 1
     return dq, db_part
 
 

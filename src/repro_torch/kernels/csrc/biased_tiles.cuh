@@ -1,5 +1,6 @@
 // Tensor-core building blocks of the bf16 biased cluster-sparse kernels
-// (cluster_attention_fwd_sm90.cu, cluster_attention_bwd_dkv_sm90.cu):
+// (cluster_attention_fwd_sm90.cu, cluster_attention_bwd_dq_sm90.cu,
+// cluster_attention_bwd_dkv_sm90.cu):
 // warp-level `mma.sync.m16n8k16` products (bf16 in, fp32 accumulate) on
 // 32-row tiles fed by `ldmatrix`, the `cp.async` copies that fill a ring
 // of shared-memory stages, the bucket-to-bias lookup, the register online
@@ -186,8 +187,8 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 
 // acc[mt][nt] += A B^T over the DHP columns: A and B are 32-row tiles
 // (rows mt*16.. of A, rows nt*8.. of B), so acc is the 32 x 32 block of
-// row-by-row dot products: S = Q K^T (forward), S^T = K Q^T and
-// dP^T = V dO^T (dK/dV)
+// row-by-row dot products: S = Q K^T (forward, dQ), dP = dO V^T (dQ),
+// S^T = K Q^T and dP^T = V dO^T (dK/dV)
 template <int DH>
 __device__ __forceinline__ void product_abt(float (&acc)[2][4][4],
                                             const __nv_bfloat16* sa,
@@ -217,7 +218,8 @@ __device__ __forceinline__ void product_abt(float (&acc)[2][4][4],
 
 // acc[mt][nt] += P B: P a 32 x 32 block held as A fragments (pa[mt][kk],
 // keys 16 kk..16 kk + 15), B a 32 x DH tile whose rows are the keys:
-// O += P V (forward), dV += P^T dO and dK += dS^T Q (dK/dV)
+// O += P V (forward), dQ += dS K (dQ), dV += P^T dO and dK += dS^T Q
+// (dK/dV)
 template <int DH>
 __device__ __forceinline__ void product_pb(
     float (&acc)[2][Dims<DH>::NT][4], const uint32_t (&pa)[2][2][4],

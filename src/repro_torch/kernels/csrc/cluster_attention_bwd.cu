@@ -1,9 +1,10 @@
 // Cluster-sparse attention backward with int8 bias buckets, for Hopper
-// (sm_90a): the dQ kernel and the dK/dV kernel.
+// (sm_90a), in fp32 on CUDA cores: the dQ kernel and the dK/dV kernel.
 //
-// Replace the TPU kernels `_dq_kernel_biased` (both dtypes) and
-// `_dkv_kernel_biased` (fp32) in
-// src/repro/kernels/cluster_attention_bwd.py: the FlashAttention-style
+// Replace the TPU kernels `_dq_kernel_biased` and `_dkv_kernel_biased` in
+// src/repro/kernels/cluster_attention_bwd.py for fp32 inputs; bf16
+// inputs run on the tensor cores (cluster_attention_bwd_dq_sm90.cu and
+// cluster_attention_bwd_dkv_sm90.cu). The FlashAttention-style
 // recomputation backward of the forward in cluster_attention_fwd.cu. Each
 // kernel rebuilds a visited block's scores exactly as the forward built
 // them (`(q . k) * Dh^-0.5`, then `+ bias[h, min(bucket, nb-1)]`, bucket
@@ -28,29 +29,23 @@
 //               the caller's).
 //
 // What bounds them on the card. At the serve shape (32768-node SBM,
-// S=32800, H=KV=32, Dh=24, bq=bk=32, 13125 active blocks), in bf16: the
-// dQ kernel reads q, k, v, dO and writes dq (50.4 MB each), plus the
-// visited bucket tiles (13.4 MB), lse/delta (8.4 MB) and block_idx: ~277
-// MB, ~83 us at 3.35 TB/s, against 6 * 13125 * 32 * 32 * 24 * 32 = 61.9
-// GFLOP, ~63 us at the bf16 tensor-core peak. The dK/dV kernel moves ~330
-// MB (~98 us) and does 82.6 GFLOP (~84 us). Both are memory-bound in
-// bf16.
+// S=32800, H=KV=32, Dh=24, bq=bk=32, 13125 active blocks) the dQ kernel
+// does 6 * 13125 * 32 * 32 * 24 * 32 = 61.9 GFLOP and the dK/dV kernel
+// 82.6 GFLOP: 0.92 and 1.23 ms at the 67 TFLOP/s CUDA-core rate, against
+// ~0.5 GB of fp32 operands (~0.15 ms at 3.35 TB/s). In fp32 both are
+// bound by operations (TF32 on the tensor cores would miss the fp32
+// tolerances).
 //
-// What runs where. The dQ kernel below serves both dtypes: it is the
-// simple, correct version, 128 threads a CTA, all arithmetic on CUDA
-// cores in fp32, tiles staged through shared memory with plain loads,
-// heads fastest in the grid so the H CTAs of one block row share k/v
-// rows in L2 (its bf16 redesign on the tensor cores is the next step).
-// The dK/dV kernel below is fp32 only, built the same way: bf16 dK/dV
-// runs on the tensor cores (cluster_attention_bwd_dkv_sm90.cu), and in
-// fp32 the CUDA-core arithmetic bounds it (82.6 GFLOP at 67 TFLOP/s,
-// 1.23 ms at the serve shape; TF32 would miss the fp32 tolerances). The
+// What this design does about it: little; these are the simple, correct
+// versions, kept for fp32 (bf16, the dtype the model paths run, takes the
+// tensor-core kernels). 128 threads a CTA, all arithmetic on CUDA cores,
+// tiles staged through shared memory with plain loads, heads fastest in
+// the grid so the H CTAs of one block row share k/v rows in L2. The
 // global token makes one heavy row (its q-block visits 755 of 1025
 // k-blocks at the serve shape, 59x the mean) and one heavy column (674
 // q-rows visit k-block 0, 53x the mean); their CTAs run that much longer
 // while the grid drains.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,19 +54,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;  // finite sentinel, as the forward
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -104,15 +86,17 @@ __host__ __device__ inline size_t dq_smem_floats(int bq, int bk, int dh,
          (size_t)kWarps * nb;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cluster_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
+cluster_attn_dq_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        const int32_t* __restrict__ block_idx,
                        const int8_t* __restrict__ buckets,
-                       const float* __restrict__ bias, T* __restrict__ dq,
+                       const float* __restrict__ bias,
+                       float* __restrict__ dq,
                        float* __restrict__ dbias_part, int S, int H, int KV,
                        int dh, int nq, int mb, int bq, int bk, int nb,
                        int per_graph, float sm_scale) {
@@ -146,8 +130,8 @@ cluster_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = e / dh, d = e - r * dh;
     const size_t s_pos = (size_t)b * S + (size_t)qi * bq + r;
     const size_t off = (s_pos * H + h) * dh + d;
-    sQ[e] = to_f32(q[off]);
-    sDO[e] = to_f32(dout[off]);
+    sQ[e] = q[off];
+    sDO[e] = dout[off];
     sAcc[e] = 0.f;
   }
   for (int r = tid; r < bq; r += kThreads) {
@@ -167,8 +151,8 @@ cluster_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / dh, d = e - c * dh;
       const size_t s_pos = (size_t)b * S + (size_t)blk * bk + c;
       const size_t off = (s_pos * KV + kvh) * dh + d;
-      sK[c * dhp + d] = to_f32(k[off]);
-      sV[c * dhp + d] = to_f32(v[off]);
+      sK[c * dhp + d] = k[off];
+      sV[c * dhp + d] = v[off];
     }
     const int8_t* tile = bkt_row + (size_t)m * bq * bk;
     for (int e = tid; e < n_el; e += kThreads) sBkt[e] = tile[e];
@@ -222,7 +206,7 @@ cluster_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < bq * dh; e += kThreads) {
     const int r = e / dh, d = e - r * dh;
     const size_t s_pos = (size_t)b * S + (size_t)qi * bq + r;
-    dq[(s_pos * H + h) * dh + d] = from_f32<T>(sAcc[e]);
+    dq[(s_pos * H + h) * dh + d] = sAcc[e];
   }
   float* db = dbias_part + (((size_t)b * H + h) * nq + qi) * nb;
   for (int j = tid; j < nb; j += kThreads) {
@@ -364,7 +348,6 @@ cluster_attn_dkv_kernel(const float* __restrict__ q,
   }
 }
 
-template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* block_idx,
               const void* buckets, const void* bias, void* dq,
@@ -374,18 +357,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const size_t smem =
       dq_smem_floats(bq, bk, dh, nb) * sizeof(float) + (size_t)bq * bk;
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cluster_attn_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nq * H;
-  cluster_attn_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  cluster_attn_dq_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(block_idx),
       static_cast<const int8_t*>(buckets), static_cast<const float*>(bias),
-      static_cast<T*>(dq), static_cast<float*>(dbias_part), S, H, KV, dh, nq,
-      mb, bq, bk, nb, per_graph, sm_scale);
+      static_cast<float*>(dq), static_cast<float*>(dbias_part), S, H, KV, dh,
+      nq, mb, bq, bk, nb, per_graph, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -419,11 +402,13 @@ int launch_dkv(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q, dout and dq (B,S,H,Dh); k/v
-// (B,S,KV,Dh); lse, delta (B*H,S) fp32; block_idx (nq,mb) or (B,nq,mb)
-// int32 (per_graph selects), buckets the matching (...,bq,bk) int8; bias
-// (H,nb) fp32; dbias_part (B,H,nq,nb) fp32. Returns the CUDA error code
-// of the launch (0 = launched).
+// dtype: 0 = float32 (bfloat16, 1, has its own source,
+// cluster_attention_bwd_dq_sm90.cu, and returns cudaErrorInvalidValue
+// here). q, dout and dq (B,S,H,Dh); k/v (B,S,KV,Dh); lse, delta (B*H,S)
+// fp32; block_idx (nq,mb) or (B,nq,mb) int32 (per_graph selects),
+// buckets the matching (...,bq,bk) int8; bias (H,nb) fp32; dbias_part
+// (B,H,nq,nb) fp32. Returns the CUDA error code of the launch (0 =
+// launched).
 int cluster_attention_bwd_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, const void* block_idx,
@@ -434,22 +419,16 @@ int cluster_attention_bwd_dq(const void* q, const void* k, const void* v,
                              float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dq<float>(q, k, v, dout, lse, delta, block_idx, buckets,
-                            bias, dq, dbias_part, B, S, H, KV, dh, nq, mb,
-                            bq, bk, nb, per_graph, sm_scale, st);
-  if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, block_idx,
-                                    buckets, bias, dq, dbias_part, B, S, H,
-                                    KV, dh, nq, mb, bq, bk, nb, per_graph,
-                                    sm_scale, st);
+    return launch_dq(q, k, v, dout, lse, delta, block_idx, buckets, bias,
+                     dq, dbias_part, B, S, H, KV, dh, nq, mb, bq, bk, nb,
+                     per_graph, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// As above, float32 only (dtype 0; bfloat16 has its own source,
-// cluster_attention_bwd_dkv_sm90.cu, and returns cudaErrorInvalidValue
-// here); block_idx_t (nk,mt,2) or (B,nk,mt,2) int32 (per_graph_t
-// selects) lists (q-row, forward slot) pairs, -1 padded; dk/dv
-// (B,S,H,Dh) fp32, per q-head.
+// As above (bfloat16 has its own source,
+// cluster_attention_bwd_dkv_sm90.cu); block_idx_t (nk,mt,2) or
+// (B,nk,mt,2) int32 (per_graph_t selects) lists (q-row, forward slot)
+// pairs, -1 padded; dk/dv (B,S,H,Dh) fp32, per q-head.
 int cluster_attention_bwd_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* block_idx_t,

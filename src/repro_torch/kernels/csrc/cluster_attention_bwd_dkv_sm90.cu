@@ -4,7 +4,8 @@
 // Replaces the TPU kernel `_dkv_kernel_biased` in
 // src/repro/kernels/cluster_attention_bwd.py for bf16 inputs: the
 // graph transformer's training path; fp32 stays on the CUDA-core kernel
-// of cluster_attention_bwd.cu, as does the dQ kernel of both dtypes.
+// of cluster_attention_bwd.cu. The bf16 dQ is its mirror image,
+// cluster_attention_bwd_dq_sm90.cu.
 // Same function as that kernel and `kernels/ref.py` `bwd_dkv`: for each
 // k-block, over the (q-row, forward slot) pairs that the transposed
 // layout `block_idx_t` lists (-1 pairs, wherever they stand, skipped), it

@@ -1,312 +1,529 @@
 // Mamba2 SSD (state-space duality) chunked scan, forward, for Hopper
-// (sm_90a).
+// (sm_90a), chunk-parallel: four kernels in the shape of the plain
+// version `models/ssm.ssd_chunked`.
 //
 // Replaces the TPU kernel `_ssd_kernel` in src/repro/kernels/ssd.py
-// (oracle: models/ssm.ssd_chunked). For one (batch, head) the sequence is
-// cut into chunks of Q positions and the (dh, N) fp32 state S is carried
-// from chunk to chunk. Inside a chunk, with da = dt * a and cum its
-// inclusive prefix sum over the chunk (total = cum[Q-1]):
-//   y[q]  = exp(cum_q) C_q S_prev^T                             (inter)
-//         + sum_{t <= q} (C_q . B_t) exp(min(cum_q - cum_t, 0)) dt_t x_t
-//   S_new = exp(total) S_prev + sum_t x_t^T (exp(total - cum_t) dt_t B_t)
-// The clamp `min(., 0)` and the order of the terms are the reference's;
-// every product is in fp32 from the inputs' values.
+// (oracle: models/ssm.ssd_chunked). The sequence is cut into chunks of Q
+// positions; per (batch, head), with da = dt * a and cum its inclusive
+// prefix sum within a chunk (total = cum[Q-1]):
+//   y[q]   = exp(cum_q) C_q S_prev^T                             (inter)
+//          + sum_{t <= q} (C_q . B_t) exp(min(cum_q - cum_t, 0)) dt_t x_t
+//   S_next = exp(total) S_prev + sum_t x_t^T (exp(total - cum_t) dt_t B_t)
+// where S_prev is the (dh, N) fp32 state before the chunk. The clamp
+// `min(., 0)` is the reference's.
 //
 // What bounds it on the card. At Mamba2-2.7B's shape (S=16384, 80 heads
 // of dh 64, N 128, chunk 256, B=1) the function needs ~65 GFLOP against
 // ~352 MB in bf16 (x, y, dt, b, c, the final state): 0.105 ms at 3.35
-// TB/s, bound by bytes (by operations in fp32).
+// TB/s, bound by bytes in bf16 and by operations in fp32 (0.97 ms at the
+// 67 TFLOP/s CUDA-core rate).
 //
-// What this design does about it. One CTA of 256 threads per (batch,
-// head) walks the chunks in order, the state in shared memory, as the
-// reference's grid (B*H, nc) walks its sequential chunk axis. A chunk's
-// 256 x 256 fp32 `(C B^T) * L` tile would need 256 KB, more than a CTA
-// may have (227 KB), so the intra-chunk product is strip-mined: per
-// 64-row q strip of C, the 64-row t strips of B and of dt * x at or
-// before it, one 64 x 64 weight tile at a time. The cumulative sums are a
-// block-wide prefix scan, not a triangular matrix product. Each thread
-// keeps 4 x 4 blocks of its outputs in registers (rows tr + 16 i,
-// columns tc + 16 j), and operand rows are padded to an odd length so the
-// 16 threads of a half-warp read distinct banks. Takes dh <= 64 and any N
-// whose tiles fit shared memory: (2 Q' + (dh + 128) (N + 1) + 2 * 64 * 65)
-// floats with Q' the chunk rounded up to 64, 136,448 bytes at dh 64, N 128,
-// Q 512. At 80 heads and B=1 the grid is 80 CTAs on 132 SMs; the C B^T
-// product, shared by the heads, is recomputed by each (a later PR's
-// work). All arithmetic is fp32 on CUDA cores.
+// What this design does about it. The serial walk over the chunks is cut
+// out of the products, as `ssd_chunked` cuts it:
+//   1. `ssd_cb`: C B^T over each chunk's lower triangle of 64 x 64 tiles,
+//      once per (batch, chunk) for all the heads (b and c are (B, S, N),
+//      shared by the heads), into fp32 scratch (B, nc, Q, Q);
+//   2. `ssd_states`: per (batch, chunk, head, 64 state columns) the
+//      chunk's state contribution (w B)^T X, w_t = exp(total - cum_t)
+//      dt_t, into fp32 scratch (B, nc, H, N, dh), and exp(total);
+//   3. `ssd_scan`: per (batch, head), one thread per state element, the
+//      short scan over the chunks, writing in place the state before each
+//      chunk, and the final state;
+//   4. `ssd_y`: per (batch, chunk, 64-row strip, head) y = exp(cum) C
+//      S_prev^T + W x with W = (C B^T) o L o dt, read from step 1: the
+//      inter- and intra-chunk terms in one accumulator, y written once.
+// At Mamba2-2.7B's width steps 2 and 4 launch 10240 and 20480 CTAs, no
+// longer 80 on 132 SMs. Every product is a 64 x 64 output tile of 4 warps
+// (each 32 x 32) over 64-deep operand tiles staged in shared memory, so
+// shared memory does not grow with N or Q: any N, dh <= 64, Q <= 1024.
+// bf16 runs the products on the tensor cores (`mma.sync.m16n8k16` from
+// `ldmatrix`, biased_tiles.cuh): the tiles are 64 rows of 64 columns and
+// carry elementwise work between products (the decay mask, dt, the
+// state's weights, the hi/lo split), which the per-warp fragment layout
+// addresses directly; at this shape the bf16 bound is bytes, which
+// `mma.sync` does not limit. C and B are exact in bf16 (they are the
+// inputs); the state's operand w B is split into bf16 hi + lo parts, two
+// products, so the state keeps fp32 accuracy (1e-4); y's products round
+// W and S_prev to bf16 once. fp32 runs the same tiles on CUDA cores in
+// fp32 (TF32 would miss 1e-4).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "biased_tiles.cuh"
 
 namespace ssd {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStrip = 64;            // rows of a strip
-constexpr int kXP = kStrip + 1;       // padded row of an x / weight strip
+using bf16 = __nv_bfloat16;
+
+constexpr int kT = 64;             // tile edge: rows, columns and depth
+constexpr int kThreads = 128;      // 4 warps, 2 x 2 over a 64 x 64 tile
 constexpr int kMaxDh = 64;
+constexpr int kMaxChunk = 1024;
+constexpr int kPer = kMaxChunk / kThreads;  // prefix-sum positions a thread
+
+// Leading dimension of a staged 64 x 64 tile: fp32 rows 68 floats (the 8
+// rows a fragment reads lie on distinct banks, float2 aligned); bf16 rows
+// 72 elements (144 bytes: 16-byte aligned rows for `ldmatrix`, on
+// distinct banks).
+template <typename T> struct Ld;
+template <> struct Ld<float> { static constexpr int v = 68; };
+template <> struct Ld<bf16> { static constexpr int v = 72; };
+template <typename T> constexpr int kLd = Ld<T>::v;
+template <typename T> constexpr int kTile = kT * kLd<T>;
+// operand tiles a CTA stages: A (bf16: A_hi, A_lo) and B
+template <typename T> constexpr int kTiles =
+    sizeof(T) == sizeof(float) ? 2 : 3;
+// CTAs an SM the tile kernels' registers must allow: bf16 staging is
+// latency-bound, and six CTAs (at most 80 registers) ran 1.09x faster
+// than the 96-118 registers ptxas picks alone; fp32 ran 0.96-0.99x, so
+// it keeps ptxas's choice (tools/ab_ssd.py)
+template <typename T> constexpr int kMinBlocks =
+    sizeof(T) == sizeof(float) ? 1 : 6;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
-size_t smem_floats(int dh, int N, int Q) {
-  const int qp = (Q + kStrip - 1) / kStrip * kStrip;
-  return (size_t)2 * qp + (size_t)(dh + 2 * kStrip) * (N + 1) +
-         2 * kStrip * kXP;
+size_t smem_bytes(int Q, bool half) {
+  const size_t tiles = half ? 3 * (size_t)kT * 72 * sizeof(bf16)
+                            : 2 * (size_t)kT * 68 * sizeof(float);
+  return tiles + (2 * (size_t)Q + 4) * sizeof(float);
 }
 
-// The 64 rows of an (S, N) matrix that start at `src` into a (64, N + 1)
-// strip, rows at and past `valid` zero.
-template <typename T>
-__device__ __forceinline__ void load_strip(float* dst, const T* src,
-                                           int N, int valid) {
-  for (int e = threadIdx.x; e < kStrip * N; e += kThreads) {
-    const int r = e / N, n = e - r * N;
-    dst[r * (N + 1) + n] = r < valid ? to_f32(src[(size_t)r * N + n]) : 0.f;
+// Eight consecutive values of row r, columns c8..c8+7, of a row-major
+// source tile (rows `ld` elements apart), zero at and past `rows` rows and
+// `cols` columns: one 16-byte load (bf16) or two (fp32) where the eight
+// are whole and aligned, else one load each.
+template <typename S>
+__device__ __forceinline__ void load8(float (&v)[8], const S* src, size_t ld,
+                                      int r, int c8, int rows, int cols) {
+  const S* p = src + (size_t)r * ld + c8;
+  const bool vec = r < rows && c8 + 8 <= cols &&
+                   ((reinterpret_cast<uintptr_t>(p) |
+                     (ld * sizeof(S))) & 15) == 0;
+  if (vec) {
+    if constexpr (sizeof(S) == sizeof(float)) {
+      const float4 a = *reinterpret_cast<const float4*>(p);
+      const float4 b = *reinterpret_cast<const float4*>(p + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    } else {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      const bf16* hv = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(hv[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = r < rows && c8 + j < cols ? to_f32(p[j]) : 0.f;
   }
 }
 
-// The (64, dh) strip of x whose row t starts at `x + t * xs`, row t
-// multiplied by w[t], zero past `valid` rows and past dh columns (to 64).
-template <typename T>
-__device__ __forceinline__ void load_x(float* dst, const T* x, size_t xs,
-                                       int dh, int valid, const float* w) {
-  for (int e = threadIdx.x; e < kStrip * kMaxDh; e += kThreads) {
-    const int t = e / kMaxDh, p = e - t * kMaxDh;
-    dst[t * kXP + p] =
-        t < valid && p < dh ? to_f32(x[(size_t)t * xs + p]) * w[t] : 0.f;
+// A 64 x 64 tile into dst (rows kLd<T> apart) in T, eight columns a
+// piece: val8(r, c8, v) gives row r, columns c8..c8+7 (consecutive
+// threads take consecutive pieces of a row). `transposed` stores element
+// (r, c) at dst[c][r]. With `lo` (bf16), the tile is split as hi + lo
+// (lo = value - hi, rounded): a product with each carries the value to
+// ~2^-16; fp32 has no lo. Each thread reads all its pieces, then stores
+// them, so its loads are in flight together.
+constexpr int kPieces = kT * kT / 8 / kThreads;  // 4 a thread
+
+template <typename T, bool transposed = false, typename F>
+__device__ __forceinline__ void stage(T* dst, F val8, T* lo = nullptr) {
+  float v[kPieces][8];
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    val8(e >> 3, (e & 7) * 8, v[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e >> 3, c8 = (e & 7) * 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int at = transposed ? (c8 + j) * kLd<T> + r : r * kLd<T> + c8 + j;
+      const T h = from_f32<T>(v[i][j]);
+      dst[at] = h;
+      if constexpr (sizeof(T) != sizeof(float))
+        if (lo != nullptr) lo[at] = from_f32<T>(v[i][j] - to_f32(h));
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ a, const T* __restrict__ bm,
-               const T* __restrict__ cm, T* __restrict__ y,
-               float* __restrict__ state, int S, int H, int dh, int N,
-               int Q) {
-  extern __shared__ float4 smem4[];
-  const int qp = (Q + kStrip - 1) / kStrip * kStrip, NP = N + 1;
-  float* sCum = reinterpret_cast<float*>(smem4);  // qp: prefix sums
-  float* sW8 = sCum + qp;                         // qp: dt, then weights
-  float* sS = sW8 + qp;                           // (dh, N+1): the state
-  float* sC = sS + dh * NP;                       // (64, N+1): a C strip
-  float* sB = sC + kStrip * NP;                   // (64, N+1): a B strip
-  float* sX = sB + kStrip * NP;                   // (64, 65): weighted x
-  float* sW = sX + kStrip * kXP;                  // (64, 65): (C B^T) * L
+// acc += A B over one 64-deep tile: A row-major [m][k], B as [k][n] (NN)
+// or [n][k] (NT). Warp w owns rows 32 (w / 2).. and columns 32 (w % 2)..
+// of the 64 x 64 output; acc[mt][nt] in the mma.sync C layout (rows
+// 16 mt + g + 8 i, columns 8 nt + 2 c + j in acc[mt][nt][2 i + j]).
+template <bool NT>
+__device__ __forceinline__ void mma_tile(float (&acc)[2][4][4],
+                                         const float* sA, const float* sB) {
+  constexpr int LD = kLd<float>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const float* a = sA + ((warp >> 1) * 32 + g) * LD;
+  const int n0 = (warp & 1) * 32 + 2 * c;
+#pragma unroll 4
+  for (int kk = 0; kk < kT; ++kk) {
+    float av[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) av[mt][i] = a[(mt * 16 + 8 * i) * LD + kk];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + nt * 8;
+      const float2 bv =
+          NT ? make_float2(sB[n * LD + kk], sB[(n + 1) * LD + kk])
+             : *reinterpret_cast<const float2*>(sB + kk * LD + n);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        acc[mt][nt][0] = fmaf(av[mt][0], bv.x, acc[mt][nt][0]);
+        acc[mt][nt][1] = fmaf(av[mt][0], bv.y, acc[mt][nt][1]);
+        acc[mt][nt][2] = fmaf(av[mt][1], bv.x, acc[mt][nt][2]);
+        acc[mt][nt][3] = fmaf(av[mt][1], bv.y, acc[mt][nt][3]);
+      }
+    }
+  }
+}
 
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const float av = a[h];
-  const size_t xs = (size_t)H * dh;  // x and y row stride
-  for (int e = tid; e < dh * NP; e += kThreads) sS[e] = 0.f;
+template <bool NT>
+__device__ __forceinline__ void mma_tile(float (&acc)[2][4][4],
+                                         const bf16* sA, const bf16* sB) {
+  constexpr int LD = kLd<bf16>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bf16* a = sA + (warp >> 1) * 32 * LD;
+  const int n0 = (warp & 1) * 32;
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      biased::ldsm_x4(af[mt], a + (mt * 16 + (lane & 15)) * LD + kk * 16 +
+                                  (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {  // n-tiles 2 np and 2 np + 1
+      uint32_t b[4];
+      if constexpr (NT)
+        biased::ldsm_x4(b, sB + (n0 + np * 16 + (lane & 7) +
+                                 (lane >> 4) * 8) * LD +
+                               kk * 16 + ((lane >> 3) & 1) * 8);
+      else
+        biased::ldsm_x4_t(b, sB + (kk * 16 + (lane & 15)) * LD + n0 +
+                                 np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        biased::mma(acc[mt][2 * np], af[mt], b[0], b[1]);
+        biased::mma(acc[mt][2 * np + 1], af[mt], b[2], b[3]);
+      }
+    }
+  }
+}
 
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    // ---- dt of the chunk and the inclusive prefix sum of dt * a
-    __syncthreads();  // the previous chunk's readers are done
-    const int per = (qp + kThreads - 1) / kThreads;  // at most 4 (Q <= 1024)
-    float loc[4];
-    float run = 0.f;
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = tid * per + e;
-      if (e < per && t < qp) {
-        const float d = t < Q ? dt[((size_t)b * S + c0 + t) * H + h] : 0.f;
-        sW8[t] = d;
-        run += d * av;
-      }
-      loc[e] = run;
-    }
-    // Hillis-Steele scan of the 256 thread totals, in sW (free here)
-    sW[tid] = run;
-    __syncthreads();
-    for (int o = 1; o < kThreads; o <<= 1) {
-      const float add = tid >= o ? sW[tid - o] : 0.f;
-      __syncthreads();
-      sW[tid] += add;
-      __syncthreads();
-    }
-    const float before = sW[tid] - run;  // exclusive prefix
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = tid * per + e;
-      if (e < per && t < qp) sCum[t] = before + loc[e];
-    }
-    __syncthreads();
-    const float total = sCum[Q - 1];
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+}
 
-    // ---- y, one 64-row q strip at a time
-    for (int q0 = 0; q0 < Q; q0 += kStrip) {
-      __syncthreads();  // the previous strip's readers of sC are done
-      load_strip(sC, cm + ((size_t)b * S + c0 + q0) * N, N, Q - q0);
-      __syncthreads();
-      // inter-chunk: acc[i][j] = exp(cum_q) sum_n C[q][n] S[p][n]
-      float acc[4][4];
+// f(row, col, value) for each of the thread's accumulator entries
+template <typename F>
+__device__ __forceinline__ void each_entry(float (&acc)[2][4][4], F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (warp >> 1) * 32 + (lane >> 2);
+  const int c0 = (warp & 1) * 32 + 2 * (lane & 3);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[4], sv[4];
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = sC[(tr + 16 * i) * NP + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tc + 16 * j;
-          sv[j] = p < dh ? sS[p * NP + n] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(cv[i], sv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ec = expf(sCum[q0 + tr + 16 * i]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= ec;
-      }
-      // intra-chunk: the t strips at or before this q strip
-      for (int t0 = 0; t0 <= q0; t0 += kStrip) {
-        __syncthreads();  // the previous t strip's readers are done
-        load_strip(sB, bm + ((size_t)b * S + c0 + t0) * N, N, Q - t0);
-        load_x(sX, x + ((size_t)b * S + c0 + t0) * xs + (size_t)h * dh, xs,
-               dh, Q - t0, sW8 + t0);
-        __syncthreads();
-        float g[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) g[i][j] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = sC[(tr + 16 * i) * NP + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = sB[(tc + 16 * j) * NP + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) g[i][j] = fmaf(cv[i], bv[j], g[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qa = q0 + tr + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int ta = t0 + tc + 16 * j;
-            sW[(tr + 16 * i) * kXP + tc + 16 * j] =
-                ta <= qa && qa < Q
-                    ? g[i][j] * expf(fminf(sCum[qa] - sCum[ta], 0.f))
-                    : 0.f;
-          }
-        }
-        __syncthreads();
-        for (int t = 0; t < kStrip; ++t) {
-          float wv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) wv[i] = sW[(tr + 16 * i) * kXP + t];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xv[j] = sX[t * kXP + tc + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + tr + 16 * i;
-        if (row >= Q) continue;
-        T* yrow = y + ((size_t)b * S + c0 + row) * xs + (size_t)h * dh;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tc + 16 * j;
-          if (p < dh) yrow[p] = from_f32<T>(acc[i][j]);
-        }
-      }
-    }
+      for (int r = 0; r < 4; ++r)
+        f(r0 + mt * 16 + 8 * (r >> 1), c0 + nt * 8 + (r & 1),
+          acc[mt][nt][r]);
+}
 
-    // ---- the state: S = exp(total) S + sum_t x_t^T (w_t B_t), with
-    // w_t = exp(total - cum_t) dt_t; 128 state columns a pass
-    __syncthreads();  // every strip's readers of sW8 and sS are done
-    for (int t = tid; t < Q; t += kThreads)
-      sW8[t] *= expf(total - sCum[t]);
-    const float et = expf(total);
-    for (int n0 = 0; n0 < N; n0 += 128) {
-      float u[4][8];
+// Inclusive prefix sums of dt * a over the chunk's first `len` positions
+// (dt[t * stride]) into sCum, and dt itself into sDt: each thread sums
+// its kPer consecutive positions, then a warp scan and the warps' totals
+// in order. The same `len` gives bit-identical sums in every kernel.
+__device__ __forceinline__ void chunk_cumsum(const float* dt, size_t stride,
+                                             float av, int len, float* sCum,
+                                             float* sDt, float* sTmp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float loc[kPer];
+  float run = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int e = 0; e < kPer; ++e) {
+    const int t = tid * kPer + e;
+    const float d = t < len ? dt[(size_t)t * stride] : 0.f;
+    if (t < len) sDt[t] = d;
+    run += d * av;
+    loc[e] = run;
+  }
+  float x = run;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) u[i][j] = 0.f;
-      for (int t0 = 0; t0 < Q; t0 += kStrip) {
-        __syncthreads();  // sW8 is written; the previous strip is read
-        load_strip(sB, bm + ((size_t)b * S + c0 + t0) * N, N, Q - t0);
-        load_x(sX, x + ((size_t)b * S + c0 + t0) * xs + (size_t)h * dh, xs,
-               dh, Q - t0, sW8 + t0);
-        __syncthreads();
-        for (int t = 0; t < kStrip; ++t) {
-          float xv[4], bv[8];
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sTmp[warp] = x;
+  __syncthreads();
+  float before = 0.f;
+  for (int w = 0; w < warp; ++w) before += sTmp[w];
+  before += x - run;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) xv[i] = sX[t * kXP + tr + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = n0 + tc + 16 * j;
-            bv[j] = n < N ? sB[t * NP + n] : 0.f;
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) u[i][j] = fmaf(xv[i], bv[j], u[i][j]);
-        }
-      }
-      // each (p, n) belongs to one thread: no barrier before the write
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = tr + 16 * i;
-        if (p >= dh) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = n0 + tc + 16 * j;
-          if (n < N) sS[p * NP + n] = et * sS[p * NP + n] + u[i][j];
-        }
-      }
-    }
+  for (int e = 0; e < kPer; ++e) {
+    const int t = tid * kPer + e;
+    if (t < len) sCum[t] = before + loc[e];
   }
   __syncthreads();
-  float* out = state + (size_t)bh * dh * N;
-  for (int e = tid; e < dh * N; e += kThreads) {
-    const int p = e / N, n = e - p * N;
-    out[e] = sS[p * NP + n];
+}
+
+// 1. C B^T of one lower-triangle 64 x 64 tile (q-tile qt >= t-tile tt) of
+// one (batch, chunk), fp32, into cb (B, nc, Q, Q).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+ssd_cb(const T* __restrict__ bm, const T* __restrict__ cm,
+       float* __restrict__ cb, int S, int N, int Q, int nc) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + kTile<T>;
+  const int nqt = (Q + kT - 1) / kT, ntri = nqt * (nqt + 1) / 2;
+  int tri = blockIdx.x % ntri;
+  const int n = (blockIdx.x / ntri) % nc, b = blockIdx.x / (ntri * nc);
+  int qt = 0;
+  while (tri > qt) tri -= ++qt;
+  const int q0 = qt * kT, t0 = tri * kT;
+  const size_t row0 = (size_t)b * S + (size_t)n * Q;
+  float acc[2][4][4];
+  zero(acc);
+  for (int s0 = 0; s0 < N; s0 += kT) {
+    __syncthreads();  // the previous tiles' readers are done
+    stage(sA, [&](int r, int c8, float (&v)[8]) {
+      load8(v, cm + (row0 + q0) * N + s0, N, r, c8, Q - q0, N - s0);
+    });
+    stage(sB, [&](int r, int c8, float (&v)[8]) {
+      load8(v, bm + (row0 + t0) * N + s0, N, r, c8, Q - t0, N - s0);
+    });
+    __syncthreads();
+    mma_tile<true>(acc, sA, sB);
   }
+  float* out = cb + ((size_t)b * nc + n) * Q * Q;
+  each_entry(acc, [&](int r, int c, float v) {
+    if (q0 + r < Q && t0 + c < Q) out[(size_t)(q0 + r) * Q + t0 + c] = v;
+  });
+}
+
+// 2. The state contribution of one (batch, chunk, head), 64 state
+// columns: st[s][p] = sum_t w_t B[t][s] x[t][p], w_t = exp(total - cum_t)
+// dt_t, fp32 into st (B, nc, H, N, dh); exp(total) into decay (B, nc, H).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+ssd_states(const T* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ a, const T* __restrict__ bm,
+           float* __restrict__ st, float* __restrict__ decay, int S, int H,
+           int dh, int N, int Q, int nc) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sA2 = sA + kTile<T>;
+  T* sB = sA + (kTiles<T> - 1) * kTile<T>;
+  float* sCum = reinterpret_cast<float*>(sA + kTiles<T> * kTile<T>);
+  float* sW = sCum + Q;
+  float* sTmp = sW + Q;
+  const int nst = (N + kT - 1) / kT;
+  const int s0 = (blockIdx.x % nst) * kT;
+  const int h = (blockIdx.x / nst) % H;
+  const int n = (blockIdx.x / (nst * H)) % nc;
+  const int b = blockIdx.x / (nst * H * nc);
+  const size_t row0 = (size_t)b * S + (size_t)n * Q;
+  chunk_cumsum(dt + row0 * H + h, H, a[h], Q, sCum, sW, sTmp);
+  const float total = sCum[Q - 1];
+  for (int t = threadIdx.x; t < Q; t += kThreads)
+    sW[t] *= expf(total - sCum[t]);  // dt -> w
+  if (s0 == 0 && threadIdx.x == 0)
+    decay[((size_t)b * nc + n) * H + h] = expf(total);
+  float acc[2][4][4];
+  zero(acc);
+  for (int t0 = 0; t0 < Q; t0 += kT) {
+    __syncthreads();  // w is written; the previous tiles' readers are done
+    // A = (w B)^T: rows s, columns t, read along s (rows t of B) and
+    // stored transposed, as hi + lo in bf16
+    stage<T, true>(sA, [&](int r, int c8, float (&v)[8]) {
+      load8(v, bm + (row0 + t0) * N + s0, N, r, c8, Q - t0, N - s0);
+      const float w = t0 + r < Q ? sW[t0 + r] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] *= w;
+    }, kTiles<T> == 3 ? sA2 : nullptr);
+    stage(sB, [&](int r, int c8, float (&v)[8]) {
+      load8(v, x + ((row0 + t0) * H + h) * dh, (size_t)H * dh, r, c8,
+            Q - t0, dh);
+    });
+    __syncthreads();
+    mma_tile<false>(acc, sA, sB);
+    if constexpr (kTiles<T> == 3) mma_tile<false>(acc, sA2, sB);
+  }
+  float* out = st + (((size_t)b * nc + n) * H + h) * N * dh;
+  each_entry(acc, [&](int r, int c, float v) {
+    if (s0 + r < N && c < dh) out[(size_t)(s0 + r) * dh + c] = v;
+  });
+}
+
+// 3. Per (batch, head) and state element, the scan over the chunks: the
+// state before chunk n replaces chunk n's contribution in st, and the
+// state after the last chunk goes to state (B, H, dh, N).
+__global__ void __launch_bounds__(kThreads)
+ssd_scan(float* __restrict__ st, const float* __restrict__ decay,
+         float* __restrict__ state, int H, int dh, int N, int nc) {
+  const int per = N * dh;
+  const int nblk = (per + kThreads - 1) / kThreads;
+  const int e = (blockIdx.x % nblk) * kThreads + threadIdx.x;
+  const int bh = blockIdx.x / nblk, b = bh / H, h = bh % H;
+  if (e >= per) return;
+  float s = 0.f;
+  constexpr int kBatch = 16;  // loads in flight ahead of the chain
+  for (int n0 = 0; n0 < nc; n0 += kBatch) {
+    float v[kBatch], d[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const size_t bn = (size_t)b * nc + n0 + j;
+      v[j] = n0 + j < nc ? st[(bn * H + h) * per + e] : 0.f;
+      d[j] = n0 + j < nc ? decay[bn * H + h] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (n0 + j < nc) {
+        st[(((size_t)b * nc + n0 + j) * H + h) * per + e] = s;
+        s = d[j] * s + v[j];
+      }
+    }
+  }
+  const int si = e / dh, p = e - si * dh;  // st is (N, dh)
+  state[((size_t)bh * dh + p) * N + si] = s;
+}
+
+// 4. y of one (batch, chunk, 64-row strip, head): exp(cum_q) C_q S_prev^T
+// plus sum_{t <= q} W[q][t] x_t, W = (C B^T)[q][t] exp(min(cum_q - cum_t,
+// 0)) dt_t, from cb and the scanned st.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+ssd_y(const T* __restrict__ x, const float* __restrict__ dt,
+      const float* __restrict__ a, const T* __restrict__ cm,
+      const float* __restrict__ cb, const float* __restrict__ st,
+      T* __restrict__ y, int S, int H, int dh, int N, int Q, int nc) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + kTile<T>;
+  float* sCum = reinterpret_cast<float*>(sA + kTiles<T> * kTile<T>);
+  float* sDt = sCum + Q;
+  float* sTmp = sDt + Q;
+  const int nqs = (Q + kT - 1) / kT;
+  const int h = blockIdx.x % H;  // heads fastest: they share C and cb
+  const int q0 = ((blockIdx.x / H) % nqs) * kT;
+  const int n = (blockIdx.x / (H * nqs)) % nc;
+  const int b = blockIdx.x / (H * nqs * nc);
+  const size_t row0 = (size_t)b * S + (size_t)n * Q;
+  const int len = min(Q, q0 + kT);
+  chunk_cumsum(dt + row0 * H + h, H, a[h], len, sCum, sDt, sTmp);
+  float acc[2][4][4];
+  zero(acc);
+  // inter-chunk: C S_prev^T, then each row times exp(cum_q)
+  const float* prev = st + (((size_t)b * nc + n) * H + h) * N * dh;
+  for (int s0 = 0; s0 < N; s0 += kT) {
+    __syncthreads();  // the previous tiles' readers are done
+    stage(sA, [&](int r, int c8, float (&v)[8]) {
+      load8(v, cm + (row0 + q0) * N + s0, N, r, c8, Q - q0, N - s0);
+    });
+    stage(sB, [&](int r, int c8, float (&v)[8]) {
+      load8(v, prev + (size_t)s0 * dh, dh, r, c8, N - s0, dh);
+    });
+    __syncthreads();
+    mma_tile<false>(acc, sA, sB);
+  }
+  {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int r0 = q0 + (warp >> 1) * 32 + (lane >> 2);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = r0 + mt * 16 + 8 * i;
+        const float ec = q < len ? expf(sCum[q]) : 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          acc[mt][nt][2 * i] *= ec;
+          acc[mt][nt][2 * i + 1] *= ec;
+        }
+      }
+  }
+  // intra-chunk: the t-tiles at or before this strip
+  const float* cbc = cb + ((size_t)b * nc + n) * Q * Q;
+  for (int t0 = 0; t0 <= q0; t0 += kT) {
+    __syncthreads();
+    // W: cb is written at t <= q only, so the rest is selected away
+    stage(sA, [&](int r, int c8, float (&v)[8]) {
+      load8(v, cbc + (size_t)q0 * Q + t0, Q, r, c8, Q - q0, Q - t0);
+      const int q = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int t = t0 + c8 + j;
+        v[j] = t <= q && q < Q
+                   ? v[j] * expf(fminf(sCum[q] - sCum[t], 0.f)) * sDt[t]
+                   : 0.f;
+      }
+    });
+    stage(sB, [&](int r, int c8, float (&v)[8]) {
+      load8(v, x + ((row0 + t0) * H + h) * dh, (size_t)H * dh, r, c8,
+            Q - t0, dh);
+    });
+    __syncthreads();
+    mma_tile<false>(acc, sA, sB);
+  }
+  each_entry(acc, [&](int r, int c, float v) {
+    if (q0 + r < Q && c < dh)
+      y[((row0 + q0 + r) * H + h) * dh + c] = from_f32<T>(v);
+  });
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* a, const void* b,
-           const void* c, void* y, void* state, int B, int S, int H, int dh,
-           int N, int Q, cudaStream_t stream) {
-  const size_t smem = smem_floats(dh, N, Q) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ssd_fwd_kernel<T><<<(unsigned)B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y),
-      static_cast<float*>(state), S, H, dh, N, Q);
+           const void* c, void* y, void* state, void* cb, void* st,
+           void* decay, int B, int S, int H, int dh, int N, int Q,
+           cudaStream_t stream) {
+  const int nc = S / Q, nt = (Q + kT - 1) / kT, nst = (N + kT - 1) / kT;
+  const size_t smem = smem_bytes(Q, sizeof(T) != sizeof(float));
+  const void* fns[] = {(const void*)ssd_cb<T>, (const void*)ssd_states<T>,
+                       (const void*)ssd_y<T>};
+  for (const void* fn : fns) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const T* xt = static_cast<const T*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* af = static_cast<const float*>(a);
+  const T* bt = static_cast<const T*>(b);
+  const T* ct = static_cast<const T*>(c);
+  float* cbf = static_cast<float*>(cb);
+  float* stf = static_cast<float*>(st);
+  float* df = static_cast<float*>(decay);
+  ssd_cb<T><<<(unsigned)B * nc * (nt * (nt + 1) / 2), kThreads, smem,
+              stream>>>(bt, ct, cbf, S, N, Q, nc);
+  ssd_states<T><<<(unsigned)B * nc * H * nst, kThreads, smem, stream>>>(
+      xt, dtf, af, bt, stf, df, S, H, dh, N, Q, nc);
+  ssd_scan<<<(unsigned)B * H * ((N * dh + kThreads - 1) / kThreads),
+             kThreads, 0, stream>>>(stf, df, static_cast<float*>(state), H,
+                                    dh, N, nc);
+  ssd_y<T><<<(unsigned)B * nc * nt * H, kThreads, smem, stream>>>(
+      xt, dtf, af, ct, cbf, stf, static_cast<T*>(y), S, H, dh, N, Q, nc);
   return (int)cudaGetLastError();
 }
 
@@ -317,22 +534,23 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, b, c and y). x and y (B,S,H,dh);
 // dt (B,S,H) and a (H,) fp32; b, c (B,S,N); state (B,H,dh,N) fp32; all
-// contiguous. Takes dh <= 64, a chunk Q <= 1024 that tiles S, and N whose
-// tiles fit shared memory. Returns the CUDA error code of the launch
-// (0 = launched).
+// contiguous. Scratch, fp32: cb (B,S/Q,Q,Q), st (B,S/Q,H,N,dh), decay
+// (B,S/Q,H). Takes dh <= 64 and a chunk Q <= 1024 that tiles S. Returns
+// the CUDA error code of the launches (0 = launched).
 int ssd_fwd(const void* x, const void* dt, const void* a, const void* b,
-            const void* c, void* y, void* state, int dtype, int B, int S,
-            int H, int dh, int N, int Q, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh <= 0 || dh > ssd::kMaxDh || N <= 0 || Q <= 0 || Q > 1024 ||
-      S % Q)
+            const void* c, void* y, void* state, void* cb, void* st,
+            void* decay, int dtype, int B, int S, int H, int dh, int N,
+            int Q, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 0 || dh > ssd::kMaxDh || N <= 0 || Q <= 0 ||
+      Q > ssd::kMaxChunk || S % Q)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return ssd::launch<float>(x, dt, a, b, c, y, state, B, S, H, dh, N, Q,
-                              st);
+    return ssd::launch<float>(x, dt, a, b, c, y, state, cb, st, decay, B, S,
+                              H, dh, N, Q, s);
   if (dtype == 1)
-    return ssd::launch<__nv_bfloat16>(x, dt, a, b, c, y, state, B, S, H, dh,
-                                      N, Q, st);
+    return ssd::launch<__nv_bfloat16>(x, dt, a, b, c, y, state, cb, st,
+                                      decay, B, S, H, dh, N, Q, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -356,6 +356,65 @@ def bwd_dq(q, k, v, dout, lse, delta, block_idx, buckets, bias_table, *,
     return dq.view(B, S, H, Dh), dbias
 
 
+def dq_partials(q, k, v, dout, lse, delta, block_idx, buckets, bias_table,
+                pieces):
+    """The partial slots the bf16 dQ kernel's split grid writes
+    (``cluster_attention.split_plan``), in plain fp32: for each piece
+    ``(b * nq + qi, v0, v1, slot >= 0)`` the Dh^-0.5-scaled dq of the
+    row's visits v0..v1-1 (its non -1 slots in order) and their bucket
+    sums of ds. Returns ``part_dq`` (slots, H, bq, Dh) and ``part_db``
+    (slots, H, n_buckets)."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    nq, bq, bk = block_dims(q, block_idx, buckets)
+    nb = bias_table.shape[1]
+    bi, bu = _batched(block_idx, buckets, B)
+    own = [p for p in pieces.tolist() if p[3] >= 0]
+    slots = max((p[3] for p in own), default=-1) + 1
+    part_dq = torch.zeros((slots, H, bq, Dh), dtype=torch.float32)
+    part_db = torch.zeros((slots, H, nb), dtype=torch.float32)
+    for row, v0, v1, slot in own:
+        b, qi = divmod(row, nq)
+        mm = torch.nonzero(bi[b, qi] >= 0).flatten()[v0:v1]
+        bb, ii = torch.full_like(mm, b), torch.full_like(mm, qi)
+        _, ds, _, _, ka, bkt = _block_terms(
+            q, k, v, dout, lse, delta, bb, ii, mm, bi[b, qi, mm].long(), nq,
+            bk, bu, bias_table, False)
+        dqa = torch.einsum("akgqc,ackd->aqkgd",
+                           ds.view(-1, KV, H // KV, bq, bk), ka)
+        part_dq[slot] = (dqa.sum(0).reshape(bq, H, Dh)
+                         * Dh ** -0.5).permute(1, 0, 2)
+        part_db[slot] = bucket_sums(ds, bkt, nb)
+    return part_dq, part_db
+
+
+def bwd_dq_split(q, k, v, dout, lse, delta, block_idx, buckets, bias_table,
+                 pieces, splits):
+    """The bf16 dQ kernel's split grid in plain PyTorch, in fp32: whole
+    rows as :func:`bwd_dq` computes them; each split row ``(b * nq + qi,
+    first slot, n, 0)`` summed from its pieces' :func:`dq_partials` in
+    slot order, as the combine kernel sums them. Returns dq ``(B, S, H,
+    Dh)`` and the ``(H, n_buckets)`` bias gradient."""
+    B, S, H, Dh = q.shape
+    nq, bq, _ = block_dims(q, block_idx, buckets)
+    bi, bu = _batched(block_idx, buckets, B)
+    whole = bi.clone()
+    for row, *_ in splits.tolist():
+        whole[row // nq, row % nq] = -1
+    dq, dbias = bwd_dq(q, k, v, dout, lse, delta, whole, bu, bias_table)
+    part_dq, part_db = dq_partials(q, k, v, dout, lse, delta, block_idx,
+                                   buckets, bias_table, pieces)
+    for row, first, n, _ in splits.tolist():
+        b, qi = divmod(row, nq)
+        acc, db = part_dq[first].clone(), part_db[first].clone()
+        for p in range(first + 1, first + n):
+            acc += part_dq[p]
+            db += part_db[p]
+        dq[b, qi * bq:(qi + 1) * bq] = acc.permute(1, 0, 2)
+        dbias += db
+    return dq, dbias
+
+
 def bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
             bias_table, *, causal: bool = False):
     """Per-q-head dk and dv ``(B, S, H, Dh)`` fp32 over the transposed

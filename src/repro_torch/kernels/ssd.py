@@ -1,7 +1,9 @@
 """Wrapper, build and launch counter of the CUDA Mamba2 SSD chunked scan
 ``csrc/ssd.cu``, the port of the TPU kernel ``_ssd_kernel``
-(``src/repro/kernels/ssd.py``). Forward only: the reference has no SSD
-backward kernel either.
+(``src/repro/kernels/ssd.py``): chunk-parallel, as ``ssd_chunked`` is (C
+B^T per chunk once for all heads, the chunk states, a short scan over
+the chunks, y), bf16 on the tensor cores and fp32 on CUDA cores. Forward
+only: the reference has no SSD backward kernel either.
 
 The kernel is compiled at first use (``kernels/build.py``). The wrapper
 takes CUDA tensors only: it launches the kernel or raises.
@@ -20,9 +22,9 @@ from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.flash_attention import torch_dtype
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D_HEAD = 64      # a thread owns 4 of 64 value columns
-MAX_CHUNK = 1024     # the prefix scan takes 4 positions a thread
-STRIP = 64
+MAX_D_HEAD = 64      # y's 64 x 64 output tile holds dh columns
+MAX_CHUNK = 1024     # the prefix sum takes 8 positions a thread
+TILE = 64            # rows, columns and depth of a staged operand tile
 SMEM_LIMIT = 232448  # shared memory one block may have on sm_90
 
 launches = 0  # kernel launches since the last reset_count()
@@ -35,7 +37,7 @@ def reset_count() -> None:
 
 def _bind(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_fwd.argtypes = [vp] * 7 + [i32] * 7 + [vp]
+    lib.ssd_fwd.argtypes = [vp] * 10 + [i32] * 7 + [vp]
     lib.ssd_fwd.restype = i32
 
 
@@ -43,29 +45,30 @@ LIBRARY = CudaLibrary(pathlib.Path(__file__).resolve().parent / "csrc" /
                       "ssd.cu", _bind)
 
 
-def smem_bytes(d_head: int, n_state: int, chunk: int) -> int:
-    """Shared memory of one CTA: the chunk's prefix sums and weights, the
-    (dh, N) state, a C and a B strip (rows padded to N + 1), a weighted x
-    strip and a weight tile (64 x 65 each), in fp32."""
-    qp = -(-chunk // STRIP) * STRIP
-    return 4 * (2 * qp + (d_head + 2 * STRIP) * (n_state + 1)
-                + 2 * STRIP * (STRIP + 1))
+def smem_bytes(chunk: int) -> int:
+    """Shared memory of one CTA of the SSD kernels, at most (fp32): two
+    64 x 64 operand tiles (rows padded to 68 floats; bf16 takes three of
+    72 halves, 27648 bytes, less), the chunk's prefix sums and dt or
+    weights, and 4 floats of scratch. The tiles stream N, dh and the
+    chunk 64 at a time, so only the chunk adds to it."""
+    return 2 * TILE * 68 * 4 + 4 * (2 * chunk + 4)
+
+
+# every chunk the kernels take fits in a block's shared memory
+assert smem_bytes(MAX_CHUNK) <= SMEM_LIMIT
 
 
 def check_launch(d_head: int, n_state: int, chunk: int, dtype) -> str | None:
-    """Why the SSD kernel does not take ``(d_head, n_state, chunk,
-    dtype)`` (``chunk`` as the kernel sees it: ``min(chunk, S)``; ``dtype``
-    a torch dtype or its name), or None when it does."""
+    """Why the SSD kernels do not take ``(d_head, n_state, chunk, dtype)``
+    (``chunk`` as the kernels see it: ``min(chunk, S)``; ``dtype`` a torch
+    dtype or its name), or None when they do. Any ``n_state`` goes: the
+    kernels stream it in tiles."""
     if torch_dtype(dtype) not in _DTYPES:
         return f"dtype {dtype} (the kernel takes float32 and bfloat16)"
     if not 0 < d_head <= MAX_D_HEAD:
         return f"dh={d_head} (the kernel takes dh <= {MAX_D_HEAD})"
     if not 0 < chunk <= MAX_CHUNK:
         return f"chunk={chunk} (the kernel takes chunks <= {MAX_CHUNK})"
-    smem = smem_bytes(d_head, n_state, chunk)
-    if smem > SMEM_LIMIT:
-        return (f"dh={d_head}, N={n_state}, chunk={chunk} need {smem} bytes "
-                f"of shared memory, above the {SMEM_LIMIT} a block may have")
     return None
 
 
@@ -115,11 +118,19 @@ def ssd_fwd(x, dt, a, b, c, *, chunk: int):
     x, dt, a, b, c = (t.contiguous() for t in (x, dt, a, b, c))
     y = torch.empty_like(x)
     state = torch.empty((B, H, dh, N), dtype=torch.float32, device=x.device)
+    # fp32 scratch: C B^T per chunk, the chunk states (scanned in place
+    # into the state before each chunk), exp(total) per chunk and head
+    nc = S // Q
+    f32 = {"dtype": torch.float32, "device": x.device}
+    cb = torch.empty((B, nc, Q, Q), **f32)
+    st = torch.empty((B, nc, H, N, dh), **f32)
+    decay = torch.empty((B, nc, H), **f32)
     global launches
     with torch.cuda.device(x.device):
         err = lib.ssd_fwd(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                           b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                          state.data_ptr(), _DTYPES[x.dtype], B, S, H, dh, N,
+                          state.data_ptr(), cb.data_ptr(), st.data_ptr(),
+                          decay.data_ptr(), _DTYPES[x.dtype], B, S, H, dh, N,
                           Q, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_fwd launch failed: CUDA error {err} (x "

@@ -28,6 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels.cluster_attention_bwd import (  # repro-lint: disable=REP002
     derive_block_idx_t as jderive)
 from repro_torch.core.reformation import transpose_block_idx
+from repro_torch.kernels import cluster_attention as tca
 from repro_torch.kernels import cluster_attention_bwd as tcab
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -209,6 +210,30 @@ def test_plain_backward_dead_rows_and_full_layout():
 
 
 @pytest.mark.parametrize("per_graph", [False, True])
+@pytest.mark.parametrize("H,KV,Dh", [(4, 4, 8), (8, 2, 24)])
+def test_dq_split_twin_matches_jax_ref(jax_mode, per_graph, H, KV, Dh):
+    """The plain twin of the bf16 dQ's split grid (pieces, partial dq and
+    bucket sums per slot, the combine's slot-order sum) against
+    ``jax.grad`` of the JAX op in ref mode, fp32, with every row above 2
+    visits cut into pieces."""
+    q, k, v, bias, bi, bu, bit, g = _case(per_graph, H, KV, Dh, seed=11)
+    pieces, splits = tca.split_plan((bi >= 0).sum(-1), 2, 2)
+    assert len(splits) >= 2 and splits[:, 2].max() >= 3
+    jax_mode("ref")
+    want = _jax_grads(q, k, v, bias, bi, bu, bit, g, "float32")
+    o, lse = tref.cluster_sparse_attention(t(q), t(k), t(v), t(bi), t(bu),
+                                           t(bias), return_lse=True)
+    dq, dbias = tref.bwd_dq_split(t(q), t(k), t(v), t(g), lse,
+                                  tref.row_delta(t(g), o), t(bi), t(bu),
+                                  t(bias), pieces, splits)
+    for name, a, b in (("dq", dq.numpy(), want[0]),
+                       ("dbias", dbias.numpy(), want[3])):
+        assert a.shape == b.shape, name
+        rel = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+        assert rel <= TOL["float32"], (name, rel)
+
+
+@pytest.mark.parametrize("per_graph", [False, True])
 def test_derived_layout_t_equals_reference(per_graph):
     """The torch ``derive_block_idx_t`` equals the reference's jnp one
     byte for byte, and lists the same pairs as the host-built layout."""
@@ -236,7 +261,8 @@ def test_cpu_grads_launch_no_kernel_and_wrapper_refuses_cpu():
     q, k, v, bias, bi, bu, bit, g = _case(False, 4, 4, 8)
     tcab.reset_count()
     _port_grads(q, k, v, bias, bi, bu, bit, g, "float32")
-    assert (tcab.dq_launches, tcab.dkv_launches) == (0, 0)
+    assert (tcab.dq_launches, tcab.dq_sm90_launches, tcab.dkv_launches,
+            tcab.dkv_sm90_launches) == (0, 0, 0, 0)
     o, lse = tref.cluster_sparse_attention(t(q), t(k), t(v), t(bi), t(bu),
                                            t(bias), return_lse=True)
     with pytest.raises(NotImplementedError, match="no kernel"):

@@ -155,7 +155,8 @@ def test_kernel_rejects_unported_variants(dev):
 
 
 def _bwd_counts():
-    return tcab.dq_launches, tcab.dkv_launches, tcab.dkv_sm90_launches
+    return (tcab.dq_launches, tcab.dq_sm90_launches, tcab.dkv_launches,
+            tcab.dkv_sm90_launches)
 
 
 def _run_bwd(dev, dtype, q, k, v, bi, bu, bias, bit=None, names=4):
@@ -177,11 +178,10 @@ def _run_bwd(dev, dtype, q, k, v, bi, bu, bias, bit=None, names=4):
     o = ops.cluster_attention(*leaves[:3], bi, bu, leaves[3], bit)
     got = torch.autograd.grad(o, leaves, dout)
     torch.cuda.synchronize()
-    # dQ runs on CUDA cores in both dtypes; dK/dV on the tensor cores in
-    # bf16, on CUDA cores in fp32
+    # dQ and dK/dV on the tensor cores in bf16, on CUDA cores in fp32
     sm90 = dtype == torch.bfloat16
-    assert _bwd_counts() == (before[0] + 1, before[1] + (not sm90),
-                             before[2] + sm90)
+    assert _bwd_counts() == (before[0] + (not sm90), before[1] + sm90,
+                             before[2] + (not sm90), before[3] + sm90)
     want = ref.cluster_attention_bwd(q, k, v, dout, out, lse, bi, bu, bias,
                                      bit)
     for name, g, w in list(zip(("dq", "dk", "dv", "dbias"), got,
@@ -300,6 +300,115 @@ def test_biased_bf16_forward_splits_the_heavy_row(dev, per_graph):
     q, k, v, bias = qkv(2, S, 8, 2, 24, n_buckets=nb)
     _run(dev, torch.bfloat16, q, k, v, bi, bu, bias)
     _run_bwd(dev, torch.bfloat16, q, k, v, bi, bu, bias)
+
+
+def _dq_case(dev, bi, bu, B, H, KV, Dh, nb, seed):
+    """The bf16 dQ kernel's operands on the card: q, k, v, a random dO,
+    the forward kernel's lse and O's delta, the layout and a bias
+    table of ``nb`` columns."""
+    S = bi.shape[-2] * 32
+    q, k, v, bias = qkv(B, S, H, KV, Dh, seed=seed, n_buckets=nb)
+    q, k, v = (torch.from_numpy(x).to(dev).bfloat16() for x in (q, k, v))
+    bi, bu, bias = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                    for x in (bi, bu, bias))
+    out, lse = tca.cluster_attention_fwd(q, k, v, bi, bu, bias,
+                                         return_lse=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dout = torch.randn(out.shape, generator=gen, device=dev).bfloat16()
+    return q, k, v, dout, lse, ref.row_delta(dout, out), bi, bu, bias
+
+
+def _check_dq(dq, db_part, q, k, v, dout, lse, delta, bi, bu, bias):
+    """dq and the bias gradient summed from the kernel's partials against
+    ``ref.bwd_dq``, each within TOL_GRAD of its largest plain value."""
+    want_dq, want_db = ref.bwd_dq(q, k, v, dout, lse, delta, bi, bu, bias)
+    got_db = db_part.sum(dim=(0, 2))
+    for name, g, w in (("dq", dq, want_dq), ("dbias", got_db, want_db)):
+        assert torch.isfinite(g).all(), name
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= TOL_GRAD[torch.bfloat16], (name, rel)
+
+
+@pytest.mark.parametrize("nb", [1, 3, 18])
+@pytest.mark.parametrize("Dh", [8, 24, 64])
+@pytest.mark.parametrize("per_graph", [False, True])
+def test_biased_bf16_dq_matches_plain(dev, nb, Dh, per_graph):
+    """The bf16 tensor-core dQ and its bucket sums against ``ref.bwd_dq``
+    at GQA (8 heads over 2), n_buckets 1 (GT's table), 3 (adjacency) and
+    18 (SPD), with buckets past nb - 1 (clipped onto the last bias), -1
+    holes between a row's visits, a row with no visit and one whose
+    visits are all masked; 2-D and per-graph 3-D layouts."""
+    rng = np.random.default_rng(nb + Dh)
+    if per_graph:
+        _, bi, _, _ = per_graph_layout()
+    else:
+        bi = graph_layout().block_idx[None]
+    bi = bi.copy()
+    nq, mb = bi.shape[-2:]
+    # holes: a -1 slot before and between the visits of every row
+    bi = np.concatenate([np.full(bi.shape[:-1] + (1,), -1, np.int32), bi,
+                         np.full(bi.shape[:-1] + (1,), -1, np.int32)], -1)
+    bi[..., 1::3] = np.where(rng.random(bi[..., 1::3].shape) < 0.3, -1,
+                             bi[..., 1::3])
+    bi[:, 2] = -1
+    bu = rng.integers(-1, nb + 2, bi.shape + (32, 32)).astype(np.int8)
+    bu[:, 3] = -1
+    if not per_graph:
+        bi, bu = bi[0], bu[0]
+    ops_ = _dq_case(dev, bi, bu, 2, 8, 2, Dh, nb, seed=nb)
+    before = _bwd_counts()
+    dq, db_part = tcab.dq_kernel(*ops_)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == (before[0], before[1] + 1) + before[2:]
+    assert not dq[:, 2 * 32:4 * 32].any()
+    _check_dq(dq, db_part, *ops_)
+
+
+@pytest.mark.parametrize("per_graph", [False, True])
+def test_biased_bf16_dq_splits_the_heavy_row(dev, per_graph):
+    """A q-block row that visits 160 k-blocks among rows of at most 4:
+    the bf16 dQ runs it as pieces whose partial dq and bucket sums a
+    combine kernel adds in slot order, and matches the plain dQ."""
+    layouts = [_heavy_layout(nq=160, seed=s) for s in (3, 4)]
+    if per_graph:
+        bi = np.stack([x[1] for x in layouts])
+        bu = np.stack([x[2] for x in layouts])
+    else:
+        bi, bu = layouts[0][1], layouts[0][2]
+    ops_ = _dq_case(dev, bi, bu, 2, 8, 2, 24, layouts[0][3], seed=5)
+    plan = tca.fwd_plan(ops_[6], 2)
+    assert plan is not None and plan[2] >= 3
+    dq, db_part = tcab.dq_kernel(*ops_)
+    torch.cuda.synchronize()
+    _check_dq(dq, db_part, *ops_)
+
+
+def test_biased_dq_sources_refuse_what_they_do_not_take(dev):
+    """The fp32 CUDA-core source returns invalid value for bf16, and the
+    bf16 tensor-core source for Dh 12 and 16-row blocks: neither
+    launches."""
+    lay = graph_layout()
+    ops_ = _dq_case(dev, lay.block_idx, lay.buckets, 1, 4, 4, 24,
+                    lay.n_buckets, seed=1)
+    q, k, v, dout, lse, delta, bi, bu, bias = ops_
+    B, S, H, Dh = q.shape
+    nq, mb = bi.shape
+    ptrs = [x.data_ptr() for x in ops_]
+    dq = torch.empty_like(q)
+    db = torch.empty((B, H, nq, lay.n_buckets), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = tcab.LIBRARY.lib().cluster_attention_bwd_dq(
+        *ptrs, dq.data_ptr(), db.data_ptr(), 1, B, S, H, H, Dh, nq, mb, 32,
+        32, lay.n_buckets, 0, Dh ** -0.5, stream)
+    assert err == 1   # cudaErrorInvalidValue
+    lib = tcab.LIBRARY_DQ_SM90.lib()
+    for dh, bq in ((12, 32), (24, 16)):
+        err = lib.cluster_attention_bwd_dq_sm90(
+            *ptrs, None, None, dq.data_ptr(), db.data_ptr(), None, None, B,
+            S, H, H, dh, S // bq, mb, bq, bq, lay.n_buckets, 0, 0, 0,
+            Dh ** -0.5, stream)
+        assert err == 1, (dh, bq)
 
 
 def test_biased_bf16_refuses_what_its_kernels_do_not_take(dev):
@@ -618,6 +727,12 @@ def test_flash_check_launch_agrees_with_the_kernels(dev, dtype):
     (2, 512, 3, 64, 128, 128),
     (1, 1024, 2, 64, 128, 512),
     (1, 96, 2, 16, 20, 48),      # a chunk that is no multiple of 64
+    # the chunk-parallel kernels' tiles at B = 2, dh < 64, N 16-128 (100:
+    # no multiple of 64), every chunk the tuner offers
+    (2, 1024, 3, 32, 16, 64),
+    (2, 2048, 4, 48, 64, 256),
+    (2, 1024, 2, 40, 128, 512),
+    (2, 512, 5, 24, 100, 128),
 ])
 def test_ssd_kernel_matches_plain(dev, dtype, B, S, H, dh, N, chunk):
     """y and the final state against ``ssd_chunked``: y within 1e-4 of

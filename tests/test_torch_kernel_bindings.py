@@ -21,6 +21,7 @@ LIBRARIES = {
     "cluster_attention_unbiased_fwd": tca.LIBRARY_UNBIASED,
     "cluster_attention_unbiased_fwd_sm90": tca.LIBRARY_UNBIASED_SM90,
     "cluster_attention_bwd": tcab.LIBRARY,
+    "cluster_attention_bwd_dq_sm90": tcab.LIBRARY_DQ_SM90,
     "cluster_attention_bwd_dkv_sm90": tcab.LIBRARY_DKV_SM90,
     "cluster_attention_unbiased_bwd": tcab.LIBRARY_UNBIASED,
     "cluster_attention_unbiased_bwd_sm90": tcab.LIBRARY_UNBIASED_SM90,

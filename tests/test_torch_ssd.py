@@ -159,5 +159,31 @@ def test_ssd_check_launch():
     assert tssd.check_launch(8, 4, 512, "float32") is None
     assert "dh=128" in tssd.check_launch(128, 128, 256, "float32")
     assert "chunk=2048" in tssd.check_launch(64, 16, 2048, "float32")
-    assert "shared memory" in tssd.check_launch(64, 512, 256, "float32")
+    # the chunk-parallel kernels stream N in 64-wide tiles: no N is too
+    # wide for their shared memory
+    assert tssd.check_launch(64, 512, 256, "float32") is None
     assert "dtype" in tssd.check_launch(64, 16, 256, torch.float16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seq_len,d_head,n_state", [
+    (16384, 64, 128),   # Mamba2-2.7B's width, the tune phase's full case
+    (256, 8, 4),        # the reference's default case
+])
+def test_ssd_tuner_candidates_all_launch(dtype, seq_len, d_head, n_state):
+    """Every chunk the tuner offers (64, 128, 256, 512) passes the kernels'
+    ``check_launch`` at the tune phase's shapes in both dtypes: the
+    enumerator prunes none of them."""
+    from repro_torch.tune.schedule import enumerate_schedules
+
+    pruned = []
+    cands = enumerate_schedules("ssd", {"seq_len": seq_len,
+                                        "d_head": d_head,
+                                        "n_state": n_state,
+                                        "dtype": dtype}, pruned)
+    assert pruned == []
+    for chunk in (64, 128, 256, 512):
+        assert tssd.check_launch(d_head, n_state, min(chunk, seq_len),
+                                 dtype) is None
+    want = {min(ch, seq_len) for ch in (64, 128, 256, 512)}
+    assert {min(c.chunk, seq_len) for c in cands} == want

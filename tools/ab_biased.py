@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Hold this tree's bf16 biased cluster-sparse forward and dK/dV kernels
-(``cluster_attention_fwd_sm90.cu``, ``cluster_attention_bwd_dkv_sm90.cu``,
-rows 1 and 4 of PERF.md's kernel table) against the same sources of
-other checkouts, side by side on one CUDA card.
+"""Hold this tree's bf16 biased cluster-sparse forward, dQ and dK/dV
+kernels (``cluster_attention_fwd_sm90.cu``,
+``cluster_attention_bwd_dq_sm90.cu``, ``cluster_attention_bwd_dkv_sm90.cu``,
+rows 1, 3 and 4 of PERF.md's kernel table) against the same sources of
+other checkouts, side by side on one CUDA card. A checkout from before
+the bf16 dQ kernel ran bf16 dQ on the CUDA-core kernel of
+``cluster_attention_bwd.cu``: that one is built and launched in its
+place.
 
   git archive <commit> | tar -x -C _local/base
   python3 tools/ab_biased.py --base _local/base [--base _local/other ...]
 
-Every tree's two sources are built (one nvcc each, all started together)
-and launched through this tree's wrappers on the same seeded inputs at
+Every tree's three sources are built (one nvcc each, all started
+together) and launched through this tree's wrappers on the same seeded
+inputs at
 Graphormer-Large's heads (32 heads, Dh 24): the serve shape (the
 32768-node SBM, S=32800) and the nearly dense training rung of the
 8192-node graph (S=8224, the ladder rung with the most visited blocks,
 with the trainer's padded layout). Each output is compared with this
 tree's: bit-identical, or its largest difference (O and lse within 2e-2
-and 1e-4, dk and dv within 1e-2 of their largest value). Each kernel is
+and 1e-4, dq, the bias gradient, dk and dv within 1e-2 of their largest
+value). Each kernel is
 timed with CUDA events in turns (base, this tree, this tree, base; the
 median of ``--reps`` launches each) and the ratio of this tree's mean to
 the base's printed. Exits 1 when an output is out of tolerance, 2
@@ -35,8 +41,13 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = pathlib.Path("src/repro_torch/kernels/csrc")
 KERNELS = (("fwd", "cluster_attention_fwd_sm90.cu", "LIBRARY_SM90"),
+           ("dq", "cluster_attention_bwd_dq_sm90.cu", "LIBRARY_DQ_SM90"),
            ("dkv", "cluster_attention_bwd_dkv_sm90.cu", "LIBRARY_DKV_SM90"))
-TOL = {"out": 2e-2, "lse": 1e-4, "dk": 1e-2, "dv": 1e-2}
+# the source (and its binder) that ran a kernel's bf16 work in trees
+# without its source: the CUDA-core dQ of both dtypes
+LEGACY = {"dq": ("cluster_attention_bwd.cu", "_bind")}
+TOL = {"out": 2e-2, "lse": 1e-4, "dq": 1e-2, "dbias": 1e-2, "dk": 1e-2,
+       "dv": 1e-2}
 
 
 def main() -> int:
@@ -65,11 +76,21 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    mods = {"fwd": tca, "dkv": tcab}
+    mods = {"fwd": tca, "dq": tcab, "dkv": tcab}
     trees = {"this": None, **{str(b): b.resolve() for b in args.base}}
-    libs = {half: {t: getattr(mods[half], attr) if root is None else
-                   kbuild.CudaLibrary(root / CSRC / src,
-                                      getattr(mods[half], attr)._bind)
+
+    def library(half, src, attr, root):
+        """This tree's library of a kernel, or another tree's (its own
+        source, or the one that ran the kernel's bf16 work there)."""
+        if root is None:
+            return getattr(mods[half], attr)
+        if not (root / CSRC / src).exists() and half in LEGACY:
+            old, bind = LEGACY[half]
+            return kbuild.CudaLibrary(root / CSRC / old,
+                                      getattr(mods[half], bind))
+        return kbuild.CudaLibrary(root / CSRC / src,
+                                  getattr(mods[half], attr)._bind)
+    libs = {half: {t: library(half, src, attr, root)
                    for t, root in trees.items()}
             for half, src, attr in KERNELS}
     kbuild.build_all([lib for per in libs.values() for lib in per.values()])
@@ -79,13 +100,37 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"[build] {half} {tree}: {line.strip()}")
 
+    def legacy_dq(lib, q, k, v, do, lse, delta, bi, bu, bias):
+        """bf16 dQ on a tree's CUDA-core ``cluster_attention_bwd_dq``."""
+        B, S, H, Dh = q.shape
+        nq, mb = bi.shape[-2:]
+        nb = bias.shape[1]
+        dq = torch.empty_like(q)
+        db = torch.empty((B, H, nq, nb), dtype=torch.float32, device=dev)
+        err = lib.lib().cluster_attention_bwd_dq(
+            *(x.data_ptr() for x in (q, k, v, do, lse, delta, bi, bu, bias,
+                                     dq, db)),
+            1, B, S, H, k.shape[2], Dh, nq, mb, 32, 32, nb,
+            int(bi.dim() == 3), Dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"legacy dQ launch failed: CUDA error {err}")
+        return dq, db
+
     def run(half, tree, *operands):
-        _, _, attr = next(x for x in KERNELS if x[0] == half)
+        _, src, attr = next(x for x in KERNELS if x[0] == half)
+        lib = libs[half][tree]
+        if half == "dq" and lib.source.name != src:
+            dq, db = legacy_dq(lib, *operands)
+            return dq, db.sum(dim=(0, 2))
         saved = getattr(mods[half], attr)
-        setattr(mods[half], attr, libs[half][tree])
+        setattr(mods[half], attr, lib)
         try:
             if half == "fwd":
                 return tca.cluster_attention_fwd(*operands, return_lse=True)
+            if half == "dq":
+                dq, db = tcab.dq_kernel(*operands)
+                return dq, db.sum(dim=(0, 2))
             return tcab.dkv_kernel(*operands)
         finally:
             setattr(mods[half], attr, saved)
@@ -131,8 +176,10 @@ def main() -> int:
                                            return_lse=True)
         delta = ref.row_delta(do, o)
         operands = {"fwd": (q, k, v, bi, bu, bias),
+                    "dq": (q, k, v, do, lse, delta, bi, bu, bias),
                     "dkv": (q, k, v, do, lse, delta, bi, bit, bu, bias)}
-        names = {"fwd": ("out", "lse"), "dkv": ("dk", "dv")}
+        names = {"fwd": ("out", "lse"), "dq": ("dq", "dbias"),
+                 "dkv": ("dk", "dv")}
         for half, _, _ in KERNELS:
             outs = {t: run(half, t, *operands[half]) for t in trees}
             torch.cuda.synchronize()
