@@ -48,6 +48,14 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    plain half timed, one
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    timed beside the flash kernels, forward and backward;
+3e. the biased forward, dQ and dK/dV at the graph-level task's 16 x 16
+   blocks vs their plain versions, on the packed layout of 128 mini-graphs
+   (S=128, per-graph 3-D layouts with dead rows): GT heads (H=8, Dh=16,
+   a 1-wide table) and Graphormer-Slim heads (Dh=8, 3 buckets, a random
+   table), bf16 and fp32, each launch on its own counter (the 16-block
+   instantiations count apart); each kernel timed beside its plain
+   version, bound and exp floor, and one SDPA call with the dense
+   (B, H, S, S) additive mask, forward and backward;
 4. serve (the first main path): GraphServe on Graphormer-Large at full
    width, seeded random weights, on the 32768-node SBM — 64 node and 2x64
    link queries, answered twice (the second time from the layout cache).
@@ -80,7 +88,20 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    on its default case), then the full-width flash and SSD cases, then
    ``check_regression`` (the cluster entry, the full-width flash and SSD
    winners); every winner gated kernel-vs-plain, the table read back by
-   CUDA dispatch, each flash and SSD kernel launched.
+   CUDA dispatch, each flash and SSD kernel launched;
+8. graph-level train (slice 10's main path, as ``--task graph`` runs it):
+   GT at full width on 256 graphs of ``synthetic_graph_level_dataset``
+   (seed 1) in mini-batches of 128 at 16 x 16 blocks, 64 held out (seed
+   2), 16 steps, dense at 0 and 8, an AutoTuner epoch every step; each
+   sparse step must launch the bf16 16-block forward, dQ and dK/dV once
+   a layer and nothing else, each dense step nothing; step 0's sparse
+   loss and gradients held against ``impl="plain"``; step ms (sparse and
+   dense apart), host prep, loss, held-out accuracy, peak memory. Then
+   Graphormer-Slim at full width, 8 steps on the same data (a random
+   nonzero bias table and its gradient through the 16-block kernels);
+9. link train (``--task link``): GT at full width on the launcher's
+   2048-node SBM at 32 x 32 blocks, 256 pairs a step, 16 steps, dense at
+   0 and 8, checked and reported as phase 8.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after.
@@ -155,6 +176,17 @@ CLUSTERS = 32
 QUERIES = 64
 LM_SEQ = 16384          # Qwen3-0.6B training sequence (window 4096)
 LM_STEPS = 4
+# the graph-level task: synthetic_graph_level_dataset (60-119 nodes a
+# graph, so S=128 at 16 x 16 blocks) in mini-batches of 128 graphs
+GRAPH_TRAIN = 256       # training graphs (seed 1)
+GRAPH_EVAL = 64         # held-out graphs (seed 2)
+GRAPH_BATCH = 128       # graphs a mini-batch
+GRAPH_STEPS = 16        # GT
+SLIM_GRAPH_STEPS = 8    # Graphormer-Slim
+# the link task: the launcher's SBM (4 clusters, p_in 0.04, p_out 0.002)
+LINK_NODES = 2048
+LINK_PAIRS = 256
+LINK_STEPS = 16
 
 
 def log(msg: str) -> None:
@@ -631,12 +663,14 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.core.graph import sbm_graph
     from repro_torch.core.graph_model import (GraphModel, graph_forward,
                                               graph_predict)
     from repro_torch.core.reformation import (build_layout,
                                               lm_local_global_layout,
                                               transpose_block_idx)
-    from repro_torch.data.graph_pipeline import prepare_node_task
+    from repro_torch.data.graph_pipeline import (prepare_graph_task,
+                                                 prepare_node_task)
     from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
     from repro_torch.core.graph_model import graph_loss
     from repro_torch.kernels import build as kbuild
@@ -649,7 +683,9 @@ def main() -> int:
     from repro_torch.models.lm import LMModel, lm_loss
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.serve import GraphServe
-    from repro_torch.tasks import BatchFnTask, NodeTask
+    from repro_torch.tasks import (BatchFnTask, GraphLevelTask, LinkTask,
+                                   NodeTask, link_loss,
+                                   synthetic_graph_level_dataset)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -723,16 +759,24 @@ def main() -> int:
             EX2_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6) * 1e3
 
     def fwd_counts():
-        return tca.launches, tca.sm90_launches
+        return tca.launches, tca.sm90_launches, tca.sm90_b16_launches
 
     def bwd_counts():
-        return (tcab.dq_launches, tcab.dq_sm90_launches, tcab.dkv_launches,
-                tcab.dkv_sm90_launches)
+        return (tcab.dq_launches, tcab.dq_sm90_launches,
+                tcab.dq_sm90_b16_launches, tcab.dkv_launches,
+                tcab.dkv_sm90_launches, tcab.dkv_sm90_b16_launches)
+
+    def one_kernel(q, bu):
+        """Which of a biased kernel's counters (fp32, bf16 at 32 x 32,
+        bf16 at 16 x 16) one launch on these operands adds to."""
+        sm90 = q.dtype == torch.bfloat16
+        b16 = sm90 and bu.shape[-1] == 16
+        return (int(not sm90), int(sm90 and not b16), int(b16))
 
     def compare(tag, q, k, v, bi, bu, bias):
         """Kernel vs plain on identical inputs, O and lse; bf16 must run
-        the tensor-core forward, fp32 the CUDA-core one. Returns the max
-        abs error of O."""
+        the tensor-core forward of its block size, fp32 the CUDA-core
+        one. Returns the max abs error of O."""
         dt = str(q.dtype).split(".")[1]
         before = fwd_counts()
         o, lse = ops.cluster_attention(q, k, v, bi, bu, bias,
@@ -740,12 +784,11 @@ def main() -> int:
         po, plse = ops.cluster_attention(q, k, v, bi, bu, bias,
                                          return_lse=True, impl="plain")
         torch.cuda.synchronize()
-        sm90 = dt == "bfloat16"
-        if fwd_counts() != (before[0] + (not sm90), before[1] + sm90):
+        want = tuple(a + b for a, b in zip(before, one_kernel(q, bu)))
+        if fwd_counts() != want:
             raise AssertionError(f"{tag} {dt}: forward launches "
-                                 f"{fwd_counts()} from {before}, want one "
-                                 f"on the {'sm90' if sm90 else 'fp32'} "
-                                 f"kernel")
+                                 f"{fwd_counts()} from {before}, want "
+                                 f"{want}")
         err = (o.float() - po.float()).abs().max().item()
         lerr = (lse - plse).abs().max().item()
         ok = torch.allclose(o.float(), po.float(), atol=TOL_O[dt],
@@ -811,9 +854,10 @@ def main() -> int:
         """Backward kernels vs the plain backward on identical inputs:
         dq, dk, dv and dbias, each as max|diff| over max|plain|; returns
         the max abs errors of (dq, max of dk and dv). Where every bucket
-        is equal, softmax cancels the bias, so dbias is zero up to
-        rounding: it must then be below TOL_GRAD in absolute value."""
-        uniform = bool((bu == bu.flatten()[0]).all())
+        is equal, or the table has one column (every bucket clips onto
+        it), softmax cancels the bias, so dbias is zero up to rounding: it
+        must then be below TOL_GRAD in absolute value."""
+        uniform = bias.shape[1] == 1 or bool((bu == bu.flatten()[0]).all())
         dt = str(q.dtype).split(".")[1]
         out, lse, dout = bwd_inputs(q, k, v, bi, bu, bias, seed)
         before = bwd_counts()
@@ -822,12 +866,13 @@ def main() -> int:
         want = ref.cluster_attention_bwd(q, k, v, dout, out, lse, bi, bu,
                                          bias, bit)
         torch.cuda.synchronize()
-        # dQ and dK/dV on the tensor cores in bf16, on CUDA cores in fp32
-        sm90 = dt == "bfloat16"
-        if bwd_counts() != (before[0] + (not sm90), before[1] + sm90,
-                            before[2] + (not sm90), before[3] + sm90):
+        # dQ and dK/dV on the tensor cores in bf16 (the instantiation of
+        # the block size), on CUDA cores in fp32
+        want_n = tuple(a + b for a, b in zip(before, 2 * one_kernel(q, bu)))
+        if bwd_counts() != want_n:
             raise AssertionError(f"{tag} {dt}: backward launches "
-                                 f"{bwd_counts()} from {before}")
+                                 f"{bwd_counts()} from {before}, want "
+                                 f"{want_n}")
         rels, errs = [], []
         for i, (x, y) in enumerate(zip(got, want)):
             d = (x.float() - y.float()).abs().max().item()
@@ -1484,6 +1529,117 @@ def main() -> int:
     # -------------- 3d. the flash and SSD kernels (rows 7-10) vs plain
     flash_rec = flash_ssd_kernels(dev)
 
+    # ------------ 3e. the biased kernels at 16 x 16 blocks (rows 1, 3, 4)
+    def b16_kernels():
+        """Rows 1, 3 and 4 at the graph-level task's 16 x 16 blocks, on
+        the packed layout of the first mini-batch of phase 8 (128 graphs
+        of ``synthetic_graph_level_dataset``, per-graph 3-D layouts, the
+        smaller graphs' trailing q-block rows dead, the host-built
+        transposed layout): GT heads (H=8, Dh=16) with a 1-wide table (GT
+        has no bias; the op gives it a zero one, here random) and
+        Graphormer-Slim heads (H=8, Dh=8) with 3 buckets and a random
+        table, in bf16 and fp32. Each kernel against its plain version
+        (``compare``, ``compare_bwd``: each launch on its own counter),
+        then timed beside its plain version, bound and exp floor; in bf16
+        one SDPA call with the layout as a dense (B, H, S, S) additive
+        mask, forward and backward, on PyTorch's own pick of backend."""
+        gcfg = get_config("gt")
+        prep = prepare_graph_task(
+            synthetic_graph_level_dataset(GRAPH_BATCH, gcfg, seed=1), gcfg,
+            bq=16, bk=16, with_dense_buckets=True)
+        b = prep.batch
+        bi, bu = to_dev(b["block_idx"]), to_dev(b["buckets"])
+        bit, dense_b = to_dev(b["block_idx_t"]), to_dev(b["dense_buckets"])
+        B, S = bi.shape[0], prep.layout.seq_len
+        live = (dense_b >= 0).any(-1)           # (B, S): rows not dead
+        rec = {"graphs": B, "S": S, "bq": 16, "nq": bi.shape[1],
+               "mb": bi.shape[2], "mt": bit.shape[2],
+               "active_blocks": int((bi >= 0).sum()),
+               "dead_q_blocks": int((bi < 0).all(-1).sum()),
+               "live_rows": int(live.sum())}
+        log(f"[b16] graph-level layout: {B} graphs, S={S}, bq=bk=16, "
+            f"nq={rec['nq']} mb={rec['mb']} mt={rec['mt']}, "
+            f"{rec['active_blocks']} active blocks, {rec['dead_q_blocks']} "
+            f"dead q-blocks, {rec['live_rows']} of {B * S} rows live")
+        for name, cfg_, nb in (("gt", gcfg, 1), ("graphormer_slim", slim, 3)):
+            H_, KV_, Dh_ = cfg_.n_heads, cfg_.kv_heads, cfg_.head_dim
+            r = rec[name] = {"H": H_, "Dh": Dh_, "n_buckets": nb}
+            for dtype in (torch.bfloat16, torch.float32):
+                dt = str(dtype).split(".")[1]
+                q, k, v, bias = random_qkv(B, S, H_, KV_, Dh_, nb, dtype,
+                                           seed=31)
+                tag = f"16x16 {name} H={H_} Dh={Dh_} nb={nb}"
+                err = compare(tag, q, k, v, bi, bu, bias)
+                err_dq, err_dkv = compare_bwd(tag, q, k, v, bi, bu, bias,
+                                              bit, seed=32)
+                out, lse, dout = bwd_inputs(q, k, v, bi, bu, bias, seed=33)
+                delta = ref.row_delta(dout, out)
+                runs = {
+                    "fwd": (lambda: tca.cluster_attention_fwd(
+                        q, k, v, bi, bu, bias, return_lse=True),
+                        lambda: ref.cluster_sparse_attention(
+                            q, k, v, bi, bu, bias, return_lse=True), err),
+                    "dq": (lambda: tcab.dq_kernel(
+                        q, k, v, dout, lse, delta, bi, bu, bias),
+                        lambda: ref.bwd_dq(q, k, v, dout, lse, delta, bi,
+                                           bu, bias), err_dq),
+                    "dkv": (lambda: tcab.dkv_kernel(
+                        q, k, v, dout, lse, delta, bi, bit, bu, bias),
+                        lambda: ref.bwd_dkv(q, k, v, dout, lse, delta, bi,
+                                            bit, bu, bias), err_dkv)}
+                d = r[dt] = {}
+                for kind, (kern, plain, e) in runs.items():
+                    x = d[kind] = {"max_abs_err": e, "ms": cuda_ms(kern, 20),
+                                   "plain_ms": cuda_ms(plain, 3),
+                                   "exp_floor_ms": exp_floor(q, bi, bu)}
+                    x["bound_ms"], x["bound_by"] = (
+                        bound(q, k, v, bi, bu, with_lse=True)
+                        if kind == "fwd" else
+                        bound_bwd(kind, q, k, bi, bu, bit, nb))
+                    log(f"[b16] {tag} {dt} {kind}: kernel {x['ms']:.4f} ms, "
+                        f"plain {x['plain_ms']:.4f} ms, bound "
+                        f"{x['bound_ms']:.4f} ms ({x['bound_by']}), "
+                        f"{x['bound_ms'] / x['ms']:.2%} of bound, exp floor "
+                        f"{x['exp_floor_ms']:.4f} ms")
+                if dtype == torch.bfloat16:
+                    b16_sdpa(q, k, v, bias, dense_b, live, out, r)
+                del q, k, v, out, lse, dout, delta
+                torch.cuda.empty_cache()
+        return rec
+
+    def b16_sdpa(q, k, v, bias, dense_b, live, out, r):
+        """One SDPA call with the packed layout as a dense (B, H, S, S)
+        bf16 additive mask (each head's bias of the clipped bucket, -inf
+        where masked), forward and backward, on PyTorch's own pick of
+        backend, into ``r``; its O held to the kernel's on the live rows
+        (a dead row's SDPA output is NaN)."""
+        nb = bias.shape[1]
+        idx = dense_b.clamp(0, nb - 1).long()
+        mask = bias.to(torch.bfloat16)[:, idx].permute(1, 0, 2, 3) \
+            .masked_fill((dense_b < 0)[:, None], float("-inf")).contiguous()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask)
+        ref_o = sdpa().transpose(1, 2)[live].float()
+        err = (out[live].float() - ref_o).abs().max().item()
+        tol = TOL_O["bfloat16"]
+        if not torch.allclose(out[live].float(), ref_o, atol=tol, rtol=tol):
+            raise AssertionError(f"16x16 kernel vs SDPA: max|dO|={err}")
+        r["library_ms"] = cuda_ms(sdpa, 20)
+        r["max_abs_err_vs_library"] = err
+        sdpa_bwd_ms(qt, kt, vt, mask, r)
+        log(f"[b16] H={q.shape[2]} Dh={q.shape[3]}: SDPA with the dense "
+            f"(B, H, S, S) mask ({mask.numel() * 2 / 1e6:.1f} MB), forward "
+            f"{r['library_ms']:.4f} ms (max|dO| {err:.3g} on live rows), "
+            f"backward " + (f"{r['library_bwd_ms']:.4f} ms"
+                            if "library_bwd_ms" in r
+                            else r["library_bwd_error"]))
+        del mask, qt, kt, vt, ref_o
+
+    b16_rec = b16_kernels()
+
     # ------------------------------------------- 4. serve (first main path)
     def reset_counts():
         tca.reset_count()
@@ -1494,10 +1650,15 @@ def main() -> int:
     def read_counts():
         return {"cluster_attention_fwd": tca.launches,
                 "cluster_attention_fwd_sm90": tca.sm90_launches,
+                "cluster_attention_fwd_sm90_b16": tca.sm90_b16_launches,
                 "cluster_attention_bwd_dq": tcab.dq_launches,
                 "cluster_attention_bwd_dq_sm90": tcab.dq_sm90_launches,
+                "cluster_attention_bwd_dq_sm90_b16":
+                    tcab.dq_sm90_b16_launches,
                 "cluster_attention_bwd_dkv": tcab.dkv_launches,
                 "cluster_attention_bwd_dkv_sm90": tcab.dkv_sm90_launches,
+                "cluster_attention_bwd_dkv_sm90_b16":
+                    tcab.dkv_sm90_b16_launches,
                 "cluster_attention_fwd_unbiased": tca.unbiased_launches,
                 "cluster_attention_fwd_unbiased_sm90":
                     tca.unbiased_sm90_launches,
@@ -2013,8 +2174,175 @@ def main() -> int:
 
     lm_run = train_lm()
 
-    # ------------------------------------ 7. tune (this slice's main path)
+    # ------------------------------------ 7. tune (slice 4's main path)
     tune_run = tune_phase(dev, reset_counts, read_counts)
+
+    # ------------------- 8. graph-level train and 9. link train (slice 10)
+    def step_check(model, loss_fn, batch, tag):
+        """One sparse step's loss and gradients on the initial parameters,
+        kernel path vs ``impl="plain"`` on the same batch (before the run,
+        outside its launch counts): loss within TOL_STEP_LOSS_REL, every
+        reached parameter's gradient at a cosine of at least
+        MIN_GRAD_COSINE."""
+        named = list(model.named_parameters())
+
+        def loss_grads(impl):
+            loss, _ = loss_fn(model, batch, impl=impl)
+            return loss.detach().float(), torch.autograd.grad(
+                loss, [p for _, p in named], allow_unused=True)
+        kl, kg = loss_grads(None)
+        pl_, pg = loss_grads("plain")
+        loss_rel = (abs(kl - pl_) / abs(pl_)).item()
+        cos = {n: F.cosine_similarity(a.flatten().float(),
+                                      c.flatten().float(), dim=0,
+                                      eps=1e-30).item()
+               for (n, _), a, c in zip(named, kg, pg) if a is not None}
+        worst = min(cos, key=cos.get)
+        log(f"[{tag}] step 0 sparse, kernel vs plain path: loss "
+            f"{kl.item():.6f} vs {pl_.item():.6f} (rel {loss_rel:.3g}, tol "
+            f"{TOL_STEP_LOSS_REL}); gradient cosine min {cos[worst]:.6f} "
+            f"({worst}; min {MIN_GRAD_COSINE})")
+        if not (loss_rel <= TOL_STEP_LOSS_REL
+                and cos[worst] >= MIN_GRAD_COSINE):
+            raise AssertionError(f"{tag}: kernel and plain paths disagree")
+        return {"loss_rel": loss_rel, "min_grad_cosine": [worst, cos[worst]]}
+
+    def train_task(cfg, task, steps, tag, sparse_kernels, prep_s):
+        """``steps`` steps of ``task`` through the Trainer (dense every
+        ``cfg.interleave_period``, an AutoTuner epoch every step), each
+        sparse step held to launching each of ``sparse_kernels`` (names in
+        ``read_counts``) once a layer and nothing else, each dense step
+        to launching nothing. Returns the run's record."""
+        model = GraphModel(cfg, device=dev, seed=0)
+        if hasattr(model, "bias_table"):  # a nonzero table and gradient
+            gen = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                model.bias_table.copy_(
+                    torch.randn(model.bias_table.shape, generator=gen) * 0.5)
+        n_params = sum(p.numel() for p in model.parameters())
+        lay = task.layout
+        log(f"[{tag}] {cfg.name}: {n_params:,} params, {cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+            f"{cfg.kv_heads}, d_head {cfg.head_dim}, d_ff {cfg.d_ff}, "
+            f"{cfg.dtype} compute; {task.n_batches} mini-batch(es) of "
+            f"{task.prep.batch['feat'].shape[0]} sequence(s), S="
+            f"{lay.seq_len}, bq=bk={lay.bq}, mb_cap={task.mb_cap}, "
+            f"{len(task._preps)} ladder rungs; host prep {prep_s:.2f}s")
+        check = step_check(model, lambda m, b, impl: (
+            link_loss(m, b, impl=impl) if task.name == "link" else
+            graph_loss(m, b, impl=impl)), task.batches(0), tag)
+        tr = Trainer(model, TrainerConfig(
+            steps=steps, lr=1e-3, warmup=2,
+            interleave_period=cfg.interleave_period,
+            elastic_every=cfg.elastic_every), task=task)
+        per_layer = {name: cfg.n_layers for name in sparse_kernels}
+        run_step = tr.step
+
+        def checked_step(variant, batch):
+            before = read_counts()
+            m = run_step(variant, batch)
+            now = read_counts()
+            got = {n: now[n] - before[n] for n in now}
+            want = only(**per_layer) if variant == "sparse" else only()
+            if got != want:
+                raise AssertionError(
+                    f"{tag}: a {variant} step launched "
+                    f"{ {n: c for n, c in got.items() if c} }, want "
+                    f"{ {n: c for n, c in want.items() if c} }")
+            return m
+        tr.step = checked_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        hist = tr.history
+        for h in hist:
+            log(f"[{tag}] step {h['step']:2d} [{h['variant']:6s}] loss "
+                f"{h['loss']:.4f} acc {h['acc']:.4f} "
+                f"{h['seconds'] * 1e3:9.2f} ms beta_thre "
+                f"{h['beta_thre']:.5f}")
+        for m in task.moves:
+            log(f"[{tag}] ladder move @ step {m.step}: pos={m.pos} "
+                f"beta_thre={m.beta_thre:.5f} (LDR {m.ldr:+.3e})")
+        ev = task.eval(model)
+        losses = [h["loss"] for h in hist]
+        dense_at = [i for i, h in enumerate(hist) if h["dense"]]
+        # step 0 carries the first call's start-up (allocator, cuBLAS)
+        sparse_ms = [h["seconds"] * 1e3 for h in hist if not h["dense"]]
+        dense_ms = [h["seconds"] * 1e3 for h in hist[1:] if h["dense"]]
+        n_sparse = len(sparse_ms)
+        want_dense = list(range(0, steps, cfg.interleave_period))
+        if dense_at != want_dense or not np.isfinite(losses).all() or any(
+                h["skipped"] for h in hist) or counts != only(
+                **{n: n_sparse * cfg.n_layers for n in sparse_kernels}):
+            raise AssertionError(f"{tag}: dense steps {dense_at} (want "
+                                 f"{want_dense}), losses {losses}, "
+                                 f"launches {counts}")
+        rec = {"config": cfg.name, "params": n_params, "steps": hist,
+               "moves": [vars(m) for m in task.moves], "eval": ev,
+               "run_s": run_s, "prep_s": prep_s, "peak_bytes": peak,
+               "launches": counts, "step0_check": check,
+               "sparse_step_ms_median": float(np.median(sparse_ms)),
+               "dense_step_ms_median": (float(np.median(dense_ms))
+                                        if dense_ms else None),
+               "dense_step0_ms": hist[0]["seconds"] * 1e3,
+               "S": lay.seq_len, "bq": lay.bq, "profile": {}}
+        # one sparse and one dense step on the first mini-batch, profiled
+        # against the wall of the same step unprofiled just before
+        batch = task.batches(0)
+        for variant in ("sparse", "dense"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step(variant, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            rec["profile"][variant] = device_breakdown(
+                lambda: tr.step(variant, batch), wall, tag=tag,
+                what=f"one {variant} step", focus="cluster")
+        log(f"[{tag}] {steps} steps in {run_s:.2f}s, dense at {dense_at}; "
+            f"sparse step median {rec['sparse_step_ms_median']:.2f} ms, "
+            f"dense step median "
+            + (f"{rec['dense_step_ms_median']:.2f} ms" if dense_ms else
+               "n/a") + f" (step 0 {rec['dense_step0_ms']:.2f} ms); loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; held-out "
+            + " ".join(f"{k} {v:.4f}" for k, v in ev.items())
+            + f"; peak {peak / 2**30:.2f} GiB; launches "
+            f"{ {n: c for n, c in counts.items() if c} }")
+        del tr, model, batch
+        torch.cuda.empty_cache()
+        return rec
+
+    b16_names = ("cluster_attention_fwd_sm90_b16",
+                 "cluster_attention_bwd_dq_sm90_b16",
+                 "cluster_attention_bwd_dkv_sm90_b16")
+    b32_names = ("cluster_attention_fwd_sm90", "cluster_attention_bwd_dq_sm90",
+                 "cluster_attention_bwd_dkv_sm90")
+    gt = get_config("gt")
+    graph_runs = {}
+    for cfg_, steps in ((gt, GRAPH_STEPS), (slim, SLIM_GRAPH_STEPS)):
+        t0 = time.perf_counter()
+        gtask = GraphLevelTask(
+            synthetic_graph_level_dataset(GRAPH_TRAIN, cfg_, seed=1), cfg_,
+            eval_graphs=synthetic_graph_level_dataset(GRAPH_EVAL, cfg_,
+                                                      seed=2),
+            batch_graphs=GRAPH_BATCH, device=dev)
+        prep_s = time.perf_counter() - t0
+        graph_runs[cfg_.name] = train_task(cfg_, gtask, steps, "graph-train",
+                                           b16_names, prep_s)
+        del gtask
+
+    t0 = time.perf_counter()
+    ltask = LinkTask(sbm_graph(LINK_NODES, 4, p_in=0.04, p_out=0.002,
+                               feat_dim=gt.feat_dim, n_classes=gt.n_classes,
+                               seed=0), gt, n_pairs=LINK_PAIRS, device=dev)
+    link_run = train_task(gt, ltask, LINK_STEPS, "link-train", b32_names,
+                          time.perf_counter() - t0)
+    del ltask
 
     # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
@@ -2022,7 +2350,8 @@ def main() -> int:
     yard_s = yard[str(SERVE_NODES)]
 
     def launches(name):
-        return main_path["launches"][name] + train_run["launches"][name]
+        return (main_path["launches"][name] + train_run["launches"][name]
+                + link_run["launches"][name])
 
     rung = train_run["rung"]
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2031,7 +2360,10 @@ def main() -> int:
     # CUDA-core one is `source_float32`, counted in `launches_float32`
     # (0 on the main paths) and timed under `float32`. Times at the serve
     # shape, under `rung` at the nearly dense training rung and, for dQ,
-    # under `sparse_rung` at the sparse one.
+    # under `sparse_rung` at the sparse one. These entries are the 32 x
+    # 32 instantiations (serve, node train, link train); the `_b16`
+    # entries below are the same sources' 16 x 16 instantiations, which
+    # the graph-level runs launched.
     kernels = [{
         "name": "cluster_attention_fwd", "route": "cuda",
         "source": csrc + "cluster_attention_fwd_sm90.cu",
@@ -2039,7 +2371,8 @@ def main() -> int:
         "launches": launches("cluster_attention_fwd_sm90"),
         "launches_by_path": {
             "serve": main_path["launches"]["cluster_attention_fwd_sm90"],
-            "train": train_run["launches"]["cluster_attention_fwd_sm90"]},
+            "train": train_run["launches"]["cluster_attention_fwd_sm90"],
+            "link_train": link_run["launches"]["cluster_attention_fwd_sm90"]},
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "exp_floor_ms": rec["exp_floor_ms"],
@@ -2078,6 +2411,7 @@ def main() -> int:
                or k == "heavy_row"}})
     kernels[1]["sparse_rung"] = train_run["sparse_rung"]
     kernels[0]["train"] = train_run
+    kernels[0]["link_train"] = link_run
     # the unbiased kernels of the LM path: times at the Qwen3-0.6B training
     # shape in bf16, launches from the LM training run
     for half, name, src, line in (
@@ -2162,6 +2496,41 @@ def main() -> int:
             rec["launches_float32"] = tune_run["launches"][name]
         kernels.append(rec)
     kernels[-1]["tune"] = tune_run
+    # the 16 x 16 instantiations of rows 1, 3 and 4: times at the
+    # graph-level shape with GT's heads (phase 3e), launches from the GT
+    # and Graphormer-Slim graph-level runs (phase 8)
+    for half, name, line in (
+            ("fwd", "cluster_attention_fwd", "cluster_attention.py:127"),
+            ("dq", "cluster_attention_bwd_dq", "cluster_attention_bwd.py:152"),
+            ("dkv", "cluster_attention_bwd_dkv",
+             "cluster_attention_bwd.py:244")):
+        b = b16_rec["gt"]["bfloat16"][half]
+        cnt = {run: r["launches"][f"{name}_sm90_b16"]
+               for run, r in graph_runs.items()}
+        kernels.append({
+            "name": f"{name}_b16", "route": "cuda",
+            "source": csrc + f"{name}_sm90.cu",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": sum(cnt.values()), "launches_by_path": cnt,
+            "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "exp_floor_ms": b["exp_floor_ms"],
+            # one SDPA call with the dense (B, H, S, S) mask at the same
+            # shape (its backward, dq + dk + dv, for dQ and dK/dV)
+            "library_ms": b16_rec["gt"].get(
+                "library_ms" if half == "fwd" else "library_bwd_ms"),
+            "library_error": b16_rec["gt"].get("library_bwd_error"),
+            "shape": {k: v for k, v in b16_rec.items()
+                      if not isinstance(v, dict)},
+            "graphormer_slim": {
+                **b16_rec["graphormer_slim"]["bfloat16"][half],
+                "library_ms": b16_rec["graphormer_slim"].get(
+                    "library_ms" if half == "fwd" else "library_bwd_ms")},
+            "float32": b16_rec["gt"]["float32"][half],
+            "source_float32": csrc + ("cluster_attention_fwd.cu"
+                                      if half == "fwd" else
+                                      "cluster_attention_bwd.cu")})
+    kernels[-3]["graph_train"] = graph_runs
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -86,7 +86,7 @@ class ModelConfig:
 
 
 # the archs the port runs so far: graph family, and the dense LMs
-GRAPH_ARCHS = ["graphormer_slim", "graphormer_large"]
+GRAPH_ARCHS = ["graphormer_slim", "graphormer_large", "gt"]
 LM_ARCHS = ["qwen3_0_6b", "smollm_135m"]
 ARCHS = GRAPH_ARCHS + LM_ARCHS
 

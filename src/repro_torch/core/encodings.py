@@ -4,7 +4,8 @@
 * degree encodings: learnable embeddings indexed by in/out degree
   (Graphormer Eq. 2),
 * SPD buckets: shortest-path-distance matrix for the attention bias
-  (Graphormer Eq. 3) — BFS per node, capped; small graphs only (O(N*E)).
+  (Graphormer Eq. 3) — BFS per node, capped; small graphs only (O(N*E)),
+* Laplacian positional encodings (GT model).
 """
 
 from __future__ import annotations
@@ -38,6 +39,23 @@ def spd_matrix(g: Graph, max_spd: int = 16) -> np.ndarray:
                         nxt.append(u)
             frontier = nxt
     return out
+
+
+def lap_pe(g: Graph, k: int = 8) -> np.ndarray:
+    """First k non-trivial eigenvectors of the symmetric normalized
+    Laplacian (GT positional encodings). Dense eigh — small graphs only."""
+    n = g.n
+    a = np.zeros((n, n), np.float64)
+    a[g.src, g.dst] = 1.0
+    a = np.maximum(a, a.T)
+    d = a.sum(1)
+    dinv = 1.0 / np.sqrt(np.maximum(d, 1e-9))
+    lap = np.eye(n) - (a * dinv[None, :]) * dinv[:, None]
+    w, v = np.linalg.eigh(lap)
+    pe = v[:, 1:k + 1]
+    if pe.shape[1] < k:
+        pe = np.pad(pe, ((0, 0), (0, k - pe.shape[1])))
+    return pe.astype(np.float32)
 
 
 def degree_clip(deg: np.ndarray, max_degree: int) -> np.ndarray:

@@ -1,8 +1,10 @@
-"""Graph containers + the SBM generator (host-side, numpy): the port's
-copy of ``repro.core.graph``.
+"""Graph containers + generators (host-side, numpy): the port's copy of
+``repro.core.graph``.
 
-Graphs are stored as COO edge lists over contiguous int32 node ids. The
-SBM has strong clusters — the "community" property §III-C exploits.
+Graphs are stored as COO edge lists over contiguous int32 node ids.
+Generators cover the paper's regimes: SBM (strong clusters — the
+"community" property §III-C exploits) and power-law (skewed degrees —
+the irregularity §III-D fixes).
 """
 
 from __future__ import annotations
@@ -114,3 +116,29 @@ def sbm_graph(n: int, n_clusters: int, p_in: float, p_out: float,
         perm = rng.permutation(n)
         g = g.permuted(perm.astype(np.int64))
     return g
+
+
+def powerlaw_graph(n: int, m_per_node: int = 4, feat_dim: int = 0,
+                   n_classes: int = 0, seed: int = 0) -> Graph:
+    """Barabasi-Albert-style preferential attachment (skewed degrees)."""
+    rng = np.random.default_rng(seed)
+    src = np.arange(m_per_node, n, dtype=np.int64)
+    src = np.repeat(src, m_per_node)
+    # preferential attachment approximated by sampling previous endpoints
+    dst = np.empty_like(src)
+    targets = list(range(m_per_node))
+    pool = list(range(m_per_node))
+    k = 0
+    for v in range(m_per_node, n):
+        picks = rng.choice(len(pool), m_per_node, replace=True)
+        for j in range(m_per_node):
+            dst[k] = pool[picks[j]]
+            k += 1
+        pool.extend([v] * m_per_node)
+        pool.extend(dst[k - m_per_node:k].tolist())
+    feat = rng.normal(0, 1, (n, feat_dim)).astype(np.float32) \
+        if feat_dim else None
+    labels = rng.integers(0, n_classes, n).astype(np.int32) \
+        if n_classes else None
+    return Graph(n, src.astype(np.int32), dst.astype(np.int32),
+                 feat, labels).symmetrized()

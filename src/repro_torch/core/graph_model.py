@@ -1,4 +1,5 @@
-"""Graphormer on the port: degree encodings + dual-interleaved attention
+"""Graph transformers on the port (Graphormer-Slim/Large, GT): degree or
+Laplacian positional encodings + dual-interleaved attention
 (cluster-sparse over the reformation layout, or dense with the
 structural bias) — the port of ``repro.core.graph_model``
 (``graph_defs``, ``graph_forward``, ``apply_head``, ``graph_predict``,
@@ -10,6 +11,7 @@ Batch layout (built by data/graph_pipeline.py, moved to the device by
   feat       (B, S, F)      node features, zeros at global/pad positions
   in_deg     (B, S)         clipped degrees (0 at global/pad)
   out_deg    (B, S)
+  lap_pe     (B, S, 8)      Laplacian positional encodings (GT only)
   block_idx  (B, nq, mb)    cluster-sparse layout, int32
   buckets    (B, nq, mb, bq, bk) int8 bias/mask buckets
   block_idx_t (B, nk, mt, 2) transposed layout (the dK/dV backward)
@@ -32,9 +34,11 @@ from repro_torch.models import layers as L
 
 # numpy batch arrays -> the torch dtype each lives in on the device
 _BATCH_DTYPES = {"feat": torch.float32, "in_deg": torch.long,
-                 "out_deg": torch.long, "block_idx": torch.int32,
-                 "buckets": torch.int8, "block_idx_t": torch.int32,
-                 "labels": torch.long, "dense_buckets": torch.int8}
+                 "out_deg": torch.long, "lap_pe": torch.float32,
+                 "block_idx": torch.int32, "buckets": torch.int8,
+                 "block_idx_t": torch.int32, "labels": torch.long,
+                 "dense_buckets": torch.int8}
+PE_DIM = 8    # Laplacian eigenvectors GT projects (encodings.lap_pe's k)
 
 
 def _n_buckets(cfg) -> int:
@@ -68,6 +72,8 @@ def graph_defs(cfg) -> dict:
         defs["z_out"] = ((cfg.max_degree, D), "embed")
     if cfg.graph_bias:
         defs["bias_table"] = ((cfg.n_heads, _n_buckets(cfg)), "zeros")
+    if cfg.name.startswith("gt"):
+        defs["pe_proj"] = ((PE_DIM, D), "fan_in")
     return defs
 
 
@@ -81,10 +87,10 @@ class GraphLayer(nn.Module):
 
 
 class GraphModel(nn.Module):
-    """Graphormer with the reference's parameter names and shapes, so a
-    JAX parameter tree loads through ``convert.params_from_jax``.
-    ``seed`` drives the port's own init (same shapes and init families as
-    the reference, other random numbers)."""
+    """A graph transformer with the reference's parameter names and
+    shapes, so a JAX parameter tree loads through
+    ``convert.params_from_jax``. ``seed`` drives the port's own init (same
+    shapes and init families as the reference, other random numbers)."""
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -169,6 +175,8 @@ def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
     if hasattr(model, "z_in"):
         h = h + model.z_in[batch["in_deg"]].to(dtype)
         h = h + model.z_out[batch["out_deg"]].to(dtype)
+    if hasattr(model, "pe_proj"):
+        h = h + batch["lap_pe"].to(dtype) @ model.pe_proj.to(dtype)
     if cfg.n_global:
         # the leading n_global positions are the global tokens (a new
         # tensor rather than a write into h, so autograd sees a plain op)

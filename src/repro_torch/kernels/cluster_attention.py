@@ -5,10 +5,11 @@ attention forwards:
   (``src/repro/kernels/cluster_attention.py``): int8 bias buckets, the
   graph transformer's path. Each dtype has exactly one kernel, with no
   fallback between them: bfloat16 runs on the tensor cores
-  (``csrc/cluster_attention_fwd_sm90.cu``: ``mma.sync`` on 32-row tiles,
-  one warp per head, a ``cp.async`` ring of visited k-blocks), float32
-  on CUDA cores in fp32 throughout (``csrc/cluster_attention_fwd.cu``).
-  ``biased_kernel_reason`` states what the bf16 kernel takes;
+  (``csrc/cluster_attention_fwd_sm90.cu``: ``mma.sync`` on 16- or 32-row
+  tiles, one warp per head, a ``cp.async`` ring of visited k-blocks),
+  float32 on CUDA cores in fp32 throughout
+  (``csrc/cluster_attention_fwd.cu``). ``biased_kernel_reason`` states
+  what the bf16 kernel takes;
 * the ports of ``_cluster_kernel``: no buckets, an optional positional
   causal mask, the token LM's local+global path. Each dtype has exactly
   one kernel, with no fallback between them: bfloat16 runs on the tensor
@@ -47,8 +48,10 @@ UNBIASED_HEAD_DIMS = (64, 128)
 UNBIASED_TILE = 64
 UNBIASED_SM90_BLOCK = 128
 # what the bf16 biased kernels (forward, dQ and dK/dV) take: the graph
-# layouts' 32 x 32 blocks and head dims a multiple of 8 up to 64
-BIASED_SM90_BLOCK = 32
+# layouts' square blocks of 16 (the graph-level task's packed mini-graphs)
+# or 32 (one large graph) rows, each its own instantiation, and head dims
+# a multiple of 8 up to 64
+BIASED_SM90_BLOCKS = (16, 32)
 BIASED_SM90_HEAD_DIMS = tuple(range(8, 65, 8))
 # the bf16 forward and dQ cut a q-block row with more visits than
 # max(SPLIT_MIN_PIECE, SPLIT_MEAN_FACTOR x the mean row) into pieces of
@@ -58,14 +61,17 @@ SPLIT_MEAN_FACTOR = 4
 
 # kernel launches since the last reset_count(), one count per kernel
 launches = 0                # fp32 biased, cluster_attention_fwd.cu
-sm90_launches = 0           # bf16 biased, cluster_attention_fwd_sm90.cu
+sm90_launches = 0           # bf16 biased, cluster_attention_fwd_sm90.cu,
+sm90_b16_launches = 0       # at 32 x 32 and at 16 x 16 blocks
 unbiased_launches = 0       # fp32 unbiased, cluster_attention_unbiased_fwd.cu
 unbiased_sm90_launches = 0  # bf16 unbiased, ..._unbiased_fwd_sm90.cu
 
 
 def reset_count() -> None:
-    global launches, sm90_launches, unbiased_launches, unbiased_sm90_launches
-    launches = sm90_launches = unbiased_launches = unbiased_sm90_launches = 0
+    global launches, sm90_launches, sm90_b16_launches, unbiased_launches, \
+        unbiased_sm90_launches
+    launches = sm90_launches = sm90_b16_launches = 0
+    unbiased_launches = unbiased_sm90_launches = 0
 
 
 def _bind(lib) -> None:
@@ -161,15 +167,16 @@ def biased_kernel_reason(dtype, d_head: int, bq: int,
     head dim ``d_head`` and q/k-blocks of ``bq`` x ``bk``, or None when
     they do. float32 runs the CUDA-core kernels, which take any tile
     their shared memory holds; bfloat16 the tensor-core forward, dQ and
-    dK/dV, which take ``bq = bk = BIASED_SM90_BLOCK`` and Dh in
-    ``BIASED_SM90_HEAD_DIMS``."""
+    dK/dV, which take ``bq = bk`` of 16 or 32 (``BIASED_SM90_BLOCKS``:
+    the graph-level task's 16 x 16 blocks, the node and link tasks' 32 x
+    32) and Dh in ``BIASED_SM90_HEAD_DIMS``."""
     if dtype not in _DTYPES:
         return f"{dtype} (the kernels take float32 or bfloat16)"
     if dtype != torch.bfloat16:
         return None
-    if bq != BIASED_SM90_BLOCK or bk != BIASED_SM90_BLOCK:
-        return (f"bq={bq}, bk={bk} (the bf16 kernels take bq = bk = "
-                f"{BIASED_SM90_BLOCK})")
+    if bq != bk or bq not in BIASED_SM90_BLOCKS:
+        return (f"bq={bq}, bk={bk} (the bf16 kernels take bq = bk = 16 or "
+                f"32)")
     if d_head not in BIASED_SM90_HEAD_DIMS:
         return (f"Dh={d_head} (the bf16 kernels take Dh a multiple of 8 "
                 f"from 8 to 64)")
@@ -343,7 +350,7 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
             buckets.data_ptr(), bias.data_ptr())
     outs = (out.data_ptr(), _ptr(lse))
     stream = torch.cuda.current_stream().cuda_stream
-    global launches, sm90_launches
+    global launches, sm90_launches, sm90_b16_launches
     with torch.cuda.device(q.device):
         if sm90:
             # the split rows' partial slots: fp32 O and (max, sum) per row
@@ -368,10 +375,12 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
         raise RuntimeError(f"cluster_attention_fwd launch failed: CUDA "
                            f"error {err} ({q.dtype}, bq={bq}, bk={bk}, "
                            f"Dh={Dh}, n_buckets={nb}, mb={mb})")
-    if sm90:
-        sm90_launches += 1
-    else:
+    if not sm90:
         launches += 1
+    elif bq == 16:
+        sm90_b16_launches += 1
+    else:
+        sm90_launches += 1
     return (out, lse) if return_lse else out
 
 

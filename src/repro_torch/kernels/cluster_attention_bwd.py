@@ -6,10 +6,10 @@ attention backward kernels:
   int8 bias buckets and the ``bias_table`` gradient. Each dtype has
   exactly one dQ and one dK/dV kernel, with no fallback between them:
   bfloat16 runs on the tensor cores (``csrc/cluster_attention_bwd_dq_sm90.cu``
-  and ``csrc/cluster_attention_bwd_dkv_sm90.cu``: ``mma.sync`` on 32-row
-  tiles, one warp per head, a ``cp.async`` ring of visited blocks; the dQ
-  cuts heavy rows into pieces as the bf16 forward does), float32 on CUDA
-  cores (``csrc/cluster_attention_bwd.cu``).
+  and ``csrc/cluster_attention_bwd_dkv_sm90.cu``: ``mma.sync`` on 16- or
+  32-row tiles, one warp per head, a ``cp.async`` ring of visited blocks;
+  the dQ cuts heavy rows into pieces as the bf16 forward does), float32
+  on CUDA cores (``csrc/cluster_attention_bwd.cu``).
   ``cluster_attention.biased_kernel_reason`` states what bf16 takes;
 * the ports of ``_dq_kernel`` and ``_dkv_kernel``: no buckets, an
   optional positional causal mask, the token LM's path. Each dtype has
@@ -51,9 +51,11 @@ from repro_torch.kernels.build import CudaLibrary
 
 # kernel launches since the last reset_count(), one count per kernel
 dq_launches = 0                 # fp32, cluster_attention_bwd.cu
-dq_sm90_launches = 0            # bf16, cluster_attention_bwd_dq_sm90.cu
+dq_sm90_launches = 0            # bf16, cluster_attention_bwd_dq_sm90.cu,
+dq_sm90_b16_launches = 0        # at 32 x 32 and at 16 x 16 blocks
 dkv_launches = 0                # fp32, cluster_attention_bwd.cu
-dkv_sm90_launches = 0           # bf16, cluster_attention_bwd_dkv_sm90.cu
+dkv_sm90_launches = 0           # bf16, cluster_attention_bwd_dkv_sm90.cu,
+dkv_sm90_b16_launches = 0       # at 32 x 32 and at 16 x 16 blocks
 dq_unbiased_launches = 0        # fp32, cluster_attention_unbiased_bwd.cu
 dkv_unbiased_launches = 0
 dq_unbiased_sm90_launches = 0   # bf16, ..._unbiased_bwd_sm90.cu
@@ -62,9 +64,11 @@ dkv_unbiased_sm90_launches = 0
 
 def reset_count() -> None:
     global dq_launches, dq_sm90_launches, dkv_launches, dkv_sm90_launches, \
+        dq_sm90_b16_launches, dkv_sm90_b16_launches, \
         dq_unbiased_launches, dkv_unbiased_launches, \
         dq_unbiased_sm90_launches, dkv_unbiased_sm90_launches
     dq_launches = dq_sm90_launches = dkv_launches = dkv_sm90_launches = 0
+    dq_sm90_b16_launches = dkv_sm90_b16_launches = 0
     dq_unbiased_launches = dkv_unbiased_launches = 0
     dq_unbiased_sm90_launches = dkv_unbiased_sm90_launches = 0
 
@@ -207,11 +211,13 @@ def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias):
         raise RuntimeError(f"cluster_attention_bwd dQ launch failed: CUDA "
                            f"error {err} ({q.dtype}, bq={bq}, bk={bk}, "
                            f"Dh={Dh}, n_buckets={nb}, mb={mb})")
-    global dq_launches, dq_sm90_launches
-    if sm90:
-        dq_sm90_launches += 1
-    else:
+    global dq_launches, dq_sm90_launches, dq_sm90_b16_launches
+    if not sm90:
         dq_launches += 1
+    elif bq == 16:
+        dq_sm90_b16_launches += 1
+    else:
+        dq_sm90_launches += 1
     return dq, db_part
 
 
@@ -245,11 +251,13 @@ def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
                            f"CUDA error {err} ({q.dtype}, bq={bq}, bk={bk}, "
                            f"Dh={Dh}, n_buckets={nb}, mt="
                            f"{block_idx_t.shape[-2]})")
-    global dkv_launches, dkv_sm90_launches
-    if sm90:
-        dkv_sm90_launches += 1
-    else:
+    global dkv_launches, dkv_sm90_launches, dkv_sm90_b16_launches
+    if not sm90:
         dkv_launches += 1
+    elif bq == 16:
+        dkv_sm90_b16_launches += 1
+    else:
+        dkv_sm90_launches += 1
     return dkh, dvh
 
 

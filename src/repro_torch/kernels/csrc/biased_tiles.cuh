@@ -2,26 +2,33 @@
 // (cluster_attention_fwd_sm90.cu, cluster_attention_bwd_dq_sm90.cu,
 // cluster_attention_bwd_dkv_sm90.cu):
 // warp-level `mma.sync.m16n8k16` products (bf16 in, fp32 accumulate) on
-// 32-row tiles fed by `ldmatrix`, the `cp.async` copies that fill a ring
+// BLK-row tiles fed by `ldmatrix`, the `cp.async` copies that fill a ring
 // of shared-memory stages, the bucket-to-bias lookup, the register online
 // softmax and the accumulator-to-A-fragment repacking that keeps P (and
 // dS) out of shared memory, with the split P = P_hi + P_lo of the
 // forward.
 //
-// Why `mma.sync` and not `wgmma`: graph layouts use bq = bk = 32 and head
-// dims of 8-64 (Graphormer-Slim 8, GT 16, Graphormer-Large 24). `wgmma`
+// Blocks. The graph layouts use bq = bk = BLK in {16, 32}: 32 for the
+// node and link tasks' one large graph, 16 for the graph-level task's
+// packed mini-graphs (tasks/graph_level.py). Every piece below is a
+// template on BLK: a block is MT = BLK / 16 `m16` row tiles, and a BLK x
+// BLK score block is NS = BLK / 8 `n8` column tiles (two at BLK = 16).
+//
+// Why `mma.sync` and not `wgmma`: the blocks are 16 or 32 rows and head
+// dims 8-64 (Graphormer-Slim 8, GT 16, Graphormer-Large 24). `wgmma`
 // wants 64-row A tiles sharing one B, but two q-blocks visit different
 // k-blocks and two heads have different K, so the natural tile is one
-// warp's 32 x 32 score block of one head.
+// warp's BLK x BLK score block of one head.
 //
-// Tiles. A (32 x Dh) bf16 tile of q, k, v or dO sits in shared memory row
-// by row with a stride of LD = DHP + 8 elements, DHP = Dh rounded up to
-// a multiple of 16 (the q.k product's depth). The columns Dh..DHP-1 are
-// zero (the kernels clear them once; `cp.async` writes only the first Dh)
-// and the 8 extra columns put the 8 rows an `ldmatrix` reads on distinct
-// banks. Scores are kept in base-2 units (s * log2 e): the bias table is
-// scaled by log2 e as it is staged, the q.k dot by scale * log2 e, so
-// one `exp2` per entry remains; lse leaves and enters in natural units.
+// Tiles. A (BLK x Dh) bf16 tile of q, k, v or dO sits in shared memory
+// row by row with a stride of LD = DHP + 8 elements, DHP = Dh rounded up
+// to a multiple of 16 (the q.k product's depth). The columns Dh..DHP-1
+// are zero (the kernels clear them once; `cp.async` writes only the
+// first Dh) and the 8 extra columns put the 8 rows an `ldmatrix` reads on
+// distinct banks. Scores are kept in base-2 units (s * log2 e): the bias
+// table is scaled by log2 e as it is staged, the q.k dot by scale *
+// log2 e, so one `exp2` per entry remains; lse leaves and enters in
+// natural units.
 
 #pragma once
 
@@ -31,27 +38,37 @@
 
 namespace biased {
 
-constexpr int kBlock = 32;      // bq = bk of the graph layouts
 constexpr int kMaxWarps = 4;    // heads a CTA serves, one warp each
 constexpr int kStages = 2;      // ring depth: one block in flight
-constexpr int kBktBytes = kBlock * kBlock;   // one int8 bucket tile
 constexpr float kNegInf = -1e30f;  // finite sentinel, as the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int DH>
-struct Dims {
+// A block of BLK rows: MT `m16` row tiles, a BLK x BLK score block of NS
+// `n8` column tiles, whose keys are MT `k16` steps of the P (or dS)
+// product, and an int8 bucket tile of BKT bytes.
+template <int BLK>
+struct Blk {
+  static_assert(BLK == 16 || BLK == 32, "bq = bk in 16, 32");
+  static constexpr int MT = BLK / 16;
+  static constexpr int NS = BLK / 8;
+  static constexpr int BKT = BLK * BLK;
+};
+
+template <int DH, int BLK>
+struct Dims : Blk<BLK> {
   static_assert(DH % 8 == 0 && DH >= 8 && DH <= 64, "Dh in 8, 16, ..., 64");
   static constexpr int DHP = (DH + 15) / 16 * 16;
   static constexpr int LD = DHP + 8;
-  static constexpr int TILE = kBlock * LD;     // elements of one tile
+  static constexpr int TILE = BLK * LD;        // elements of one tile
   static constexpr int KSTEPS = DHP / 16;      // depth steps of q.k
-  static constexpr int NT = DH / 8;            // n-tiles of a 32 x Dh sum
+  static constexpr int NT = DH / 8;            // n-tiles of a BLK x Dh sum
 };
 
 // Heads a CTA serves: at most kMaxWarps, a divisor of H, and either a
 // divisor or a multiple of the GQA group H / KV, so that the CTA's heads
-// read nkv = max(1, G / (H / KV)) whole kv heads.
+// read nkv = max(1, G / (H / KV)) whole kv heads. One warp serves one
+// head's block at either BLK.
 __host__ __device__ inline int heads_per_cta(int H, int KV) {
   const int rep = H / KV;
   for (int g = kMaxWarps; g > 1; g >>= 1)
@@ -83,20 +100,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// a 32 x DH tile whose rows lie `ld` elements apart in device memory into
-// a tile of stride LD, 16 bytes a copy, by the CTA's `nthr` threads
-template <int DH>
+// a BLK x DH tile whose rows lie `ld` elements apart in device memory
+// into a tile of stride LD, 16 bytes a copy, by the CTA's `nthr` threads
+template <int DH, int BLK>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           size_t ld, int tid, int nthr) {
   constexpr int kChunks = DH / 8;  // 16-byte pieces of a row
-  for (int e = tid; e < kBlock * kChunks; e += nthr) {
+  for (int e = tid; e < BLK * kChunks; e += nthr) {
     const int r = e / kChunks, c = e - r * kChunks;
-    cp_async16(dst + r * Dims<DH>::LD + c * 8, src + r * ld + c * 8);
+    cp_async16(dst + r * Dims<DH, BLK>::LD + c * 8, src + r * ld + c * 8);
   }
 }
 
-// `n16` contiguous 16-byte pieces (a bucket tile, 32 lse values)
+// `n16` contiguous 16-byte pieces (a bucket tile, BLK lse values)
 __device__ __forceinline__ void load_bytes(void* dst, const void* src,
                                            int n16, int tid, int nthr) {
   for (int e = tid; e < n16; e += nthr)
@@ -105,13 +122,13 @@ __device__ __forceinline__ void load_bytes(void* dst, const void* src,
 }
 
 // zero the pad columns Dh..DHP-1 of `n` consecutive tiles
-template <int DH>
+template <int DH, int BLK>
 __device__ __forceinline__ void clear_pad(__nv_bfloat16* tiles, int n,
                                           int tid, int nthr) {
-  using D = Dims<DH>;
+  using D = Dims<DH, BLK>;
   constexpr int kPad = D::DHP - DH;
   if constexpr (kPad > 0) {
-    for (int e = tid; e < n * kBlock * kPad; e += nthr) {
+    for (int e = tid; e < n * BLK * kPad; e += nthr) {
       const int row = e / kPad;  // over all n tiles
       tiles[row * D::LD + DH + (e - row * kPad)] = __float2bfloat16(0.f);
     }
@@ -154,8 +171,9 @@ __device__ __forceinline__ int compact(int n, Entry ent, int2* list,
 //                a3 (g+8, 2c+8..);
 //   B (16 x 8):  b0 (k 2c..2c+1, n g), b1 (k 2c+8.., n g);
 //   C (16 x 8):  c0, c1 (g, 2c..2c+1), c2, c3 (g+8, 2c..2c+1).
-// A 32 x N accumulator is acc[mt][nt][4]: rows 16 mt + g + 8 i, columns
-// 8 nt + 2 c + j in acc[mt][nt][2 i + j].
+// A BLK x N accumulator is acc[mt][nt][4], mt < MT: rows 16 mt + g + 8 i,
+// columns 8 nt + 2 c + j in acc[mt][nt][2 i + j]. A lane holds the same
+// rows at either BLK; at BLK = 16 there is no second row tile.
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
@@ -185,30 +203,47 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc[mt][nt] += A B^T over the DHP columns: A and B are 32-row tiles
-// (rows mt*16.. of A, rows nt*8.. of B), so acc is the 32 x 32 block of
+// BLK x BLK fp32 score-shaped accumulators and their bf16 A fragments
+template <int BLK>
+using ScoreAcc = float[Blk<BLK>::MT][Blk<BLK>::NS][4];
+template <int BLK>
+using ScoreFrag = uint32_t[Blk<BLK>::MT][Blk<BLK>::MT][4];
+
+template <int BLK>
+__device__ __forceinline__ void zero(ScoreAcc<BLK>& s) {
+#pragma unroll
+  for (int mt = 0; mt < Blk<BLK>::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < Blk<BLK>::NS; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[mt][nt][r] = 0.f;
+}
+
+// acc[mt][nt] += A B^T over the DHP columns: A and B are BLK-row tiles
+// (rows mt*16.. of A, rows nt*8.. of B), so acc is the BLK x BLK block of
 // row-by-row dot products: S = Q K^T (forward, dQ), dP = dO V^T (dQ),
-// S^T = K Q^T and dP^T = V dO^T (dK/dV)
-template <int DH>
-__device__ __forceinline__ void product_abt(float (&acc)[2][4][4],
+// S^T = K Q^T and dP^T = V dO^T (dK/dV). One `ldmatrix.x4` of B feeds two
+// n-tiles, so a 16-row B takes one and a 32-row B two per depth step.
+template <int DH, int BLK>
+__device__ __forceinline__ void product_abt(ScoreAcc<BLK>& acc,
                                             const __nv_bfloat16* sa,
                                             const __nv_bfloat16* sb) {
-  using D = Dims<DH>;
+  using D = Dims<DH, BLK>;
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < D::KSTEPS; ++kk) {
-    uint32_t a[2][4];
+    uint32_t a[D::MT][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < D::MT; ++mt)
       ldsm_x4(a[mt], sa + (mt * 16 + (lane & 15)) * D::LD + kk * 16 +
                          (lane >> 4) * 8);
 #pragma unroll
-    for (int np = 0; np < 2; ++np) {  // n-tiles 2 np and 2 np + 1
+    for (int np = 0; np < D::NS / 2; ++np) {  // n-tiles 2 np and 2 np + 1
       uint32_t b[4];
       ldsm_x4(b, sb + (np * 16 + (lane & 7) + (lane >> 4) * 8) * D::LD +
                      kk * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < D::MT; ++mt) {
         mma(acc[mt][2 * np], a[mt], b[0], b[1]);
         mma(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
       }
@@ -216,25 +251,25 @@ __device__ __forceinline__ void product_abt(float (&acc)[2][4][4],
   }
 }
 
-// acc[mt][nt] += P B: P a 32 x 32 block held as A fragments (pa[mt][kk],
-// keys 16 kk..16 kk + 15), B a 32 x DH tile whose rows are the keys:
+// acc[mt][nt] += P B: P a BLK x BLK block held as A fragments (pa[mt][kk],
+// keys 16 kk..16 kk + 15), B a BLK x DH tile whose rows are the keys:
 // O += P V (forward), dQ += dS K (dQ), dV += P^T dO and dK += dS^T Q
 // (dK/dV)
-template <int DH>
+template <int DH, int BLK>
 __device__ __forceinline__ void product_pb(
-    float (&acc)[2][Dims<DH>::NT][4], const uint32_t (&pa)[2][2][4],
-    const __nv_bfloat16* sb) {
-  using D = Dims<DH>;
+    float (&acc)[Blk<BLK>::MT][Dims<DH, BLK>::NT][4],
+    const ScoreFrag<BLK>& pa, const __nv_bfloat16* sb) {
+  using D = Dims<DH, BLK>;
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
+  for (int kk = 0; kk < D::MT; ++kk) {
     const __nv_bfloat16* row = sb + (kk * 16 + (lane & 15)) * D::LD;
 #pragma unroll
     for (int np = 0; np < D::NT / 2; ++np) {
       uint32_t b[4];
       ldsm_x4_t(b, row + np * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < D::MT; ++mt) {
         mma(acc[mt][2 * np], pa[mt][kk], b[0], b[1]);
         mma(acc[mt][2 * np + 1], pa[mt][kk], b[2], b[3]);
       }
@@ -243,7 +278,7 @@ __device__ __forceinline__ void product_pb(
       uint32_t b[2];
       ldsm_x2_t(b, row + (D::NT - 1) * 8);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < D::MT; ++mt)
         mma(acc[mt][D::NT - 1], pa[mt][kk], b[0], b[1]);
     }
   }
@@ -255,15 +290,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// a 32 x 32 fp32 accumulator as the A fragments of the next product:
+// a BLK x BLK fp32 accumulator as the A fragments of the next product:
 // keys 16 kk.. are the accumulator's n-tiles 2 kk and 2 kk + 1, so no
 // shared-memory round trip
-__device__ __forceinline__ void to_a_frag(const float (&s)[2][4][4],
-                                          uint32_t (&pa)[2][2][4]) {
+template <int BLK>
+__device__ __forceinline__ void to_a_frag(const ScoreAcc<BLK>& s,
+                                          ScoreFrag<BLK>& pa) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < Blk<BLK>::MT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
+    for (int kk = 0; kk < Blk<BLK>::MT; ++kk) {
       pa[mt][kk][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
       pa[mt][kk][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
       pa[mt][kk][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
@@ -276,20 +312,21 @@ __device__ __forceinline__ void to_a_frag(const float (&s)[2][4][4],
 // so O is as exact as an fp32 sum before its one rounding to bf16, and
 // the backward's delta = rowsum(dO * O) cancels as it does against the
 // plain version
-__device__ __forceinline__ void to_a_frag_split(const float (&s)[2][4][4],
-                                                uint32_t (&hi)[2][2][4],
-                                                uint32_t (&lo)[2][2][4]) {
-  float rest[2][4][4];
+template <int BLK>
+__device__ __forceinline__ void to_a_frag_split(const ScoreAcc<BLK>& s,
+                                                ScoreFrag<BLK>& hi,
+                                                ScoreFrag<BLK>& lo) {
+  ScoreAcc<BLK> rest;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < Blk<BLK>::MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < Blk<BLK>::NS; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         rest[mt][nt][r] = s[mt][nt][r] -
                           __bfloat162float(__float2bfloat16(s[mt][nt][r]));
-  to_a_frag(s, hi);
-  to_a_frag(rest, lo);
+  to_a_frag<BLK>(s, hi);
+  to_a_frag<BLK>(rest, lo);
 }
 
 // 2^x by one `ex2.approx.ftz`: `exp2f` adds a scaling for results below
@@ -314,17 +351,20 @@ __device__ __forceinline__ float score2(float dot, float scale2, int bkt,
 
 // ------------------------------------------------------ online softmax
 
-// The running maxima (base 2) and the thread's partial sums of the four
+// The running maxima (base 2) and the thread's partial sums of the 2 MT
 // rows it holds, row 16 mt + g + 8 i in [mt][i]. `update` turns the
 // scores of one visited block into p = exp2(s - m) in place and rescales
 // O; a row with nothing unmasked so far keeps m at the sentinel and p, l
-// at 0, so it writes O = 0 and lse = 0.
+// at 0, so it writes O = 0 and lse = 0. A row's BLK columns lie in the
+// four lanes of its quad (NS n-tiles of 2 columns each), whatever BLK.
+template <int BLK>
 struct OnlineSoftmax {
-  float m[2][2], l[2][2];
+  static constexpr int MT = Blk<BLK>::MT, NS = Blk<BLK>::NS;
+  float m[MT][2], l[MT][2];
 
   __device__ __forceinline__ OnlineSoftmax() {
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         m[mt][i] = kNegInf;
@@ -333,15 +373,15 @@ struct OnlineSoftmax {
   }
 
   template <int NT>
-  __device__ __forceinline__ void update(float (&s)[2][4][4],
-                                         float (&o)[2][NT][4]) {
+  __device__ __forceinline__ void update(ScoreAcc<BLK>& s,
+                                         float (&o)[MT][NT][4]) {
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float mx = kNegInf;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < NS; ++nt)
           mx = fmaxf(mx, fmaxf(s[mt][nt][2 * i], s[mt][nt][2 * i + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -351,7 +391,7 @@ struct OnlineSoftmax {
         m[mt][i] = m_new;
         float sum = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const float p = dead ? 0.f : ex2(s[mt][nt][2 * i + j] - m_new);
@@ -370,7 +410,7 @@ struct OnlineSoftmax {
   // the rows' full sums, over the quad that holds each row
   __device__ __forceinline__ void finish() {
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         l[mt][i] += __shfl_xor_sync(0xffffffffu, l[mt][i], 1);
@@ -384,16 +424,16 @@ struct OnlineSoftmax {
   }
 };
 
-// a 32 x DH fp32 accumulator times `mul[mt][i]` (per row) into a bf16 or
-// fp32 tile whose rows lie `ld` elements apart in device memory
-template <int NT, typename T>
-__device__ __forceinline__ void store_rows(const float (&acc)[2][NT][4],
-                                           const float (&mul)[2][2], T* dst,
-                                           size_t ld) {
+// a (16 MT) x DH fp32 accumulator times `mul[mt][i]` (per row) into a
+// bf16 or fp32 tile whose rows lie `ld` elements apart in device memory
+template <int MT, int NT, typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[MT][NT][4],
+                                           const float (&mul)[MT][2],
+                                           T* dst, size_t ld) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       T* row = dst + (size_t)(mt * 16 + g + 8 * i) * ld + 2 * c;
@@ -409,5 +449,15 @@ __device__ __forceinline__ void store_rows(const float (&acc)[2][NT][4],
       }
     }
 }
+
+// per-row factors of a BLK-row accumulator, all `x`
+template <int MT>
+struct RowMul {
+  float v[MT][2];
+  __device__ __forceinline__ explicit RowMul(float x) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) v[mt][0] = v[mt][1] = x;
+  }
+};
 
 }  // namespace biased

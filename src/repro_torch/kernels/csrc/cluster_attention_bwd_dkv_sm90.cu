@@ -36,7 +36,8 @@
 //   dO and dK += dS^T Q (bf16 P and dS: the gradients are held
 //   norm-relative, as the unbiased bf16 backward holds them).
 // * One CTA per (graph, k-block, group of G heads), G <= 4, one warp per
-//   head owning its 32 x Dh dK and dV accumulators. K and V stay resident
+//   head owning its BLK x Dh dK and dV accumulators (BLK = bq = bk, 16 or
+//   32, a template parameter picked at launch). K and V stay resident
 //   in shared memory (shared by the q-heads of one kv-head under GQA);
 //   the visitor list and each visitor's bucket tile are read once per
 //   group, the tile read transposed (`bucket[q][k]` at k-row, q-column).
@@ -44,10 +45,11 @@
 //   visitor's Q and dO rows, lse and delta of the group's heads and its
 //   bucket tile, the next one in flight while the warps compute the
 //   current one. No thread spins on a barrier.
-// * Registers: the four 32 x 32 products keep S^T, dP^T and the 32 x Dh
-//   dK and dV accumulators live. At Dh <= 24 the launch bounds ask for
-//   three CTAs an SM (at most 168 registers, no spills), 17% faster on
-//   the training rung than two (tools/ab_biased.py); wider heads get two.
+// * Registers: at BLK = 32 the four 32 x 32 products keep S^T, dP^T and
+//   the 32 x Dh dK and dV accumulators live (half as many at 16). At Dh
+//   <= 24 the launch bounds ask for three CTAs an SM (at most 168
+//   registers, no spills), 17% faster on the training rung than two
+//   (tools/ab_biased.py); wider heads get two.
 // * The heavy column (k-block 0, which the global token's row makes
 //   visited by nearly every q-row) stays one CTA per head group; its
 //   CTAs are the first of the grid. At the serve shape it costs ~23%
@@ -64,18 +66,18 @@ using namespace biased;
 
 // Shared memory: the nkv K and nkv V tiles, then kStages stages of (G q
 // tiles, G dO tiles), the stages' bucket tiles, their lse and delta rows
-// (G x 32 fp32 each), the compacted visitors (q-row, slot), kMaxWarps
+// (G x BLK fp32 each), the compacted visitors (q-row, slot), kMaxWarps
 // ints of scratch, the G bias rows.
-template <int DH>
+template <int DH, int BLK>
 size_t dkv_smem_bytes(int G, int nkv, int mt, int nb) {
-  return (size_t)(2 * nkv + kStages * 2 * G) * Dims<DH>::TILE *
-             sizeof(bf16) +
-         (size_t)kStages * (kBktBytes + 2 * G * kBlock * sizeof(float)) +
+  using D = Dims<DH, BLK>;
+  return (size_t)(2 * nkv + kStages * 2 * G) * D::TILE * sizeof(bf16) +
+         (size_t)kStages * (D::BKT + 2 * G * BLK * sizeof(float)) +
          (size_t)mt * sizeof(int2) + kMaxWarps * sizeof(int) +
          (size_t)G * nb * sizeof(float);
 }
 
-template <int DH>
+template <int DH, int BLK>
 __global__ void __launch_bounds__(kMaxWarps * 32, DH <= 24 ? 3 : 2)
 cluster_biased_dkv_sm90(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
@@ -90,7 +92,8 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
                         int H, int KV, int nq, int mb, int nk, int mt,
                         int nb, int per_graph, int per_graph_t, int G,
                         int nkv, float scale2, float sm_scale) {
-  using D = Dims<DH>;
+  using D = Dims<DH, BLK>;
+  constexpr int MT = D::MT, NS = D::NS;
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -106,9 +109,9 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
   bf16* sStage = sK + 2 * nkv * D::TILE;
   int8_t* sBkt = reinterpret_cast<int8_t*>(sStage + kStages * 2 * G *
                                                         D::TILE);
-  float* sLse = reinterpret_cast<float*>(sBkt + kStages * kBktBytes);
-  float* sDl = sLse + kStages * G * kBlock;
-  int2* sList = reinterpret_cast<int2*>(sDl + kStages * G * kBlock);
+  float* sLse = reinterpret_cast<float*>(sBkt + kStages * D::BKT);
+  float* sDl = sLse + kStages * G * BLK;
+  int2* sList = reinterpret_cast<int2*>(sDl + kStages * G * BLK);
   int* sCnt = reinterpret_cast<int*>(sList + mt);
   float* sBias = reinterpret_cast<float*>(sCnt + kMaxWarps);
 
@@ -117,15 +120,16 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
   const int2* idxt_row = reinterpret_cast<const int2*>(
       block_idx_t + ((size_t)glt * nk + ki) * mt * 2);
   const int8_t* bkt_graph =
-      buckets + (size_t)gl * nq * mb * (size_t)kBktBytes;
-  const size_t k_row0 = (size_t)b * S + (size_t)ki * kBlock;
+      buckets + (size_t)gl * nq * mb * (size_t)D::BKT;
+  const size_t k_row0 = (size_t)b * S + (size_t)ki * BLK;
 
-  clear_pad<DH>(sK, 2 * nkv + kStages * 2 * G, tid, nthr);
+  clear_pad<DH, BLK>(sK, 2 * nkv + kStages * 2 * G, tid, nthr);
   for (int t = 0; t < nkv; ++t) {
     const size_t off = (k_row0 * KV + kv0 + t) * DH;
-    load_tile<DH>(sK + t * D::TILE, k + off, (size_t)KV * DH, tid, nthr);
-    load_tile<DH>(sK + (nkv + t) * D::TILE, v + off, (size_t)KV * DH, tid,
-                  nthr);
+    load_tile<DH, BLK>(sK + t * D::TILE, k + off, (size_t)KV * DH, tid,
+                       nthr);
+    load_tile<DH, BLK>(sK + (nkv + t) * D::TILE, v + off, (size_t)KV * DH,
+                       tid, nthr);
   }
   for (int e = tid; e < G * nb; e += nthr)
     sBias[e] = bias[(size_t)h0 * nb + e] * kLog2e;
@@ -138,21 +142,20 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
     const int st = i % kStages;
     const int2 e = sList[i];  // (q-row, forward slot)
     bf16* sQ = sStage + st * 2 * G * D::TILE;
-    const size_t q_row0 = (size_t)b * S + (size_t)e.x * kBlock;
+    const size_t q_row0 = (size_t)b * S + (size_t)e.x * BLK;
     for (int w = 0; w < G; ++w) {
       const size_t off = (q_row0 * H + h0 + w) * DH;
-      load_tile<DH>(sQ + w * D::TILE, q + off, (size_t)H * DH, tid, nthr);
-      load_tile<DH>(sQ + (G + w) * D::TILE, dout + off, (size_t)H * DH,
-                    tid, nthr);
-      const size_t r0 = ((size_t)b * H + h0 + w) * S + (size_t)e.x * kBlock;
-      load_bytes(sLse + (st * G + w) * kBlock, lse + r0, kBlock / 4, tid,
-                 nthr);
-      load_bytes(sDl + (st * G + w) * kBlock, delta + r0, kBlock / 4, tid,
-                 nthr);
+      load_tile<DH, BLK>(sQ + w * D::TILE, q + off, (size_t)H * DH, tid,
+                         nthr);
+      load_tile<DH, BLK>(sQ + (G + w) * D::TILE, dout + off,
+                         (size_t)H * DH, tid, nthr);
+      const size_t r0 = ((size_t)b * H + h0 + w) * S + (size_t)e.x * BLK;
+      load_bytes(sLse + (st * G + w) * BLK, lse + r0, BLK / 4, tid, nthr);
+      load_bytes(sDl + (st * G + w) * BLK, delta + r0, BLK / 4, tid, nthr);
     }
-    load_bytes(sBkt + st * kBktBytes,
-               bkt_graph + ((size_t)e.x * mb + e.y) * kBktBytes,
-               kBktBytes / 16, tid, nthr);
+    load_bytes(sBkt + st * D::BKT,
+               bkt_graph + ((size_t)e.x * mb + e.y) * D::BKT, D::BKT / 16,
+               tid, nthr);
   };
   // group 0: K, V and visitor 0; then one group per visitor
   for (int i = 0; i < kStages - 1; ++i) {
@@ -160,9 +163,9 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
     cp_async_commit();
   }
 
-  float dka[2][D::NT][4], dva[2][D::NT][4];
+  float dka[MT][D::NT][4], dva[MT][D::NT][4];
 #pragma unroll
-  for (int m2 = 0; m2 < 2; ++m2)
+  for (int m2 = 0; m2 < MT; ++m2)
 #pragma unroll
     for (int nt = 0; nt < D::NT; ++nt)
 #pragma unroll
@@ -180,29 +183,25 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
     const int st = i % kStages;
     const bf16* sQw = sStage + (st * 2 * G + warp) * D::TILE;
     const bf16* sDOw = sQw + G * D::TILE;
-    const int8_t* bkt = sBkt + st * kBktBytes;
-    const float* lrow = sLse + (st * G + warp) * kBlock;
-    const float* drow = sDl + (st * G + warp) * kBlock;
+    const int8_t* bkt = sBkt + st * D::BKT;
+    const float* lrow = sLse + (st * G + warp) * BLK;
+    const float* drow = sDl + (st * G + warp) * BLK;
 
     // S^T (k rows x q columns), then P^T = exp2(S^T - lse) in place
-    float p[2][4][4], dp[2][4][4];
+    ScoreAcc<BLK> p, dp;
+    zero<BLK>(p);
+    zero<BLK>(dp);
+    product_abt<DH, BLK>(p, sKw, sQw);
+    product_abt<DH, BLK>(dp, sVw, sDOw);  // dP^T = V dO^T
 #pragma unroll
-    for (int m2 = 0; m2 < 2; ++m2)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) p[m2][nt][r] = dp[m2][nt][r] = 0.f;
-    product_abt<DH>(p, sKw, sQw);
-    product_abt<DH>(dp, sVw, sDOw);  // dP^T = V dO^T
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int qc = nt * 8 + 2 * c + j;  // the q row of this column
         const float lse2 = lrow[qc] * kLog2e, dl = drow[qc];
-        const int8_t* bcol = bkt + qc * kBlock;
+        const int8_t* bcol = bkt + qc * BLK;
 #pragma unroll
-        for (int m2 = 0; m2 < 2; ++m2)
+        for (int m2 = 0; m2 < MT; ++m2)
 #pragma unroll
           for (int i2 = 0; i2 < 2; ++i2) {
             const int r = 2 * i2 + j;
@@ -213,22 +212,20 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
             dp[m2][nt][r] = pv * (dp[m2][nt][r] - dl);  // dS^T
           }
       }
-    uint32_t fa[2][2][4];
-    to_a_frag(p, fa);
-    product_pb<DH>(dva, fa, sDOw);  // dV += P^T dO
-    to_a_frag(dp, fa);
-    product_pb<DH>(dka, fa, sQw);   // dK += dS^T Q (scaled at the end)
+    ScoreFrag<BLK> fa;
+    to_a_frag<BLK>(p, fa);
+    product_pb<DH, BLK>(dva, fa, sDOw);  // dV += P^T dO
+    to_a_frag<BLK>(dp, fa);
+    product_pb<DH, BLK>(dka, fa, sQw);   // dK += dS^T Q (scaled at the end)
   }
   cp_async_wait<0>();
 
-  const float one[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
-  const float scl[2][2] = {{sm_scale, sm_scale}, {sm_scale, sm_scale}};
   const size_t off = (k_row0 * H + h) * DH;
-  store_rows<D::NT>(dka, scl, dk + off, (size_t)H * DH);
-  store_rows<D::NT>(dva, one, dv + off, (size_t)H * DH);
+  store_rows(dka, RowMul<MT>(sm_scale).v, dk + off, (size_t)H * DH);
+  store_rows(dva, RowMul<MT>(1.f).v, dv + off, (size_t)H * DH);
 }
 
-template <int DH>
+template <int DH, int BLK>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* block_idx_t,
            const void* buckets, const void* bias, void* dk, void* dv, int B,
@@ -236,13 +233,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int per_graph, int per_graph_t, float sm_scale,
            cudaStream_t stream) {
   const int G = heads_per_cta(H, KV), nkv = kv_per_cta(G, H, KV);
-  const size_t smem = dkv_smem_bytes<DH>(G, nkv, mt, nb);
+  const size_t smem = dkv_smem_bytes<DH, BLK>(G, nkv, mt, nb);
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_biased_dkv_sm90<DH>,
+      cluster_biased_dkv_sm90<DH, BLK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nk * (H / G);
-  cluster_biased_dkv_sm90<DH><<<grid, 32 * G, smem, stream>>>(
+  cluster_biased_dkv_sm90<DH, BLK><<<grid, 32 * G, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -253,6 +250,33 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// the instantiation of block BLK for head dim dh, or invalid value
+template <int BLK>
+int launch_dh(int dh, const void* q, const void* k, const void* v,
+              const void* dout, const void* lse, const void* delta,
+              const void* block_idx_t, const void* buckets, const void* bias,
+              void* dk, void* dv, int B, int S, int H, int KV, int nq,
+              int mb, int nk, int mt, int nb, int per_graph, int per_graph_t,
+              float sm_scale, cudaStream_t st) {
+#define DKV_CASE(D)                                                        \
+  case D:                                                                  \
+    return launch<D, BLK>(q, k, v, dout, lse, delta, block_idx_t,          \
+                          buckets, bias, dk, dv, B, S, H, KV, nq, mb, nk,  \
+                          mt, nb, per_graph, per_graph_t, sm_scale, st);
+  switch (dh) {
+    DKV_CASE(8)
+    DKV_CASE(16)
+    DKV_CASE(24)
+    DKV_CASE(32)
+    DKV_CASE(40)
+    DKV_CASE(48)
+    DKV_CASE(56)
+    DKV_CASE(64)
+  }
+#undef DKV_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -261,8 +285,8 @@ extern "C" {
 // delta (B*H,S) fp32; block_idx_t (nk,mt,2) or (B,nk,mt,2) int32
 // (per_graph_t selects) lists (q-row, forward slot) pairs, -1 padded;
 // buckets (nq,mb,bq,bk) or (B,nq,mb,bq,bk) int8 (per_graph selects);
-// bias (H,nb) fp32; dk/dv (B,S,H,Dh) bf16, per q-head. Takes bq = bk =
-// 32 and Dh a multiple of 8 from 8 to 64; anything else returns
+// bias (H,nb) fp32; dk/dv (B,S,H,Dh) bf16, per q-head. Takes bq = bk in
+// {16, 32} and Dh a multiple of 8 from 8 to 64; anything else returns
 // cudaErrorInvalidValue. Returns the CUDA error code of the launch (0 =
 // launched).
 int cluster_attention_bwd_dkv_sm90(const void* q, const void* k,
@@ -276,25 +300,16 @@ int cluster_attention_bwd_dkv_sm90(const void* q, const void* k,
                                    int per_graph, int per_graph_t,
                                    float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bq != kBlock || bk != kBlock || nq * kBlock != S ||
-      nk * kBlock != S)
+  if (bq != bk || nq * bq != S || nk * bk != S)
     return (int)cudaErrorInvalidValue;
-#define DKV_CASE(D)                                                        \
-  case D:                                                                  \
-    return launch<D>(q, k, v, dout, lse, delta, block_idx_t, buckets,      \
-                     bias, dk, dv, B, S, H, KV, nq, mb, nk, mt, nb,        \
-                     per_graph, per_graph_t, sm_scale, st);
-  switch (dh) {
-    DKV_CASE(8)
-    DKV_CASE(16)
-    DKV_CASE(24)
-    DKV_CASE(32)
-    DKV_CASE(40)
-    DKV_CASE(48)
-    DKV_CASE(56)
-    DKV_CASE(64)
-  }
-#undef DKV_CASE
+  if (bq == 16)
+    return launch_dh<16>(dh, q, k, v, dout, lse, delta, block_idx_t,
+                         buckets, bias, dk, dv, B, S, H, KV, nq, mb, nk, mt,
+                         nb, per_graph, per_graph_t, sm_scale, st);
+  if (bq == 32)
+    return launch_dh<32>(dh, q, k, v, dout, lse, delta, block_idx_t,
+                         buckets, bias, dk, dv, B, S, H, KV, nq, mb, nk, mt,
+                         nb, per_graph, per_graph_t, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

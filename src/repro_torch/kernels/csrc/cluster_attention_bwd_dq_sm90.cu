@@ -37,7 +37,8 @@
 //   gradients are held norm-relative, as the other bf16 backwards hold
 //   them). Dh^-0.5 is applied once, at the store.
 // * One CTA per (graph, q-block, group of G heads), G <= 4, one warp per
-//   head owning its 32 x Dh dQ accumulator and its rows' lse and delta in
+//   head owning its BLK x Dh dQ accumulator (BLK = bq = bk, 16 or 32, a
+//   template parameter picked at launch) and its rows' lse and delta in
 //   registers. The group's Q and dO tiles stay resident for the whole
 //   walk; the visit list and each visited bucket tile are read once per
 //   group and K, V once per kv-head (shared by the q-heads of one kv-head
@@ -73,16 +74,16 @@ constexpr int kBucketRegs = 4;  // bucket sums a lane keeps in registers
 // K tiles, nkv V tiles), the stages' bucket tiles, the compacted visits
 // (slot, block), kMaxWarps ints of scratch, the G bias rows, and each
 // thread's sum of every bucket (nb x 32 G).
-template <int DH>
+template <int DH, int BLK>
 size_t dq_smem_bytes(int G, int nkv, int mb, int nb) {
-  return (size_t)(2 * G + kStages * 2 * nkv) * Dims<DH>::TILE *
-             sizeof(bf16) +
-         (size_t)kStages * kBktBytes + (size_t)mb * sizeof(int2) +
+  using D = Dims<DH, BLK>;
+  return (size_t)(2 * G + kStages * 2 * nkv) * D::TILE * sizeof(bf16) +
+         (size_t)kStages * D::BKT + (size_t)mb * sizeof(int2) +
          kMaxWarps * sizeof(int) + (size_t)G * nb * sizeof(float) +
          (size_t)nb * 32 * G * sizeof(float);
 }
 
-template <int DH>
+template <int DH, int BLK>
 __global__ void __launch_bounds__(kMaxWarps * 32, DH <= 24 ? 3 : 2)
 cluster_biased_dq_sm90(const bf16* __restrict__ q,
                        const bf16* __restrict__ k,
@@ -99,7 +100,8 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
                        float* __restrict__ part_db, int S, int H, int KV,
                        int nq, int mb, int nb, int per_graph, int G, int nkv,
                        float scale2, float sm_scale) {
-  using D = Dims<DH>;
+  using D = Dims<DH, BLK>;
+  constexpr int MT = D::MT, NS = D::NS;
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -121,7 +123,7 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
   bf16* sStage = sQ + 2 * G * D::TILE;
   int8_t* sBkt = reinterpret_cast<int8_t*>(sStage + kStages * 2 * nkv *
                                                         D::TILE);
-  int2* sList = reinterpret_cast<int2*>(sBkt + kStages * kBktBytes);
+  int2* sList = reinterpret_cast<int2*>(sBkt + kStages * D::BKT);
   int* sCnt = reinterpret_cast<int*>(sList + mb);
   float* sBias = reinterpret_cast<float*>(sCnt + kMaxWarps);
   float* sDb = sBias + G * nb;
@@ -129,15 +131,16 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
   const int gl = per_graph ? b : 0;
   const int32_t* idx_row = block_idx + ((size_t)gl * nq + qi) * mb;
   const int8_t* bkt_row =
-      buckets + ((size_t)gl * nq + qi) * mb * (size_t)kBktBytes;
-  const size_t q_row0 = (size_t)b * S + (size_t)qi * kBlock;
+      buckets + ((size_t)gl * nq + qi) * mb * (size_t)D::BKT;
+  const size_t q_row0 = (size_t)b * S + (size_t)qi * BLK;
 
-  clear_pad<DH>(sQ, 2 * G + kStages * 2 * nkv, tid, nthr);
+  clear_pad<DH, BLK>(sQ, 2 * G + kStages * 2 * nkv, tid, nthr);
   for (int w = 0; w < G; ++w) {
     const size_t off = (q_row0 * H + h0 + w) * DH;
-    load_tile<DH>(sQ + w * D::TILE, q + off, (size_t)H * DH, tid, nthr);
-    load_tile<DH>(sQ + (G + w) * D::TILE, dout + off, (size_t)H * DH, tid,
-                  nthr);
+    load_tile<DH, BLK>(sQ + w * D::TILE, q + off, (size_t)H * DH, tid,
+                       nthr);
+    load_tile<DH, BLK>(sQ + (G + w) * D::TILE, dout + off, (size_t)H * DH,
+                       tid, nthr);
   }
   for (int e = tid; e < G * nb; e += nthr)
     sBias[e] = bias[(size_t)h0 * nb + e] * kLog2e;
@@ -153,15 +156,16 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
     const int st = i % kStages;
     const int2 e = sList[i];
     bf16* sK = sStage + st * 2 * nkv * D::TILE;
-    const size_t k_row0 = (size_t)b * S + (size_t)e.y * kBlock;
+    const size_t k_row0 = (size_t)b * S + (size_t)e.y * BLK;
     for (int t = 0; t < nkv; ++t) {
       const size_t off = (k_row0 * KV + kv0 + t) * DH;
-      load_tile<DH>(sK + t * D::TILE, k + off, (size_t)KV * DH, tid, nthr);
-      load_tile<DH>(sK + (nkv + t) * D::TILE, v + off, (size_t)KV * DH,
-                    tid, nthr);
+      load_tile<DH, BLK>(sK + t * D::TILE, k + off, (size_t)KV * DH, tid,
+                         nthr);
+      load_tile<DH, BLK>(sK + (nkv + t) * D::TILE, v + off,
+                         (size_t)KV * DH, tid, nthr);
     }
-    load_bytes(sBkt + st * kBktBytes, bkt_row + (size_t)e.x * kBktBytes,
-               kBktBytes / 16, tid, nthr);
+    load_bytes(sBkt + st * D::BKT, bkt_row + (size_t)e.x * D::BKT,
+               D::BKT / 16, tid, nthr);
   };
   // this item's visits v0..v1-1 of the compacted row
   const int v0 = item.y, nit = max(min(nvis, item.z) - v0, 0);
@@ -171,21 +175,21 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
     cp_async_commit();
   }
 
-  // the lse (base 2) and delta of the four rows the thread holds, row
+  // the lse (base 2) and delta of the 2 MT rows the thread holds, row
   // 16 mt + g + 8 i in [mt][i]
   const int g = lane >> 2, c = lane & 3;
-  float lse2[2][2], dl[2][2];
-  const size_t r0 = ((size_t)b * H + h) * S + (size_t)qi * kBlock;
+  float lse2[MT][2], dl[MT][2];
+  const size_t r0 = ((size_t)b * H + h) * S + (size_t)qi * BLK;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i2 = 0; i2 < 2; ++i2) {
       lse2[mt][i2] = lse[r0 + mt * 16 + g + 8 * i2] * kLog2e;
       dl[mt][i2] = delta[r0 + mt * 16 + g + 8 * i2];
     }
-  float dqa[2][D::NT][4];
+  float dqa[MT][D::NT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < D::NT; ++nt)
 #pragma unroll
@@ -203,25 +207,21 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
     const int st = (v0 + i) % kStages;
     const bf16* sK = sStage + (st * 2 * nkv + kvt) * D::TILE;
     const bf16* sV = sK + nkv * D::TILE;
-    const int8_t* bkt = sBkt + st * kBktBytes;
+    const int8_t* bkt = sBkt + st * D::BKT;
 
     // S (q rows x k columns) and dP = dO V^T, then dS in place of S
-    float s[2][4][4], dp[2][4][4];
+    ScoreAcc<BLK> s, dp;
+    zero<BLK>(s);
+    zero<BLK>(dp);
+    product_abt<DH, BLK>(s, sQw, sK);
+    product_abt<DH, BLK>(dp, sDOw, sV);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) s[mt][nt][r] = dp[mt][nt][r] = 0.f;
-    product_abt<DH>(s, sQw, sK);
-    product_abt<DH>(dp, sDOw, sV);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i2 = 0; i2 < 2; ++i2) {
-        const int8_t* brow = bkt + (mt * 16 + g + 8 * i2) * kBlock + 2 * c;
+        const int8_t* brow = bkt + (mt * 16 + g + 8 * i2) * BLK + 2 * c;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
+        for (int nt = 0; nt < NS; ++nt) {
           const char2 bb = *reinterpret_cast<const char2*>(brow + nt * 8);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
@@ -239,12 +239,12 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
 #pragma unroll
       for (int jj = 0; jj < kBucketRegs; ++jj) part[jj] = 0.f;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int i2 = 0; i2 < 2; ++i2) {
-          const int8_t* brow = bkt + (mt * 16 + g + 8 * i2) * kBlock + 2 * c;
+          const int8_t* brow = bkt + (mt * 16 + g + 8 * i2) * BLK + 2 * c;
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < NS; ++nt) {
             const char2 bb = *reinterpret_cast<const char2*>(brow + nt * 8);
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
@@ -259,9 +259,9 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
       for (int jj = 0; jj < kBucketRegs; ++jj)
         if (j0 + jj < nb) db_own[(j0 + jj) * nthr] += part[jj];
     }
-    uint32_t fa[2][2][4];
-    to_a_frag(s, fa);
-    product_pb<DH>(dqa, fa, sK);  // dQ += dS K (scaled at the store)
+    ScoreFrag<BLK> fa;
+    to_a_frag<BLK>(s, fa);
+    product_pb<DH, BLK>(dqa, fa, sK);  // dQ += dS K (scaled at the store)
   }
   cp_async_wait<0>();
 
@@ -277,33 +277,33 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
       x += __shfl_xor_sync(0xffffffffu, x, o);
     if (lane == 0) db_row[j] = x;
   }
-  const float scl[2][2] = {{sm_scale, sm_scale}, {sm_scale, sm_scale}};
   if (item.w >= 0)  // a piece of a split row: fp32 partial dQ in its slot
-    store_rows<D::NT>(dqa, scl,
-                      part_dq + ((size_t)item.w * H + h) * kBlock * DH, DH);
+    store_rows(dqa, RowMul<MT>(sm_scale).v,
+               part_dq + ((size_t)item.w * H + h) * BLK * DH, DH);
   else
-    store_rows<D::NT>(dqa, scl, dq + (q_row0 * H + h) * DH,
-                      (size_t)H * DH);
+    store_rows(dqa, RowMul<MT>(sm_scale).v, dq + (q_row0 * H + h) * DH,
+               (size_t)H * DH);
 }
 
 // The split rows: one CTA per (split row, head) sums the row's partial
 // slots first..first+n-1 in that order into dQ and the bucket partials.
-// `splits` holds (b * nq + qi, first slot, n, 0).
+// `splits` holds (b * nq + qi, first slot, n, 0); a partial slot holds bq
+// rows of dh.
 __global__ void __launch_bounds__(128)
 cluster_biased_dq_combine(const int4* __restrict__ splits,
                           const float* __restrict__ part_dq,
                           const float* __restrict__ part_db,
                           bf16* __restrict__ dq, float* __restrict__ db_part,
-                          int S, int H, int nq, int dh, int nb) {
+                          int S, int H, int nq, int bq, int dh, int nb) {
   const int h = blockIdx.x % H;
   const int4 sp = splits[blockIdx.x / H];
   const int qi = sp.x % nq, b = sp.x / nq;
-  const size_t q_row0 = (size_t)b * S + (size_t)qi * kBlock;
-  for (int e = threadIdx.x; e < kBlock * dh; e += blockDim.x) {
+  const size_t q_row0 = (size_t)b * S + (size_t)qi * bq;
+  for (int e = threadIdx.x; e < bq * dh; e += blockDim.x) {
     const int r = e / dh, d = e - r * dh;
     float x = 0.f;
     for (int p = 0; p < sp.z; ++p)
-      x += part_dq[((size_t)(sp.y + p) * H + h) * kBlock * dh + e];
+      x += part_dq[((size_t)(sp.y + p) * H + h) * bq * dh + e];
     dq[((q_row0 + r) * H + h) * dh + d] = __float2bfloat16(x);
   }
   for (int j = threadIdx.x; j < nb; j += blockDim.x) {
@@ -314,7 +314,7 @@ cluster_biased_dq_combine(const int4* __restrict__ splits,
   }
 }
 
-template <int DH>
+template <int DH, int BLK>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* block_idx,
            const void* buckets, const void* bias, const void* pieces,
@@ -323,14 +323,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int nb, int per_graph, int n_pieces, int n_splits, float sm_scale,
            cudaStream_t stream) {
   const int G = heads_per_cta(H, KV), nkv = kv_per_cta(G, H, KV);
-  const size_t smem = dq_smem_bytes<DH>(G, nkv, mb, nb);
+  const size_t smem = dq_smem_bytes<DH, BLK>(G, nkv, mb, nb);
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_biased_dq_sm90<DH>,
+      cluster_biased_dq_sm90<DH, BLK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned rows = pieces != nullptr ? (unsigned)n_pieces
                                           : (unsigned)B * nq;
-  cluster_biased_dq_sm90<DH><<<rows * (H / G), 32 * G, smem, stream>>>(
+  cluster_biased_dq_sm90<DH, BLK><<<rows * (H / G), 32 * G, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -345,8 +345,37 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cluster_biased_dq_combine<<<(unsigned)n_splits * H, 128, 0, stream>>>(
       static_cast<const int4*>(splits), static_cast<const float*>(part_dq),
       static_cast<const float*>(part_db), static_cast<bf16*>(dq),
-      static_cast<float*>(db_part), S, H, nq, DH, nb);
+      static_cast<float*>(db_part), S, H, nq, BLK, DH, nb);
   return (int)cudaGetLastError();
+}
+
+// the instantiation of block BLK for head dim dh, or invalid value
+template <int BLK>
+int launch_dh(int dh, const void* q, const void* k, const void* v,
+              const void* dout, const void* lse, const void* delta,
+              const void* block_idx, const void* buckets, const void* bias,
+              const void* pieces, const void* splits, void* dq,
+              void* db_part, void* part_dq, void* part_db, int B, int S,
+              int H, int KV, int nq, int mb, int nb, int per_graph,
+              int n_pieces, int n_splits, float sm_scale, cudaStream_t st) {
+#define DQ_CASE(D)                                                          \
+  case D:                                                                   \
+    return launch<D, BLK>(q, k, v, dout, lse, delta, block_idx, buckets,    \
+                          bias, pieces, splits, dq, db_part, part_dq,       \
+                          part_db, B, S, H, KV, nq, mb, nb, per_graph,      \
+                          n_pieces, n_splits, sm_scale, st);
+  switch (dh) {
+    DQ_CASE(8)
+    DQ_CASE(16)
+    DQ_CASE(24)
+    DQ_CASE(32)
+    DQ_CASE(40)
+    DQ_CASE(48)
+    DQ_CASE(56)
+    DQ_CASE(64)
+  }
+#undef DQ_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -359,8 +388,8 @@ extern "C" {
 // fp32; db_part (B,H,nq,nb) fp32. pieces NULL runs one CTA group per
 // q-block row; else it lists n_pieces int4 work items (b*nq+qi, v0, v1,
 // slot or -1), and splits the n_splits int4 rows (b*nq+qi, first slot, n,
-// 0) to sum from part_dq (slots,H,32,Dh) and part_db (slots,H,nb) fp32
-// scratch. Takes bq = bk = 32 and Dh a multiple of 8 from 8 to 64;
+// 0) to sum from part_dq (slots,H,bq,Dh) and part_db (slots,H,nb) fp32
+// scratch. Takes bq = bk in {16, 32} and Dh a multiple of 8 from 8 to 64;
 // anything else returns cudaErrorInvalidValue. Returns the CUDA error
 // code of the launches (0 = launched).
 int cluster_attention_bwd_dq_sm90(const void* q, const void* k,
@@ -376,25 +405,17 @@ int cluster_attention_bwd_dq_sm90(const void* q, const void* k,
                                   int n_splits, float sm_scale,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bq != kBlock || bk != kBlock || nq * kBlock != S)
-    return (int)cudaErrorInvalidValue;
-#define DQ_CASE(D)                                                         \
-  case D:                                                                  \
-    return launch<D>(q, k, v, dout, lse, delta, block_idx, buckets, bias,  \
-                     pieces, splits, dq, db_part, part_dq, part_db, B, S,  \
-                     H, KV, nq, mb, nb, per_graph, n_pieces, n_splits,     \
-                     sm_scale, st);
-  switch (dh) {
-    DQ_CASE(8)
-    DQ_CASE(16)
-    DQ_CASE(24)
-    DQ_CASE(32)
-    DQ_CASE(40)
-    DQ_CASE(48)
-    DQ_CASE(56)
-    DQ_CASE(64)
-  }
-#undef DQ_CASE
+  if (bq != bk || nq * bq != S) return (int)cudaErrorInvalidValue;
+  if (bq == 16)
+    return launch_dh<16>(dh, q, k, v, dout, lse, delta, block_idx, buckets,
+                         bias, pieces, splits, dq, db_part, part_dq, part_db,
+                         B, S, H, KV, nq, mb, nb, per_graph, n_pieces,
+                         n_splits, sm_scale, st);
+  if (bq == 32)
+    return launch_dh<32>(dh, q, k, v, dout, lse, delta, block_idx, buckets,
+                         bias, pieces, splits, dq, db_part, part_dq, part_db,
+                         B, S, H, KV, nq, mb, nb, per_graph, n_pieces,
+                         n_splits, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,10 +21,14 @@
 // TB/s). The exponentials are not free at Dh 24: one exp2 per score and
 // head is 2.1 G, ~0.5 ms at 16 a clock per SM, above the tensor bound.
 // At the serve shape (S=32800, 13125 blocks) the products are 41 GFLOP.
+// The graph-level task's packed mini-graphs (GT: 128 graphs of S=128,
+// H=8, Dh=16, 16 x 16 blocks) are small: a few MB of q, k, v and O, read
+// once, bound the kernel by bytes.
 //
 // What this design does about it.
 // * Tensor cores by `mma.sync.m16n8k16` (biased_tiles.cuh): one warp per
-//   head owns the 32 x Dh O tile of its q-block, S = Q K^T and O += P V
+//   head owns the BLK x Dh O tile of its q-block (BLK = bq = bk, 16 or
+//   32, a template parameter picked at launch), S = Q K^T and O += P V
 //   with P repacked from the accumulator registers into the next
 //   product's A fragments. Dh is padded with zeros to a multiple of 16
 //   for the q.k depth only.
@@ -66,14 +70,15 @@ using namespace biased;
 // Shared memory: the G q tiles, then kStages stages of (nkv K tiles, nkv
 // V tiles), the stages' bucket tiles, the compacted visits (slot, block),
 // kMaxWarps ints of scratch, the G bias rows.
-template <int DH>
+template <int DH, int BLK>
 size_t fwd_smem_bytes(int G, int nkv, int mb, int nb) {
-  return (size_t)(G + kStages * 2 * nkv) * Dims<DH>::TILE * sizeof(bf16) +
-         (size_t)kStages * kBktBytes + (size_t)mb * sizeof(int2) +
+  using D = Dims<DH, BLK>;
+  return (size_t)(G + kStages * 2 * nkv) * D::TILE * sizeof(bf16) +
+         (size_t)kStages * D::BKT + (size_t)mb * sizeof(int2) +
          kMaxWarps * sizeof(int) + (size_t)G * nb * sizeof(float);
 }
 
-template <int DH>
+template <int DH, int BLK>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 cluster_biased_fwd_sm90(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
@@ -87,7 +92,8 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
                         float* __restrict__ part_ml, int S, int H, int KV,
                         int nq, int mb, int nb, int per_graph, int G,
                         int nkv, float scale2) {
-  using D = Dims<DH>;
+  using D = Dims<DH, BLK>;
+  constexpr int MT = D::MT, NS = D::NS;
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -109,20 +115,20 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
   bf16* sStage = sQ + G * D::TILE;
   int8_t* sBkt = reinterpret_cast<int8_t*>(sStage + kStages * 2 * nkv *
                                                         D::TILE);
-  int2* sList = reinterpret_cast<int2*>(sBkt + kStages * kBktBytes);
+  int2* sList = reinterpret_cast<int2*>(sBkt + kStages * D::BKT);
   int* sCnt = reinterpret_cast<int*>(sList + mb);
   float* sBias = reinterpret_cast<float*>(sCnt + kMaxWarps);
 
   const int gl = per_graph ? b : 0;
   const int32_t* idx_row = block_idx + ((size_t)gl * nq + qi) * mb;
   const int8_t* bkt_row =
-      buckets + ((size_t)gl * nq + qi) * mb * (size_t)kBktBytes;
-  const size_t q_row0 = (size_t)b * S + (size_t)qi * kBlock;
+      buckets + ((size_t)gl * nq + qi) * mb * (size_t)D::BKT;
+  const size_t q_row0 = (size_t)b * S + (size_t)qi * BLK;
 
-  clear_pad<DH>(sQ, G + kStages * 2 * nkv, tid, nthr);
+  clear_pad<DH, BLK>(sQ, G + kStages * 2 * nkv, tid, nthr);
   for (int w = 0; w < G; ++w)
-    load_tile<DH>(sQ + w * D::TILE, q + (q_row0 * H + h0 + w) * DH,
-                  (size_t)H * DH, tid, nthr);
+    load_tile<DH, BLK>(sQ + w * D::TILE, q + (q_row0 * H + h0 + w) * DH,
+                       (size_t)H * DH, tid, nthr);
   for (int e = tid; e < G * nb; e += nthr)
     sBias[e] = bias[(size_t)h0 * nb + e] * kLog2e;
   const int nvis = compact(
@@ -136,15 +142,16 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
     const int st = i % kStages;
     const int2 e = sList[i];
     bf16* sK = sStage + st * 2 * nkv * D::TILE;
-    const size_t k_row0 = (size_t)b * S + (size_t)e.y * kBlock;
+    const size_t k_row0 = (size_t)b * S + (size_t)e.y * BLK;
     for (int t = 0; t < nkv; ++t) {
       const size_t off = (k_row0 * KV + kv0 + t) * DH;
-      load_tile<DH>(sK + t * D::TILE, k + off, (size_t)KV * DH, tid, nthr);
-      load_tile<DH>(sK + (nkv + t) * D::TILE, v + off, (size_t)KV * DH,
-                    tid, nthr);
+      load_tile<DH, BLK>(sK + t * D::TILE, k + off, (size_t)KV * DH, tid,
+                         nthr);
+      load_tile<DH, BLK>(sK + (nkv + t) * D::TILE, v + off,
+                         (size_t)KV * DH, tid, nthr);
     }
-    load_bytes(sBkt + st * kBktBytes, bkt_row + (size_t)e.x * kBktBytes,
-               kBktBytes / 16, tid, nthr);
+    load_bytes(sBkt + st * D::BKT, bkt_row + (size_t)e.x * D::BKT,
+               D::BKT / 16, tid, nthr);
   };
   // this item's visits v0..v1-1 of the compacted row
   const int v0 = item.y, nit = max(min(nvis, item.z) - v0, 0);
@@ -154,14 +161,14 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
     cp_async_commit();
   }
 
-  float o[2][D::NT][4];
+  float o[MT][D::NT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < D::NT; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) o[mt][nt][r] = 0.f;
-  OnlineSoftmax sm;
+  OnlineSoftmax<BLK> sm;
   const float* bias2 = sBias + warp * nb;
   const int g = lane >> 2, c = lane & 3;
 
@@ -173,23 +180,18 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
     const int st = (v0 + i) % kStages;
     const bf16* sK = sStage + (st * 2 * nkv + kvt) * D::TILE;
     const bf16* sV = sK + nkv * D::TILE;
-    const int8_t* bkt = sBkt + st * kBktBytes;
+    const int8_t* bkt = sBkt + st * D::BKT;
 
-    float s[2][4][4];
+    ScoreAcc<BLK> s;
+    zero<BLK>(s);
+    product_abt<DH, BLK>(s, sQ + warp * D::TILE, sK);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) s[mt][nt][r] = 0.f;
-    product_abt<DH>(s, sQ + warp * D::TILE, sK);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i2 = 0; i2 < 2; ++i2) {
-        const int8_t* brow = bkt + (mt * 16 + g + 8 * i2) * kBlock + 2 * c;
+        const int8_t* brow = bkt + (mt * 16 + g + 8 * i2) * BLK + 2 * c;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
+        for (int nt = 0; nt < NS; ++nt) {
           const char2 bb = *reinterpret_cast<const char2*>(brow + nt * 8);
           s[mt][nt][2 * i2] =
               score2(s[mt][nt][2 * i2], scale2, bb.x, bias2, nb);
@@ -198,10 +200,10 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
         }
       }
     sm.update(s, o);
-    uint32_t hi[2][2][4], lo[2][2][4];
-    to_a_frag_split(s, hi, lo);
-    product_pb<DH>(o, hi, sV);
-    product_pb<DH>(o, lo, sV);
+    ScoreFrag<BLK> hi, lo;
+    to_a_frag_split<BLK>(s, hi, lo);
+    product_pb<DH, BLK>(o, hi, sV);
+    product_pb<DH, BLK>(o, lo, sV);
   }
   cp_async_wait<0>();
 
@@ -209,32 +211,31 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
   if (item.w >= 0) {
     // a piece of a split row: its running max (base 2), sum and
     // unnormalized O into partial slot item.w
-    const float one[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
     const size_t slot = (size_t)item.w * H + h;
-    store_rows<D::NT>(o, one, part_o + slot * kBlock * DH, DH);
+    store_rows(o, RowMul<MT>(1.f).v, part_o + slot * BLK * DH, DH);
     if (c == 0) {
-      float* ml = part_ml + slot * 2 * kBlock;
+      float* ml = part_ml + slot * 2 * BLK;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int i2 = 0; i2 < 2; ++i2) {
           ml[mt * 16 + g + 8 * i2] = sm.m[mt][i2];
-          ml[kBlock + mt * 16 + g + 8 * i2] = sm.l[mt][i2];
+          ml[BLK + mt * 16 + g + 8 * i2] = sm.l[mt][i2];
         }
     }
     return;
   }
-  float inv[2][2];
+  float inv[MT][2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i2 = 0; i2 < 2; ++i2)
       inv[mt][i2] = __fdividef(1.f, fmaxf(sm.l[mt][i2], 1e-30f));
-  store_rows<D::NT>(o, inv, out + (q_row0 * H + h) * DH, (size_t)H * DH);
+  store_rows(o, inv, out + (q_row0 * H + h) * DH, (size_t)H * DH);
   if (lse != nullptr && c == 0) {
-    float* lrow = lse + ((size_t)b * H + h) * S + (size_t)qi * kBlock;
+    float* lrow = lse + ((size_t)b * H + h) * S + (size_t)qi * BLK;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i2 = 0; i2 < 2; ++i2)
         lrow[mt * 16 + g + 8 * i2] = sm.lse(mt, i2);
@@ -244,7 +245,7 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
 // The split rows: one CTA per (split row, head) merges the row's partial
 // slots first..first+n-1 in that order into O and lse. `splits` holds
 // (b * nq + qi, first slot, n, 0).
-template <int DH>
+template <int DH, int BLK>
 __global__ void __launch_bounds__(128)
 cluster_biased_fwd_combine(const int4* __restrict__ splits,
                            const float* __restrict__ part_o,
@@ -254,28 +255,28 @@ cluster_biased_fwd_combine(const int4* __restrict__ splits,
   const int h = blockIdx.x % H;
   const int4 sp = splits[blockIdx.x / H];
   const int qi = sp.x % nq, b = sp.x / nq;
-  const size_t q_row0 = (size_t)b * S + (size_t)qi * kBlock;
-  for (int e = threadIdx.x; e < kBlock * DH; e += blockDim.x) {
+  const size_t q_row0 = (size_t)b * S + (size_t)qi * BLK;
+  for (int e = threadIdx.x; e < BLK * DH; e += blockDim.x) {
     const int r = e / DH, d = e - r * DH;
     float mx = kNegInf;
     for (int p = 0; p < sp.z; ++p)
-      mx = fmaxf(mx, part_ml[((size_t)(sp.y + p) * H + h) * 2 * kBlock + r]);
+      mx = fmaxf(mx, part_ml[((size_t)(sp.y + p) * H + h) * 2 * BLK + r]);
     float l = 0.f, o = 0.f;
     for (int p = 0; p < sp.z; ++p) {
       const size_t slot = (size_t)(sp.y + p) * H + h;
-      const float w = ex2(part_ml[slot * 2 * kBlock + r] - mx);
-      l += part_ml[slot * 2 * kBlock + kBlock + r] * w;
-      o += part_o[(slot * kBlock + r) * DH + d] * w;
+      const float w = ex2(part_ml[slot * 2 * BLK + r] - mx);
+      l += part_ml[slot * 2 * BLK + BLK + r] * w;
+      o += part_o[(slot * BLK + r) * DH + d] * w;
     }
     out[((q_row0 + r) * H + h) * DH + d] =
         __float2bfloat16(o / fmaxf(l, 1e-30f));
     if (lse != nullptr && d == 0)
-      lse[((size_t)b * H + h) * S + (size_t)qi * kBlock + r] =
+      lse[((size_t)b * H + h) * S + (size_t)qi * BLK + r] =
           l > 0.f ? (mx + log2f(l)) * kLn2 : 0.f;
   }
 }
 
-template <int DH>
+template <int DH, int BLK>
 int launch(const void* q, const void* k, const void* v, const void* block_idx,
            const void* buckets, const void* bias, const void* pieces,
            const void* splits, void* out, void* lse, void* part_o,
@@ -283,14 +284,15 @@ int launch(const void* q, const void* k, const void* v, const void* block_idx,
            int nb, int per_graph, int n_pieces, int n_splits,
            float sm_scale, cudaStream_t stream) {
   const int G = heads_per_cta(H, KV), nkv = kv_per_cta(G, H, KV);
-  const size_t smem = fwd_smem_bytes<DH>(G, nkv, mb, nb);
+  const size_t smem = fwd_smem_bytes<DH, BLK>(G, nkv, mb, nb);
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_biased_fwd_sm90<DH>,
+      cluster_biased_fwd_sm90<DH, BLK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned rows = pieces != nullptr ? (unsigned)n_pieces
                                           : (unsigned)B * nq;
-  cluster_biased_fwd_sm90<DH><<<rows * (H / G), 32 * G, smem, stream>>>(
+  cluster_biased_fwd_sm90<DH, BLK><<<rows * (H / G), 32 * G, smem,
+                                     stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int32_t*>(block_idx),
       static_cast<const int8_t*>(buckets), static_cast<const float*>(bias),
@@ -300,11 +302,41 @@ int launch(const void* q, const void* k, const void* v, const void* block_idx,
       sm_scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 0) return (int)err;
-  cluster_biased_fwd_combine<DH><<<(unsigned)n_splits * H, 128, 0, stream>>>(
-      static_cast<const int4*>(splits), static_cast<const float*>(part_o),
-      static_cast<const float*>(part_ml), static_cast<bf16*>(out),
-      static_cast<float*>(lse), S, H, nq);
+  cluster_biased_fwd_combine<DH, BLK>
+      <<<(unsigned)n_splits * H, 128, 0, stream>>>(
+          static_cast<const int4*>(splits),
+          static_cast<const float*>(part_o),
+          static_cast<const float*>(part_ml), static_cast<bf16*>(out),
+          static_cast<float*>(lse), S, H, nq);
   return (int)cudaGetLastError();
+}
+
+// the instantiation of block BLK for head dim dh, or invalid value
+template <int BLK>
+int launch_dh(int dh, const void* q, const void* k, const void* v,
+              const void* block_idx, const void* buckets, const void* bias,
+              const void* pieces, const void* splits, void* out, void* lse,
+              void* part_o, void* part_ml, int B, int S, int H, int KV,
+              int nq, int mb, int nb, int per_graph, int n_pieces,
+              int n_splits, float sm_scale, cudaStream_t st) {
+#define FWD_CASE(D)                                                       \
+  case D:                                                                 \
+    return launch<D, BLK>(q, k, v, block_idx, buckets, bias, pieces,      \
+                          splits, out, lse, part_o, part_ml, B, S, H, KV, \
+                          nq, mb, nb, per_graph, n_pieces, n_splits,      \
+                          sm_scale, st);
+  switch (dh) {
+    FWD_CASE(8)
+    FWD_CASE(16)
+    FWD_CASE(24)
+    FWD_CASE(32)
+    FWD_CASE(40)
+    FWD_CASE(48)
+    FWD_CASE(56)
+    FWD_CASE(64)
+  }
+#undef FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -317,8 +349,8 @@ extern "C" {
 // pieces NULL runs one CTA group per q-block row; else it lists n_pieces
 // int4 work items (b*nq+qi, v0, v1, slot or -1), and splits the n_splits
 // int4 rows (b*nq+qi, first slot, n, 0) to combine from part_o
-// (slots,H,32,Dh) and part_ml (slots,H,2,32) fp32 scratch. Takes bq = bk
-// = 32 and Dh a multiple of 8 from 8 to 64; anything else returns
+// (slots,H,bq,Dh) and part_ml (slots,H,2,bq) fp32 scratch. Takes bq = bk
+// in {16, 32} and Dh a multiple of 8 from 8 to 64; anything else returns
 // cudaErrorInvalidValue. Returns the CUDA error code of the launches (0
 // = launched).
 int cluster_attention_fwd_sm90(const void* q, const void* k, const void* v,
@@ -330,24 +362,15 @@ int cluster_attention_fwd_sm90(const void* q, const void* k, const void* v,
                                int bk, int nb, int per_graph, int n_pieces,
                                int n_splits, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bq != kBlock || bk != kBlock || nq * kBlock != S)
-    return (int)cudaErrorInvalidValue;
-#define FWD_CASE(D)                                                       \
-  case D:                                                                 \
-    return launch<D>(q, k, v, block_idx, buckets, bias, pieces, splits,   \
-                     out, lse, part_o, part_ml, B, S, H, KV, nq, mb, nb,  \
-                     per_graph, n_pieces, n_splits, sm_scale, st);
-  switch (dh) {
-    FWD_CASE(8)
-    FWD_CASE(16)
-    FWD_CASE(24)
-    FWD_CASE(32)
-    FWD_CASE(40)
-    FWD_CASE(48)
-    FWD_CASE(56)
-    FWD_CASE(64)
-  }
-#undef FWD_CASE
+  if (bq != bk || nq * bq != S) return (int)cudaErrorInvalidValue;
+  if (bq == 16)
+    return launch_dh<16>(dh, q, k, v, block_idx, buckets, bias, pieces,
+                         splits, out, lse, part_o, part_ml, B, S, H, KV, nq,
+                         mb, nb, per_graph, n_pieces, n_splits, sm_scale, st);
+  if (bq == 32)
+    return launch_dh<32>(dh, q, k, v, block_idx, buckets, bias, pieces,
+                         splits, out, lse, part_o, part_ml, B, S, H, KV, nq,
+                         mb, nb, per_graph, n_pieces, n_splits, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,13 +1,23 @@
-"""Training CLI on the port: the graph archs' node task and the dense
-LMs (the port of ``repro.launch.train`` without meshes, checkpoints and
-fault plans).
+"""Training CLI on the port: the graph archs' node, graph-level and link
+tasks and the dense LMs (the port of ``repro.launch.train`` without
+meshes, checkpoints and fault plans).
 
-Graph archs: builds the reference's synthetic graph (SBM, ``p_in=0.04``,
-``p_out=0.002``, seed 0), wraps it in a :class:`NodeTask` and trains
-through the :class:`Trainer`: the dense interleave step every
-``--interleave-period`` steps, an AutoTuner epoch every
-``--elastic-every`` steps. Prints every step's variant, loss, accuracy
-and ``beta_thre``, the ladder moves and the held-out evaluation.
+Graph archs (``graphormer_slim``, ``graphormer_large``, ``gt``) train one
+task through the :class:`Trainer`, on the reference's synthetic data:
+
+* ``--task node`` (default): node classification on one SBM graph
+  (``--graph-nodes``, ``p_in=0.04``, ``p_out=0.002``, seed 0);
+* ``--task graph``: graph-level classification of ``--graphs`` packed
+  mini-graphs (``synthetic_graph_level_dataset``, seed 1) in mini-batches
+  of ``--batch-graphs``, held out on half as many (seed 2), 16 x 16
+  blocks;
+* ``--task link``: link prediction on the same SBM graph as the node
+  task.
+
+Every task runs the dense interleave step every ``--interleave-period``
+steps and an AutoTuner epoch every ``--elastic-every`` steps, and prints
+every step's variant, loss, accuracy and ``beta_thre``, the ladder moves
+and the held-out evaluation.
 
 LM archs (``qwen3_0_6b``, ``smollm_135m``): trains the config as
 published on the synthetic token stream of ``data/lm_pipeline.py``
@@ -21,6 +31,10 @@ published LM configs run dense attention; the cluster-sparse backend is
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch graphormer_large --steps 16 --graph-nodes 8192
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gt --smoke \\
+      --task graph --graphs 8 --batch-graphs 4 --steps 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gt --smoke \\
+      --task link --graph-nodes 128 --steps 6 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
       --smoke --steps 20 --seq 128 --batch 4 --device cpu
 """
@@ -35,7 +49,8 @@ from repro_torch.core.graph_model import GraphModel
 from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
 from repro_torch.models.lm import LMModel
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
-from repro_torch.tasks import BatchFnTask, NodeTask
+from repro_torch.tasks import (BatchFnTask, GraphLevelTask, LinkTask,
+                               NodeTask, synthetic_graph_level_dataset)
 
 
 def main(argv=None):
@@ -54,11 +69,17 @@ def main(argv=None):
                     help="override the config's activation dtype")
     ap.add_argument("--task", default="node",
                     choices=["node", "graph", "link"],
-                    help="[graph archs] workload (the port trains node "
-                         "classification)")
+                    help="[graph archs] workload: node classification, "
+                         "graph-level classification, link prediction")
     ap.add_argument("--graph-nodes", type=int, default=512,
                     help="synthetic SBM graph size")
     ap.add_argument("--graph-clusters", type=int, default=4)
+    ap.add_argument("--graphs", type=int, default=16,
+                    help="[--task graph] number of mini-graphs")
+    ap.add_argument("--batch-graphs", type=int, default=0,
+                    help="[--task graph] graphs per mini-batch (must "
+                         "divide --graphs; 0 = one full batch, no "
+                         "cycling)")
     ap.add_argument("--interleave-period", type=int, default=-1,
                     help="dense step every k steps (-1 = config default, "
                          "0 = never)")
@@ -72,10 +93,6 @@ def main(argv=None):
         cfg = cfg.replace(dtype=args.dtype)
     if cfg.family != "graph":
         return _lm_main(args, cfg)
-    if args.task != "node":
-        raise NotImplementedError(
-            f"--task {args.task} is not ported yet (ROADMAP.md A.7); the "
-            f"port trains --task node")
 
     model = GraphModel(cfg, device=args.device)
     n_params = sum(p.numel() for p in model.parameters())
@@ -85,12 +102,10 @@ def main(argv=None):
         else args.interleave_period
     elastic_every = cfg.elastic_every if args.elastic_every < 0 \
         else args.elastic_every
-    g = sbm_graph(args.graph_nodes, args.graph_clusters, p_in=0.04,
-                  p_out=0.002, feat_dim=cfg.feat_dim,
-                  n_classes=cfg.n_classes, seed=0)
-    task = NodeTask(g, cfg, device=model.device)
+    task = _make_graph_task(args, cfg, model.device)
     lay = task.layout
-    print(f"task={task.name} seq={lay.seq_len} "
+    print(f"task={task.name} seq={lay.seq_len} bq={lay.bq} "
+          f"mini_batches={task.n_batches} "
           f"ladder={[round(b, 4) for b in task.tuner.ladder]} "
           f"mb_cap={task.mb_cap} prep={task.prep_seconds:.2f}s")
 
@@ -113,6 +128,24 @@ def main(argv=None):
           f"moves={len(task.moves)} "
           f"dense_steps={sum(1 for h in trainer.history if h['dense'])}")
     return trainer
+
+
+def _make_graph_task(args, cfg, device):
+    """The requested task (node / graph-level / link) on the reference's
+    synthetic data, its batches on ``device``."""
+    if args.task == "graph":
+        graphs = synthetic_graph_level_dataset(args.graphs, cfg, seed=1)
+        eval_graphs = synthetic_graph_level_dataset(
+            max(2, args.graphs // 2), cfg, seed=2)
+        return GraphLevelTask(graphs, cfg, eval_graphs=eval_graphs,
+                              batch_graphs=args.batch_graphs or None,
+                              device=device)
+    g = sbm_graph(args.graph_nodes, args.graph_clusters, p_in=0.04,
+                  p_out=0.002, feat_dim=cfg.feat_dim,
+                  n_classes=cfg.n_classes, seed=0)
+    if args.task == "link":
+        return LinkTask(g, cfg, device=device)
+    return NodeTask(g, cfg, device=device)
 
 
 def _lm_main(args, cfg):

@@ -214,11 +214,7 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
 
 
 def _heads(name):
-    """Head dim of a graph config: Graphormer's from the port, GT's from
-    the JAX package (the port has no GT config)."""
-    if name == "gt":
-        from repro.configs import get_config as jax_config
-        return jax_config("gt").head_dim
+    """Head dim of a graph config."""
     from repro_torch.configs import get_config
     return get_config(name).head_dim
 
@@ -226,16 +222,23 @@ def _heads(name):
 @pytest.mark.parametrize("name,d_head", [
     ("graphormer_slim", 8), ("gt", 16), ("graphormer_large", 24)])
 def test_biased_kernels_take_the_graph_configs_heads(name, d_head):
-    """Slim's, GT's and Large's heads at the graph layouts' 32 x 32
-    blocks: the bf16 tensor-core kernels take them."""
+    """Slim's, GT's and Large's heads at the node and link tasks' 32 x 32
+    blocks and the graph-level task's 16 x 16: the bf16 tensor-core
+    kernels take them."""
     assert _heads(name) == d_head
-    assert tca.biased_kernel_reason(torch.bfloat16, d_head, 32, 32) is None
+    for blk in (16, 32):
+        assert tca.biased_kernel_reason(torch.bfloat16, d_head, blk,
+                                        blk) is None
 
 
 @pytest.mark.parametrize("dtype,d_head,bq,bk,reason", [
-    # bf16: bq = bk = 32 and Dh a multiple of 8 from 8 to 64
-    *[(torch.bfloat16, d, 32, 32, None) for d in range(8, 65, 8)],
-    (torch.bfloat16, 24, 16, 16, "bq=16, bk=16"),
+    # bf16: bq = bk in {16, 32} and Dh a multiple of 8 from 8 to 64
+    *[(torch.bfloat16, d, blk, blk, None) for d in range(8, 65, 8)
+      for blk in (16, 32)],
+    (torch.bfloat16, 24, 16, 32, "bq=16, bk=32"),
+    (torch.bfloat16, 24, 24, 24, "bq=24, bk=24"),
+    (torch.bfloat16, 24, 8, 8, "bq=8, bk=8"),
+    (torch.bfloat16, 12, 16, 16, "Dh=12"),
     (torch.bfloat16, 24, 64, 64, "bq=64, bk=64"),
     (torch.bfloat16, 24, 32, 64, "bq=32, bk=64"),
     (torch.bfloat16, 4, 32, 32, "Dh=4"),
@@ -259,14 +262,15 @@ def test_biased_kernel_reason_per_dtype(dtype, d_head, bq, bk, reason):
 def test_check_biased_kernel_names_dtype_and_shapes():
     """The op's check raises before any launch with the dtype and the
     shapes; fp32 passes it with the same shapes."""
-    lay = graph_layout(bq=16, d_b=4)
+    lay = graph_layout(bq=8, d_b=4)
     bi, bu = t(lay.block_idx), t(lay.buckets)
     q = torch.zeros(2, lay.seq_len, 4, 24, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError,
-                       match=rf"bq=16, bk=16 \(the bf16 kernels take bq = "
-                             rf"bk = 32\): bfloat16 q \(2, {lay.seq_len}, 4, "
-                             rf"24\), block_idx \({lay.nq}, {lay.mb}\), "
-                             rf"buckets \({lay.nq}, {lay.mb}, 16, 16\)"):
+                       match=rf"bq=8, bk=8 \(the bf16 kernels take bq = "
+                             rf"bk = 16 or 32\): bfloat16 q \(2, "
+                             rf"{lay.seq_len}, 4, 24\), block_idx \({lay.nq}, "
+                             rf"{lay.mb}\), buckets \({lay.nq}, {lay.mb}, 8, "
+                             rf"8\)"):
         tca.check_biased_kernel(q, bi, bu)
     tca.check_biased_kernel(q.float(), bi, bu)
     lay = graph_layout()

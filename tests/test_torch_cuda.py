@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 cluster-attention kernels (the biased forward, dQ and dK/dV kernels of
-the graph path, in bf16 the forward and dK/dV on the tensor cores; and
+the graph path, in bf16 on the tensor cores at 32 x 32 and at the
+graph-level task's 16 x 16 blocks; and
 the unbiased, optionally causal ones of the LM path, in bf16 the
 forward, dQ and dK/dV on the tensor cores),
 the dense flash
@@ -251,11 +252,12 @@ def test_biased_kernels_dead_and_fully_masked_rows(dev, dtype):
     assert not dq[:, 2 * 32:4 * 32].any()
 
 
-def _heavy_layout(nq=24, nb=5, seed=3):
+def _heavy_layout(nq=24, nb=5, seed=3, blk=32):
     """q-block row 0 visits every k-block; every row visits k-block 0
     (so k-block 0's column holds every q-row); the other rows visit
     their own block and two more, in shuffled slots, -1 padded to
-    mb = nq; random buckets with some masked entries."""
+    mb = nq; random buckets with some masked entries; blocks of
+    ``blk`` x ``blk``."""
     rng = np.random.default_rng(seed)
     bi = np.full((nq, nq), -1, np.int32)
     bi[0] = rng.permutation(nq)
@@ -264,8 +266,8 @@ def _heavy_layout(nq=24, nb=5, seed=3):
         row = list(dict.fromkeys(row))[:4]
         slots = rng.choice(nq, len(row), replace=False)
         bi[i, slots] = row
-    bu = rng.integers(-1, nb + 1, (nq, nq, 32, 32)).astype(np.int8)
-    return 32 * nq, bi, bu, nb
+    bu = rng.integers(-1, nb + 1, (nq, nq, blk, blk)).astype(np.int8)
+    return blk * nq, bi, bu, nb
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -386,7 +388,7 @@ def test_biased_bf16_dq_splits_the_heavy_row(dev, per_graph):
 
 def test_biased_dq_sources_refuse_what_they_do_not_take(dev):
     """The fp32 CUDA-core source returns invalid value for bf16, and the
-    bf16 tensor-core source for Dh 12 and 16-row blocks: neither
+    bf16 tensor-core source for Dh 12 and 8-row blocks: neither
     launches."""
     lay = graph_layout()
     ops_ = _dq_case(dev, lay.block_idx, lay.buckets, 1, 4, 4, 24,
@@ -403,7 +405,7 @@ def test_biased_dq_sources_refuse_what_they_do_not_take(dev):
         32, lay.n_buckets, 0, Dh ** -0.5, stream)
     assert err == 1   # cudaErrorInvalidValue
     lib = tcab.LIBRARY_DQ_SM90.lib()
-    for dh, bq in ((12, 32), (24, 16)):
+    for dh, bq in ((12, 32), (24, 8)):
         err = lib.cluster_attention_bwd_dq_sm90(
             *ptrs, None, None, dq.data_ptr(), db.data_ptr(), None, None, B,
             S, H, H, dh, S // bq, mb, bq, bq, lay.n_buckets, 0, 0, 0,
@@ -412,11 +414,11 @@ def test_biased_dq_sources_refuse_what_they_do_not_take(dev):
 
 
 def test_biased_bf16_refuses_what_its_kernels_do_not_take(dev):
-    """The bf16 kernels take bq = bk = 32 and Dh a multiple of 8 up to
-    64: anything else raises with the dtype and the shapes before any
+    """The bf16 kernels take bq = bk = 16 or 32 and Dh a multiple of 8 up
+    to 64: anything else raises with the dtype and the shapes before any
     launch, forward or backward; fp32 takes the same call on CUDA
     cores."""
-    lay = graph_layout(bq=16, d_b=4)
+    lay = graph_layout(bq=8, d_b=4)
     q, k, v, bias = qkv(1, lay.seq_len, 4, 4, 8, n_buckets=lay.n_buckets)
     q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
     bi, bu, bias = (torch.from_numpy(x).to(dev)
@@ -425,10 +427,10 @@ def test_biased_bf16_refuses_what_its_kernels_do_not_take(dev):
     before = (_fwd_counts(), _bwd_counts())
     shapes = (rf"bfloat16 q \(1, {lay.seq_len}, 4, 8\), block_idx "
               rf"\({lay.nq}, {lay.mb}\), buckets \({lay.nq}, {lay.mb}, "
-              rf"16, 16\)")
+              rf"8, 8\)")
     with pytest.raises(NotImplementedError,
-                       match=r"bq=16, bk=16 \(the bf16 kernels take bq = "
-                             r"bk = 32\): " + shapes):
+                       match=r"bq=8, bk=8 \(the bf16 kernels take bq = "
+                             r"bk = 16 or 32\): " + shapes):
         ops.cluster_attention(*bf, bi, bu, bias)
     leaves = [x.detach().requires_grad_() for x in bf]
     with pytest.raises(NotImplementedError, match=shapes):
@@ -447,9 +449,118 @@ def test_biased_bf16_refuses_what_its_kernels_do_not_take(dev):
                                   torch.from_numpy(bu).to(dev), bias)
     assert (_fwd_counts(), _bwd_counts()) == before
     ops.cluster_attention(q, k, v, torch.from_numpy(
-        graph_layout(bq=16, d_b=4).block_idx).to(dev), torch.from_numpy(
-        graph_layout(bq=16, d_b=4).buckets).to(dev), bias)
+        graph_layout(bq=8, d_b=4).block_idx).to(dev), torch.from_numpy(
+        graph_layout(bq=8, d_b=4).buckets).to(dev), bias)
     assert _fwd_counts() == (before[0][0] + 1, before[0][1])
+
+
+# ------------------------------------- the bf16 biased kernels at 16 x 16
+
+def _b16_counts():
+    return (tca.sm90_b16_launches, tcab.dq_sm90_b16_launches,
+            tcab.dkv_sm90_b16_launches)
+
+
+def _packed_graphs(sizes=(40, 70, 100, 120), seed=0):
+    """Per-graph (B, nq, mb) block_idx and (B, nq, mb, 16, 16) buckets of
+    graphs of ``sizes`` nodes packed to the largest one's sequence, as
+    the graph-level task packs them: the smaller graphs' trailing q-block
+    rows are dead (all -1), and graph 1's q-block row 1 has its visits
+    all masked."""
+    lays = [graph_layout(n=n, seed=seed + i, bq=16, d_b=4)
+            for i, n in enumerate(sizes)]
+    S = max(lay.seq_len for lay in lays)
+    mb = max(lay.mb for lay in lays)
+    B, nq = len(lays), S // 16
+    bi = np.full((B, nq, mb), -1, np.int32)
+    bu = np.full((B, nq, mb, 16, 16), -1, np.int8)
+    for i, lay in enumerate(lays):
+        bi[i, :lay.nq, :lay.mb] = lay.block_idx
+        bu[i, :lay.nq, :lay.mb] = lay.buckets
+    bu[1, 1] = -1
+    return S, bi, bu, lays[0].n_buckets
+
+
+@pytest.mark.parametrize("Dh", [8, 16])
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("H,KV", [(8, 8), (8, 2)])
+def test_biased_bf16_b16_kernels_match_plain(dev, Dh, nb, H, KV):
+    """The bf16 forward, dQ and dK/dV at 16 x 16 blocks (the graph-level
+    task's shape) on B=4 packed graphs with dead rows and a fully masked
+    row, n_buckets 1 (GT's zero table, here random) and 3 (Graphormer's
+    adjacency buckets, those past 2 clipped), with and without GQA: each
+    launch on the 16-block counters, O, lse and every gradient against
+    the plain versions, dead rows zero."""
+    S, bi, bu, _ = _packed_graphs(seed=Dh + nb)
+    bu = np.where(bu >= 0, np.minimum(bu, nb), -1).astype(np.int8)
+    q, k, v, bias = qkv(4, S, H, KV, Dh, seed=nb, n_buckets=nb)
+    before = (_fwd_counts(), _b16_counts())
+    args = [torch.from_numpy(np.array(x, copy=True)).to(dev)
+            for x in (q, k, v, bi, bu, bias)]
+    qb, kb, vb = (x.bfloat16() for x in args[:3])
+    o, lse = ops.cluster_attention(qb, kb, vb, *args[3:], return_lse=True)
+    torch.cuda.synchronize()
+    assert _fwd_counts() == before[0]
+    assert _b16_counts() == (before[1][0] + 1,) + before[1][1:]
+    po, plse = ops.cluster_attention(qb, kb, vb, *args[3:], return_lse=True,
+                                     impl="plain")
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    dead = (args[3] < 0).all(-1)                          # (B, nq)
+    rows = dead.repeat_interleave(16, dim=1)              # (B, S)
+    assert not o[rows].any() and not lse.view(4, H, S)[
+        rows[:, None].expand(4, H, S)].any()
+    gen = torch.Generator(device=dev).manual_seed(nb)
+    dout = torch.randn(o.shape, generator=gen, device=dev).bfloat16()
+    leaves = [x.detach().requires_grad_() for x in (qb, kb, vb, args[5])]
+    mid = _b16_counts()
+    got = torch.autograd.grad(ops.cluster_attention(
+        *leaves[:3], args[3], args[4], leaves[3]), leaves, dout)
+    torch.cuda.synchronize()
+    assert _b16_counts() == (mid[0] + 1, mid[1] + 1, mid[2] + 1)
+    want = ref.cluster_attention_bwd(qb, kb, vb, dout, o, lse, args[3],
+                                     args[4], args[5])
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(g).all(), name
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= TOL_GRAD[torch.bfloat16], (name, rel)
+    assert not got[0][rows].any()
+
+
+@pytest.mark.parametrize("per_graph", [False, True])
+def test_biased_bf16_b16_splits_the_heavy_row(dev, per_graph):
+    """At 16 x 16 blocks, a q-block row that visits 160 k-blocks among
+    rows of at most 4: the bf16 forward and dQ cut it into pieces merged
+    in slot order, and everything matches the plain versions."""
+    layouts = [_heavy_layout(nq=160, seed=s, blk=16) for s in (3, 4)]
+    S, nb = layouts[0][0], layouts[0][3]
+    if per_graph:
+        bi = np.stack([x[1] for x in layouts])
+        bu = np.stack([x[2] for x in layouts])
+    else:
+        bi, bu = layouts[0][1], layouts[0][2]
+    plan = tca.fwd_plan(torch.from_numpy(bi).to(dev), 2)
+    assert plan is not None and plan[2] >= 3
+    q, k, v, bias = qkv(2, S, 8, 8, 16, n_buckets=nb)
+    before = _b16_counts()
+    args = [torch.from_numpy(np.array(x, copy=True)).to(dev)
+            for x in (q, k, v, bi, bu, bias)]
+    qb, kb, vb = (x.bfloat16() for x in args[:3])
+    o, lse = ops.cluster_attention(qb, kb, vb, *args[3:], return_lse=True)
+    po, plse = ops.cluster_attention(qb, kb, vb, *args[3:], return_lse=True,
+                                     impl="plain")
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dout = torch.randn(o.shape, generator=gen, device=dev).bfloat16()
+    delta = ref.row_delta(dout, o)
+    dq, db_part = tcab.dq_kernel(qb, kb, vb, dout, lse, delta, args[3],
+                                 args[4], args[5])
+    torch.cuda.synchronize()
+    assert _b16_counts() == (before[0] + 1, before[1] + 1, before[2])
+    _check_dq(dq, db_part, qb, kb, vb, dout, lse, delta, args[3], args[4],
+              args[5])
 
 
 def _run_unbiased(dev, dtype, q, k, v, bi, bit, causal):

@@ -31,13 +31,15 @@ from repro_torch.data.graph_pipeline import prepare_node_task
 
 
 def jax_params(cfg, seed=0):
-    """Numpy copy of a JAX init, with a random nonzero bias table (the JAX
-    init is zeros, which would leave the bias lookup untested)."""
+    """Numpy copy of a JAX init, with a random nonzero bias table where
+    the config has one (the JAX init is zeros, which would leave the bias
+    lookup untested; GT has none)."""
     tree = jax.tree.map(np.asarray, build(cfg).init(jax.random.PRNGKey(seed)))
     tree = jax.tree.map(lambda x: np.array(x, copy=True), tree)
     rng = np.random.default_rng(seed)
-    tree["bias_table"] = (rng.standard_normal(tree["bias_table"].shape)
-                          * 0.5).astype(np.float32)
+    if "bias_table" in tree:
+        tree["bias_table"] = (rng.standard_normal(tree["bias_table"].shape)
+                              * 0.5).astype(np.float32)
     return tree
 
 

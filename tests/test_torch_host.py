@@ -122,3 +122,55 @@ def test_choose_cluster_dim_identical(bq):
         for d_model in (32, 64, 768):
             assert auto_tuner.choose_cluster_dim(seq, d_model, bq) == \
                 j_tuner.choose_cluster_dim(seq, d_model, bq)
+
+
+@pytest.mark.parametrize("n,m,seed", [(60, 2, 0), (200, 4, 1)])
+def test_powerlaw_graph_identical(n, m, seed):
+    a = graph.powerlaw_graph(n, m, feat_dim=8, n_classes=3, seed=seed)
+    b = j_graph.powerlaw_graph(n, m, feat_dim=8, n_classes=3, seed=seed)
+    assert a.n == b.n
+    for x, y in ((a.src, b.src), (a.dst, b.dst), (a.feat, b.feat),
+                 (a.labels, b.labels)):
+        _same_array(x, y)
+
+
+@pytest.mark.parametrize("kind", ["sbm", "powerlaw", "tiny"])
+def test_lap_pe_identical(kind):
+    """GT's Laplacian eigenvectors, the port's copy against the
+    reference's on this machine's LAPACK (eigenvector signs are the
+    library's); ``tiny`` has fewer than 8 non-trivial eigenvectors, so
+    the encoding is zero-padded."""
+    if kind == "sbm":
+        g, jg = _graphs(96, 4, 6)
+    elif kind == "powerlaw":
+        g, jg = (graph.powerlaw_graph(80, 3, seed=2),
+                 j_graph.powerlaw_graph(80, 3, seed=2))
+    else:
+        g, jg = (graph.powerlaw_graph(5, 1, seed=3),
+                 j_graph.powerlaw_graph(5, 1, seed=3))
+    pe = encodings.lap_pe(g)
+    assert pe.shape == (g.n, 8)
+    _same_array(pe, j_enc.lap_pe(jg))
+
+
+@pytest.mark.parametrize("n,clusters,seed", [(96, 4, 0), (200, 4, 1)])
+def test_gt_node_prep_lap_pe_identical(n, clusters, seed):
+    """The GT branch of the node prep adds the Laplacian encodings at the
+    node positions (zeros at the global token and the padding), shared by
+    every rung, byte for byte as the reference."""
+    g, jg = _graphs(n, clusters, seed)
+    cfg = get_smoke_config("gt")
+    jcfg = jcfgs.get_smoke_config("gt")
+    ladder = [None, 0.0, 1.0]
+    mine = graph_pipeline.prepare_node_task_ladder(g, cfg, ladder, bq=32,
+                                                   bk=32, d_b=8)
+    ref = j_pipe.prepare_node_task_ladder(jg, jcfg, ladder, bq=32, bk=32,
+                                          d_b=8)
+    for a, b in zip(mine, ref, strict=True):
+        _same_prep(a, b)
+        _same_array(a.batch["lap_pe"], b.batch["lap_pe"])
+        assert a.batch["lap_pe"] is mine[0].batch["lap_pe"]
+    pe = mine[0].batch["lap_pe"][0]
+    assert not pe[:cfg.n_global].any() and not pe[cfg.n_global + g.n:].any()
+    assert "lap_pe" not in graph_pipeline.prepare_node_task(
+        g, get_smoke_config("graphormer_slim"), bq=32, bk=32).batch
