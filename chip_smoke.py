@@ -74,6 +74,10 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    with the rung's layout as a dense additive mask (forward and
    backward), and on the sparse rung the dQ kernel with its heavy row cut
    to one visit and unsplit; one sparse and one dense step are profiled;
+   then the 16-step state is checkpointed (the save's blocking snapshot,
+   its background write, bytes on disk), restored into a fresh Trainer
+   on a model of its own (bit for bit), copied once as a rescue copy,
+   and its parameters copied to the host once (the re-init copy);
 6. LM train (slice 3's main path): Qwen3-0.6B at full width and depth
    with the cluster-sparse attention backend, bf16 compute, fp32
    parameters and moments, seeded init, on the synthetic token stream
@@ -82,7 +86,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    (bf16: the tensor-core forward, dQ and dK/dV, none of the CUDA-core
    ones).
    One step by the kernel path and one by the plain path on the same
-   batch must agree; one step is profiled;
+   batch must agree; one step is profiled; the parameters' host copy
+   (the re-init copy ``Trainer.run`` takes) is timed;
 7. tune (this slice's main path): the autotuner on the card as
    ``python -m repro_torch.tune`` runs it (wall-clock search of every op
    on its default case), then the full-width flash and SSD cases, then
@@ -101,7 +106,21 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    nonzero bias table and its gradient through the 16-block kernels);
 9. link train (``--task link``): GT at full width on the launcher's
    2048-node SBM at 32 x 32 blocks, 256 pairs a step, 16 steps, dense at
-   0 and 8, checked and reported as phase 8.
+   0 and 8, checked and reported as phase 8;
+10. recovery (slice 11's main path), in a child process with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and deterministic algorithms, so
+   that a replay is bitwise comparable: GT graph-level at phase 8's shape,
+   16 steps, checkpoints every 4, the layout frozen — an unfaulted
+   baseline, ``nonfinite@6`` skipped, ``nonfinite@5-7`` rolled back to 4
+   past the generation saved at 8 inside the streak, ``preempt@10`` inside
+   the update resumed at 10 from the rescue copy and at 8 without one,
+   the checkpoint at 16 corrupted and a fresh run falling back to 12;
+   every recovery bitwise equal to the baseline, each case's launches of
+   the 16 x 16 kernels counted; GT link at phase 9's shape preempted at 10
+   and resumed, bitwise; a graph-level run with an AutoTuner epoch every
+   step failed at 10 and resumed with the task state of the manifest; the
+   GT state's checkpoint costs and the step time with async saves. The
+   parent fails on the child's non-zero exit or any unrecovered case.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after.
@@ -651,6 +670,351 @@ def tune_phase(dev, reset_counts, read_counts):
             "backend": table.backend}
 
 
+def kernel_counters():
+    """``(reset, read)`` over every kernel wrapper's launch counter."""
+    from repro_torch.kernels import cluster_attention as tca
+    from repro_torch.kernels import cluster_attention_bwd as tcab
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tks
+
+    def reset():
+        for mod in (tca, tcab, tfa, tks):
+            mod.reset_count()
+
+    def read():
+        return {"cluster_attention_fwd": tca.launches,
+                "cluster_attention_fwd_sm90": tca.sm90_launches,
+                "cluster_attention_fwd_sm90_b16": tca.sm90_b16_launches,
+                "cluster_attention_bwd_dq": tcab.dq_launches,
+                "cluster_attention_bwd_dq_sm90": tcab.dq_sm90_launches,
+                "cluster_attention_bwd_dq_sm90_b16":
+                    tcab.dq_sm90_b16_launches,
+                "cluster_attention_bwd_dkv": tcab.dkv_launches,
+                "cluster_attention_bwd_dkv_sm90": tcab.dkv_sm90_launches,
+                "cluster_attention_bwd_dkv_sm90_b16":
+                    tcab.dkv_sm90_b16_launches,
+                "cluster_attention_fwd_unbiased": tca.unbiased_launches,
+                "cluster_attention_fwd_unbiased_sm90":
+                    tca.unbiased_sm90_launches,
+                "cluster_attention_bwd_dq_unbiased":
+                    tcab.dq_unbiased_launches,
+                "cluster_attention_bwd_dkv_unbiased":
+                    tcab.dkv_unbiased_launches,
+                "cluster_attention_bwd_dq_unbiased_sm90":
+                    tcab.dq_unbiased_sm90_launches,
+                "cluster_attention_bwd_dkv_unbiased_sm90":
+                    tcab.dkv_unbiased_sm90_launches,
+                "flash_attention_fwd": tfa.launches,
+                "flash_attention_bwd_dq": tfa.dq_launches,
+                "flash_attention_bwd_dkv": tfa.dkv_launches,
+                "flash_attention_fwd_sm90": tfa.sm90_launches,
+                "flash_attention_bwd_dq_sm90": tfa.dq_sm90_launches,
+                "flash_attention_bwd_dkv_sm90": tfa.dkv_sm90_launches,
+                "ssd_fwd": tks.launches}
+
+    return reset, read
+
+
+B16_NAMES = ("cluster_attention_fwd_sm90_b16",
+             "cluster_attention_bwd_dq_sm90_b16",
+             "cluster_attention_bwd_dkv_sm90_b16")
+B32_NAMES = ("cluster_attention_fwd_sm90", "cluster_attention_bwd_dq_sm90",
+             "cluster_attention_bwd_dkv_sm90")
+
+
+def checkpoint_costs(tr, fresh, tag):
+    """What checkpoints cost for ``tr``'s state: one async save (the
+    snapshot, the part that blocks the loop, then the background
+    compress-and-write), raw bytes and bytes on disk; one
+    ``restore_or_init`` of that checkpoint into the Trainer ``fresh(dir)``
+    builds (newest verified generation, checksums, the copy onto the
+    card), whose parameters and moments must then equal ``tr``'s bit for
+    bit; ``fresh`` builds its own model, whose parameters must differ
+    from ``tr``'s before the restore, so the check covers them; one
+    rescue refresh; one host copy of the parameters (what ``run()`` takes
+    for the re-init rung). The directory is deleted afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.resilience.chaos import bitwise, state_of
+    from repro_torch.runtime.trainer import host_copy
+
+    want = state_of(tr)
+    d = tempfile.mkdtemp(prefix="ckpt-")
+    try:
+        ck = Checkpointer(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd = tr.task.state_dict()
+        ck.save(tr.steps_done, tr.state_tree(),
+                extra={"task": sd} if sd else None)
+        t1 = time.perf_counter()
+        ck.wait()
+        t2 = time.perf_counter()
+        gen = os.path.join(d, f"step_{tr.steps_done:08d}")
+        disk = sum(os.path.getsize(os.path.join(gen, f))
+                   for f in os.listdir(gen))
+        raw = sum(t.numel() * t.element_size() for t in want)
+        other = fresh(d)
+        n = len(other.params)
+        if bitwise(want[:n], state_of(other)[:n]):
+            raise AssertionError(f"{tag}: the fresh Trainer holds the saved "
+                                 f"parameters already; the restore check "
+                                 f"would not cover them")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        step = other.restore_or_init()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        same = bitwise(want, state_of(other))
+        del other
+        t5 = time.perf_counter()
+        tr.rescue_copy()
+        t6 = time.perf_counter()
+        host_copy(tr.params)
+        t7 = time.perf_counter()
+    finally:
+        shutil.rmtree(d)
+    rec = {"codec": ck.codec, "snapshot_s": t1 - t0, "write_s": t2 - t1,
+           "raw_bytes": raw, "disk_bytes": disk, "restore_s": t4 - t3,
+           "restored_step": step, "bitwise_equal": same,
+           "rescue_s": t6 - t5, "init_copy_s": t7 - t6}
+    log(f"[{tag}] checkpoint ({ck.codec}): save blocks {rec['snapshot_s']:.4f}"
+        f" s (snapshot), background write {rec['write_s']:.4f} s; "
+        f"{raw:,} raw bytes of params and moments, {disk:,} on disk; "
+        f"restore into a fresh Trainer {rec['restore_s']:.4f} s (step "
+        f"{step}, bitwise equal {same}); rescue refresh "
+        f"{rec['rescue_s']:.4f} s; host copy of the parameters "
+        f"{rec['init_copy_s']:.4f} s")
+    if not same or step != tr.steps_done:
+        raise AssertionError(f"{tag}: the checkpoint did not restore the "
+                             f"state bit for bit (step {step})")
+    return rec
+
+
+# phase 10: the GT graph-level recovery cases' fault steps (16 steps,
+# checkpoints every 4): skip at 6, a streak at 5-7 (the generation saved
+# at 8 lies inside it), a preemption at 10 (rescued: resume at 10;
+# unrescued: at 8), the final checkpoint at 16 corrupted (fall back to 12)
+RECOVERY_STEPS = 16
+RECOVERY_CKPT_EVERY = 4
+RECOVERY_AT = {"skip": 6, "rollback": (5, 7), "preempt": 10, "corrupt": 16}
+
+
+def recovery_phase(out_path: str) -> int:
+    """Phase 10, in a child process: recovery on the card, bit for bit.
+
+    ``CUBLAS_WORKSPACE_CONFIG`` comes from the parent's environment for
+    this process only, and deterministic algorithms are on, so a replay
+    computes the same bits as the run it replays (the port's kernels use
+    no float atomics). GT graph-level at full width on phase 8's data and
+    mini-batches, the layout frozen (``elastic_every=0``: the ladder reads
+    wall time): the chaos sweep's cases (``run_training_cases``: an
+    unfaulted baseline, a skipped step, a rollback past a generation saved
+    inside the streak, preemption inside the update with and without a
+    rescue copy, a corrupt last generation), each launch-counted; then GT
+    link at phase 9's shape, preempted at 10 and resumed; then a
+    graph-level run with an AutoTuner epoch every step, failed at 10 and
+    resumed, whose task state must come back as the manifest holds it;
+    the GT state's checkpoint costs; the step time with async saves. The
+    record goes to ``out_path`` as JSON."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 10: no CUDA device", file=sys.stderr)
+        return 2
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import sbm_graph
+    from repro_torch.core.graph_model import GraphModel
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import cluster_attention as tca
+    from repro_torch.kernels import cluster_attention_bwd as tcab
+    from repro_torch.resilience.chaos import run_training_cases
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tasks import (GraphLevelTask, LinkTask,
+                                   synthetic_graph_level_dataset)
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
+                      tcab.LIBRARY_DKV_SM90))
+    reset_counts, read_counts = kernel_counters()
+    gt = get_config("gt")
+    log(f"[recovery] deterministic algorithms "
+        f"{torch.are_deterministic_algorithms_enabled()}, "
+        f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
+
+    def graph_task():
+        return GraphLevelTask(
+            synthetic_graph_level_dataset(GRAPH_TRAIN, gt, seed=1), gt,
+            batch_graphs=GRAPH_BATCH, device=dev)
+
+    def factory(task, **fixed):
+        def make(d, **kw):
+            model = GraphModel(gt, device=dev, seed=0)
+            return Trainer(model, TrainerConfig(
+                steps=RECOVERY_STEPS, lr=1e-3, warmup=2,
+                interleave_period=gt.interleave_period,
+                ckpt_every=RECOVERY_CKPT_EVERY, ckpt_dir=d,
+                **{**fixed, **kw}), task=task)
+        return make
+
+    launches, walls = {}, {}
+
+    def counted(names, prefix=""):
+        """Each case's launches, held to the path's kernels: one of each
+        of ``names`` a layer of every sparse step, nothing else."""
+        @contextlib.contextmanager
+        def around(name):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            walls[prefix + name] = time.perf_counter() - t0
+            got = read_counts()
+            launches[prefix + name] = got
+            n = got[names[0]]
+            if not (n > 0 and n % gt.n_layers == 0
+                    and all(got[k] == n for k in names)
+                    and all(c == 0 for k, c in got.items()
+                            if k not in names)):
+                raise AssertionError(f"{prefix}{name}: launches "
+                                     f"{ {k: c for k, c in got.items() if c} }"
+                                     f", want {names} alike, a multiple "
+                                     f"of {gt.n_layers}")
+        return around
+
+    def report(out, tag):
+        bad = []
+        for rec in out["records"]:
+            got = launches[tag + ":" + rec["fault"]]
+            log(f"[{tag}] {rec['fault']:18s} "
+                f"{'recovered' if rec['recovered'] else 'UNRECOVERED'} "
+                f"replay={rec['replay']} ({rec['detail']}); launches "
+                f"{ {k: c for k, c in got.items() if c} }")
+            if not rec["recovered"]:
+                bad.append(rec["fault"])
+        return bad
+
+    # ------------------------------------------- the cases, GT graph-level
+    t0 = time.perf_counter()
+    task = graph_task()
+    prep_s = time.perf_counter() - t0
+    log(f"[recovery] GT graph-level: {task.n_batches} mini-batches of "
+        f"{GRAPH_BATCH} graphs, S={task.layout.seq_len}, bq={task.layout.bq};"
+        f" {RECOVERY_STEPS} steps, dense every {gt.interleave_period}, "
+        f"checkpoints every {RECOVERY_CKPT_EVERY}, faults {RECOVERY_AT}; "
+        f"host prep {prep_s:.2f}s")
+    make = factory(task, elastic_every=0)
+    out = run_training_cases(make, steps=RECOVERY_STEPS,
+                             ckpt_every=RECOVERY_CKPT_EVERY, at=RECOVERY_AT,
+                             around=counted(B16_NAMES, "graph:"))
+    unrecovered = report(out, "graph")
+    records = {"graph": out["records"]}
+    base = out["baseline"]
+    # the saves' cost on the loop, warm, in turns: the same 16 steps
+    # without checkpoints, with async saves every 4, with, without
+    turns = []
+    with tempfile.TemporaryDirectory() as d:
+        for i, saves in enumerate((False, True, True, False)):
+            with counted(B16_NAMES, "graph:")(f"turn_{i}"):
+                tr = make(os.path.join(d, str(i)) if saves else None)
+                tr.run()
+            sparse = [h for h in tr.history if h["variant"] == "sparse"]
+            turn = {"saves": saves, "run_s": walls[f"graph:turn_{i}"],
+                    "sparse_median_ms": float(np.median(
+                        [h["seconds"] * 1e3 for h in sparse]))}
+            if saves:  # the steps just after a save, its write in flight
+                turn["after_save_median_ms"] = float(np.median(
+                    [h["seconds"] * 1e3 for h in sparse
+                     if (h["step"] - 1) % RECOVERY_CKPT_EVERY == 0]))
+            turns.append(turn)
+            log(f"[recovery] turn {i}: "
+                + (f"async saves every {RECOVERY_CKPT_EVERY} steps"
+                   if saves else "no checkpoints")
+                + f", run {turn['run_s']:.3f} s, sparse step median "
+                f"{turn['sparse_median_ms']:.3f} ms"
+                + (f" ({turn['after_save_median_ms']:.3f} ms just after a "
+                   f"save)" if saves else "")
+                + " (deterministic algorithms on)")
+    del tr
+    costs = checkpoint_costs(base, make, "recovery")
+    del base, out
+
+    # ------------------------------------------- GT link, preempt and resume
+    t0 = time.perf_counter()
+    ltask = LinkTask(sbm_graph(LINK_NODES, 4, p_in=0.04, p_out=0.002,
+                               feat_dim=gt.feat_dim, n_classes=gt.n_classes,
+                               seed=0), gt, n_pairs=LINK_PAIRS, device=dev)
+    log(f"[recovery] GT link: S={ltask.layout.seq_len}, bq={ltask.layout.bq}"
+        f", {LINK_PAIRS} pairs a step; host prep "
+        f"{time.perf_counter() - t0:.2f}s")
+    lout = run_training_cases(factory(ltask, elastic_every=0),
+                              steps=RECOVERY_STEPS,
+                              ckpt_every=RECOVERY_CKPT_EVERY, at=RECOVERY_AT,
+                              only="preempt_rescued",
+                              around=counted(B32_NAMES, "link:"))
+    unrecovered += ["link:" + f for f in report(lout, "link")]
+    records["link"] = lout["records"]
+    del lout, ltask
+
+    # --------------------- the task's state across a restart (elastic run)
+    with tempfile.TemporaryDirectory() as d:
+        elastic = factory(task, elastic_every=gt.elastic_every)
+        with counted(B16_NAMES, "elastic:")("failed_at_10"):
+            died = False
+            try:
+                elastic(d, fail_at_step=10).run()
+            except RuntimeError as e:
+                if "injected failure at step 10" not in str(e):
+                    raise
+                died = True
+        saved = Checkpointer(d).load_extra(10)["task"]
+        fresh = graph_task()
+        tr = factory(fresh, elastic_every=gt.elastic_every)(d)
+        with counted(B16_NAMES, "elastic:")("resumed"):
+            start = tr.restore_or_init()
+            got = fresh.state_dict()
+            same = (got["tuner"] == saved["tuner"]
+                    and got["moves"] == saved["moves"])
+            status = tr.run()
+    elastic_rec = {"died": died, "resumed_at": start, "status": status,
+                   "tuner": got["tuner"], "moves": got["moves"],
+                   "task_state_equal": same,
+                   "moves_after": len(fresh.moves)}
+    log(f"[recovery] elastic graph-level run failed at 10 ({died}), resumed "
+        f"at {start}: tuner pos {got['tuner']['pos']}, "
+        f"{len(got['moves'])} moves, equal to the manifest's: {same}; "
+        f"status {status}, {len(fresh.moves)} moves after the resume")
+    if not (died and start == 10 and same and status == "done"):
+        unrecovered.append("elastic_task_state")
+
+    totals = {k: sum(c[k] for c in launches.values())
+              for k in read_counts()}
+    rec = {"cases": records, "unrecovered": unrecovered,
+           "turns": turns, "gt_checkpoint": costs,
+           "elastic": elastic_rec, "launches": totals,
+           "launches_by_case": launches,
+           "seconds": time.perf_counter() - t_start}
+    with open(out_path, "w") as fh:
+        json.dump(rec, fh)
+    log(f"[recovery] {time.perf_counter() - t_start:.1f}s, unrecovered "
+        f"{unrecovered}, launches { {k: c for k, c in totals.items() if c} }")
+    return 0 if not unrecovered else 1
+
+
 def main() -> int:
     import torch
 
@@ -681,7 +1045,8 @@ def main() -> int:
     from repro_torch.kernels import ssd as tks
     from repro_torch.launch.serve import degree_scaled_sbm
     from repro_torch.models.lm import LMModel, lm_loss
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                             host_copy)
     from repro_torch.serve import GraphServe
     from repro_torch.tasks import (BatchFnTask, GraphLevelTask, LinkTask,
                                    NodeTask, link_loss,
@@ -1641,42 +2006,7 @@ def main() -> int:
     b16_rec = b16_kernels()
 
     # ------------------------------------------- 4. serve (first main path)
-    def reset_counts():
-        tca.reset_count()
-        tcab.reset_count()
-        tfa.reset_count()
-        tks.reset_count()
-
-    def read_counts():
-        return {"cluster_attention_fwd": tca.launches,
-                "cluster_attention_fwd_sm90": tca.sm90_launches,
-                "cluster_attention_fwd_sm90_b16": tca.sm90_b16_launches,
-                "cluster_attention_bwd_dq": tcab.dq_launches,
-                "cluster_attention_bwd_dq_sm90": tcab.dq_sm90_launches,
-                "cluster_attention_bwd_dq_sm90_b16":
-                    tcab.dq_sm90_b16_launches,
-                "cluster_attention_bwd_dkv": tcab.dkv_launches,
-                "cluster_attention_bwd_dkv_sm90": tcab.dkv_sm90_launches,
-                "cluster_attention_bwd_dkv_sm90_b16":
-                    tcab.dkv_sm90_b16_launches,
-                "cluster_attention_fwd_unbiased": tca.unbiased_launches,
-                "cluster_attention_fwd_unbiased_sm90":
-                    tca.unbiased_sm90_launches,
-                "cluster_attention_bwd_dq_unbiased":
-                    tcab.dq_unbiased_launches,
-                "cluster_attention_bwd_dkv_unbiased":
-                    tcab.dkv_unbiased_launches,
-                "cluster_attention_bwd_dq_unbiased_sm90":
-                    tcab.dq_unbiased_sm90_launches,
-                "cluster_attention_bwd_dkv_unbiased_sm90":
-                    tcab.dkv_unbiased_sm90_launches,
-                "flash_attention_fwd": tfa.launches,
-                "flash_attention_bwd_dq": tfa.dq_launches,
-                "flash_attention_bwd_dkv": tfa.dkv_launches,
-                "flash_attention_fwd_sm90": tfa.sm90_launches,
-                "flash_attention_bwd_dq_sm90": tfa.dq_sm90_launches,
-                "flash_attention_bwd_dkv_sm90": tfa.dkv_sm90_launches,
-                "ssd_fwd": tks.launches}
+    reset_counts, read_counts = kernel_counters()
 
     def only(**want):
         """The launch counts of a path that launches ``want`` and nothing
@@ -2055,10 +2385,17 @@ def main() -> int:
             prof[variant] = device_breakdown(
                 lambda: tr.step(variant, batch), wall, tag="train",
                 what=f"one {variant} step")
+        # checkpoints at Graphormer-Large's size (phase 10's costs): the
+        # state after the run, restored into a fresh Trainer on a model of
+        # its own (another seed)
+        ckpt_rec = checkpoint_costs(tr, lambda d: Trainer(
+            GraphModel(large, device=dev, seed=1),
+            TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=d), task=task), "train")
         rec = {"launches": counts, "steps": hist, "moves": [
             vars(m) for m in task.moves], "eval": ev, "run_s": run_s,
             "prep_s": prep_s, "peak_bytes": peak, "checks": checks,
-            "check_peak_bytes": check_peak, "profile": prof}
+            "check_peak_bytes": check_peak, "profile": prof,
+            "checkpoint": ckpt_rec}
         del tr, task, model, batch, params, rb, sb
         torch.cuda.empty_cache()
         rec["rung"] = rung_kernels(
@@ -2164,10 +2501,19 @@ def main() -> int:
         prof = device_breakdown(lambda: tr.step("sparse", batch), wall,
                                 tag="lm-train", what="one step",
                                 focus="cluster")
+        # the host copy of the parameters that run() takes before its
+        # first step for the re-init rung (part of run_s above)
+        t0 = time.perf_counter()
+        host_copy(params)
+        init_copy_s = time.perf_counter() - t0
+        log(f"[lm-train] host copy of the "
+            f"{sum(p.numel() * p.element_size() for p in params):,} bytes "
+            f"of parameters: {init_copy_s:.4f} s")
         rec = {"launches": counts, "steps": hist, "run_s": run_s,
                "peak_bytes": peak, "loss_rel": loss_rel,
                "min_grad_cosine": [worst, cos[worst]], "step_wall_ms": wall,
-               "step_walls_ms": walls, "profile": prof}
+               "step_walls_ms": walls, "profile": prof,
+               "init_copy_s": init_copy_s}
         del tr, task, model, batch, params
         torch.cuda.empty_cache()
         return rec
@@ -2238,9 +2584,9 @@ def main() -> int:
         per_layer = {name: cfg.n_layers for name in sparse_kernels}
         run_step = tr.step
 
-        def checked_step(variant, batch):
+        def checked_step(variant, batch, **faults):
             before = read_counts()
-            m = run_step(variant, batch)
+            m = run_step(variant, batch, **faults)
             now = read_counts()
             got = {n: now[n] - before[n] for n in now}
             want = only(**per_layer) if variant == "sparse" else only()
@@ -2317,11 +2663,6 @@ def main() -> int:
         torch.cuda.empty_cache()
         return rec
 
-    b16_names = ("cluster_attention_fwd_sm90_b16",
-                 "cluster_attention_bwd_dq_sm90_b16",
-                 "cluster_attention_bwd_dkv_sm90_b16")
-    b32_names = ("cluster_attention_fwd_sm90", "cluster_attention_bwd_dq_sm90",
-                 "cluster_attention_bwd_dkv_sm90")
     gt = get_config("gt")
     graph_runs = {}
     for cfg_, steps in ((gt, GRAPH_STEPS), (slim, SLIM_GRAPH_STEPS)):
@@ -2333,16 +2674,48 @@ def main() -> int:
             batch_graphs=GRAPH_BATCH, device=dev)
         prep_s = time.perf_counter() - t0
         graph_runs[cfg_.name] = train_task(cfg_, gtask, steps, "graph-train",
-                                           b16_names, prep_s)
+                                           B16_NAMES, prep_s)
         del gtask
 
     t0 = time.perf_counter()
     ltask = LinkTask(sbm_graph(LINK_NODES, 4, p_in=0.04, p_out=0.002,
                                feat_dim=gt.feat_dim, n_classes=gt.n_classes,
                                seed=0), gt, n_pairs=LINK_PAIRS, device=dev)
-    link_run = train_task(gt, ltask, LINK_STEPS, "link-train", b32_names,
+    link_run = train_task(gt, ltask, LINK_STEPS, "link-train", B32_NAMES,
                           time.perf_counter() - t0)
     del ltask
+
+    # ------------------------------------ 10. recovery (slice 11's path)
+    def recovery_run():
+        """Phase 10 in a child process with deterministic cuBLAS, so the
+        setting stays away from phases 1-9; it fails on a non-zero exit or
+        any unrecovered case."""
+        import tempfile
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "recovery.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--recovery",
+                 path], env=dict(os.environ,
+                                 CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+                timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 10 (recovery) exited "
+                                     f"{proc.returncode}")
+            with open(path) as fh:
+                rec = json.load(fh)
+        if rec["unrecovered"]:
+            raise AssertionError(f"phase 10: unrecovered {rec['unrecovered']}")
+        rec["wall_s"] = wall
+        log(f"[recovery] phase 10 child: {wall:.1f}s of wall, every case "
+            f"recovered")
+        return rec
+
+    recovery = recovery_run()
 
     # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
@@ -2351,7 +2724,7 @@ def main() -> int:
 
     def launches(name):
         return (main_path["launches"][name] + train_run["launches"][name]
-                + link_run["launches"][name])
+                + link_run["launches"][name] + recovery["launches"][name])
 
     rung = train_run["rung"]
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2372,7 +2745,8 @@ def main() -> int:
         "launches_by_path": {
             "serve": main_path["launches"]["cluster_attention_fwd_sm90"],
             "train": train_run["launches"]["cluster_attention_fwd_sm90"],
-            "link_train": link_run["launches"]["cluster_attention_fwd_sm90"]},
+            "link_train": link_run["launches"]["cluster_attention_fwd_sm90"],
+            "recovery": recovery["launches"]["cluster_attention_fwd_sm90"]},
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "exp_floor_ms": rec["exp_floor_ms"],
@@ -2507,6 +2881,7 @@ def main() -> int:
         b = b16_rec["gt"]["bfloat16"][half]
         cnt = {run: r["launches"][f"{name}_sm90_b16"]
                for run, r in graph_runs.items()}
+        cnt["recovery"] = recovery["launches"][f"{name}_sm90_b16"]
         kernels.append({
             "name": f"{name}_b16", "route": "cuda",
             "source": csrc + f"{name}_sm90.cu",
@@ -2531,6 +2906,7 @@ def main() -> int:
                                       if half == "fwd" else
                                       "cluster_attention_bwd.cu")})
     kernels[-3]["graph_train"] = graph_runs
+    kernels[-3]["recovery"] = recovery
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2540,4 +2916,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--recovery"]:
+        sys.exit(recovery_phase(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Training CLI on the port: the graph archs' node, graph-level and link
 tasks and the dense LMs (the port of ``repro.launch.train`` without
-meshes, checkpoints and fault plans).
+meshes), with checkpoints, restart and the seeded fault plan.
 
 Graph archs (``graphormer_slim``, ``graphormer_large``, ``gt``) train one
 task through the :class:`Trainer`, on the reference's synthetic data:
@@ -18,6 +18,16 @@ Every task runs the dense interleave step every ``--interleave-period``
 steps and an AutoTuner epoch every ``--elastic-every`` steps, and prints
 every step's variant, loss, accuracy and ``beta_thre``, the ladder moves
 and the held-out evaluation.
+
+Every arch takes ``--ckpt-dir`` (checkpoints every ``--ckpt-every``
+steps and at the end, in the reference's format; a second run with the
+same directory resumes from its last step), ``--fault-plan`` (the seeded
+``FaultPlan`` spec, e.g. ``nonfinite@2,preempt@5``; ``REPRO_FAULTS``
+wins when set), ``--max-bad-steps`` (consecutive non-finite steps
+before a rollback; 0 = skip only) and ``--retune-every`` (reload the
+kernel winner table, ``--tune-table``, every k steps), and prints the
+step it resumed at, the skipped steps, the rollbacks and the run's
+status. Without ``--ckpt-dir`` nothing is saved or restored.
 
 LM archs (``qwen3_0_6b``, ``smollm_135m``): trains the config as
 published on the synthetic token stream of ``data/lm_pipeline.py``
@@ -37,6 +47,9 @@ published LM configs run dense attention; the cluster-sparse backend is
       --task link --graph-nodes 128 --steps 6 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
       --smoke --steps 20 --seq 128 --batch 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gt --smoke \\
+      --task graph --graphs 8 --batch-graphs 4 --steps 6 --device cpu \\
+      --ckpt-dir _local/ck --ckpt-every 2 --fault-plan nonfinite@2
 """
 
 from __future__ import annotations
@@ -86,6 +99,25 @@ def main(argv=None):
     ap.add_argument("--elastic-every", type=int, default=-1,
                     help="steps per AutoTuner epoch / re-layout boundary "
                          "(-1 = config default, 0 = frozen layout)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory; a run resumes from its "
+                         "newest verified step ('' = no checkpoints)")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--fault-plan", default="",
+                    help="deterministic fault injection spec "
+                         "(repro_torch.resilience), e.g. "
+                         "'nonfinite@5,preempt@7,ckpt_corrupt@10'; "
+                         "REPRO_FAULTS wins when set")
+    ap.add_argument("--max-bad-steps", type=int, default=3,
+                    help="consecutive non-finite steps before rollback "
+                         "to the last verified checkpoint (0 = "
+                         "skip-only, never roll back)")
+    ap.add_argument("--retune-every", type=int, default=0,
+                    help="reload the kernel winner table every k steps "
+                         "(repro_torch.tune; 0 = never)")
+    ap.add_argument("--tune-table", default="",
+                    help="winner-table path for --retune-every "
+                         "('' = TUNE_winners_torch.json)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -112,9 +144,13 @@ def main(argv=None):
     tc = TrainerConfig(steps=args.steps, lr=args.lr,
                        warmup=max(2, args.steps // 10),
                        interleave_period=interleave,
-                       elastic_every=elastic_every)
+                       elastic_every=elastic_every, **_recovery(args))
     trainer = Trainer(model, tc, task=task)
     status = trainer.run()
+    if not trainer.history:  # restored a finished run: nothing to do
+        print(f"status={status} (already at step {trainer.steps_done})")
+        return trainer
+    _print_recovery(trainer)
     for h in trainer.history:
         print(f"step {h['step']:4d} [{h['variant']:6s}] "
               f"loss {h['loss']:.4f} acc {h['acc']:.3f} "
@@ -157,15 +193,37 @@ def _lm_main(args, cfg):
     dc = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch)
     tc = TrainerConfig(steps=args.steps, lr=args.lr,
-                       warmup=max(2, args.steps // 10))
+                       warmup=max(2, args.steps // 10), **_recovery(args))
     trainer = Trainer(model, tc, task=BatchFnTask(lambda s: lm_batch(dc, s)))
     status = trainer.run()
     hist = trainer.history
+    if not hist:  # restored a finished run: nothing to do
+        print(f"status={status} (already at step {trainer.steps_done})")
+        return trainer
+    _print_recovery(trainer)
     for h in hist[:: max(1, len(hist) // 10)]:
         print(f"step {h['step']:4d} loss {h['loss']:.4f} "
               f"{h['seconds'] * 1e3:.0f}ms")
     print(f"status={status} final_loss={hist[-1]['loss']:.4f}")
     return trainer
+
+
+def _recovery(args) -> dict:
+    """The TrainerConfig fields of the checkpoint, fault and retune
+    flags."""
+    return dict(ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
+                fault_plan=args.fault_plan, max_bad_steps=args.max_bad_steps,
+                retune_every=args.retune_every, tune_table=args.tune_table)
+
+
+def _print_recovery(trainer) -> None:
+    """Where the run started, the steps the guard skipped, the rollbacks
+    and the injected faults."""
+    hist = trainer.history
+    print(f"resumed_at={hist[0]['step'] - 1} "
+          f"skipped_steps={[h['step'] for h in hist if h['skipped']]} "
+          f"rollbacks={[(r.at_step, r.to_step) for r in trainer.rollbacks]} "
+          f"stragglers={len(trainer.stragglers)} faults={trainer.fault_log}")
 
 
 if __name__ == "__main__":

@@ -34,19 +34,50 @@ class AdamW:
         self.step = 0
 
     @torch.no_grad()
-    def update(self, grads) -> None:
-        """One step with ``grads`` (one tensor per parameter, in order)."""
+    def update(self, grads, *, midway=None) -> None:
+        """One step with ``grads`` (one tensor per parameter, in order).
+        ``midway``, when given, is called once after the first half of the
+        parameters (and their moments) has been written: the fault plan's
+        ``preempt`` hook point, where the state is torn."""
         self.step += 1
         lr = self.lr(self.step) if callable(self.lr) else self.lr
         c1 = 1.0 - self.b1 ** self.step
         c2 = 1.0 - self.b2 ** self.step
-        for p, g, m, v in zip(self.params, grads, self.m, self.v):
+        half = len(self.params) // 2
+        for i, (p, g, m, v) in enumerate(zip(self.params, grads, self.m,
+                                             self.v)):
+            if i == half and midway is not None:
+                midway()
             g = g.float()
             m.mul_(self.b1).add_(g, alpha=1 - self.b1)
             v.mul_(self.b2).add_((1 - self.b2) * g * g)
             delta = (m / c1) / ((v / c2).sqrt() + self.eps) \
                 + self.weight_decay * p.float()
             p.copy_(p.float() - lr * delta)
+
+    def state_dict(self) -> dict:
+        """``{"m": [...], "v": [...], "step": int}``: the live moment
+        tensors, one per parameter in order (the reference's
+        ``{"m", "v", "step"}`` state; the trainer names and stacks them
+        into its tree)."""
+        return {"m": list(self.m), "v": list(self.v), "step": self.step}
+
+    @torch.no_grad()
+    def load_state_dict(self, d: dict) -> None:
+        """Copy ``d``'s moments into the existing tensors (references to
+        them stay valid) and take its step."""
+        for name in ("m", "v"):
+            mine, theirs = getattr(self, name), d[name]
+            if len(theirs) != len(mine):
+                raise ValueError(f"{len(theirs)} {name} moments for "
+                                 f"{len(mine)} parameters")
+            for a, b in zip(mine, theirs):
+                if a.shape != b.shape:
+                    raise ValueError(f"{name} moment of shape "
+                                     f"{tuple(b.shape)} for a parameter of "
+                                     f"shape {tuple(a.shape)}")
+                a.copy_(b)
+        self.step = int(d["step"])
 
 
 def warmup_cosine(peak: float, warmup: int, total: int,

@@ -1,10 +1,11 @@
-"""Training loop, generic over the Task protocol — the port of the
-single-device core of ``repro.runtime.trainer``.
+"""Fault-tolerant training loop, generic over the Task protocol — the
+port of ``repro.runtime.trainer`` on one device.
 
 * each of the task's ``loss_variants`` is a step of its own (node tasks
   have two: ``sparse`` and ``dense``);
 * ``task.variant(step, interleave_period)`` is the dual-interleave
-  schedule (paper §III-B), keyed off the absolute step;
+  schedule (paper §III-B), keyed off the absolute step, so the cadence
+  survives a restart;
 * every ``elastic_every`` steps the epoch's (mean loss, wall time) feed
   ``task.on_epoch`` (paper §III-D: the AutoTuner ladder and
   re-reformation). The first two steps of a run are left out of the
@@ -12,37 +13,116 @@ single-device core of ``repro.runtime.trainer``.
   uploads) does not poison the loss-descent rate;
 * a non-finite guard: a step whose loss or any gradient is not finite
   leaves the parameters and moments as they were and counts in
-  ``bad_steps``.
+  ``bad_steps``;
+* checkpoints (``ckpt_dir``): the reference's state tree
+  ``{"params", "opt": {"m", "v", "step"}, "step", "bad"}`` with the
+  reference's parameter layout (``convert.params_to_jax``), so either
+  package resumes the other's run; the task's state rides the manifest
+  under ``"task"``. Async saves every ``ckpt_every`` steps, a blocking
+  one at the end and on SIGTERM (status ``"preempted"``), a crash save on
+  any uncaught failure, and a restart resumes at the newest verified
+  generation — tasks are seekable, so it replays nothing and skips
+  nothing;
+* the recovery ladder: after ``max_bad_steps`` consecutive bad steps the
+  loop rolls back to the newest verified checkpoint saved outside the
+  streak and replays (re-init when none qualifies), at most
+  ``max_rollbacks`` times;
+* the seeded ``FaultPlan`` (``fault_plan`` / ``REPRO_FAULTS``) and
+  ``fail_at_step`` drive every recovery path; a straggler EMA flags slow
+  steps; ``retune_every`` reloads the kernel winner table.
+
+The port updates parameters in place and has no buffer donation, so its
+worst crash instant is inside ``AdamW.update`` (the ``preempt`` hook
+point), with some parameters written and some not. The state counts as
+torn from the first in-place write until the step counter has advanced;
+the crash save never writes torn state: it saves the last rescue copy
+(``rescue_every``) instead, or nothing, and the restart resumes from the
+last periodic checkpoint.
 
 Every step appends a ``history`` record: ``step``, ``loss``, ``xent``,
 ``acc``, ``bad_steps``, ``skipped``, ``seconds``, ``variant``, ``dense``
 and the task's extras (``beta_thre`` for elastic tasks).
 
-Not ported yet, each waiting for the slice that brings its package
-(``ROADMAP.md``): checkpoints and restart, rollback after a bad streak,
-fault injection, the IR audit, kernel retuning, the straggler policy,
-meshes and the reference's reduced-precision optimizer moments.
+Not ported: the IR audit (JAX-specific), meshes (ROADMAP A8) and the
+reference's reduced-precision optimizer moments (A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import signal
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import (CheckpointCorrupt, Checkpointer,
+                                         snapshot)
+from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.optim.adamw import AdamW, warmup_cosine
+from repro_torch.resilience.faults import FaultPlan, Preempted
+
+KEEP = 3                 # checkpoint generations kept on disk
+STRAGGLER_FACTOR = 3.0   # a step this many times the EMA is a straggler
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
+    ckpt_every: int = 50
+    # None = no checkpoints and no restore, so a caller that names no
+    # directory runs as it did before checkpoints existed. The reference
+    # defaults to one shared directory (/tmp/repro_ckpt); here that would
+    # make concurrent runs (tests under xdist, the chip phases) resume one
+    # another's state.
+    ckpt_dir: str | None = None
     lr: float = 3e-4
     warmup: int = 10
     weight_decay: float = 0.1
+    fail_at_step: int = -1          # failure injection (tests)
     interleave_period: int = 0   # dense step every k steps (0 = never)
     elastic_every: int = 0       # steps per task epoch (0 = frozen layout)
+    # kernel autotuning (repro_torch.tune): reload the winner table from
+    # disk every k steps (0 = never); "" = the table's default path
+    retune_every: int = 0
+    tune_table: str = ""
+    # crash rescue: a host copy of params, moments, counters and the
+    # task's state every k steps (0 = off), which the crash save writes
+    # when the crash tore the live state. Each refresh copies the whole
+    # state to the host synchronously (chip_smoke.py times it at
+    # Graphormer-Large's size); without it a crash inside the update
+    # resumes from the last periodic checkpoint
+    rescue_every: int = 0
+    # deterministic fault injection (repro_torch.resilience.faults): a
+    # seeded FaultPlan spec like "nonfinite@5,preempt@7,ckpt_corrupt@10,
+    # seed=3"; REPRO_FAULTS wins when set. Empty = no faults
+    fault_plan: str = ""
+    # after this many CONSECUTIVE non-finite steps (each already skipped
+    # by the guard) roll back to the newest verified checkpoint outside
+    # the streak and replay; 0 = skip only
+    max_bad_steps: int = 3
+    # a fault that survives this many rollbacks is not transient: raise
+    max_rollbacks: int = 3
+
+
+def host_copy(tensors) -> list[torch.Tensor]:
+    """A synchronous host copy of each tensor (never an alias, also of a
+    CPU tensor)."""
+    return [t.detach().to("cpu", copy=True) for t in tensors]
+
+
+@dataclasses.dataclass
+class StragglerReport:
+    step: int
+    seconds: float
+    ema: float
+
+
+@dataclasses.dataclass
+class RollbackReport:
+    at_step: int   # loop step the escalation fired at
+    to_step: int   # verified checkpoint step replay resumed from
 
 
 class Trainer:
@@ -52,17 +132,42 @@ class Trainer:
         self.model = model
         self.cfg = cfg
         self.task = task.prepare(model)
-        self.params = list(model.parameters())
+        named = list(model.named_parameters())
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         self.opt = AdamW(self.params,
                          lr=warmup_cosine(cfg.lr, cfg.warmup, cfg.steps),
                          weight_decay=cfg.weight_decay)
+        # the re-init rung of the ladder: a host copy of the parameters
+        # as they stand at the first restore_or_init() (run() calls it),
+        # taken when a re-init is reachable; Trainers driven only through
+        # step() never pay for it
+        self._init_params: list[torch.Tensor] | None = None
+        self.ckpt = (Checkpointer(cfg.ckpt_dir, keep=KEEP)
+                     if cfg.ckpt_dir else None)
+        self.faults = FaultPlan.resolve(cfg.fault_plan)
         self.history: list[dict] = []
-        self.bad = 0     # consecutive non-finite steps
+        self.stragglers: list[StragglerReport] = []
+        self.rollbacks: list[RollbackReport] = []
+        self.fault_log: list[dict] = []
+        self.bad = 0          # consecutive non-finite steps
+        self.steps_done = 0   # the state's step counter
+        self._torn = False
+        self._rescue: tuple[int, dict, dict | None] | None = None
+        self._preempted = False
 
-    def step(self, variant: str, batch: dict) -> dict:
+    # ------------------------------------------------------------ step
+
+    def step(self, variant: str, batch: dict, *, poison: bool = False,
+             midway=None) -> dict:
         """One training step of ``variant`` on ``batch``; returns the
-        step's metrics as floats."""
+        step's metrics as floats. ``poison`` is the ``nonfinite`` fault
+        hook (the loss times NaN); ``midway`` the ``preempt`` one, called
+        halfway through the update (or, on a skipped step, in its
+        place)."""
         loss, metrics = self.task.loss_variants[variant](self.model, batch)
+        if poison:
+            loss = loss * float("nan")
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         # a parameter the variant does not reach gets a zero gradient, as
         # under jax.grad (weight decay still applies to it)
@@ -73,35 +178,302 @@ class Trainer:
             ok = ok & torch.isfinite(g).all()
         ok = bool(ok)
         if ok:
-            self.opt.update(grads)
+            self._torn = True
+            self.opt.update(grads, midway=midway)
             self.bad = 0
         else:
+            if midway is not None:
+                midway()
             self.bad += 1
+        self.steps_done += 1
+        self._torn = False
         return {"loss": float(loss.detach()), "bad_steps": self.bad,
                 "skipped": int(not ok),
                 **{k: float(v.detach()) for k, v in metrics.items()}}
 
+    # ------------------------------------------------------------ state
+
+    def state_tree(self) -> dict:
+        """The reference's state tree over the live tensors (parameters
+        and moments in the reference's layout, counters as 0-d int32)."""
+        opt = self.opt.state_dict()
+        return {"params": params_to_jax(dict(zip(self.names, self.params))),
+                "opt": {"m": params_to_jax(dict(zip(self.names, opt["m"]))),
+                        "v": params_to_jax(dict(zip(self.names, opt["v"]))),
+                        "step": np.asarray(opt["step"], np.int32)},
+                "step": np.asarray(self.steps_done, np.int32),
+                "bad": np.asarray(self.bad, np.int32)}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: dict) -> None:
+        """Copy a restored state tree (numpy leaves, either package's)
+        into the live parameters, moments and counters. The names and
+        shapes must be this model's."""
+        parts = [params_from_jax(t) for t in
+                 (tree["params"], tree["opt"]["m"], tree["opt"]["v"])]
+        for got in parts:
+            if sorted(got) != sorted(self.names):
+                raise ValueError(
+                    f"checkpoint names {sorted(set(got) ^ set(self.names))} "
+                    f"differ from the model's")
+        params, m, v = ([d[n] for n in self.names] for d in parts)
+        # every shape before any copy: a mismatch leaves the state whole
+        for name, p, *srcs in zip(self.names, self.params, params, m, v):
+            for src in srcs:
+                if p.shape != src.shape:
+                    raise ValueError(f"checkpoint {name} has shape "
+                                     f"{tuple(src.shape)}, the model "
+                                     f"{tuple(p.shape)}")
+        for p, src in zip(self.params, params):
+            p.copy_(src)
+        self.opt.load_state_dict({"m": m, "v": v,
+                                  "step": int(tree["opt"]["step"])})
+        self.steps_done = int(tree["step"])
+        # checkpoints predating the non-finite guard carry no counter
+        self.bad = int(tree.get("bad", 0))
+
+    def _reinit(self) -> None:
+        """The ladder's last rung: the parameters as they stood at the
+        first restore, zero moments, step 0."""
+        with torch.no_grad():
+            for p, p0 in zip(self.params, self._init_params):
+                p.copy_(p0)
+            for t in (*self.opt.m, *self.opt.v):
+                t.zero_()
+        self.opt.step = 0
+        self.steps_done = 0
+        self.bad = 0
+
+    def _adopt(self, tree: dict, step: int) -> None:
+        """Load a restored tree and the task's state from its manifest."""
+        self.load_state_tree(tree)
+        extra = self.ckpt.load_extra(step)
+        if extra:
+            # "elastic" is the reference's pre-Task manifest key
+            sd = extra.get("task") or extra.get("elastic")
+            if sd:
+                self.task.load_state_dict(sd)
+
+    def restore_or_init(self) -> int:
+        """The step to start from: the newest generation that passes
+        checksum verification (a corrupt or uncommitted latest falls back,
+        with a RuntimeWarning, to an older retained one), else re-init at
+        0. Without ``ckpt_dir``: 0, from the state as it stands."""
+        # re-init (here, or in a rollback with no generation to go to)
+        # goes back to the parameters as they stand at the first call
+        if self._init_params is None and (self.ckpt is not None
+                                          or self.cfg.max_bad_steps > 0):
+            self._init_params = host_copy(self.params)
+        if self.ckpt is None:
+            self.steps_done = 0
+            return 0
+        got = self.ckpt.restore_latest_verified()
+        if got is None:
+            self._reinit()
+            return 0
+        tree, step = got
+        self._adopt(tree, step)
+        return step
+
+    def _ckpt_extra(self) -> dict | None:
+        sd = self.task.state_dict()
+        return {"task": sd} if sd else None
+
+    def rescue_copy(self) -> None:
+        """Refresh the host rescue copy of the whole state (and the task's
+        state) at the current step."""
+        self._rescue = (self.steps_done, snapshot(self.state_tree()),
+                        self._ckpt_extra())
+
+    # ------------------------------------------------------------ loop
+
     def run(self) -> str:
+        """Train to ``cfg.steps``; returns ``"done"`` or ``"preempted"``
+        (SIGTERM). Restores first when ``ckpt_dir`` holds a checkpoint."""
         cfg = self.cfg
         task = self.task
+        start = self.restore_or_init()
+        old = signal.getsignal(signal.SIGTERM)
+
+        def on_term(sig, frame):
+            self._preempted = True
+
+        try:
+            signal.signal(signal.SIGTERM, on_term)
+        except ValueError:
+            pass  # not the main thread: no handler, as in the reference
+
+        ema = None
         epoch_losses: list[float] = []
         epoch_seconds = 0.0
-        for step in range(cfg.steps):
-            t0 = time.perf_counter()
-            variant = task.variant(step, cfg.interleave_period)
-            metrics = self.step(variant, task.batches(step))
-            dt = time.perf_counter() - t0   # float() above synchronised
-            self.history.append({"step": step + 1, **metrics,
-                                 "seconds": dt, "variant": variant,
-                                 "dense": variant == "dense",
-                                 **task.log_extras()})
-            if cfg.elastic_every > 0:
-                if step >= 2 and np.isfinite(metrics["loss"]):
-                    epoch_losses.append(metrics["loss"])
-                    epoch_seconds += dt
-                if (step + 1) % cfg.elastic_every == 0:
-                    if epoch_losses:
-                        task.on_epoch(float(np.mean(epoch_losses)),
-                                      epoch_seconds, step=step + 1)
+        try:
+            step = start
+            while step < cfg.steps:
+                if step == cfg.fail_at_step:
+                    raise RuntimeError(f"injected failure at step {step}")
+                t0 = time.perf_counter()
+                variant = task.variant(step, cfg.interleave_period)
+                batch = task.batches(step)
+                nf = self.faults.take("nonfinite", step)
+                pre = self.faults.take("preempt", step)
+                metrics = self.step(variant, batch, poison=nf is not None,
+                                    midway=self._preempt_hook(step)
+                                    if pre is not None else None)
+                if nf is not None:
+                    self.fault_log.append({"kind": "nonfinite",
+                                           "step": step})
+                dt = time.perf_counter() - t0   # float() above synchronised
+                if step - start >= 2:  # skip start-up-dominated steps
+                    prev_ema = ema
+                    ema = dt if ema is None else 0.9 * ema + 0.1 * dt
+                    if prev_ema is not None and \
+                            dt > STRAGGLER_FACTOR * prev_ema:
+                        self.stragglers.append(
+                            StragglerReport(step, dt, prev_ema))
+                self.history.append({"step": step + 1, **metrics,
+                                     "seconds": dt, "variant": variant,
+                                     "dense": variant == "dense",
+                                     **task.log_extras()})
+                if cfg.elastic_every > 0:
+                    # non-finite (skipped) steps would poison the mean
+                    if step - start >= 2 and np.isfinite(metrics["loss"]):
+                        epoch_losses.append(metrics["loss"])
+                        epoch_seconds += dt
+                    if (step + 1) % cfg.elastic_every == 0:
+                        if epoch_losses:
+                            task.on_epoch(float(np.mean(epoch_losses)),
+                                          epoch_seconds, step=step + 1)
+                        epoch_losses, epoch_seconds = [], 0.0
+                if cfg.retune_every > 0 and \
+                        (step + 1) % cfg.retune_every == 0:
+                    # warn-and-fall-back on a load problem (tune.runtime)
+                    from repro_torch.tune import runtime as tune_runtime
+                    tune_runtime.refresh(cfg.tune_table or None)
+                # after the epoch feed, so the copy holds what a
+                # checkpoint of this step would
+                if cfg.rescue_every > 0 and \
+                        (step + 1) % cfg.rescue_every == 0:
+                    self.rescue_copy()
+                # the final blocking save below covers step == cfg.steps
+                if self.ckpt is not None and \
+                        (step + 1) % cfg.ckpt_every == 0 and \
+                        step + 1 != cfg.steps:
+                    self.ckpt.save(step + 1, self.state_tree(),
+                                   extra=self._ckpt_extra())
+                    self._maybe_corrupt(step + 1)
+                if self._preempted:
+                    if self.ckpt is not None:
+                        self.ckpt.save(step + 1, self.state_tree(),
+                                       blocking=True,
+                                       extra=self._ckpt_extra())
+                    return "preempted"
+                # escalation: the guard already skipped each bad update;
+                # a persistent streak means the state itself may be
+                # poisoned — roll back to a verified checkpoint outside it
+                if cfg.max_bad_steps > 0 and \
+                        metrics["bad_steps"] >= cfg.max_bad_steps:
+                    step = self._rollback(step + 1)
+                    ema = None
                     epoch_losses, epoch_seconds = [], 0.0
-        return "done"
+                    continue
+                step += 1
+            if self.ckpt is not None:
+                self.ckpt.save(cfg.steps, self.state_tree(), blocking=True,
+                               extra=self._ckpt_extra())
+                self._maybe_corrupt(cfg.steps)
+            return "done"
+        except Exception as err:
+            # crash-consistent save so a restart resumes, then re-raise;
+            # a failing save is attached to the crash, never in its place
+            try:
+                self._crash_save()
+            except Exception as save_err:
+                err.add_note(f"repro_torch.runtime: the crash save failed "
+                             f"too: {save_err!r}")
+            raise
+        finally:
+            if self.ckpt is not None:
+                self.ckpt.wait()
+            try:
+                signal.signal(signal.SIGTERM, old)
+            except (ValueError, TypeError):
+                pass
+
+    def _preempt_hook(self, step: int):
+        def hook():
+            self.fault_log.append({"kind": "preempt", "step": step})
+            raise Preempted(f"injected preemption at step {step} (inside "
+                            f"the optimizer update)")
+        return hook
+
+    def _maybe_corrupt(self, step: int) -> None:
+        """ckpt_corrupt fault hook: flip one seeded byte in the
+        checkpoint just written (after the async write lands)."""
+        if self.faults.take("ckpt_corrupt", step) is None:
+            return
+        self.ckpt.wait()
+        fn, off = self.ckpt.corrupt(step, seed=self.faults.seed)
+        self.fault_log.append({"kind": "ckpt_corrupt", "step": step,
+                               "file": fn, "offset": off})
+
+    def _rollback(self, at_step: int) -> int:
+        """Roll back to the newest verified checkpoint outside the bad
+        streak (saved counter ``bad == 0``) and return the step to replay
+        from; re-init at 0 when no generation qualifies. Tasks are
+        seekable, so replay recomputes the same batches."""
+        cfg = self.cfg
+        if len(self.rollbacks) >= cfg.max_rollbacks:
+            raise RuntimeError(
+                f"non-finite steps persist after {len(self.rollbacks)} "
+                f"rollbacks (max_rollbacks={cfg.max_rollbacks}); "
+                "refusing to loop")
+        to = None
+        if self.ckpt is not None:
+            self.ckpt.wait()
+            for s in self.ckpt.generations():
+                try:
+                    tree = self.ckpt.restore(s)
+                except (CheckpointCorrupt, OSError, ValueError,
+                        KeyError) as e:
+                    warnings.warn(
+                        f"repro_torch.runtime: rollback skipping checkpoint "
+                        f"step {s} (failed verification: {e})",
+                        RuntimeWarning, stacklevel=2)
+                    continue
+                if int(np.asarray(tree.get("bad", 0))) > 0:
+                    # saved mid-streak: its step counter has advanced past
+                    # updates the guard skipped, so replay from it would
+                    # drop them forever
+                    warnings.warn(
+                        f"repro_torch.runtime: rollback skipping checkpoint "
+                        f"step {s} (saved inside a bad streak)",
+                        RuntimeWarning, stacklevel=2)
+                    continue
+                self._adopt(tree, s)
+                to = s
+                break
+        if to is None:
+            self._reinit()
+            to = 0
+        self._rescue = None  # the pre-rollback copy is stale
+        self.rollbacks.append(RollbackReport(at_step, to))
+        warnings.warn(
+            f"repro_torch.runtime: {cfg.max_bad_steps} consecutive "
+            f"non-finite steps at step {at_step}; rolled back to "
+            f"verified checkpoint step {to} and replaying",
+            RuntimeWarning, stacklevel=2)
+        return to
+
+    def _crash_save(self) -> None:
+        """Rescue checkpoint after an uncaught failure: the live state when
+        it is whole, else the last rescue copy, else nothing (the restart
+        resumes from the last periodic checkpoint). Never torn state."""
+        if self.ckpt is None:
+            return
+        self.ckpt.wait()
+        if not self._torn:
+            self.ckpt.save(self.steps_done, self.state_tree(), blocking=True,
+                           extra=self._ckpt_extra())
+        elif self._rescue is not None:
+            step, host, extra = self._rescue
+            self.ckpt.save(step, host, blocking=True, extra=extra)

@@ -14,7 +14,8 @@ the reference's (``repro.tune``) where the two must agree:
 * ``_offline_cost`` equal to the reference's on the same case shapes;
 * the search on the CPU (offline, gated plain-vs-plain; wall-clock
   raises) and ``python -m repro_torch.tune --offline --device cpu``
-  writing both artifacts.
+  writing both artifacts;
+* the trainer's ``--retune-every`` reloading the table during a run.
 """
 
 import json
@@ -337,3 +338,30 @@ def test_cli_device_defaults_to_cuda(tmp_path):
     proc = _cli("--offline", "--ops", "paged_attention", cwd=tmp_path)
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_trainer_retune_every_reloads_the_winner_table(tmp_path, capsys,
+                                                       monkeypatch):
+    """``--retune-every 2`` on a 4-step run reloads the table from
+    ``--tune-table`` after steps 2 and 4, and the table in force after the
+    run is the file's."""
+    from repro_torch.launch import train as train_cli
+
+    path = str(tmp_path / "winners.json")
+    table = _one_entry_table(Schedule("ssd", chunk=64),
+                             "ssd/S256/H2/D8/float32")
+    table.save(path)
+    calls = []
+    refresh = rt.refresh
+    monkeypatch.setattr(rt, "refresh",
+                        lambda p=None: calls.append(p) or refresh(p))
+    gen = rt.generation()
+    tr = train_cli.main(["--arch", "gt", "--smoke", "--task", "graph",
+                         "--graphs", "8", "--batch-graphs", "4", "--steps",
+                         "4", "--device", "cpu", "--retune-every", "2",
+                         "--tune-table", path])
+    assert "status=done" in capsys.readouterr().out
+    assert len(tr.history) == 4
+    assert calls == [path, path]
+    assert rt.generation() == gen + 2
+    assert rt.active_table().entries == table.entries
