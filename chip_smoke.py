@@ -82,9 +82,9 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    with the cluster-sparse attention backend, bf16 compute, fp32
    parameters and moments, seeded init, on the synthetic token stream
    (S=16384, batch 1) through ``BatchFnTask`` and ``Trainer``: 4 steps,
-   finite and falling losses, 28 launches of each unbiased kernel a step
-   (bf16: the tensor-core forward, dQ and dK/dV, none of the CUDA-core
-   ones).
+   finite and falling losses, 56 launches of the unbiased forward and 28
+   of its dQ and dK/dV a step under the config's ``remat="block"``
+   (bf16: the tensor-core kernels, none of the CUDA-core ones).
    One step by the kernel path and one by the plain path on the same
    batch must agree; one step is profiled; the parameters' host copy
    (the re-init copy ``Trainer.run`` takes) is timed;
@@ -98,8 +98,9 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    GT at full width on 256 graphs of ``synthetic_graph_level_dataset``
    (seed 1) in mini-batches of 128 at 16 x 16 blocks, 64 held out (seed
    2), 16 steps, dense at 0 and 8, an AutoTuner epoch every step; each
-   sparse step must launch the bf16 16-block forward, dQ and dK/dV once
-   a layer and nothing else, each dense step nothing; step 0's sparse
+   sparse step must launch the bf16 16-block dQ and dK/dV once a layer
+   and the forward twice (``remat="block"``), and nothing else, each
+   dense step nothing; step 0's sparse
    loss and gradients held against ``impl="plain"``; step ms (sparse and
    dense apart), host prep, loss, held-out accuracy, peak memory. Then
    Graphormer-Slim at full width, 8 steps on the same data (a random
@@ -120,10 +121,26 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    and resumed, bitwise; a graph-level run with an AutoTuner epoch every
    step failed at 10 and resumed with the task state of the manifest; the
    GT state's checkpoint costs and the step time with async saves. The
-   parent fails on the child's non-zero exit or any unrecovered case.
+   parent fails on the child's non-zero exit or any unrecovered case;
+11. recomputation (slice 12's main path, ``cfg.remat``), in a child
+   process with deterministic cuBLAS, so Qwen3-4B meets an empty card:
+   Qwen3-0.6B at S=16384, 4 steps under "none" and 4 under "block" from
+   the same parameters and batches and one under "dots", step 0's loss
+   and gradients of each held to "none" (the loss bitwise); Qwen3-0.6B
+   at S=65536, 3 steps; Qwen3-1.7B at S=16384, 4 steps; Qwen3-4B at
+   S=8192 (S=4096 if it does not fit, the cut recorded), 3 steps;
+   Mamba2-2.7B at S=4096, 3 steps (the plain SSD scan, as the
+   reference's model: no kernel); Graphormer-Large node training on the
+   serve phase's 32768-node graph, sparse steps only, the layout frozen,
+   4 steps under "none" and 4 under "block", held as the Qwen3 A/B. All
+   at full width and depth, the LMs on the cluster-sparse backend, batch
+   1; each run's peak memory, step times, losses (finite, falling).
 
 Each main path runs with every kernel's launch count set to 0 just
-before it and read just after.
+before it and read just after. Every training path's counts are exact:
+each sparse step launches dQ and dK/dV once a layer and the forward
+once, or twice when ``cfg.remat`` is not "none" (the backward recomputes
+the layer); serving runs without grad and recomputes nothing.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -203,6 +220,12 @@ GRAPH_BATCH = 128       # graphs a mini-batch
 GRAPH_STEPS = 16        # GT
 SLIM_GRAPH_STEPS = 8    # Graphormer-Slim
 # the link task: the launcher's SBM (4 clusters, p_in 0.04, p_out 0.002)
+# phases 8 and 9 also time the trainer's sparse step under "none" and
+# "block" in the same run: rounds of each, steps of each a round, and
+# the steps of a short Trainer loop of each a round
+STEP_AB_ROUNDS = 4
+STEP_AB_REPS = 4
+STEP_AB_LOOP_STEPS = 5
 LINK_NODES = 2048
 LINK_PAIRS = 256
 LINK_STEPS = 16
@@ -720,6 +743,19 @@ B16_NAMES = ("cluster_attention_fwd_sm90_b16",
              "cluster_attention_bwd_dkv_sm90_b16")
 B32_NAMES = ("cluster_attention_fwd_sm90", "cluster_attention_bwd_dq_sm90",
              "cluster_attention_bwd_dkv_sm90")
+UNBIASED_NAMES = ("cluster_attention_fwd_unbiased_sm90",
+                  "cluster_attention_bwd_dq_unbiased_sm90",
+                  "cluster_attention_bwd_dkv_unbiased_sm90")
+
+
+def step_launches(cfg, names, steps: int = 1) -> dict:
+    """Exact launches of ``steps`` training steps' attention kernels
+    ``names`` (forward, dQ, dK/dV): each once a layer, and the forward
+    once more when the layers are recomputed in the backward
+    (``cfg.remat`` other than "none", in every family)."""
+    fwd, dq, dkv = names
+    n = steps * cfg.n_layers
+    return {fwd: n if cfg.remat == "none" else 2 * n, dq: n, dkv: n}
 
 
 def checkpoint_costs(tr, fresh, tag):
@@ -860,40 +896,51 @@ def recovery_phase(out_path: str) -> int:
             synthetic_graph_level_dataset(GRAPH_TRAIN, gt, seed=1), gt,
             batch_graphs=GRAPH_BATCH, device=dev)
 
+    # sparse steps the case's trainers ran (every call of Trainer.step:
+    # faulted, preempted and replayed steps launch their kernels too)
+    sparse_steps = [0]
+
     def factory(task, **fixed):
         def make(d, **kw):
             model = GraphModel(gt, device=dev, seed=0)
-            return Trainer(model, TrainerConfig(
+            tr = Trainer(model, TrainerConfig(
                 steps=RECOVERY_STEPS, lr=1e-3, warmup=2,
                 interleave_period=gt.interleave_period,
                 ckpt_every=RECOVERY_CKPT_EVERY, ckpt_dir=d,
                 **{**fixed, **kw}), task=task)
+            run_step = tr.step
+
+            def counting_step(variant, batch, **faults):
+                sparse_steps[0] += variant == "sparse"
+                return run_step(variant, batch, **faults)
+            tr.step = counting_step
+            return tr
         return make
 
     launches, walls = {}, {}
 
     def counted(names, prefix=""):
-        """Each case's launches, held to the path's kernels: one of each
-        of ``names`` a layer of every sparse step, nothing else."""
+        """Each case's launches, held to the path's kernels: exactly
+        ``step_launches`` of ``names`` for the sparse steps the case ran,
+        nothing else."""
         @contextlib.contextmanager
         def around(name):
             torch.cuda.synchronize()
             reset_counts()
+            sparse_steps[0] = 0
             t0 = time.perf_counter()
             yield
             torch.cuda.synchronize()
             walls[prefix + name] = time.perf_counter() - t0
             got = read_counts()
             launches[prefix + name] = got
-            n = got[names[0]]
-            if not (n > 0 and n % gt.n_layers == 0
-                    and all(got[k] == n for k in names)
-                    and all(c == 0 for k, c in got.items()
-                            if k not in names)):
+            want = step_launches(gt, names, sparse_steps[0])
+            if not sparse_steps[0] or got != {k: want.get(k, 0)
+                                              for k in got}:
                 raise AssertionError(f"{prefix}{name}: launches "
                                      f"{ {k: c for k, c in got.items() if c} }"
-                                     f", want {names} alike, a multiple "
-                                     f"of {gt.n_layers}")
+                                     f", want {want} ({sparse_steps[0]} "
+                                     f"sparse steps, remat {gt.remat!r})")
         return around
 
     def report(out, tag):
@@ -1013,6 +1060,448 @@ def recovery_phase(out_path: str) -> int:
     log(f"[recovery] {time.perf_counter() - t_start:.1f}s, unrecovered "
         f"{unrecovered}, launches { {k: c for k, c in totals.items() if c} }")
     return 0 if not unrecovered else 1
+
+
+# phase 11: layer recomputation at full width, in a child process. The
+# Qwen3-0.6B and Graphormer-Large A/B run REMAT_AB_STEPS steps under
+# "none" and under "block" from the same initial parameters and batches;
+# the larger configs run only under "block", which they need to fit
+REMAT_AB_STEPS = 4
+REMAT_LM_SEQ = 16384          # the A/B and Qwen3-1.7B (phase 6's shape)
+REMAT_LONG_SEQ = 65536        # Qwen3-0.6B beyond phase 6's sequence
+REMAT_LONG_STEPS = 3
+REMAT_1_7B_STEPS = 4
+REMAT_4B_SEQS = (8192, 4096)  # Qwen3-4B: the first that fits
+REMAT_4B_STEPS = 3
+REMAT_SSM_SEQ = 4096          # Mamba2-2.7B
+REMAT_SSM_STEPS = 3
+REMAT_GRAPH_NODES = SERVE_NODES   # the serve phase's graph, S=32800
+
+
+def remat_runs(dev, reset_counts, read_counts) -> dict:
+    """Phase 11's runs on ``dev``: every config through the Trainer as a
+    user trains it, each run's launches counted exactly
+    (``step_launches``) and appended to ``counted``, its losses finite
+    and falling, its peak memory (``reset_peak_memory_stats`` before,
+    ``max_memory_allocated`` after) and step times recorded. Before each
+    config's runs, the attention op of its first layer is held against
+    its plain version at the shapes the run gives it (``op_check``). The
+    A/B also holds step 0's loss and gradients of the recomputing
+    backward to the one that keeps every activation, bit for bit.
+    Returns the phase's record and ``counted``."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph_model import GraphModel, graph_loss
+    from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import degree_scaled_sbm
+    from repro_torch.models.api import SSMLMModel
+    from repro_torch.models.lm import LMModel, lm_loss
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tasks import BatchFnTask, NodeTask
+
+    counted = []   # every trainer run's launch counts
+
+    def only(**want):
+        return {name: want.get(name, 0) for name in read_counts()}
+
+    def attention_call(model, loss_fn, batch):
+        """The arguments of the first cluster-attention call of
+        ``loss_fn``'s forward: layer 0's q, k, v and the layout, bias and
+        table the run gives it. Without grad, and the forward stops
+        there."""
+        seen = {}
+
+        class Seen(Exception):
+            pass
+
+        def grab(*args, **kw):
+            seen.update(args=args, kw=kw)
+            raise Seen
+        real = kops.cluster_attention
+        kops.cluster_attention = grab
+        try:
+            with torch.no_grad():
+                loss_fn(model, batch)
+        except Seen:
+            pass
+        finally:
+            kops.cluster_attention = real
+        return seen["args"], seen["kw"]
+
+    def op_check(tag, model, loss_fn, batch, names, seed=0):
+        """The attention op of the run's first layer, on its own q, k, v,
+        layout and table: the kernels (``names``: the forward, dQ and
+        dK/dV, each launched once) against ``impl="plain"``, the forward
+        with O and lse and the autograd backward with a random dO, at the
+        tolerances of phases 3 and 6: O within TOL_O (and, unbiased, as
+        phase 6, TOL_O_ELEM), lse within TOL_LSE, dq, dk, dv and
+        the table's gradient as max|diff| over max|plain| within
+        TOL_GRAD (the table's absolutely where every bucket is alike, as
+        softmax then cancels it)."""
+        (q, k, v, bi, bu, bias, bit), kw = attention_call(model, loss_fn,
+                                                          batch)
+        dt = str(q.dtype).split(".")[1]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        res = []
+        for impl in (None, "plain"):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)
+                      if x is not None]
+            before = read_counts()
+            o, lse = kops.cluster_attention(
+                *leaves[:3], bi, bu, leaves[3] if bias is not None else None,
+                bit, causal=kw["causal"], return_lse=True, impl=impl)
+            grads = torch.autograd.grad(o, leaves, dout)
+            torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in read_counts().items()
+                        if c != before[n]}
+            res.append((o.detach(), lse, grads, launched))
+            del o, leaves
+        (o, lse, got, launched), (po, plse, want, plain_launched) = res
+        diff = (o.float() - po.float()).abs()
+        atol, rtol = TOL_O_ELEM[dt]
+        o_share = (diff / (atol + rtol * po.float().abs())).max().item()
+        uniform = bias is not None and (bias.shape[1] == 1 or bool(
+            (bu == bu.flatten()[0]).all()))
+        rels = []
+        for i, (x, y) in enumerate(zip(got, want)):
+            d = (x.float() - y.float()).abs().max().item()
+            den = 1.0 if uniform and i == 3 else y.float().abs().max().item()
+            rels.append(d / max(den, 1e-30))
+        out = {"shape": {"B": q.shape[0], "S": q.shape[1],
+                         "H": q.shape[2], "KV": k.shape[2],
+                         "Dh": q.shape[3], "nq": bi.shape[-2],
+                         "mb": bi.shape[-1],
+                         "active_blocks": int((bi >= 0).sum())},
+               "dtype": dt, "max_abs_err_o": diff.max().item(),
+               "o_elem_share": o_share,
+               "max_abs_err_lse": (lse - plse).abs().max().item(),
+               "grad_rel": dict(zip(("dq", "dk", "dv", "dbias"), rels)),
+               "launched": launched}
+        ok = (torch.allclose(o.float(), po.float(), atol=TOL_O[dt],
+                             rtol=TOL_O[dt])
+              and (bu is not None or o_share <= 1.0)
+              and torch.allclose(lse, plse, atol=TOL_LSE, rtol=1e-5)
+              and all(r <= TOL_GRAD[dt] for r in rels)
+              and all(bool(torch.isfinite(x).all()) for x in (o, *got))
+              and launched == {n: 1 for n in names}
+              and not plain_launched)
+        log(f"[remat] {tag}: layer 0's attention op, kernels vs plain at "
+            f"{out['shape']} {dt}: max|dO| {out['max_abs_err_o']:.3g} (tol "
+            f"{TOL_O[dt]}), worst element at {o_share:.3g} of its limit, "
+            f"max|dlse| {out['max_abs_err_lse']:.3g} (tol {TOL_LSE}); rel "
+            + " ".join(f"{n} {r:.3g}" for n, r in out["grad_rel"].items())
+            + f" (tol {TOL_GRAD[dt]}); kernels launched {launched} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{tag}: the attention kernels disagree "
+                                 f"with their plain versions: {out}")
+        del res, o, lse, got, po, plse, want, diff
+        return out
+
+    def release() -> int:
+        """Free what the last run left; returns the bytes still
+        allocated."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+
+    def lm_task(cfg, S):
+        dc = LMDataConfig(cfg.vocab_size, S, 1, seed=0)
+        return BatchFnTask(lambda s: lm_batch(dc, s))
+
+    def train(tag, model, task, steps, names, S):
+        """``steps`` steps of ``task`` through the Trainer, every one
+        sparse, the layout frozen: the run's record."""
+        cfg = model.cfg
+        left = release()
+        tr = Trainer(model, TrainerConfig(steps=steps, lr=1e-3, warmup=2),
+                     task=task)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        status = tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        counted.append(counts)
+        peak = torch.cuda.max_memory_allocated()
+        hist = tr.history
+        losses = [h["loss"] for h in hist]
+        step_ms = [h["seconds"] * 1e3 for h in hist]
+        want = only(**step_launches(cfg, names, steps)) if names else only()
+        # steps after the first (allocator and cuBLAS start-up)
+        steady = float(np.median(step_ms[1:])) if steps > 1 else step_ms[0]
+        n_params = sum(p.numel() for p in model.parameters())
+        rec = {"config": cfg.name, "remat": cfg.remat, "S": S, "batch": 1,
+               "layers": cfg.n_layers, "params": n_params, "steps": steps,
+               "losses": losses, "step_ms": step_ms,
+               "step_ms_median": steady, "run_s": run_s,
+               # the loop's time outside its steps: mostly the host copy
+               # of the parameters run() takes for the re-init rung
+               "outside_steps_s": run_s - sum(h["seconds"] for h in hist),
+               "peak_bytes": peak, "allocated_before_bytes": left,
+               "launches": counts,
+               "tokens_per_s": S * 1e3 / steady}
+        log(f"[remat] {tag}: {cfg.name} remat={cfg.remat!r} S={S}, "
+            f"{cfg.n_layers} layers, {n_params:,} params; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
+            f"{', '.join(f'{x:.2f}' for x in step_ms)} (median after the "
+            f"first {steady:.2f}); peak {peak / 2**30:.2f} GiB "
+            f"({left / 2**30:.2f} GiB allocated before); run "
+            f"{run_s:.2f} s, {rec['outside_steps_s']:.2f} s outside the "
+            f"steps; launches "
+            f"{ {k: c for k, c in counts.items() if c} }")
+        falling = steps == 1 or losses[-1] < losses[0]
+        if status != "done" or counts != want or not falling or \
+                not np.isfinite(losses).all() or any(h["skipped"]
+                                                     for h in hist):
+            raise AssertionError(
+                f"{tag}: status {status}, losses {losses}, launches "
+                f"{ {k: c for k, c in counts.items() if c} }, want "
+                f"{ {k: c for k, c in want.items() if c} }")
+        del tr
+        return rec
+
+    def ab_grads(tag, model, loss_fn, batch):
+        """Step 0's loss and gradients under "none", then "block" and
+        "dots" on the same parameters and batch, each forward and
+        backward's peak memory; the recomputing ones held to "none" bit
+        for bit (the max difference and the least cosine are
+        reported)."""
+        params = list(model.parameters())
+        names = [n for n, _ in model.named_parameters()]
+        base = model.cfg
+        out, ref = {}, None
+        for remat in ("none", "block", "dots"):
+            model.cfg = base.replace(remat=remat)
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            loss = loss_fn(model, batch)
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            rec = {"loss": loss.item(),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            if ref is None:
+                ref = (loss.detach(), grads)
+            else:
+                diff = {n: (a - b).abs().max().item()
+                        for n, a, b in zip(names, grads, ref[1])}
+                cos = {n: F.cosine_similarity(
+                    a.flatten().float(), b.flatten().float(), dim=0,
+                    eps=1e-30).item()
+                    for n, a, b in zip(names, grads, ref[1])}
+                worst = min(cos, key=cos.get)
+                rec.update(
+                    loss_bitwise=bool(torch.equal(loss.detach(), ref[0])),
+                    grads_bitwise=all(torch.equal(a, b)
+                                      for a, b in zip(grads, ref[1])),
+                    max_abs_grad_diff=max(diff.values()),
+                    max_abs_grad_diff_at=max(diff, key=diff.get),
+                    min_grad_cosine=[worst, cos[worst]])
+                if not (rec["loss_bitwise"] and rec["grads_bitwise"]):
+                    raise AssertionError(f"{tag}: remat={remat!r} step 0 "
+                                         f"against 'none': {rec}")
+            log(f"[remat] {tag} step 0, remat={remat!r}: loss "
+                f"{rec['loss']:.6f}, forward+backward peak "
+                f"{rec['peak_bytes'] / 2**30:.2f} GiB"
+                + ("" if remat == "none" else
+                   f"; against 'none': loss bitwise {rec['loss_bitwise']}, "
+                   f"gradients bitwise {rec['grads_bitwise']}, max |diff| "
+                   f"{rec['max_abs_grad_diff']:.3g} "
+                   f"({rec['max_abs_grad_diff_at']}), min cosine "
+                   f"{rec['min_grad_cosine'][1]:.6f}"))
+            out[remat] = rec
+            del loss, grads
+        model.cfg = base
+        del ref
+        return out
+
+    def ab_runs(tag, model, make_task, names, S):
+        """The trainer runs of the A/B: REMAT_AB_STEPS steps under "none"
+        and under "block" (and one under "dots" for the LM) from the
+        same initial parameters; step 0's losses bitwise equal."""
+        init = [p.detach().clone() for p in model.parameters()]
+        base = model.cfg
+        runs = {}
+        plan = [("none", REMAT_AB_STEPS), ("block", REMAT_AB_STEPS)]
+        if base.family != "graph":   # the graph model has no "dots"
+            plan.append(("dots", 1))
+        for remat, steps in plan:
+            with torch.no_grad():
+                for p, p0 in zip(model.parameters(), init):
+                    p.copy_(p0)
+            model.cfg = base.replace(remat=remat)
+            runs[remat] = train(f"{tag} {remat}", model, make_task(model),
+                                steps, names, S)
+        model.cfg = base
+        first = {r: runs[r]["losses"][0] for r in runs}
+        ratio = runs["block"]["step_ms_median"] / \
+            runs["none"]["step_ms_median"]
+        peak_ratio = runs["block"]["peak_bytes"] / runs["none"]["peak_bytes"]
+        log(f"[remat] {tag}: step 0's trainer loss by remat {first}; "
+            f"'block' step {ratio:.4f}x and peak {peak_ratio:.4f}x "
+            f"'none''s")
+        if len(set(first.values())) != 1:
+            raise AssertionError(f"{tag}: step 0's losses differ: {first}")
+        del init
+        return {"runs": runs, "block_over_none_step": ratio,
+                "block_over_none_peak": peak_ratio}
+
+    rec = {}
+    # ------------------------------- Qwen3-0.6B A/B at S=16384, then 65536
+    cfg = get_config("qwen3_0_6b").replace(attn_backend="cluster_sparse",
+                                           remat="none")
+    model = LMModel(cfg, device=dev, seed=0)
+    task = lm_task(cfg, REMAT_LM_SEQ).prepare(model)
+    tag = f"qwen3-0.6b S={REMAT_LM_SEQ}"
+    rec["qwen3_0_6b_ab"] = {
+        "op_check": op_check(tag, model, lm_loss, task.batches(0),
+                             UNBIASED_NAMES),
+        "step0": ab_grads(tag, model, lambda m, b: lm_loss(m, b)[0],
+                          task.batches(0)),
+        **ab_runs(tag, model,
+                  lambda m: lm_task(m.cfg, REMAT_LM_SEQ), UNBIASED_NAMES,
+                  REMAT_LM_SEQ)}
+    del task
+    model.reset_parameters(0)
+    model.cfg = cfg.replace(remat="block")
+    tag = f"qwen3-0.6b S={REMAT_LONG_SEQ}"
+    task = lm_task(model.cfg, REMAT_LONG_SEQ)
+    check = op_check(tag, model, lm_loss, task.prepare(model).batches(0),
+                     UNBIASED_NAMES)
+    rec["qwen3_0_6b_long"] = train(tag, model, task, REMAT_LONG_STEPS,
+                                   UNBIASED_NAMES, REMAT_LONG_SEQ)
+    rec["qwen3_0_6b_long"]["op_check"] = check
+    del model, task
+
+    # ------------------------------------------- Qwen3-1.7B and Qwen3-4B
+    cfg = get_config("qwen3_1_7b").replace(attn_backend="cluster_sparse")
+    model = LMModel(cfg, device=dev, seed=0)
+    task = lm_task(cfg, REMAT_LM_SEQ)
+    check = op_check("qwen3-1.7b", model, lm_loss,
+                     task.prepare(model).batches(0), UNBIASED_NAMES)
+    rec["qwen3_1_7b"] = train("qwen3-1.7b", model, task, REMAT_1_7B_STEPS,
+                              UNBIASED_NAMES, REMAT_LM_SEQ)
+    rec["qwen3_1_7b"]["op_check"] = check
+    del model, task
+    release()
+    cfg = get_config("qwen3_4b").replace(attn_backend="cluster_sparse")
+    model = LMModel(cfg, device=dev, seed=0)
+    cuts = []
+    for S in REMAT_4B_SEQS:
+        try:
+            task = lm_task(cfg, S)
+            check = op_check(f"qwen3-4b S={S}", model, lm_loss,
+                             task.prepare(model).batches(0), UNBIASED_NAMES)
+            rec["qwen3_4b"] = train(f"qwen3-4b S={S}", model, task,
+                                    REMAT_4B_STEPS, UNBIASED_NAMES, S)
+            rec["qwen3_4b"]["op_check"] = check
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            # the cut the configuration allows: the next sequence length
+            cuts.append({"S": S, "peak_bytes":
+                         torch.cuda.max_memory_allocated(),
+                         "error": str(err).splitlines()[0][:300]})
+            log(f"[remat] qwen3-4b S={S} does not fit: peak "
+                f"{cuts[-1]['peak_bytes'] / 2**30:.2f} GiB; {cuts[-1]}")
+        model.reset_parameters(0)
+    else:
+        raise AssertionError(f"qwen3-4b fits at none of {REMAT_4B_SEQS}")
+    rec["qwen3_4b"]["cuts"] = cuts
+    del model, task
+
+    # -------------------------------------------------------- Mamba2-2.7B
+    cfg = get_config("mamba2_2_7b")
+    model = SSMLMModel(cfg, device=dev, seed=0)
+    # the plain SSD scan, as the reference's model: no kernel launches
+    rec["mamba2_2_7b"] = train("mamba2-2.7b", model,
+                               lm_task(cfg, REMAT_SSM_SEQ), REMAT_SSM_STEPS,
+                               None, REMAT_SSM_SEQ)
+    del model
+
+    # ---------------- Graphormer-Large node training on the serve graph
+    large = get_config("graphormer_large").replace(
+        interleave_period=0, elastic_every=0, remat="none")
+    release()
+    t0 = time.perf_counter()
+    g = degree_scaled_sbm(REMAT_GRAPH_NODES, CLUSTERS, large, seed=0)
+    task = NodeTask(g, large, bq=32, bk=32, d_b=8, device=dev,
+                    train_mask=np.random.default_rng(0).random(g.n) < 0.5)
+    prep_s = time.perf_counter() - t0
+    lay = task.layout
+    log(f"[remat] graphormer-large: {g.n} nodes, {g.e} edges, "
+        f"S={lay.seq_len}, rung beta_thre={task.beta_thre:.5f} "
+        f"({lay.stats['active_blocks']} active blocks, mb_cap "
+        f"{task.mb_cap}); {len(task._preps)} ladder rungs prepared in "
+        f"{prep_s:.2f}s; sparse steps only (interleave_period=0: the "
+        f"dense step's fp32 (1, H, S, S) bias would be "
+        f"{large.n_heads * lay.seq_len ** 2 * 4 / 1e9:.1f} GB), the layout "
+        f"frozen (elastic_every=0)")
+    model = GraphModel(large, device=dev, seed=0)
+
+    def graph_task(m):
+        # the layouts do not depend on remat; Task.prepare compares the
+        # whole config, so the task takes the run's
+        task.cfg = m.cfg
+        return task
+    tag = f"graphormer-large S={lay.seq_len}"
+    rec["graphormer_large_ab"] = {
+        "op_check": op_check(tag, model, graph_loss,
+                             task.prepare(model).batches(0), B32_NAMES),
+        "step0": ab_grads(tag, model, lambda m, b: graph_loss(m, b)[0],
+                          task.prepare(model).batches(0)),
+        **ab_runs(tag, model, graph_task, B32_NAMES, lay.seq_len),
+        "prep_s": prep_s, "active_blocks": lay.stats["active_blocks"],
+        "mb_cap": task.mb_cap, "beta_thre": task.beta_thre}
+    del model, task
+    release()
+    return rec, counted
+
+
+def remat_phase(out_path: str) -> int:
+    """Phase 11, in a child process: layer recomputation (``cfg.remat``)
+    at full width (``remat_runs``), with ``CUBLAS_WORKSPACE_CONFIG`` from
+    the parent and deterministic algorithms on, so that the A/B's
+    recomputing backward can match the other bit for bit. A process of
+    its own, so Qwen3-4B's ~60 GiB of state meets an empty card. The
+    record, with the launches of every trainer run summed, goes to
+    ``out_path`` as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 11: no CUDA device", file=sys.stderr)
+        return 2
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import cluster_attention as tca
+    from repro_torch.kernels import cluster_attention_bwd as tcab
+
+    t_start = time.perf_counter()
+    kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
+                      tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED_SM90,
+                      tcab.LIBRARY_UNBIASED_SM90))
+    reset_counts, read_counts = kernel_counters()
+    rec, counted = remat_runs(torch.device("cuda"), reset_counts,
+                              read_counts)
+    rec["launches"] = {k: sum(c[k] for c in counted) for k in read_counts()}
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(out_path, "w") as fh:
+        json.dump(rec, fh)
+    log(f"[remat] {rec['seconds']:.1f}s, launches "
+        f"{ {k: c for k, c in rec['launches'].items() if c} }")
+    return 0
 
 
 def main() -> int:
@@ -2289,14 +2778,13 @@ def main() -> int:
             f"{dense_at}, peak {peak / 2**30:.2f} GiB, launches {counts}; "
             f"eval acc {ev['acc']:.4f} xent {ev['xent']:.4f}")
         losses = [h["loss"] for h in hist]
-        want = n_sparse * large.n_layers
-        if counts != only(cluster_attention_fwd_sm90=want,
-                          cluster_attention_bwd_dq_sm90=want,
-                          cluster_attention_bwd_dkv_sm90=want):
+        want = step_launches(large, B32_NAMES, n_sparse)
+        if counts != only(**want):
             raise AssertionError(f"launches {counts}: want {want} of the "
-                                 f"tensor-core forward, dQ and dK/dV each "
+                                 f"tensor-core forward, dQ and dK/dV "
                                  f"({n_sparse} sparse steps x "
-                                 f"{large.n_layers} layers)")
+                                 f"{large.n_layers} layers, remat "
+                                 f"{large.remat!r})")
         if dense_at != [0, 8] or not np.isfinite(losses).all() or any(
                 h["skipped"] for h in hist):
             raise AssertionError(f"dense steps {dense_at}, losses {losses}")
@@ -2441,14 +2929,13 @@ def main() -> int:
         log(f"[lm-train] {LM_STEPS} steps in {run_s:.2f}s, peak "
             f"{peak / 2**30:.2f} GiB, launches {counts}, per step "
             f"{ {n: c / LM_STEPS for n, c in counts.items() if c} }")
-        want = LM_STEPS * cfg.n_layers
+        want = step_launches(cfg, UNBIASED_NAMES, LM_STEPS)
         # bf16 compute: the tensor-core forward, dQ and dK/dV
-        if counts != only(cluster_attention_fwd_unbiased_sm90=want,
-                          cluster_attention_bwd_dq_unbiased_sm90=want,
-                          cluster_attention_bwd_dkv_unbiased_sm90=want):
-            raise AssertionError(f"launches {counts}: want {want} of each "
-                                 f"unbiased kernel ({LM_STEPS} steps x "
-                                 f"{cfg.n_layers} layers) and no other")
+        if counts != only(**want):
+            raise AssertionError(f"launches {counts}: want {want} of the "
+                                 f"unbiased kernels ({LM_STEPS} steps x "
+                                 f"{cfg.n_layers} layers, remat "
+                                 f"{cfg.remat!r}) and no other")
         losses = [h["loss"] for h in hist]
         if not np.isfinite(losses).all() or any(h["skipped"] for h in hist) \
                 or not losses[-1] < losses[0]:
@@ -2553,12 +3040,92 @@ def main() -> int:
             raise AssertionError(f"{tag}: kernel and plain paths disagree")
         return {"loss_rel": loss_rel, "min_grad_cosine": [worst, cos[worst]]}
 
+    def remat_step_ab(tr, step, batch, tag):
+        """The same run's A/B of the layer recomputation on the trainer's
+        sparse step, outside the run's launch counts. STEP_AB_ROUNDS
+        rounds, each under "none", then under "block": STEP_AB_REPS steps
+        on one mini-batch, and as many on the task's own batches for
+        those steps (the graph-level task's mini-batches in turn, the link
+        task's pair stream), each step's wall synchronized; the host time
+        to issue one forward (the task's sparse loss, to its return) and
+        its backward (``autograd.grad``, to its return), neither waiting
+        for the device; and a Trainer of its own over the same model and
+        task running STEP_AB_LOOP_STEPS sparse steps, as phase 8's loop
+        runs them (each step's wall from the Trainer, the first left
+        out). Then one profiled step of each (device time, busy share)."""
+        model, task = tr.model, tr.task
+        base = model.cfg
+        loss_fn = task.loss_variants["sparse"]
+        params = list(model.parameters())
+        keys = ("step_ms", "alternating_ms", "loop_ms", "fwd_issue_ms",
+                "bwd_issue_ms")
+        out = {remat: {k: [] for k in keys} for remat in ("none", "block")}
+
+        def timed(b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step("sparse", b)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        for _ in range(STEP_AB_ROUNDS):
+            for remat, r in out.items():
+                model.cfg = base.replace(remat=remat)
+                for i in range(STEP_AB_REPS):
+                    r["step_ms"].append(timed(batch))
+                    r["alternating_ms"].append(timed(task.batches(i)))
+                t0 = time.perf_counter()
+                loss, _ = loss_fn(model, batch)
+                t1 = time.perf_counter()
+                torch.autograd.grad(loss, params, allow_unused=True)
+                t2 = time.perf_counter()
+                torch.cuda.synchronize()
+                r["fwd_issue_ms"].append((t1 - t0) * 1e3)
+                r["bwd_issue_ms"].append((t2 - t1) * 1e3)
+                del loss
+                # the task was prepared for the model's own config
+                model.cfg = base
+                loop = Trainer(model, TrainerConfig(
+                    steps=STEP_AB_LOOP_STEPS, lr=1e-3, warmup=2,
+                    interleave_period=0, elastic_every=base.elastic_every),
+                    task=task)
+                model.cfg = base.replace(remat=remat)
+                loop.run()
+                r["loop_ms"] += [h["seconds"] * 1e3
+                                 for h in loop.history[1:]]
+                del loop
+        for remat, r in out.items():
+            model.cfg = base.replace(remat=remat)
+            for key in keys:
+                r[key + "_median"] = float(np.median(r[key]))
+            r["profile"] = device_breakdown(
+                lambda: step("sparse", batch), r["step_ms_median"],
+                tag=f"{tag} remat={remat}", what="one sparse step")
+        model.cfg = base
+        n, b = out["none"], out["block"]
+        dev_ms = {remat: (r["profile"] or {}).get("device_ms")
+                  for remat, r in out.items()}
+        log(f"[{tag}] remat A/B, same run, {STEP_AB_ROUNDS} rounds, medians "
+            f"none / block: step on one batch {n['step_ms_median']:.3f} / "
+            f"{b['step_ms_median']:.3f} ms "
+            f"({b['step_ms_median'] / n['step_ms_median']:.4f}x), on the "
+            f"task's batches {n['alternating_ms_median']:.3f} / "
+            f"{b['alternating_ms_median']:.3f} ms, in a Trainer loop "
+            f"{n['loop_ms_median']:.3f} / {b['loop_ms_median']:.3f} ms "
+            f"({b['loop_ms_median'] / n['loop_ms_median']:.4f}x); host "
+            f"issue of the forward {n['fwd_issue_ms_median']:.3f} / "
+            f"{b['fwd_issue_ms_median']:.3f} ms, of the backward "
+            f"{n['bwd_issue_ms_median']:.3f} / "
+            f"{b['bwd_issue_ms_median']:.3f} ms; device time of a step "
+            f"{dev_ms['none']} / {dev_ms['block']} ms")
+        return out
+
     def train_task(cfg, task, steps, tag, sparse_kernels, prep_s):
         """``steps`` steps of ``task`` through the Trainer (dense every
         ``cfg.interleave_period``, an AutoTuner epoch every step), each
-        sparse step held to launching each of ``sparse_kernels`` (names in
-        ``read_counts``) once a layer and nothing else, each dense step
-        to launching nothing. Returns the run's record."""
+        sparse step held to launching ``sparse_kernels`` (the forward, dQ
+        and dK/dV names in ``read_counts``) as ``step_launches`` says and
+        nothing else, each dense step to launching nothing. Returns the
+        run's record."""
         model = GraphModel(cfg, device=dev, seed=0)
         if hasattr(model, "bias_table"):  # a nonzero table and gradient
             gen = torch.Generator().manual_seed(1)
@@ -2581,7 +3148,7 @@ def main() -> int:
             steps=steps, lr=1e-3, warmup=2,
             interleave_period=cfg.interleave_period,
             elastic_every=cfg.elastic_every), task=task)
-        per_layer = {name: cfg.n_layers for name in sparse_kernels}
+        per_step = step_launches(cfg, sparse_kernels)
         run_step = tr.step
 
         def checked_step(variant, batch, **faults):
@@ -2589,7 +3156,7 @@ def main() -> int:
             m = run_step(variant, batch, **faults)
             now = read_counts()
             got = {n: now[n] - before[n] for n in now}
-            want = only(**per_layer) if variant == "sparse" else only()
+            want = only(**per_step) if variant == "sparse" else only()
             if got != want:
                 raise AssertionError(
                     f"{tag}: a {variant} step launched "
@@ -2625,7 +3192,7 @@ def main() -> int:
         want_dense = list(range(0, steps, cfg.interleave_period))
         if dense_at != want_dense or not np.isfinite(losses).all() or any(
                 h["skipped"] for h in hist) or counts != only(
-                **{n: n_sparse * cfg.n_layers for n in sparse_kernels}):
+                **step_launches(cfg, sparse_kernels, n_sparse)):
             raise AssertionError(f"{tag}: dense steps {dense_at} (want "
                                  f"{want_dense}), losses {losses}, "
                                  f"launches {counts}")
@@ -2650,6 +3217,7 @@ def main() -> int:
             rec["profile"][variant] = device_breakdown(
                 lambda: tr.step(variant, batch), wall, tag=tag,
                 what=f"one {variant} step", focus="cluster")
+        rec["remat_ab"] = remat_step_ab(tr, run_step, batch, tag)
         log(f"[{tag}] {steps} steps in {run_s:.2f}s, dense at {dense_at}; "
             f"sparse step median {rec['sparse_step_ms_median']:.2f} ms, "
             f"dense step median "
@@ -2717,6 +3285,39 @@ def main() -> int:
 
     recovery = recovery_run()
 
+    # --------------------------- 11. recomputation (slice 12's main path)
+    def remat_run():
+        """Phase 11 in a child process (``remat_phase``): an empty card
+        for Qwen3-4B, deterministic cuBLAS for the A/B; it fails on a
+        non-zero exit."""
+        import gc
+        import tempfile
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[remat] parent before phase 11: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "remat.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--remat", path],
+                env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+                timeout=900)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 11 (recomputation) exited "
+                                     f"{proc.returncode}")
+            with open(path) as fh:
+                rec = json.load(fh)
+        rec["wall_s"] = wall
+        log(f"[remat] phase 11 child: {wall:.1f}s of wall")
+        return rec
+
+    remat = remat_run()
+
     # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
     yard8 = yard[str(YARDSTICK_NODES)]
@@ -2724,7 +3325,8 @@ def main() -> int:
 
     def launches(name):
         return (main_path["launches"][name] + train_run["launches"][name]
-                + link_run["launches"][name] + recovery["launches"][name])
+                + link_run["launches"][name] + recovery["launches"][name]
+                + remat["launches"][name])
 
     rung = train_run["rung"]
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2746,7 +3348,8 @@ def main() -> int:
             "serve": main_path["launches"]["cluster_attention_fwd_sm90"],
             "train": train_run["launches"]["cluster_attention_fwd_sm90"],
             "link_train": link_run["launches"]["cluster_attention_fwd_sm90"],
-            "recovery": recovery["launches"]["cluster_attention_fwd_sm90"]},
+            "recovery": recovery["launches"]["cluster_attention_fwd_sm90"],
+            "remat": remat["launches"]["cluster_attention_fwd_sm90"]},
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "exp_floor_ms": rec["exp_floor_ms"],
@@ -2783,9 +3386,6 @@ def main() -> int:
             "float32": serve_rec["float32"]["bwd"][half],
             **{k: v for k, v in b.items() if k.startswith("ms_without")
                or k == "heavy_row"}})
-    kernels[1]["sparse_rung"] = train_run["sparse_rung"]
-    kernels[0]["train"] = train_run
-    kernels[0]["link_train"] = link_run
     # the unbiased kernels of the LM path: times at the Qwen3-0.6B training
     # shape in bf16, launches from the LM training run
     for half, name, src, line in (
@@ -2805,7 +3405,11 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/"
                       f"cluster_attention_unbiased_{src}_sm90.cu",
             "replaces": f"src/repro/kernels/{line}",
-            "launches": lm_run["launches"][name + "_sm90"],
+            "launches": (lm_run["launches"][name + "_sm90"]
+                         + remat["launches"][name + "_sm90"]),
+            "launches_by_path": {
+                "lm_train": lm_run["launches"][name + "_sm90"],
+                "remat": remat["launches"][name + "_sm90"]},
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
@@ -2822,8 +3426,6 @@ def main() -> int:
             "source_float32": f"src/repro_torch/kernels/csrc/"
                               f"cluster_attention_unbiased_{src}.cu",
             "launches_float32": lm_run["launches"][name]})
-    kernels[3]["lm_yardstick"] = lm_yard
-    kernels[3]["lm_train"] = lm_run
     # the flash kernels and the SSD scan: times at full width in bf16,
     # launches from the tune phase, the main path. Rows 7-9 have a
     # kernel for each dtype: `source` is the bf16 tensor-core one, timed
@@ -2869,7 +3471,6 @@ def main() -> int:
             rec["source_float32"] = f"src/repro_torch/kernels/csrc/{src32}"
             rec["launches_float32"] = tune_run["launches"][name]
         kernels.append(rec)
-    kernels[-1]["tune"] = tune_run
     # the 16 x 16 instantiations of rows 1, 3 and 4: times at the
     # graph-level shape with GT's heads (phase 3e), launches from the GT
     # and Graphormer-Slim graph-level runs (phase 8)
@@ -2905,8 +3506,22 @@ def main() -> int:
             "source_float32": csrc + ("cluster_attention_fwd.cu"
                                       if half == "fwd" else
                                       "cluster_attention_bwd.cu")})
-    kernels[-3]["graph_train"] = graph_runs
-    kernels[-3]["recovery"] = recovery
+    # each path's record goes with the first kernel it launched; phase 11
+    # ran the unbiased kernels (Qwen3) and the 32 x 32 biased ones
+    # (Graphormer-Large), and goes with the first
+    by_name = {k["name"]: k for k in kernels}
+    for name, key, val in (
+            ("cluster_attention_fwd", "train", train_run),
+            ("cluster_attention_fwd", "link_train", link_run),
+            ("cluster_attention_bwd_dq", "sparse_rung",
+             train_run["sparse_rung"]),
+            ("cluster_attention_fwd_unbiased", "lm_yardstick", lm_yard),
+            ("cluster_attention_fwd_unbiased", "lm_train", lm_run),
+            ("cluster_attention_fwd_unbiased", "remat", remat),
+            ("ssd_fwd", "tune", tune_run),
+            ("cluster_attention_fwd_b16", "graph_train", graph_runs),
+            ("cluster_attention_fwd_b16", "recovery", recovery)):
+        by_name[name][key] = val
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2918,4 +3533,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--recovery"]:
         sys.exit(recovery_phase(sys.argv[2]))
+    if sys.argv[1:2] == ["--remat"]:
+        sys.exit(remat_phase(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,6 @@
 from repro_torch.configs.base import (ARCHS, GRAPH_ARCHS, LM_ARCHS,
-                                     ModelConfig, get_config,
+                                     SSM_ARCHS, ModelConfig, get_config,
                                      get_smoke_config)
 
-__all__ = ["ARCHS", "GRAPH_ARCHS", "LM_ARCHS", "ModelConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCHS", "GRAPH_ARCHS", "LM_ARCHS", "ModelConfig", "SSM_ARCHS",
+           "get_config", "get_smoke_config"]

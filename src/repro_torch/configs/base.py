@@ -1,7 +1,7 @@
 """Model configuration: the port's copy of ``repro.configs.base.ModelConfig``
 (field for field, so a config compares equal to its JAX counterpart) and
-a registry of the archs the port runs so far: the graph archs and the
-dense token LMs.
+a registry of the archs the port runs so far: the graph archs, the
+dense token LMs and the SSM LM.
 """
 
 from __future__ import annotations
@@ -85,10 +85,11 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# the archs the port runs so far: graph family, and the dense LMs
+# the archs the port runs so far: graph family, the dense LMs, the SSM LM
 GRAPH_ARCHS = ["graphormer_slim", "graphormer_large", "gt"]
-LM_ARCHS = ["qwen3_0_6b", "smollm_135m"]
-ARCHS = GRAPH_ARCHS + LM_ARCHS
+LM_ARCHS = ["qwen3_0_6b", "smollm_135m", "qwen3_1_7b", "qwen3_4b"]
+SSM_ARCHS = ["mamba2_2_7b"]
+ARCHS = GRAPH_ARCHS + LM_ARCHS + SSM_ARCHS
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

@@ -5,8 +5,9 @@ dict with the per-layer leaves stacked on a leading ``layers`` axis
 (``nn/param.stack`` in the reference). :func:`params_from_jax` takes such
 a tree with numpy leaves (``jax.tree.map(np.asarray, params)``) and
 returns the flat state dict of
-:class:`repro_torch.core.graph_model.GraphModel` or
-:class:`repro_torch.models.lm.LMModel`, with the layer axis unstacked
+:class:`repro_torch.core.graph_model.GraphModel`,
+:class:`repro_torch.models.lm.LMModel` or
+:class:`repro_torch.models.api.SSMLMModel`, with the layer axis unstacked
 into ``layers.<i>.*`` entries. :func:`params_to_jax` is its inverse: the
 port's state dict back to the reference's nested tree, the layout of the
 ``params`` and optimizer-moment subtrees of the checkpoints both packages
@@ -30,8 +31,8 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_jax(tree: dict) -> dict:
-    """Nested numpy parameter tree -> ``{name: fp32 tensor}`` for
-    ``GraphModel.load_state_dict`` or ``LMModel.load_state_dict``. Arrays
+    """Nested numpy parameter tree -> ``{name: fp32 tensor}`` for the
+    ``load_state_dict`` of any of the port's models. Arrays
     are copied, so read-only views of JAX buffers are fine."""
     state = {}
     for name, arr in _flatten(tree):

@@ -4,7 +4,8 @@ Laplacian positional encodings + dual-interleaved attention
 structural bias) — the port of ``repro.core.graph_model``
 (``graph_defs``, ``graph_forward``, ``apply_head``, ``graph_predict``,
 ``graph_loss``, ``with_dense_bias``, ``graph_loss_dense`` and the
-model's ``loss_variants``).
+model's ``loss_variants``), each layer recomputed in the backward unless
+``cfg.remat`` is ``"none"``.
 
 Batch layout (built by data/graph_pipeline.py, moved to the device by
 :func:`batch_to_torch`):
@@ -22,6 +23,8 @@ Parameters are fp32; compute runs in ``cfg.dtype``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -161,13 +164,24 @@ def _graph_attn(p: L.Attention, cfg, h, batch, bias_table, dense, impl):
     return L.out_proj(p, o)
 
 
+def _layer(layer: GraphLayer, h, cfg, batch, bias_table, dense, impl):
+    """One layer: pre-norm attention and SwiGLU MLP, residual."""
+    a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
+    h = h + _graph_attn(layer.attn, cfg, a, batch, bias_table, dense, impl)
+    m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
+    return h + L.mlp(layer.mlp, m)
+
+
 def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
                   impl: str | None = None):
     """(B, S, D) final-normed hidden states. ``dense`` runs the dense
     interleave step (``batch["dense_bias"]`` biases it, see
     :func:`with_dense_bias`). ``impl="plain"`` runs the sparse
     attention's plain versions on any device (for holding the kernels
-    against them)."""
+    against them). With grad enabled and ``cfg.remat`` other than
+    ``"none"``, each layer keeps only its input and is recomputed in the
+    backward (a non-reentrant checkpoint), so the sparse forward kernel
+    launches twice per layer and step."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
     feat = batch["feat"].to(dtype)
@@ -183,13 +197,15 @@ def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
         g = model.global_tok[:cfg.n_global].to(dtype)
         h = torch.cat([g.expand(h.shape[0], -1, -1), h[:, cfg.n_global:]],
                       dim=1)
-    bias_table = getattr(model, "bias_table", None)
+    body = functools.partial(_layer, cfg=cfg, batch=batch,
+                             bias_table=getattr(model, "bias_table", None),
+                             dense=dense, impl=impl)
+    # the reference checkpoints each layer unless remat is "none" (it has
+    # no "dots" policy here)
+    body = L.maybe_remat(body, cfg.replace(remat="block")
+                         if cfg.remat == "dots" else cfg)
     for layer in model.layers:
-        a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
-        h = h + _graph_attn(layer.attn, cfg, a, batch, bias_table, dense,
-                            impl)
-        m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
-        h = h + L.mlp(layer.mlp, m)
+        h = body(layer, h)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps)
 
 

@@ -1,6 +1,6 @@
 """Training CLI on the port: the graph archs' node, graph-level and link
-tasks and the dense LMs (the port of ``repro.launch.train`` without
-meshes), with checkpoints, restart and the seeded fault plan.
+tasks, the dense LMs and the SSM LM (the port of ``repro.launch.train``
+without meshes), with checkpoints, restart and the seeded fault plan.
 
 Graph archs (``graphormer_slim``, ``graphormer_large``, ``gt``) train one
 task through the :class:`Trainer`, on the reference's synthetic data:
@@ -29,12 +29,15 @@ kernel winner table, ``--tune-table``, every k steps), and prints the
 step it resumed at, the skipped steps, the rollbacks and the run's
 status. Without ``--ckpt-dir`` nothing is saved or restored.
 
-LM archs (``qwen3_0_6b``, ``smollm_135m``): trains the config as
-published on the synthetic token stream of ``data/lm_pipeline.py``
-(``--seq`` tokens, ``--batch`` sequences a step) through
-:class:`BatchFnTask`, and prints the loss every tenth of the run. The
-published LM configs run dense attention; the cluster-sparse backend is
+LM archs (``qwen3_0_6b``, ``smollm_135m``, ``qwen3_1_7b``, ``qwen3_4b``
+and the SSM LM ``mamba2_2_7b``): trains the config as published on the
+synthetic token stream of ``data/lm_pipeline.py`` (``--seq`` tokens,
+``--batch`` sequences a step) through :class:`BatchFnTask`, and prints
+the loss every tenth of the run. The published LM configs run dense
+attention; the cluster-sparse backend is
 ``cfg.replace(attn_backend="cluster_sparse")``, as in the reference.
+Every family recomputes its layers in the backward as ``cfg.remat``
+says (the configs' default is ``"block"``).
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch graphormer_slim --smoke --steps 20 --graph-nodes 96 \\
@@ -47,6 +50,8 @@ published LM configs run dense attention; the cluster-sparse backend is
       --task link --graph-nodes 128 --steps 6 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
       --smoke --steps 20 --seq 128 --batch 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_2_7b \\
+      --smoke --steps 6 --seq 64 --batch 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gt --smoke \\
       --task graph --graphs 8 --batch-graphs 4 --steps 6 --device cpu \\
       --ckpt-dir _local/ck --ckpt-every 2 --fault-plan nonfinite@2
@@ -60,6 +65,7 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.graph import sbm_graph
 from repro_torch.core.graph_model import GraphModel
 from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+from repro_torch.models.api import SSMLMModel
 from repro_torch.models.lm import LMModel
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.tasks import (BatchFnTask, GraphLevelTask, LinkTask,
@@ -185,10 +191,13 @@ def _make_graph_task(args, cfg, device):
 
 
 def _lm_main(args, cfg):
-    model = LMModel(cfg, device=args.device)
+    if cfg.family == "ssm":
+        model, mixer = SSMLMModel(cfg, device=args.device), "ssm"
+    else:
+        model, mixer = LMModel(cfg, device=args.device), cfg.attn_backend
     n_params = sum(p.numel() for p in model.parameters())
     print(f"arch={cfg.name} params={n_params:,} device={model.device} "
-          f"attn_backend={cfg.attn_backend} seq={args.seq} "
+          f"attn_backend={mixer} remat={cfg.remat} seq={args.seq} "
           f"batch={args.batch}")
     dc = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch)

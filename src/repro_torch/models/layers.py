@@ -1,11 +1,12 @@
 """Transformer layers of the graph models and the token LMs: RMSNorm,
 the per-head qk-norm, RoPE, the attention projections, the SwiGLU MLP,
 the token embedding and its tied unembedding, the chunked cross-entropy,
-and the dense chunked attention (the graph model's interleave step, the
-LM's dense backend) — the port's counterparts of ``repro.models.layers``
+the dense chunked attention (the graph model's interleave step, the
+LM's dense backend) and the layer recomputation every family reads from
+``cfg.remat`` — the port's counterparts of ``repro.models.layers``
 (``rmsnorm``, ``headnorm``, ``rope``, ``project_qkv``, ``out_proj``,
 ``mlp``, ``embed_tokens``, ``logits_fn``, ``chunked_softmax_xent``,
-``chunked_attention``).
+``chunked_attention``) and of ``repro.models.lm._maybe_remat``.
 
 Parameters keep the reference's shapes (``wq`` is ``(D, H, Dh)``, ``wo``
 ``(H, Dh, D)``, ``tok`` ``(vocab_padded, D)``), so a JAX parameter tree
@@ -16,10 +17,13 @@ reference does.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 class RMSNorm(nn.Module):
@@ -275,6 +279,36 @@ def chunked_softmax_xent(p: Embedding, cfg, h, labels, chunk: int = 512):
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def _save_unbatched_products(ctx, op, *args, **kwargs):
+    """The policy of ``remat="dots"``, the counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the un-batched products. The projections and the MLP are
+    ``(B, S, D) @ (D, N)``, which matmul folds into one ``mm``; the score
+    products are ``bmm`` (or a kernel) and get recomputed."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn, cfg):
+    """``fn`` under the recomputation ``cfg.remat`` names, the port of the
+    reference's ``_maybe_remat``: ``"none"`` -> ``fn`` itself; ``"dots"``
+    -> a selective checkpoint that keeps the un-batched products' outputs;
+    anything else -> a checkpoint of the whole of ``fn``. With grad
+    disabled (serving, evaluation) there is nothing to keep, and ``fn``
+    runs as it is. Non-reentrant checkpoints, so the first pass runs with
+    grad enabled and takes the ops' autograd branch, as the recomputation
+    does. No layer draws random numbers, so the RNG state is not saved
+    and restored around the recomputation."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_unbatched_products)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
 def _def_name(name: str) -> str:
     """``layers.3.attn.wq`` -> ``layers.attn.wq``."""
     parts = name.split(".")
@@ -290,7 +324,8 @@ def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
     registration order so the weights do not depend on the device. The
     init families are the reference's: ``fan_in`` is a normal scaled by
     ``shape[0] ** -0.5``, ``normal``/``embed`` a normal scaled by 0.02;
-    the random numbers are the port's own."""
+    a float ``init`` is a normal of that scale; the random numbers are
+    the port's own."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         shape, init = defs[_def_name(name)]
@@ -300,5 +335,6 @@ def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
         elif init == "ones":
             p.fill_(1.0)
         else:
-            scale = shape[0] ** -0.5 if init == "fan_in" else 0.02
+            scale = (shape[0] ** -0.5 if init == "fan_in" else
+                     init if isinstance(init, float) else 0.02)
             p.copy_(torch.randn(shape, generator=gen) * scale)

@@ -16,9 +16,14 @@ The layout depends on the shape only: the model builds it on the host
 once per (S, window, n_global, causal) and uploads it once, with its
 transposed form for the dK/dV backward (``LMModel.layout``).
 
-Every layer's activations are kept for the backward: the port does not
-recompute layers (``cfg.remat`` is not read), so each attention kernel
-launches once per layer and step. Not ported, each raising
+Each layer runs under the reference's recomputation (``_maybe_remat``),
+read from ``cfg.remat`` when grad is enabled (``layers.maybe_remat``):
+``"none"`` keeps every activation; ``"dots"`` keeps the outputs of the
+un-batched products (the projections and the MLP) and recomputes the
+rest, the attention op included; any other value keeps only the layer's
+input and recomputes the whole layer in the backward. Under
+recomputation each attention forward kernel launches twice per layer
+and step, the dQ and dK/dV kernels once. Not ported, each raising
 ``NotImplementedError`` naming its ``ROADMAP.md`` item: MoE, VLM and
 the leading dense layers of ``n_dense_layers`` (A10), prefill, decode
 and the paged cache (A9). There is no mesh, so no Ulysses or
@@ -26,6 +31,8 @@ sequence-parallel attention (A8).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -82,10 +89,13 @@ class LMModel(nn.Module):
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         super().__init__()
+        if cfg.family == "ssm":
+            raise ValueError(f"{cfg.name}: the ssm family is "
+                             f"models/api.SSMLMModel, not LMModel")
         if cfg.family != "dense" or cfg.moe_experts or cfg.frontend:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family (MoE, VLM and the "
-                f"other non-dense LMs) is not ported yet (ROADMAP.md A10)")
+                f"{cfg.name}: the {cfg.family} family (MoE, VLM, hybrid, "
+                f"enc-dec) is not ported yet (ROADMAP.md A10)")
         if cfg.n_dense_layers or cfg.dense_d_ff:
             raise NotImplementedError(
                 f"{cfg.name}: leading dense layers (n_dense_layers, "
@@ -151,6 +161,15 @@ def attention_fn(model: LMModel, S: int, impl: str | None = None):
         chunk_k=cfg.attn_chunk_k)
 
 
+def _layer(layer: LMLayer, h, cfg, pos, attn):
+    """One decoder layer: pre-norm attention and SwiGLU MLP, residual."""
+    a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
+    q, k, v = L.project_qkv(layer.attn, cfg, a, pos)
+    h = h + L.out_proj(layer.attn, attn(q, k, v))
+    m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
+    return h + L.mlp(layer.mlp, m)
+
+
 def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None):
     """-> (final hidden states (B, S, D) after the final norm, aux loss).
     ``batch["tokens"]`` is (B, S) int on the model's device. The aux loss
@@ -163,13 +182,10 @@ def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None):
     pos = torch.arange(S, device=tokens.device)
     if cfg.rope_theta:   # one rotation table for every layer
         pos = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
-    attn = attention_fn(model, S, impl)
+    body = L.maybe_remat(functools.partial(
+        _layer, cfg=cfg, pos=pos, attn=attention_fn(model, S, impl)), cfg)
     for layer in model.layers:
-        a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
-        q, k, v = L.project_qkv(layer.attn, cfg, a, pos)
-        h = h + L.out_proj(layer.attn, attn(q, k, v))
-        m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
-        h = h + L.mlp(layer.mlp, m)
+        h = body(layer, h)
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     return h, torch.zeros((), device=h.device)
 

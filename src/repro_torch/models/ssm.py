@@ -1,11 +1,15 @@
-"""Mamba2 SSD (state-space duality, arXiv:2405.21060): the chunked scan
-and the one-token recurrence, in plain PyTorch.
+"""Mamba2 block — SSD (state-space duality, arXiv:2405.21060), in plain
+PyTorch.
 
-The port's counterpart of ``repro.models.ssm.ssd_chunked`` and
-``ssd_decode_step``, term for term. Within a chunk the recurrence is
-computed in its quadratic "attention-like" dual form; across chunks a
-small scan carries the (B, H, dh, N) state. The rest of the Mamba2 block
-(projections, the causal convolution, the gate) is not ported yet.
+The port's counterpart of ``repro.models.ssm``, term for term:
+``ssm_dims``, ``mamba_defs``, ``_causal_conv``, ``ssd_chunked``,
+``ssd_decode_step``, ``_split_proj`` and ``mamba_apply``. Within a chunk
+the recurrence is computed in its quadratic "attention-like" dual form;
+across chunks a small scan carries the (B, H, dh, N) state. The block
+calls the plain ``ssd_chunked``, as the reference's model calls its jnp
+one (the SSD kernel, ``ops.ssd``, serves the autotuner). Decode
+(``mamba_decode``, ``mamba_cache_defs``) is not ported yet (ROADMAP.md
+A9).
 
 Per-head layout: x (B,S,H,dh), dt (B,S,H), a (H,), b/c shared across heads
 (single group): (B,S,N).
@@ -14,8 +18,55 @@ Per-head layout: x (B,S,H,dh), dt (B,S,H), a (H,), b/c shared across heads
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 F32 = torch.float32
+
+
+def ssm_dims(cfg):
+    """``(d_inner, n_heads, head_dim, state)`` of the Mamba2 block."""
+    d_inner = cfg.expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    return d_inner, n_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def mamba_defs(cfg) -> dict:
+    """``{name: (shape, init)}`` of one Mamba2 block: the reference's
+    ``mamba_defs`` names, shapes and init families (``conv_w`` a normal
+    of scale 0.1)."""
+    D = cfg.d_model
+    d_inner, H, dh, N = ssm_dims(cfg)
+    conv_dim = d_inner + 2 * N  # conv over x, B, C (mamba2 layout)
+    return {
+        "in_proj": ((D, 2 * d_inner + 2 * N + H), "fan_in"),
+        "conv_w": ((cfg.conv_width, conv_dim), 0.1),
+        "conv_b": ((conv_dim,), "zeros"),
+        "a_log": ((H,), "zeros"),        # A = -exp(a_log)
+        "dt_bias": ((H,), "zeros"),
+        "d_skip": ((H,), "ones"),
+        "norm": ((d_inner,), "ones"),
+        "out_proj": ((d_inner, D), "fan_in"),
+    }
+
+
+class Mamba(nn.Module):
+    """The parameters of :func:`mamba_defs`, under the same names."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        for name, (shape, _) in mamba_defs(cfg).items():
+            setattr(self, name, nn.Parameter(torch.empty(shape,
+                                                         device=device)))
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x (B,S,C), w (K,C)."""
+    K = w.shape[0]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
+              for i in range(K))
+    return out + b[None, None, :]
 
 
 def ssd_chunked(x, dt, a, b, c, chunk: int):
@@ -87,3 +138,47 @@ def ssd_decode_step(state, x, dt, a, b, c):
     state = state * da + upd
     y = torch.einsum("bhpn,bn->bhp", state, c.to(F32))
     return y.to(x.dtype), state
+
+
+def _split_proj(cfg, zxbcdt):
+    """The in-projection ``(B, S, 2 d_inner + 2N + H)`` -> ``z, x, b, c,
+    dt``."""
+    d_inner, H, dh, N = ssm_dims(cfg)
+    return torch.split(zxbcdt, [d_inner, d_inner, N, N, H], dim=-1)
+
+
+def mamba_apply(p: Mamba, cfg, h):
+    """Full-sequence Mamba2 block (training): h (B,S,D) -> (out (B,S,D),
+    final state (B,H,dh,N) fp32). Compute in h's dtype, fp32 in the SiLU,
+    the softplus, the scan and the gated RMSNorm, as the reference."""
+    B, S, D = h.shape
+    d_inner, H, dh, N = ssm_dims(cfg)
+    dt_ = h.dtype
+    zxbcdt = h @ p.in_proj.to(dt_)
+    z, xi, b, c, dtp = _split_proj(cfg, zxbcdt)
+    xbc = torch.cat([xi, b, c], dim=-1)
+    xbc = F.silu(_causal_conv(xbc, p.conv_w.to(dt_),
+                              p.conv_b.to(dt_)).float()).to(dt_)
+    xi, b, c = torch.split(xbc, [d_inner, N, N], dim=-1)
+    dt = F.softplus(dtp.float() + p.dt_bias.float())       # (B,S,H)
+    a = -torch.exp(p.a_log.float())
+    xh = xi.reshape(B, S, H, dh)
+    y, final = ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk)
+    y = y + xh * p.d_skip.to(dt_)[None, None, :, None]
+    y = y.reshape(B, S, d_inner)
+    # gated RMSNorm (mamba2)
+    y = y * F.silu(z.float()).to(dt_)
+    y32 = y.float()
+    y = (y32 * torch.rsqrt(y32.square().mean(-1, keepdim=True)
+                           + cfg.norm_eps) * p.norm.float()).to(dt_)
+    return y @ p.out_proj.to(dt_), final
+
+
+def mamba_decode(*args, **kwargs):
+    raise NotImplementedError("Mamba2 decode is not ported yet "
+                              "(ROADMAP.md A9)")
+
+
+def mamba_cache_defs(*args, **kwargs):
+    raise NotImplementedError("the Mamba2 decode cache is not ported yet "
+                              "(ROADMAP.md A9)")
