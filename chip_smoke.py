@@ -134,7 +134,26 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    serve phase's 32768-node graph, sparse steps only, the layout frozen,
    4 steps under "none" and 4 under "block", held as the Qwen3 A/B. All
    at full width and depth, the LMs on the cluster-sparse backend, batch
-   1; each run's peak memory, step times, losses (finite, falling).
+   1; each run's peak memory, step times, losses (finite, falling);
+12. token serving (slice 13's main path), in a child process: Qwen3-0.6B
+   as published (bf16, dense attention, seeded weights) through
+   ``ServeEngine`` (8 slots, page 16, chunk 256): (a) 32 requests,
+   prompts 128-3840, 128 new tokens each, max_len 4096, then 16 more on
+   the warm engine at half the measured request rate; (b) the
+   cluster-sparse decode mask at max_len 8192, 8 requests, prompts
+   4500-8000, 64 tokens; each with tokens and requests a second, latency
+   and TTFT percentiles, ms a prefill chunk and a decode step, exactly
+   two programs, the pool's bytes, peak memory, every block free at
+   drain, no kernel launched; (c) two requests of (a) and two of (b)
+   teacher-forced against oracles over the engine's own tokens (the full
+   causal forward; contiguous sparse ``lm_decode_step``), each token the
+   oracle's argmax where its top-2 margin exceeds a stated tolerance,
+   and an fp32 engine's streams equal to the contiguous greedy decode's;
+   (d) the cluster-sparse backend's ``lm_prefill`` at S=16384 held to
+   ``impl="plain"`` (logits and every layer's k/v) and at S=65536, row 2
+   launched once a layer a prefill, then 64 tokens of sparse decode; (e)
+   Mamba2-2.7B's prefill logits at S=512 against 512 decode steps (the
+   reference's tolerance), then 64 tokens.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after. Every training path's counts are exact:
@@ -253,6 +272,58 @@ def cuda_ms(fn, reps):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_breakdown(fn, wall_ms, tag="serve", what="one forward",
+                     focus=None):
+    """Device time of one ``fn()`` by kernel name (torch.profiler),
+    and the busy share of ``wall_ms``; the time by kind of kernel
+    (``KERNEL_KINDS``: the first kind whose substring the name
+    holds); with ``focus`` (a substring of kernel names) also the
+    time and share of the kernels it names. None when the profiler
+    shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []   # device-side events only: CPU ops would count twice
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and \
+                e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total / 1e3, e.key))
+    if not rows:
+        log(f"[{tag}] profiler: no device time (not measured)")
+        return None
+    rows.sort(reverse=True)
+    total = sum(ms for ms, _ in rows)
+    log(f"[{tag}] profiler: device time {total:.3f} ms in {what} "
+        f"of {wall_ms:.3f} ms wall ({total / wall_ms:.1%} busy)")
+    for ms, name in rows[:8]:
+        log(f"[{tag}]   {ms:9.3f} ms {ms / total:6.1%}  {name[:90]}")
+    kinds = {}
+    for ms, name in rows:
+        kind = next((k for k, subs in KERNEL_KINDS
+                     if any(x in name for x in subs)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    log(f"[{tag}] by kind: " + ", ".join(
+        f"{k} {ms:.3f} ms ({ms / total:.1%})" for k, ms in sorted(
+            kinds.items(), key=lambda kv: -kv[1])))
+    rec = {"device_ms": total, "busy_share": total / wall_ms,
+           "top": [[name[:90], ms] for ms, name in rows[:8]],
+           "by_kind_ms": kinds}
+    if focus:
+        rec["focus_ms"] = {name[:90]: ms for ms, name in rows
+                           if focus in name}
+        fms = sum(rec["focus_ms"].values())
+        rec["focus_share"] = fms / total
+        log(f"[{tag}] kernels named *{focus}*: {fms:.3f} ms, "
+            f"{fms / total:.1%} of device time")
+    return rec
 
 
 # ---------------------------------- the flash and SSD kernels (rows 7-10)
@@ -1504,6 +1575,646 @@ def remat_phase(out_path: str) -> int:
     return 0
 
 
+# phase 12: token serving at full width, in a child process (no
+# deterministic mode: the pool's scatter writes the padding rows of a
+# chunk and the idle slots' rows to one scratch index, in no fixed order)
+SERVE_SLOTS = 8
+SERVE_PAGE = 16
+SERVE_CHUNK = 256
+SERVE_MAX_LEN = 4096
+SERVE_REQUESTS = 32
+SERVE_PROMPT = (128, 3840)
+SERVE_NEW = 128
+SERVE_WARM_REQUESTS = 16
+SPARSE_MAX_LEN = 8192           # past the window (4096), so that it binds
+SPARSE_REQUESTS = 8
+SPARSE_PROMPT = (4500, 8000)
+SPARSE_NEW = 64
+F32_REQUESTS = 4
+F32_PROMPT = (64, 256)
+F32_NEW = 32
+CHECKED_REQUESTS = 2            # of (a) and of (b), held to their oracles
+# (c): an engine token must be the oracle's argmax wherever the oracle's
+# top-2 margin exceeds this, and lie within it of the oracle's max
+# elsewhere. bf16 logits of magnitude 2-4 are 2^-6 apart; this is 4 such
+# steps, 2.7x the largest first-token logit difference measured between
+# the engine's chunked prefill and its oracle (0.0234)
+TOL_TOKEN_MARGIN = 0.0625
+LONG_CHECK_SEQ = 16384          # (d), held to impl="plain"
+LONG_SEQ = 65536
+LONG_DECODE = 64
+SSM_PREFILL_SEQ = 512           # (e)
+SSM_DECODE = 64
+# (e): the reference's prefill-vs-decode tolerance
+# (tests/test_serve_consistency.py:64-67), which holds the fp32 model; the
+# bf16 model's gap at 64 layers is reported beside it
+TOL_SSM_ATOL, TOL_SSM_RTOL = 0.15, 0.05
+ENGINE_GRAPH_REPS = 10
+
+
+def cuda_graph(fn):
+    """A CUDA graph of ``fn()``, whose inputs are static tensors it closes
+    over: two warm-up calls on a side stream, then the capture. Returns
+    ``(graph, out)``; ``graph.replay()`` reruns every kernel of ``fn`` on
+    the inputs' current values and rewrites ``out`` in place."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def serve_runs(dev, reset_counts, read_counts) -> dict:
+    """Phase 12's runs on ``dev``, each at full width and depth with
+    seeded weights. (a) Qwen3-0.6B as published (bf16, dense attention)
+    through ``ServeEngine``, then a second batch on the warm engine; (b)
+    the same engine with the cluster-sparse decode mask at max_len 8192;
+    (c) requests of (a) and (b) held to oracles, teacher-forced over the
+    engine's own tokens, and an fp32 engine's streams to the contiguous
+    greedy decode; (d) Qwen3-0.6B on the cluster-sparse backend:
+    ``lm_prefill`` at S=16384 held to ``impl="plain"``, at S=65536, then
+    64 tokens of sparse ``lm_decode_step``, row 2's launches counted
+    exactly; (e) Mamba2-2.7B's prefill against 512 decode steps, then 64
+    tokens. The engine's path launches no kernel (``paged_attention`` is
+    plain on every device, as in the reference): its counts must stay 0.
+    The engine's two programs are also replayed as CUDA graphs on the
+    same shapes, which gives their device time without the host's issue
+    gaps, and the long decode loops of the oracles run as CUDA graphs of
+    the same steps. One set of seeded parameters per model serves each
+    of its configs (the models read ``cfg`` at every call). Returns the
+    phase's record, with row 2's launches under ``launches``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import SSMLMModel
+    from repro_torch.models.lm import (LMModel, lm_decode_step, lm_forward,
+                                       lm_prefill)
+    from repro_torch.serve import ServeEngine
+
+    rec = {}
+    zero = {name: 0 for name in read_counts()}
+    launches = dict(zero)
+    rng = np.random.default_rng(0)
+
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def prompts_of(cfg, n, lo, hi):
+        return [rng.integers(1, cfg.vocab_size, int(m)).tolist()
+                for m in rng.integers(lo, hi + 1, n)]
+
+    def event_pair():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def timed(eng):
+        """CUDA events around every call of the engine's two programs:
+        each call's time on the device's clock, host issue gaps
+        included."""
+        ev = {"prefill": [], "decode": []}
+        for name, prog in (("prefill", eng._prefill),
+                           ("decode", eng._decode)):
+            def wrapped(*a, _fn=prog.fn, _ev=ev[name], **kw):
+                s, e = event_pair()
+                s.record()
+                out = _fn(*a, **kw)
+                e.record()
+                _ev.append((s, e))
+                return out
+            prog.fn = wrapped
+        return ev
+
+    def pct(xs, q):
+        """The reference CLI's percentiles (``launch/serve.py``)."""
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if q == 50 else \
+            xs[min(len(xs) - 1, int(len(xs) * q / 100))]
+
+    def run_engine(tag, eng, ev, prompts, n_new, gap=0.0, rid0=0):
+        """Serve ``prompts`` (arrivals ``gap`` s apart) through ``eng``
+        with its launch counts at 0 before and read after; checks the
+        two-program budget, the drained pool, every stream's length and
+        that no kernel launched. Returns the run's record."""
+        n_pf, n_dc = len(ev["prefill"]), len(ev["decode"])
+        n_rows = len(eng.request_stats)
+        for i, p in enumerate(prompts):
+            eng.submit(rid0 + i, p, n_new, arrival=i * gap)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stats = eng.run()
+        counts = read_counts()
+        torch.cuda.synchronize()
+        rows = eng.request_stats[n_rows:]
+        pf = [s.elapsed_time(e) for s, e in ev["prefill"][n_pf:]]
+        dc = [s.elapsed_time(e) for s, e in ev["decode"][n_dc:]]
+        new = sum(r["new_tokens"] for r in rows)
+        sec = stats["seconds"]
+        out = {
+            "requests": len(rows), "new_tokens": new,
+            "prompt_tokens": sum(len(p) for p in prompts),
+            "seconds": sec, "tok_per_s": new / sec,
+            "req_per_s": len(rows) / sec, "arrival_gap_s": gap,
+            "latency_p50_s": pct([r["latency_s"] for r in rows], 50),
+            "latency_p99_s": pct([r["latency_s"] for r in rows], 99),
+            "ttft_p50_s": pct([r["ttft_s"] for r in rows], 50),
+            "ttft_p99_s": pct([r["ttft_s"] for r in rows], 99),
+            "prefill_calls": len(pf), "decode_calls": len(dc),
+            "prefill_chunk_ms": float(np.median(pf)),
+            "decode_step_ms": float(np.median(dc)),
+            "decode_step_ms_p90": float(np.percentile(dc, 90)),
+            "device_busy_s": (sum(pf) + sum(dc)) / 1e3,
+            "traced_programs": stats["traced_programs"],
+            "pool_bytes": eng.pool_bytes(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "free_blocks": eng.allocator.n_free,
+            "usable_blocks": eng.allocator.num_blocks - 1}
+        log(f"[serve-lm] {tag}: {json.dumps(out)}")
+        if out["traced_programs"] != 2:
+            raise AssertionError(f"{tag}: {out['traced_programs']} programs")
+        if out["free_blocks"] != out["usable_blocks"] or \
+                eng.allocator.n_live:
+            raise AssertionError(f"{tag}: blocks still live at drain")
+        if len(rows) != len(prompts) or any(
+                len(eng.done[rid0 + i]) != n_new
+                for i in range(len(prompts))):
+            raise AssertionError(f"{tag}: a request did not finish")
+        if counts != zero:
+            raise AssertionError(f"{tag}: the engine's path launched "
+                                 f"kernels: {counts}")
+        return out
+
+    def new_engine(model, max_len, sparse):
+        eng = ServeEngine(model, batch_slots=SERVE_SLOTS, page=SERVE_PAGE,
+                          max_len=max_len, chunk=SERVE_CHUNK, sparse=sparse)
+        want = (2 * model.cfg.n_layers * eng.allocator.num_blocks
+                * SERVE_PAGE * model.cfg.kv_heads * model.cfg.head_dim * 2)
+        if eng.pool_bytes() != want:
+            raise AssertionError(f"pool {eng.pool_bytes()} B, want {want}")
+        return eng, timed(eng)
+
+    def margin_check(tag, logits, out):
+        """``logits`` (n, V) fp32 of the oracle at the positions that
+        chose ``out``'s n tokens: each token the oracle's argmax where
+        its top-2 margin exceeds TOL_TOKEN_MARGIN, and within it of the
+        max elsewhere."""
+        top = logits.topk(2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        tok = torch.tensor(out, device=logits.device)
+        strict = margin > TOL_TOKEN_MARGIN
+        wrong = strict & (logits.argmax(-1) != tok)
+        near = logits.gather(1, tok[:, None])[:, 0] >= \
+            top[:, 0] - TOL_TOKEN_MARGIN
+        res = {"checked": int(strict.sum()), "skipped": int((~strict).sum()),
+               "mismatched": int(wrong.sum()),
+               "outside_tolerance": int((~strict & ~near).sum()),
+               "median_margin": float(margin.median())}
+        if res["mismatched"] or res["outside_tolerance"]:
+            raise AssertionError(f"{tag}: engine tokens disagree with the "
+                                 f"oracle: {res}")
+        return res
+
+    def chunked_first_logits(model, prompt, sparse):
+        """The engine's prefill program over ``prompt`` alone (a pool of
+        its own): the logits that chose its first token, (V,) fp32."""
+        nb = -(-len(prompt) // SERVE_PAGE)
+        pool = model.paged_cache_defs(nb + 1, SERVE_PAGE)
+        bt = torch.arange(1, nb + 1, device=dev)[None]
+        with torch.inference_mode():
+            for off in range(0, len(prompt), SERVE_CHUNK):
+                n = min(SERVE_CHUNK, len(prompt) - off)
+                toks = torch.zeros((1, SERVE_CHUNK), dtype=torch.int64,
+                                   device=dev)
+                toks[0, :n] = torch.tensor(prompt[off:off + n], device=dev)
+                logits, _ = model.prefill_chunk(pool, toks, off, n, bt,
+                                                sparse=sparse)
+        return logits[0, 0, :model.cfg.vocab_size].float()
+
+    def first_logit_err(model, prompt, oracle_row, sparse):
+        got = chunked_first_logits(model, prompt, sparse)
+        return {"first_token_logit_err": float((got - oracle_row).abs()
+                                               .max()),
+                "first_token_logit_max": float(oracle_row.abs().max())}
+
+    def engine_steps(tag, eng):
+        """One decode step and one prefill chunk of ``eng``'s programs at
+        their engine shapes (idle slots and a zero block table: every
+        write lands in scratch block 0; the gather reads every slot's
+        whole table, as a live step does): eager wall ms (host clock to
+        a sync), device ms replayed as a CUDA graph, and one eager call
+        profiled by kernel."""
+        m, B, nmax = eng.model, eng.B, eng.nmax
+        res = {}
+        with torch.inference_mode():
+            tok, pos = (torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                        torch.zeros(B, dtype=torch.int64, device=dev))
+            bt = torch.zeros((B, nmax), dtype=torch.int64, device=dev)
+            ptok = torch.zeros((1, eng.chunk), dtype=torch.int64,
+                               device=dev)
+            for name, fn in (
+                    ("decode_step", lambda: m.paged_decode(
+                        eng.pool, tok, pos, bt, sparse=eng.sparse)[0]),
+                    ("prefill_chunk", lambda: m.prefill_chunk(
+                        eng.pool, ptok, 0, eng.chunk, bt[:1],
+                        sparse=eng.sparse)[0])):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ENGINE_GRAPH_REPS):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / ENGINE_GRAPH_REPS
+                graph, _ = cuda_graph(fn)
+                s, e = event_pair()
+                s.record()
+                for _ in range(ENGINE_GRAPH_REPS):
+                    graph.replay()
+                e.record()
+                e.synchronize()
+                del graph
+                res[name] = {
+                    "eager_ms": wall,
+                    "graph_ms": s.elapsed_time(e) / ENGINE_GRAPH_REPS,
+                    "profile": device_breakdown(
+                        fn, wall, tag="serve-lm",
+                        what=f"{tag}: one {name.replace('_', ' ')}")}
+        log(f"[serve-lm] {tag}: a decode step {res['decode_step']['eager_ms']:.3f} "
+            f"ms eager, {res['decode_step']['graph_ms']:.3f} ms as a CUDA "
+            f"graph; a prefill chunk {res['prefill_chunk']['eager_ms']:.3f} "
+            f"/ {res['prefill_chunk']['graph_ms']:.3f} ms")
+        return res
+
+    # ------------------------------------------------- (a) dense engine
+    cfg = get_config("qwen3_0_6b")
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, seed=0)
+    rec["init_s"] = time.perf_counter() - t0
+    eng, ev = new_engine(model, SERVE_MAX_LEN, sparse=False)
+    pa = prompts_of(cfg, SERVE_REQUESTS, *SERVE_PROMPT)
+    rec["a"] = run_engine("(a) dense", eng, ev, pa, SERVE_NEW)
+    rec["a_warm"] = run_engine(
+        "(a) warm", eng, ev, prompts_of(cfg, SERVE_WARM_REQUESTS,
+                                        *SERVE_PROMPT),
+        SERVE_NEW, gap=2.0 / rec["a"]["req_per_s"], rid0=1000)
+    rec["a"]["steps"] = engine_steps("(a)", eng)
+
+    # (c) two of (a): the full causal forward over the engine's sequence,
+    # whose logits at position t are lm_prefill's over the prefix ending
+    # at t; the request with the longest prompt and the first
+    longest = max(range(len(pa)), key=lambda i: len(pa[i]))
+    checks = []
+    for rid in (longest, 0 if longest else 1):
+        prompt, out = pa[rid], eng.done[rid]
+        with torch.inference_mode():
+            seq = torch.tensor([prompt + out[:-1]], device=dev)
+            h, _ = lm_forward(model, {"tokens": seq})
+            logits = L.logits_fn(model.embed, cfg, h[:, len(prompt) - 1:])
+            logits = logits[0, :, :V].float()
+        res = margin_check(f"(c) dense request {rid}", logits, out)
+        res.update(rid=rid, prompt_len=len(prompt),
+                   **first_logit_err(model, prompt, logits[0], False))
+        checks.append(res)
+        del h, logits
+    rec["c_dense"] = checks
+    log(f"[serve-lm] (c) dense, teacher-forced against the full forward: "
+        f"{json.dumps(checks)}")
+    del eng, ev
+    release()
+
+    # -------------------------------------------------- (b) sparse engine
+    eng, ev = new_engine(model, SPARSE_MAX_LEN, sparse=True)
+    pb = prompts_of(cfg, SPARSE_REQUESTS, *SPARSE_PROMPT)
+    rec["b"] = run_engine("(b) sparse", eng, ev, pb, SPARSE_NEW)
+    rec["b"]["steps"] = engine_steps("(b)", eng)
+
+    # (c) the two shortest of (b): contiguous lm_decode_step with the
+    # sparse mask, teacher-forced, both in one batch at shared positions.
+    # Below the window the sparse decode mask keeps every earlier row, so
+    # the first `window` positions' caches come from lm_prefill (dense,
+    # causal: the same mask there); every position from the window on,
+    # where the window binds, is one decode step, replayed as a CUDA
+    # graph of lm_decode_step at a device-side position
+    W = cfg.window
+    rids = sorted(range(len(pb)), key=lambda i: len(pb[i]))[:CHECKED_REQUESTS]
+    seqs = [pb[r] + eng.done[r][:-1] for r in rids]
+    Lmax = max(len(q) for q in seqs)
+    toks = torch.zeros((len(rids), Lmax), dtype=torch.int64, device=dev)
+    for i, q in enumerate(seqs):
+        toks[i, :len(q)] = torch.tensor(q, device=dev)
+    got = torch.zeros((len(rids), SPARSE_NEW, V), device=dev)
+    starts = [len(pb[r]) - 1 for r in rids]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, cache = lm_prefill(model, {"tokens": toks[:, :W]}, cache_len=Lmax)
+        st_tok = toks[:, W:W + 1].clone()
+        st_pos = torch.full((), W, dtype=torch.int64, device=dev)
+        graph, out = cuda_graph(lambda: lm_decode_step(
+            model, cache, st_tok, st_pos, sparse=True)[0])
+        s, e = event_pair()
+        s.record()
+        for p in range(W, Lmax):
+            st_tok.copy_(toks[:, p:p + 1])
+            st_pos.fill_(p)
+            graph.replay()
+            for i, s0 in enumerate(starts):
+                if s0 <= p < s0 + SPARSE_NEW:
+                    got[i, p - s0] = out[i, 0, :V].float()
+        e.record()
+    e.synchronize()
+    oracle_s = time.perf_counter() - t0
+    oracle_step_ms = s.elapsed_time(e) / (Lmax - W)
+    del graph, out
+    checks = []
+    for i, r in enumerate(rids):
+        res = margin_check(f"(c) sparse request {r}", got[i], eng.done[r])
+        res.update(rid=r, prompt_len=len(pb[r]),
+                   **first_logit_err(model, pb[r], got[i, 0], True))
+        checks.append(res)
+    rec["c_sparse"] = {"checks": checks, "oracle_s": oracle_s,
+                       "decode_steps": Lmax - W,
+                       "oracle_step_graph_ms": oracle_step_ms}
+    log(f"[serve-lm] (c) sparse, teacher-forced against contiguous sparse "
+        f"decode ({Lmax - W} steps as a CUDA graph, {oracle_step_ms:.3f} "
+        f"ms each, {oracle_s:.1f} s): {json.dumps(checks)}")
+    del eng, ev, cache, got, toks
+    release()
+
+    # -------------------------------------- (c) an fp32 engine, full width
+    model.cfg = cfg.replace(dtype="float32")
+    eng, ev = new_engine(model, SERVE_MAX_LEN, sparse=False)
+    pf = prompts_of(cfg, F32_REQUESTS, *F32_PROMPT)
+    rec["c_f32"] = run_engine("(c) fp32 engine", eng, ev, pf, F32_NEW)
+    # the contiguous greedy decode, all four in one batch at shared
+    # positions: a row feeds its prompt, then its own greedy tokens; each
+    # step a replay of a CUDA graph of lm_decode_step
+    plen = torch.tensor([len(p) for p in pf], device=dev)
+    Lmax = max(len(p) for p in pf) + F32_NEW
+    toks = torch.zeros((len(pf), Lmax), dtype=torch.int64, device=dev)
+    for i, p in enumerate(pf):
+        toks[i, :len(p)] = torch.tensor(p, device=dev)
+    nxt = torch.zeros(len(pf), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        cache = model.cache_defs(len(pf), Lmax)
+        st_tok = toks[:, :1].clone()
+        st_pos = torch.zeros((), dtype=torch.int64, device=dev)
+        graph, out = cuda_graph(
+            lambda: lm_decode_step(model, cache, st_tok, st_pos)[0])
+        for p in range(Lmax - 1):
+            st_tok.copy_(torch.where(p < plen, toks[:, p], nxt)[:, None])
+            st_pos.fill_(p)
+            graph.replay()
+            nxt = out[:, 0, :V].float().argmax(-1)
+            toks[:, p + 1] = torch.where(p + 1 < plen, toks[:, p + 1], nxt)
+        del graph, out
+    oracle = [toks[i, len(p):len(p) + F32_NEW].tolist()
+              for i, p in enumerate(pf)]
+    same = [oracle[i] == eng.done[i] for i in range(len(pf))]
+    rec["c_f32"]["streams_equal"] = same
+    log(f"[serve-lm] (c) fp32 engine streams equal to the contiguous "
+        f"greedy decode: {same}")
+    if not all(same):
+        raise AssertionError(f"(c) fp32 streams differ: "
+                             f"{[(eng.done[i], oracle[i]) for i in range(len(pf)) if not same[i]]}")
+    del eng, ev, cache
+    release()
+
+    # ------------------------- (d) long-context prefill through row 2
+    cfg_s = cfg.replace(attn_backend="cluster_sparse")
+    model.cfg = cfg_s
+    fwd = "cluster_attention_fwd_unbiased_sm90"
+    want = {**zero, fwd: cfg_s.n_layers}
+    d = {}
+    tok = torch.from_numpy(rng.integers(1, V, (1, LONG_CHECK_SEQ))).to(dev)
+
+    def prefill_timed(batch, **kw):
+        s, e = event_pair()
+        with torch.inference_mode():
+            s.record()
+            out = lm_prefill(model, batch, **kw)
+            e.record()
+        e.synchronize()
+        return out, s.elapsed_time(e)
+
+    prefill_timed({"tokens": tok[:, :1024]})      # warm-up, not counted
+    release()
+    reset_counts()
+    (lk, ck), d["prefill_ms_16384"] = prefill_timed({"tokens": tok})
+    counts = read_counts()
+    if counts != want:
+        raise AssertionError(f"(d) S={LONG_CHECK_SEQ}: launches {counts}, "
+                             f"want {cfg_s.n_layers} of {fwd}")
+    launches[fwd] += counts[fwd]
+    (lp, cp), d["plain_prefill_ms_16384"] = prefill_timed({"tokens": tok},
+                                                           impl="plain")
+    if read_counts() != want:
+        raise AssertionError("(d) the plain prefill launched a kernel")
+    a, b = lk[0, 0, :V].float(), lp[0, 0, :V].float()
+    d["logits_rel_err"] = float((a - b).abs().max() / b.abs().max())
+    d["argmax_equal"] = bool(a.argmax() == b.argmax())
+    worst = {"rel_err": 0.0, "cosine": 1.0}
+    for key in ("k", "v"):
+        for i in range(cfg_s.n_layers):
+            x, y = ck["layers"][key][i].float(), cp["layers"][key][i].float()
+            worst["rel_err"] = max(worst["rel_err"], float(
+                (x - y).abs().max() / y.abs().max()))
+            worst["cosine"] = min(worst["cosine"], float(
+                torch.nn.functional.cosine_similarity(x.flatten(),
+                                                      y.flatten(), dim=0)))
+    d["cache_worst"] = worst
+    log(f"[serve-lm] (d) S={LONG_CHECK_SEQ} prefill, kernel vs plain: "
+        f"{d['prefill_ms_16384']:.3f} / {d['plain_prefill_ms_16384']:.3f} "
+        f"ms, logits rel err {d['logits_rel_err']:.3e} (tol "
+        f"{TOL_LOGITS_REL}), argmax equal {d['argmax_equal']}, every "
+        f"layer's k/v: worst rel err {worst['rel_err']:.3e} (tol "
+        f"{TOL_LOGITS_REL}), cosine {worst['cosine']:.6f} (min "
+        f"{MIN_GRAD_COSINE})")
+    if d["logits_rel_err"] > TOL_LOGITS_REL or not d["argmax_equal"] or \
+            worst["rel_err"] > TOL_LOGITS_REL or \
+            worst["cosine"] < MIN_GRAD_COSINE:
+        raise AssertionError(f"(d) kernel prefill disagrees with plain: {d}")
+    del lk, ck, lp, cp
+    release()
+
+    tok = torch.from_numpy(rng.integers(1, V, (1, LONG_SEQ))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (logits, cache), d["prefill_ms_65536"] = prefill_timed(
+        {"tokens": tok}, cache_len=LONG_SEQ + LONG_DECODE)
+    d["prefill_peak_bytes_65536"] = torch.cuda.max_memory_allocated()
+    d["cache_bytes"] = sum(x.numel() * x.element_size()
+                           for x in cache["layers"].values())
+    nxt = logits[:, 0, :V].float().argmax(-1)
+    s, e = event_pair()
+    with torch.inference_mode():
+        s.record()
+        for p in range(LONG_SEQ, LONG_SEQ + LONG_DECODE):
+            logits, cache = lm_decode_step(model, cache, nxt[:, None], p,
+                                           sparse=True)
+            nxt = logits[:, 0, :V].float().argmax(-1)
+        e.record()
+    e.synchronize()
+    counts = read_counts()
+    if counts != want:
+        raise AssertionError(f"(d) S={LONG_SEQ}: launches {counts}, want "
+                             f"{cfg_s.n_layers} of {fwd} (decode none)")
+    launches[fwd] += counts[fwd]
+    d["decode_ms_per_token"] = s.elapsed_time(e) / LONG_DECODE
+    d["decode_finite"] = bool(torch.isfinite(logits).all())
+    with torch.inference_mode():   # rewrites the last row, read no more
+        d["decode_profile"] = device_breakdown(
+            lambda: lm_decode_step(model, cache, nxt[:, None],
+                                   LONG_SEQ + LONG_DECODE - 1, sparse=True),
+            d["decode_ms_per_token"], tag="serve-lm",
+            what="(d) one decode step over 65600 cache rows")
+    d["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[serve-lm] (d) S={LONG_SEQ} prefill {d['prefill_ms_65536']:.3f} "
+        f"ms, peak {d['prefill_peak_bytes_65536'] / 2**30:.2f} GiB "
+        f"(caches {d['cache_bytes'] / 1e9:.3f} GB); {LONG_DECODE} sparse "
+        f"decode tokens {d['decode_ms_per_token']:.3f} ms a token, peak "
+        f"{d['peak_bytes'] / 2**30:.2f} GiB; row 2 launched "
+        f"{launches[fwd]} times in (d)")
+    if not d["decode_finite"]:
+        raise AssertionError("(d) decode after 65536: non-finite logits")
+    rec["d"] = d
+    del cache, logits, model
+    release()
+
+    # ---------------------------------------------------- (e) Mamba2-2.7B
+    scfg = get_config("mamba2_2_7b")
+    Vs = scfg.vocab_size
+    model = SSMLMModel(scfg, device=dev, seed=0)
+    tok = torch.from_numpy(rng.integers(1, Vs, (1, SSM_PREFILL_SEQ))).to(dev)
+
+    def ssm_prefill_vs_decode():
+        """Prefill logits at S=512 and those of 512 decode steps over the
+        same tokens (a CUDA graph of ``ssm_lm_decode``, its new caches
+        copied into the static ones after each replay), as fp32 numpy;
+        the caches the decode ends with; prefill ms; decode ms a step."""
+        with torch.inference_mode():
+            s, e = event_pair()
+            s.record()
+            full, _ = model.prefill({"tokens": tok})
+            e.record()
+            cache = model.cache_defs(1, SSM_PREFILL_SEQ)
+            # an fp32 model keeps its conv history in fp32 from its first
+            # step on, as the reference's does; zeros are exact in either
+            hist = torch.promote_types(torch.bfloat16,
+                                       getattr(torch, model.cfg.dtype))
+            cache["layers"]["conv"] = cache["layers"]["conv"].to(hist)
+            st_tok = tok[:, :1].clone()
+            graph, (out, new) = cuda_graph(
+                lambda: model.decode(cache, st_tok, 0))
+            s2, e2 = event_pair()
+            s2.record()
+            for i in range(SSM_PREFILL_SEQ):
+                st_tok.copy_(tok[:, i:i + 1])
+                graph.replay()
+                for key, val in new["layers"].items():
+                    cache["layers"][key].copy_(val)
+            e2.record()
+            e2.synchronize()
+            a = full[0, 0, :Vs].float().cpu().numpy()
+            b = out[0, 0, :Vs].float().cpu().numpy()
+            nxt = out[:, 0, :Vs].float().argmax(-1)
+        del graph
+        return (a, b, cache, nxt, s.elapsed_time(e),
+                s2.elapsed_time(e2) / SSM_PREFILL_SEQ)
+
+    reset_counts()
+    ssm = {}
+    a, b, cache, nxt, ssm["prefill_ms"], ssm["decode_step_graph_ms"] = \
+        ssm_prefill_vs_decode()
+    outside = np.abs(a - b) > TOL_SSM_ATOL + TOL_SSM_RTOL * np.abs(b)
+    ssm["bfloat16"] = {"max_abs_err": float(np.abs(a - b).max()),
+                       "max_abs_logit": float(np.abs(a).max()),
+                       "share_outside_tolerance": float(outside.mean()),
+                       "argmax_equal": bool(a.argmax() == b.argmax())}
+    # 64 tokens from the 512-token state, eager, as a caller decodes
+    s, e = event_pair()
+    with torch.inference_mode():
+        s.record()
+        for i in range(SSM_DECODE):
+            logits, cache = model.decode(cache, nxt[:, None],
+                                         SSM_PREFILL_SEQ + i)
+            nxt = logits[:, 0, :Vs].float().argmax(-1)
+        e.record()
+    e.synchronize()
+    ssm["decode_ms_per_token"] = s.elapsed_time(e) / SSM_DECODE
+    ssm["finite"] = bool(torch.isfinite(logits).all())
+    del cache, logits
+    # the same parameters as an fp32 model: held to the reference's
+    # tolerance
+    model.cfg = scfg.replace(dtype="float32")
+    a, b, cache, _, _, _ = ssm_prefill_vs_decode()
+    ssm["float32"] = {"max_abs_err": float(np.abs(a - b).max()),
+                      "max_abs_logit": float(np.abs(a).max()),
+                      "argmax_equal": bool(a.argmax() == b.argmax())}
+    if read_counts() != zero:
+        raise AssertionError(f"(e) Mamba2 launched kernels: {read_counts()}")
+    rec["e"] = ssm
+    log(f"[serve-lm] (e) Mamba2-2.7B: prefill S={SSM_PREFILL_SEQ} "
+        f"{ssm['prefill_ms']:.3f} ms; prefill logits vs {SSM_PREFILL_SEQ} "
+        f"decode steps: fp32 max |diff| {ssm['float32']['max_abs_err']:.3e} "
+        f"(atol {TOL_SSM_ATOL}, rtol {TOL_SSM_RTOL}, the reference's), "
+        f"argmax equal {ssm['float32']['argmax_equal']}; bf16 max |diff| "
+        f"{ssm['bfloat16']['max_abs_err']:.4f} of max |logit| "
+        f"{ssm['bfloat16']['max_abs_logit']:.3f}, "
+        f"{100 * ssm['bfloat16']['share_outside_tolerance']:.2f}% of "
+        f"logits outside that tolerance, argmax equal "
+        f"{ssm['bfloat16']['argmax_equal']}; a decode step as a CUDA graph "
+        f"{ssm['decode_step_graph_ms']:.3f} ms, {SSM_DECODE} tokens eager "
+        f"{ssm['decode_ms_per_token']:.3f} ms a token")
+    np.testing.assert_allclose(a, b, atol=TOL_SSM_ATOL, rtol=TOL_SSM_RTOL)
+    if not ssm["float32"]["argmax_equal"] or not ssm["finite"]:
+        raise AssertionError(f"(e) Mamba2 prefill/decode: {ssm}")
+    del cache, model
+    release()
+    rec["launches"] = launches
+    return rec
+
+
+def serve_lm_phase(out_path: str) -> int:
+    """Phase 12, in a child process: token serving at full width
+    (``serve_runs``), on an empty card. Not under deterministic
+    algorithms: the pool's ``index_copy_`` writes duplicate scratch
+    indices. The record goes to ``out_path`` as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 12: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import cluster_attention as tca
+
+    t_start = time.perf_counter()
+    kbuild.build_all((tca.LIBRARY_UNBIASED_SM90,))
+    reset_counts, read_counts = kernel_counters()
+    rec = serve_runs(torch.device("cuda"), reset_counts, read_counts)
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(out_path, "w") as fh:
+        json.dump(rec, fh)
+    log(f"[serve-lm] {rec['seconds']:.1f}s, launches "
+        f"{ {k: c for k, c in rec['launches'].items() if c} }")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1547,6 +2258,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. card
+    log(f"[phase] 1 starts at {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1564,6 +2276,7 @@ def main() -> int:
     log(f"{n_sm} SMs, max SM clock {sm_mhz:.0f} MHz")
 
     # ----------------------------------------------------------- 2. build
+    log(f"[phase] 2 starts at {time.perf_counter() - t_start:.1f} s")
     libs = (tca.LIBRARY, tcab.LIBRARY, tca.LIBRARY_SM90,
             tcab.LIBRARY_DQ_SM90, tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED,
             tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED,
@@ -1581,6 +2294,7 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     # -------------------------------------------- 3. kernels vs plain
+    log(f"[phase] 3 starts at {time.perf_counter() - t_start:.1f} s")
     def bound(q, k, v, block_idx, buckets, with_lse=False):
         """Least time the card could take: each input read once (only the
         bucket tiles the layout visits), each output written once, and
@@ -2115,6 +2829,7 @@ def main() -> int:
         str(SERVE_NODES): sdpa_yardstick(g, lay, seed=2)}
 
     # ------------------------- 3c. unbiased kernels of the LM path vs plain
+    log(f"[phase] 3c starts at {time.perf_counter() - t_start:.1f} s")
     def unbiased_entries(bi, bq, causal):
         """Score entries one head of one sequence needs over the visited
         blocks of a batch-shared (nq, mb) layout with bq = bk: every
@@ -2381,9 +3096,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -------------- 3d. the flash and SSD kernels (rows 7-10) vs plain
+    log(f"[phase] 3d starts at {time.perf_counter() - t_start:.1f} s")
     flash_rec = flash_ssd_kernels(dev)
 
     # ------------ 3e. the biased kernels at 16 x 16 blocks (rows 1, 3, 4)
+    log(f"[phase] 3e starts at {time.perf_counter() - t_start:.1f} s")
     def b16_kernels():
         """Rows 1, 3 and 4 at the graph-level task's 16 x 16 blocks, on
         the packed layout of the first mini-batch of phase 8 (128 graphs
@@ -2495,62 +3212,13 @@ def main() -> int:
     b16_rec = b16_kernels()
 
     # ------------------------------------------- 4. serve (first main path)
+    log(f"[phase] 4 starts at {time.perf_counter() - t_start:.1f} s")
     reset_counts, read_counts = kernel_counters()
 
     def only(**want):
         """The launch counts of a path that launches ``want`` and nothing
         else."""
         return {name: want.get(name, 0) for name in read_counts()}
-
-    def device_breakdown(fn, wall_ms, tag="serve", what="one forward",
-                         focus=None):
-        """Device time of one ``fn()`` by kernel name (torch.profiler),
-        and the busy share of ``wall_ms``; the time by kind of kernel
-        (``KERNEL_KINDS``: the first kind whose substring the name
-        holds); with ``focus`` (a substring of kernel names) also the
-        time and share of the kernels it names. None when the profiler
-        shows no device time."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = []   # device-side events only: CPU ops would count twice
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and \
-                    e.self_device_time_total > 0:
-                rows.append((e.self_device_time_total / 1e3, e.key))
-        if not rows:
-            log(f"[{tag}] profiler: no device time (not measured)")
-            return None
-        rows.sort(reverse=True)
-        total = sum(ms for ms, _ in rows)
-        log(f"[{tag}] profiler: device time {total:.3f} ms in {what} "
-            f"of {wall_ms:.3f} ms wall ({total / wall_ms:.1%} busy)")
-        for ms, name in rows[:8]:
-            log(f"[{tag}]   {ms:9.3f} ms {ms / total:6.1%}  {name[:90]}")
-        kinds = {}
-        for ms, name in rows:
-            kind = next((k for k, subs in KERNEL_KINDS
-                         if any(x in name for x in subs)), "other")
-            kinds[kind] = kinds.get(kind, 0.0) + ms
-        log(f"[{tag}] by kind: " + ", ".join(
-            f"{k} {ms:.3f} ms ({ms / total:.1%})" for k, ms in sorted(
-                kinds.items(), key=lambda kv: -kv[1])))
-        rec = {"device_ms": total, "busy_share": total / wall_ms,
-               "top": [[name[:90], ms] for ms, name in rows[:8]],
-               "by_kind_ms": kinds}
-        if focus:
-            rec["focus_ms"] = {name[:90]: ms for ms, name in rows
-                               if focus in name}
-            fms = sum(rec["focus_ms"].values())
-            rec["focus_share"] = fms / total
-            log(f"[{tag}] kernels named *{focus}*: {fms:.3f} ms, "
-                f"{fms / total:.1%} of device time")
-        return rec
 
     def serve(cfg, seed):
         model = GraphModel(cfg, device=dev, seed=seed)
@@ -2629,6 +3297,7 @@ def main() -> int:
     slim_run = serve(slim, seed=0)
 
     # --------------------------------------------- 5. train (slice 2's path)
+    log(f"[phase] 5 starts at {time.perf_counter() - t_start:.1f} s")
     def rung_kernels(bi_, bu_, bit_, nb, live, tag):
         """Rows 1, 3 and 4 on one training rung, with the trainer's device
         layout (per-graph 3-D, B=1) and random bf16 inputs at the Large
@@ -2899,6 +3568,7 @@ def main() -> int:
     train_run = train()
 
     # ---------------------------------------- 6. LM train (slice 3's path)
+    log(f"[phase] 6 starts at {time.perf_counter() - t_start:.1f} s")
     def train_lm():
         cfg = get_config("qwen3_0_6b").replace(attn_backend="cluster_sparse")
         model = LMModel(cfg, device=dev, seed=0)
@@ -3008,9 +3678,11 @@ def main() -> int:
     lm_run = train_lm()
 
     # ------------------------------------ 7. tune (slice 4's main path)
+    log(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f} s")
     tune_run = tune_phase(dev, reset_counts, read_counts)
 
     # ------------------- 8. graph-level train and 9. link train (slice 10)
+    log(f"[phase] 8 starts at {time.perf_counter() - t_start:.1f} s")
     def step_check(model, loss_fn, batch, tag):
         """One sparse step's loss and gradients on the initial parameters,
         kernel path vs ``impl="plain"`` on the same batch (before the run,
@@ -3254,6 +3926,7 @@ def main() -> int:
     del ltask
 
     # ------------------------------------ 10. recovery (slice 11's path)
+    log(f"[phase] 10 starts at {time.perf_counter() - t_start:.1f} s")
     def recovery_run():
         """Phase 10 in a child process with deterministic cuBLAS, so the
         setting stays away from phases 1-9; it fails on a non-zero exit or
@@ -3286,6 +3959,7 @@ def main() -> int:
     recovery = recovery_run()
 
     # --------------------------- 11. recomputation (slice 12's main path)
+    log(f"[phase] 11 starts at {time.perf_counter() - t_start:.1f} s")
     def remat_run():
         """Phase 11 in a child process (``remat_phase``): an empty card
         for Qwen3-4B, deterministic cuBLAS for the A/B; it fails on a
@@ -3317,6 +3991,36 @@ def main() -> int:
         return rec
 
     remat = remat_run()
+
+    # ------------------------------- 12. token serving (slice 13's path)
+    log(f"[phase] 12 starts at {time.perf_counter() - t_start:.1f} s")
+    def serve_lm_run():
+        """Phase 12 in a child process (``serve_lm_phase``): an empty card,
+        and the earlier phases' deterministic settings stay away; it fails
+        on a non-zero exit."""
+        import gc
+        import tempfile
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "serve_lm.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--serve-lm",
+                 path], timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 12 (token serving) exited "
+                                     f"{proc.returncode}")
+            with open(path) as fh:
+                rec = json.load(fh)
+        rec["wall_s"] = wall
+        log(f"[serve-lm] phase 12 child: {wall:.1f}s of wall")
+        return rec
+
+    serve_lm = serve_lm_run()
 
     # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
@@ -3406,10 +4110,12 @@ def main() -> int:
                       f"cluster_attention_unbiased_{src}_sm90.cu",
             "replaces": f"src/repro/kernels/{line}",
             "launches": (lm_run["launches"][name + "_sm90"]
-                         + remat["launches"][name + "_sm90"]),
+                         + remat["launches"][name + "_sm90"]
+                         + serve_lm["launches"][name + "_sm90"]),
             "launches_by_path": {
                 "lm_train": lm_run["launches"][name + "_sm90"],
-                "remat": remat["launches"][name + "_sm90"]},
+                "remat": remat["launches"][name + "_sm90"],
+                "serve_prefill": serve_lm["launches"][name + "_sm90"]},
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
@@ -3518,6 +4224,7 @@ def main() -> int:
             ("cluster_attention_fwd_unbiased", "lm_yardstick", lm_yard),
             ("cluster_attention_fwd_unbiased", "lm_train", lm_run),
             ("cluster_attention_fwd_unbiased", "remat", remat),
+            ("cluster_attention_fwd_unbiased", "serve_lm", serve_lm),
             ("ssd_fwd", "tune", tune_run),
             ("cluster_attention_fwd_b16", "graph_train", graph_runs),
             ("cluster_attention_fwd_b16", "recovery", recovery)):
@@ -3535,4 +4242,6 @@ if __name__ == "__main__":
         sys.exit(recovery_phase(sys.argv[2]))
     if sys.argv[1:2] == ["--remat"]:
         sys.exit(remat_phase(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-lm"]:
+        sys.exit(serve_lm_phase(sys.argv[2]))
     sys.exit(main())

@@ -2,8 +2,8 @@
 device of the tensors.
 
 The port's counterpart of ``repro.kernels.ops`` (``cluster_attention``,
-``flash_attention``, ``ssd``), with one rule instead of the reference's
-modes and fallbacks:
+``flash_attention``, ``ssd``, ``paged_attention``), with one rule instead
+of the reference's modes and fallbacks:
 
 * a CUDA tensor launches the hand-written kernels (the forward, and in
   the backward the dQ and dK/dV kernels; for the cluster op the biased
@@ -15,7 +15,9 @@ modes and fallbacks:
   card.
 
 There is no environment knob and no warn-and-fall-back: on the card a
-fallback would hide the kernel.
+fallback would hide the kernel. ``paged_attention`` is the exception the
+reference makes too: it has no kernel, so its plain version runs on every
+device.
 
 The flash block sizes and the SSD chunk come from the autotuner's winner
 table (:func:`resolve_schedule`, ``repro_torch.tune.runtime``), or from
@@ -110,6 +112,25 @@ def cluster_attention(q, k, v, block_idx, buckets=None, bias_table=None,
     out, lse = _ClusterAttention.apply(q, k, v, bias_table, block_idx,
                                        buckets, block_idx_t, causal, plain)
     return (out, lse) if return_lse else out
+
+
+# ------------------------------------------------------------------ paged
+
+def paged_attention(q, k_pool, v_pool, block_tables, cache_len, *,
+                    q_offset=None, window: int = 0, n_global: int = 0,
+                    mask=None):
+    """Paged-KV attention for the serving engine: every decode step and
+    chunked-prefill chunk reads the shared physical block pool through a
+    per-request block table (shape contract in
+    :func:`repro_torch.kernels.ref.paged_attention`). ``window``/
+    ``n_global`` apply the TorchGT cluster-sparse decode mask.
+
+    The plain version on every device: the reference has no Pallas kernel
+    for the block-table gather (``src/repro/kernels/ops.py:496-518``, where
+    ``ref`` serves every mode), so the port owes none."""
+    return _ref.paged_attention(q, k_pool, v_pool, block_tables, cache_len,
+                                q_offset=q_offset, window=window,
+                                n_global=n_global, mask=mask)
 
 
 # -------------------------------------------------------------- schedules

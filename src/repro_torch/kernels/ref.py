@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernelled ops: the cluster-sparse
 attention op and its backward, the dense flash attention forward and
 backward (:func:`flash_fwd`, :func:`flash_bwd`) and the SSD scan
-(:func:`ssd_ref`).
+(:func:`ssd_ref`); and the serving path's paged attention
+(:func:`paged_attention`), which has no kernel in either package.
 
 The port's counterpart of ``repro.core.dual_attention.
 cluster_sparse_attention``, in its conventions:
@@ -41,7 +42,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import chunked_attention
+from repro_torch.models.layers import (attention_mask, chunked_attention,
+                                       masked_attention)
 from repro_torch.models.ssm import ssd_chunked
 
 NEG_INF = float("-inf")
@@ -634,3 +636,45 @@ def ssd_ref(x, dt, a, b, c, chunk: int):
     """The SSD kernel's plain version (``repro.kernels.ref.ssd_ref``):
     :func:`repro_torch.models.ssm.ssd_chunked`."""
     return ssd_chunked(x, dt, a, b, c, chunk)
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, cache_len, *,
+                    q_offset=None, window: int = 0, n_global: int = 0,
+                    mask=None):
+    """Attention over a paged (block) KV pool — the serving path's gather,
+    the port of ``repro.kernels.ref.paged_attention_ref``.
+
+    q            ``(B, Sq, H, Dh)``: Sq == 1 for decode, a chunk for prefill
+    k/v_pool     ``(NB, page, KV, Dh)``: physical blocks shared by every
+                 request
+    block_tables ``(B, nmax)`` int64: logical block i of request b lives in
+                 physical block ``block_tables[b, i]``
+    cache_len    ``(B,)`` int or a host int: logical tokens live in each
+                 request's cache, INCLUDING any tokens of q the caller has
+                 already scattered into the pool
+    q_offset     ``(B,)`` int or a host int: the logical position of
+                 ``q[:, 0]``; None means decode (the one q row sits at
+                 ``cache_len - 1``)
+    window/n_global > 0 -> the TorchGT cluster-sparse decode mask (local
+    window + leading global sink tokens), per q position.
+    mask         the :func:`~repro_torch.models.layers.attention_mask` of
+                 these arguments, when the caller shares one across layers.
+
+    Each request's logical positions ``0..nmax*page-1`` map onto pool rows
+    through its block table; rows at or past ``cache_len`` (and acausal
+    rows) are masked out, so physical-block reuse never leaks. The gather
+    materialises ``(B, nmax * page, KV, Dh)`` k and v, as the
+    reference's does."""
+    B, Sq, _, Dh = q.shape
+    KV = k_pool.shape[2]
+    k = k_pool[block_tables].reshape(B, -1, KV, Dh)
+    v = v_pool[block_tables].reshape(B, -1, KV, Dh)
+    if mask is None:
+        q_pos = None
+        if q_offset is not None:
+            off = q_offset.reshape(-1, 1) if torch.is_tensor(q_offset) \
+                else int(q_offset)
+            q_pos = off + torch.arange(Sq, device=q.device)[None, :]
+        mask = attention_mask(k.shape[1], cache_len, q_pos, window=window,
+                              n_global=n_global, device=q.device)
+    return masked_attention(q, k, v, mask)

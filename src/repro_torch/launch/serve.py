@@ -1,15 +1,29 @@
-"""Serving CLI for the graph archs on the port (the graph half of
-``repro.launch.serve``).
+"""Serving CLI on the port — the port of ``repro.launch.serve``.
 
-Builds a degree-scaled SBM graph (expected intra-cluster degree
+Token LMs (the dense archs) go through
+:class:`repro_torch.serve.ServeEngine`: chunked prefill + paged KV cache
++ continuous batching, two programs for the engine's life (audited on
+every run), optionally under the TorchGT cluster-sparse decode mask
+(``--sparse``). The SSM arch has no paged serving path and is refused
+here.
+
+Graph archs go through :class:`repro_torch.serve.GraphServe`: the CLI
+builds a degree-scaled SBM graph (expected intra-cluster degree
 ``DEG_IN``, inter-cluster degree ``DEG_OUT``), answers node and link
-queries through :class:`repro_torch.serve.GraphServe`, answers them again
-from the layout cache, and reports prep and forward times.
+queries, answers them again from the layout cache, and reports prep and
+forward times.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch graphormer_large \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
+      --requests 12 --batch 4 --chunk 16 --page 16 [--sparse] --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
+      --full --requests 32 --batch 8 --prompt-len 2048 --max-tokens 128 \
+      --max-len 4096 --chunk 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch graphormer_large \
       --full --graph-nodes 32768
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch graphormer_slim \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch graphormer_slim \
       --graph-nodes 96 --queries 8 --device cpu
+
+``--device`` defaults to ``cuda`` and raises without CUDA.
 """
 
 from __future__ import annotations
@@ -20,10 +34,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import GRAPH_ARCHS, get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.graph import sbm_graph
 from repro_torch.core.graph_model import GraphModel
-from repro_torch.serve import GraphServe
+from repro_torch.models.api import SSMLMModel
+from repro_torch.models.lm import LMModel
+from repro_torch.serve import GraphServe, ServeEngine
 
 
 # the served graph's recipe (PERF.md, section 4): each node expects 16
@@ -45,8 +61,36 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_graph(args) -> None:
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+def serve_lm(model, args) -> int:
+    eng = ServeEngine(model, batch_slots=args.batch, page=args.page,
+                      max_len=args.max_len, chunk=args.chunk,
+                      sparse=args.sparse)
+    rng = np.random.default_rng(0)
+    cfg = model.cfg
+    for rid in range(args.requests):
+        plen = int(rng.integers(4, args.prompt_len + 1))
+        eng.submit(rid, rng.integers(1, cfg.vocab_size // 8, plen).tolist(),
+                   args.max_tokens,
+                   arrival=rid * args.arrival_gap)
+    stats = eng.run()
+    lat = sorted(r["latency_s"] for r in eng.request_stats)
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+    print(f"served {stats['requests']} requests / {stats['tokens']} tokens "
+          f"in {stats['seconds']:.2f}s ({stats['tok_per_s']:.1f} tok/s, "
+          f"{stats['prefill_calls']} prefill + {stats['decode_calls']} "
+          f"decode calls, {stats['traced_programs']} traced programs, "
+          f"{args.batch} slots, page={args.page}, sparse={args.sparse}; "
+          f"{cfg.name} on {model.device})")
+    print(f"latency p50={p50 * 1e3:.1f}ms p99={p99 * 1e3:.1f}ms "
+          f"(free blocks at drain: {eng.allocator.n_free}/"
+          f"{eng.allocator.num_blocks - 1})")
+    for rid in sorted(eng.done)[:3]:
+        print(f"  req {rid}: {eng.done[rid][:10]}")
+    return 0
+
+
+def serve_graph(cfg, args) -> int:
     model = GraphModel(cfg, device=args.device, seed=args.seed)
     dev = model.device
     g = degree_scaled_sbm(args.graph_nodes, args.graph_clusters, cfg,
@@ -78,21 +122,45 @@ def serve_graph(args) -> None:
     print(f"  node labels: {out['labels'][:8].tolist()}")
     print(f"  link score (edges):  mean {link_pos['scores'].mean():+.3f}")
     print(f"  link score (random): mean {link_rnd['scores'].mean():+.3f}")
+    return 0
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="graphormer_slim",
-                    choices=GRAPH_ARCHS)
+    ap.add_argument("--arch", default="graphormer_slim", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    # token-LM engine knobs
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--max-tokens", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--page", type=int, default=16)
+    ap.add_argument("--arrival-gap", type=float, default=0.0,
+                    help="seconds between request arrivals (offered load)")
+    ap.add_argument("--sparse", action="store_true")
+    # graph endpoint knobs
     ap.add_argument("--graph-nodes", type=int, default=96)
     ap.add_argument("--graph-clusters", type=int, default=4)
     ap.add_argument("--queries", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
-    serve_graph(ap.parse_args(argv))
-    return 0
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "graph":
+        return serve_graph(cfg, args)
+    model_cls = SSMLMModel if cfg.family == "ssm" else LMModel
+    if model_cls.paged_decode is None:
+        # a recurrent decode state is not a positional KV cache — fail
+        # at the CLI boundary, before building the model, with the
+        # servable families
+        ap.error(f"--arch {args.arch} (family {cfg.family!r}) has no "
+                 f"paged serving path; servable: dense/moe/vlm token LMs "
+                 f"and graph archs (GraphServe)")
+    return serve_lm(model_cls(cfg, device=args.device, seed=args.seed), args)
 
 
 if __name__ == "__main__":

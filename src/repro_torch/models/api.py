@@ -7,8 +7,13 @@ Each layer is a pre-norm Mamba2 block (``models/ssm.mamba_apply``) with
 a residual, under the layer recomputation of every family
 (``layers.maybe_remat``, read from ``cfg.remat``). The loss is the
 chunked cross-entropy of the dense LMs, named ``"sparse"`` as every
-family's primary loss is. Decode (``ssm_lm_decode``, ``ssm_cache_defs``)
-is not ported yet (ROADMAP.md A9).
+family's primary loss is. Serving: ``ssm_lm_prefill`` (the last token's
+logits of the full forward, and no cache, as the reference's
+``_ssm_prefill``), ``ssm_lm_decode`` (one token through every block's
+``mamba_decode``) over the caches of ``ssm_cache_defs``. The recurrent
+state is no positional KV cache, so the model has no paged serving
+path: its ``prefill_chunk``, ``paged_decode`` and ``paged_cache_defs``
+are None, as the reference's ``Model`` fields are.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from torch import nn
 
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
-from repro_torch.models.ssm import Mamba, mamba_apply, mamba_defs
+from repro_torch.models.ssm import (Mamba, mamba_apply, mamba_cache_defs,
+                                    mamba_decode, mamba_defs)
 
 
 def ssm_lm_defs(cfg) -> dict:
@@ -76,6 +82,22 @@ class SSMLMModel(nn.Module):
         """The named losses a task trains: ``{"sparse": ssm_lm_loss}``."""
         return {"sparse": ssm_lm_loss}
 
+    # the serving contract (the reference's ``models/api.Model`` fields);
+    # no paged path for a recurrent state
+    prefill_chunk = paged_decode = paged_cache_defs = None
+
+    def prefill(self, batch: dict):
+        """``(logits (B, 1, V), {})``: :func:`ssm_lm_prefill`."""
+        return ssm_lm_prefill(self, batch)
+
+    def decode(self, cache: dict, tokens, pos, *, sparse: bool = False):
+        """``(logits (B, 1, V), new_cache)``: :func:`ssm_lm_decode`."""
+        return ssm_lm_decode(self, cache, tokens, pos, sparse=sparse)
+
+    def cache_defs(self, batch: int, seq_len: int) -> dict:
+        """Zeroed caches on the model's device: :func:`ssm_cache_defs`."""
+        return ssm_cache_defs(self.cfg, batch, seq_len, device=self.device)
+
 
 def _layer(layer: SSMLayer, h, cfg):
     a, _ = mamba_apply(layer.mamba, cfg,
@@ -103,11 +125,39 @@ def ssm_lm_loss(model: SSMLMModel, batch: dict):
     return loss, {"xent": loss}
 
 
-def ssm_lm_decode(*args, **kwargs):
-    raise NotImplementedError("SSM LM decode is not ported yet "
-                              "(ROADMAP.md A9)")
+def ssm_lm_prefill(model: SSMLMModel, batch: dict):
+    """The last token's logits ``(B, 1, V)`` of the full forward, and no
+    cache (``{}``), as the reference's ``_ssm_prefill``."""
+    h = ssm_lm_forward(model, batch)
+    return L.logits_fn(model.embed, model.cfg, h[:, -1:]), {}
 
 
-def ssm_cache_defs(*args, **kwargs):
-    raise NotImplementedError("the SSM LM decode cache is not ported yet "
-                              "(ROADMAP.md A9)")
+def ssm_lm_decode(model: SSMLMModel, cache: dict, tokens, pos, *,
+                  sparse: bool = False):
+    """One decode step: tokens (B, 1) int through every layer's
+    ``mamba_decode``. ``pos`` and ``sparse`` are the decode contract's
+    and unused: the state carries the position. Returns ``(logits (B, 1,
+    V), new_cache)``, the layers' new caches stacked as ``cache``."""
+    cfg = model.cfg
+    h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype))
+    conv, state = cache["layers"]["conv"], cache["layers"]["ssm"]
+    convs, states = [], []
+    for i, layer in enumerate(model.layers):
+        a, cc = mamba_decode(layer.mamba, cfg,
+                             L.rmsnorm(layer.norm, h, cfg.norm_eps),
+                             {"conv": conv[i], "ssm": state[i]})
+        h = h + a
+        convs.append(cc["conv"])
+        states.append(cc["ssm"])
+    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+    return L.logits_fn(model.embed, cfg, h), {
+        "layers": {"conv": torch.stack(convs), "ssm": torch.stack(states)}}
+
+
+def ssm_cache_defs(cfg, batch: int, seq_len: int, *, device="cpu") -> dict:
+    """Zeroed decode caches on ``device``: ``{"layers": {"conv", "ssm"}}``,
+    each layer's ``mamba_cache_defs`` stacked on a leading layer axis;
+    ``seq_len`` is the contract's and unused (the state has no length)."""
+    one = mamba_cache_defs(cfg, batch, device=device)
+    return {"layers": {k: v.new_zeros((cfg.n_layers, *v.shape))
+                       for k, v in one.items()}}

@@ -2,11 +2,13 @@
 the per-head qk-norm, RoPE, the attention projections, the SwiGLU MLP,
 the token embedding and its tied unembedding, the chunked cross-entropy,
 the dense chunked attention (the graph model's interleave step, the
-LM's dense backend) and the layer recomputation every family reads from
-``cfg.remat`` — the port's counterparts of ``repro.models.layers``
-(``rmsnorm``, ``headnorm``, ``rope``, ``project_qkv``, ``out_proj``,
-``mlp``, ``embed_tokens``, ``logits_fn``, ``chunked_softmax_xent``,
-``chunked_attention``) and of ``repro.models.lm._maybe_remat``.
+LM's dense backend), the serving paths' masked attention over a KV cache
+and the layer recomputation every family reads from ``cfg.remat`` — the
+port's counterparts of ``repro.models.layers`` (``rmsnorm``,
+``headnorm``, ``rope``, ``project_qkv``, ``out_proj``, ``mlp``,
+``embed_tokens``, ``logits_fn``, ``chunked_softmax_xent``,
+``chunked_attention``, ``decode_attention``) and of
+``repro.models.lm._maybe_remat``.
 
 Parameters keep the reference's shapes (``wq`` is ``(D, H, Dh)``, ``wo``
 ``(H, Dh, D)``, ``tok`` ``(vocab_padded, D)``), so a JAX parameter tree
@@ -219,6 +221,59 @@ def chunked_attention(q, k, v, *, causal: bool = False, chunk_q: int = 2048,
     out = torch.stack(outs, 1)                    # (B, nq, KV, G, cq, Dh)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, nq * cq, H, Dh)[:, :Sq]
     return out.to(q.dtype)
+
+
+def attention_mask(S: int, cache_len, q_pos=None, *, window: int = 0,
+                   n_global: int = 0, device=None):
+    """The serving paths' mask over ``S`` cache rows, ``(B or 1, 1, 1,
+    Sq, S)`` bool, to broadcast against scores ``(B, KV, G, Sq, S)``:
+    rows at or past ``cache_len`` (a host int, or ``(B,)`` int) and rows
+    after the query (``kpos > qpos``) are masked out. ``q_pos`` ``(B or
+    1, Sq)`` int holds the queries' positions; ``None`` means decode (one
+    query at ``cache_len - 1``). ``window``/``n_global`` > 0 add the
+    TorchGT cluster-sparse decode mask: only the ``window`` rows up to
+    the query and the ``n_global`` leading sink rows stay. The
+    reference's ``decode_attention`` and ``paged_attention_ref`` build
+    it inline; the port's models build it once a step and share it
+    across the layers."""
+    kpos = torch.arange(S, device=device)[None, None, :]
+    ln = cache_len.reshape(-1, 1, 1) if torch.is_tensor(cache_len) \
+        else int(cache_len)
+    qp = ln - 1 if q_pos is None else q_pos.reshape(
+        q_pos.shape[0], -1, 1)
+    valid = (kpos < ln) & (kpos <= qp)
+    if window:
+        valid = valid & ((kpos >= qp + 1 - window) | (kpos < n_global))
+    return valid[:, None, None]
+
+
+def masked_attention(q, k, v, valid):
+    """Attention of q ``(B, Sq, H, Dh)`` over k/v ``(B, S, KV, Dh)``
+    (GQA) under the mask ``valid`` of :func:`attention_mask`, as the
+    reference's serving paths compute it: fp32 scores from the inputs'
+    values, an fp32 softmax, the probabilities rounded to v's dtype before
+    an fp32 PV product, the output in q's dtype."""
+    B, Sq, H, Dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, Dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * Dh ** -0.5
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     n_global: int = 0):
+    """Single-token attention over a contiguous KV cache.
+
+    q ``(B, 1, H, Dh)``; caches ``(B, S, KV, Dh)``; ``cache_len`` a host
+    int or ``(B,)`` int, the live rows. ``window``/``n_global`` > 0 ->
+    the TorchGT cluster-sparse decode mask (local window + global sink
+    tokens) instead of full-cache attention."""
+    valid = attention_mask(k_cache.shape[1], cache_len, window=window,
+                           n_global=n_global, device=q.device)
+    return masked_attention(q, k_cache, v_cache, valid)
 
 
 class Embedding(nn.Module):

@@ -23,10 +23,30 @@ un-batched products (the projections and the MLP) and recomputes the
 rest, the attention op included; any other value keeps only the layer's
 input and recomputes the whole layer in the backward. Under
 recomputation each attention forward kernel launches twice per layer
-and step, the dQ and dK/dV kernels once. Not ported, each raising
-``NotImplementedError`` naming its ``ROADMAP.md`` item: MoE, VLM and
-the leading dense layers of ``n_dense_layers`` (A10), prefill, decode
-and the paged cache (A9). There is no mesh, so no Ulysses or
+and step, the dQ and dK/dV kernels once.
+
+Serving, the port of the reference's decode half (no grad, so no
+recomputation and the cluster op's forward only):
+
+* ``lm_prefill``: the forward over a whole prompt, returning the last
+  token's logits and every layer's k and v, cast to bf16 whatever the
+  model's dtype (the reference's ``lm.py:100-101``), in caches of
+  ``lm_cache_defs``'s layout;
+* ``lm_decode_step``: one token against the contiguous caches, at one
+  position shared by the batch, optionally under the cluster-sparse
+  decode mask (``cfg.window`` rows and ``cfg.n_global`` sinks);
+* the paged path of ``serve/engine.py``: ``lm_paged_cache_defs`` (one
+  pool of ``page``-row blocks shared by every request),
+  ``lm_prefill_chunk`` (one fixed-size chunk of one prompt) and
+  ``lm_paged_decode_step`` (a batch of slots, each at its own position),
+  both through ``kernels/ops.paged_attention``.
+
+The caches are written in place: the decode steps and the prefill chunk
+return the caches they were given, whose rows they have overwritten.
+
+Not ported, each raising ``NotImplementedError`` naming its
+``ROADMAP.md`` item: MoE, VLM and the leading dense layers of
+``n_dense_layers`` (A10). There is no mesh, so no Ulysses or
 sequence-parallel attention (A8).
 """
 
@@ -145,6 +165,39 @@ class LMModel(nn.Module):
         """The named losses a task trains: ``{"sparse": lm_loss}``."""
         return {"sparse": lm_loss}
 
+    # the serving contract (the reference's ``models/api.Model`` fields)
+
+    def prefill(self, batch: dict, **kw):
+        """``(logits (B, 1, V), caches)``: :func:`lm_prefill`."""
+        return lm_prefill(self, batch, **kw)
+
+    def decode(self, cache: dict, tokens, pos, *, sparse: bool = False):
+        """``(logits (B, 1, V), cache)``: :func:`lm_decode_step`."""
+        return lm_decode_step(self, cache, tokens, pos, sparse=sparse)
+
+    def cache_defs(self, batch: int, seq_len: int) -> dict:
+        """Zeroed contiguous caches on the model's device:
+        :func:`lm_cache_defs`."""
+        return lm_cache_defs(self.cfg, batch, seq_len, device=self.device)
+
+    def prefill_chunk(self, pool: dict, tokens, offset: int, length: int,
+                      block_tables, *, sparse: bool = False):
+        """``(logits (1, 1, V), pool)``: :func:`lm_prefill_chunk`."""
+        return lm_prefill_chunk(self, pool, tokens, offset, length,
+                                block_tables, sparse=sparse)
+
+    def paged_decode(self, pool: dict, tokens, pos, block_tables, *,
+                     sparse: bool = False):
+        """``(logits (B, 1, V), pool)``: :func:`lm_paged_decode_step`."""
+        return lm_paged_decode_step(self, pool, tokens, pos, block_tables,
+                                    sparse=sparse)
+
+    def paged_cache_defs(self, num_blocks: int, page: int) -> dict:
+        """A zeroed paged pool on the model's device:
+        :func:`lm_paged_cache_defs`."""
+        return lm_paged_cache_defs(self.cfg, num_blocks, page,
+                                   device=self.device)
+
 
 def attention_fn(model: LMModel, S: int, impl: str | None = None):
     """``fn(q, k, v) -> o`` for sequences of length ``S``: the
@@ -161,33 +214,54 @@ def attention_fn(model: LMModel, S: int, impl: str | None = None):
         chunk_k=cfg.attn_chunk_k)
 
 
-def _layer(layer: LMLayer, h, cfg, pos, attn):
-    """One decoder layer: pre-norm attention and SwiGLU MLP, residual."""
+def _layer(layer: LMLayer, h, kv, cfg, pos, attn):
+    """One decoder layer: pre-norm attention and SwiGLU MLP, residual.
+    ``kv``, a pair of cache views ``(B, >= S, KV, Dh)`` or None, receives
+    the layer's k and v (in the caches' dtype, without grad)."""
     a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
     q, k, v = L.project_qkv(layer.attn, cfg, a, pos)
+    if kv is not None:
+        S = k.shape[1]
+        kv[0][:, :S] = k.detach()
+        kv[1][:, :S] = v.detach()
     h = h + L.out_proj(layer.attn, attn(q, k, v))
     m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
     return h + L.mlp(layer.mlp, m)
 
 
-def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None):
-    """-> (final hidden states (B, S, D) after the final norm, aux loss).
-    ``batch["tokens"]`` is (B, S) int on the model's device. The aux loss
-    is the MoE balance term: 0 for a dense model, as in the reference."""
+def _rotation(cfg, pos):
+    """What :func:`layers.rope` takes for positions ``pos``: the
+    ``(cos, sin)`` pair, computed once for every layer, or ``pos`` itself
+    when the model has no RoPE."""
+    return L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta) \
+        if cfg.rope_theta else pos
+
+
+def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
+               return_kv: bool = False, cache_len: int | None = None):
+    """-> (final hidden states (B, S, D) after the final norm, aux loss),
+    and with ``return_kv`` also the caches: every layer's k and v in bf16
+    (``lm_cache_defs``'s layout, ``cache_len`` rows, default S, the rows
+    past S zero). ``batch["tokens"]`` is (B, S) int on the model's
+    device. The aux loss is the MoE balance term: 0 for a dense model, as
+    in the reference."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
     tokens = batch["tokens"]
     h = L.embed_tokens(model.embed, tokens, dtype)
-    S = tokens.shape[1]
-    pos = torch.arange(S, device=tokens.device)
-    if cfg.rope_theta:   # one rotation table for every layer
-        pos = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    B, S = tokens.shape
+    pos = _rotation(cfg, torch.arange(S, device=tokens.device))
     body = L.maybe_remat(functools.partial(
         _layer, cfg=cfg, pos=pos, attn=attention_fn(model, S, impl)), cfg)
-    for layer in model.layers:
-        h = body(layer, h)
+    caches = lm_cache_defs(cfg, B, cache_len or S, device=tokens.device) \
+        if return_kv else None
+    for i, layer in enumerate(model.layers):
+        kv = None if caches is None else (caches["layers"]["k"][i],
+                                          caches["layers"]["v"][i])
+        h = body(layer, h, kv)
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
-    return h, torch.zeros((), device=h.device)
+    aux = torch.zeros((), device=h.device)
+    return (h, aux, caches) if return_kv else (h, aux)
 
 
 def lm_loss(model: LMModel, batch: dict, *, aux_coef: float = 0.01,
@@ -200,14 +274,175 @@ def lm_loss(model: LMModel, batch: dict, *, aux_coef: float = 0.01,
     return loss + aux_coef * aux, {"xent": loss, "aux": aux}
 
 
-def lm_prefill(*args, **kwargs):
-    raise NotImplementedError("LM prefill is not ported yet (ROADMAP.md A9)")
+# ------------------------------------------------------------ decode
+
+def _zeros_bf16(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.bfloat16, device=device)
 
 
-def lm_decode_step(*args, **kwargs):
-    raise NotImplementedError("LM decode is not ported yet (ROADMAP.md A9)")
+def lm_cache_defs(cfg, batch: int, seq_len: int, *, device="cpu") -> dict:
+    """Zeroed contiguous decode caches on ``device``: ``{"layers": {"k",
+    "v"}}``, each ``(n_layers, batch, seq_len, KV, Dh)`` bf16, the
+    reference's ``lm_cache_defs`` with its layer axis stacked."""
+    shape = (cfg.n_layers, batch, seq_len, cfg.kv_heads, cfg.head_dim)
+    return {"layers": {"k": _zeros_bf16(shape, device),
+                       "v": _zeros_bf16(shape, device)}}
 
 
-def lm_paged_decode_step(*args, **kwargs):
-    raise NotImplementedError("paged LM decode is not ported yet "
-                              "(ROADMAP.md A9)")
+def lm_prefill(model: LMModel, batch: dict, *, impl: str | None = None,
+               cache_len: int | None = None):
+    """Prefill: the forward over ``batch["tokens"]`` (B, S), returning the
+    last token's logits ``(B, 1, V)`` and the caches (``lm_forward``'s,
+    ``cache_len`` rows so that decode can go on in place). With
+    ``cfg.attn_backend == "cluster_sparse"`` and S >= 256 each layer
+    launches the cluster op's forward kernel once on CUDA tensors (no
+    grad); ``impl="plain"`` runs its plain version."""
+    h, _, caches = lm_forward(model, batch, impl=impl, return_kv=True,
+                              cache_len=cache_len)
+    return L.logits_fn(model.embed, model.cfg, h[:, -1:]), caches
+
+
+def _sparse_mask(cfg, sparse: bool):
+    """``(window, n_global)`` of the cluster-sparse decode mask, or zeros."""
+    return (cfg.window, cfg.n_global) if sparse else (0, 0)
+
+
+def _layer_decode(layer: LMLayer, h, cfg, ck, cv, idx, rot, mask):
+    """One layer of contiguous decode: h (B, 1, D); writes the new k/v row
+    at position ``idx`` ((1,) int64 on the device) of the layer's caches
+    ``ck``/``cv`` (B, S, KV, Dh) in place, cast to their dtype, then
+    attends over them under ``mask``."""
+    a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
+    q, k, v = L.project_qkv(layer.attn, cfg, a, rot)
+    ck.index_copy_(1, idx, k.to(ck.dtype))
+    cv.index_copy_(1, idx, v.to(cv.dtype))
+    h = h + L.out_proj(layer.attn, L.masked_attention(q, ck, cv, mask))
+    m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
+    return h + L.mlp(layer.mlp, m)
+
+
+def lm_decode_step(model: LMModel, cache: dict, tokens, pos, *,
+                   sparse: bool = False):
+    """One decode step. tokens (B, 1) int; ``pos`` a host int or a 0-d
+    int64 tensor on the device (then the step makes no host sync, and a
+    CUDA graph of it can be replayed at each position), the position
+    every row's token takes, which is the caches' current length. Writes
+    each layer's new k/v row into ``cache`` in place and returns
+    ``(logits (B, 1, V), cache)``. ``sparse`` applies the cluster-sparse
+    decode mask."""
+    cfg = model.cfg
+    dev = tokens.device
+    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+    window, n_global = _sparse_mask(cfg, sparse)
+    idx = pos.reshape(1) if torch.is_tensor(pos) else torch.full(
+        (1,), int(pos), device=dev)
+    rot = _rotation(cfg, idx[None])
+    mask = L.attention_mask(ck.shape[2], idx + 1, window=window,
+                            n_global=n_global, device=dev)
+    h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype))
+    for i, layer in enumerate(model.layers):
+        h = _layer_decode(layer, h, cfg, ck[i], cv[i], idx, rot, mask)
+    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+    return L.logits_fn(model.embed, cfg, h), cache
+
+
+# ------------------------------------------------------------ paged serving
+
+def lm_paged_cache_defs(cfg, num_blocks: int, page: int, *,
+                        device="cpu") -> dict:
+    """The serving engine's zeroed paged KV pool on ``device``:
+    ``{"layers": {"k", "v"}}``, each ``(n_layers, num_blocks, page, KV,
+    Dh)`` bf16, shared by every request; per-request block tables map
+    logical positions onto its blocks (``serve/``). Physical block 0 is
+    the engine's scratch sink for idle decode slots and chunk padding:
+    the allocator never hands it to a request."""
+    shape = (cfg.n_layers, num_blocks, page, cfg.kv_heads, cfg.head_dim)
+    return {"layers": {"k": _zeros_bf16(shape, device),
+                       "v": _zeros_bf16(shape, device)}}
+
+
+def _pool_scatter(pk, pv, k_rows, v_rows, flat):
+    """Write per-token k/v rows ``(N, KV, Dh)`` into one layer's pool
+    ``(NB, page, KV, Dh)`` at flat token indices ``flat`` ((N,) int64,
+    ``block * page + slot``), in place, cast to the pool's dtype.
+    Duplicate indices (padding rows and idle slots, all in scratch block
+    0) land in an unspecified order, as the reference's scatter does."""
+    NB, page, KV, Dh = pk.shape
+    pk.view(NB * page, KV, Dh).index_copy_(0, flat, k_rows.to(pk.dtype))
+    pv.view(NB * page, KV, Dh).index_copy_(0, flat, v_rows.to(pv.dtype))
+
+
+def _layer_paged(layer: LMLayer, h, cfg, pk, pv, rot, flat, block_tables,
+                 cache_len, q_offset, mask):
+    """One layer of paged serving, decode or prefill chunk: the tokens'
+    k/v rows land in the pool first, then the queries attend over each
+    request's logical cache through its block table under ``mask``."""
+    a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
+    q, k, v = L.project_qkv(layer.attn, cfg, a, rot)
+    _pool_scatter(pk, pv, k.flatten(0, 1), v.flatten(0, 1), flat)
+    o = kops.paged_attention(q, pk, pv, block_tables, cache_len,
+                             q_offset=q_offset, mask=mask)
+    h = h + L.out_proj(layer.attn, o)
+    m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
+    return h + L.mlp(layer.mlp, m)
+
+
+def lm_paged_decode_step(model: LMModel, pool: dict, tokens, pos,
+                         block_tables, *, sparse: bool = False):
+    """One serving decode step over the paged pool. tokens (B, 1) int;
+    ``pos`` (B,) int64, each slot's cache length (slot b's new token is
+    written at its logical position ``pos[b]``: no shared engine clock);
+    ``block_tables`` (B, nmax) int64. Returns ``(logits (B, 1, V),
+    pool)``, the pool written in place. Shapes are independent of every
+    request's length, so the engine calls it with one signature."""
+    cfg = model.cfg
+    pk, pv = pool["layers"]["k"], pool["layers"]["v"]
+    page, nmax = pk.shape[2], block_tables.shape[1]
+    window, n_global = _sparse_mask(cfg, sparse)
+    blk = block_tables.gather(1, (pos // page)[:, None])[:, 0]
+    flat = blk * page + pos % page
+    rot = _rotation(cfg, pos[:, None])
+    cache_len = pos + 1
+    mask = L.attention_mask(nmax * page, cache_len, window=window,
+                            n_global=n_global, device=tokens.device)
+    h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype))
+    for i, layer in enumerate(model.layers):
+        h = _layer_paged(layer, h, cfg, pk[i], pv[i], rot, flat,
+                         block_tables, cache_len, None, mask)
+    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+    return L.logits_fn(model.embed, cfg, h), pool
+
+
+def lm_prefill_chunk(model: LMModel, pool: dict, tokens, offset: int,
+                     length: int, block_tables, *, sparse: bool = False):
+    """One fixed-size chunk of a single prompt (B == 1) through the full
+    forward, writing its k/v into the paged pool in place.
+
+    tokens (1, C) int, the chunk, arbitrary-padded past ``length``;
+    ``offset`` (host int) the logical position of ``tokens[0, 0]`` (0
+    for a prompt's first chunk); ``length`` (host int, in [1, C]) the
+    valid tokens; ``block_tables`` (1, nmax) int64. Padding rows park
+    their k/v in scratch block 0, row 0. Returns ``(logits (1, 1, V)`` at
+    the chunk's last valid position, ``pool)``. C and nmax are engine
+    constants, so every chunk of every prompt has one signature."""
+    cfg = model.cfg
+    dev = tokens.device
+    pk, pv = pool["layers"]["k"], pool["layers"]["v"]
+    page, nmax = pk.shape[2], block_tables.shape[1]
+    offset, length = int(offset), int(length)
+    window, n_global = _sparse_mask(cfg, sparse)
+    tpos = torch.arange(offset, offset + tokens.shape[1], device=dev)
+    blk = block_tables[0][torch.clamp(tpos // page, max=nmax - 1)]
+    flat = blk * page + tpos % page
+    flat[length:] = 0
+    cache_len = offset + length
+    rot = _rotation(cfg, tpos[None])
+    mask = L.attention_mask(nmax * page, cache_len, tpos[None],
+                            window=window, n_global=n_global, device=dev)
+    h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype))
+    for i, layer in enumerate(model.layers):
+        h = _layer_paged(layer, h, cfg, pk[i], pv[i], rot, flat,
+                         block_tables, cache_len, offset, mask)
+    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+    last = h[:, max(length - 1, 0):max(length, 1)]
+    return L.logits_fn(model.embed, cfg, last), pool

@@ -8,8 +8,9 @@ the recurrence is computed in its quadratic "attention-like" dual form;
 across chunks a small scan carries the (B, H, dh, N) state. The block
 calls the plain ``ssd_chunked``, as the reference's model calls its jnp
 one (the SSD kernel, ``ops.ssd``, serves the autotuner). Decode
-(``mamba_decode``, ``mamba_cache_defs``) is not ported yet (ROADMAP.md
-A9).
+(``mamba_decode``) advances one token through the conv history and the
+recurrence (``ssd_decode_step``), over the caches of
+``mamba_cache_defs``.
 
 Per-head layout: x (B,S,H,dh), dt (B,S,H), a (H,), b/c shared across heads
 (single group): (B,S,N).
@@ -174,11 +175,48 @@ def mamba_apply(p: Mamba, cfg, h):
     return y @ p.out_proj.to(dt_), final
 
 
-def mamba_decode(*args, **kwargs):
-    raise NotImplementedError("Mamba2 decode is not ported yet "
-                              "(ROADMAP.md A9)")
+def mamba_decode(p: Mamba, cfg, h, cache: dict):
+    """One-token decode. h (B, 1, D); ``cache`` ``{"conv": (B, K-1,
+    conv_dim), "ssm": (B, H, dh, N) fp32}``. Returns ``(out (B, 1, D),
+    new_cache)``, a new cache, as the reference's: the conv history takes
+    the promoted dtype of the cache and the activations, so an fp32 model
+    keeps it fp32 after its first step, as the reference does."""
+    B = h.shape[0]
+    d_inner, H, dh, N = ssm_dims(cfg)
+    dt_ = h.dtype
+    zxbcdt = h @ p.in_proj.to(dt_)
+    z, xi, b, c, dtp = _split_proj(cfg, zxbcdt)
+    xbc = torch.cat([xi, b, c], dim=-1)[:, 0]                # (B, conv_dim)
+    hist = torch.promote_types(cache["conv"].dtype, dt_)
+    conv_hist = torch.cat([cache["conv"].to(hist), xbc.to(hist)[:, None]],
+                          dim=1)                               # (B, K, C)
+    w = p.conv_w.to(dt_)                                       # (K, C)
+    # the K-term product in fp32, rounded once (an einsum's accumulation)
+    conv = (conv_hist.float() * w.float()[None]).sum(1).to(hist)
+    conv_out = conv + p.conv_b.to(dt_)[None]
+    xbc = F.silu(conv_out.float()).to(dt_)
+    xi, b, c = torch.split(xbc, [d_inner, N, N], dim=-1)
+    dt = F.softplus(dtp.float()[:, 0] + p.dt_bias.float())     # (B, H)
+    a = -torch.exp(p.a_log.float())
+    xh = xi.reshape(B, H, dh)
+    y, new_state = ssd_decode_step(cache["ssm"], xh, dt, a, b, c)
+    y = y + xh * p.d_skip.to(dt_)[None, :, None]
+    y = y.reshape(B, d_inner)
+    y = y * F.silu(z.float()[:, 0]).to(dt_)
+    y32 = y.float()
+    y = (y32 * torch.rsqrt(y32.square().mean(-1, keepdim=True)
+                           + cfg.norm_eps) * p.norm.float()).to(dt_)
+    out = (y @ p.out_proj.to(dt_))[:, None]
+    return out, {"conv": conv_hist[:, 1:], "ssm": new_state}
 
 
-def mamba_cache_defs(*args, **kwargs):
-    raise NotImplementedError("the Mamba2 decode cache is not ported yet "
-                              "(ROADMAP.md A9)")
+def mamba_cache_defs(cfg, batch: int, *, device="cpu") -> dict:
+    """Zeroed decode caches of one Mamba2 block on ``device``: the conv
+    history ``(batch, K-1, conv_dim)`` bf16 and the SSM state ``(batch,
+    H, dh, N)`` fp32, the reference's ``mamba_cache_defs``."""
+    d_inner, H, dh, N = ssm_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, d_inner + 2 * N),
+                            dtype=torch.bfloat16, device=device),
+        "ssm": torch.zeros((batch, H, dh, N), dtype=F32, device=device),
+    }

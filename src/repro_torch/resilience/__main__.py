@@ -1,6 +1,5 @@
 """CLI: ``python -m repro_torch.resilience`` — chaos sweep over the fault
-matrix; exits non-zero when any injected training fault is not
-recovered.
+matrix; exits non-zero when any injected fault is not recovered.
 
   PYTHONPATH=src python -m repro_torch.resilience --offline --device cpu
   PYTHONPATH=src python -m repro_torch.resilience            # on the card
@@ -17,10 +16,10 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.resilience",
-        description="chaos sweep: inject the training fault matrix "
-                    "(non-finite steps, preemption inside the update, "
-                    "checkpoint corruption) and verify every recovery, "
-                    "bitwise where promised")
+        description="chaos sweep: inject the fault matrix (non-finite "
+                    "steps, preemption inside the update, checkpoint "
+                    "corruption, serve overload and deadlines) and verify "
+                    "every recovery, bitwise where promised")
     ap.add_argument("--offline", action="store_true",
                     help="recorded as the report's mode (the sweep needs "
                          "nothing but the device)")

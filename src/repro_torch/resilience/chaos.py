@@ -3,7 +3,8 @@
 
 ``python -m repro_torch.resilience`` trains the SmolLM smoke LM on the
 reference's token stream (``seq_len`` 32, batch 2) under every training
-fault kind and writes ``RESILIENCE_report_torch.json``. Each record
+fault kind, drives the serve engine through overload and deadline
+faults, and writes ``RESILIENCE_report_torch.json``. Each record
 states how the fault was recovered and what the recovery promises:
 
 * ``replay: "exact"`` — the recovered run's final parameters and moments
@@ -23,11 +24,13 @@ and the generation a corrupt checkpoint falls back to.
 tests and ``chip_smoke.py`` hold the GT graph-level and link runs to the
 same cases.
 
-The reference's serve cases (``serve_overload``, ``serve_deadline``)
-drive the token-serving engine, which is not ported yet: the report
-lists them under ``"waiting_for": "A9"``, neither run nor counted as
-recovered. Any unrecovered training fault makes the report fail (the
-CLI exits non-zero).
+The serve cases (``serve_overload``, ``serve_deadline``) drive the
+token-serving engine (``serve/engine.py``) on the Qwen3 smoke model
+through an arrival burst against a bounded queue and through deadlines
+shed at admission and mid-flight, as the reference's do. Their replay is
+``"n/a"``: the claim is typed rejection and shedding with the warm
+engine adding no signature. Any unrecovered fault makes the report fail
+(the CLI exits non-zero).
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ import torch
 from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.resilience.faults import Preempted
 
-SERVE_CASES = (("serve_overload", "burst"), ("serve_deadline", "burst"))
 LM_CKPT_EVERY = 2   # the reference sweep's cadence
 
 
@@ -201,57 +203,112 @@ def run_training_cases(make, *, steps: int, ckpt_every: int,
         raise RuntimeError(f"unfaulted baseline did not finish: "
                            f"{base_status!r}")
     baseline = state_of(base)
-    records = []
-    for name, kind, fn in training_cases(make, steps=steps,
-                                         ckpt_every=ckpt_every, at=at,
-                                         baseline=baseline):
-        if only is not None and only not in name:
-            continue
-        rec = {"fault": name, "kind": kind}
-        try:
-            with tempfile.TemporaryDirectory() as d, \
-                    warnings.catch_warnings(record=True) as caught, \
-                    around(name):
-                # recovery paths warn by design (fallback, rollback);
-                # the case checks the warnings it expects
-                warnings.simplefilter("always")
-                ok, replay, facts = fn(d, caught)
-            rec.update(recovered=bool(ok), replay=replay,
-                       detail=" ".join(f"{k}={v}" for k, v in facts.items()),
-                       n_warnings=len(caught), facts=facts)
-        # the sweep must survive every fault: a crash IS the finding —
-        # recorded unrecovered here and turned into a failing report
-        except Exception as e:  # noqa: BLE001
-            rec.update(recovered=False, replay="none",
-                       detail=f"sweep case died: {type(e).__name__}: {e}",
-                       n_warnings=0, facts={})
-        records.append(rec)
+
+    def in_dir(name, fn):
+        def call(caught):
+            with tempfile.TemporaryDirectory() as d, around(name):
+                return fn(d, caught)
+        return call
+
+    records = [run_case(name, kind, in_dir(name, fn))
+               for name, kind, fn in training_cases(
+                   make, steps=steps, ckpt_every=ckpt_every, at=at,
+                   baseline=baseline)
+               if only is None or only in name]
     return {"baseline": base, "baseline_status": base_status,
             "records": records}
+
+
+def run_case(name: str, kind: str, call) -> dict:
+    """One case's record: ``call(caught_warnings)`` returns ``(ok,
+    replay, facts)``; a case that raises is recorded unrecovered."""
+    rec = {"fault": name, "kind": kind}
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            # recovery paths warn by design (fallback, rollback); the
+            # case checks the warnings it expects
+            warnings.simplefilter("always")
+            ok, replay, facts = call(caught)
+        rec.update(recovered=bool(ok), replay=replay,
+                   detail=" ".join(f"{k}={v}" for k, v in facts.items()),
+                   n_warnings=len(caught), facts=facts)
+    # the sweep must survive every fault: a crash IS the finding —
+    # recorded unrecovered here and turned into a failing report
+    except Exception as e:  # noqa: BLE001
+        rec.update(recovered=False, replay="none",
+                   detail=f"sweep case died: {type(e).__name__}: {e}",
+                   n_warnings=0, facts={})
+    return rec
+
+
+def serve_cases(device) -> list:
+    """``[(name, kind, fn)]`` of the reference's serve faults on the port's
+    engine; ``fn(caught_warnings)`` returns ``(ok, replay, facts)``."""
+
+    def build_engine(**kw):
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models.lm import LMModel
+        from repro_torch.serve import ServeEngine
+        model = LMModel(get_smoke_config("qwen3_0_6b"), device=device, seed=0)
+        return ServeEngine(model, batch_slots=2, page=8, max_len=128,
+                           chunk=8, **kw)
+
+    def serve_overload(caught):
+        from repro_torch.serve import Admitted, Rejected
+        eng = build_engine(max_queue=3)
+        res = eng.inject_burst(8, max_tokens=4, seed=0)
+        n_adm = sum(isinstance(r, Admitted) for r in res)
+        n_rej = sum(isinstance(r, Rejected) and r.reason == "overloaded"
+                    for r in res)
+        stats = eng.run()
+        ok = (n_adm == 3 and n_rej == 5 and stats["requests"] == 3
+              and stats["rejected_overload"] == 5
+              and stats["queue_peak"] <= 3
+              and stats["traced_programs"] == 2)
+        return ok, "n/a", {"admitted": n_adm, "rejected": n_rej, **{
+            k: stats[k] for k in ("requests", "rejected_overload",
+                                  "queue_peak", "traced_programs")}}
+
+    def serve_deadline(caught):
+        eng = build_engine()
+        eng.submit("warm", [1, 2, 3], 3)
+        eng.run()   # warm: both programs seen
+        eng.submit("past", [1, 2, 3], 4, deadline=-1.0)
+        eng.submit("slow", [1, 2, 3, 4], 100, deadline=0.001)
+        eng.submit("ok", [5, 6, 7], 4)
+        stats = eng.run()   # a warm engine: budget 0 new signatures
+        sheds = {r.rid: r.reason for r in eng.rejected}
+        ok = ("ok" in eng.done and len(eng.done["ok"]) == 4
+              and sheds.get("past") == "deadline"
+              and sheds.get("slow") == "deadline"
+              and "past" in eng.shed and "slow" in eng.shed
+              and stats["shed_deadline"] == 2
+              and stats["traced_programs"] == 2)
+        return ok, "n/a", {
+            "shed": sheds,
+            "partial_tokens": {k: len(v) for k, v in eng.shed.items()},
+            "traced_programs": stats["traced_programs"]}
+
+    return [("serve_overload", "burst", serve_overload),
+            ("serve_deadline", "burst", serve_deadline)]
 
 
 def run_chaos(report_path: str = "RESILIENCE_report_torch.json", *,
               offline: bool = True, steps: int = 8,
               only: str | None = None, device="cuda") -> dict:
-    """Run the fault matrix on the SmolLM smoke LM; write and return the
+    """Run the fault matrix: the training faults on the SmolLM smoke LM,
+    the serve faults on the Qwen3 smoke engine; write and return the
     report dict."""
     arch, make = lm_factory(steps=steps, device=device)
     out = run_training_cases(make, steps=steps, ckpt_every=LM_CKPT_EVERY,
                              only=only)
-    records = out["records"]
+    records = out["records"] + [
+        run_case(name, kind, fn)
+        for name, kind, fn in serve_cases(device)
+        if only is None or only in name]
     for rec in records:
         state = "recovered" if rec["recovered"] else "UNRECOVERED"
         print(f"[chaos] {rec['fault']:20s} {state}  ({rec['detail']})")
-    waiting = []
-    for name, kind in SERVE_CASES:
-        if only is not None and only not in name:
-            continue
-        waiting.append({"fault": name, "kind": kind, "recovered": None,
-                        "replay": "n/a", "waiting_for": "A9",
-                        "detail": "drives the token-serving engine "
-                                  "(inject_burst, deadlines), which is not "
-                                  "ported yet", "n_warnings": 0})
-        print(f"[chaos] {name:20s} waiting for A9 (token serving)")
     unrecovered = [r["fault"] for r in records if not r["recovered"]]
     doc = {
         "tool": "repro_torch.resilience",
@@ -259,14 +316,12 @@ def run_chaos(report_path: str = "RESILIENCE_report_torch.json", *,
         "arch": arch, "steps": steps, "device": str(device),
         "baseline_status": out["baseline_status"],
         "faults": [{k: v for k, v in r.items() if k != "facts"}
-                   for r in records] + waiting,
+                   for r in records],
         "unrecovered": unrecovered,
-        "waiting_for": {"A9": [w["fault"] for w in waiting]},
         "ok": not unrecovered,
     }
     with open(report_path, "w") as f:
         json.dump(doc, f, indent=2)
     print(f"[chaos] {len(records) - len(unrecovered)}/{len(records)} "
-          f"training faults recovered, {len(waiting)} waiting for A9 -> "
-          f"{report_path}")
+          f"faults recovered -> {report_path}")
     return doc

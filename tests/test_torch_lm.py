@@ -332,9 +332,9 @@ def test_unported_families_raise_naming_roadmap():
         tlm.LMModel(cfg.replace(family="moe", moe_experts=4), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         tlm.LMModel(cfg.replace(n_dense_layers=1), device="cpu")
-    for fn in (tlm.lm_prefill, tlm.lm_decode_step, tlm.lm_paged_decode_step):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn()
+    from repro_torch.serve import ServeEngine
+    with pytest.raises(NotImplementedError, match="A8"):
+        ServeEngine(tlm.LMModel(cfg, device="cpu"), mesh_model=2)
 
 
 # ------------------------------------------------------------ training

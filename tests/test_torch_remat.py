@@ -372,10 +372,13 @@ def test_ssm_model_loads_the_jax_tree_and_decode_waits_for_a9():
         model.layers[1].mamba.in_proj.detach().numpy(),
         tree["layers"]["mamba"]["in_proj"][1])
     assert list(model.loss_variants) == ["sparse"]
-    for fn in (tssm.mamba_decode, tssm.mamba_cache_defs, tapi.ssm_lm_decode,
-               tapi.ssm_cache_defs):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn()
+    # decode is ported (tests/test_torch_serve.py holds it to the
+    # reference); the paged serving entries stay None, as the reference's
+    assert (model.prefill_chunk, model.paged_decode,
+            model.paged_cache_defs) == (None, None, None)
+    cache = model.cache_defs(2, 16)["layers"]
+    assert (cache["conv"].dtype, cache["ssm"].dtype) == (torch.bfloat16,
+                                                         torch.float32)
     with pytest.raises(ValueError, match="SSMLMModel"):
         tlm.LMModel(cfg, device="cpu")
     conv = tapi.SSMLMModel(get_smoke_config("mamba2_2_7b"), device="cpu",
