@@ -44,8 +44,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    dh 64, N 128, chunk 256, S=16384) in bf16 and fp32, and on small cases
    (non-causal, ragged S, Dh 32 and 64, B=2, hoist_scale, the SSD
    default case); bf16 flash runs the tensor-core forward, dQ and dK/dV
-   (each dQ launch checked on its dtype's counter); each kernel and each
-   plain half timed, one
+   (each dQ launch checked on its dtype's counter); each kernel timed,
+   each plain half timed by one call (2-4 s a call at S=16384), one
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    timed beside the flash kernels, forward and backward;
 3e. the biased forward, dQ and dK/dV at the graph-level task's 16 x 16
@@ -61,7 +61,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    link queries, answered twice (the second time from the layout cache).
    The same forward with the plain attention must give the same logits.
    Then Graphormer-Slim (Dh=8) on the same graph;
-5. train (the second main path): Graphormer-Large at full width, bf16
+5. train (the second main path): Graphormer-Large at full width, its
+   depth cut to 6 of 12 layers (phase 11 trains it at full depth), bf16
    compute, fp32 parameters and moments, on the 8192-node SBM through
    ``NodeTask`` and ``Trainer``: 16 steps, dense at 0 and 8, an AutoTuner
    epoch every step. Losses must be finite and fall. On every ladder rung
@@ -73,11 +74,13 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    batch beside their plain versions, bounds, exp floor and one SDPA call
    with the rung's layout as a dense additive mask (forward and
    backward), and on the sparse rung the dQ kernel with its heavy row cut
-   to one visit and unsplit; one sparse and one dense step are profiled;
-   then the 16-step state is checkpointed (the save's blocking snapshot,
-   its background write, bytes on disk), restored into a fresh Trainer
-   on a model of its own (bit for bit), copied once as a rescue copy,
-   and its parameters copied to the host once (the re-init copy);
+   to one visit and unsplit; one sparse and one dense step are profiled.
+   Before those checks the 16-step state is copied once as a rescue
+   copy, its parameters copied to the host once (the re-init copy), and
+   it is checkpointed (the save's blocking snapshot; its background write
+   runs on through the rest of phase 5 and phase 6, as an async save
+   runs beside training), then restored into a fresh Trainer on a model
+   of its own (bit for bit), with the write's seconds and bytes on disk;
 6. LM train (slice 3's main path): Qwen3-0.6B at full width and depth
    with the cluster-sparse attention backend, bf16 compute, fp32
    parameters and moments, seeded init, on the synthetic token stream
@@ -124,21 +127,22 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    parent fails on the child's non-zero exit or any unrecovered case;
 11. recomputation (slice 12's main path, ``cfg.remat``), in a child
    process with deterministic cuBLAS, so Qwen3-4B meets an empty card:
-   Qwen3-0.6B at S=16384, 4 steps under "none" and 4 under "block" from
+   Qwen3-0.6B at S=16384, 3 steps under "none" and 3 under "block" from
    the same parameters and batches and one under "dots", step 0's loss
    and gradients of each held to "none" (the loss bitwise); Qwen3-0.6B
-   at S=65536, 3 steps; Qwen3-1.7B at S=16384, 4 steps; Qwen3-4B at
-   S=8192 (S=4096 if it does not fit, the cut recorded), 3 steps;
-   Mamba2-2.7B at S=4096, 3 steps (the plain SSD scan, as the
-   reference's model: no kernel); Graphormer-Large node training on the
-   serve phase's 32768-node graph, sparse steps only, the layout frozen,
-   4 steps under "none" and 4 under "block", held as the Qwen3 A/B. All
-   at full width and depth, the LMs on the cluster-sparse backend, batch
-   1; each run's peak memory, step times, losses (finite, falling);
+   at S=65536, 2 steps; Qwen3-1.7B at S=16384, 3 steps; Qwen3-4B at
+   S=8192 (S=4096 if it does not fit, the cut recorded), 2 steps;
+   Mamba2-2.7B with 32 of its 64 layers at S=4096, 2 steps (the plain
+   SSD scan, as the reference's model: no kernel); Graphormer-Large node
+   training on the serve phase's 32768-node graph, sparse steps only,
+   the layout frozen, 3 steps under "none" and 3 under "block", held as
+   the Qwen3 A/B. All at full width, and but for Mamba2 at full depth,
+   the LMs on the cluster-sparse backend, batch 1; each run's peak
+   memory, step times, losses (finite, falling);
 12. token serving (slice 13's main path), in a child process: Qwen3-0.6B
    as published (bf16, dense attention, seeded weights) through
    ``ServeEngine`` (8 slots, page 16, chunk 256): (a) 32 requests,
-   prompts 128-3840, 128 new tokens each, max_len 4096, then 16 more on
+   prompts 128-3840, 128 new tokens each, max_len 4096, then 8 more on
    the warm engine at half the measured request rate; (b) the
    cluster-sparse decode mask at max_len 8192, 8 requests, prompts
    4500-8000, 64 tokens; each with tokens and requests a second, latency
@@ -153,7 +157,30 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    ``impl="plain"`` (logits and every layer's k/v) and at S=65536, row 2
    launched once a layer a prefill, then 64 tokens of sparse decode; (e)
    Mamba2-2.7B's prefill logits at S=512 against 512 decode steps (the
-   reference's tolerance), then 64 tokens.
+   reference's tolerance), then 64 tokens;
+13. the MoE family and the hybrid (slice 14's main path), in a child
+   process: (a) Qwen3-235B-A22B at full width (d_model 4096, 64 heads
+   over 4, 128 experts top-8 of width 1536, vocab 151936), its depth cut
+   to one layer, on the cluster-sparse backend under "block", seeded
+   init timed: the MoE op on 1024 tokens on the card against the CPU in
+   fp32; layer 0's attention op on its own q, k, v (64 query heads over
+   4), rows 2, 5 and 6 against their plain versions at phase 11's
+   tolerances; step 0 against ``impl="plain"`` (loss, every gradient's
+   cosine, the share of routing choices that differ); 3 steps through
+   ``BatchFnTask`` and ``Trainer`` at S=4096 (S=2048 if it does not fit),
+   rows 2, 5 and 6 launched 2, 1 and 1 times a step; a step profiled,
+   AdamW and the MoE op (and its expert loop) timed on the step's
+   shapes; (b) the same weights served as published (dense attention)
+   through ``ServeEngine`` (8 slots, page 16, chunk 256, max_len 2048):
+   16 requests, prompts 128-1536, 32 new tokens, two requests held to
+   the contiguous oracle (``lm_prefill``, then ``lm_decode_step``) under
+   phase 12's token-margin rule; (c) Jamba-v0.1 at a quarter of its
+   width (d_model 1024, 8 heads over 2 of 128, 16 experts top-2 of width
+   3584 every other layer, Mamba2 expand 2, state 16, head 64, vocab
+   65536), one period of 8 layers: its attention op held as in (a),
+   step 0 against plain, 3 steps at
+   S=2048 x 2, then its prefill at S=512 against 512 decode steps, fp32
+   held to the reference's tolerance, bf16 reported.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after. Every training path's counts are exact:
@@ -227,6 +254,7 @@ SERVE_NODES = 32768
 YARDSTICK_NODES = 8192
 TRAIN_NODES = 8192      # the dense step's fp32 (1, H, S, S) bias must fit
 TRAIN_STEPS = 16
+TRAIN_LAYERS = 6        # of Large's 12: room for phase 13 (PERF.md 4)
 CLUSTERS = 32
 QUERIES = 64
 LM_SEQ = 16384          # Qwen3-0.6B training sequence (window 4096)
@@ -254,13 +282,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Median of ``reps`` CUDA-event timings of ``fn`` (after one warm-up
-    call), in ms."""
+    call unless ``warm`` is false), in ms."""
     import numpy as np
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -594,7 +623,8 @@ def flash_ssd_kernels(dev):
         for half, (kern, plain) in runs.items():
             r = rec[dt][half] = {"max_abs_err": errs[half]}
             r["ms"] = cuda_ms(kern, 5)
-            r["plain_ms"] = cuda_ms(plain, 2)
+            # one call, unwarmed: compare_flash has run it (2-4 s a call)
+            r["plain_ms"] = cuda_ms(plain, 1, warm=False)
             r["bound_ms"], r["bound_by"] = flash_bound(half, q, k, True)
             log(f"[flash-kernel] S={FLASH_SEQ} {dt} {half}: kernel "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -819,51 +849,91 @@ UNBIASED_NAMES = ("cluster_attention_fwd_unbiased_sm90",
                   "cluster_attention_bwd_dkv_unbiased_sm90")
 
 
-def step_launches(cfg, names, steps: int = 1) -> dict:
+def step_launches(cfg, names, steps: int = 1, layers: int = 0) -> dict:
     """Exact launches of ``steps`` training steps' attention kernels
-    ``names`` (forward, dQ, dK/dV): each once a layer, and the forward
-    once more when the layers are recomputed in the backward
-    (``cfg.remat`` other than "none", in every family)."""
+    ``names`` (forward, dQ, dK/dV): each once an attention layer (every
+    layer unless ``layers`` says how many), and the forward once more
+    when the layers are recomputed in the backward (``cfg.remat`` other
+    than "none", in every family)."""
     fwd, dq, dkv = names
-    n = steps * cfg.n_layers
+    n = steps * (layers or cfg.n_layers)
     return {fwd: n if cfg.remat == "none" else 2 * n, dq: n, dkv: n}
 
 
-def checkpoint_costs(tr, fresh, tag):
-    """What checkpoints cost for ``tr``'s state: one async save (the
-    snapshot, the part that blocks the loop, then the background
-    compress-and-write), raw bytes and bytes on disk; one
-    ``restore_or_init`` of that checkpoint into the Trainer ``fresh(dir)``
-    builds (newest verified generation, checksums, the copy onto the
-    card), whose parameters and moments must then equal ``tr``'s bit for
-    bit; ``fresh`` builds its own model, whose parameters must differ
-    from ``tr``'s before the restore, so the check covers them; one
-    rescue refresh; one host copy of the parameters (what ``run()`` takes
-    for the re-init rung). The directory is deleted afterwards."""
-    import shutil
+def checkpoint_start(tr, tag):
+    """The first half of ``checkpoint_costs``: one rescue refresh and one
+    host copy of the parameters (what ``run()`` takes for the re-init
+    rung), then one async save of ``tr``'s state (the snapshot, the part
+    that blocks the loop), whose background compress-and-write goes on
+    while the caller works; a watcher thread stamps the write's end.
+    Returns the handle ``checkpoint_finish`` takes."""
     import tempfile
+    import threading
 
     import torch
     from repro_torch.ckpt.checkpoint import Checkpointer
-    from repro_torch.resilience.chaos import bitwise, state_of
+    from repro_torch.resilience.chaos import state_of
     from repro_torch.runtime.trainer import host_copy
 
+    t0 = time.perf_counter()
+    tr.rescue_copy()
+    t1 = time.perf_counter()
+    host_copy(tr.params)
+    t2 = time.perf_counter()
     want = state_of(tr)
     d = tempfile.mkdtemp(prefix="ckpt-")
+    ck = Checkpointer(d)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    sd = tr.task.state_dict()
+    ck.save(tr.steps_done, tr.state_tree(),
+            extra={"task": sd} if sd else None)
+    t4 = time.perf_counter()
+    done = {}
+
+    def watch():
+        try:
+            ck.wait()
+        except BaseException as err:   # re-raised by checkpoint_finish
+            done["error"] = err
+        done["t"] = time.perf_counter()
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return {"tag": tag, "dir": d, "ck": ck, "want": want,
+            "step": tr.steps_done, "watcher": watcher, "done": done,
+            "saved_at": t4, "rec": {"codec": ck.codec, "snapshot_s": t4 - t3,
+                                    "rescue_s": t1 - t0,
+                                    "init_copy_s": t2 - t1}}
+
+
+def checkpoint_finish(handle, fresh):
+    """The second half of ``checkpoint_costs``: the write's seconds (from
+    the save to the watcher's stamp), raw bytes and bytes on disk; one
+    ``restore_or_init`` of the checkpoint into the Trainer ``fresh(dir)``
+    builds (newest verified generation, checksums, the copy onto the
+    card), whose parameters and moments must then equal the saved state
+    bit for bit; ``fresh`` builds its own model, whose parameters must
+    differ from the saved ones before the restore, so the check covers
+    them. The directory is deleted afterwards."""
+    import shutil
+
+    import torch
+    from repro_torch.resilience.chaos import bitwise, state_of
+
+    tag, d, want, done = (handle["tag"], handle["dir"], handle["want"],
+                          handle["done"])
+    rec = handle["rec"]
     try:
-        ck = Checkpointer(d)
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sd = tr.task.state_dict()
-        ck.save(tr.steps_done, tr.state_tree(),
-                extra={"task": sd} if sd else None)
-        t1 = time.perf_counter()
-        ck.wait()
-        t2 = time.perf_counter()
-        gen = os.path.join(d, f"step_{tr.steps_done:08d}")
-        disk = sum(os.path.getsize(os.path.join(gen, f))
-                   for f in os.listdir(gen))
-        raw = sum(t.numel() * t.element_size() for t in want)
+        handle["watcher"].join()
+        rec["waited_s"] = time.perf_counter() - t0
+        if "error" in done:
+            raise done["error"]
+        rec["write_s"] = done["t"] - handle["saved_at"]
+        gen = os.path.join(d, f"step_{handle['step']:08d}")
+        rec["disk_bytes"] = sum(os.path.getsize(os.path.join(gen, f))
+                                for f in os.listdir(gen))
+        rec["raw_bytes"] = sum(t.numel() * t.element_size() for t in want)
         other = fresh(d)
         n = len(other.params)
         if bitwise(want[:n], state_of(other)[:n]):
@@ -872,33 +942,33 @@ def checkpoint_costs(tr, fresh, tag):
                                  f"would not cover them")
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        step = other.restore_or_init()
+        rec["restored_step"] = other.restore_or_init()
         torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        same = bitwise(want, state_of(other))
+        rec["restore_s"] = time.perf_counter() - t3
+        rec["bitwise_equal"] = bitwise(want, state_of(other))
         del other
-        t5 = time.perf_counter()
-        tr.rescue_copy()
-        t6 = time.perf_counter()
-        host_copy(tr.params)
-        t7 = time.perf_counter()
     finally:
         shutil.rmtree(d)
-    rec = {"codec": ck.codec, "snapshot_s": t1 - t0, "write_s": t2 - t1,
-           "raw_bytes": raw, "disk_bytes": disk, "restore_s": t4 - t3,
-           "restored_step": step, "bitwise_equal": same,
-           "rescue_s": t6 - t5, "init_copy_s": t7 - t6}
-    log(f"[{tag}] checkpoint ({ck.codec}): save blocks {rec['snapshot_s']:.4f}"
-        f" s (snapshot), background write {rec['write_s']:.4f} s; "
-        f"{raw:,} raw bytes of params and moments, {disk:,} on disk; "
-        f"restore into a fresh Trainer {rec['restore_s']:.4f} s (step "
-        f"{step}, bitwise equal {same}); rescue refresh "
+    log(f"[{tag}] checkpoint ({rec['codec']}): save blocks "
+        f"{rec['snapshot_s']:.4f} s (snapshot), background write "
+        f"{rec['write_s']:.4f} s ({rec['waited_s']:.4f} s of it waited "
+        f"for); {rec['raw_bytes']:,} raw bytes of params and moments, "
+        f"{rec['disk_bytes']:,} on disk; restore into a fresh Trainer "
+        f"{rec['restore_s']:.4f} s (step {rec['restored_step']}, bitwise "
+        f"equal {rec['bitwise_equal']}); rescue refresh "
         f"{rec['rescue_s']:.4f} s; host copy of the parameters "
         f"{rec['init_copy_s']:.4f} s")
-    if not same or step != tr.steps_done:
+    if not rec["bitwise_equal"] or rec["restored_step"] != handle["step"]:
         raise AssertionError(f"{tag}: the checkpoint did not restore the "
-                             f"state bit for bit (step {step})")
+                             f"state bit for bit (step "
+                             f"{rec['restored_step']})")
     return rec
+
+
+def checkpoint_costs(tr, fresh, tag):
+    """What checkpoints cost for ``tr``'s state, waited for at once:
+    ``checkpoint_start`` then ``checkpoint_finish``."""
+    return checkpoint_finish(checkpoint_start(tr, tag), fresh)
 
 
 # phase 10: the GT graph-level recovery cases' fault steps (16 steps,
@@ -1133,19 +1203,125 @@ def recovery_phase(out_path: str) -> int:
     return 0 if not unrecovered else 1
 
 
+def attention_call(model, loss_fn, batch):
+    """The arguments of the first cluster-attention call of
+    ``loss_fn``'s forward: layer 0's q, k, v and the layout, bias and
+    table the run gives it. Without grad, and the forward stops
+    there."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    seen = {}
+
+    class Seen(Exception):
+        pass
+
+    def grab(*args, **kw):
+        seen.update(args=args, kw=kw)
+        raise Seen
+    real = kops.cluster_attention
+    kops.cluster_attention = grab
+    try:
+        with torch.no_grad():
+            loss_fn(model, batch)
+    except Seen:
+        pass
+    finally:
+        kops.cluster_attention = real
+    return seen["args"], seen["kw"]
+
+
+def op_check(tag, model, loss_fn, batch, names, read_counts, seed=0,
+             log_tag="remat"):
+    """The attention op of the run's first layer, on its own q, k, v,
+    layout and table: the kernels (``names``: the forward, dQ and
+    dK/dV, each launched once) against ``impl="plain"``, the forward
+    with O and lse and the autograd backward with a random dO, at the
+    tolerances of phases 3 and 6: O within TOL_O (and, unbiased, as
+    phase 6, TOL_O_ELEM), lse within TOL_LSE, dq, dk, dv and
+    the table's gradient as max|diff| over max|plain| within
+    TOL_GRAD (the table's absolutely where every bucket is alike, as
+    softmax then cancels it)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    (q, k, v, bi, bu, bias, bit), kw = attention_call(model, loss_fn,
+                                                      batch)
+    dev = q.device
+    dt = str(q.dtype).split(".")[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    res = []
+    for impl in (None, "plain"):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)
+                  if x is not None]
+        before = read_counts()
+        o, lse = kops.cluster_attention(
+            *leaves[:3], bi, bu, leaves[3] if bias is not None else None,
+            bit, causal=kw["causal"], return_lse=True, impl=impl)
+        grads = torch.autograd.grad(o, leaves, dout)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in read_counts().items()
+                    if c != before[n]}
+        res.append((o.detach(), lse, grads, launched))
+        del o, leaves
+    (o, lse, got, launched), (po, plse, want, plain_launched) = res
+    diff = (o.float() - po.float()).abs()
+    atol, rtol = TOL_O_ELEM[dt]
+    o_share = (diff / (atol + rtol * po.float().abs())).max().item()
+    uniform = bias is not None and (bias.shape[1] == 1 or bool(
+        (bu == bu.flatten()[0]).all()))
+    rels = []
+    for i, (x, y) in enumerate(zip(got, want)):
+        d = (x.float() - y.float()).abs().max().item()
+        den = 1.0 if uniform and i == 3 else y.float().abs().max().item()
+        rels.append(d / max(den, 1e-30))
+    out = {"shape": {"B": q.shape[0], "S": q.shape[1],
+                     "H": q.shape[2], "KV": k.shape[2],
+                     "Dh": q.shape[3], "nq": bi.shape[-2],
+                     "mb": bi.shape[-1],
+                     "active_blocks": int((bi >= 0).sum())},
+           "dtype": dt, "max_abs_err_o": diff.max().item(),
+           "o_elem_share": o_share,
+           "max_abs_err_lse": (lse - plse).abs().max().item(),
+           "grad_rel": dict(zip(("dq", "dk", "dv", "dbias"), rels)),
+           "launched": launched}
+    ok = (torch.allclose(o.float(), po.float(), atol=TOL_O[dt],
+                         rtol=TOL_O[dt])
+          and (bu is not None or o_share <= 1.0)
+          and torch.allclose(lse, plse, atol=TOL_LSE, rtol=1e-5)
+          and all(r <= TOL_GRAD[dt] for r in rels)
+          and all(bool(torch.isfinite(x).all()) for x in (o, *got))
+          and launched == {n: 1 for n in names}
+          and not plain_launched)
+    log(f"[{log_tag}] {tag}: layer 0's attention op, kernels vs plain at "
+        f"{out['shape']} {dt}: max|dO| {out['max_abs_err_o']:.3g} (tol "
+        f"{TOL_O[dt]}), worst element at {o_share:.3g} of its limit, "
+        f"max|dlse| {out['max_abs_err_lse']:.3g} (tol {TOL_LSE}); rel "
+        + " ".join(f"{n} {r:.3g}" for n, r in out["grad_rel"].items())
+        + f" (tol {TOL_GRAD[dt]}); kernels launched {launched} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the attention kernels disagree "
+                             f"with their plain versions: {out}")
+    del res, o, lse, got, po, plse, want, diff
+    return out
+
+
 # phase 11: layer recomputation at full width, in a child process. The
 # Qwen3-0.6B and Graphormer-Large A/B run REMAT_AB_STEPS steps under
 # "none" and under "block" from the same initial parameters and batches;
 # the larger configs run only under "block", which they need to fit
-REMAT_AB_STEPS = 4
+REMAT_AB_STEPS = 3
 REMAT_LM_SEQ = 16384          # the A/B and Qwen3-1.7B (phase 6's shape)
 REMAT_LONG_SEQ = 65536        # Qwen3-0.6B beyond phase 6's sequence
-REMAT_LONG_STEPS = 3
-REMAT_1_7B_STEPS = 4
+REMAT_LONG_STEPS = 2
+REMAT_1_7B_STEPS = 3
 REMAT_4B_SEQS = (8192, 4096)  # Qwen3-4B: the first that fits
-REMAT_4B_STEPS = 3
+REMAT_4B_STEPS = 2
 REMAT_SSM_SEQ = 4096          # Mamba2-2.7B
-REMAT_SSM_STEPS = 3
+REMAT_SSM_STEPS = 2
+REMAT_SSM_LAYERS = 32         # of its 64: room for phase 13 (PERF.md 4)
 REMAT_GRAPH_NODES = SERVE_NODES   # the serve phase's graph, S=32800
 
 
@@ -1160,8 +1336,6 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     A/B also holds step 0's loss and gradients of the recomputing
     backward to the one that keeps every activation, bit for bit.
     Returns the phase's record and ``counted``."""
-    import gc
-
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1169,7 +1343,6 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.graph_model import GraphModel, graph_loss
     from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
-    from repro_torch.kernels import ops as kops
     from repro_torch.launch.serve import degree_scaled_sbm
     from repro_torch.models.api import SSMLMModel
     from repro_torch.models.lm import LMModel, lm_loss
@@ -1180,109 +1353,6 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
 
     def only(**want):
         return {name: want.get(name, 0) for name in read_counts()}
-
-    def attention_call(model, loss_fn, batch):
-        """The arguments of the first cluster-attention call of
-        ``loss_fn``'s forward: layer 0's q, k, v and the layout, bias and
-        table the run gives it. Without grad, and the forward stops
-        there."""
-        seen = {}
-
-        class Seen(Exception):
-            pass
-
-        def grab(*args, **kw):
-            seen.update(args=args, kw=kw)
-            raise Seen
-        real = kops.cluster_attention
-        kops.cluster_attention = grab
-        try:
-            with torch.no_grad():
-                loss_fn(model, batch)
-        except Seen:
-            pass
-        finally:
-            kops.cluster_attention = real
-        return seen["args"], seen["kw"]
-
-    def op_check(tag, model, loss_fn, batch, names, seed=0):
-        """The attention op of the run's first layer, on its own q, k, v,
-        layout and table: the kernels (``names``: the forward, dQ and
-        dK/dV, each launched once) against ``impl="plain"``, the forward
-        with O and lse and the autograd backward with a random dO, at the
-        tolerances of phases 3 and 6: O within TOL_O (and, unbiased, as
-        phase 6, TOL_O_ELEM), lse within TOL_LSE, dq, dk, dv and
-        the table's gradient as max|diff| over max|plain| within
-        TOL_GRAD (the table's absolutely where every bucket is alike, as
-        softmax then cancels it)."""
-        (q, k, v, bi, bu, bias, bit), kw = attention_call(model, loss_fn,
-                                                          batch)
-        dt = str(q.dtype).split(".")[1]
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
-        res = []
-        for impl in (None, "plain"):
-            leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)
-                      if x is not None]
-            before = read_counts()
-            o, lse = kops.cluster_attention(
-                *leaves[:3], bi, bu, leaves[3] if bias is not None else None,
-                bit, causal=kw["causal"], return_lse=True, impl=impl)
-            grads = torch.autograd.grad(o, leaves, dout)
-            torch.cuda.synchronize()
-            launched = {n: c - before[n] for n, c in read_counts().items()
-                        if c != before[n]}
-            res.append((o.detach(), lse, grads, launched))
-            del o, leaves
-        (o, lse, got, launched), (po, plse, want, plain_launched) = res
-        diff = (o.float() - po.float()).abs()
-        atol, rtol = TOL_O_ELEM[dt]
-        o_share = (diff / (atol + rtol * po.float().abs())).max().item()
-        uniform = bias is not None and (bias.shape[1] == 1 or bool(
-            (bu == bu.flatten()[0]).all()))
-        rels = []
-        for i, (x, y) in enumerate(zip(got, want)):
-            d = (x.float() - y.float()).abs().max().item()
-            den = 1.0 if uniform and i == 3 else y.float().abs().max().item()
-            rels.append(d / max(den, 1e-30))
-        out = {"shape": {"B": q.shape[0], "S": q.shape[1],
-                         "H": q.shape[2], "KV": k.shape[2],
-                         "Dh": q.shape[3], "nq": bi.shape[-2],
-                         "mb": bi.shape[-1],
-                         "active_blocks": int((bi >= 0).sum())},
-               "dtype": dt, "max_abs_err_o": diff.max().item(),
-               "o_elem_share": o_share,
-               "max_abs_err_lse": (lse - plse).abs().max().item(),
-               "grad_rel": dict(zip(("dq", "dk", "dv", "dbias"), rels)),
-               "launched": launched}
-        ok = (torch.allclose(o.float(), po.float(), atol=TOL_O[dt],
-                             rtol=TOL_O[dt])
-              and (bu is not None or o_share <= 1.0)
-              and torch.allclose(lse, plse, atol=TOL_LSE, rtol=1e-5)
-              and all(r <= TOL_GRAD[dt] for r in rels)
-              and all(bool(torch.isfinite(x).all()) for x in (o, *got))
-              and launched == {n: 1 for n in names}
-              and not plain_launched)
-        log(f"[remat] {tag}: layer 0's attention op, kernels vs plain at "
-            f"{out['shape']} {dt}: max|dO| {out['max_abs_err_o']:.3g} (tol "
-            f"{TOL_O[dt]}), worst element at {o_share:.3g} of its limit, "
-            f"max|dlse| {out['max_abs_err_lse']:.3g} (tol {TOL_LSE}); rel "
-            + " ".join(f"{n} {r:.3g}" for n, r in out["grad_rel"].items())
-            + f" (tol {TOL_GRAD[dt]}); kernels launched {launched} "
-            f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"{tag}: the attention kernels disagree "
-                                 f"with their plain versions: {out}")
-        del res, o, lse, got, po, plse, want, diff
-        return out
-
-    def release() -> int:
-        """Free what the last run left; returns the bytes still
-        allocated."""
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return torch.cuda.memory_allocated()
 
     def lm_task(cfg, S):
         dc = LMDataConfig(cfg.vocab_size, S, 1, seed=0)
@@ -1423,6 +1493,9 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
             f"'none''s")
         if len(set(first.values())) != 1:
             raise AssertionError(f"{tag}: step 0's losses differ: {first}")
+        with torch.no_grad():     # the next run starts from them too
+            for p, p0 in zip(model.parameters(), init):
+                p.copy_(p0)
         del init
         return {"runs": runs, "block_over_none_step": ratio,
                 "block_over_none_peak": peak_ratio}
@@ -1436,19 +1509,18 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     tag = f"qwen3-0.6b S={REMAT_LM_SEQ}"
     rec["qwen3_0_6b_ab"] = {
         "op_check": op_check(tag, model, lm_loss, task.batches(0),
-                             UNBIASED_NAMES),
+                             UNBIASED_NAMES, read_counts),
         "step0": ab_grads(tag, model, lambda m, b: lm_loss(m, b)[0],
                           task.batches(0)),
         **ab_runs(tag, model,
                   lambda m: lm_task(m.cfg, REMAT_LM_SEQ), UNBIASED_NAMES,
                   REMAT_LM_SEQ)}
     del task
-    model.reset_parameters(0)
     model.cfg = cfg.replace(remat="block")
     tag = f"qwen3-0.6b S={REMAT_LONG_SEQ}"
     task = lm_task(model.cfg, REMAT_LONG_SEQ)
     check = op_check(tag, model, lm_loss, task.prepare(model).batches(0),
-                     UNBIASED_NAMES)
+                     UNBIASED_NAMES, read_counts)
     rec["qwen3_0_6b_long"] = train(tag, model, task, REMAT_LONG_STEPS,
                                    UNBIASED_NAMES, REMAT_LONG_SEQ)
     rec["qwen3_0_6b_long"]["op_check"] = check
@@ -1459,7 +1531,8 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     model = LMModel(cfg, device=dev, seed=0)
     task = lm_task(cfg, REMAT_LM_SEQ)
     check = op_check("qwen3-1.7b", model, lm_loss,
-                     task.prepare(model).batches(0), UNBIASED_NAMES)
+                     task.prepare(model).batches(0), UNBIASED_NAMES,
+                     read_counts)
     rec["qwen3_1_7b"] = train("qwen3-1.7b", model, task, REMAT_1_7B_STEPS,
                               UNBIASED_NAMES, REMAT_LM_SEQ)
     rec["qwen3_1_7b"]["op_check"] = check
@@ -1472,7 +1545,8 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
         try:
             task = lm_task(cfg, S)
             check = op_check(f"qwen3-4b S={S}", model, lm_loss,
-                             task.prepare(model).batches(0), UNBIASED_NAMES)
+                             task.prepare(model).batches(0), UNBIASED_NAMES,
+                             read_counts)
             rec["qwen3_4b"] = train(f"qwen3-4b S={S}", model, task,
                                     REMAT_4B_STEPS, UNBIASED_NAMES, S)
             rec["qwen3_4b"]["op_check"] = check
@@ -1491,7 +1565,7 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     del model, task
 
     # -------------------------------------------------------- Mamba2-2.7B
-    cfg = get_config("mamba2_2_7b")
+    cfg = get_config("mamba2_2_7b").replace(n_layers=REMAT_SSM_LAYERS)
     model = SSMLMModel(cfg, device=dev, seed=0)
     # the plain SSD scan, as the reference's model: no kernel launches
     rec["mamba2_2_7b"] = train("mamba2-2.7b", model,
@@ -1527,7 +1601,8 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     tag = f"graphormer-large S={lay.seq_len}"
     rec["graphormer_large_ab"] = {
         "op_check": op_check(tag, model, graph_loss,
-                             task.prepare(model).batches(0), B32_NAMES),
+                             task.prepare(model).batches(0), B32_NAMES,
+                             read_counts),
         "step0": ab_grads(tag, model, lambda m, b: graph_loss(m, b)[0],
                           task.prepare(model).batches(0)),
         **ab_runs(tag, model, graph_task, B32_NAMES, lay.seq_len),
@@ -1585,7 +1660,7 @@ SERVE_MAX_LEN = 4096
 SERVE_REQUESTS = 32
 SERVE_PROMPT = (128, 3840)
 SERVE_NEW = 128
-SERVE_WARM_REQUESTS = 16
+SERVE_WARM_REQUESTS = 8         # room for phase 13 (PERF.md 4)
 SPARSE_MAX_LEN = 8192           # past the window (4096), so that it binds
 SPARSE_REQUESTS = 8
 SPARSE_PROMPT = (4500, 8000)
@@ -1631,6 +1706,141 @@ def cuda_graph(fn):
     return graph, out
 
 
+def release() -> int:
+    """Free what the last run left; returns the bytes still allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def event_pair():
+    import torch
+
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def pct(xs, q):
+    """The reference CLI's percentiles (``launch/serve.py``)."""
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if q == 50 else \
+        xs[min(len(xs) - 1, int(len(xs) * q / 100))]
+
+
+def serve_engine(model, max_len, sparse):
+    """A ``ServeEngine`` at the serving phases' settings (SERVE_SLOTS
+    slots, SERVE_PAGE, SERVE_CHUNK), its pool's bytes checked against the
+    arithmetic (every layer's k and v, bf16), and CUDA events around
+    every call of its two programs (each call's time on the device's
+    clock, host issue gaps included): ``(engine, events)``."""
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(model, batch_slots=SERVE_SLOTS, page=SERVE_PAGE,
+                      max_len=max_len, chunk=SERVE_CHUNK, sparse=sparse)
+    want = (2 * model.cfg.n_layers * eng.allocator.num_blocks
+            * SERVE_PAGE * model.cfg.kv_heads * model.cfg.head_dim * 2)
+    if eng.pool_bytes() != want:
+        raise AssertionError(f"pool {eng.pool_bytes()} B, want {want}")
+    ev = {"prefill": [], "decode": []}
+    for name, prog in (("prefill", eng._prefill), ("decode", eng._decode)):
+        def wrapped(*a, _fn=prog.fn, _ev=ev[name], **kw):
+            s, e = event_pair()
+            s.record()
+            out = _fn(*a, **kw)
+            e.record()
+            _ev.append((s, e))
+            return out
+        prog.fn = wrapped
+    return eng, ev
+
+
+def serve_engine_run(tag, eng, ev, prompts, n_new, reset_counts,
+                     read_counts, gap=0.0, rid0=0, log_tag="serve-lm"):
+    """Serve ``prompts`` (arrivals ``gap`` s apart) through ``eng`` (of
+    ``serve_engine``) with its launch counts at 0 before and read after;
+    checks the two-program budget, the drained pool, every stream's
+    length and that no kernel launched. Returns the run's record."""
+    import numpy as np
+    import torch
+
+    zero = {name: 0 for name in read_counts()}
+    n_pf, n_dc = len(ev["prefill"]), len(ev["decode"])
+    n_rows = len(eng.request_stats)
+    for i, p in enumerate(prompts):
+        eng.submit(rid0 + i, p, n_new, arrival=i * gap)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats = eng.run()
+    counts = read_counts()
+    torch.cuda.synchronize()
+    rows = eng.request_stats[n_rows:]
+    pf = [s.elapsed_time(e) for s, e in ev["prefill"][n_pf:]]
+    dc = [s.elapsed_time(e) for s, e in ev["decode"][n_dc:]]
+    new = sum(r["new_tokens"] for r in rows)
+    sec = stats["seconds"]
+    out = {
+        "requests": len(rows), "new_tokens": new,
+        "prompt_tokens": sum(len(p) for p in prompts),
+        "seconds": sec, "tok_per_s": new / sec,
+        "req_per_s": len(rows) / sec, "arrival_gap_s": gap,
+        "latency_p50_s": pct([r["latency_s"] for r in rows], 50),
+        "latency_p99_s": pct([r["latency_s"] for r in rows], 99),
+        "ttft_p50_s": pct([r["ttft_s"] for r in rows], 50),
+        "ttft_p99_s": pct([r["ttft_s"] for r in rows], 99),
+        "prefill_calls": len(pf), "decode_calls": len(dc),
+        "prefill_chunk_ms": float(np.median(pf)),
+        "decode_step_ms": float(np.median(dc)),
+        "decode_step_ms_p90": float(np.percentile(dc, 90)),
+        "device_busy_s": (sum(pf) + sum(dc)) / 1e3,
+        "traced_programs": stats["traced_programs"],
+        "pool_bytes": eng.pool_bytes(),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "free_blocks": eng.allocator.n_free,
+        "usable_blocks": eng.allocator.num_blocks - 1}
+    log(f"[{log_tag}] {tag}: {json.dumps(out)}")
+    if out["traced_programs"] != 2:
+        raise AssertionError(f"{tag}: {out['traced_programs']} programs")
+    if out["free_blocks"] != out["usable_blocks"] or eng.allocator.n_live:
+        raise AssertionError(f"{tag}: blocks still live at drain")
+    if len(rows) != len(prompts) or any(
+            len(eng.done[rid0 + i]) != n_new for i in range(len(prompts))):
+        raise AssertionError(f"{tag}: a request did not finish")
+    if counts != zero:
+        raise AssertionError(f"{tag}: the engine's path launched kernels: "
+                             f"{counts}")
+    return out
+
+
+def margin_check(tag, logits, out):
+    """``logits`` (n, V) fp32 of the oracle at the positions that chose
+    ``out``'s n tokens: each token the oracle's argmax where its top-2
+    margin exceeds TOL_TOKEN_MARGIN, and within it of the max
+    elsewhere."""
+    import torch
+
+    top = logits.topk(2, dim=-1).values
+    margin = top[:, 0] - top[:, 1]
+    tok = torch.tensor(out, device=logits.device)
+    strict = margin > TOL_TOKEN_MARGIN
+    wrong = strict & (logits.argmax(-1) != tok)
+    near = logits.gather(1, tok[:, None])[:, 0] >= \
+        top[:, 0] - TOL_TOKEN_MARGIN
+    res = {"checked": int(strict.sum()), "skipped": int((~strict).sum()),
+           "mismatched": int(wrong.sum()),
+           "outside_tolerance": int((~strict & ~near).sum()),
+           "median_margin": float(margin.median())}
+    if res["mismatched"] or res["outside_tolerance"]:
+        raise AssertionError(f"{tag}: engine tokens disagree with the "
+                             f"oracle: {res}")
+    return res
+
+
 def serve_runs(dev, reset_counts, read_counts) -> dict:
     """Phase 12's runs on ``dev``, each at full width and depth with
     seeded weights. (a) Qwen3-0.6B as published (bf16, dense attention)
@@ -1650,8 +1860,6 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
     the same steps. One set of seeded parameters per model serves each
     of its configs (the models read ``cfg`` at every call). Returns the
     phase's record, with row 2's launches under ``launches``."""
-    import gc
-
     import numpy as np
     import torch
 
@@ -1660,132 +1868,19 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
     from repro_torch.models.api import SSMLMModel
     from repro_torch.models.lm import (LMModel, lm_decode_step, lm_forward,
                                        lm_prefill)
-    from repro_torch.serve import ServeEngine
 
     rec = {}
     zero = {name: 0 for name in read_counts()}
     launches = dict(zero)
     rng = np.random.default_rng(0)
 
-    def release():
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-
     def prompts_of(cfg, n, lo, hi):
         return [rng.integers(1, cfg.vocab_size, int(m)).tolist()
                 for m in rng.integers(lo, hi + 1, n)]
 
-    def event_pair():
-        return (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-
-    def timed(eng):
-        """CUDA events around every call of the engine's two programs:
-        each call's time on the device's clock, host issue gaps
-        included."""
-        ev = {"prefill": [], "decode": []}
-        for name, prog in (("prefill", eng._prefill),
-                           ("decode", eng._decode)):
-            def wrapped(*a, _fn=prog.fn, _ev=ev[name], **kw):
-                s, e = event_pair()
-                s.record()
-                out = _fn(*a, **kw)
-                e.record()
-                _ev.append((s, e))
-                return out
-            prog.fn = wrapped
-        return ev
-
-    def pct(xs, q):
-        """The reference CLI's percentiles (``launch/serve.py``)."""
-        xs = sorted(xs)
-        return xs[len(xs) // 2] if q == 50 else \
-            xs[min(len(xs) - 1, int(len(xs) * q / 100))]
-
     def run_engine(tag, eng, ev, prompts, n_new, gap=0.0, rid0=0):
-        """Serve ``prompts`` (arrivals ``gap`` s apart) through ``eng``
-        with its launch counts at 0 before and read after; checks the
-        two-program budget, the drained pool, every stream's length and
-        that no kernel launched. Returns the run's record."""
-        n_pf, n_dc = len(ev["prefill"]), len(ev["decode"])
-        n_rows = len(eng.request_stats)
-        for i, p in enumerate(prompts):
-            eng.submit(rid0 + i, p, n_new, arrival=i * gap)
-        release()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        stats = eng.run()
-        counts = read_counts()
-        torch.cuda.synchronize()
-        rows = eng.request_stats[n_rows:]
-        pf = [s.elapsed_time(e) for s, e in ev["prefill"][n_pf:]]
-        dc = [s.elapsed_time(e) for s, e in ev["decode"][n_dc:]]
-        new = sum(r["new_tokens"] for r in rows)
-        sec = stats["seconds"]
-        out = {
-            "requests": len(rows), "new_tokens": new,
-            "prompt_tokens": sum(len(p) for p in prompts),
-            "seconds": sec, "tok_per_s": new / sec,
-            "req_per_s": len(rows) / sec, "arrival_gap_s": gap,
-            "latency_p50_s": pct([r["latency_s"] for r in rows], 50),
-            "latency_p99_s": pct([r["latency_s"] for r in rows], 99),
-            "ttft_p50_s": pct([r["ttft_s"] for r in rows], 50),
-            "ttft_p99_s": pct([r["ttft_s"] for r in rows], 99),
-            "prefill_calls": len(pf), "decode_calls": len(dc),
-            "prefill_chunk_ms": float(np.median(pf)),
-            "decode_step_ms": float(np.median(dc)),
-            "decode_step_ms_p90": float(np.percentile(dc, 90)),
-            "device_busy_s": (sum(pf) + sum(dc)) / 1e3,
-            "traced_programs": stats["traced_programs"],
-            "pool_bytes": eng.pool_bytes(),
-            "peak_bytes": torch.cuda.max_memory_allocated(),
-            "free_blocks": eng.allocator.n_free,
-            "usable_blocks": eng.allocator.num_blocks - 1}
-        log(f"[serve-lm] {tag}: {json.dumps(out)}")
-        if out["traced_programs"] != 2:
-            raise AssertionError(f"{tag}: {out['traced_programs']} programs")
-        if out["free_blocks"] != out["usable_blocks"] or \
-                eng.allocator.n_live:
-            raise AssertionError(f"{tag}: blocks still live at drain")
-        if len(rows) != len(prompts) or any(
-                len(eng.done[rid0 + i]) != n_new
-                for i in range(len(prompts))):
-            raise AssertionError(f"{tag}: a request did not finish")
-        if counts != zero:
-            raise AssertionError(f"{tag}: the engine's path launched "
-                                 f"kernels: {counts}")
-        return out
-
-    def new_engine(model, max_len, sparse):
-        eng = ServeEngine(model, batch_slots=SERVE_SLOTS, page=SERVE_PAGE,
-                          max_len=max_len, chunk=SERVE_CHUNK, sparse=sparse)
-        want = (2 * model.cfg.n_layers * eng.allocator.num_blocks
-                * SERVE_PAGE * model.cfg.kv_heads * model.cfg.head_dim * 2)
-        if eng.pool_bytes() != want:
-            raise AssertionError(f"pool {eng.pool_bytes()} B, want {want}")
-        return eng, timed(eng)
-
-    def margin_check(tag, logits, out):
-        """``logits`` (n, V) fp32 of the oracle at the positions that
-        chose ``out``'s n tokens: each token the oracle's argmax where
-        its top-2 margin exceeds TOL_TOKEN_MARGIN, and within it of the
-        max elsewhere."""
-        top = logits.topk(2, dim=-1).values
-        margin = top[:, 0] - top[:, 1]
-        tok = torch.tensor(out, device=logits.device)
-        strict = margin > TOL_TOKEN_MARGIN
-        wrong = strict & (logits.argmax(-1) != tok)
-        near = logits.gather(1, tok[:, None])[:, 0] >= \
-            top[:, 0] - TOL_TOKEN_MARGIN
-        res = {"checked": int(strict.sum()), "skipped": int((~strict).sum()),
-               "mismatched": int(wrong.sum()),
-               "outside_tolerance": int((~strict & ~near).sum()),
-               "median_margin": float(margin.median())}
-        if res["mismatched"] or res["outside_tolerance"]:
-            raise AssertionError(f"{tag}: engine tokens disagree with the "
-                                 f"oracle: {res}")
-        return res
+        return serve_engine_run(tag, eng, ev, prompts, n_new, reset_counts,
+                                read_counts, gap=gap, rid0=rid0)
 
     def chunked_first_logits(model, prompt, sparse):
         """The engine's prefill program over ``prompt`` alone (a pool of
@@ -1863,7 +1958,7 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
     t0 = time.perf_counter()
     model = LMModel(cfg, device=dev, seed=0)
     rec["init_s"] = time.perf_counter() - t0
-    eng, ev = new_engine(model, SERVE_MAX_LEN, sparse=False)
+    eng, ev = serve_engine(model, SERVE_MAX_LEN, sparse=False)
     pa = prompts_of(cfg, SERVE_REQUESTS, *SERVE_PROMPT)
     rec["a"] = run_engine("(a) dense", eng, ev, pa, SERVE_NEW)
     rec["a_warm"] = run_engine(
@@ -1896,7 +1991,7 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
     release()
 
     # -------------------------------------------------- (b) sparse engine
-    eng, ev = new_engine(model, SPARSE_MAX_LEN, sparse=True)
+    eng, ev = serve_engine(model, SPARSE_MAX_LEN, sparse=True)
     pb = prompts_of(cfg, SPARSE_REQUESTS, *SPARSE_PROMPT)
     rec["b"] = run_engine("(b) sparse", eng, ev, pb, SPARSE_NEW)
     rec["b"]["steps"] = engine_steps("(b)", eng)
@@ -1955,7 +2050,7 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
 
     # -------------------------------------- (c) an fp32 engine, full width
     model.cfg = cfg.replace(dtype="float32")
-    eng, ev = new_engine(model, SERVE_MAX_LEN, sparse=False)
+    eng, ev = serve_engine(model, SERVE_MAX_LEN, sparse=False)
     pf = prompts_of(cfg, F32_REQUESTS, *F32_PROMPT)
     rec["c_f32"] = run_engine("(c) fp32 engine", eng, ev, pf, F32_NEW)
     # the contiguous greedy decode, all four in one batch at shared
@@ -2211,6 +2306,503 @@ def serve_lm_phase(out_path: str) -> int:
     with open(out_path, "w") as fh:
         json.dump(rec, fh)
     log(f"[serve-lm] {rec['seconds']:.1f}s, launches "
+        f"{ {k: c for k, c in rec['launches'].items() if c} }")
+    return 0
+
+
+# phase 13: the MoE family and the hybrid, in a child process. (a)
+# Qwen3-235B-A22B at full width, its depth cut to one layer, trained on
+# the cluster-sparse backend; (b) (a)'s weights served as published
+# (dense attention); (c) Jamba-v0.1 at a quarter of its width, one period
+# of 8 layers (full width, ~13e9 parameters, is ~208 GB of training
+# state: no single card holds it)
+MOE_ARCH = "qwen3_moe_235b_a22b"
+MOE_LAYERS = 1
+MOE_SEQS = (4096, 2048)       # (a): the first that fits; never the width
+MOE_STEPS = 3
+MOE_OP_TOKENS = 1024          # (a): the MoE op, card against CPU, fp32
+MOE_SERVE_MAX_LEN = 2048      # (b)
+MOE_SERVE_REQUESTS = 16
+MOE_SERVE_PROMPT = (128, 1536)
+MOE_SERVE_NEW = 32
+JAMBA_ARCH = "jamba_v0_1_52b"
+# (c): a quarter of d_model, heads and expert width; head_dim, kv heads'
+# share, experts, top-k, the Mamba2 block's expand, state and head, and
+# the vocab as published
+JAMBA_CUT = dict(n_layers=8, d_model=1024, n_heads=8, n_kv_heads=2,
+                 d_head=128, d_ff=3584, moe_d_ff=3584)
+JAMBA_SEQ = 2048
+JAMBA_BATCH = 2
+JAMBA_STEPS = 3
+JAMBA_PREFILL_SEQ = 512
+# (a): the MoE op on the card against the same op on the CPU, both fp32
+# with TF32 off: the largest difference over the largest output (sums in
+# another order). A token whose top-k differs between the two (a near
+# tie in fp32) is counted and left out of that bound, at most
+# MOE_OP_MAX_FLIPS of the tokens
+TOL_MOE_OP = 1e-4
+MOE_OP_MAX_FLIPS = 1e-3
+# step 0, kernel path against impl="plain": the attention's bf16
+# roundings move the router's input, and a near tie may route a token
+# elsewhere. At most this share of the (token, slot) choices may differ,
+# by run: about the geometric middle between the shares
+# tools/moe_routing.py reads on an H100 with the kernels (a: 0.65-0.83%,
+# c: 0-0.012% over 8 batches) and with an attention made wrong on
+# purpose (a: 29.8-97.5%, c: 0.23-0.32%). The kernels themselves are
+# held by op_check; this bounds what routing may absorb
+MAX_ROUTE_FLIPS = {"(a)": 0.05, "(c)": 5e-4}
+
+
+def moe_runs(dev, reset_counts, read_counts) -> dict:
+    """Phase 13's runs on ``dev``: (a) Qwen3-235B-A22B at full width (one
+    layer) trained through the Trainer on the cluster-sparse backend,
+    its MoE op held to the CPU's, its attention kernels held to their
+    plain versions on layer 0's own q, k, v (``op_check``: 64 query heads
+    over 4), step 0 held to ``impl="plain"``, a step profiled; (b) the same weights served as published through
+    ``ServeEngine``, two requests held to the contiguous oracle; (c)
+    Jamba-v0.1 at a quarter width trained the same way (its attention
+    slot's kernels held by ``op_check`` too), then its prefill
+    against 512 decode steps. Every training run's launches of rows 2, 5
+    and 6 counted exactly; returns the phase's record and those counts
+    (``launches``, and the fp32 prefill's under ``launches_float32``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.hybrid import HybridLMModel, hybrid_loss
+    from repro_torch.models.lm import (LMModel, lm_decode_step, lm_loss,
+                                       lm_prefill)
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tasks import BatchFnTask
+
+    rec = {}
+    zero = {name: 0 for name in read_counts()}
+    launches = dict(zero)
+    rng = np.random.default_rng(0)
+
+    def want_counts(cfg, steps, n_attn):
+        return {**zero, **step_launches(cfg, UNBIASED_NAMES, steps, n_attn)}
+
+    def step_vs_plain(tag, model, loss_fn, batch, n_attn, max_flips):
+        """Step 0's loss and gradients, kernel path against
+        ``impl="plain"`` on the same parameters and batch, outside the
+        main path's counts: the loss within TOL_STEP_LOSS_REL, every
+        parameter's gradient at a cosine of at least MIN_GRAD_COSINE, and
+        at most ``max_flips`` of the (token, slot) routing choices
+        different (every MoE call's, the recomputed ones included)."""
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
+        real = tmoe._route
+        out = {}
+        for impl in (None, "plain"):
+            routes = []
+
+            def spy(w, xt, k, _seen=routes):
+                res = real(w, xt, k)
+                _seen.append(res[1])
+                return res
+            tmoe._route = spy
+            before = read_counts()
+            try:
+                loss, met = loss_fn(model, batch, impl=impl)
+                grads = torch.autograd.grad(loss, params)
+            finally:
+                tmoe._route = real
+            torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in read_counts().items()
+                        if c != before[n]}
+            out[impl] = (loss.detach().float(),
+                         {k: v.item() for k, v in met.items()}, grads,
+                         routes, launched)
+            del loss, grads
+        (kl, kmet, kg, kr, kn), (pl_, pmet, pg, pr, pn) = out[None], \
+            out["plain"]
+        cos = {n: F.cosine_similarity(a.flatten().float(),
+                                      c.flatten().float(), dim=0,
+                                      eps=1e-30).item()
+               for (n, _), a, c in zip(named, kg, pg)}
+        worst = min(cos, key=cos.get)
+        flips = sum(int((a != b).sum()) for a, b in zip(kr, pr))
+        choices = sum(a.numel() for a in kr)
+        res = {"loss": kl.item(), "plain_loss": pl_.item(),
+               "loss_rel": (abs(kl - pl_) / abs(pl_)).item(),
+               "metrics": kmet, "plain_metrics": pmet,
+               "min_grad_cosine": [worst, cos[worst]],
+               "route_flips": flips, "route_choices": choices,
+               "launched": kn}
+        log(f"[moe] {tag}: step 0, kernel vs plain path: loss "
+            f"{res['loss']:.6f} vs {res['plain_loss']:.6f} (rel "
+            f"{res['loss_rel']:.3g}, tol {TOL_STEP_LOSS_REL}); aux "
+            f"{kmet['aux']:.6f} vs {pmet['aux']:.6f}; gradient cosine min "
+            f"{cos[worst]:.6f} ({worst}; min {MIN_GRAD_COSINE}); routing "
+            f"choices differing {flips} of {choices} "
+            f"({flips / max(choices, 1):.3%}, max {max_flips:.3%}); "
+            f"kernels launched {kn}")
+        want = {n: c for n, c in want_counts(model.cfg, 1, n_attn).items()
+                if c}
+        if not (res["loss_rel"] <= TOL_STEP_LOSS_REL
+                and cos[worst] >= MIN_GRAD_COSINE
+                and flips <= max_flips * choices
+                and kn == want and not pn):
+            raise AssertionError(f"{tag}: kernel and plain paths disagree: "
+                                 f"{res}, plain launched {pn}")
+        del out, kg, pg
+        release()
+        return res
+
+    def train(tag, model, task, steps, n_attn, S, B):
+        """``steps`` sparse steps through the Trainer, counted exactly."""
+        cfg = model.cfg
+        left = release()
+        tr = Trainer(model, TrainerConfig(steps=steps, lr=1e-3, warmup=2),
+                     task=task)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        status = tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        for k, c in counts.items():
+            launches[k] += c
+        peak = torch.cuda.max_memory_allocated()
+        hist = tr.history
+        losses = [h["loss"] for h in hist]
+        step_ms = [h["seconds"] * 1e3 for h in hist]
+        steady = float(np.median(step_ms[1:]))
+        n_params = sum(p.numel() for p in model.parameters())
+        out = {"config": cfg.name, "remat": cfg.remat, "S": S, "batch": B,
+               "layers": cfg.n_layers, "params": n_params, "steps": steps,
+               "losses": losses, "xent": [h["xent"] for h in hist],
+               "aux": [h["aux"] for h in hist], "step_ms": step_ms,
+               "step_ms_median": steady, "run_s": run_s,
+               "outside_steps_s": run_s - sum(h["seconds"] for h in hist),
+               "peak_bytes": peak, "allocated_before_bytes": left,
+               "launches": counts, "tokens_per_s": B * S * 1e3 / steady,
+               "launches_a_step": {k: c / steps for k, c in counts.items()
+                                   if c}}
+        log(f"[moe] {tag}: {cfg.name}, {cfg.n_layers} layers, "
+            f"{n_params:,} params, S={S} batch {B}, remat={cfg.remat!r}; "
+            f"losses {', '.join(f'{x:.4f}' for x in losses)} (aux "
+            f"{', '.join(f'{x:.4f}' for x in out['aux'])}); step ms "
+            f"{', '.join(f'{x:.2f}' for x in step_ms)} (median after the "
+            f"first {steady:.2f}, {out['tokens_per_s']:.1f} tokens a "
+            f"second); peak {peak / 2**30:.2f} GiB ({left / 2**30:.2f} GiB "
+            f"allocated before); run {run_s:.2f} s, "
+            f"{out['outside_steps_s']:.2f} s outside the steps; launches a "
+            f"step {out['launches_a_step']}")
+        want = want_counts(cfg, steps, n_attn)
+        if status != "done" or counts != want or \
+                not losses[-1] < losses[0] or \
+                not np.isfinite(losses).all() or \
+                any(h["skipped"] for h in hist):
+            raise AssertionError(
+                f"{tag}: status {status}, losses {losses}, launches "
+                f"{ {k: c for k, c in counts.items() if c} }, want "
+                f"{ {k: c for k, c in want.items() if c} }")
+        return tr, out
+
+    # ------------------------------------ (a) Qwen3-235B-A22B, one layer
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS,
+                                       attn_backend="cluster_sparse",
+                                       remat="block")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    a = {"init_s": time.perf_counter() - t0}
+    n_params = sum(p.numel() for p in model.parameters())
+    n_experts = sum(p.numel() for n, p in model.named_parameters()
+                    if ".moe.w_" in n)
+    a.update(params=n_params, expert_params=n_experts,
+             state_bytes=16 * n_params)
+    log(f"[moe] (a) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"over {cfg.kv_heads} of {cfg.head_dim}, {cfg.moe_experts} experts "
+        f"top-{cfg.moe_top_k} of width {cfg.moe_d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.n_layers} layer (of 94); {n_params:,} "
+        f"params ({n_experts:,} in the experts), parameters, gradients "
+        f"and two moments {16 * n_params / 2**30:.2f} GiB; seeded init "
+        f"(drawn on the CPU) {a['init_s']:.1f} s")
+
+    # the MoE op at full width on the card and on the CPU, fp32, TF32 off
+    moe = model.layers[0].moe
+    f32 = cfg.replace(dtype="float32")
+    x = torch.from_numpy(rng.standard_normal(
+        (MOE_OP_TOKENS, cfg.d_model)).astype(np.float32))
+    cpu_moe = tmoe.MoE(cfg, device="cpu")
+    cpu_moe.load_state_dict(moe.state_dict())
+    with torch.no_grad():
+        y_gpu, aux_gpu = tmoe.moe_tokens(moe, f32, x.to(dev))
+        ti_gpu = tmoe._route(moe.router, x.to(dev), cfg.moe_top_k)[1]
+        t0 = time.perf_counter()
+        y_cpu, aux_cpu = tmoe.moe_tokens(cpu_moe, f32, x)
+        cpu_s = time.perf_counter() - t0
+        ti_cpu = tmoe._route(cpu_moe.router, x, cfg.moe_top_k)[1]
+    y_gpu, ti_gpu = y_gpu.cpu(), ti_gpu.cpu()
+    same = (ti_gpu.sort(-1).values == ti_cpu.sort(-1).values).all(-1)
+    diff = (y_gpu - y_cpu).abs()[same]
+    op = {"tokens": MOE_OP_TOKENS, "cpu_s": cpu_s,
+          "max_abs_err": float(diff.max()),
+          "max_abs_out": float(y_cpu.abs().max()),
+          "rel_err": float(diff.max() / y_cpu.abs().max()),
+          "tokens_routed_apart": int((~same).sum()),
+          "aux_err": abs(float(aux_gpu) - float(aux_cpu))}
+    del cpu_moe, moe, y_gpu, y_cpu, x
+    log(f"[moe] (a) the MoE op on the card vs the CPU, {MOE_OP_TOKENS} "
+        f"tokens, fp32: max |diff| {op['max_abs_err']:.3g} of max |y| "
+        f"{op['max_abs_out']:.3g} (rel {op['rel_err']:.3g}, tol "
+        f"{TOL_MOE_OP}); tokens routed apart {op['tokens_routed_apart']} "
+        f"(max {MOE_OP_MAX_FLIPS:.1%}); aux diff {op['aux_err']:.3g}; CPU "
+        f"{cpu_s:.2f} s")
+    if op["rel_err"] > TOL_MOE_OP or op["aux_err"] > TOL_MOE_OP or \
+            op["tokens_routed_apart"] > MOE_OP_MAX_FLIPS * MOE_OP_TOKENS:
+        raise AssertionError(f"(a) the MoE op disagrees with the CPU: {op}")
+    a["op_check"] = op
+
+    cuts = []
+    for S in MOE_SEQS:
+        dc = LMDataConfig(cfg.vocab_size, S, 1, seed=0)
+        task = BatchFnTask(lambda s, dc=dc: lm_batch(dc, s)).prepare(model)
+        try:
+            a["op_check"] = op_check(f"(a) S={S}", model, lm_loss,
+                                     task.batches(0), UNBIASED_NAMES,
+                                     read_counts, log_tag="moe")
+            a["step0"] = step_vs_plain(f"(a) S={S}", model, lm_loss,
+                                       task.batches(0), MOE_LAYERS,
+                                       MAX_ROUTE_FLIPS["(a)"])
+            tr, a["train"] = train(f"(a) S={S}", model, task, MOE_STEPS,
+                                   MOE_LAYERS, S, 1)
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            cuts.append({"S": S, "peak_bytes":
+                         torch.cuda.max_memory_allocated(),
+                         "error": str(err).splitlines()[0][:300]})
+            log(f"[moe] (a) S={S} does not fit: {cuts[-1]}")
+            tr = None
+            release()
+            model.reset_parameters(0)
+    else:
+        raise AssertionError(f"(a) fits at none of {MOE_SEQS}")
+    a["cuts"] = cuts
+
+    def step_shares(tr, moe, S):
+        """Where a step's time goes: a step profiled by kind of kernel
+        (rows 2, 5 and 6 are the attention kernels), AdamW's update and
+        the MoE op's forward and backward (the expert loop alone beside
+        it) timed with CUDA events on the step's shapes; under
+        remat="block" a step runs the MoE forward twice and its backward
+        once."""
+        batch = tr.task.batches(0)
+        timed_update = []
+        real_update = tr.opt.update
+
+        def update(grads, **kw):
+            s, e = event_pair()
+            s.record()
+            real_update(grads, **kw)
+            e.record()
+            timed_update.append((s, e))
+        tr.opt.update = update
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step("sparse", batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        del tr.opt.update
+        adamw_ms = timed_update[0][0].elapsed_time(timed_update[0][1])
+        prof = device_breakdown(lambda: tr.step("sparse", batch), wall,
+                                tag="moe", what="(a) one step",
+                                focus="cluster")
+        m_in = torch.randn((S, cfg.d_model), device=dev,
+                           dtype=torch.bfloat16, requires_grad=True)
+        g_out = torch.randn((S, cfg.d_model), device=dev,
+                            dtype=torch.bfloat16)
+        topi = tmoe._route(moe.router, m_in.detach(), cfg.moe_top_k)[1]
+        order = torch.sort(topi.reshape(-1), stable=True).indices
+        sizes = torch.bincount(topi.reshape(-1),
+                               minlength=cfg.moe_experts).tolist()
+        xg = m_in.detach()[order // cfg.moe_top_k].requires_grad_()
+        g_xg = torch.randn_like(xg)
+        stacks = [moe.w_gate, moe.w_up, moe.w_down]
+
+        def moe_fwd():
+            return tmoe.moe_tokens(moe, cfg, m_in)[0]
+
+        def experts_fwd():
+            return tmoe._expert_ffn(xg, sizes, *stacks)
+        with torch.no_grad():
+            moe_f = cuda_ms(moe_fwd, 3)
+            exp_f = cuda_ms(experts_fwd, 3)
+        moe_fb = cuda_ms(lambda: torch.autograd.grad(
+            moe_fwd(), [m_in, *moe.parameters()], g_out), 3)
+        exp_fb = cuda_ms(lambda: torch.autograd.grad(
+            experts_fwd(), [xg, *stacks], g_xg), 3)
+        shares = {"adamw_ms": adamw_ms, "moe_fwd_ms": moe_f,
+                  "moe_fwd_bwd_ms": moe_fb, "experts_fwd_ms": exp_f,
+                  "experts_fwd_bwd_ms": exp_fb, "step_wall_ms": wall,
+                  "moe_share": (moe_f + moe_fb) / wall,
+                  "experts_share": (exp_f + exp_fb) / wall,
+                  "adamw_share": adamw_ms / wall,
+                  "live_experts": sum(1 for n in sizes if n)}
+        log(f"[moe] (a) a step of {wall:.2f} ms: AdamW {adamw_ms:.2f} ms "
+            f"({shares['adamw_share']:.1%}); the MoE op at the step's shape "
+            f"forward {moe_f:.2f} ms, forward+backward {moe_fb:.2f} ms "
+            f"(twice forward and once backward a step: "
+            f"{shares['moe_share']:.1%}); of it the expert loop over "
+            f"{shares['live_experts']} experts {exp_f:.2f} / {exp_fb:.2f} "
+            f"ms ({shares['experts_share']:.1%})")
+        return prof, shares
+
+    a["profile"], a["shares"] = step_shares(tr, model.layers[0].moe, S)
+    rec["a"] = a
+
+    # ------------------------------ (b) the same weights, served as published
+    del tr, task
+    release()
+    model.cfg = cfg.replace(attn_backend=get_config(MOE_ARCH).attn_backend)
+    V = cfg.vocab_size
+    eng, ev = serve_engine(model, MOE_SERVE_MAX_LEN, sparse=False)
+    prompts = [rng.integers(1, V, int(m)).tolist() for m in
+               rng.integers(MOE_SERVE_PROMPT[0], MOE_SERVE_PROMPT[1] + 1,
+                            MOE_SERVE_REQUESTS)]
+    b = serve_engine_run("(b) moe", eng, ev, prompts, MOE_SERVE_NEW,
+                         reset_counts, read_counts, log_tag="moe")
+    # two requests against the contiguous oracle: lm_prefill over the
+    # prompt, then lm_decode_step over the engine's own tokens
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    checks = []
+    for rid in (longest, 0 if longest else 1):
+        prompt, out = prompts[rid], eng.done[rid]
+        rows = []
+        with torch.inference_mode():
+            logits, cache = lm_prefill(
+                model, {"tokens": torch.tensor([prompt], device=dev)},
+                cache_len=len(prompt) + MOE_SERVE_NEW)
+            rows.append(logits[0, 0, :V].float())
+            for i, tok in enumerate(out[:-1]):
+                logits, cache = lm_decode_step(
+                    model, cache, torch.tensor([[tok]], device=dev),
+                    len(prompt) + i)
+                rows.append(logits[0, 0, :V].float())
+        res = margin_check(f"(b) request {rid}", torch.stack(rows), out)
+        res.update(rid=rid, prompt_len=len(prompt))
+        checks.append(res)
+        del cache
+    b["oracle_checks"] = checks
+    log(f"[moe] (b) teacher-forced against lm_prefill + lm_decode_step: "
+        f"{json.dumps(checks)}")
+    rec["b"] = b
+    del eng, ev, model
+    release()
+
+    # --------------------------------- (c) Jamba-v0.1, a quarter of its width
+    jcfg = get_config(JAMBA_ARCH).replace(attn_backend="cluster_sparse",
+                                          **JAMBA_CUT)
+    t0 = time.perf_counter()
+    model = HybridLMModel(jcfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    c = {"init_s": time.perf_counter() - t0, "cut": JAMBA_CUT}
+    n_attn = jcfg.n_layers // jcfg.attn_every
+    dc = LMDataConfig(jcfg.vocab_size, JAMBA_SEQ, JAMBA_BATCH, seed=0)
+    task = BatchFnTask(lambda s: lm_batch(dc, s)).prepare(model)
+    c["op_check"] = op_check("(c) jamba", model, hybrid_loss,
+                             task.batches(0), UNBIASED_NAMES, read_counts,
+                             log_tag="moe")
+    c["step0"] = step_vs_plain("(c) jamba", model, hybrid_loss,
+                               task.batches(0), n_attn,
+                               MAX_ROUTE_FLIPS["(c)"])
+    tr, c["train"] = train("(c) jamba", model, task, JAMBA_STEPS, n_attn,
+                           JAMBA_SEQ, JAMBA_BATCH)
+    del tr, task
+    release()
+
+    # prefill (the attention slot through row 2, without grad) against
+    # 512 decode steps over the same tokens; fp32 held to the reference's
+    # tolerance, bf16 reported
+    Vj = jcfg.vocab_size
+    tok = torch.from_numpy(rng.integers(1, Vj, (1, JAMBA_PREFILL_SEQ))).to(
+        dev)
+    for dtype in ("bfloat16", "float32"):
+        model.cfg = jcfg.replace(dtype=dtype)
+        before = read_counts()
+        with torch.inference_mode():
+            s, e = event_pair()
+            s.record()
+            full, _ = model.prefill({"tokens": tok})
+            e.record()
+            e.synchronize()
+            prefill_ms = s.elapsed_time(e)
+            after = read_counts()
+            cache = model.cache_defs(1, JAMBA_PREFILL_SEQ)
+            s2, e2 = event_pair()
+            s2.record()
+            for i in range(JAMBA_PREFILL_SEQ):
+                out, cache = model.decode(cache, tok[:, i:i + 1], i)
+            e2.record()
+            e2.synchronize()
+        pa = full[0, 0, :Vj].float().cpu().numpy()
+        pb = out[0, 0, :Vj].float().cpu().numpy()
+        outside = np.abs(pa - pb) > TOL_SSM_ATOL + TOL_SSM_RTOL * np.abs(pb)
+        c[dtype] = {"prefill_ms": prefill_ms,
+                    "decode_step_ms": s2.elapsed_time(e2) / JAMBA_PREFILL_SEQ,
+                    "max_abs_err": float(np.abs(pa - pb).max()),
+                    "max_abs_logit": float(np.abs(pa).max()),
+                    "share_outside_tolerance": float(outside.mean()),
+                    "argmax_equal": bool(pa.argmax() == pb.argmax()),
+                    "launched": {k: v - before[k] for k, v in after.items()
+                                 if v != before[k]}}
+        for k, n in c[dtype]["launched"].items():
+            launches[k] += n
+        log(f"[moe] (c) jamba {dtype}: prefill S={JAMBA_PREFILL_SEQ} "
+            f"{prefill_ms:.3f} ms (launched {c[dtype]['launched']}); "
+            f"against {JAMBA_PREFILL_SEQ} decode steps "
+            f"({c[dtype]['decode_step_ms']:.3f} ms a step, eager): max "
+            f"|diff| {c[dtype]['max_abs_err']:.4g} of max |logit| "
+            f"{c[dtype]['max_abs_logit']:.3f}, "
+            f"{100 * c[dtype]['share_outside_tolerance']:.2f}% of logits "
+            f"outside atol {TOL_SSM_ATOL} / rtol {TOL_SSM_RTOL}, argmax "
+            f"equal {c[dtype]['argmax_equal']}")
+        del cache, full, out
+    np.testing.assert_allclose(pa, pb, atol=TOL_SSM_ATOL, rtol=TOL_SSM_RTOL)
+    if not c["float32"]["argmax_equal"]:
+        raise AssertionError(f"(c) jamba fp32 prefill/decode: {c}")
+    rec["c"] = c
+    del model
+    release()
+    rec["launches"] = launches
+    return rec
+
+
+def moe_phase(out_path: str) -> int:
+    """Phase 13, in a child process: the MoE family and the hybrid
+    (``moe_runs``), on an empty card (Qwen3-235B-A22B's one layer holds
+    ~60 GB of training state). Not under deterministic algorithms (the
+    serving pool's scatter). The record goes to ``out_path`` as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 13: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import cluster_attention as tca
+    from repro_torch.kernels import cluster_attention_bwd as tcab
+
+    t_start = time.perf_counter()
+    kbuild.build_all((tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED_SM90,
+                      tca.LIBRARY_UNBIASED))
+    reset_counts, read_counts = kernel_counters()
+    rec = moe_runs(torch.device("cuda"), reset_counts, read_counts)
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(out_path, "w") as fh:
+        json.dump(rec, fh)
+    log(f"[moe] {rec['seconds']:.1f}s, launches "
         f"{ {k: c for k, c in rec['launches'].items() if c} }")
     return 0
 
@@ -2987,7 +3579,8 @@ def main() -> int:
         for (half, (kern, plain)), err in zip(runs.items(), errs):
             r = lm_rec[dt][half] = {"max_abs_err": err}
             r["ms"] = cuda_ms(kern, 5)
-            r["plain_ms"] = cuda_ms(plain, 2)
+            # one call, unwarmed: compare_flash has run it (2-4 s a call)
+            r["plain_ms"] = cuda_ms(plain, 1, warm=False)
             r["bound_ms"], r["bound_by"] = bound_unbiased(half, q, k, lm_bi,
                                                           lm_bit, True)
             log(f"[lm-kernel] training shape {dt} {half}: kernel "
@@ -3402,6 +3995,8 @@ def main() -> int:
         return rec
 
     def train():
+        large = get_config("graphormer_large").replace(
+            n_layers=TRAIN_LAYERS)
         g8 = degree_scaled_sbm(TRAIN_NODES, CLUSTERS, large, seed=0)
         train_mask = np.random.default_rng(0).random(g8.n) < 0.5
         model = GraphModel(large, device=dev, seed=0)
@@ -3461,6 +4056,12 @@ def main() -> int:
         if not tail < min(losses[0], losses[1]):
             raise AssertionError(f"loss did not fall: last 4 mean {tail} vs "
                                  f"steps 0 and 1 {losses[:2]}")
+        # checkpoints at Graphormer-Large's size (phase 10's costs): the
+        # state after the run, saved now, its background write going on
+        # through the checks, profiles and kernel timings below and
+        # phase 6, as an async save runs beside training; then restored
+        # into a fresh Trainer on a model of its own (another seed)
+        ckpt = checkpoint_start(tr, "train")
 
         # the rungs the sparse steps ran on, with the device batches the
         # trainer gave them: the kernels are held to the plain versions on
@@ -3530,30 +4131,28 @@ def main() -> int:
         sb = task._batches_dev[(sparse_bt, 0)]
         sparse_layout = (sb["block_idx"], sb["buckets"])
 
-        # profile one sparse and one dense step, on the active rung
+        # profile one sparse and one dense step, on the active rung: the
+        # sparse one against one unprofiled step's wall, the dense one
+        # against the run's second dense step (step 8)
         batch = task.batches(0)
-        prof = {}
-        for variant in ("sparse", "dense"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr.step(variant, batch)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            prof[variant] = device_breakdown(
-                lambda: tr.step(variant, batch), wall, tag="train",
-                what=f"one {variant} step")
-        # checkpoints at Graphormer-Large's size (phase 10's costs): the
-        # state after the run, restored into a fresh Trainer on a model of
-        # its own (another seed)
-        ckpt_rec = checkpoint_costs(tr, lambda d: Trainer(
-            GraphModel(large, device=dev, seed=1),
-            TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=d), task=task), "train")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step("sparse", batch)
+        torch.cuda.synchronize()
+        walls = {"sparse": (time.perf_counter() - t0) * 1e3,
+                 "dense": hist[8]["seconds"] * 1e3}
+        prof = {variant: device_breakdown(
+            lambda: tr.step(variant, batch), walls[variant], tag="train",
+            what=f"one {variant} step") for variant in ("sparse", "dense")}
+        def ckpt_finish():
+            return checkpoint_finish(ckpt, lambda d: Trainer(
+                GraphModel(large, device=dev, seed=1),
+                TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=d), task=task))
         rec = {"launches": counts, "steps": hist, "moves": [
             vars(m) for m in task.moves], "eval": ev, "run_s": run_s,
             "prep_s": prep_s, "peak_bytes": peak, "checks": checks,
-            "check_peak_bytes": check_peak, "profile": prof,
-            "checkpoint": ckpt_rec}
-        del tr, task, model, batch, params, rb, sb
+            "check_peak_bytes": check_peak, "profile": prof}
+        del tr, model, batch, params, rb, sb
         torch.cuda.empty_cache()
         rec["rung"] = rung_kernels(
             *rung_layout, g8.n + large.n_global,
@@ -3563,9 +4162,9 @@ def main() -> int:
             *sparse_layout, rung_layout[3],
             f"sparse rung beta_thre={sparse_bt:.5f}")
         rec["sparse_rung"]["beta_thre"] = sparse_bt
-        return rec
+        return rec, ckpt_finish
 
-    train_run = train()
+    train_run, train_ckpt_finish = train()
 
     # ---------------------------------------- 6. LM train (slice 3's path)
     log(f"[phase] 6 starts at {time.perf_counter() - t_start:.1f} s")
@@ -3676,6 +4275,9 @@ def main() -> int:
         return rec
 
     lm_run = train_lm()
+    # phase 5's checkpoint, written in the background through phase 6
+    train_run["checkpoint"] = train_ckpt_finish()
+    del train_ckpt_finish
 
     # ------------------------------------ 7. tune (slice 4's main path)
     log(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f} s")
@@ -4022,6 +4624,36 @@ def main() -> int:
 
     serve_lm = serve_lm_run()
 
+    # ----------------- 13. the MoE family and the hybrid (slice 14's path)
+    log(f"[phase] 13 starts at {time.perf_counter() - t_start:.1f} s")
+    def moe_run():
+        """Phase 13 in a child process (``moe_phase``): an empty card for
+        Qwen3-235B-A22B's ~60 GB of training state; it fails on a
+        non-zero exit."""
+        import gc
+        import tempfile
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "moe.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--moe", path],
+                timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 13 (MoE and hybrid) exited "
+                                     f"{proc.returncode}")
+            with open(path) as fh:
+                rec = json.load(fh)
+        rec["wall_s"] = wall
+        log(f"[moe] phase 13 child: {wall:.1f}s of wall")
+        return rec
+
+    moe_rec = moe_run()
+
     # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
     yard8 = yard[str(YARDSTICK_NODES)]
@@ -4111,11 +4743,13 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{line}",
             "launches": (lm_run["launches"][name + "_sm90"]
                          + remat["launches"][name + "_sm90"]
-                         + serve_lm["launches"][name + "_sm90"]),
+                         + serve_lm["launches"][name + "_sm90"]
+                         + moe_rec["launches"][name + "_sm90"]),
             "launches_by_path": {
                 "lm_train": lm_run["launches"][name + "_sm90"],
                 "remat": remat["launches"][name + "_sm90"],
-                "serve_prefill": serve_lm["launches"][name + "_sm90"]},
+                "serve_prefill": serve_lm["launches"][name + "_sm90"],
+                "moe_hybrid": moe_rec["launches"][name + "_sm90"]},
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
@@ -4131,7 +4765,9 @@ def main() -> int:
             **{k: v for k, v in b.items() if k.startswith("ms_without")},
             "source_float32": f"src/repro_torch/kernels/csrc/"
                               f"cluster_attention_unbiased_{src}.cu",
-            "launches_float32": lm_run["launches"][name]})
+            # the LM run's and phase 13's fp32 Jamba prefill
+            "launches_float32": (lm_run["launches"][name]
+                                 + moe_rec["launches"][name])})
     # the flash kernels and the SSD scan: times at full width in bf16,
     # launches from the tune phase, the main path. Rows 7-9 have a
     # kernel for each dtype: `source` is the bf16 tensor-core one, timed
@@ -4225,6 +4861,7 @@ def main() -> int:
             ("cluster_attention_fwd_unbiased", "lm_train", lm_run),
             ("cluster_attention_fwd_unbiased", "remat", remat),
             ("cluster_attention_fwd_unbiased", "serve_lm", serve_lm),
+            ("cluster_attention_fwd_unbiased", "moe_hybrid", moe_rec),
             ("ssd_fwd", "tune", tune_run),
             ("cluster_attention_fwd_b16", "graph_train", graph_runs),
             ("cluster_attention_fwd_b16", "recovery", recovery)):
@@ -4244,4 +4881,6 @@ if __name__ == "__main__":
         sys.exit(remat_phase(sys.argv[2]))
     if sys.argv[1:2] == ["--serve-lm"]:
         sys.exit(serve_lm_phase(sys.argv[2]))
+    if sys.argv[1:2] == ["--moe"]:
+        sys.exit(moe_phase(sys.argv[2]))
     sys.exit(main())

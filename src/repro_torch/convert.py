@@ -1,14 +1,18 @@
 """Parameters of the JAX package -> the port's module state.
 
 The JAX graph model and the JAX LMs keep their parameters as a nested
-dict with the per-layer leaves stacked on a leading ``layers`` axis
-(``nn/param.stack`` in the reference). :func:`params_from_jax` takes such
+dict with the per-layer leaves stacked on a leading ``layers`` axis, the
+hybrid's per-period leaves on a leading ``periods`` axis
+(``nn/param.stack`` in the reference); an LM's leading dense layers
+(``dense_layer_<i>``) are not stacked. :func:`params_from_jax` takes such
 a tree with numpy leaves (``jax.tree.map(np.asarray, params)``) and
 returns the flat state dict of
 :class:`repro_torch.core.graph_model.GraphModel`,
-:class:`repro_torch.models.lm.LMModel` or
-:class:`repro_torch.models.api.SSMLMModel`, with the layer axis unstacked
-into ``layers.<i>.*`` entries. :func:`params_to_jax` is its inverse: the
+:class:`repro_torch.models.lm.LMModel`,
+:class:`repro_torch.models.api.SSMLMModel` or
+:class:`repro_torch.models.hybrid.HybridLMModel`, with the stacked axis
+unstacked into ``layers.<i>.*`` or ``periods.<i>.*`` entries.
+:func:`params_to_jax` is its inverse: the
 port's state dict back to the reference's nested tree, the layout of the
 ``params`` and optimizer-moment subtrees of the checkpoints both packages
 write.
@@ -18,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+STACKED = ("layers", "periods")   # top-level keys with a stacked axis
 
 
 def _flatten(tree, prefix=""):
@@ -37,10 +43,10 @@ def params_from_jax(tree: dict) -> dict:
     state = {}
     for name, arr in _flatten(tree):
         arr = np.array(arr, dtype=np.float32, copy=True)
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
+        top, _, rest = name.partition(".")
+        if top in STACKED:
             for i in range(arr.shape[0]):
-                state[f"layers.{i}.{rest}"] = torch.from_numpy(
+                state[f"{top}.{i}.{rest}"] = torch.from_numpy(
                     np.ascontiguousarray(arr[i]))
         else:
             state[name] = torch.from_numpy(arr)
@@ -50,24 +56,26 @@ def params_from_jax(tree: dict) -> dict:
 def params_to_jax(state: dict) -> dict:
     """``{name: tensor}`` (``named_parameters``, or the optimizer's
     moments under the same names) -> the reference's nested tree:
-    ``layers.<i>.*`` entries stacked on a leading ``layers`` axis, every
-    other name split on ``.`` into nested dicts. Dtypes and devices are
-    kept; stacked leaves are new tensors, the others detached views of
-    the given ones (``ckpt.snapshot`` copies them to the host)."""
+    ``layers.<i>.*`` and ``periods.<i>.*`` entries stacked on a leading
+    ``layers`` or ``periods`` axis, every other name split on ``.`` into
+    nested dicts. Dtypes and devices are kept; stacked leaves are new
+    tensors, the others detached views of the given ones
+    (``ckpt.snapshot`` copies them to the host)."""
     tree: dict = {}
-    per_layer: dict[str, dict[int, torch.Tensor]] = {}
+    stacked: dict[tuple, dict[int, torch.Tensor]] = {}
     for name, t in state.items():
-        if name.startswith("layers."):
-            i, rest = name[len("layers."):].split(".", 1)
-            per_layer.setdefault(rest, {})[int(i)] = t.detach()
+        top, _, rest = name.partition(".")
+        if top in STACKED:
+            i, rest = rest.split(".", 1)
+            stacked.setdefault((top, rest), {})[int(i)] = t.detach()
         else:
             _insert(tree, name.split("."), t.detach())
-    for rest, by_layer in per_layer.items():
-        if sorted(by_layer) != list(range(len(by_layer))):
-            raise ValueError(f"layers of {rest!r} are not 0..n-1: "
-                             f"{sorted(by_layer)}")
-        _insert(tree, ["layers", *rest.split(".")],
-                torch.stack([by_layer[i] for i in range(len(by_layer))]))
+    for (top, rest), by_index in stacked.items():
+        if sorted(by_index) != list(range(len(by_index))):
+            raise ValueError(f"{top} of {rest!r} are not 0..n-1: "
+                             f"{sorted(by_index)}")
+        _insert(tree, [top, *rest.split(".")],
+                torch.stack([by_index[i] for i in range(len(by_index))]))
     return tree
 
 

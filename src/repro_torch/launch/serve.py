@@ -1,11 +1,11 @@
 """Serving CLI on the port — the port of ``repro.launch.serve``.
 
-Token LMs (the dense archs) go through
+Token LMs (the dense and MoE archs) go through
 :class:`repro_torch.serve.ServeEngine`: chunked prefill + paged KV cache
 + continuous batching, two programs for the engine's life (audited on
 every run), optionally under the TorchGT cluster-sparse decode mask
-(``--sparse``). The SSM arch has no paged serving path and is refused
-here.
+(``--sparse``). The SSM and hybrid archs have no paged serving path and
+are refused here, as in the reference.
 
 Graph archs go through :class:`repro_torch.serve.GraphServe`: the CLI
 builds a degree-scaled SBM graph (expected intra-cluster degree
@@ -15,6 +15,9 @@ forward times.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
       --requests 12 --batch 4 --chunk 16 --page 16 [--sparse] --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3_moe_235b_a22b --requests 6 --batch 2 --chunk 16 \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
       --full --requests 32 --batch 8 --prompt-len 2048 --max-tokens 128 \
       --max-len 4096 --chunk 256
@@ -37,8 +40,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.graph import sbm_graph
 from repro_torch.core.graph_model import GraphModel
-from repro_torch.models.api import SSMLMModel
-from repro_torch.models.lm import LMModel
+from repro_torch.models.api import lm_model_class
 from repro_torch.serve import GraphServe, ServeEngine
 
 
@@ -152,7 +154,7 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family == "graph":
         return serve_graph(cfg, args)
-    model_cls = SSMLMModel if cfg.family == "ssm" else LMModel
+    model_cls = lm_model_class(cfg)
     if model_cls.paged_decode is None:
         # a recurrent decode state is not a positional KV cache — fail
         # at the CLI boundary, before building the model, with the

@@ -1,6 +1,7 @@
 """Training CLI on the port: the graph archs' node, graph-level and link
-tasks, the dense LMs and the SSM LM (the port of ``repro.launch.train``
-without meshes), with checkpoints, restart and the seeded fault plan.
+tasks, the dense and MoE LMs, the SSM LM and the hybrid (the port of
+``repro.launch.train`` without meshes), with checkpoints, restart and
+the seeded fault plan.
 
 Graph archs (``graphormer_slim``, ``graphormer_large``, ``gt``) train one
 task through the :class:`Trainer`, on the reference's synthetic data:
@@ -29,13 +30,17 @@ kernel winner table, ``--tune-table``, every k steps), and prints the
 step it resumed at, the skipped steps, the rollbacks and the run's
 status. Without ``--ckpt-dir`` nothing is saved or restored.
 
-LM archs (``qwen3_0_6b``, ``smollm_135m``, ``qwen3_1_7b``, ``qwen3_4b``
-and the SSM LM ``mamba2_2_7b``): trains the config as published on the
-synthetic token stream of ``data/lm_pipeline.py`` (``--seq`` tokens,
-``--batch`` sequences a step) through :class:`BatchFnTask`, and prints
-the loss every tenth of the run. The published LM configs run dense
-attention; the cluster-sparse backend is
-``cfg.replace(attn_backend="cluster_sparse")``, as in the reference.
+LM archs (the dense ``qwen3_0_6b``, ``smollm_135m``, ``qwen3_1_7b``,
+``qwen3_4b``, the MoE ``qwen3_moe_235b_a22b``, ``kimi_k2_1t_a32b``, the
+SSM LM ``mamba2_2_7b`` and the hybrid ``jamba_v0_1_52b``, each on the
+model class of its family, ``models/api.lm_model_class``): trains the
+config as published on the synthetic token stream of
+``data/lm_pipeline.py`` (``--seq`` tokens, ``--batch`` sequences a step)
+through :class:`BatchFnTask`, and prints the loss every tenth of the
+run, with the cross-entropy and the MoE balance term (``aux``) where the
+family has one. The published LM configs run dense attention; the
+cluster-sparse backend is ``cfg.replace(attn_backend="cluster_sparse")``,
+as in the reference.
 Every family recomputes its layers in the backward as ``cfg.remat``
 says (the configs' default is ``"block"``).
 
@@ -52,6 +57,11 @@ says (the configs' default is ``"block"``).
       --smoke --steps 20 --seq 128 --batch 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_2_7b \\
       --smoke --steps 6 --seq 64 --batch 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen3_moe_235b_a22b --smoke --steps 6 --seq 64 --batch 2 \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba_v0_1_52b \\
+      --smoke --steps 6 --seq 64 --batch 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gt --smoke \\
       --task graph --graphs 8 --batch-graphs 4 --steps 6 --device cpu \\
       --ckpt-dir _local/ck --ckpt-every 2 --fault-plan nonfinite@2
@@ -65,8 +75,7 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.graph import sbm_graph
 from repro_torch.core.graph_model import GraphModel
 from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
-from repro_torch.models.api import SSMLMModel
-from repro_torch.models.lm import LMModel
+from repro_torch.models.api import lm_model_class
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.tasks import (BatchFnTask, GraphLevelTask, LinkTask,
                                NodeTask, synthetic_graph_level_dataset)
@@ -191,10 +200,8 @@ def _make_graph_task(args, cfg, device):
 
 
 def _lm_main(args, cfg):
-    if cfg.family == "ssm":
-        model, mixer = SSMLMModel(cfg, device=args.device), "ssm"
-    else:
-        model, mixer = LMModel(cfg, device=args.device), cfg.attn_backend
+    model = lm_model_class(cfg)(cfg, device=args.device)
+    mixer = "ssm" if cfg.family == "ssm" else cfg.attn_backend
     n_params = sum(p.numel() for p in model.parameters())
     print(f"arch={cfg.name} params={n_params:,} device={model.device} "
           f"attn_backend={mixer} remat={cfg.remat} seq={args.seq} "
@@ -211,7 +218,9 @@ def _lm_main(args, cfg):
         return trainer
     _print_recovery(trainer)
     for h in hist[:: max(1, len(hist) // 10)]:
-        print(f"step {h['step']:4d} loss {h['loss']:.4f} "
+        extra = "".join(f" {k} {h[k]:.4f}" for k in ("xent", "aux")
+                        if k in h and "aux" in h)
+        print(f"step {h['step']:4d} loss {h['loss']:.4f}{extra} "
               f"{h['seconds'] * 1e3:.0f}ms")
     print(f"status={status} final_loss={hist[-1]['loss']:.4f}")
     return trainer

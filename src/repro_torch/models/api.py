@@ -14,6 +14,10 @@ logits of the full forward, and no cache, as the reference's
 state is no positional KV cache, so the model has no paged serving
 path: its ``prefill_chunk``, ``paged_decode`` and ``paged_cache_defs``
 are None, as the reference's ``Model`` fields are.
+
+``lm_model_class`` picks the port's model class of a token-LM config by
+its family, as the reference's ``build`` does: ``SSMLMModel``,
+``models/hybrid.HybridLMModel`` or ``models/lm.LMModel``.
 """
 
 from __future__ import annotations
@@ -97,6 +101,17 @@ class SSMLMModel(nn.Module):
     def cache_defs(self, batch: int, seq_len: int) -> dict:
         """Zeroed caches on the model's device: :func:`ssm_cache_defs`."""
         return ssm_cache_defs(self.cfg, batch, seq_len, device=self.device)
+
+
+def lm_model_class(cfg) -> type:
+    """The model class of a token-LM config's family: ``ssm`` ->
+    :class:`SSMLMModel`, ``hybrid`` -> ``HybridLMModel``, anything else ->
+    ``LMModel`` (which raises for the families it does not hold)."""
+    from repro_torch.models.hybrid import HybridLMModel
+    from repro_torch.models.lm import LMModel
+
+    return {"ssm": SSMLMModel, "hybrid": HybridLMModel}.get(cfg.family,
+                                                            LMModel)
 
 
 def _layer(layer: SSMLayer, h, cfg):

@@ -96,6 +96,25 @@ class Attention(nn.Module):
             self.k_norm = nn.Parameter(torch.ones(Dh, device=device))
 
 
+def attention_defs(cfg, prefix: str) -> dict:
+    """``{prefix + name: (shape, init)}`` of one attention block."""
+    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    defs = {"wq": ((D, H, Dh), "fan_in"), "wk": ((D, KV, Dh), "fan_in"),
+            "wv": ((D, KV, Dh), "fan_in"), "wo": ((H, Dh, D), "fan_in")}
+    if cfg.qk_norm:
+        defs.update(q_norm=((Dh,), "ones"), k_norm=((Dh,), "ones"))
+    return {prefix + k: v for k, v in defs.items()}
+
+
+def mlp_defs(cfg, prefix: str, d_ff: int = 0) -> dict:
+    """``{prefix + name: (shape, init)}`` of one SwiGLU MLP of width
+    ``d_ff`` (default ``cfg.d_ff``)."""
+    D, FF = cfg.d_model, d_ff or cfg.d_ff
+    return {prefix + "w_gate": ((D, FF), "fan_in"),
+            prefix + "w_up": ((D, FF), "fan_in"),
+            prefix + "w_down": ((FF, D), "fan_in")}
+
+
 def _proj(x, w):
     """x (B, S, D) @ w (D, ...) -> (B, S, ...) in x's dtype."""
     out = x @ w.to(x.dtype).reshape(w.shape[0], -1)
@@ -123,9 +142,11 @@ def out_proj(p: Attention, x):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg, *, device=None):
+    """SwiGLU weights of width ``d_ff`` (default ``cfg.d_ff``)."""
+
+    def __init__(self, cfg, d_ff: int = 0, *, device=None):
         super().__init__()
-        D, FF = cfg.d_model, cfg.d_ff
+        D, FF = cfg.d_model, d_ff or cfg.d_ff
         self.w_gate = nn.Parameter(torch.empty(D, FF, device=device))
         self.w_up = nn.Parameter(torch.empty(D, FF, device=device))
         self.w_down = nn.Parameter(torch.empty(FF, D, device=device))
@@ -337,21 +358,26 @@ def chunked_softmax_xent(p: Embedding, cfg, h, labels, chunk: int = 512):
 def _save_unbatched_products(ctx, op, *args, **kwargs):
     """The policy of ``remat="dots"``, the counterpart of
     ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
-    the un-batched products. The projections and the MLP are
-    ``(B, S, D) @ (D, N)``, which matmul folds into one ``mm``; the score
-    products are ``bmm`` (or a kernel) and get recomputed."""
+    the un-batched products. The projections, the MLP and the experts'
+    products are ``(B, S, D) @ (D, N)``, which matmul folds into one
+    ``mm``; the score products are ``bmm`` (or a kernel) and get
+    recomputed. The router's logits are such a product, so the
+    recomputation routes every token as the forward did."""
     return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def maybe_remat(fn, cfg):
+def maybe_remat(fn, cfg, contexts=None):
     """``fn`` under the recomputation ``cfg.remat`` names, the port of the
     reference's ``_maybe_remat``: ``"none"`` -> ``fn`` itself; ``"dots"``
     -> a selective checkpoint that keeps the un-batched products' outputs;
-    anything else -> a checkpoint of the whole of ``fn``. With grad
-    disabled (serving, evaluation) there is nothing to keep, and ``fn``
-    runs as it is. Non-reentrant checkpoints, so the first pass runs with
-    grad enabled and takes the ops' autograd branch, as the recomputation
+    anything else -> a checkpoint of the whole of ``fn``, run under
+    ``contexts`` (a checkpoint's ``context_fn``) where the caller gives
+    one: a model with experts passes ``moe.routing_contexts``, so that
+    the recomputation routes as the forward did. With grad disabled
+    (serving, evaluation) there is nothing to keep, and ``fn`` runs as it
+    is. Non-reentrant checkpoints, so the first pass runs with grad
+    enabled and takes the ops' autograd branch, as the recomputation
     does. No layer draws random numbers, so the RNG state is not saved
     and restored around the recomputation."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
@@ -360,14 +386,17 @@ def maybe_remat(fn, cfg):
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_unbatched_products)
+    elif contexts is not None:
+        kw["context_fn"] = contexts
     return functools.partial(checkpoint, fn, use_reentrant=False,
                              preserve_rng_state=False, **kw)
 
 
 def _def_name(name: str) -> str:
-    """``layers.3.attn.wq`` -> ``layers.attn.wq``."""
+    """``layers.3.attn.wq`` -> ``layers.attn.wq`` (and ``periods.1.*`` ->
+    ``periods.*``, the hybrid's stacked periods)."""
     parts = name.split(".")
-    if parts[0] == "layers":
+    if parts[0] in ("layers", "periods"):
         del parts[1]
     return ".".join(parts)
 
@@ -375,8 +404,9 @@ def _def_name(name: str) -> str:
 @torch.no_grad()
 def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
     """Initialise ``model``'s parameters from ``defs`` (``{name: (shape,
-    init)}``, per layer for ``layers.*`` names), drawn on the CPU in
-    registration order so the weights do not depend on the device. The
+    init)}``, per layer for ``layers.*`` names and per period for
+    ``periods.*`` names), drawn on the CPU in registration order so the
+    weights do not depend on the device. The
     init families are the reference's: ``fan_in`` is a normal scaled by
     ``shape[0] ** -0.5``, ``normal``/``embed`` a normal scaled by 0.02;
     a float ``init`` is a normal of that scale; the random numbers are

@@ -1,6 +1,15 @@
-"""Decoder-only LM of the dense family (llama / qwen3) on the port — the
-port of ``repro.models.lm``'s training path (``lm_defs``, ``attn_apply``
-in its mesh-free branch, ``lm_forward``, ``lm_loss``).
+"""Decoder-only LM of the dense and MoE families (llama / qwen3,
+qwen3-moe / kimi-k2) on the port — the port of ``repro.models.lm``
+(``lm_defs``, ``attn_apply`` in its mesh-free branch, ``lm_forward``,
+``lm_loss`` and the serving half).
+
+With ``cfg.moe_experts`` every layer of ``layers.*`` runs the MoE FFN of
+``models/moe.py`` (``cfg.moe_every`` is the hybrid's and is ignored here,
+as in the reference), and ``cfg.n_dense_layers`` leading layers
+``dense_layer_<i>`` run an MLP of width ``cfg.dense_d_ff or cfg.d_ff``
+before them, outside the layers' recomputation, as in the reference.
+The forward's aux loss is the MoE balance term summed over the layers
+and divided by ``n_layers`` (0 for a dense model).
 
 Attention dispatches as the reference's does:
 
@@ -19,11 +28,11 @@ transposed form for the dK/dV backward (``LMModel.layout``).
 Each layer runs under the reference's recomputation (``_maybe_remat``),
 read from ``cfg.remat`` when grad is enabled (``layers.maybe_remat``):
 ``"none"`` keeps every activation; ``"dots"`` keeps the outputs of the
-un-batched products (the projections and the MLP) and recomputes the
-rest, the attention op included; any other value keeps only the layer's
-input and recomputes the whole layer in the backward. Under
-recomputation each attention forward kernel launches twice per layer
-and step, the dQ and dK/dV kernels once.
+un-batched products (the projections, the MLP and the experts' products)
+and recomputes the rest, the attention op included; any other value
+keeps only the layer's input and recomputes the whole layer in the
+backward. Under recomputation each attention forward kernel launches
+twice per layer and step, the dQ and dK/dV kernels once.
 
 Serving, the port of the reference's decode half (no grad, so no
 recomputation and the cluster op's forward only):
@@ -41,13 +50,16 @@ recomputation and the cluster op's forward only):
   ``lm_paged_decode_step`` (a batch of slots, each at its own position),
   both through ``kernels/ops.paged_attention``.
 
-The caches are written in place: the decode steps and the prefill chunk
-return the caches they were given, whose rows they have overwritten.
+The caches and pools hold ``{"layers": {"k", "v"}}`` stacked on a leading
+layer axis, and one ``{"k", "v"}`` entry of each leading dense layer
+under ``dense_layer_<i>``, the reference's tree. They are written in
+place: the decode steps and the prefill chunk return the caches they
+were given, whose rows they have overwritten.
 
-Not ported, each raising ``NotImplementedError`` naming its
-``ROADMAP.md`` item: MoE, VLM and the leading dense layers of
-``n_dense_layers`` (A10). There is no mesh, so no Ulysses or
-sequence-parallel attention (A8).
+Not ported, each raising naming its ``ROADMAP.md`` item: the VLM and
+encoder-decoder families (A10); the hybrid is ``models/hybrid.py``'s
+model and the SSM ``models/api.py``'s. There is no mesh, so no Ulysses
+or sequence-parallel attention and no expert parallelism (A8).
 """
 
 from __future__ import annotations
@@ -62,75 +74,98 @@ from repro_torch.core.reformation import lm_local_global_layout
 from repro_torch.device import resolve
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models.moe import (MoE, moe_apply, moe_defs,
+                                    routing_contexts)
 
 LM_BLOCK = 128      # bq = bk of the local+global layout (reference lm.py)
 
 
+def _layer_defs(cfg, prefix: str, moe: bool) -> dict:
+    """One decoder layer's defs: attention, and the MoE FFN or an MLP of
+    width ``cfg.dense_d_ff or cfg.d_ff`` (the reference's
+    ``_layer_defs``)."""
+    D = cfg.d_model
+    defs = {prefix + "attn_norm.scale": ((D,), "ones"),
+            **L.attention_defs(cfg, prefix + "attn."),
+            prefix + "mlp_norm.scale": ((D,), "ones")}
+    if moe:
+        defs.update({f"{prefix}moe.{k}": v
+                     for k, v in moe_defs(cfg).items()})
+    else:
+        defs.update(L.mlp_defs(cfg, prefix + "mlp.", cfg.dense_d_ff))
+    return defs
+
+
 def lm_defs(cfg) -> dict:
-    """``{name: (shape, init)}`` of every parameter of a dense LM, per
-    layer for the ``layers.*`` entries: the reference's ``lm_defs``
+    """``{name: (shape, init)}`` of every parameter of a dense or MoE LM,
+    per layer for the ``layers.*`` entries: the reference's ``lm_defs``
     names and shapes."""
-    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    FF, Vp = cfg.d_ff, cfg.vocab_padded
-    defs = {
-        "embed.tok": ((Vp, D), "embed"),
-        "final_norm.scale": ((D,), "ones"),
-        "layers.attn_norm.scale": ((D,), "ones"),
-        "layers.attn.wq": ((D, H, Dh), "fan_in"),
-        "layers.attn.wk": ((D, KV, Dh), "fan_in"),
-        "layers.attn.wv": ((D, KV, Dh), "fan_in"),
-        "layers.attn.wo": ((H, Dh, D), "fan_in"),
-        "layers.mlp_norm.scale": ((D,), "ones"),
-        "layers.mlp.w_gate": ((D, FF), "fan_in"),
-        "layers.mlp.w_up": ((D, FF), "fan_in"),
-        "layers.mlp.w_down": ((FF, D), "fan_in"),
-    }
+    D, Vp = cfg.d_model, cfg.vocab_padded
+    defs = {"embed.tok": ((Vp, D), "embed"),
+            "final_norm.scale": ((D,), "ones"),
+            **_layer_defs(cfg, "layers.", bool(cfg.moe_experts))}
+    for i in range(cfg.n_dense_layers):
+        defs.update(_layer_defs(cfg, f"dense_layer_{i}.", False))
     if not cfg.tie_embeddings:
         defs["embed.unembed"] = ((D, Vp), "fan_in")
-    if cfg.qk_norm:
-        defs["layers.attn.q_norm"] = ((Dh,), "ones")
-        defs["layers.attn.k_norm"] = ((Dh,), "ones")
     return defs
 
 
 class LMLayer(nn.Module):
-    def __init__(self, cfg, *, device=None):
+    """Pre-norm attention and an FFN: the MoE (``moe``) when ``moe``,
+    else an MLP (``mlp``) of width ``cfg.dense_d_ff or cfg.d_ff``."""
+
+    def __init__(self, cfg, *, moe: bool = False, device=None):
         super().__init__()
         self.attn_norm = L.RMSNorm(cfg.d_model, device=device)
         self.attn = L.Attention(cfg, device=device)
         self.mlp_norm = L.RMSNorm(cfg.d_model, device=device)
-        self.mlp = L.MLP(cfg, device=device)
+        if moe:
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.mlp = L.MLP(cfg, cfg.dense_d_ff, device=device)
+
+
+def _check_attn_backend(cfg) -> None:
+    if cfg.attn_backend not in ("dense", "cluster_sparse"):
+        raise ValueError(f"attn_backend {cfg.attn_backend!r} not in "
+                         f"('dense', 'cluster_sparse')")
 
 
 class LMModel(nn.Module):
-    """A dense decoder-only LM with the reference's parameter names and
-    shapes, so a JAX parameter tree loads through
+    """A dense or MoE decoder-only LM with the reference's parameter names
+    and shapes, so a JAX parameter tree loads through
     ``convert.params_from_jax``. ``seed`` drives the port's own init."""
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.family == "ssm":
-            raise ValueError(f"{cfg.name}: the ssm family is "
-                             f"models/api.SSMLMModel, not LMModel")
-        if cfg.family != "dense" or cfg.moe_experts or cfg.frontend:
+        if cfg.family in ("ssm", "hybrid"):
+            where = ("models/api.SSMLMModel" if cfg.family == "ssm" else
+                     "models/hybrid.HybridLMModel")
+            raise ValueError(f"{cfg.name}: the {cfg.family} family is "
+                             f"{where}, not LMModel")
+        if cfg.family not in ("dense", "moe") or cfg.frontend:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family (MoE, VLM, hybrid, "
-                f"enc-dec) is not ported yet (ROADMAP.md A10)")
-        if cfg.n_dense_layers or cfg.dense_d_ff:
-            raise NotImplementedError(
-                f"{cfg.name}: leading dense layers (n_dense_layers, "
-                f"dense_d_ff) are not ported yet (ROADMAP.md A10)")
-        if cfg.attn_backend not in ("dense", "cluster_sparse"):
-            raise ValueError(f"attn_backend {cfg.attn_backend!r} not in "
-                             f"('dense', 'cluster_sparse')")
+                f"{cfg.name}: the {cfg.family} family (VLM, enc-dec) is "
+                f"not ported yet (ROADMAP.md A10)")
+        _check_attn_backend(cfg)
         dev = resolve(device)
         self.cfg = cfg
         self.embed = L.Embedding(cfg, device=dev)
         self.final_norm = L.RMSNorm(cfg.d_model, device=dev)
-        self.layers = nn.ModuleList(LMLayer(cfg, device=dev)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            LMLayer(cfg, moe=bool(cfg.moe_experts), device=dev)
+            for _ in range(cfg.n_layers - cfg.n_dense_layers))
+        for i in range(cfg.n_dense_layers):
+            setattr(self, f"dense_layer_{i}", LMLayer(cfg, device=dev))
         self.reset_parameters(seed)
         self._layouts = {}
+
+    @property
+    def dense_layers(self) -> list:
+        """The leading dense layers, in order."""
+        return [getattr(self, f"dense_layer_{i}")
+                for i in range(self.cfg.n_dense_layers)]
 
     @property
     def device(self) -> torch.device:
@@ -214,10 +249,19 @@ def attention_fn(model: LMModel, S: int, impl: str | None = None):
         chunk_k=cfg.attn_chunk_k)
 
 
+def ffn(layer, cfg, m):
+    """The layer's FFN on the normed residual ``m``: ``(y, aux)``, the
+    MoE's balance term or 0 for an MLP."""
+    if hasattr(layer, "moe"):
+        return moe_apply(layer.moe, cfg, m)
+    return L.mlp(layer.mlp, m), 0.0
+
+
 def _layer(layer: LMLayer, h, kv, cfg, pos, attn):
-    """One decoder layer: pre-norm attention and SwiGLU MLP, residual.
-    ``kv``, a pair of cache views ``(B, >= S, KV, Dh)`` or None, receives
-    the layer's k and v (in the caches' dtype, without grad)."""
+    """One decoder layer: pre-norm attention and the FFN, residual:
+    ``(h, aux)``. ``kv``, a pair of cache views ``(B, >= S, KV, Dh)`` or
+    None, receives the layer's k and v (in the caches' dtype, without
+    grad)."""
     a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
     q, k, v = L.project_qkv(layer.attn, cfg, a, pos)
     if kv is not None:
@@ -225,8 +269,8 @@ def _layer(layer: LMLayer, h, kv, cfg, pos, attn):
         kv[0][:, :S] = k.detach()
         kv[1][:, :S] = v.detach()
     h = h + L.out_proj(layer.attn, attn(q, k, v))
-    m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
-    return h + L.mlp(layer.mlp, m)
+    y, aux = ffn(layer, cfg, L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps))
+    return h + y, aux
 
 
 def _rotation(cfg, pos):
@@ -237,30 +281,54 @@ def _rotation(cfg, pos):
         if cfg.rope_theta else pos
 
 
+def _stacked_kv(cache: dict, i: int):
+    """Layer ``i``'s ``(k, v)`` views of a cache or pool tree."""
+    return cache["layers"]["k"][i], cache["layers"]["v"][i]
+
+
+def _all_layers(model: LMModel, cache: dict):
+    """``(layer, k, v)`` of every layer in order, the leading dense layers
+    first, with its views of ``cache``."""
+    for i, layer in enumerate(model.dense_layers):
+        c = cache[f"dense_layer_{i}"]
+        yield layer, c["k"], c["v"]
+    for i, layer in enumerate(model.layers):
+        yield (layer, *_stacked_kv(cache, i))
+
+
 def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
                return_kv: bool = False, cache_len: int | None = None):
     """-> (final hidden states (B, S, D) after the final norm, aux loss),
     and with ``return_kv`` also the caches: every layer's k and v in bf16
     (``lm_cache_defs``'s layout, ``cache_len`` rows, default S, the rows
     past S zero). ``batch["tokens"]`` is (B, S) int on the model's
-    device. The aux loss is the MoE balance term: 0 for a dense model, as
-    in the reference."""
+    device. The aux loss is the MoE balance term summed over the layers
+    and divided by ``n_layers``: 0 for a dense model, as in the
+    reference. The leading dense layers run outside the recomputation,
+    as the reference's do."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
     tokens = batch["tokens"]
     h = L.embed_tokens(model.embed, tokens, dtype)
     B, S = tokens.shape
     pos = _rotation(cfg, torch.arange(S, device=tokens.device))
-    body = L.maybe_remat(functools.partial(
-        _layer, cfg=cfg, pos=pos, attn=attention_fn(model, S, impl)), cfg)
+    layer_fn = functools.partial(_layer, cfg=cfg, pos=pos,
+                                 attn=attention_fn(model, S, impl))
+    body = L.maybe_remat(layer_fn, cfg, routing_contexts
+                         if cfg.moe_experts else None)
     caches = lm_cache_defs(cfg, B, cache_len or S, device=tokens.device) \
         if return_kv else None
-    for i, layer in enumerate(model.layers):
-        kv = None if caches is None else (caches["layers"]["k"][i],
-                                          caches["layers"]["v"][i])
-        h = body(layer, h, kv)
-    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     aux = torch.zeros((), device=h.device)
+    for i, layer in enumerate(model.dense_layers):
+        kv = None if caches is None else (caches[f"dense_layer_{i}"]["k"],
+                                          caches[f"dense_layer_{i}"]["v"])
+        h, _ = layer_fn(layer, h, kv)
+    for i, layer in enumerate(model.layers):
+        kv = None if caches is None else _stacked_kv(caches, i)
+        h, a = body(layer, h, kv)
+        aux = aux + a
+    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+    aux = aux / max(cfg.n_layers, 1)
     return (h, aux, caches) if return_kv else (h, aux)
 
 
@@ -280,13 +348,27 @@ def _zeros_bf16(shape, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.bfloat16, device=device)
 
 
+def _kv_tree(cfg, rows: tuple, device) -> dict:
+    """Zeroed bf16 ``{"layers": {"k", "v"}}`` of shape ``(n_scan, *rows,
+    KV, Dh)``, and ``dense_layer_<i>: {"k", "v"}`` of ``(*rows, KV, Dh)``
+    for each leading dense layer: the reference's cache tree."""
+    one = (*rows, cfg.kv_heads, cfg.head_dim)
+    n_scan = cfg.n_layers - cfg.n_dense_layers
+    tree = {"layers": {"k": _zeros_bf16((n_scan, *one), device),
+                       "v": _zeros_bf16((n_scan, *one), device)}}
+    for i in range(cfg.n_dense_layers):
+        tree[f"dense_layer_{i}"] = {"k": _zeros_bf16(one, device),
+                                    "v": _zeros_bf16(one, device)}
+    return tree
+
+
 def lm_cache_defs(cfg, batch: int, seq_len: int, *, device="cpu") -> dict:
     """Zeroed contiguous decode caches on ``device``: ``{"layers": {"k",
-    "v"}}``, each ``(n_layers, batch, seq_len, KV, Dh)`` bf16, the
-    reference's ``lm_cache_defs`` with its layer axis stacked."""
-    shape = (cfg.n_layers, batch, seq_len, cfg.kv_heads, cfg.head_dim)
-    return {"layers": {"k": _zeros_bf16(shape, device),
-                       "v": _zeros_bf16(shape, device)}}
+    "v"}}``, each ``(n_layers - n_dense_layers, batch, seq_len, KV, Dh)``
+    bf16, and ``dense_layer_<i>: {"k", "v"}`` of ``(batch, seq_len, KV,
+    Dh)``: the reference's ``lm_cache_defs`` with its layer axis
+    stacked."""
+    return _kv_tree(cfg, (batch, seq_len), device)
 
 
 def lm_prefill(model: LMModel, batch: dict, *, impl: str | None = None,
@@ -307,18 +389,24 @@ def _sparse_mask(cfg, sparse: bool):
     return (cfg.window, cfg.n_global) if sparse else (0, 0)
 
 
-def _layer_decode(layer: LMLayer, h, cfg, ck, cv, idx, rot, mask):
-    """One layer of contiguous decode: h (B, 1, D); writes the new k/v row
-    at position ``idx`` ((1,) int64 on the device) of the layer's caches
+def attn_decode(attn: L.Attention, cfg, a, ck, cv, idx, rot, mask):
+    """Attention of one decode token: a (B, 1, D), normed; writes its k/v
+    row at position ``idx`` ((1,) int64 on the device) of the caches
     ``ck``/``cv`` (B, S, KV, Dh) in place, cast to their dtype, then
-    attends over them under ``mask``."""
-    a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
-    q, k, v = L.project_qkv(layer.attn, cfg, a, rot)
+    attends over them under ``mask`` (the reference's ``attn_decode``)."""
+    q, k, v = L.project_qkv(attn, cfg, a, rot)
     ck.index_copy_(1, idx, k.to(ck.dtype))
     cv.index_copy_(1, idx, v.to(cv.dtype))
-    h = h + L.out_proj(layer.attn, L.masked_attention(q, ck, cv, mask))
-    m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
-    return h + L.mlp(layer.mlp, m)
+    return L.out_proj(attn, L.masked_attention(q, ck, cv, mask))
+
+
+def _layer_decode(layer: LMLayer, h, cfg, ck, cv, idx, rot, mask):
+    """One layer of contiguous decode: h (B, 1, D), the layer's caches
+    written in place (:func:`attn_decode`)."""
+    a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
+    h = h + attn_decode(layer.attn, cfg, a, ck, cv, idx, rot, mask)
+    y, _ = ffn(layer, cfg, L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps))
+    return h + y
 
 
 def lm_decode_step(model: LMModel, cache: dict, tokens, pos, *,
@@ -332,16 +420,15 @@ def lm_decode_step(model: LMModel, cache: dict, tokens, pos, *,
     decode mask."""
     cfg = model.cfg
     dev = tokens.device
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
     window, n_global = _sparse_mask(cfg, sparse)
     idx = pos.reshape(1) if torch.is_tensor(pos) else torch.full(
         (1,), int(pos), device=dev)
     rot = _rotation(cfg, idx[None])
-    mask = L.attention_mask(ck.shape[2], idx + 1, window=window,
-                            n_global=n_global, device=dev)
+    mask = L.attention_mask(cache["layers"]["k"].shape[2], idx + 1,
+                            window=window, n_global=n_global, device=dev)
     h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype))
-    for i, layer in enumerate(model.layers):
-        h = _layer_decode(layer, h, cfg, ck[i], cv[i], idx, rot, mask)
+    for layer, ck, cv in _all_layers(model, cache):
+        h = _layer_decode(layer, h, cfg, ck, cv, idx, rot, mask)
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     return L.logits_fn(model.embed, cfg, h), cache
 
@@ -351,14 +438,14 @@ def lm_decode_step(model: LMModel, cache: dict, tokens, pos, *,
 def lm_paged_cache_defs(cfg, num_blocks: int, page: int, *,
                         device="cpu") -> dict:
     """The serving engine's zeroed paged KV pool on ``device``:
-    ``{"layers": {"k", "v"}}``, each ``(n_layers, num_blocks, page, KV,
-    Dh)`` bf16, shared by every request; per-request block tables map
-    logical positions onto its blocks (``serve/``). Physical block 0 is
-    the engine's scratch sink for idle decode slots and chunk padding:
-    the allocator never hands it to a request."""
-    shape = (cfg.n_layers, num_blocks, page, cfg.kv_heads, cfg.head_dim)
-    return {"layers": {"k": _zeros_bf16(shape, device),
-                       "v": _zeros_bf16(shape, device)}}
+    ``{"layers": {"k", "v"}}``, each ``(n_layers - n_dense_layers,
+    num_blocks, page, KV, Dh)`` bf16, and ``dense_layer_<i>: {"k", "v"}``
+    of ``(num_blocks, page, KV, Dh)``, shared by every request;
+    per-request block tables map logical positions onto its blocks
+    (``serve/``). Physical block 0 is the engine's scratch sink for idle
+    decode slots and chunk padding: the allocator never hands it to a
+    request."""
+    return _kv_tree(cfg, (num_blocks, page), device)
 
 
 def _pool_scatter(pk, pv, k_rows, v_rows, flat):
@@ -383,8 +470,8 @@ def _layer_paged(layer: LMLayer, h, cfg, pk, pv, rot, flat, block_tables,
     o = kops.paged_attention(q, pk, pv, block_tables, cache_len,
                              q_offset=q_offset, mask=mask)
     h = h + L.out_proj(layer.attn, o)
-    m = L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps)
-    return h + L.mlp(layer.mlp, m)
+    y, _ = ffn(layer, cfg, L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps))
+    return h + y
 
 
 def lm_paged_decode_step(model: LMModel, pool: dict, tokens, pos,
@@ -396,8 +483,7 @@ def lm_paged_decode_step(model: LMModel, pool: dict, tokens, pos,
     pool)``, the pool written in place. Shapes are independent of every
     request's length, so the engine calls it with one signature."""
     cfg = model.cfg
-    pk, pv = pool["layers"]["k"], pool["layers"]["v"]
-    page, nmax = pk.shape[2], block_tables.shape[1]
+    page, nmax = pool["layers"]["k"].shape[2], block_tables.shape[1]
     window, n_global = _sparse_mask(cfg, sparse)
     blk = block_tables.gather(1, (pos // page)[:, None])[:, 0]
     flat = blk * page + pos % page
@@ -406,9 +492,9 @@ def lm_paged_decode_step(model: LMModel, pool: dict, tokens, pos,
     mask = L.attention_mask(nmax * page, cache_len, window=window,
                             n_global=n_global, device=tokens.device)
     h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype))
-    for i, layer in enumerate(model.layers):
-        h = _layer_paged(layer, h, cfg, pk[i], pv[i], rot, flat,
-                         block_tables, cache_len, None, mask)
+    for layer, pk, pv in _all_layers(model, pool):
+        h = _layer_paged(layer, h, cfg, pk, pv, rot, flat, block_tables,
+                         cache_len, None, mask)
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     return L.logits_fn(model.embed, cfg, h), pool
 
@@ -427,8 +513,7 @@ def lm_prefill_chunk(model: LMModel, pool: dict, tokens, offset: int,
     constants, so every chunk of every prompt has one signature."""
     cfg = model.cfg
     dev = tokens.device
-    pk, pv = pool["layers"]["k"], pool["layers"]["v"]
-    page, nmax = pk.shape[2], block_tables.shape[1]
+    page, nmax = pool["layers"]["k"].shape[2], block_tables.shape[1]
     offset, length = int(offset), int(length)
     window, n_global = _sparse_mask(cfg, sparse)
     tpos = torch.arange(offset, offset + tokens.shape[1], device=dev)
@@ -440,9 +525,9 @@ def lm_prefill_chunk(model: LMModel, pool: dict, tokens, offset: int,
     mask = L.attention_mask(nmax * page, cache_len, tpos[None],
                             window=window, n_global=n_global, device=dev)
     h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype))
-    for i, layer in enumerate(model.layers):
-        h = _layer_paged(layer, h, cfg, pk[i], pv[i], rot, flat,
-                         block_tables, cache_len, offset, mask)
+    for layer, pk, pv in _all_layers(model, pool):
+        h = _layer_paged(layer, h, cfg, pk, pv, rot, flat, block_tables,
+                         cache_len, offset, mask)
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     last = h[:, max(length - 1, 0):max(length, 1)]
     return L.logits_fn(model.embed, cfg, last), pool

@@ -132,8 +132,8 @@ class _Program:
 
 class ServeEngine:
     """Continuous-batching engine over the paged-KV serving path of a
-    dense token LM (``models/lm.LMModel``); graph archs are served by
-    :class:`repro_torch.serve.graph_serve.GraphServe` instead."""
+    dense or MoE token LM (``models/lm.LMModel``); graph archs are served
+    by :class:`repro_torch.serve.graph_serve.GraphServe` instead."""
 
     def __init__(self, model, *, batch_slots: int = 4, page: int = 16,
                  max_len: int = 256, chunk: int | None = None,
@@ -204,7 +204,7 @@ class ServeEngine:
     def pool_bytes(self) -> int:
         """Device bytes of the paged KV pool."""
         return sum(t.numel() * t.element_size()
-                   for t in self.pool["layers"].values())
+                   for kv in self.pool.values() for t in kv.values())
 
     # ---------------------------------------------------------- admission
 
