@@ -180,7 +180,42 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    65536), one period of 8 layers: its attention op held as in (a),
    step 0 against plain, 3 steps at
    S=2048 x 2, then its prefill at S=512 against 512 decode steps, fp32
-   held to the reference's tolerance, bf16 reported.
+   held to the reference's tolerance, bf16 reported;
+14. the enc-dec and VLM families and AdamW's reduced-precision moments
+   (slice 15's main path), in a child process (``--a10 OUT``): (a)
+   SeamlessM4T-medium as published (12 + 12 layers, d_model 1024, 16
+   heads of 64, d_ff 4096, vocab 256206; 978,384,896 parameters, the
+   seeded init drawn on the CPU and timed) on the cluster-sparse
+   backend under "block", bf16 compute, fp32 parameters and moments: 8
+   utterances of 1024 seeded N(0, 1) frames (the stub frontend's
+   embeddings) and 512 target tokens; layer 0's attention op of the
+   encoder (non-causal, S=1024, a full 8 x 8 layout) and of the decoder
+   (causal, S=512), rows 2, 5 and 6 against their plain versions as in
+   phase 11; step 0 against ``impl="plain"`` (the loss, every
+   gradient's cosine and its norm ratio); 4 steps through
+   ``BatchFnTask`` and ``Trainer``, rows 2, 5 and 6 launched exactly 48,
+   24 and 24 times a step and nothing else; step ms, frames and target
+   tokens a second, peak memory, a profiled step; then the encoder run
+   once into the cross caches and 128 ``encdec_decode_step``s over the
+   batch, the last logits against ``encdec_forward``'s: fp32 (fp32
+   caches) gated at the reference test's atol 0.15 / rtol 0.05 and
+   argmax, bf16 reported; ms a decode step. (b) InternVL2-76B at full
+   width (d_model 8192, 64 heads over 8 of 128, d_ff 28672, vocab
+   128256, 256 patches), its depth cut to 1 of 80 layers (3,028,312,064
+   parameters): batch 1, S = 256 patches + 3840 tokens; its attention
+   op and step 0 held as in (a); from the same init (kept on the card)
+   and batches, 3 steps at a peak learning rate of 3e-4 under each of
+   AdamW's moment dtypes (float32, bfloat16, int8): the losses side by
+   side, peak memory, the update's ms by CUDA events, rows 2, 5 and 6
+   launched 2, 1 and 1 times a step; the bf16 and int8 updates of step 1
+   held to the port's AdamW on the CPU from the same parameters and
+   gradients, on the first 2^20 elements of every reference leaf. Step
+   0's gradients are held to the plain path directly, or, for a
+   gradient whose bf16 plain version is itself that far from the fp32
+   plain one (SeamlessM4T's last encoder layers' wq and wk), by their
+   distance from the fp32 gradient (``FP32_DISTANCE_FACTOR``). The
+   training runs take ``max_bad_steps=0``: no re-init rung, so no host
+   copy of the parameters.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after. Every training path's counts are exact:
@@ -1203,11 +1238,11 @@ def recovery_phase(out_path: str) -> int:
     return 0 if not unrecovered else 1
 
 
-def attention_call(model, loss_fn, batch):
-    """The arguments of the first cluster-attention call of
-    ``loss_fn``'s forward: layer 0's q, k, v and the layout, bias and
-    table the run gives it. Without grad, and the forward stops
-    there."""
+def attention_call(model, loss_fn, batch, nth=0):
+    """The arguments of the ``nth`` cluster-attention call (default the
+    first) of ``loss_fn``'s forward: that layer's q, k, v and the layout,
+    bias and table the run gives it. Without grad (one call a layer), and
+    the forward stops there."""
     import torch
     from repro_torch.kernels import ops as kops
 
@@ -1217,6 +1252,9 @@ def attention_call(model, loss_fn, batch):
         pass
 
     def grab(*args, **kw):
+        if seen.setdefault("calls", 0) < nth:
+            seen["calls"] += 1
+            return real(*args, **kw)
         seen.update(args=args, kw=kw)
         raise Seen
     real = kops.cluster_attention
@@ -1232,8 +1270,9 @@ def attention_call(model, loss_fn, batch):
 
 
 def op_check(tag, model, loss_fn, batch, names, read_counts, seed=0,
-             log_tag="remat"):
-    """The attention op of the run's first layer, on its own q, k, v,
+             log_tag="remat", nth=0):
+    """The attention op of the run's first layer (or of the ``nth``
+    cluster-attention call), on its own q, k, v,
     layout and table: the kernels (``names``: the forward, dQ and
     dK/dV, each launched once) against ``impl="plain"``, the forward
     with O and lse and the autograd backward with a random dO, at the
@@ -1246,7 +1285,7 @@ def op_check(tag, model, loss_fn, batch, names, read_counts, seed=0,
     from repro_torch.kernels import ops as kops
 
     (q, k, v, bi, bu, bias, bit), kw = attention_call(model, loss_fn,
-                                                      batch)
+                                                      batch, nth)
     dev = q.device
     dt = str(q.dtype).split(".")[1]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1280,7 +1319,8 @@ def op_check(tag, model, loss_fn, batch, names, read_counts, seed=0,
                      "H": q.shape[2], "KV": k.shape[2],
                      "Dh": q.shape[3], "nq": bi.shape[-2],
                      "mb": bi.shape[-1],
-                     "active_blocks": int((bi >= 0).sum())},
+                     "active_blocks": int((bi >= 0).sum()),
+                     "causal": kw["causal"]},
            "dtype": dt, "max_abs_err_o": diff.max().item(),
            "o_elem_share": o_share,
            "max_abs_err_lse": (lse - plse).abs().max().item(),
@@ -2804,6 +2844,552 @@ def moe_phase(out_path: str) -> int:
         json.dump(rec, fh)
     log(f"[moe] {rec['seconds']:.1f}s, launches "
         f"{ {k: c for k, c in rec['launches'].items() if c} }")
+    return 0
+
+
+# phase 14: the enc-dec and VLM families and AdamW's reduced-precision
+# moments, in a child process. (a) SeamlessM4T-medium as published (12 +
+# 12 layers, 978,384,896 parameters) on the cluster-sparse backend
+A10_ENCDEC_ARCH = "seamless_m4t_medium"
+A10_ENCDEC_PARAMS = 978_384_896        # the reference's n_params()
+A10_ENCDEC_BATCH = 8                   # utterances a step
+A10_ENCDEC_TARGET = 512                # target tokens an utterance
+A10_ENCDEC_STEPS = 4
+A10_DECODE_STEPS = 128
+# (b) InternVL2-76B at full width, its depth cut from 80 layers to 1
+A10_VLM_ARCH = "internvl2_76b"
+A10_VLM_LAYERS = 1
+A10_VLM_PARAMS = 3_028_312_064         # the reference's n_params(), 1 layer
+A10_VLM_SEQ = 4096                     # 256 patches + 3840 tokens
+A10_VLM_STEPS = {"float32": 3, "bfloat16": 3, "int8": 3}
+# (b)'s peak learning rate: a large model's (at 1e-3 the loss rose at
+# step 3 on the card)
+A10_VLM_LR = 3e-4
+# step 0, kernel path against plain: every gradient's norm within this
+# share of the plain one's (a cosine cannot see a wrong scale)
+MAX_GRAD_NORM_REL = 1e-2
+# a gradient whose bf16 plain version is itself further from the fp32
+# plain gradient than MIN_GRAD_COSINE and MAX_GRAD_NORM_REL allow (an
+# ill-conditioned leaf under bf16 roundings): the kernel path's distance
+# from the fp32 gradient at most this many times the bf16 plain path's
+FP32_DISTANCE_FACTOR = 2.0
+# the reference's prefill-against-decode tolerance (test_serve_consistency)
+TOL_DECODE_ATOL, TOL_DECODE_RTOL = 0.15, 0.05
+# the moments after step 1 against the port's AdamW on the CPU from the
+# same gradients, on the first A10_CPU_CHECK_ELEMENTS of every leaf
+# (whole 256-blocks, so the same blocks as on the card): parameters
+# within 1e-6 relative (1e-7 absolute), bf16 moments equal, int8 q
+# within one step and equal but for this share, s within 1e-6 relative
+A10_INT8_OFF_SHARE = 0.01
+A10_CPU_CHECK_ELEMENTS = 1 << 20       # a leaf's first elements (4096 blocks)
+
+
+def a10_runs(dev, reset_counts, read_counts) -> dict:
+    """Phase 14's runs on ``dev``: (a) SeamlessM4T-medium at full width
+    and depth trained through the Trainer on the cluster-sparse backend
+    (its encoder's non-causal and its decoder's causal attention op held
+    to their plain versions on layer 0's own q, k, v; step 0 held to
+    ``impl="plain"``; a step profiled), then decoded 128 steps over the
+    encoder's cross caches and held to the full forward; (b)
+    InternVL2-76B at full width with one layer, its attention op and step
+    0 held the same way, trained from one init under each of AdamW's
+    three moment dtypes, the reduced-precision moments after step 1 held
+    to the port's AdamW on the CPU. Every training run's launches of rows
+    2, 5 and 6 counted exactly; returns the phase's record and those
+    counts (``launches``, and the fp32 decode check's under
+    ``launches_float32``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+    from repro_torch.models import encdec as ted
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import LMModel, lm_loss
+    from repro_torch.optim import adamw as tadamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tasks import BatchFnTask
+
+    rec = {}
+    zero = {name: 0 for name in read_counts()}
+    launches = dict(zero)
+    launches_f32 = dict(zero)
+    t_phase = time.perf_counter()
+
+    def want_counts(cfg, steps, n_attn):
+        return {**zero, **step_launches(cfg, UNBIASED_NAMES, steps, n_attn)}
+
+    def step_vs_plain(tag, model, loss_fn, batch, n_attn):
+        """Step 0's loss and gradients, kernel path against
+        ``impl="plain"`` on the same parameters and batch, outside the
+        main path's counts, with the plain path in fp32 as referee: the
+        loss within TOL_STEP_LOSS_REL; every parameter's gradient at a
+        cosine of at least MIN_GRAD_COSINE with the plain one and its
+        norm within MAX_GRAD_NORM_REL of the plain one's, or, where the
+        bf16 plain gradient itself is that far from the fp32 one, the
+        kernel's no further from the fp32 gradient than
+        FP32_DISTANCE_FACTOR times the plain one's (in 1 - cosine and in
+        the norm ratio's distance from 1)."""
+        cfg = model.cfg
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
+        out = {}
+        for key, impl, dtype in (("kernel", None, cfg.dtype),
+                                 ("plain", "plain", cfg.dtype),
+                                 ("fp32", "plain", "float32")):
+            model.cfg = cfg.replace(dtype=dtype)
+            before = read_counts()
+            try:
+                loss, _ = loss_fn(model, batch, impl=impl)
+                grads = torch.autograd.grad(loss, params)
+            finally:
+                model.cfg = cfg
+            torch.cuda.synchronize()
+            out[key] = (loss.detach().float(), grads,
+                        {n: c - before[n] for n, c in read_counts().items()
+                         if c != before[n]})
+            del loss, grads
+
+        def compare(xs, ys):
+            cos, ratio = [], []
+            for a, c in zip(xs, ys):
+                a, c = a.flatten().float(), c.flatten().float()
+                cos.append(F.cosine_similarity(a, c, dim=0,
+                                               eps=1e-30).item())
+                ratio.append((a.norm() / c.norm().clamp_min(1e-30)).item())
+            return cos, ratio
+        (kl, kg, kn), (pl_, pg, pn), (fl, fg, fn) = (
+            out["kernel"], out["plain"], out["fp32"])
+        kp, kf, pf = compare(kg, pg), compare(kg, fg), compare(pg, fg)
+        names = [n for n, _ in named]
+        rows, refereed, failed = {}, [], []
+        for i, n in enumerate(names):
+            direct = kp[0][i] >= MIN_GRAD_COSINE and \
+                abs(kp[1][i] - 1) <= MAX_GRAD_NORM_REL
+            ref = (1 - kf[0][i]) <= FP32_DISTANCE_FACTOR * (1 - pf[0][i]) \
+                and abs(kf[1][i] - 1) <= max(
+                    FP32_DISTANCE_FACTOR * abs(pf[1][i] - 1),
+                    MAX_GRAD_NORM_REL)
+            rows[n] = {"cos_kernel_plain": kp[0][i],
+                       "norm_ratio_kernel_plain": kp[1][i],
+                       "cos_kernel_fp32": kf[0][i],
+                       "norm_ratio_kernel_fp32": kf[1][i],
+                       "cos_plain_fp32": pf[0][i],
+                       "norm_ratio_plain_fp32": pf[1][i]}
+            if not direct:
+                (refereed if ref else failed).append(n)
+        worst = min(names, key=lambda n: rows[n]["cos_kernel_plain"])
+        off = max(names, key=lambda n: abs(
+            rows[n]["norm_ratio_kernel_plain"] - 1))
+        res = {"loss": kl.item(), "plain_loss": pl_.item(),
+               "fp32_loss": fl.item(),
+               "loss_rel": (abs(kl - pl_) / abs(pl_)).item(),
+               "min_grad_cosine": [worst, rows[worst]["cos_kernel_plain"]],
+               "worst_grad_norm_ratio": [
+                   off, rows[off]["norm_ratio_kernel_plain"]],
+               "refereed_by_fp32": {n: rows[n] for n in refereed},
+               "failed": {n: rows[n] for n in failed},
+               "min_cos_plain_fp32": min(r["cos_plain_fp32"]
+                                         for r in rows.values()),
+               "min_cos_kernel_fp32": min(r["cos_kernel_fp32"]
+                                          for r in rows.values()),
+               "launched": kn}
+        log(f"[a10] {tag}: step 0, kernel vs plain path: loss "
+            f"{res['loss']:.6f} vs {res['plain_loss']:.6f} (rel "
+            f"{res['loss_rel']:.3g}, tol {TOL_STEP_LOSS_REL}; fp32 "
+            f"{res['fp32_loss']:.6f}); gradient cosine min "
+            f"{rows[worst]['cos_kernel_plain']:.6f} ({worst}; min "
+            f"{MIN_GRAD_COSINE}); norm ratio furthest from 1 "
+            f"{rows[off]['norm_ratio_kernel_plain']:.6f} ({off}; tol "
+            f"{MAX_GRAD_NORM_REL}); against fp32 plain: min cosine kernel "
+            f"{res['min_cos_kernel_fp32']:.6f}, bf16 plain "
+            f"{res['min_cos_plain_fp32']:.6f}; {len(refereed)} of "
+            f"{len(names)} gradients held by the fp32 referee "
+            f"{json.dumps({n: rows[n] for n in refereed})}; kernels "
+            f"launched {kn}")
+        want = {n: c for n, c in want_counts(cfg, 1, n_attn).items() if c}
+        if not (res["loss_rel"] <= TOL_STEP_LOSS_REL and not failed
+                and kn == want and not pn and not fn):
+            raise AssertionError(f"{tag}: kernel and plain paths disagree: "
+                                 f"{res}, plain launched {pn}, fp32 {fn}")
+        del out, kg, pg, fg
+        release()
+        return res
+
+    def train(tag, model, task, steps, n_attn, tokens, state_dtype,
+              on_update=None, lr=1e-3):
+        """``steps`` sparse steps through the Trainer, counted exactly,
+        AdamW's update timed by CUDA events; ``on_update(tr, grads,
+        update)`` may wrap the (timed) update."""
+        cfg = model.cfg
+        left = release()
+        log(f"[a10] {tag} starts at {time.perf_counter() - t_phase:.1f} s")
+        # max_bad_steps=0: no re-init rung, so run() takes no host copy of
+        # the parameters (12 GB in (b), seconds; phase 5 times it)
+        tr = Trainer(model, TrainerConfig(steps=steps, lr=lr, warmup=2,
+                                          state_dtype=state_dtype,
+                                          max_bad_steps=0),
+                     task=task)
+        timed = []
+        real_update = tr.opt.update
+
+        def update(grads, **kw):
+            def timed_update():
+                s, e = event_pair()
+                s.record()
+                real_update(grads, **kw)
+                e.record()
+                timed.append((s, e))
+            if on_update is None:
+                timed_update()
+            else:
+                on_update(tr, grads, timed_update)
+        tr.opt.update = update
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        status = tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        for k, c in counts.items():
+            launches[k] += c
+        del tr.opt.update
+        peak = torch.cuda.max_memory_allocated()
+        hist = tr.history
+        losses = [h["loss"] for h in hist]
+        step_ms = [h["seconds"] * 1e3 for h in hist]
+        steady = float(np.median(step_ms[1:]))
+        update_ms = [s.elapsed_time(e) for s, e in timed]
+        n_params = sum(p.numel() for p in model.parameters())
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tr.opt.state_tensors())
+        out = {"config": cfg.name, "remat": cfg.remat, "layers": cfg.n_layers,
+               "params": n_params, "state_dtype": state_dtype,
+               "moment_bytes": state_bytes, "steps": steps,
+               "losses": losses, "step_ms": step_ms,
+               "step_ms_median": steady, "run_s": run_s,
+               "adamw_update_ms": update_ms,
+               "peak_bytes": peak, "allocated_before_bytes": left,
+               "launches": counts,
+               "tokens_per_s": {k: n * 1e3 / steady
+                                for k, n in tokens.items()},
+               "launches_a_step": {k: c / steps for k, c in counts.items()
+                                   if c}}
+        log(f"[a10] {tag}: {cfg.name}, {cfg.n_layers} layers, "
+            f"{n_params:,} params, moments {state_dtype} "
+            f"({state_bytes / 2**30:.2f} GiB), remat={cfg.remat!r}; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
+            f"{', '.join(f'{x:.2f}' for x in step_ms)} (median after the "
+            f"first {steady:.2f}; "
+            + ", ".join(f"{v:.1f} {k} a second"
+                        for k, v in out["tokens_per_s"].items())
+            + f"); AdamW update ms "
+            f"{', '.join(f'{x:.2f}' for x in update_ms)}; peak "
+            f"{peak / 2**30:.2f} GiB ({left / 2**30:.2f} GiB allocated "
+            f"before); run {run_s:.2f} s; launches a step "
+            f"{out['launches_a_step']}")
+        want = want_counts(cfg, steps, n_attn)
+        if status != "done" or counts != want or \
+                not losses[-1] < losses[0] or \
+                not np.isfinite(losses).all() or \
+                any(h["skipped"] for h in hist):
+            raise AssertionError(
+                f"{tag}: status {status}, losses {losses}, launches "
+                f"{ {k: c for k, c in counts.items() if c} }, want "
+                f"{ {k: c for k, c in want.items() if c} }")
+        return tr, out
+
+    # ------------------------------ (a) SeamlessM4T-medium, full depth
+    cfg = get_config(A10_ENCDEC_ARCH).replace(attn_backend="cluster_sparse",
+                                              remat="block")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = ted.EncDecModel(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    a = {"init_s": time.perf_counter() - t0}
+    n_params = sum(p.numel() for p in model.parameters())
+    a["params"] = n_params
+    log(f"[a10] (a) {cfg.name}: {cfg.enc_layers} + {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params:,} params "
+        f"(reference {A10_ENCDEC_PARAMS:,}); seeded init (drawn on the "
+        f"CPU) {a['init_s']:.1f} s")
+    if n_params != A10_ENCDEC_PARAMS:
+        raise AssertionError(f"(a) {n_params} parameters, the reference "
+                             f"has {A10_ENCDEC_PARAMS}")
+    B, S, Tf = A10_ENCDEC_BATCH, A10_ENCDEC_TARGET, cfg.frontend_tokens
+    dc = LMDataConfig(cfg.vocab_size, S, B, seed=0)
+
+    def encdec_batch(step):
+        frames = np.random.default_rng(1000 + step).standard_normal(
+            (B, Tf, cfg.d_model), dtype=np.float32)
+        return {**lm_batch(dc, step), "frames": frames}
+    task = BatchFnTask(encdec_batch).prepare(model)
+    batch = task.batches(0)
+    a["op_check"] = {
+        "encoder": op_check("(a) encoder layer 0", model, ted.encdec_loss,
+                            batch, UNBIASED_NAMES, read_counts,
+                            log_tag="a10"),
+        "decoder": op_check("(a) decoder layer 0", model, ted.encdec_loss,
+                            batch, UNBIASED_NAMES, read_counts,
+                            log_tag="a10", nth=cfg.enc_layers)}
+    for part, causal, S_ in (("encoder", False, Tf), ("decoder", True, S)):
+        shape = a["op_check"][part]["shape"]
+        if shape["causal"] != causal or shape["S"] != S_:
+            raise AssertionError(f"(a) {part}'s op check took {shape}")
+    n_attn = cfg.enc_layers + cfg.n_layers
+    a["step0"] = step_vs_plain("(a)", model, ted.encdec_loss, batch, n_attn)
+    del batch
+    tr, a["train"] = train("(a)", model, task, A10_ENCDEC_STEPS, n_attn,
+                           {"frames": B * Tf, "target tokens": B * S},
+                           "float32")
+    batch = task.batches(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.step("sparse", batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    a["profile"] = device_breakdown(lambda: tr.step("sparse", batch), wall,
+                                    tag="a10", what="(a) one step",
+                                    focus="cluster")
+    del tr
+    release()
+
+    # decode: encode once, fill the cross caches, 128 steps over the
+    # batch's first tokens; the last logits against the full forward's
+    log(f"[a10] (a) decode starts at {time.perf_counter() - t_phase:.1f} s")
+    T = A10_DECODE_STEPS
+    tok = batch["tokens"][:, :T]
+    V = cfg.vocab_size
+    dec = {}
+    for dtype in ("bfloat16", "float32"):
+        model.cfg = cfg.replace(dtype=dtype)
+        cdt = getattr(torch, dtype)
+        before = read_counts()
+        with torch.inference_mode():
+            cache = {"dec": {k: v.to(cdt) for k, v in
+                             model.cache_defs(B, T)["dec"].items()}}
+            s0, e0 = event_pair()
+            s0.record()
+            enc = ted.encode(model, batch["frames"])
+            for i, layer in enumerate(model.dec_layers):
+                cache["dec"]["ck"][i], cache["dec"]["cv"][i] = ted.cross_kv(
+                    layer.cross, enc)
+            e0.record()
+            s1, e1 = event_pair()
+            s1.record()
+            for i in range(T):
+                out, cache = model.decode(cache, tok[:, i:i + 1], i)
+            e1.record()
+            full = L.logits_fn(model.embed, model.cfg, ted.encdec_forward(
+                model, {"frames": batch["frames"], "tokens": tok})[:, -1:])
+            torch.cuda.synchronize()
+        after = read_counts()
+        pa = full[:, 0, :V].float().cpu().numpy()
+        pb = out[:, 0, :V].float().cpu().numpy()
+        outside = np.abs(pa - pb) > TOL_DECODE_ATOL + TOL_DECODE_RTOL * \
+            np.abs(pb)
+        dec[dtype] = {
+            "caches": dtype, "encode_and_fill_ms": s0.elapsed_time(e0),
+            "decode_step_ms": s1.elapsed_time(e1) / T,
+            "max_abs_err": float(np.abs(pa - pb).max()),
+            "max_abs_logit": float(np.abs(pa).max()),
+            "share_outside_tolerance": float(outside.mean()),
+            "argmax_equal": float((pa.argmax(-1) == pb.argmax(-1)).mean()),
+            "launched": {k: v - before[k] for k, v in after.items()
+                         if v != before[k]}}
+        for k, n in dec[dtype]["launched"].items():
+            (launches_f32 if dtype == "float32" else launches)[k] += n
+        log(f"[a10] (a) decode {dtype} (caches {dtype}): encode + cross "
+            f"caches {dec[dtype]['encode_and_fill_ms']:.3f} ms, {T} decode "
+            f"steps of batch {B} at {dec[dtype]['decode_step_ms']:.3f} ms a "
+            f"step (eager); last logits against encdec_forward: max |diff| "
+            f"{dec[dtype]['max_abs_err']:.4g} of max |logit| "
+            f"{dec[dtype]['max_abs_logit']:.3f}, "
+            f"{100 * dec[dtype]['share_outside_tolerance']:.3f}% outside atol "
+            f"{TOL_DECODE_ATOL} / rtol {TOL_DECODE_RTOL}, argmax equal in "
+            f"{dec[dtype]['argmax_equal']:.0%} of rows; launched "
+            f"{dec[dtype]['launched']}")
+        del cache, enc, full, out
+    model.cfg = cfg
+    a["decode"] = dec
+    if dec["float32"]["share_outside_tolerance"] or \
+            dec["float32"]["argmax_equal"] < 1:
+        raise AssertionError(f"(a) fp32 decode disagrees with the forward: "
+                             f"{dec['float32']}")
+    rec["a"] = a
+    del model, task, batch, tok
+    release()
+
+    # ----------------------- (b) InternVL2-76B, one layer, three moments
+    log(f"[a10] (b) starts at {time.perf_counter() - t_phase:.1f} s")
+    cfg = get_config(A10_VLM_ARCH).replace(n_layers=A10_VLM_LAYERS,
+                                           attn_backend="cluster_sparse",
+                                           remat="block")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    b = {"init_s": time.perf_counter() - t0}
+    n_params = sum(p.numel() for p in model.parameters())
+    b["params"] = n_params
+    log(f"[a10] (b) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"over {cfg.kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.frontend_tokens} patches, "
+        f"{cfg.n_layers} layer (of 80); {n_params:,} params (reference "
+        f"{A10_VLM_PARAMS:,}); seeded init (drawn on the CPU) "
+        f"{b['init_s']:.1f} s")
+    if n_params != A10_VLM_PARAMS:
+        raise AssertionError(f"(b) {n_params} parameters, the reference "
+                             f"has {A10_VLM_PARAMS}")
+    Tp = cfg.frontend_tokens
+    vdc = LMDataConfig(cfg.vocab_size, A10_VLM_SEQ - Tp, 1, seed=0)
+
+    def vlm_batch(step):
+        patches = np.random.default_rng(2000 + step).standard_normal(
+            (1, Tp, cfg.d_model), dtype=np.float32)
+        return {**lm_batch(vdc, step), "patches": patches}
+    task = BatchFnTask(vlm_batch).prepare(model)
+    batch = task.batches(0)
+    b["op_check"] = op_check("(b) layer 0", model, lm_loss, batch,
+                             UNBIASED_NAMES, read_counts, log_tag="a10")
+    b["step0"] = step_vs_plain("(b)", model, lm_loss, batch, cfg.n_layers)
+    del batch
+    # the init for each moment dtype's run, kept on the card (a host copy
+    # would cost seconds each way); each run's peak includes it
+    init = [p.detach().clone() for p in model.parameters()]
+    b["init_copy_bytes"] = sum(p.numel() * p.element_size() for p in init)
+
+    def moments_vs_cpu(tr, grads, update):
+        """Step 1's update, then its parameters and moments on the first
+        A10_CPU_CHECK_ELEMENTS of every reference leaf against the port's
+        AdamW on the CPU from the same parameters and gradients."""
+        sd = tr.opt.state_dtype
+        if tr.opt.step or sd == "float32":
+            return update()
+        n_of = {}
+        heads = []
+        for k, g in enumerate(tr.opt.groups):
+            n = min(sum(tr.params[i].numel() for i in g),
+                    A10_CPU_CHECK_ELEMENTS)
+            pieces = list(tadamw._pieces(
+                [tr.params[i].numel() for i in g], 0, n))
+            flat_p = [tr.params[i].detach().view(-1) for i in g]
+            flat_g = [grads[i].reshape(-1) for i in g]
+            heads.append((k, g, pieces,
+                          tadamw._gather(flat_p, pieces).cpu(),
+                          tadamw._gather(flat_g, pieces).float().cpu()))
+            n_of[k] = n
+        update()
+        worst = {"param_rel": 0.0, "moment_entries_off": 0,
+                 "q_max_step": 0, "s_rel": 0.0}
+        total = 0
+        for k, g, pieces, want, g0 in heads:
+            # updates ``want`` in place: the CPU's parameters after step 1
+            cpu = tadamw.AdamW([want], lr=tr.opt.lr, b1=tr.opt.b1,
+                               b2=tr.opt.b2, eps=tr.opt.eps,
+                               weight_decay=tr.opt.weight_decay,
+                               state_dtype=sd)
+            cpu.update([g0])
+            got = tadamw._gather([tr.params[i].detach().view(-1)
+                                  for i in g], pieces).cpu()
+            d = (got - want).abs() - 1e-7
+            worst["param_rel"] = max(worst["param_rel"], float(
+                (d / want.abs().clamp_min(1e-30)).max()))
+            for name in ("m", "v"):
+                if sd == "int8":
+                    nb = cpu.m[0]["q"].shape[0]
+                    mine = getattr(tr.opt, name)[k]
+                    q = mine["q"][:nb].cpu().int()
+                    s_ = mine["s"][:nb].cpu()
+                    rq = getattr(cpu, name)[0]["q"].int()
+                    rs = getattr(cpu, name)[0]["s"]
+                    worst["q_max_step"] = max(worst["q_max_step"], int(
+                        (q - rq).abs().max()))
+                    worst["moment_entries_off"] += int((q != rq).sum())
+                    worst["s_rel"] = max(worst["s_rel"], float(
+                        ((s_ - rs).abs() / rs.abs().clamp_min(
+                            1e-30)).max()))
+                    total += q.numel()
+                else:
+                    mine = tadamw._gather(
+                        [getattr(tr.opt, name)[i].view(-1) for i in g],
+                        pieces).cpu()
+                    worst["moment_entries_off"] += int(
+                        (mine != getattr(cpu, name)[0]).sum())
+                    total += mine.numel()
+        worst["moment_entries"] = total
+        worst["elements_a_leaf"] = A10_CPU_CHECK_ELEMENTS
+        moments_check[sd] = worst
+        log(f"[a10] (b) step 1's update against the port's AdamW on the "
+            f"CPU, {sd} moments, the first {A10_CPU_CHECK_ELEMENTS} "
+            f"elements of each "
+            f"of {len(heads)} leaves: {worst}")
+        if worst["param_rel"] > 1e-6 or (
+                sd == "bfloat16" and worst["moment_entries_off"]) or (
+                sd == "int8" and (worst["q_max_step"] > 1 or
+                                  worst["moment_entries_off"] >
+                                  A10_INT8_OFF_SHARE * total or
+                                  worst["s_rel"] > 1e-6)):
+            raise AssertionError(f"(b) {sd} moments disagree with the CPU's "
+                                 f"AdamW: {worst}")
+
+    moments_check = {}
+    runs = {}
+    for sd, steps in A10_VLM_STEPS.items():
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), init):
+                p.copy_(p0)
+        tr, runs[sd] = train(f"(b) {sd}", model, task, steps, cfg.n_layers,
+                             {"positions": A10_VLM_SEQ}, sd,
+                             on_update=moments_vs_cpu, lr=A10_VLM_LR)
+        del tr
+        release()
+    b["train"] = runs
+    b["moments_vs_cpu"] = moments_check
+    log(f"[a10] (b) losses by moment dtype: " + "; ".join(
+        f"{sd} {', '.join(f'{x:.4f}' for x in r['losses'])}"
+        for sd, r in runs.items()) + "; peaks " + ", ".join(
+        f"{sd} {r['peak_bytes'] / 2**30:.2f} GiB" for sd, r in runs.items()))
+    rec["b"] = b
+    del model, task, init
+    release()
+    rec["launches"] = launches
+    rec["launches_float32"] = launches_f32
+    return rec
+
+
+def a10_phase(out_path: str) -> int:
+    """Phase 14, in a child process: the enc-dec and VLM families and
+    AdamW's reduced-precision moments (``a10_runs``), on an empty card
+    (InternVL2's one layer holds ~48 GB of training state with fp32
+    moments). The record goes to ``out_path`` as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 14: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import cluster_attention as tca
+    from repro_torch.kernels import cluster_attention_bwd as tcab
+
+    t_start = time.perf_counter()
+    kbuild.build_all((tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED_SM90,
+                      tca.LIBRARY_UNBIASED))
+    reset_counts, read_counts = kernel_counters()
+    rec = a10_runs(torch.device("cuda"), reset_counts, read_counts)
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(out_path, "w") as fh:
+        json.dump(rec, fh)
+    log(f"[a10] {rec['seconds']:.1f}s, launches "
+        f"{ {k: c for k, c in rec['launches'].items() if c} }, fp32 "
+        f"{ {k: c for k, c in rec['launches_float32'].items() if c} }")
     return 0
 
 
@@ -4654,6 +5240,36 @@ def main() -> int:
 
     moe_rec = moe_run()
 
+    # -- 14. the enc-dec and VLM families, AdamW's moments (slice 15's path)
+    log(f"[phase] 14 starts at {time.perf_counter() - t_start:.1f} s")
+    def a10_run():
+        """Phase 14 in a child process (``a10_phase``): an empty card for
+        InternVL2's ~48 GB of training state; it fails on a non-zero
+        exit."""
+        import gc
+        import tempfile
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "a10.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--a10", path],
+                timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 14 (enc-dec, VLM, moments) "
+                                     f"exited {proc.returncode}")
+            with open(path) as fh:
+                rec = json.load(fh)
+        rec["wall_s"] = wall
+        log(f"[a10] phase 14 child: {wall:.1f}s of wall")
+        return rec
+
+    a10_rec = a10_run()
+
     # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
     yard8 = yard[str(YARDSTICK_NODES)]
@@ -4744,12 +5360,14 @@ def main() -> int:
             "launches": (lm_run["launches"][name + "_sm90"]
                          + remat["launches"][name + "_sm90"]
                          + serve_lm["launches"][name + "_sm90"]
-                         + moe_rec["launches"][name + "_sm90"]),
+                         + moe_rec["launches"][name + "_sm90"]
+                         + a10_rec["launches"][name + "_sm90"]),
             "launches_by_path": {
                 "lm_train": lm_run["launches"][name + "_sm90"],
                 "remat": remat["launches"][name + "_sm90"],
                 "serve_prefill": serve_lm["launches"][name + "_sm90"],
-                "moe_hybrid": moe_rec["launches"][name + "_sm90"]},
+                "moe_hybrid": moe_rec["launches"][name + "_sm90"],
+                "encdec_vlm": a10_rec["launches"][name + "_sm90"]},
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
@@ -4765,9 +5383,11 @@ def main() -> int:
             **{k: v for k, v in b.items() if k.startswith("ms_without")},
             "source_float32": f"src/repro_torch/kernels/csrc/"
                               f"cluster_attention_unbiased_{src}.cu",
-            # the LM run's and phase 13's fp32 Jamba prefill
+            # the LM run's, phase 13's fp32 Jamba prefill and phase 14's
+            # fp32 enc-dec decode check
             "launches_float32": (lm_run["launches"][name]
-                                 + moe_rec["launches"][name])})
+                                 + moe_rec["launches"][name]
+                                 + a10_rec["launches_float32"][name])})
     # the flash kernels and the SSD scan: times at full width in bf16,
     # launches from the tune phase, the main path. Rows 7-9 have a
     # kernel for each dtype: `source` is the bf16 tensor-core one, timed
@@ -4862,6 +5482,7 @@ def main() -> int:
             ("cluster_attention_fwd_unbiased", "remat", remat),
             ("cluster_attention_fwd_unbiased", "serve_lm", serve_lm),
             ("cluster_attention_fwd_unbiased", "moe_hybrid", moe_rec),
+            ("cluster_attention_fwd_unbiased", "encdec_vlm", a10_rec),
             ("ssd_fwd", "tune", tune_run),
             ("cluster_attention_fwd_b16", "graph_train", graph_runs),
             ("cluster_attention_fwd_b16", "recovery", recovery)):
@@ -4883,4 +5504,6 @@ if __name__ == "__main__":
         sys.exit(serve_lm_phase(sys.argv[2]))
     if sys.argv[1:2] == ["--moe"]:
         sys.exit(moe_phase(sys.argv[2]))
+    if sys.argv[1:2] == ["--a10"]:
+        sys.exit(a10_phase(sys.argv[2]))
     sys.exit(main())

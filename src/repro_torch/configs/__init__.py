@@ -1,7 +1,8 @@
-from repro_torch.configs.base import (ARCHS, GRAPH_ARCHS, HYBRID_ARCHS,
-                                     LM_ARCHS, MOE_ARCHS, SSM_ARCHS,
-                                     ModelConfig, get_config,
-                                     get_smoke_config)
+from repro_torch.configs.base import (ARCHS, ENCDEC_ARCHS, GRAPH_ARCHS,
+                                     HYBRID_ARCHS, LM_ARCHS, MOE_ARCHS,
+                                     SSM_ARCHS, VLM_ARCHS, ModelConfig,
+                                     get_config, get_smoke_config)
 
-__all__ = ["ARCHS", "GRAPH_ARCHS", "HYBRID_ARCHS", "LM_ARCHS", "MOE_ARCHS",
-           "ModelConfig", "SSM_ARCHS", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "ENCDEC_ARCHS", "GRAPH_ARCHS", "HYBRID_ARCHS",
+           "LM_ARCHS", "MOE_ARCHS", "ModelConfig", "SSM_ARCHS", "VLM_ARCHS",
+           "get_config", "get_smoke_config"]

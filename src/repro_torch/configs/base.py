@@ -1,7 +1,8 @@
 """Model configuration: the port's copy of ``repro.configs.base.ModelConfig``
 (field for field, so a config compares equal to its JAX counterpart) and
-a registry of the archs the port runs so far: the graph archs, the
-dense and MoE token LMs, the SSM LM and the hybrid.
+a registry of the archs the port runs: the graph archs, the dense and
+MoE token LMs, the SSM LM, the hybrid, the encoder-decoder and the VLM,
+every arch of the reference's ``ALL_ARCHS``.
 """
 
 from __future__ import annotations
@@ -85,14 +86,17 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# the archs the port runs so far: graph family, the dense LMs, the MoE
-# LMs, the SSM LM and the hybrid
+# the archs the port runs: graph family, the dense LMs, the MoE LMs, the
+# SSM LM, the hybrid, the encoder-decoder and the VLM
 GRAPH_ARCHS = ["graphormer_slim", "graphormer_large", "gt"]
 LM_ARCHS = ["qwen3_0_6b", "smollm_135m", "qwen3_1_7b", "qwen3_4b"]
 MOE_ARCHS = ["qwen3_moe_235b_a22b", "kimi_k2_1t_a32b"]
 SSM_ARCHS = ["mamba2_2_7b"]
 HYBRID_ARCHS = ["jamba_v0_1_52b"]
-ARCHS = GRAPH_ARCHS + LM_ARCHS + MOE_ARCHS + SSM_ARCHS + HYBRID_ARCHS
+ENCDEC_ARCHS = ["seamless_m4t_medium"]
+VLM_ARCHS = ["internvl2_76b"]
+ARCHS = (GRAPH_ARCHS + LM_ARCHS + MOE_ARCHS + SSM_ARCHS + HYBRID_ARCHS
+         + ENCDEC_ARCHS + VLM_ARCHS)
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

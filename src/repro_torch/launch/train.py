@@ -29,6 +29,8 @@ before a rollback; 0 = skip only) and ``--retune-every`` (reload the
 kernel winner table, ``--tune-table``, every k steps), and prints the
 step it resumed at, the skipped steps, the rollbacks and the run's
 status. Without ``--ckpt-dir`` nothing is saved or restored.
+``--state-dtype`` (``float32``, the default, ``bfloat16`` or ``int8``)
+sets AdamW's moments, as the reference's flag does.
 
 LM archs (the dense ``qwen3_0_6b``, ``smollm_135m``, ``qwen3_1_7b``,
 ``qwen3_4b``, the MoE ``qwen3_moe_235b_a22b``, ``kimi_k2_1t_a32b``, the
@@ -40,7 +42,10 @@ through :class:`BatchFnTask`, and prints the loss every tenth of the
 run, with the cross-entropy and the MoE balance term (``aux``) where the
 family has one. The published LM configs run dense attention; the
 cluster-sparse backend is ``cfg.replace(attn_backend="cluster_sparse")``,
-as in the reference.
+as in the reference. The VLM (``internvl2_76b``) and enc-dec
+(``seamless_m4t_medium``) archs are refused with a ``ValueError``: their
+losses need image patches or speech frames, which the token stream does
+not carry (the reference's CLI cannot train them either).
 Every family recomputes its layers in the backward as ``cfg.remat``
 says (the configs' default is ``"block"``).
 
@@ -55,6 +60,8 @@ says (the configs' default is ``"block"``).
       --task link --graph-nodes 128 --steps 6 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
       --smoke --steps 20 --seq 128 --batch 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
+      --smoke --steps 6 --seq 64 --batch 2 --state-dtype int8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_2_7b \\
       --smoke --steps 6 --seq 64 --batch 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -92,6 +99,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8,
                     help="[LM archs] sequences per step")
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--state-dtype", default="float32",
+                    choices=["float32", "bfloat16", "int8"],
+                    help="AdamW's moments (int8: blockwise, per "
+                         "reference leaf)")
     ap.add_argument("--dtype", default=None,
                     choices=["float32", "bfloat16"],
                     help="override the config's activation dtype")
@@ -200,6 +211,14 @@ def _make_graph_task(args, cfg, device):
 
 
 def _lm_main(args, cfg):
+    if cfg.family in ("vlm", "encdec"):
+        # their losses read image patches or speech frames, which the
+        # token stream does not carry (nor does the reference's CLI)
+        raise ValueError(
+            f"--arch {args.arch}: the {cfg.family} family needs "
+            f"{'patches' if cfg.family == 'vlm' else 'frames'} beside the "
+            f"tokens, and the synthetic token stream has none; train it "
+            f"through Trainer with a task that supplies them")
     model = lm_model_class(cfg)(cfg, device=args.device)
     mixer = "ssm" if cfg.family == "ssm" else cfg.attn_backend
     n_params = sum(p.numel() for p in model.parameters())
@@ -227,9 +246,10 @@ def _lm_main(args, cfg):
 
 
 def _recovery(args) -> dict:
-    """The TrainerConfig fields of the checkpoint, fault and retune
-    flags."""
-    return dict(ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
+    """The TrainerConfig fields of the moments' dtype and of the
+    checkpoint, fault and retune flags."""
+    return dict(state_dtype=args.state_dtype,
+                ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
                 fault_plan=args.fault_plan, max_bad_steps=args.max_bad_steps,
                 retune_every=args.retune_every, tune_table=args.tune_table)
 

@@ -17,7 +17,8 @@ are None, as the reference's ``Model`` fields are.
 
 ``lm_model_class`` picks the port's model class of a token-LM config by
 its family, as the reference's ``build`` does: ``SSMLMModel``,
-``models/hybrid.HybridLMModel`` or ``models/lm.LMModel``.
+``models/hybrid.HybridLMModel``, ``models/encdec.EncDecModel`` or
+``models/lm.LMModel`` (dense, MoE, VLM).
 """
 
 from __future__ import annotations
@@ -105,13 +106,15 @@ class SSMLMModel(nn.Module):
 
 def lm_model_class(cfg) -> type:
     """The model class of a token-LM config's family: ``ssm`` ->
-    :class:`SSMLMModel`, ``hybrid`` -> ``HybridLMModel``, anything else ->
-    ``LMModel`` (which raises for the families it does not hold)."""
+    :class:`SSMLMModel`, ``hybrid`` -> ``HybridLMModel``, ``encdec`` ->
+    ``EncDecModel``, anything else (dense, moe, vlm) -> ``LMModel``
+    (which raises for a family it does not hold)."""
+    from repro_torch.models.encdec import EncDecModel
     from repro_torch.models.hybrid import HybridLMModel
     from repro_torch.models.lm import LMModel
 
-    return {"ssm": SSMLMModel, "hybrid": HybridLMModel}.get(cfg.family,
-                                                            LMModel)
+    return {"ssm": SSMLMModel, "hybrid": HybridLMModel,
+            "encdec": EncDecModel}.get(cfg.family, LMModel)
 
 
 def _layer(layer: SSMLayer, h, cfg):

@@ -27,6 +27,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.convert import leaf_name
+
 
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, device=None):
@@ -309,10 +311,15 @@ class Embedding(nn.Module):
             self.unembed = nn.Parameter(torch.empty(D, Vp, device=device))
 
 
-def embed_tokens(p: Embedding, tokens, dtype):
-    """tokens (B, S) int -> (B, S, D) in ``dtype`` (the decoder-only
-    families: no encoder-decoder scaling)."""
-    return F.embedding(tokens, p.tok).to(dtype)
+def embed_tokens(p: Embedding, tokens, dtype, cfg=None):
+    """tokens (B, S) int -> (B, S, D) in ``dtype``. With a ``cfg`` of the
+    encoder-decoder family the embeddings are scaled by
+    ``sqrt(d_model)`` after the cast, the scale rounded to ``dtype``
+    first, as the reference multiplies by a weakly typed scalar."""
+    out = F.embedding(tokens, p.tok).to(dtype)
+    if cfg is not None and cfg.family == "encdec":
+        out = out * torch.tensor(cfg.d_model ** 0.5, dtype=dtype).item()
+    return out
 
 
 def _unembed(p: Embedding, cfg, dtype):
@@ -393,19 +400,18 @@ def maybe_remat(fn, cfg, contexts=None):
 
 
 def _def_name(name: str) -> str:
-    """``layers.3.attn.wq`` -> ``layers.attn.wq`` (and ``periods.1.*`` ->
-    ``periods.*``, the hybrid's stacked periods)."""
-    parts = name.split(".")
-    if parts[0] in ("layers", "periods"):
-        del parts[1]
-    return ".".join(parts)
+    """``layers.3.attn.wq`` -> ``layers.attn.wq`` (and so for every
+    stacked axis: the hybrid's ``periods``, the encoder-decoder's
+    ``enc_layers`` and ``dec_layers``)."""
+    return leaf_name(name)[0]
 
 
 @torch.no_grad()
 def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
     """Initialise ``model``'s parameters from ``defs`` (``{name: (shape,
-    init)}``, per layer for ``layers.*`` names and per period for
-    ``periods.*`` names), drawn on the CPU in registration order so the
+    init)}``, per layer for the stacked names: ``layers.*``,
+    ``periods.*``, ``enc_layers.*``, ``dec_layers.*``), drawn on the CPU
+    in registration order so the
     weights do not depend on the device. The
     init families are the reference's: ``fan_in`` is a normal scaled by
     ``shape[0] ** -0.5``, ``normal``/``embed`` a normal scaled by 0.02;

@@ -1,7 +1,8 @@
-"""Decoder-only LM of the dense and MoE families (llama / qwen3,
-qwen3-moe / kimi-k2) on the port — the port of ``repro.models.lm``
-(``lm_defs``, ``attn_apply`` in its mesh-free branch, ``lm_forward``,
-``lm_loss`` and the serving half).
+"""Decoder-only LM of the dense, MoE and VLM families (llama / qwen3,
+qwen3-moe / kimi-k2, the internvl2 backbone with its stub frontend) on
+the port — the port of ``repro.models.lm`` (``lm_defs``,
+``attn_apply`` in its mesh-free branch, ``_embed_inputs``,
+``lm_forward``, ``lm_loss`` and the serving half).
 
 With ``cfg.moe_experts`` every layer of ``layers.*`` runs the MoE FFN of
 ``models/moe.py`` (``cfg.moe_every`` is the hybrid's and is ignored here,
@@ -10,6 +11,16 @@ as in the reference), and ``cfg.n_dense_layers`` leading layers
 before them, outside the layers' recomputation, as in the reference.
 The forward's aux loss is the MoE balance term summed over the layers
 and divided by ``n_layers`` (0 for a dense model).
+
+The VLM (``cfg.family == "vlm"``) takes ``batch["patches"]`` (B, Tp, D),
+the stub vision frontend's patch embeddings, projects them by
+``frontend_proj.w`` (D, D) in the compute dtype and puts them before the
+token embeddings (``_embed_inputs``; the reference's gather-and-select
+computes the same concatenation, an idiom for XLA's partitioner); its
+loss counts only the text positions, and its prefill caches hold the Tp
++ T positions, so decode goes on at Tp + T. Its paged serving path is
+text-only, as the reference's: ``ServeEngine`` serves a VLM as a dense
+LM.
 
 Attention dispatches as the reference's does:
 
@@ -56,10 +67,9 @@ under ``dense_layer_<i>``, the reference's tree. They are written in
 place: the decode steps and the prefill chunk return the caches they
 were given, whose rows they have overwritten.
 
-Not ported, each raising naming its ``ROADMAP.md`` item: the VLM and
-encoder-decoder families (A10); the hybrid is ``models/hybrid.py``'s
-model and the SSM ``models/api.py``'s. There is no mesh, so no Ulysses
-or sequence-parallel attention and no expert parallelism (A8).
+The hybrid is ``models/hybrid.py``'s model, the SSM ``models/api.py``'s
+and the encoder-decoder ``models/encdec.py``'s. There is no mesh, so no
+Ulysses or sequence-parallel attention and no expert parallelism (A8).
 """
 
 from __future__ import annotations
@@ -108,6 +118,8 @@ def lm_defs(cfg) -> dict:
         defs.update(_layer_defs(cfg, f"dense_layer_{i}.", False))
     if not cfg.tie_embeddings:
         defs["embed.unembed"] = ((D, Vp), "fan_in")
+    if cfg.family == "vlm":
+        defs["frontend_proj.w"] = ((D, D), "fan_in")
     return defs
 
 
@@ -126,6 +138,15 @@ class LMLayer(nn.Module):
             self.mlp = L.MLP(cfg, cfg.dense_d_ff, device=device)
 
 
+class FrontendProj(nn.Module):
+    """The VLM's projection of the frontend's patch embeddings, ``w``
+    (D, D)."""
+
+    def __init__(self, d: int, *, device=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d, d, device=device))
+
+
 def _check_attn_backend(cfg) -> None:
     if cfg.attn_backend not in ("dense", "cluster_sparse"):
         raise ValueError(f"attn_backend {cfg.attn_backend!r} not in "
@@ -139,15 +160,14 @@ class LMModel(nn.Module):
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.family in ("ssm", "hybrid"):
-            where = ("models/api.SSMLMModel" if cfg.family == "ssm" else
-                     "models/hybrid.HybridLMModel")
+        where = {"ssm": "models/api.SSMLMModel",
+                 "hybrid": "models/hybrid.HybridLMModel",
+                 "encdec": "models/encdec.EncDecModel"}
+        if cfg.family in where:
             raise ValueError(f"{cfg.name}: the {cfg.family} family is "
-                             f"{where}, not LMModel")
-        if cfg.family not in ("dense", "moe") or cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family (VLM, enc-dec) is "
-                f"not ported yet (ROADMAP.md A10)")
+                             f"{where[cfg.family]}, not LMModel")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         _check_attn_backend(cfg)
         dev = resolve(device)
         self.cfg = cfg
@@ -158,6 +178,8 @@ class LMModel(nn.Module):
             for _ in range(cfg.n_layers - cfg.n_dense_layers))
         for i in range(cfg.n_dense_layers):
             setattr(self, f"dense_layer_{i}", LMLayer(cfg, device=dev))
+        if cfg.family == "vlm":
+            self.frontend_proj = FrontendProj(cfg.d_model, device=dev)
         self.reset_parameters(seed)
         self._layouts = {}
 
@@ -171,17 +193,19 @@ class LMModel(nn.Module):
     def device(self) -> torch.device:
         return self.embed.tok.device
 
-    def layout(self, S: int):
+    def layout(self, S: int, causal: bool | None = None):
         """``(block_idx, block_idx_t)`` of the local+global layout for
-        sequences of length ``S`` on the model's device: built on the host
-        and uploaded once per (S, window, n_global, causal)."""
+        sequences of length ``S`` on the model's device, causal as
+        ``causal`` says (default ``cfg.causal``): built on the host and
+        uploaded once per (S, window, n_global, causal)."""
         cfg = self.cfg
-        key = (S, cfg.window, cfg.n_global, cfg.causal)
+        causal = cfg.causal if causal is None else causal
+        key = (S, cfg.window, cfg.n_global, causal)
         if key not in self._layouts:
             lay = lm_local_global_layout(S, bq=LM_BLOCK, bk=LM_BLOCK,
                                          window=cfg.window,
                                          n_global=cfg.n_global,
-                                         causal=cfg.causal)
+                                         causal=causal)
             if lay.seq_len != S:
                 raise ValueError(f"the cluster-sparse LM path tiles S in "
                                  f"blocks of {LM_BLOCK}; S={S} is not a "
@@ -234,18 +258,22 @@ class LMModel(nn.Module):
                                    device=self.device)
 
 
-def attention_fn(model: LMModel, S: int, impl: str | None = None):
+def attention_fn(model, S: int, impl: str | None = None,
+                 causal: bool | None = None):
     """``fn(q, k, v) -> o`` for sequences of length ``S``: the
     cluster-sparse op over the local+global layout, or the plain chunked
-    attention (the reference's ``attn_apply`` dispatch, mesh-free).
-    ``impl="plain"`` runs the sparse op's plain versions on any device."""
+    attention (the reference's ``attn_apply`` dispatch, mesh-free),
+    causal as ``causal`` says (default ``model.cfg.causal``; the
+    encoder-decoder's encoder passes False). ``impl="plain"`` runs the
+    sparse op's plain versions on any device."""
     cfg = model.cfg
+    causal = cfg.causal if causal is None else causal
     if cfg.attn_backend == "cluster_sparse" and S >= 2 * LM_BLOCK:
-        bi, bit = model.layout(S)
+        bi, bit = model.layout(S, causal)
         return lambda q, k, v: kops.cluster_attention(
-            q, k, v, bi, None, None, bit, causal=cfg.causal, impl=impl)
+            q, k, v, bi, None, None, bit, causal=causal, impl=impl)
     return lambda q, k, v: L.chunked_attention(
-        q, k, v, causal=cfg.causal, chunk_q=cfg.attn_chunk_q,
+        q, k, v, causal=causal, chunk_q=cfg.attn_chunk_q,
         chunk_k=cfg.attn_chunk_k)
 
 
@@ -296,27 +324,38 @@ def _all_layers(model: LMModel, cache: dict):
         yield (layer, *_stacked_kv(cache, i))
 
 
+def _embed_inputs(model: LMModel, batch: dict, dtype):
+    """The token embeddings, and for the VLM the projected patches before
+    them: (B, Tp + T, D) in ``dtype``. The patches are cast to ``dtype``
+    and projected there, as in the reference."""
+    h = L.embed_tokens(model.embed, batch["tokens"], dtype)
+    if model.cfg.family == "vlm":
+        patches = batch["patches"].to(dtype)
+        h = torch.cat([patches @ model.frontend_proj.w.to(dtype), h], 1)
+    return h
+
+
 def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
                return_kv: bool = False, cache_len: int | None = None):
     """-> (final hidden states (B, S, D) after the final norm, aux loss),
     and with ``return_kv`` also the caches: every layer's k and v in bf16
     (``lm_cache_defs``'s layout, ``cache_len`` rows, default S, the rows
-    past S zero). ``batch["tokens"]`` is (B, S) int on the model's
-    device. The aux loss is the MoE balance term summed over the layers
-    and divided by ``n_layers``: 0 for a dense model, as in the
+    past S zero). ``batch["tokens"]`` is (B, T) int on the model's
+    device, and for the VLM ``batch["patches"]`` (B, Tp, D), so S = Tp +
+    T; else S = T. The aux loss is the MoE balance term summed over the
+    layers and divided by ``n_layers``: 0 for a dense model, as in the
     reference. The leading dense layers run outside the recomputation,
     as the reference's do."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
-    tokens = batch["tokens"]
-    h = L.embed_tokens(model.embed, tokens, dtype)
-    B, S = tokens.shape
-    pos = _rotation(cfg, torch.arange(S, device=tokens.device))
+    h = _embed_inputs(model, batch, dtype)
+    B, S = h.shape[:2]
+    pos = _rotation(cfg, torch.arange(S, device=h.device))
     layer_fn = functools.partial(_layer, cfg=cfg, pos=pos,
                                  attn=attention_fn(model, S, impl))
     body = L.maybe_remat(layer_fn, cfg, routing_contexts
                          if cfg.moe_experts else None)
-    caches = lm_cache_defs(cfg, B, cache_len or S, device=tokens.device) \
+    caches = lm_cache_defs(cfg, B, cache_len or S, device=h.device) \
         if return_kv else None
     aux = torch.zeros((), device=h.device)
     for i, layer in enumerate(model.dense_layers):
@@ -335,9 +374,12 @@ def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
 def lm_loss(model: LMModel, batch: dict, *, aux_coef: float = 0.01,
             impl: str | None = None):
     """Mean next-token cross-entropy over ``batch["labels"]`` (-1
-    ignored), computed in sequence chunks without the full logits:
-    ``(loss, {"xent": loss, "aux": aux})``."""
+    ignored; the VLM's over the text positions only), computed in
+    sequence chunks without the full logits: ``(loss, {"xent": loss,
+    "aux": aux})``."""
     h, aux = lm_forward(model, batch, impl=impl)
+    if model.cfg.family == "vlm":
+        h = h[:, batch["patches"].shape[1]:]
     loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"])
     return loss + aux_coef * aux, {"xent": loss, "aux": aux}
 
@@ -373,9 +415,11 @@ def lm_cache_defs(cfg, batch: int, seq_len: int, *, device="cpu") -> dict:
 
 def lm_prefill(model: LMModel, batch: dict, *, impl: str | None = None,
                cache_len: int | None = None):
-    """Prefill: the forward over ``batch["tokens"]`` (B, S), returning the
-    last token's logits ``(B, 1, V)`` and the caches (``lm_forward``'s,
-    ``cache_len`` rows so that decode can go on in place). With
+    """Prefill: the forward over ``batch["tokens"]`` (B, T) (and the VLM's
+    ``batch["patches"]`` before them), returning the last token's logits
+    ``(B, 1, V)`` and the caches (``lm_forward``'s, ``cache_len`` rows,
+    default the S = Tp + T positions, so that decode can go on in place
+    at S). With
     ``cfg.attn_backend == "cluster_sparse"`` and S >= 256 each layer
     launches the cluster op's forward kernel once on CUDA tensors (no
     grad); ``impl="plain"`` runs its plain version."""

@@ -74,7 +74,7 @@ def state_of(tr) -> list[torch.Tensor]:
     """Host copies of a trainer's parameters and moments, in order."""
     from repro_torch.runtime.trainer import host_copy
 
-    return host_copy((*tr.params, *tr.opt.m, *tr.opt.v))
+    return host_copy((*tr.params, *tr.opt.state_tensors()))
 
 
 def bitwise(a: list, b: list) -> bool:

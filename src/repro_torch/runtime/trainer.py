@@ -17,7 +17,10 @@ port of ``repro.runtime.trainer`` on one device.
 * checkpoints (``ckpt_dir``): the reference's state tree
   ``{"params", "opt": {"m", "v", "step"}, "step", "bad"}`` with the
   reference's parameter layout (``convert.params_to_jax``), so either
-  package resumes the other's run; the task's state rides the manifest
+  package resumes the other's run; the moments in ``state_dtype``
+  (``float32 | bfloat16 | int8``, the reference's ``AdamW``), bf16 leaves
+  as bf16 and an int8 moment as ``{"q", "s"}`` per reference leaf
+  (``convert.leaf_groups``); the task's state rides the manifest
   under ``"task"``. Async saves every ``ckpt_every`` steps, a blocking
   one at the end and on SIGTERM (status ``"preempted"``), a crash save on
   any uncaught failure, and a restart resumes at the newest verified
@@ -43,8 +46,7 @@ Every step appends a ``history`` record: ``step``, ``loss``, ``xent``,
 ``acc``, ``bad_steps``, ``skipped``, ``seconds``, ``variant``, ``dense``
 and the task's extras (``beta_thre`` for elastic tasks).
 
-Not ported: the IR audit (JAX-specific), meshes (ROADMAP A8) and the
-reference's reduced-precision optimizer moments (A10).
+Not ported: the IR audit (JAX-specific) and meshes (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ import torch
 
 from repro_torch.ckpt.checkpoint import (CheckpointCorrupt, Checkpointer,
                                          snapshot)
-from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.convert import (insert, leaf_groups, lookup,
+                                 params_from_jax, params_to_jax)
 from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.resilience.faults import FaultPlan, Preempted
 
@@ -80,6 +83,9 @@ class TrainerConfig:
     lr: float = 3e-4
     warmup: int = 10
     weight_decay: float = 0.1
+    # AdamW's moments: float32 | bfloat16 | int8 (blockwise, per
+    # reference leaf)
+    state_dtype: str = "float32"
     fail_at_step: int = -1          # failure injection (tests)
     interleave_period: int = 0   # dense step every k steps (0 = never)
     elastic_every: int = 0       # steps per task epoch (0 = frozen layout)
@@ -135,9 +141,13 @@ class Trainer:
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        # the reference's parameter leaves: the unit of an int8 moment
+        self.leaves = leaf_groups(self.names)
         self.opt = AdamW(self.params,
                          lr=warmup_cosine(cfg.lr, cfg.warmup, cfg.steps),
-                         weight_decay=cfg.weight_decay)
+                         weight_decay=cfg.weight_decay,
+                         state_dtype=cfg.state_dtype,
+                         groups=[idx for _, idx in self.leaves])
         # the re-init rung of the ladder: a host copy of the parameters
         # as they stand at the first restore_or_init() (run() calls it),
         # taken when a re-init is reachable; Trainers driven only through
@@ -193,41 +203,73 @@ class Trainer:
 
     # ------------------------------------------------------------ state
 
+    def _moments_tree(self, moments: list) -> dict:
+        """One moment (``m`` or ``v``) in the reference's layout: stacked
+        per-parameter tensors, or an int8 ``{"q", "s"}`` per leaf."""
+        if self.opt.state_dtype != "int8":
+            return params_to_jax(dict(zip(self.names, moments)))
+        tree: dict = {}
+        for (leaf, _), qs in zip(self.leaves, moments):
+            insert(tree, leaf, dict(qs))
+        return tree
+
+    def _moments_from(self, tree: dict) -> list:
+        """The inverse of :meth:`_moments_tree`, in the checkpoint's dtypes
+        (``AdamW.load_state_dict`` checks them)."""
+        if self.opt.state_dtype != "int8":
+            got = params_from_jax(tree, dtype=None)
+            if sorted(got) != sorted(self.names):
+                raise ValueError(
+                    f"checkpoint moment names "
+                    f"{sorted(set(got) ^ set(self.names))} differ from the "
+                    f"model's")
+            return [got[n] for n in self.names]
+        out = []
+        for leaf, _ in self.leaves:
+            qs = lookup(tree, leaf)
+            if not isinstance(qs, dict) or sorted(qs) != ["q", "s"]:
+                raise ValueError(f"checkpoint moment {leaf!r} is no int8 "
+                                 f"{{'q', 's'}} pair")
+            out.append({k: params_from_jax({k: qs[k]}, dtype=None)[k]
+                        for k in ("q", "s")})
+        return out
+
     def state_tree(self) -> dict:
         """The reference's state tree over the live tensors (parameters
         and moments in the reference's layout, counters as 0-d int32)."""
         opt = self.opt.state_dict()
         return {"params": params_to_jax(dict(zip(self.names, self.params))),
-                "opt": {"m": params_to_jax(dict(zip(self.names, opt["m"]))),
-                        "v": params_to_jax(dict(zip(self.names, opt["v"]))),
+                "opt": {"m": self._moments_tree(opt["m"]),
+                        "v": self._moments_tree(opt["v"]),
                         "step": np.asarray(opt["step"], np.int32)},
                 "step": np.asarray(self.steps_done, np.int32),
                 "bad": np.asarray(self.bad, np.int32)}
 
     @torch.no_grad()
     def load_state_tree(self, tree: dict) -> None:
-        """Copy a restored state tree (numpy leaves, either package's)
-        into the live parameters, moments and counters. The names and
-        shapes must be this model's."""
-        parts = [params_from_jax(t) for t in
-                 (tree["params"], tree["opt"]["m"], tree["opt"]["v"])]
-        for got in parts:
-            if sorted(got) != sorted(self.names):
-                raise ValueError(
-                    f"checkpoint names {sorted(set(got) ^ set(self.names))} "
-                    f"differ from the model's")
-        params, m, v = ([d[n] for n in self.names] for d in parts)
+        """Copy a restored state tree (numpy or host torch leaves, either
+        package's) into the live parameters, moments and counters. The
+        names, shapes and moment dtypes must be this trainer's."""
+        got = params_from_jax(tree["params"])
+        if sorted(got) != sorted(self.names):
+            raise ValueError(
+                f"checkpoint names {sorted(set(got) ^ set(self.names))} "
+                f"differ from the model's")
+        params = [got[n] for n in self.names]
+        m, v = (self._moments_from(tree["opt"][k]) for k in ("m", "v"))
         # every shape before any copy: a mismatch leaves the state whole
-        for name, p, *srcs in zip(self.names, self.params, params, m, v):
-            for src in srcs:
+        srcs = [params] if self.opt.state_dtype == "int8" else [params, m, v]
+        for name, p, *got in zip(self.names, self.params, *srcs):
+            for src in got:
                 if p.shape != src.shape:
                     raise ValueError(f"checkpoint {name} has shape "
                                      f"{tuple(src.shape)}, the model "
                                      f"{tuple(p.shape)}")
-        for p, src in zip(self.params, params):
-            p.copy_(src)
+        # checks every moment before it copies any
         self.opt.load_state_dict({"m": m, "v": v,
                                   "step": int(tree["opt"]["step"])})
+        for p, src in zip(self.params, params):
+            p.copy_(src)
         self.steps_done = int(tree["step"])
         # checkpoints predating the non-finite guard carry no counter
         self.bad = int(tree.get("bad", 0))
@@ -238,8 +280,7 @@ class Trainer:
         with torch.no_grad():
             for p, p0 in zip(self.params, self._init_params):
                 p.copy_(p0)
-            for t in (*self.opt.m, *self.opt.v):
-                t.zero_()
+        self.opt.zero_()
         self.opt.step = 0
         self.steps_done = 0
         self.bad = 0
@@ -267,7 +308,7 @@ class Trainer:
         if self.ckpt is None:
             self.steps_done = 0
             return 0
-        got = self.ckpt.restore_latest_verified()
+        got = self.ckpt.restore_latest_verified(device="cpu")
         if got is None:
             self._reinit()
             return 0
@@ -432,7 +473,7 @@ class Trainer:
             self.ckpt.wait()
             for s in self.ckpt.generations():
                 try:
-                    tree = self.ckpt.restore(s)
+                    tree = self.ckpt.restore(s, device="cpu")
                 except (CheckpointCorrupt, OSError, ValueError,
                         KeyError) as e:
                     warnings.warn(

@@ -132,7 +132,8 @@ class _Program:
 
 class ServeEngine:
     """Continuous-batching engine over the paged-KV serving path of a
-    dense or MoE token LM (``models/lm.LMModel``); graph archs are served
+    dense, MoE or VLM token LM (``models/lm.LMModel``; a VLM is served
+    text-only, as the reference serves it); graph archs are served
     by :class:`repro_torch.serve.graph_serve.GraphServe` instead."""
 
     def __init__(self, model, *, batch_slots: int = 4, page: int = 16,

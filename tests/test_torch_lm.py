@@ -327,13 +327,14 @@ def test_params_from_jax_loads_the_lm_tree(arch):
 
 
 def test_unported_families_raise_naming_roadmap():
-    """VLM and enc-dec still raise naming A10; a hybrid config given to
-    LMModel points to the hybrid model; serving under a mesh names A8."""
+    """A VLM config builds (with its frontend projection); an enc-dec or a
+    hybrid config given to LMModel points to its own model; serving under
+    a mesh names A8."""
     cfg, _ = _cfgs("qwen3_0_6b")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tlm.LMModel(cfg.replace(family="vlm", frontend="vision",
-                                frontend_tokens=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    vlm = tlm.LMModel(cfg.replace(family="vlm", frontend="vision",
+                                  frontend_tokens=4), device="cpu")
+    assert vlm.frontend_proj.w.shape == (cfg.d_model, cfg.d_model)
+    with pytest.raises(ValueError, match="EncDecModel"):
         tlm.LMModel(cfg.replace(family="encdec", enc_layers=1), device="cpu")
     jamba = get_smoke_config("jamba_v0_1_52b")
     with pytest.raises(ValueError, match="HybridLMModel"):
