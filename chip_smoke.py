@@ -137,10 +137,12 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    training on the serve phase's 32768-node graph, sparse steps only,
    the layout frozen, 3 steps under "none" and 3 under "block", held as
    the Qwen3 A/B. All at full width, and but for Mamba2 at full depth,
-   the LMs on the cluster-sparse backend, batch 1; each run's peak
+   the LMs on the cluster-sparse backend, batch 1, every seeded init
+   drawn on the card (``layers.draw_on_device``); each run's peak
    memory, step times, losses (finite, falling);
 12. token serving (slice 13's main path), in a child process: Qwen3-0.6B
-   as published (bf16, dense attention, seeded weights) through
+   as published (bf16, dense attention, seeded weights drawn on the
+   card, as Mamba2-2.7B's in (e)) through
    ``ServeEngine`` (8 slots, page 16, chunk 256): (a) 32 requests,
    prompts 128-3840, 128 new tokens each, max_len 4096, then 8 more on
    the warm engine at half the measured request rate; (b) the
@@ -162,7 +164,7 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    process: (a) Qwen3-235B-A22B at full width (d_model 4096, 64 heads
    over 4, 128 experts top-8 of width 1536, vocab 151936), its depth cut
    to one layer, on the cluster-sparse backend under "block", seeded
-   init timed: the MoE op on 1024 tokens on the card against the CPU in
+   init drawn on the card and timed: the MoE op on 1024 tokens on the card against the CPU in
    fp32; layer 0's attention op on its own q, k, v (64 query heads over
    4), rows 2, 5 and 6 against their plain versions at phase 11's
    tolerances; step 0 against ``impl="plain"`` (loss, every gradient's
@@ -182,7 +184,9 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    S=2048 x 2, then its prefill at S=512 against 512 decode steps, fp32
    held to the reference's tolerance, bf16 reported;
 14. the enc-dec and VLM families and AdamW's reduced-precision moments
-   (slice 15's main path), in a child process (``--a10 OUT``): (a)
+   (slice 15's main path), in a child process (``--a10 OUT``) with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and deterministic algorithms
+   (``warn_only``), so that the plain path step 0 is held to repeats: (a)
    SeamlessM4T-medium as published (12 + 12 layers, d_model 1024, 16
    heads of 64, d_ff 4096, vocab 256206; 978,384,896 parameters, the
    seeded init drawn on the CPU and timed) on the cluster-sparse
@@ -202,7 +206,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    argmax, bf16 reported; ms a decode step. (b) InternVL2-76B at full
    width (d_model 8192, 64 heads over 8 of 128, d_ff 28672, vocab
    128256, 256 patches), its depth cut to 1 of 80 layers (3,028,312,064
-   parameters): batch 1, S = 256 patches + 3840 tokens; its attention
+   parameters, the seeded init drawn on the card and timed): batch 1,
+   S = 256 patches + 3840 tokens; its attention
    op and step 0 held as in (a); from the same init (kept on the card)
    and batches, 3 steps at a peak learning rate of 3e-4 under each of
    AdamW's moment dtypes (float32, bfloat16, int8): the losses side by
@@ -216,6 +221,29 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    distance from the fp32 gradient (``FP32_DISTANCE_FACTOR``). The
    training runs take ``max_bad_steps=0``: no re-init rung, so no host
    copy of the parameters.
+15. graph parallelism (slice 16's main path), in a child process
+   (``--graph-parallel OUT``) that spawns two ranks sharing this card
+   over gloo (``torch.distributed``; gloo moves the collectives' CUDA
+   tensors through the host, so their times are host staging, not
+   NVLink): (a) ``sharded_cluster_attention`` at Graphormer-Large's
+   width (32 heads of 24) on phase 5's 8192-node graph, bf16, a random
+   nonzero bias table sharded by head: each rank's O, dq, dk, dv and the
+   table's gradient (summed over the ranks) held to the unsharded kernel
+   call (O element by element at TOL_O_ELEM, the gradients at TOL_GRAD)
+   and to the unsharded ``impl="plain"`` call (TOL_O, TOL_GRAD); the
+   all-to-all bytes of a forward against ``cluster_a2a_budget``; the
+   sharded forward timed, and the all-to-alls' share of it by CUDA
+   events; (b) Graphormer-Large (TRAIN_LAYERS layers, full width, bf16)
+   node training through ``NodeTask`` and the Trainer on a (1, 2) mesh,
+   4 steps, dense at 0, the layout frozen: first the P = 1 run on rank 0
+   (the other rank waiting), the sparse and the dense step's loss and
+   gradients at the init held to it (TOL_STEP_LOSS_REL, MIN_GRAD_COSINE),
+   every rank's losses held to it (TOL_STEP_LOSS_REL); (c) Qwen3-0.6B at
+   full width, 8 of its 28 layers (GP_LM_LAYERS), on the cluster-sparse
+   backend under Ulysses, S=16384, 2 steps, held to its P = 1 run
+   (TOL_LM_STEP_LOSS_REL), the inits drawn on the card. Each rank's launches of rows 1, 3, 4 in (b)
+   and 2, 5, 6 in (c) are counted exactly; step ms, the collectives' ms
+   by CUDA events and peak memory per rank.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after. Every training path's counts are exact:
@@ -1678,9 +1706,14 @@ def remat_phase(out_path: str) -> int:
     kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
                       tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED_SM90,
                       tcab.LIBRARY_UNBIASED_SM90))
+    from repro_torch.models import layers as L
+
     reset_counts, read_counts = kernel_counters()
-    rec, counted = remat_runs(torch.device("cuda"), reset_counts,
-                              read_counts)
+    # every seeded init drawn on the card: no host time (the configs'
+    # checks compare runs from one init with each other)
+    with L.draw_on_device():
+        rec, counted = remat_runs(torch.device("cuda"), reset_counts,
+                                  read_counts)
     rec["launches"] = {k: sum(c[k] for c in counted) for k in read_counts()}
     rec["seconds"] = time.perf_counter() - t_start
     with open(out_path, "w") as fh:
@@ -2340,8 +2373,13 @@ def serve_lm_phase(out_path: str) -> int:
 
     t_start = time.perf_counter()
     kbuild.build_all((tca.LIBRARY_UNBIASED_SM90,))
+    from repro_torch.models import layers as L
+
     reset_counts, read_counts = kernel_counters()
-    rec = serve_runs(torch.device("cuda"), reset_counts, read_counts)
+    # the seeded inits drawn on the card: no host time (every check holds
+    # the engine to oracles on the same weights)
+    with L.draw_on_device():
+        rec = serve_runs(torch.device("cuda"), reset_counts, read_counts)
     rec["seconds"] = time.perf_counter() - t_start
     with open(out_path, "w") as fh:
         json.dump(rec, fh)
@@ -2411,6 +2449,7 @@ def moe_runs(dev, reset_counts, read_counts) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+    from repro_torch.models import layers as L
     from repro_torch.models import moe as tmoe
     from repro_torch.models.hybrid import HybridLMModel, hybrid_loss
     from repro_torch.models.lm import (LMModel, lm_decode_step, lm_loss,
@@ -2552,7 +2591,8 @@ def moe_runs(dev, reset_counts, read_counts) -> dict:
                                        remat="block")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = LMModel(cfg, device=dev, seed=0)
+    with L.draw_on_device():    # 3.7e9 numbers: no host time
+        model = LMModel(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     a = {"init_s": time.perf_counter() - t0}
     n_params = sum(p.numel() for p in model.parameters())
@@ -2566,7 +2606,7 @@ def moe_runs(dev, reset_counts, read_counts) -> dict:
         f"{cfg.vocab_size}, {cfg.n_layers} layer (of 94); {n_params:,} "
         f"params ({n_experts:,} in the experts), parameters, gradients "
         f"and two moments {16 * n_params / 2**30:.2f} GiB; seeded init "
-        f"(drawn on the CPU) {a['init_s']:.1f} s")
+        f"(drawn on the card) {a['init_s']:.1f} s")
 
     # the MoE op at full width on the card and on the CPU, fp32, TF32 off
     moe = model.layers[0].moe
@@ -3231,7 +3271,8 @@ def a10_runs(dev, reset_counts, read_counts) -> dict:
                                            remat="block")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = LMModel(cfg, device=dev, seed=0)
+    with L.draw_on_device():    # 3.03e9 numbers: no host time
+        model = LMModel(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     b = {"init_s": time.perf_counter() - t0}
     n_params = sum(p.numel() for p in model.parameters())
@@ -3240,7 +3281,7 @@ def a10_runs(dev, reset_counts, read_counts) -> dict:
         f"over {cfg.kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.frontend_tokens} patches, "
         f"{cfg.n_layers} layer (of 80); {n_params:,} params (reference "
-        f"{A10_VLM_PARAMS:,}); seeded init (drawn on the CPU) "
+        f"{A10_VLM_PARAMS:,}); seeded init (drawn on the card) "
         f"{b['init_s']:.1f} s")
     if n_params != A10_VLM_PARAMS:
         raise AssertionError(f"(b) {n_params} parameters, the reference "
@@ -3366,12 +3407,19 @@ def a10_phase(out_path: str) -> int:
     """Phase 14, in a child process: the enc-dec and VLM families and
     AdamW's reduced-precision moments (``a10_runs``), on an empty card
     (InternVL2's one layer holds ~48 GB of training state with fp32
-    moments). The record goes to ``out_path`` as JSON."""
+    moments), with deterministic algorithms where PyTorch has them
+    (``warn_only``) and ``CUBLAS_WORKSPACE_CONFIG`` from the parent: step
+    0's check holds the kernel path to ``impl="plain"``, whose
+    ``index_add_`` otherwise accumulates with atomics in a new order each
+    run, and SeamlessM4T's decoder norms' gradients sit within 1% of
+    their norm limit (PERF.md 6). The record goes to ``out_path`` as
+    JSON."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke phase 14: no CUDA device", file=sys.stderr)
         return 2
+    torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3390,6 +3438,406 @@ def a10_phase(out_path: str) -> int:
     log(f"[a10] {rec['seconds']:.1f}s, launches "
         f"{ {k: c for k, c in rec['launches'].items() if c} }, fp32 "
         f"{ {k: c for k, c in rec['launches_float32'].items() if c} }")
+    return 0
+
+
+GP_P = 2                     # ranks of phase 15, sharing card 0 over gloo
+GP_TRAIN_STEPS = 4           # (b): dense at 0 (interleave period 8)
+GP_LM_STEPS = 2              # (c)
+# (c): 8 of Qwen3-0.6B's 28 layers: at full depth its two steps took
+# 21-30 s on an H100 (the gloo collectives through the host), more than
+# the script's time budget leaves (PERF.md 7)
+GP_LM_LAYERS = 8
+
+
+def _gp_timed(mod, name, store):
+    """Replace ``mod.name`` (a collective) by a version that records a
+    CUDA event pair around each call into ``store[name]``."""
+    import torch
+
+    real = getattr(mod, name)
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        store.setdefault(name, []).append((e0, e1))
+        return out
+    setattr(mod, name, timed)
+    return real
+
+
+def _gp_ms(store) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    out = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in store.items()}
+    store.clear()
+    return out
+
+
+def gp_runs(rank: int, dev, reset_counts, read_counts) -> dict:
+    """Phase 15's runs on this rank of a (1, GP_P) mesh over gloo, every
+    rank on ``dev``: (a) ``sharded_cluster_attention`` at
+    Graphormer-Large's width on the 8192-node graph's layout, in bf16,
+    held to the unsharded kernel call and to ``impl="plain"``, its
+    all-to-all bytes against ``cluster_a2a_budget``, the all-to-all's
+    share of the call timed by CUDA events; (b) Graphormer-Large
+    (TRAIN_LAYERS layers) node training through ``NodeTask`` and the
+    Trainer on the mesh, GP_TRAIN_STEPS steps with the dense interleave
+    at 0, held to the P = 1 run on rank 0 (losses, the gradients of both
+    variants at the init); (c) Qwen3-0.6B on the cluster-sparse backend
+    under Ulysses, LM_SEQ tokens, GP_LM_STEPS steps, held to the P = 1
+    run on rank 0. The launches of (b) and (c) on this rank, exactly;
+    step ms; the collectives' ms by CUDA events; peaks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.graph_model import GraphModel
+    from repro_torch.data.graph_pipeline import prepare_node_task
+    from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import degree_scaled_sbm
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import LMModel
+    from repro_torch.parallel import cluster_parallel as tcp
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import ulysses as tu
+    from repro_torch.parallel.sharding import recipe_for
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tasks import BatchFnTask, NodeTask
+
+    P = dist.get_world_size()
+    mesh = make_host_mesh(model=P)
+    group = mesh.get_group("model")
+    rec = {"rank": rank}
+    zero = {name: 0 for name in read_counts()}
+    store = {}
+
+    def say(msg):
+        log(f"[graph-parallel] rank {rank}: {msg}")
+
+    def shard(x):
+        n = x.shape[1] // P
+        return x[:, rank * n:(rank + 1) * n]
+
+    # ---------------------------------------------------------------- (a)
+    large = get_config("graphormer_large")
+    g = degree_scaled_sbm(TRAIN_NODES, CLUSTERS, large, seed=0)
+    prep = prepare_node_task(g, large, bq=32, bk=32, d_b=8)
+    lay = prep.layout
+    bi, bu, bit = (torch.from_numpy(np.ascontiguousarray(prep.batch[k])).to(
+        dev) for k in ("block_idx", "buckets", "block_idx_t"))
+    S, H, Dh = lay.seq_len, large.n_heads, large.head_dim
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q, k, v, dout = (torch.randn(1, S, H, Dh, generator=gen, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    table = torch.randn(H, lay.n_buckets, generator=gen, device=dev) * 0.5
+
+    def run(sharded, impl=None):
+        leaves = [(shard(x) if sharded else x).clone().requires_grad_()
+                  for x in (q, k, v)]
+        tbl = table.clone().requires_grad_()
+        if sharded:
+            o = tcp.sharded_cluster_attention(
+                *leaves, bi, bu, tbl, bit, group=group, bq=32, bk=32,
+                impl=impl)
+        else:
+            o = ops.cluster_attention(*leaves, bi, bu, tbl, bit, impl=impl)
+        o.backward(shard(dout) if sharded else dout)
+        dt = tbl.grad
+        if sharded:
+            C.all_reduce_(dt, group)
+        grads = [x.grad if sharded else shard(x.grad) for x in leaves]
+        return (o.detach() if sharded else shard(o.detach())), grads, dt
+
+    o_s, g_s, dt_s = run(True)
+    o_k, g_k, dt_k = run(False)
+    o_p, g_p, dt_p = run(False, "plain")
+    atol, rtol = TOL_O_ELEM["bfloat16"]
+    a = {"S": S, "H": H, "Dh": Dh, "active_blocks": int((bi >= 0).sum())}
+    for ref_name, o_r, g_r, dt_r in (("kernel", o_k, g_k, dt_k),
+                                     ("plain", o_p, g_p, dt_p)):
+        excess = ((o_s.float() - o_r.float()).abs()
+                  - (atol + rtol * o_r.float().abs())).max().item()
+        rels = [_rel(x, y) for x, y in zip(g_s + [dt_s], g_r + [dt_r])]
+        err = (o_s.float() - o_r.float()).abs().max().item()
+        ok = rels and max(rels) <= TOL_GRAD["bfloat16"] and (
+            excess <= 0 if ref_name == "kernel" else
+            err <= TOL_O["bfloat16"])
+        a[f"vs_{ref_name}"] = {"max_abs_err": err, "o_excess": excess,
+                               "rel_dq_dk_dv_dtable": rels}
+        say(f"(a) sharded_cluster_attention S={S} H={H} Dh={Dh} bf16 vs "
+            f"the unsharded {ref_name} call: max|dO| {err:.3g} (kernel: "
+            f"element by element within {atol} + {rtol}|O|, excess "
+            f"{excess:.3g}; plain: tol {TOL_O['bfloat16']}), rel dq dk dv "
+            f"dtable {[f'{r:.3g}' for r in rels]} (tol "
+            f"{TOL_GRAD['bfloat16']})")
+        if not ok:
+            raise AssertionError(f"(a) sharded vs {ref_name}: {a}")
+    del o_k, g_k, o_p, g_p
+    ql, kl, vl = (shard(x).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        fwd = lambda: tcp.sharded_cluster_attention(  # noqa: E731
+            ql, kl, vl, bi, bu, table, None, group=group, bq=32, bk=32)
+        fwd()
+        a["a2a_bytes"] = tcp.LAST_CALL["a2a_bytes"]
+        a["a2a_budget"] = tcp.cluster_a2a_budget(q.shape, k.shape, 2, P)
+        # each call timed whole and in its all-to-alls, the same calls
+        real = _gp_timed(C, "all_to_all", store)
+        calls = []
+        try:
+            for _ in range(5):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fwd()
+                e1.record()
+                torch.cuda.synchronize()
+                calls.append((e0.elapsed_time(e1),
+                              _gp_ms(store)["all_to_all"]))
+        finally:
+            C.all_to_all = real
+        a["fwd_ms"] = float(np.median([t for t, _ in calls]))
+        a["a2a_ms_in_fwd"] = float(np.median([x for _, x in calls]))
+        a["a2a_share"] = float(np.median([x / t for t, x in calls]))
+        a["unsharded_fwd_ms"] = cuda_ms(lambda: ops.cluster_attention(
+            q, k, v, bi, bu, table), 5)
+    say(f"(a) all-to-all {a['a2a_bytes']:,} bytes a forward, budget "
+        f"{a['a2a_budget']:,} (cluster_a2a_budget); sharded forward "
+        f"{a['fwd_ms']:.3f} ms, {a['a2a_ms_in_fwd']:.3f} ms of it in the "
+        f"all-to-alls (medians of 5 calls; {a['a2a_share']:.1%} a call, "
+        f"gloo through the host); the unsharded kernel "
+        f"{a['unsharded_fwd_ms']:.3f} ms")
+    if not 0 < a["a2a_bytes"] <= a["a2a_budget"]:
+        raise AssertionError(f"(a) all-to-all bytes {a['a2a_bytes']} over "
+                             f"the budget {a['a2a_budget']}")
+    rec["a"] = a
+    del q, k, v, dout, ql, kl, vl
+    torch.cuda.empty_cache()
+
+    def trainer_steps(tag, model, task, tc, want_fn, seq, mesh_=None):
+        """Train ``model`` on ``task`` (sequences of ``seq`` tokens), on
+        ``mesh_`` or on one process, the collectives timed; returns the
+        record and the Trainer."""
+        kw = {} if mesh_ is None else {
+            "mesh": mesh_, "recipe": recipe_for(ShapeConfig(
+                "t", "train", seq, 1), mesh_)}
+        tr = Trainer(model, tc, task=task, **kw)
+        reals = [(n, _gp_timed(C, n, store)) for n in
+                 ("all_to_all", "all_reduce_")] if mesh_ is not None else []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            tr.run()
+        finally:
+            for n, f in reals:
+                setattr(C, n, f)
+        torch.cuda.synchronize()
+        out = {"run_s": time.perf_counter() - t0, "launches": read_counts(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "loss": [h["loss"] for h in tr.history],
+               "variant": [h["variant"] for h in tr.history],
+               "step_ms": [h["seconds"] * 1e3 for h in tr.history],
+               "collective_ms": _gp_ms(store) if mesh_ is not None else {}}
+        want = {**zero, **want_fn(tr.history)}
+        say(f"{tag}: losses {[round(x, 5) for x in out['loss']]}, variants "
+            f"{out['variant']}, step ms "
+            f"{[round(x, 2) for x in out['step_ms']]}, peak "
+            f"{out['peak_bytes'] / 2**30:.2f} GiB, collectives' ms "
+            f"{ {k: round(x, 1) for k, x in out['collective_ms'].items()} }"
+            f", launches { {n: c for n, c in out['launches'].items() if c} }")
+        if out["launches"] != want or not np.isfinite(out["loss"]).all():
+            raise AssertionError(f"{tag}: launches {out['launches']}, want "
+                                 f"{want}; losses {out['loss']}")
+        return out, tr
+
+    def grads_at_init(model, task, mesh_=None):
+        """Each variant's loss and gradients (summed over the ranks) at the
+        init, on the task's batch of step 0."""
+        out = {}
+        for variant, fn in model.loss_variants.items():
+            ctx = task.context()
+            with ctx:
+                loss, _ = fn(model, task.batches(0))
+                gs = torch.autograd.grad(loss, list(model.parameters()),
+                                         allow_unused=True)
+            gs = [torch.zeros_like(p) if x is None else x
+                  for x, p in zip(gs, model.parameters())]
+            if mesh_ is not None:
+                flat = torch.cat([x.reshape(-1) for x in gs])
+                C.all_reduce_(flat, None)
+                gs = list(flat.split([x.numel() for x in gs]))
+            out[variant] = (loss.item(), [x.reshape(-1) for x in gs])
+        return out
+
+    # ---------------------------------------------------------------- (b)
+    cfg_b = get_config("graphormer_large").replace(n_layers=TRAIN_LAYERS)
+    train_mask = np.random.default_rng(0).random(g.n) < 0.5
+    tc_b = TrainerConfig(steps=GP_TRAIN_STEPS, lr=1e-3, warmup=2,
+                         interleave_period=cfg_b.interleave_period,
+                         elastic_every=0, max_bad_steps=0)
+    n_sparse = sum(1 for s in range(GP_TRAIN_STEPS)
+                   if s % cfg_b.interleave_period)
+    want_b = lambda hist: step_launches(cfg_b, B32_NAMES, sum(  # noqa: E731
+        1 for h in hist if h["variant"] == "sparse"))
+    ref_b = None
+    if rank == 0:   # the P = 1 run, while the other ranks wait
+        model = GraphModel(cfg_b, device=dev, seed=0)
+        task = NodeTask(g, cfg_b, train_mask=train_mask, bq=32, bk=32,
+                        d_b=8, device=dev).prepare(model)
+        ref_grads = grads_at_init(model, task)
+        ref_b, _ = trainer_steps("(b) graphormer-large P=1", model, task,
+                                 tc_b, want_b, S)
+        del model, task
+        torch.cuda.empty_cache()
+    dist.barrier()
+    model = GraphModel(cfg_b, device=dev, seed=0)
+    task = NodeTask(g, cfg_b, train_mask=train_mask, bq=32, bk=32, d_b=8,
+                    device=dev)
+    recipe = recipe_for(ShapeConfig("t", "train", S, 1), mesh)
+    task.prepare(model, mesh, recipe)
+    got = grads_at_init(model, task, mesh)
+    b = {"sparse_steps": n_sparse}
+    if rank == 0:
+        for variant, (loss, gs) in got.items():
+            rl, rg = ref_grads[variant]
+            cos = [F.cosine_similarity(x.float(), y.float(), dim=0,
+                                       eps=1e-30).item()
+                   for x, y in zip(gs, rg)]
+            b[f"init_{variant}"] = {"loss": loss, "p1_loss": rl,
+                                    "loss_rel": abs(loss - rl) / abs(rl),
+                                    "min_grad_cosine": min(cos)}
+            say(f"(b) {variant} step at the init, P={P} vs P=1: loss "
+                f"{loss:.6f} vs {rl:.6f} (rel {abs(loss - rl) / abs(rl):.3g},"
+                f" tol {TOL_STEP_LOSS_REL}); min gradient cosine "
+                f"{min(cos):.6f} (min {MIN_GRAD_COSINE})")
+            if abs(loss - rl) > TOL_STEP_LOSS_REL * abs(rl) or \
+                    min(cos) < MIN_GRAD_COSINE:
+                raise AssertionError(f"(b) {variant} at the init: {b}")
+        del ref_grads
+    del got
+    # the Trainer prepares the task on the mesh again
+    b["run"], _ = trainer_steps(f"(b) graphormer-large P={P}", model, task,
+                                tc_b, want_b, S, mesh)
+    b["p1"] = ref_b
+    rec["b"] = b
+    del model, task
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- (c)
+    cfg_c = get_config("qwen3_0_6b").replace(attn_backend="cluster_sparse",
+                                             n_layers=GP_LM_LAYERS)
+    dc = LMDataConfig(cfg_c.vocab_size, LM_SEQ, 1, seed=0)
+    tc_c = TrainerConfig(steps=GP_LM_STEPS, lr=1e-3, warmup=2,
+                         max_bad_steps=0)
+    want_c = lambda hist: step_launches(  # noqa: E731
+        cfg_c, UNBIASED_NAMES, len(hist))
+    ref_c = None
+    if rank == 0:
+        with L.draw_on_device():
+            model = LMModel(cfg_c, device=dev, seed=0)
+        ref_c, _ = trainer_steps("(c) qwen3-0.6b P=1", model,
+                                 BatchFnTask(lambda s: lm_batch(dc, s)),
+                                 tc_c, want_c, LM_SEQ)
+        del model
+        torch.cuda.empty_cache()
+    dist.barrier()
+    with L.draw_on_device():
+        model = LMModel(cfg_c, device=dev, seed=0)
+    c = {"layers": GP_LM_LAYERS}
+    c["run"], _ = trainer_steps(f"(c) qwen3-0.6b P={P} ulysses", model,
+                                BatchFnTask(lambda s: lm_batch(dc, s)),
+                                tc_c, want_c, LM_SEQ, mesh)
+    c["p1"] = ref_c
+    rec["c"] = c
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _gp_rank(rank, world, tmp, out_dir):
+    """A spawned rank of phase 15 (``graph_parallel_phase``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.mesh import init_distributed
+
+    init_distributed("gloo", rank, world, f"file://{tmp}/rdzv")
+    import torch.distributed as dist
+    try:
+        reset_counts, read_counts = kernel_counters()
+        rec = gp_runs(rank, torch.device("cuda", 0), reset_counts,
+                      read_counts)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(rec, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def graph_parallel_phase(out_path: str) -> int:
+    """Phase 15, in a child process: GP_P ranks spawned on card 0 over
+    gloo (``gp_runs``); every rank's record, and the checks across ranks
+    (each rank's losses of (b) and (c) held to rank 0's P = 1 run), to
+    ``out_path`` as JSON. Fails when any rank fails."""
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 15: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import cluster_attention as tca
+    from repro_torch.kernels import cluster_attention_bwd as tcab
+
+    t_start = time.perf_counter()
+    # built before the ranks start, so that they only load the libraries
+    kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
+                      tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED_SM90,
+                      tcab.LIBRARY_UNBIASED_SM90))
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_gp_rank, args=(GP_P, tmp, tmp), nprocs=GP_P, join=True)
+        ranks = []
+        for r in range(GP_P):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    p1_b, p1_c = ranks[0]["b"]["p1"], ranks[0]["c"]["p1"]
+    for r in ranks:
+        for part, ref_, tol in (("b", p1_b, TOL_STEP_LOSS_REL),
+                                ("c", p1_c, TOL_LM_STEP_LOSS_REL)):
+            got = r[part]["run"]["loss"]
+            rel = [abs(x - y) / abs(y) for x, y in zip(got, ref_["loss"])]
+            r[part]["loss_rel_vs_p1"] = rel
+            log(f"[graph-parallel] ({part}) rank {r['rank']}: losses "
+                f"{got} vs P=1 {ref_['loss']}, rel {rel} (tol {tol})")
+            if len(got) != len(ref_["loss"]) or max(rel) > tol:
+                raise AssertionError(f"phase 15 ({part}) rank {r['rank']}: "
+                                     f"losses {got} vs P=1 {ref_['loss']}")
+    launches = {}
+    for r in ranks:
+        for part in ("b", "c"):
+            for n, c in r[part]["run"]["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+    rec = {"ranks": ranks, "launches": launches,
+           "seconds": time.perf_counter() - t_start}
+    with open(out_path, "w") as fh:
+        json.dump(rec, fh)
+    log(f"[graph-parallel] {rec['seconds']:.1f}s, launches over the ranks "
+        f"{ {k: c for k, c in launches.items() if c} }")
     return 0
 
 
@@ -5257,6 +5705,7 @@ def main() -> int:
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--a10", path],
+                env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
                 timeout=600)
             wall = time.perf_counter() - t0
             if proc.returncode != 0:
@@ -5270,6 +5719,36 @@ def main() -> int:
 
     a10_rec = a10_run()
 
+    # ------------- 15. graph parallelism on the mesh (slice 16's path)
+    log(f"[phase] 15 starts at {time.perf_counter() - t_start:.1f} s")
+    def gp_run():
+        """Phase 15 in a child process (``graph_parallel_phase``), which
+        spawns its GP_P ranks on this card over gloo; it fails on a
+        non-zero exit."""
+        import gc
+        import tempfile
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "gp.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--graph-parallel", path], timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 15 (graph parallelism) exited "
+                                     f"{proc.returncode}")
+            with open(path) as fh:
+                rec = json.load(fh)
+        rec["wall_s"] = wall
+        log(f"[graph-parallel] phase 15 child: {wall:.1f}s of wall")
+        return rec
+
+    gp_rec = gp_run()
+
     # -------------------------------------------------------- results
     rec = serve_rec["bfloat16"]
     yard8 = yard[str(YARDSTICK_NODES)]
@@ -5278,7 +5757,7 @@ def main() -> int:
     def launches(name):
         return (main_path["launches"][name] + train_run["launches"][name]
                 + link_run["launches"][name] + recovery["launches"][name]
-                + remat["launches"][name])
+                + remat["launches"][name] + gp_rec["launches"][name])
 
     rung = train_run["rung"]
     csrc = "src/repro_torch/kernels/csrc/"
@@ -5301,7 +5780,9 @@ def main() -> int:
             "train": train_run["launches"]["cluster_attention_fwd_sm90"],
             "link_train": link_run["launches"]["cluster_attention_fwd_sm90"],
             "recovery": recovery["launches"]["cluster_attention_fwd_sm90"],
-            "remat": remat["launches"]["cluster_attention_fwd_sm90"]},
+            "remat": remat["launches"]["cluster_attention_fwd_sm90"],
+            "graph_parallel": gp_rec["launches"][
+                "cluster_attention_fwd_sm90"]},
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "exp_floor_ms": rec["exp_floor_ms"],
@@ -5361,13 +5842,15 @@ def main() -> int:
                          + remat["launches"][name + "_sm90"]
                          + serve_lm["launches"][name + "_sm90"]
                          + moe_rec["launches"][name + "_sm90"]
-                         + a10_rec["launches"][name + "_sm90"]),
+                         + a10_rec["launches"][name + "_sm90"]
+                         + gp_rec["launches"][name + "_sm90"]),
             "launches_by_path": {
                 "lm_train": lm_run["launches"][name + "_sm90"],
                 "remat": remat["launches"][name + "_sm90"],
                 "serve_prefill": serve_lm["launches"][name + "_sm90"],
                 "moe_hybrid": moe_rec["launches"][name + "_sm90"],
-                "encdec_vlm": a10_rec["launches"][name + "_sm90"]},
+                "encdec_vlm": a10_rec["launches"][name + "_sm90"],
+                "graph_parallel": gp_rec["launches"][name + "_sm90"]},
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
@@ -5483,6 +5966,7 @@ def main() -> int:
             ("cluster_attention_fwd_unbiased", "serve_lm", serve_lm),
             ("cluster_attention_fwd_unbiased", "moe_hybrid", moe_rec),
             ("cluster_attention_fwd_unbiased", "encdec_vlm", a10_rec),
+            ("cluster_attention_fwd", "graph_parallel", gp_rec),
             ("ssd_fwd", "tune", tune_run),
             ("cluster_attention_fwd_b16", "graph_train", graph_runs),
             ("cluster_attention_fwd_b16", "recovery", recovery)):
@@ -5506,4 +5990,6 @@ if __name__ == "__main__":
         sys.exit(moe_phase(sys.argv[2]))
     if sys.argv[1:2] == ["--a10"]:
         sys.exit(a10_phase(sys.argv[2]))
+    if sys.argv[1:2] == ["--graph-parallel"]:
+        sys.exit(graph_parallel_phase(sys.argv[2]))
     sys.exit(main())

@@ -86,6 +86,20 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape a recipe is chosen for (``parallel.sharding``): the
+    reference's ``ShapeConfig``."""
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
 # the archs the port runs: graph family, the dense LMs, the MoE LMs, the
 # SSM LM, the hybrid, the encoder-decoder and the VLM
 GRAPH_ARCHS = ["graphormer_slim", "graphormer_large", "gt"]

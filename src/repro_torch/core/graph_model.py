@@ -20,6 +20,14 @@ Batch layout (built by data/graph_pipeline.py, moved to the device by
   dense_buckets (B, S, S) int8  scattered buckets (the dense step's bias)
 
 Parameters are fp32; compute runs in ``cfg.dtype``.
+
+Under a mesh (``parallel.axes.axis_rules``) the batch holds this rank's
+S/P contiguous tokens of the per-node arrays (``dense_buckets`` its
+rows) and the whole layouts, and the forward is the reference's
+sharded one: the global tokens only at global positions below
+``n_global``, the sparse step through ``sharded_cluster_attention``
+(shapes that cannot shard raise), the dense step sequence-parallel, and
+``graph_loss`` the mean over every rank's tokens.
 """
 
 from __future__ import annotations
@@ -34,6 +42,11 @@ from repro_torch.core.dual_attention import dense_bias_from_buckets
 from repro_torch.device import resolve
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.cluster_parallel import (can_shard_cluster,
+                                                   sharded_cluster_attention)
+from repro_torch.parallel.ulysses import seqpar_attention
 
 # numpy batch arrays -> the torch dtype each lives in on the device
 _BATCH_DTYPES = {"feat": torch.float32, "in_deg": torch.long,
@@ -152,16 +165,52 @@ def batch_to_torch(batch: dict, device, uploads: dict | None = None) -> dict:
 
 
 def _graph_attn(p: L.Attention, cfg, h, batch, bias_table, dense, impl):
+    """Attention of one layer on ``h``, this rank's sequence shard under a
+    mesh: the sparse step through :func:`sharded_cluster_attention` (the
+    Ulysses all-to-all around the kernels, ``bias_table`` sharded by
+    head), the dense step as :func:`seqpar_attention` (this rank's rows
+    of ``dense_bias`` against all-gathered k and v)."""
     # the graph configs run no RoPE (rope_theta=0): no positions needed
     q, k, v = L.project_qkv(p, cfg, h, None)
-    if dense:
-        o = L.chunked_attention(q, k, v, bias=batch.get("dense_bias"))
-    else:
+    group = pax.model_group()
+    bias = batch.get("dense_bias")
+    if dense and group is None:
+        o = L.chunked_attention(q, k, v, bias=bias)
+    elif dense:
+        o = seqpar_attention(q, k, v, group=group,
+                             attn_fn=lambda a, b, c, off:
+                             L.chunked_attention(a, b, c, bias=bias))
+    elif group is None:
         o = kops.cluster_attention(q, k, v, batch["block_idx"],
                                    batch.get("buckets"), bias_table,
                                    batch.get("block_idx_t"), causal=False,
                                    impl=impl)
+    else:
+        o = _sharded_sparse(q, k, v, cfg, batch, bias_table, group, impl)
     return L.out_proj(p, o)
+
+
+def _sharded_sparse(q, k, v, cfg, batch, bias_table, group, impl):
+    """The sparse step on a sequence shard (the reference's
+    ``_graph_attn`` under a model-axis mesh). Shapes that cannot shard
+    raise: the unsharded op on a shard would attend to S/P keys only."""
+    bi, bu = batch["block_idx"], batch.get("buckets")
+    p = C.size(group)
+    S = q.shape[1] * p
+    bq = S // bi.shape[-2]
+    bk = bu.shape[-1] if bu is not None else bq
+    recipe = pax.current()[0]
+    if not (recipe.ulysses and can_shard_cluster(
+            cfg.n_heads, cfg.kv_heads, S, p, bq, bk)):
+        raise ValueError(
+            f"the sparse graph step cannot shard: H={cfg.n_heads} "
+            f"KV={cfg.kv_heads} S={S} bq={bq} bk={bk} over a {p}-way "
+            f"model group (recipe {recipe.name!r}); the reference hands "
+            f"such shapes to GSPMD, which the port has no counterpart of "
+            f"(ROADMAP A8 part 2)")
+    return sharded_cluster_attention(
+        q, k, v, bi, bu, bias_table, batch.get("block_idx_t"), group=group,
+        bq=bq, bk=bk, impl=impl)
 
 
 def _layer(layer: GraphLayer, h, cfg, batch, bias_table, dense, impl):
@@ -193,10 +242,19 @@ def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
         h = h + batch["lap_pe"].to(dtype) @ model.pe_proj.to(dtype)
     if cfg.n_global:
         # the leading n_global positions are the global tokens (a new
-        # tensor rather than a write into h, so autograd sees a plain op)
-        g = model.global_tok[:cfg.n_global].to(dtype)
-        h = torch.cat([g.expand(h.shape[0], -1, -1), h[:, cfg.n_global:]],
-                      dim=1)
+        # tensor rather than a write into h, so autograd sees a plain
+        # op); under a mesh only where the *global* position is below
+        # n_global, which is on the first ranks' shards
+        off = _seq_offset(h.shape[1])
+        n = min(max(cfg.n_global - off, 0), h.shape[1])
+        if n:
+            g = model.global_tok[off:off + n].to(dtype)
+            h = torch.cat([g.expand(h.shape[0], -1, -1), h[:, n:]], dim=1)
+    bu = batch.get("buckets")
+    if bu is not None:
+        pax.logical(h, "batch", "seq_outer", "embed", full=(
+            h.shape[0], batch["block_idx"].shape[-2] * bu.shape[-2],
+            h.shape[2]))
     body = functools.partial(_layer, cfg=cfg, batch=batch,
                              bias_table=getattr(model, "bias_table", None),
                              dense=dense, impl=impl)
@@ -207,6 +265,13 @@ def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
     for layer in model.layers:
         h = body(layer, h)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+
+
+def _seq_offset(local_len: int) -> int:
+    """The global position of this rank's first token: its rank in the
+    model group times the shard length (0 without a mesh)."""
+    group = pax.model_group()
+    return 0 if group is None else C.rank(group) * local_len
 
 
 def apply_head(model: GraphModel, h):
@@ -228,11 +293,15 @@ def graph_loss(model: GraphModel, batch: dict, *, dense: bool = False,
     logits = apply_head(model, h).float()
     labels = batch["labels"]
     mask = (labels >= 0).float()
-    n = mask.sum().clamp_min(1.0)
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    loss = ((logz - ll) * mask).sum() / n
-    acc = ((logits.argmax(-1) == labels).float() * mask).sum() / n
+    sums = torch.stack([((logz - ll) * mask).sum(), mask.sum(),
+                        ((logits.argmax(-1) == labels).float() * mask).sum()])
+    group = pax.mesh_group()
+    if group is not None:   # the global mean over every rank's shard
+        sums = C.SumAcross.apply(sums, group)
+    n = sums[1].clamp_min(1.0)
+    loss, acc = sums[0] / n, sums[2] / n
     return loss, {"xent": loss, "acc": acc}
 
 

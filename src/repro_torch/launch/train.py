@@ -1,7 +1,7 @@
 """Training CLI on the port: the graph archs' node, graph-level and link
 tasks, the dense and MoE LMs, the SSM LM and the hybrid (the port of
-``repro.launch.train`` without meshes), with checkpoints, restart and
-the seeded fault plan.
+``repro.launch.train``), with checkpoints, restart, the seeded fault
+plan and sequence and data parallelism on a host mesh.
 
 Graph archs (``graphormer_slim``, ``graphormer_large``, ``gt``) train one
 task through the :class:`Trainer`, on the reference's synthetic data:
@@ -49,6 +49,18 @@ not carry (the reference's CLI cannot train them either).
 Every family recomputes its layers in the backward as ``cfg.remat``
 says (the configs' default is ``"block"``).
 
+``--mesh-model P`` and ``--mesh-data D`` train on a (D, P) mesh of
+P·D ranks, one process each, over ``--backend`` (``gloo`` or ``nccl``,
+never chosen for the caller): the sequence sharded P ways (the graph
+node task through ``sharded_cluster_attention``, the dense LMs through
+Ulysses or sequence-parallel attention), the batch D ways where it
+divides. Under torchrun (RANK and WORLD_SIZE set) each process is one
+rank; otherwise the CLI spawns the ranks itself and rank 0 prints. It
+prints the ``mesh=... recipe=... sharded_cluster_attention=...`` line
+of the reference. ``--task graph|link`` and the non-dense LM families
+on a mesh raise (ROADMAP A8 part 2). NCCL needs a card a rank; several
+ranks share one card over gloo (through the host).
+
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch graphormer_slim --smoke --steps 20 --graph-nodes 96 \\
       --device cpu
@@ -72,17 +84,31 @@ says (the configs' default is ``"block"``).
   PYTHONPATH=src python -m repro_torch.launch.train --arch gt --smoke \\
       --task graph --graphs 8 --batch-graphs 4 --steps 6 --device cpu \\
       --ckpt-dir _local/ck --ckpt-every 2 --fault-plan nonfinite@2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gt --smoke \\
+      --steps 4 --graph-nodes 192 --mesh-model 2 --backend gloo \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
+      --smoke --steps 4 --seq 256 --batch 2 --mesh-model 2 --mesh-data 2 \\
+      --backend gloo --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
-from repro_torch.configs import ARCHS, get_config, get_smoke_config
+import torch.distributed as dist
+
+from repro_torch.configs import (ARCHS, ShapeConfig, get_config,
+                                 get_smoke_config)
 from repro_torch.core.graph import sbm_graph
 from repro_torch.core.graph_model import GraphModel
 from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+from repro_torch.launch import mesh as lmesh
 from repro_torch.models.api import lm_model_class
+from repro_torch.parallel.cluster_parallel import can_shard_cluster
+from repro_torch.parallel.sharding import recipe_for
+from repro_torch.parallel.ulysses import can_ulysses
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.tasks import (BatchFnTask, GraphLevelTask, LinkTask,
                                NodeTask, synthetic_graph_level_dataset)
@@ -144,17 +170,44 @@ def main(argv=None):
     ap.add_argument("--tune-table", default="",
                     help="winner-table path for --retune-every "
                          "('' = TUNE_winners_torch.json)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="ranks the sequence is sharded over")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="ranks the batch is sharded over")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="torch.distributed backend of a mesh (required "
+                         "with one)")
     ap.add_argument("--device", default="cuda")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.dtype:
         cfg = cfg.replace(dtype=args.dtype)
+    world = args.mesh_model * args.mesh_data
+    if world > 1:
+        if args.backend is None:
+            raise ValueError("--mesh-model/--mesh-data need --backend "
+                             "(gloo or nccl)")
+        if cfg.family == "graph" and args.task != "node":
+            raise ValueError(f"--task {args.task} on a mesh is not ported "
+                             f"(ROADMAP A8 part 2)")
+        if cfg.family not in ("graph", "dense"):
+            raise ValueError(f"--arch {args.arch}: the {cfg.family} family "
+                             f"on a mesh is not ported (ROADMAP A8 part 2)")
+        if not dist.is_initialized():
+            if not lmesh.torchrun_env():
+                lmesh.spawn(main, world, backend=args.backend,
+                            args=(argv,))
+                return None
+            lmesh.from_torchrun(args.backend)
+        args.device = lmesh.rank_device(args.device)
     if cfg.family != "graph":
         return _lm_main(args, cfg)
 
     model = GraphModel(cfg, device=args.device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={cfg.name} params={n_params:,} device={model.device}")
+    say = _printer()
+    say(f"arch={cfg.name} params={n_params:,} device={model.device}")
 
     interleave = cfg.interleave_period if args.interleave_period < 0 \
         else args.interleave_period
@@ -162,34 +215,60 @@ def main(argv=None):
         else args.elastic_every
     task = _make_graph_task(args, cfg, model.device)
     lay = task.layout
-    print(f"task={task.name} seq={lay.seq_len} bq={lay.bq} "
-          f"mini_batches={task.n_batches} "
-          f"ladder={[round(b, 4) for b in task.tuner.ladder]} "
-          f"mb_cap={task.mb_cap} prep={task.prep_seconds:.2f}s")
+    say(f"task={task.name} seq={lay.seq_len} bq={lay.bq} "
+        f"mini_batches={task.n_batches} "
+        f"ladder={[round(b, 4) for b in task.tuner.ladder]} "
+        f"mb_cap={task.mb_cap} prep={task.prep_seconds:.2f}s")
+
+    mesh = recipe = None
+    if world > 1:
+        mesh = lmesh.make_host_mesh(model=args.mesh_model,
+                                    data=args.mesh_data)
+        recipe = recipe_for(ShapeConfig("graph", "train", lay.seq_len, 1),
+                            mesh)
+        ok = args.mesh_model == 1 or can_shard_cluster(
+            cfg.n_heads, cfg.kv_heads, lay.seq_len, args.mesh_model,
+            lay.bq, lay.bk)
+        say(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+            f"recipe={recipe.name} "
+            f"sharded_cluster_attention={'on' if ok else 'OFF'}")
+        if not ok:
+            raise ValueError(
+                f"sharded_cluster_attention cannot shard H={cfg.n_heads} "
+                f"KV={cfg.kv_heads} S={lay.seq_len} bq={lay.bq} "
+                f"bk={lay.bk} {args.mesh_model} ways, and the port has no "
+                f"unsharded fallback on a mesh (ROADMAP A8 part 2)")
 
     tc = TrainerConfig(steps=args.steps, lr=args.lr,
                        warmup=max(2, args.steps // 10),
                        interleave_period=interleave,
                        elastic_every=elastic_every, **_recovery(args))
-    trainer = Trainer(model, tc, task=task)
+    trainer = Trainer(model, tc, task=task, mesh=mesh, recipe=recipe)
     status = trainer.run()
     if not trainer.history:  # restored a finished run: nothing to do
-        print(f"status={status} (already at step {trainer.steps_done})")
+        say(f"status={status} (already at step {trainer.steps_done})")
         return trainer
-    _print_recovery(trainer)
+    _print_recovery(trainer, say)
     for h in trainer.history:
-        print(f"step {h['step']:4d} [{h['variant']:6s}] "
-              f"loss {h['loss']:.4f} acc {h['acc']:.3f} "
-              f"beta_thre {h['beta_thre']:.4f} {h['seconds'] * 1e3:.0f}ms")
+        say(f"step {h['step']:4d} [{h['variant']:6s}] "
+            f"loss {h['loss']:.4f} acc {h['acc']:.3f} "
+            f"beta_thre {h['beta_thre']:.4f} {h['seconds'] * 1e3:.0f}ms")
     for m in task.moves:
-        print(f"ladder move @ step {m.step}: pos={m.pos} "
-              f"beta_thre={m.beta_thre:.4f} (LDR {m.ldr:+.2e})")
+        say(f"ladder move @ step {m.step}: pos={m.pos} "
+            f"beta_thre={m.beta_thre:.4f} (LDR {m.ldr:+.2e})")
     ev = task.eval(model)
-    print("eval: " + " ".join(f"{k}={v:.4f}" for k, v in ev.items()))
-    print(f"status={status} final_loss={trainer.history[-1]['loss']:.4f} "
-          f"moves={len(task.moves)} "
-          f"dense_steps={sum(1 for h in trainer.history if h['dense'])}")
+    say("eval: " + " ".join(f"{k}={v:.4f}" for k, v in ev.items()))
+    say(f"status={status} final_loss={trainer.history[-1]['loss']:.4f} "
+        f"moves={len(task.moves)} "
+        f"dense_steps={sum(1 for h in trainer.history if h['dense'])}")
     return trainer
+
+
+def _printer():
+    """``print`` on rank 0 (and without a process group), else a no-op."""
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return lambda *a, **kw: None
+    return print
 
 
 def _make_graph_task(args, cfg, device):
@@ -219,29 +298,43 @@ def _lm_main(args, cfg):
             f"{'patches' if cfg.family == 'vlm' else 'frames'} beside the "
             f"tokens, and the synthetic token stream has none; train it "
             f"through Trainer with a task that supplies them")
+    world = args.mesh_model * args.mesh_data
     model = lm_model_class(cfg)(cfg, device=args.device)
     mixer = "ssm" if cfg.family == "ssm" else cfg.attn_backend
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={cfg.name} params={n_params:,} device={model.device} "
-          f"attn_backend={mixer} remat={cfg.remat} seq={args.seq} "
-          f"batch={args.batch}")
+    say = _printer()
+    say(f"arch={cfg.name} params={n_params:,} device={model.device} "
+        f"attn_backend={mixer} remat={cfg.remat} seq={args.seq} "
+        f"batch={args.batch}")
+    mesh = recipe = None
+    if world > 1:
+        mesh = lmesh.make_host_mesh(model=args.mesh_model,
+                                    data=args.mesh_data)
+        recipe = recipe_for(
+            ShapeConfig("train", "train", args.seq, args.batch), mesh)
+        mode = "ulysses" if recipe.ulysses and can_ulysses(
+            cfg.n_heads, cfg.kv_heads, args.seq, args.mesh_model) \
+            else "seqpar"
+        say(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+            f"recipe={recipe.name} attention={mode}")
     dc = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch)
     tc = TrainerConfig(steps=args.steps, lr=args.lr,
                        warmup=max(2, args.steps // 10), **_recovery(args))
-    trainer = Trainer(model, tc, task=BatchFnTask(lambda s: lm_batch(dc, s)))
+    trainer = Trainer(model, tc, task=BatchFnTask(lambda s: lm_batch(dc, s)),
+                      mesh=mesh, recipe=recipe)
     status = trainer.run()
     hist = trainer.history
     if not hist:  # restored a finished run: nothing to do
-        print(f"status={status} (already at step {trainer.steps_done})")
+        say(f"status={status} (already at step {trainer.steps_done})")
         return trainer
-    _print_recovery(trainer)
+    _print_recovery(trainer, say)
     for h in hist[:: max(1, len(hist) // 10)]:
         extra = "".join(f" {k} {h[k]:.4f}" for k in ("xent", "aux")
                         if k in h and "aux" in h)
-        print(f"step {h['step']:4d} loss {h['loss']:.4f}{extra} "
-              f"{h['seconds'] * 1e3:.0f}ms")
-    print(f"status={status} final_loss={hist[-1]['loss']:.4f}")
+        say(f"step {h['step']:4d} loss {h['loss']:.4f}{extra} "
+            f"{h['seconds'] * 1e3:.0f}ms")
+    say(f"status={status} final_loss={hist[-1]['loss']:.4f}")
     return trainer
 
 
@@ -254,14 +347,14 @@ def _recovery(args) -> dict:
                 retune_every=args.retune_every, tune_table=args.tune_table)
 
 
-def _print_recovery(trainer) -> None:
+def _print_recovery(trainer, say=print) -> None:
     """Where the run started, the steps the guard skipped, the rollbacks
     and the injected faults."""
     hist = trainer.history
-    print(f"resumed_at={hist[0]['step'] - 1} "
-          f"skipped_steps={[h['step'] for h in hist if h['skipped']]} "
-          f"rollbacks={[(r.at_step, r.to_step) for r in trainer.rollbacks]} "
-          f"stragglers={len(trainer.stragglers)} faults={trainer.fault_log}")
+    say(f"resumed_at={hist[0]['step'] - 1} "
+        f"skipped_steps={[h['step'] for h in hist if h['skipped']]} "
+        f"rollbacks={[(r.at_step, r.to_step) for r in trainer.rollbacks]} "
+        f"stragglers={len(trainer.stragglers)} faults={trainer.fault_log}")
 
 
 if __name__ == "__main__":

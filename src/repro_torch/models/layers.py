@@ -19,6 +19,7 @@ reference does.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.convert import leaf_name
+from repro_torch.parallel import collectives as C
 
 
 class RMSNorm(nn.Module):
@@ -163,15 +165,15 @@ def mlp(p: MLP, x):
 
 
 def _attend_q_chunk(qblk, kb, vb, q0: int, Sq: int, Sk: int, causal: bool,
-                    *bias_tiles):
+                    q_offset: int, *bias_tiles):
     """Online softmax of one q-chunk ``(B, cq, KV, G, Dh)`` over every
     k-chunk of ``kb``/``vb`` ``(B, nk, ck, KV, Dh)``, with one bias tile
     per k-chunk (or none); returns ``(B, KV, G, cq, Dh)`` fp32. Scores and
     the PV product accumulate in fp32 from the inputs' values (the
     reference's ``preferred_element_type=F32``); the probabilities are
     rounded to v's dtype before the PV product, as in the reference.
-    ``causal`` masks ``qpos < kpos`` and skips the k-chunks it empties
-    (they would add nothing)."""
+    ``causal`` masks ``q_offset + qpos < kpos`` and skips the k-chunks it
+    empties (they would add nothing)."""
     B, cq, KV, G, Dh = qblk.shape
     nk, ck = kb.shape[1], kb.shape[2]
     dev = qblk.device
@@ -181,14 +183,14 @@ def _attend_q_chunk(qblk, kb, vb, q0: int, Sq: int, Sk: int, causal: bool,
     l = torch.zeros((B, KV, G, cq), device=dev)
     acc = torch.zeros((B, KV, G, cq, Dh), device=dev)
     for ki in range(nk):
-        if causal and ki * ck > q0 + cq - 1:
+        if causal and ki * ck > q_offset + q0 + cq - 1:
             break
         s = torch.einsum("bqkgd,bckd->bkgqc", qf, kb[:, ki].float())
         s = s * Dh ** -0.5
         kpos = ki * ck + torch.arange(ck, device=dev)
         valid = (kpos < Sk)[None, :] & (qpos < Sq)[:, None]    # (cq, ck)
         if causal:
-            valid = valid & (qpos[:, None] >= kpos[None, :])
+            valid = valid & (q_offset + qpos[:, None] >= kpos[None, :])
         if bias_tiles:
             # zero-padded at the ragged edges (the padding is masked below)
             bb = bias_tiles[ki]
@@ -211,7 +213,7 @@ def _attend_q_chunk(qblk, kb, vb, q0: int, Sq: int, Sk: int, causal: bool,
 
 
 def chunked_attention(q, k, v, *, causal: bool = False, chunk_q: int = 2048,
-                      chunk_k: int = 1024, bias=None):
+                      chunk_k: int = 1024, bias=None, q_offset: int = 0):
     """Memory-bounded flash-style attention in plain PyTorch (the graph
     model's dense interleave step, and the LM's dense backend and short
     sequences; the reference computes it in jnp, outside any Pallas
@@ -220,7 +222,9 @@ def chunked_attention(q, k, v, *, causal: bool = False, chunk_q: int = 2048,
     q ``(B, Sq, H, Dh)``, k/v ``(B, Sk, KV, Dh)`` with ``H % KV == 0``
     (GQA; k/v are never repeated); ``bias`` an optional
     ``(B or 1, H, Sq, Sk)`` additive bias. Returns ``(B, Sq, H, Dh)`` in
-    q's dtype. Each q-chunk runs under ``torch.utils.checkpoint``: the
+    q's dtype. ``q_offset`` is the global position of q's first row
+    (sequence-parallel callers: q a shard, k/v the whole sequence). Each
+    q-chunk runs under ``torch.utils.checkpoint``: the
     backward recomputes its scores instead of keeping the chunk's
     ``(cq, Sk)`` score tensors alive (the reference's
     ``@jax.checkpoint``)."""
@@ -239,7 +243,7 @@ def chunked_attention(q, k, v, *, causal: bool = False, chunk_q: int = 2048,
     tiles = [[] for _ in range(nq)] if bias is None else \
         [t.split(ck, dim=3) for t in bias.split(cq, dim=2)]
     outs = [checkpoint(_attend_q_chunk, qb[:, i], kb, vb, i * cq, Sq, Sk,
-                       causal, *tiles[i], use_reentrant=False)
+                       causal, q_offset, *tiles[i], use_reentrant=False)
             for i in range(nq)]
     out = torch.stack(outs, 1)                    # (B, nq, KV, G, cq, Dh)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, nq * cq, H, Dh)[:, :Sq]
@@ -346,12 +350,14 @@ def _xent_chunk(h, labels, w, vocab_size: int):
     return ((logz - ll) * mask).sum(), mask.sum()
 
 
-def chunked_softmax_xent(p: Embedding, cfg, h, labels, chunk: int = 512):
+def chunked_softmax_xent(p: Embedding, cfg, h, labels, chunk: int = 512,
+                         group=None):
     """Cross-entropy without materializing full (B, S, V) logits: one
     sequence chunk at a time, each under ``torch.utils.checkpoint`` so the
     backward recomputes its logits instead of keeping them (the
     reference's ``@jax.checkpoint``). labels==-1 positions are masked
-    out. Returns the mean loss (fp32)."""
+    out. Returns the mean loss (fp32); with ``group`` (the sequence's
+    shards over a process group) the global mean over every shard."""
     w = _unembed(p, cfg, h.dtype)
     tot = cnt = 0.0
     for a in range(0, h.shape[1], chunk):
@@ -359,6 +365,8 @@ def chunked_softmax_xent(p: Embedding, cfg, h, labels, chunk: int = 512):
                           labels[:, a:a + chunk], w, cfg.vocab_size,
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + c
+    if group is not None:
+        tot, cnt = C.SumAcross.apply(torch.stack([tot, cnt]), group)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -406,18 +414,36 @@ def _def_name(name: str) -> str:
     return leaf_name(name)[0]
 
 
+_DRAW = {"on_device": False}
+
+
+@contextlib.contextmanager
+def draw_on_device():
+    """Inside, :func:`seeded_init` draws each parameter's numbers on the
+    parameter's own device (a generator there, seeded the same): a large
+    model's init then costs no host time, and its numbers are the
+    device's stream, not the CPU's."""
+    prev = _DRAW["on_device"]
+    _DRAW["on_device"] = True
+    try:
+        yield
+    finally:
+        _DRAW["on_device"] = prev
+
+
 @torch.no_grad()
 def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
     """Initialise ``model``'s parameters from ``defs`` (``{name: (shape,
     init)}``, per layer for the stacked names: ``layers.*``,
     ``periods.*``, ``enc_layers.*``, ``dec_layers.*``), drawn on the CPU
     in registration order so the
-    weights do not depend on the device. The
+    weights do not depend on the device (under :func:`draw_on_device`,
+    on the parameters' device). The
     init families are the reference's: ``fan_in`` is a normal scaled by
     ``shape[0] ** -0.5``, ``normal``/``embed`` a normal scaled by 0.02;
     a float ``init`` is a normal of that scale; the random numbers are
     the port's own."""
-    gen = torch.Generator().manual_seed(seed)
+    gens = {}
     for name, p in model.named_parameters():
         shape, init = defs[_def_name(name)]
         assert tuple(p.shape) == shape, (name, p.shape, shape)
@@ -428,4 +454,8 @@ def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
         else:
             scale = (shape[0] ** -0.5 if init == "fan_in" else
                      init if isinstance(init, float) else 0.02)
-            p.copy_(torch.randn(shape, generator=gen) * scale)
+            dev = p.device if _DRAW["on_device"] else torch.device("cpu")
+            if dev not in gens:
+                gens[dev] = torch.Generator(device=dev).manual_seed(seed)
+            p.copy_(torch.randn(shape, generator=gens[dev], device=dev)
+                    * scale)

@@ -68,8 +68,26 @@ place: the decode steps and the prefill chunk return the caches they
 were given, whose rows they have overwritten.
 
 The hybrid is ``models/hybrid.py``'s model, the SSM ``models/api.py``'s
-and the encoder-decoder ``models/encdec.py``'s. There is no mesh, so no
-Ulysses or sequence-parallel attention and no expert parallelism (A8).
+and the encoder-decoder ``models/encdec.py``'s.
+
+Under a mesh (``parallel.axes.axis_rules``, as the Trainer runs a step
+with ``mesh=``) the dense family trains sequence-sharded: each rank
+holds S/P contiguous tokens of the model group's sequence, RoPE at their
+global positions, and attention dispatches as the reference's
+``attn_apply`` does:
+
+* Ulysses (``parallel/ulysses.py``) when the recipe asks for it and the
+  heads split over the group (``can_ulysses``): the all-to-all gives
+  each rank the full sequence for H/P heads, where the op above runs
+  unchanged, the cluster-sparse layout included;
+* otherwise sequence-parallel attention (``seqpar_attention``, e.g.
+  SmolLM's 9 heads two ways): the rank's queries against all-gathered
+  k and v, causal at the queries' global offset, on the plain chunked
+  attention. The cluster-sparse op takes no query offset, so that
+  combination raises (ROADMAP A8 part 2), as do the MoE, VLM and other
+  families on a mesh (expert parallelism is A8 part 2).
+
+``lm_loss`` is then the global mean over every rank's shard.
 """
 
 from __future__ import annotations
@@ -86,6 +104,10 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.moe import (MoE, moe_apply, moe_defs,
                                     routing_contexts)
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.ulysses import (can_ulysses, seqpar_attention,
+                                          ulysses_attention)
 
 LM_BLOCK = 128      # bq = bk of the local+global layout (reference lm.py)
 
@@ -277,6 +299,32 @@ def attention_fn(model, S: int, impl: str | None = None,
         chunk_k=cfg.attn_chunk_k)
 
 
+def sharded_attention_fn(model, S: int, group, impl: str | None = None):
+    """``fn(q, k, v) -> o`` on this rank's sequence shards, of a sequence
+    of ``S`` tokens in all sharded over ``group``: Ulysses around
+    :func:`attention_fn` where the recipe asks for it and the heads
+    split, else sequence-parallel chunked attention (the reference's
+    ``attn_apply`` on a mesh)."""
+    cfg = model.cfg
+    p = C.size(group)
+    recipe = pax.current()[0]
+    if recipe.ulysses and can_ulysses(cfg.n_heads, cfg.kv_heads, S, p):
+        inner = attention_fn(model, S, impl)
+        return lambda q, k, v: ulysses_attention(q, k, v, group=group,
+                                                 attn_fn=inner)
+    if cfg.attn_backend == "cluster_sparse" and S >= 2 * LM_BLOCK:
+        raise ValueError(
+            f"{cfg.name}: H={cfg.n_heads} KV={cfg.kv_heads} cannot split "
+            f"{p} ways for Ulysses, and the cluster-sparse op takes no "
+            f"query offset for sequence-parallel attention (S={S}; "
+            f"ROADMAP A8 part 2)")
+    return lambda q, k, v: seqpar_attention(
+        q, k, v, group=group, attn_fn=lambda a, b, c, off:
+        L.chunked_attention(a, b, c, causal=cfg.causal,
+                            chunk_q=cfg.attn_chunk_q,
+                            chunk_k=cfg.attn_chunk_k, q_offset=off))
+
+
 def ffn(layer, cfg, m):
     """The layer's FFN on the normed residual ``m``: ``(y, aux)``, the
     MoE's balance term or 0 for an MLP."""
@@ -350,9 +398,20 @@ def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
     dtype = getattr(torch, cfg.dtype)
     h = _embed_inputs(model, batch, dtype)
     B, S = h.shape[:2]
-    pos = _rotation(cfg, torch.arange(S, device=h.device))
-    layer_fn = functools.partial(_layer, cfg=cfg, pos=pos,
-                                 attn=attention_fn(model, S, impl))
+    group = pax.model_group()
+    if group is None:
+        off, attn = 0, attention_fn(model, S, impl)
+    else:
+        if cfg.family != "dense" or return_kv:
+            raise ValueError(
+                f"{cfg.name}: sequence-sharded {cfg.family} "
+                f"{'serving' if return_kv else 'training'} is not ported "
+                f"(ROADMAP A8 part 2); the dense family trains on a mesh")
+        off = C.rank(group) * S
+        attn = sharded_attention_fn(model, S * C.size(group), group, impl)
+    # RoPE at the tokens' global positions
+    pos = _rotation(cfg, torch.arange(off, off + S, device=h.device))
+    layer_fn = functools.partial(_layer, cfg=cfg, pos=pos, attn=attn)
     body = L.maybe_remat(layer_fn, cfg, routing_contexts
                          if cfg.moe_experts else None)
     caches = lm_cache_defs(cfg, B, cache_len or S, device=h.device) \
@@ -380,7 +439,8 @@ def lm_loss(model: LMModel, batch: dict, *, aux_coef: float = 0.01,
     h, aux = lm_forward(model, batch, impl=impl)
     if model.cfg.family == "vlm":
         h = h[:, batch["patches"].shape[1]:]
-    loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"])
+    loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"],
+                                  group=pax.mesh_group())
     return loss + aux_coef * aux, {"xent": loss, "aux": aux}
 
 

@@ -28,7 +28,7 @@ token elsewhere than the forward did.
 
 The expert-parallel path of the reference (``_ep_local`` and the mesh
 branch of ``moe_apply``) needs a mesh: ``moe_apply`` raises under one
-(ROADMAP.md A8).
+(ROADMAP.md A8 part 2).
 """
 
 from __future__ import annotations
@@ -186,7 +186,7 @@ def moe_apply(p: MoE, cfg, x, *, mesh_model: int = 1):
     if mesh_model > 1:
         raise NotImplementedError(
             f"moe_apply with mesh_model={mesh_model}: the expert-parallel "
-            f"path is not ported yet (ROADMAP.md A8)")
+            f"path is not ported yet (ROADMAP.md A8 part 2)")
     B, S, D = x.shape
     y, aux = moe_tokens(p, cfg, x.reshape(-1, D))
     y = y.reshape(B, S, D)

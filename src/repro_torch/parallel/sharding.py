@@ -1,0 +1,121 @@
+"""Sharding recipes: how logical axes map onto mesh axes, the port's
+copy of ``repro.parallel.sharding`` (``Recipe``, ``recipe_for``,
+``_PARAM_RULES``), equal to the reference's for every kind of shape on
+single-pod (data, model) and multi-pod (pod, data, model) meshes.
+
+The policy:
+
+* parameters: FSDP over "data" (embed dim), TP over "model"
+  (heads / mlp / vocab / experts);
+* train:   batch over (pod, data); sequence sharded over "model" between
+           layers ("seq_outer");
+* prefill: batch over data, sequence over model: Ulysses a2a inside
+           attention (the paper's graph parallelism, §III-C);
+* decode:  batch over data, KV-cache sequence over model;
+* long:    batch=1 -> sequence over (data, model) [+pod].
+
+The port applies ``acts`` (the activations' sequence over "model", the
+batch over "data") and ``ulysses``; ``params`` is kept as data and not
+applied: every rank holds every parameter whole (the results are the
+same, only the memory differs).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+from repro_torch.parallel.axes import mesh_shape
+
+# Parameter logical axes (see models/*.py):
+#   embed, mlp, heads, kv_heads, head_dim, qkv, vocab, experts, expert_mlp,
+#   layers, inner (ssm), state, conv, classes
+_PARAM_RULES: dict[str, Any] = {
+    "embed": ("pod", "data"),  # FSDP / ZeRO-3 shard (pod axis included:
+                               # params must keep sharding down at 2+ pods)
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",       # expert parallelism
+    "expert_mlp": None,
+    "inner": "model",         # ssm d_inner
+    "state": None,
+    "conv": None,
+    "layers": None,
+    "classes": None,
+    "bias_heads": None,
+    "degree": None,
+    "spd": None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Recipe:
+    name: str
+    params: Mapping[str, Any]
+    acts: Mapping[str, Any]
+    ulysses: bool = False     # explicit a2a sequence parallelism in attention
+    pp_stages: int = 1
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+def _acts(kind: str, multi_pod: bool) -> dict[str, Any]:
+    dp = ("pod", "data") if multi_pod else ("data",)
+    if kind == "train":
+        return {
+            "batch": dp, "seq": None, "seq_outer": "model",
+            "embed": None, "heads": "model", "kv_heads": "model",
+            "head_dim": None, "mlp": "model", "vocab": "model",
+            "experts": "model", "kv_seq": None, "inner": "model",
+            "state": None, "classes": None,
+        }
+    if kind == "prefill":
+        return {
+            "batch": dp, "seq": "model", "seq_outer": "model",
+            "embed": None, "heads": "model", "kv_heads": "model",
+            "head_dim": None, "mlp": "model", "vocab": "model",
+            "experts": "model", "kv_seq": "model", "inner": "model",
+            "state": None, "classes": None,
+        }
+    if kind == "decode":
+        return {
+            "batch": dp, "seq": None, "seq_outer": None,
+            "embed": None, "heads": "model", "kv_heads": "model",
+            "head_dim": None, "mlp": "model", "vocab": "model",
+            "experts": "model", "kv_seq": "model", "inner": "model",
+            "state": None, "classes": None,
+        }
+    if kind == "long":  # batch too small to shard; sequence everywhere
+        seq = ("pod", "data", "model") if multi_pod else ("data", "model")
+        return {
+            "batch": None, "seq": seq, "seq_outer": seq,
+            "embed": None, "heads": "model", "kv_heads": "model",
+            "head_dim": None, "mlp": "model", "vocab": "model",
+            "experts": "model", "kv_seq": seq, "inner": "model",
+            "state": None, "classes": None,
+        }
+    raise ValueError(kind)
+
+
+def recipe_for(shape_cfg, mesh, *, ulysses: bool | None = None) -> Recipe:
+    """The recipe for ``shape_cfg`` on ``mesh`` (a ``DeviceMesh`` from
+    ``launch/mesh.py`` or a dict of axis sizes)."""
+    multi_pod = "pod" in mesh_shape(mesh)
+    kind = shape_cfg.kind
+    if kind == "decode" and shape_cfg.global_batch == 1:
+        kind = "long"
+    if ulysses is None:
+        # a2a sequence parallelism for training too (the reference's
+        # default: its collective term beat the all-gather pattern)
+        ulysses = kind in ("prefill", "train")
+    return Recipe(
+        name=f"{kind}{'_mp' if multi_pod else ''}"
+             f"{'_ulysses' if ulysses else ''}",
+        params=dict(_PARAM_RULES),
+        acts=_acts(kind, multi_pod),
+        ulysses=ulysses,
+    )

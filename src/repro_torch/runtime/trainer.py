@@ -46,7 +46,26 @@ Every step appends a ``history`` record: ``step``, ``loss``, ``xent``,
 ``acc``, ``bad_steps``, ``skipped``, ``seconds``, ``variant``, ``dense``
 and the task's extras (``beta_thre`` for elastic tasks).
 
-Not ported: the IR audit (JAX-specific) and meshes (ROADMAP A8).
+On a mesh (``mesh=`` from ``launch/mesh.make_host_mesh`` and ``recipe=``
+from ``parallel/sharding.recipe_for``; one process a rank, every rank
+running this loop) the task hands each rank its shard of the batch and
+every variant's loss runs under ``parallel.axes.axis_rules``, which
+shards the sequence over "model" (``core/graph_model.py``,
+``models/lm.py``). Parameters are replicated (``recipe.params`` is not
+applied, ROADMAP A8 part 2). A variant's loss is the mean over every
+rank's tokens (its numerator and count summed over the mesh; a batch
+the data axis cannot split is counted once a data group, which leaves
+the mean as it is), and each rank backpropagates its own share of it,
+so one all-reduce that sums the gradients over every rank gives the
+gradient of the global mean: summed over the model group, averaged over
+the data groups. The non-finite guard's flag and a SIGTERM are
+all-reduced, so every rank skips or stops together; rank 0 writes every
+checkpoint, every rank restores (a rollback waits for rank 0's writes
+first). The checkpoints hold whole tensors, so a run resumes on another
+mesh, or on none. There is no gradient clipping to reduce, in the port
+or in the reference.
+
+Not ported: the IR audit (JAX-specific).
 """
 
 from __future__ import annotations
@@ -58,12 +77,14 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt.checkpoint import (CheckpointCorrupt, Checkpointer,
                                          snapshot)
 from repro_torch.convert import (insert, leaf_groups, lookup,
                                  params_from_jax, params_to_jax)
 from repro_torch.optim.adamw import AdamW, warmup_cosine
+from repro_torch.parallel import collectives as C
 from repro_torch.resilience.faults import FaultPlan, Preempted
 
 KEEP = 3                 # checkpoint generations kept on disk
@@ -132,12 +153,21 @@ class RollbackReport:
 
 
 class Trainer:
-    """Trains ``model`` (its parameters in place) on ``task``."""
+    """Trains ``model`` (its parameters in place) on ``task``, on one
+    device or, with ``mesh`` and ``recipe``, as this process's rank of
+    the mesh."""
 
-    def __init__(self, model, cfg: TrainerConfig, *, task):
+    def __init__(self, model, cfg: TrainerConfig, *, task, mesh=None,
+                 recipe=None):
+        if mesh is not None and recipe is None:
+            raise ValueError("a mesh needs a recipe (parallel.sharding."
+                             "recipe_for)")
         self.model = model
         self.cfg = cfg
-        self.task = task.prepare(model)
+        self.mesh, self.recipe = mesh, recipe
+        # rank 0 writes checkpoints; every rank of a mesh restores
+        self.writer = mesh is None or dist.get_rank() == 0
+        self.task = task.prepare(model, mesh, recipe)
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -175,17 +205,25 @@ class Trainer:
         hook (the loss times NaN); ``midway`` the ``preempt`` one, called
         halfway through the update (or, on a skipped step, in its
         place)."""
-        loss, metrics = self.task.loss_variants[variant](self.model, batch)
-        if poison:
-            loss = loss * float("nan")
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        with self.task.context():
+            loss, metrics = self.task.loss_variants[variant](self.model,
+                                                             batch)
+            if poison:
+                loss = loss * float("nan")
+            grads = torch.autograd.grad(loss, self.params,
+                                        allow_unused=True)
         # a parameter the variant does not reach gets a zero gradient, as
         # under jax.grad (weight decay still applies to it)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, self.params)]
+        if self.mesh is not None:
+            grads = self._reduce(grads)
         ok = torch.isfinite(loss.detach())
         for g in grads:
             ok = ok & torch.isfinite(g).all()
+        if self.mesh is not None:   # every rank skips together
+            flag = ok.to(C.control_device(), torch.float32).reshape(1)
+            ok = C.all_reduce_(flag, None, op=dist.ReduceOp.MIN)[0] > 0
         ok = bool(ok)
         if ok:
             self._torn = True
@@ -200,6 +238,27 @@ class Trainer:
         return {"loss": float(loss.detach()), "bad_steps": self.bad,
                 "skipped": int(not ok),
                 **{k: float(v.detach()) for k, v in metrics.items()}}
+
+    def _reduce(self, grads: list) -> list:
+        """The gradients summed over every rank of the mesh: one all-reduce
+        of every gradient, flattened together."""
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        C.all_reduce_(flat, None)
+        out = []
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            out.append(part.view(g.shape).to(g.dtype))
+        return out
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` of any rank (every rank's own without a mesh)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=C.control_device())
+        return bool(C.all_reduce_(t, None, op=dist.ReduceOp.MAX)[0] > 0)
 
     # ------------------------------------------------------------ state
 
@@ -396,17 +455,18 @@ class Trainer:
                         (step + 1) % cfg.rescue_every == 0:
                     self.rescue_copy()
                 # the final blocking save below covers step == cfg.steps
-                if self.ckpt is not None and \
+                if self.ckpt is not None and self.writer and \
                         (step + 1) % cfg.ckpt_every == 0 and \
                         step + 1 != cfg.steps:
                     self.ckpt.save(step + 1, self.state_tree(),
                                    extra=self._ckpt_extra())
                     self._maybe_corrupt(step + 1)
-                if self._preempted:
-                    if self.ckpt is not None:
+                if self._any_rank(self._preempted):
+                    if self.ckpt is not None and self.writer:
                         self.ckpt.save(step + 1, self.state_tree(),
                                        blocking=True,
                                        extra=self._ckpt_extra())
+                    self._barrier()
                     return "preempted"
                 # escalation: the guard already skipped each bad update;
                 # a persistent streak means the state itself may be
@@ -418,10 +478,11 @@ class Trainer:
                     epoch_losses, epoch_seconds = [], 0.0
                     continue
                 step += 1
-            if self.ckpt is not None:
+            if self.ckpt is not None and self.writer:
                 self.ckpt.save(cfg.steps, self.state_tree(), blocking=True,
                                extra=self._ckpt_extra())
                 self._maybe_corrupt(cfg.steps)
+            self._barrier()
             return "done"
         except Exception as err:
             # crash-consistent save so a restart resumes, then re-raise;
@@ -471,6 +532,7 @@ class Trainer:
         to = None
         if self.ckpt is not None:
             self.ckpt.wait()
+            self._barrier()   # rank 0's writes have landed
             for s in self.ckpt.generations():
                 try:
                     tree = self.ckpt.restore(s, device="cpu")
@@ -509,7 +571,7 @@ class Trainer:
         """Rescue checkpoint after an uncaught failure: the live state when
         it is whole, else the last rescue copy, else nothing (the restart
         resumes from the last periodic checkpoint). Never torn state."""
-        if self.ckpt is None:
+        if self.ckpt is None or not self.writer:
             return
         self.ckpt.wait()
         if not self._torn:

@@ -45,8 +45,8 @@ the run stats. All of it is host-side scheduling — a warm engine keeps
 its budget of 0 new signatures under overload and shedding.
 ``inject_burst`` is the deterministic arrival-burst fault hook.
 
-Not ported: ``mesh_model > 1`` (the host mesh, ROADMAP.md A8) and the
-reference's ``ir_audit`` (its IR analysis is owed no port).
+Not ported: ``mesh_model > 1`` (serving on a mesh, ROADMAP.md A8 part
+2) and the reference's ``ir_audit`` (its IR analysis is owed no port).
 """
 
 from __future__ import annotations
@@ -150,7 +150,7 @@ class ServeEngine:
         if mesh_model > 1:
             raise NotImplementedError(
                 f"mesh_model={mesh_model}: serving under a host mesh is not "
-                f"ported yet (ROADMAP.md A8)")
+                f"ported yet (ROADMAP.md A8 part 2)")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device

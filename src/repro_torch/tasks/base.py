@@ -1,7 +1,8 @@
 """The Task protocol: one contract between workloads and the Trainer —
 the port of ``repro.tasks.base.Task``.
 
-* ``prepare(model) -> self``   bind the model
+* ``prepare(model, mesh=None, recipe=None) -> self``  bind the model,
+                               and the mesh its batches are sharded on
 * ``batches(step) -> dict``    the device batch for an absolute step
 * ``loss_variants``            ``{"sparse": fn, ...}`` from the model; each
                                ``fn(model, batch) -> (loss, metrics)``
@@ -14,16 +15,48 @@ the port of ``repro.tasks.base.Task``.
 
 ``BatchFnTask`` wraps a seekable ``step -> numpy batch`` stream (the LM
 families).
+
+On a mesh (one process a rank) ``batches`` returns this rank's shard:
+the sequence dim of the per-token arrays split over "model" (S/P
+contiguous tokens), the batch dim over "data" where it divides; a task
+runs its own model calls (``eval``) inside :meth:`Task.context`. Tasks
+with ``shardable = False`` refuse a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core.dual_attention import use_dense_step
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel.ulysses import _fit_dp
+
+
+def shard_rows(x, mesh, seq_dim: bool = True):
+    """This rank's shard of a per-token array ``x`` (B, S, ...), numpy or
+    torch, on ``mesh`` (None: ``x`` itself), a view: dim 1 split into
+    ``model`` contiguous pieces (``seq_dim``), dim 0 into ``data`` pieces
+    where it divides."""
+    if mesh is None:
+        return x
+    shape = pax.mesh_shape(mesh)
+    if _fit_dp(("data",), shape, x.shape[0]):
+        n = x.shape[0] // shape["data"]
+        i = mesh.get_local_rank("data")
+        x = x[i * n:(i + 1) * n]
+    if seq_dim and shape.get("model", 1) > 1:
+        p = shape["model"]
+        if x.shape[1] % p:
+            raise ValueError(f"sequence of {x.shape[1]} tokens does not "
+                             f"split {p} ways")
+        n = x.shape[1] // p
+        i = mesh.get_local_rank("model")
+        x = x[:, i * n:(i + 1) * n]
+    return x
 
 
 class Task:
@@ -34,16 +67,30 @@ class Task:
 
     name: str = "task"
     model: Any = None
+    mesh: Any = None
+    recipe: Any = None
+    shardable: bool = False
 
-    def prepare(self, model) -> "Task":
+    def prepare(self, model, mesh=None, recipe=None) -> "Task":
         cfg = getattr(self, "cfg", None)
         mcfg = getattr(model, "cfg", None)
         if cfg is not None and mcfg is not None and mcfg != cfg:
             raise ValueError(
                 f"task prepared for config {cfg.name!r} but the model was "
                 f"built from {mcfg.name!r}")
+        if mesh is not None and not self.shardable:
+            raise ValueError(f"the {self.name} task on a mesh is not ported "
+                             f"(ROADMAP A8 part 2)")
         self.model = model
+        self.mesh, self.recipe = mesh, recipe
         return self
+
+    def context(self):
+        """The mesh's axis rules (``parallel.axes.axis_rules``) for a model
+        call on this task's sharded batches; nothing without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return pax.axis_rules(self.recipe, self.mesh)
 
     def batches(self, step: int) -> dict:
         raise NotImplementedError
@@ -88,6 +135,7 @@ class BatchFnTask(Task):
     as they are."""
 
     name = "stream"
+    shardable = True
 
     def __init__(self, batch_fn: Callable[[int], dict]):
         self.batch_fn = batch_fn
@@ -95,6 +143,7 @@ class BatchFnTask(Task):
     def batches(self, step: int) -> dict:
         out = {}
         for key, arr in self.batch_fn(step).items():
+            arr = shard_rows(arr, self.mesh, seq_dim=arr.ndim >= 2)
             x = torch.from_numpy(np.ascontiguousarray(arr))
             if not x.is_floating_point():
                 x = x.long()

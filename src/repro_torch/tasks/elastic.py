@@ -12,7 +12,11 @@ re-reformed layout:
   arrays (features, degrees, labels) are aliased across rungs by the
   ladder preps and live on the device once;
 * tuner state and the move log round-trip through
-  ``state_dict``/``load_state_dict``.
+  ``state_dict``/``load_state_dict``;
+* on a mesh every rank's batch is its sequence shard of the per-node
+  arrays (``SEQ_KEYS``; the layouts stay whole), and every rank feeds
+  its AutoTuner rank 0's loss and the slowest rank's epoch seconds, so
+  every rank makes the same ladder moves.
 """
 
 from __future__ import annotations
@@ -20,11 +24,19 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.core.auto_tuner import AutoTuner
 from repro_torch.core.graph_model import batch_to_torch
 from repro_torch.device import resolve
-from repro_torch.tasks.base import Task
+from repro_torch.parallel import collectives as C
+from repro_torch.tasks.base import Task, shard_rows
+
+# the batch arrays with a per-node sequence dim (dim 1), sharded on a
+# mesh; dense_buckets (B, S, S) by its rows
+SEQ_KEYS = ("feat", "in_deg", "out_deg", "lap_pe", "labels",
+            "dense_buckets")
 
 
 @dataclasses.dataclass
@@ -95,14 +107,29 @@ class ElasticTask(Task):
         idx = step % self.n_batches
         key = (bt, idx)
         if key not in self._batches_dev:
-            self._batches_dev[key] = batch_to_torch(
-                self._preps[bt][idx].batch, self.device, self._uploads)
+            b = batch_to_torch(self._preps[bt][idx].batch, self.device,
+                               self._uploads)
+            if self.mesh is not None:
+                b = {k: shard_rows(v, self.mesh).contiguous()
+                     if k in SEQ_KEYS else v for k, v in b.items()}
+            self._batches_dev[key] = b
         return self._batches_dev[key]
 
     def on_epoch(self, loss: float, epoch_seconds: float,
                  step: int) -> bool:
         """Feed one epoch's (mean loss, wall seconds) to the AutoTuner;
-        returns True iff the ladder moved."""
+        returns True iff the ladder moved. On a mesh every rank feeds rank
+        0's loss and the slowest rank's seconds: rank-local timings would
+        make the ranks' ladders diverge."""
+        if self.mesh is not None:
+            dev = C.control_device()
+            t = torch.tensor([float(epoch_seconds)], dtype=torch.float64,
+                             device=dev)
+            C.all_reduce_(t, None, op=dist.ReduceOp.MAX)
+            t = torch.tensor([float(loss), t.item()], dtype=torch.float64,
+                             device=dev)
+            C.broadcast_(t, 0)
+            loss, epoch_seconds = t.tolist()
         before = self.tuner.pos
         self.tuner.update(float(loss), float(epoch_seconds))
         if self.tuner.pos == before:

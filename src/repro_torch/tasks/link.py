@@ -50,6 +50,7 @@ class LinkTask(NodeTask):
     differ."""
 
     name = "link"
+    shardable = False   # its pair loss has no mesh form yet (A8 part 2)
 
     def __init__(self, g, cfg, *, n_pairs: int = 256,
                  eval_frac: float = 0.1, bq: int = 32, bk: int = 32,

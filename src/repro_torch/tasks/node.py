@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.data.graph_pipeline import (pad_layout_mb,
                                              prepare_node_task_ladder)
+from repro_torch.tasks.base import shard_rows
 from repro_torch.tasks.elastic import ElasticTask
 
 
@@ -28,6 +29,7 @@ class NodeTask(ElasticTask):
     CPU)."""
 
     name = "node"
+    shardable = True
 
     def __init__(self, g, cfg, *, train_mask=None, bq: int = 32,
                  bk: int = 32, d_b: int = 8, delta: int = 10,
@@ -59,9 +61,12 @@ class NodeTask(ElasticTask):
 
     @torch.no_grad()
     def eval(self, model) -> dict:
-        """Metrics of the sparse variant on the eval label set."""
+        """Metrics of the sparse variant on the eval label set (on a mesh:
+        over every rank's shard, the same on every rank)."""
         b = dict(self.batches(0))
-        b["labels"] = torch.from_numpy(self._eval_labels).to(
-            device=self.device, dtype=torch.long)
-        _, metrics = model.loss_variants["sparse"](model, b)
+        b["labels"] = torch.from_numpy(shard_rows(
+            self._eval_labels, self.mesh).copy()).to(device=self.device,
+                                                     dtype=torch.long)
+        with self.context():
+            _, metrics = model.loss_variants["sparse"](model, b)
         return {k: float(v) for k, v in metrics.items()}
