@@ -143,8 +143,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
 12. token serving (slice 13's main path), in a child process: Qwen3-0.6B
    as published (bf16, dense attention, seeded weights drawn on the
    card, as Mamba2-2.7B's in (e)) through
-   ``ServeEngine`` (8 slots, page 16, chunk 256): (a) 32 requests,
-   prompts 128-3840, 128 new tokens each, max_len 4096, then 8 more on
+   ``ServeEngine`` (8 slots, page 16, chunk 256): (a) 16 requests,
+   prompts 128-3840, 128 new tokens each, max_len 4096, then 4 more on
    the warm engine at half the measured request rate; (b) the
    cluster-sparse decode mask at max_len 8192, 8 requests, prompts
    4500-8000, 64 tokens; each with tokens and requests a second, latency
@@ -239,11 +239,34 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    (the other rank waiting), the sparse and the dense step's loss and
    gradients at the init held to it (TOL_STEP_LOSS_REL, MIN_GRAD_COSINE),
    every rank's losses held to it (TOL_STEP_LOSS_REL); (c) Qwen3-0.6B at
-   full width, 8 of its 28 layers (GP_LM_LAYERS), on the cluster-sparse
+   full width, 4 of its 28 layers (GP_LM_LAYERS), on the cluster-sparse
    backend under Ulysses, S=16384, 2 steps, held to its P = 1 run
-   (TOL_LM_STEP_LOSS_REL), the inits drawn on the card. Each rank's launches of rows 1, 3, 4 in (b)
-   and 2, 5, 6 in (c) are counted exactly; step ms, the collectives' ms
-   by CUDA events and peak memory per rank.
+   (TOL_LM_STEP_LOSS_REL), the inits drawn on the card. Then the rest of
+   the mesh (slice 17's paths, ``mesh_runs``) on the same two ranks: (d)
+   GT graph-level at full width (128 graphs of S=128 at 16 x 16 blocks)
+   on a (2, 1) data mesh and on the (1, 2) model mesh and (e) GT link
+   on the 2048-node SBM at 32 x 32 on the model mesh, 4 steps each with
+   the dense step at 0 and 2, held to the P = 1 run (the init step's
+   loss and gradients at a cosine of MESH_MIN_GRAD_COSINE, the losses at
+   TOL_STEP_LOSS_REL), the model mesh's attention op held to
+   ``impl="plain"`` (``op_check``); (f) the expert-parallel MoE op at
+   Qwen3-235B-A22B's width, bf16, 4096 tokens: at capacity factor 16
+   (= E/k, nothing drops) y and every gradient held to the single-rank
+   dropless op, at 1.25 the dropped pairs held to a host recount, each
+   rank's peak and forward + backward ms; (g) Qwen3-235B-A22B, one
+   layer, each rank holding 64 of the 128 experts, 2 steps at S=2048
+   under Ulysses and expert parallelism with int8 moments (fp32 ones do
+   not fit two ranks on one card), its attention op held to plain, the
+   losses finite and falling; (h) ``ServeEngine(mesh_model=2)``:
+   Qwen3-0.6B in fp32, 8 requests, 32 new tokens, against the P = 1
+   engine (a token may flip only at a top-2 margin below
+   MESH_TOKEN_MARGIN), then (g)'s weights served (8 requests of
+   128-1024 tokens), tokens a second and each rank's pool bytes; (i) the
+   int8 and top-k all-reduces of GT's gradients against the exact mean
+   and a 2-stage pipeline of GT's fp32 layers against the sequential
+   apply. Each rank's launches of rows 1, 3, 4 in (b), (d) and (e) and
+   2, 5, 6 in (c) and (g) are counted exactly; step ms, the
+   collectives' ms by CUDA events and peak memory per rank.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after. Every training path's counts are exact:
@@ -1730,10 +1753,10 @@ SERVE_SLOTS = 8
 SERVE_PAGE = 16
 SERVE_CHUNK = 256
 SERVE_MAX_LEN = 4096
-SERVE_REQUESTS = 32
+SERVE_REQUESTS = 16             # room for phase 15 (PERF.md 4)
 SERVE_PROMPT = (128, 3840)
 SERVE_NEW = 128
-SERVE_WARM_REQUESTS = 8         # room for phase 13 (PERF.md 4)
+SERVE_WARM_REQUESTS = 4         # room for phases 13 and 15 (PERF.md 4)
 SPARSE_MAX_LEN = 8192           # past the window (4096), so that it binds
 SPARSE_REQUESTS = 8
 SPARSE_PROMPT = (4500, 8000)
@@ -2479,8 +2502,8 @@ def moe_runs(dev, reset_counts, read_counts) -> dict:
         for impl in (None, "plain"):
             routes = []
 
-            def spy(w, xt, k, _seen=routes):
-                res = real(w, xt, k)
+            def spy(w, xt, k, _seen=routes, **kw):
+                res = real(w, xt, k, **kw)
                 _seen.append(res[1])
                 return res
             tmoe._route = spy
@@ -3444,10 +3467,30 @@ def a10_phase(out_path: str) -> int:
 GP_P = 2                     # ranks of phase 15, sharing card 0 over gloo
 GP_TRAIN_STEPS = 4           # (b): dense at 0 (interleave period 8)
 GP_LM_STEPS = 2              # (c)
-# (c): 8 of Qwen3-0.6B's 28 layers: at full depth its two steps took
-# 21-30 s on an H100 (the gloo collectives through the host), more than
-# the script's time budget leaves (PERF.md 7)
-GP_LM_LAYERS = 8
+# (c): 4 of Qwen3-0.6B's 28 layers: at full depth its two steps took
+# 21-30 s on an H100 (the gloo collectives through the host), at 8 layers
+# 10-14 s, more than the script's time budget leaves once (d)-(i) run
+# (PERF.md 4, 7)
+GP_LM_LAYERS = 4
+# (d)-(i), slice 17's paths on the same two ranks
+MESH_STEPS = 4               # (d), (e): dense at 0 and 2
+MESH_INTERLEAVE = 2
+MESH_MIN_GRAD_COSINE = 0.9999   # init steps P = 2 vs P = 1; (f) EP vs dropless
+MESH_EP_TOKENS = 4096        # (f): one MoE layer's tokens a model group
+MESH_EP_CF = (16.0, 1.25)    # (f): E/k (nothing drops), the default
+MESH_MOE_LAYERS = 1          # (g): of Qwen3-235B-A22B's 94
+MESH_MOE_SEQ = 2048
+MESH_MOE_STEPS = 2
+MESH_SERVE_REQUESTS = 8      # (h)
+MESH_SERVE_NEW = 32
+MESH_SERVE_PROMPT = (64, 512)        # Qwen3-0.6B, fp32
+MESH_MOE_SERVE_PROMPT = (128, 1024)  # Qwen3-235B-A22B, one layer, bf16
+MESH_TOKEN_MARGIN = 1e-4     # a token flip only at a near-tie
+MESH_COMPRESS_REL = 0.02     # (i): the reference's bound
+MESH_CONSERVED_REL = 1e-5    # (i): reduced + mean residual = exact mean
+MESH_PIPE_MICRO = 4          # (i): microbatches of 32 graphs' tokens
+MESH_PIPE_SEQ = 128          # (i): (d)'s packed sequence
+MESH_PIPE_TOL = 1e-4         # (i): fp32, pipeline against sequential
 
 
 def _gp_timed(mod, name, store):
@@ -3695,8 +3738,8 @@ def gp_runs(rank: int, dev, reset_counts, read_counts) -> dict:
         task = NodeTask(g, cfg_b, train_mask=train_mask, bq=32, bk=32,
                         d_b=8, device=dev).prepare(model)
         ref_grads = grads_at_init(model, task)
-        ref_b, _ = trainer_steps("(b) graphormer-large P=1", model, task,
-                                 tc_b, want_b, S)
+        ref_b = trainer_steps("(b) graphormer-large P=1", model, task,
+                                 tc_b, want_b, S)[0]
         del model, task
         torch.cuda.empty_cache()
     dist.barrier()
@@ -3726,8 +3769,8 @@ def gp_runs(rank: int, dev, reset_counts, read_counts) -> dict:
         del ref_grads
     del got
     # the Trainer prepares the task on the mesh again
-    b["run"], _ = trainer_steps(f"(b) graphormer-large P={P}", model, task,
-                                tc_b, want_b, S, mesh)
+    b["run"] = trainer_steps(f"(b) graphormer-large P={P}", model, task,
+                                tc_b, want_b, S, mesh)[0]
     b["p1"] = ref_b
     rec["b"] = b
     del model, task
@@ -3745,22 +3788,462 @@ def gp_runs(rank: int, dev, reset_counts, read_counts) -> dict:
     if rank == 0:
         with L.draw_on_device():
             model = LMModel(cfg_c, device=dev, seed=0)
-        ref_c, _ = trainer_steps("(c) qwen3-0.6b P=1", model,
+        ref_c = trainer_steps("(c) qwen3-0.6b P=1", model,
                                  BatchFnTask(lambda s: lm_batch(dc, s)),
-                                 tc_c, want_c, LM_SEQ)
+                                 tc_c, want_c, LM_SEQ)[0]
         del model
         torch.cuda.empty_cache()
     dist.barrier()
     with L.draw_on_device():
         model = LMModel(cfg_c, device=dev, seed=0)
     c = {"layers": GP_LM_LAYERS}
-    c["run"], _ = trainer_steps(f"(c) qwen3-0.6b P={P} ulysses", model,
+    c["run"] = trainer_steps(f"(c) qwen3-0.6b P={P} ulysses", model,
                                 BatchFnTask(lambda s: lm_batch(dc, s)),
-                                tc_c, want_c, LM_SEQ, mesh)
+                                tc_c, want_c, LM_SEQ, mesh)[0]
     c["p1"] = ref_c
     rec["c"] = c
     del model
-    torch.cuda.empty_cache()
+    release()
+    rec.update(mesh_runs(rank, dev, mesh, say, trainer_steps, grads_at_init,
+                         read_counts))
+    return rec
+
+
+def mesh_runs(rank: int, dev, mesh, say, trainer_steps, grads_at_init,
+              read_counts) -> dict:
+    """Phase 15's sub-phases (d)-(i), slice 17's paths, on this rank of
+    the two sharing card 0 (``mesh``: the (1, GP_P) model mesh; a (GP_P,
+    1) data mesh is made here). (d) GT graph-level at full width, 128
+    graphs of S=128 at 16 x 16 blocks, on the data mesh and on the model
+    mesh, and (e) GT link on the 2048-node SBM at 32 x 32 on the model
+    mesh, each MESH_STEPS steps with the dense interleave, held to the
+    P = 1 run on rank 0 (the init step's loss and gradient cosines, the
+    losses in the parent), the model mesh's attention op held to
+    ``impl="plain"``; (f) the expert-parallel MoE op at Qwen3-235B-A22B's
+    width, bf16, MESH_EP_TOKENS tokens, at cf E/k against the dropless
+    op (forward and gradients) and at 1.25 its dropped pairs against a
+    host recount; (g) Qwen3-235B-A22B (one layer, each rank holding its
+    64 experts) trained MESH_MOE_STEPS steps under Ulysses and expert
+    parallelism with int8 moments, its attention op held to plain; (h)
+    ``ServeEngine(mesh_model=GP_P)``: Qwen3-0.6B fp32 against the P = 1
+    engine (a flip only at a near-tie), then (g)'s weights served; (i)
+    the compressed all-reduce of GT's gradients against the exact mean,
+    and a GP_P-stage pipeline of GT's fp32 layers against the sequential
+    apply. Returns the record; (d), (e) and (g)'s launches exactly
+    counted in their runs."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import graph_model as tgm
+    from repro_torch.core.graph import sbm_graph
+    from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.lm import LMModel, lm_forward, lm_loss
+    from repro_torch.optim import compress as tcomp
+    from repro_torch.parallel import axes as pax
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import recipe_for
+    from repro_torch.runtime.trainer import TrainerConfig
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tasks import (BatchFnTask, GraphLevelTask, LinkTask,
+                                   synthetic_graph_level_dataset)
+
+    P = dist.get_world_size()
+    group = mesh.get_group("model")
+    data_mesh = make_host_mesh(model=1, data=P)
+    gt = get_config("gt")
+    rec = {}
+
+    def shard(x):
+        n = x.shape[1] // P
+        return x[:, rank * n:(rank + 1) * n]
+
+    def recipe(m, seq):
+        return recipe_for(ShapeConfig("t", "train", seq, 1), m)
+
+    # ------------------------------------------------------- (d), (e)
+    def held_to_p1(tag, task, names, seq, meshes):
+        """GT on ``task``: the P = 1 run on rank 0 (the other ranks
+        waiting), then on each of ``meshes`` the init step against it
+        and the run; returns the runs and the init checks."""
+        tc = TrainerConfig(steps=MESH_STEPS, lr=1e-3, warmup=2,
+                           interleave_period=MESH_INTERLEAVE,
+                           elastic_every=0, max_bad_steps=0)
+        want = lambda hist: step_launches(gt, names, sum(  # noqa: E731
+            1 for h in hist if h["variant"] == "sparse"))
+        out = {}
+        if rank == 0:
+            model = tgm.GraphModel(gt, device=dev, seed=0)
+            task.prepare(model)
+            ref = grads_at_init(model, task)
+            out["p1"] = trainer_steps(f"{tag} P=1", model, task, tc,
+                                         want, seq)[0]
+            del model
+        dist.barrier()
+        for name, m in meshes:
+            model = tgm.GraphModel(gt, device=dev, seed=0)
+            task.prepare(model, m, recipe(m, seq))
+            if name == "model":
+                with task.context():
+                    out["op_check"] = op_check(
+                        f"{tag} model mesh, rank {rank}", model,
+                        task.loss_variants["sparse"], task.batches(0),
+                        names, read_counts, log_tag="graph-parallel")
+            got = grads_at_init(model, task, m)
+            if rank == 0:
+                for variant, (loss, gs) in got.items():
+                    rl, rg = ref[variant]
+                    cos = min(F.cosine_similarity(
+                        x.float(), y.float(), dim=0, eps=1e-30).item()
+                        for x, y in zip(gs, rg))
+                    rel = abs(loss - rl) / abs(rl)
+                    out[f"init_{name}_{variant}"] = {
+                        "loss": loss, "p1_loss": rl, "loss_rel": rel,
+                        "min_grad_cosine": cos}
+                    say(f"{tag} {name} mesh, {variant} step at the init vs "
+                        f"P=1: loss rel {rel:.3g} (tol "
+                        f"{TOL_STEP_LOSS_REL}), min gradient cosine "
+                        f"{cos:.7f} (min {MESH_MIN_GRAD_COSINE})")
+                    if rel > TOL_STEP_LOSS_REL or \
+                            cos < MESH_MIN_GRAD_COSINE:
+                        raise AssertionError(f"{tag} {name} at the init: "
+                                             f"{out}")
+            del got
+            out[name] = trainer_steps(f"{tag} {name} mesh P={P}", model,
+                                         task, tc, want, seq, m)[0]
+            del model
+            release()
+        if rank == 0:
+            del ref
+        return out
+
+    t0 = time.perf_counter()
+    task = GraphLevelTask(synthetic_graph_level_dataset(GRAPH_BATCH, gt,
+                                                        seed=1), gt,
+                          batch_graphs=GRAPH_BATCH, device=dev)
+    prep_s = time.perf_counter() - t0
+    seq = task.layout.seq_len
+    rec["d"] = {"graphs": GRAPH_BATCH, "S": seq, "bq": task.layout.bq,
+                "prep_s": prep_s, **held_to_p1(
+                    "(d) gt graph-level", task, B16_NAMES, seq,
+                    (("data", data_mesh), ("model", mesh)))}
+    del task
+    t0 = time.perf_counter()
+    task = LinkTask(sbm_graph(LINK_NODES, 4, p_in=0.04, p_out=0.002,
+                              feat_dim=gt.feat_dim, n_classes=gt.n_classes,
+                              seed=0), gt, n_pairs=LINK_PAIRS, device=dev)
+    prep_s = time.perf_counter() - t0
+    seq = task.layout.seq_len
+    rec["e"] = {"nodes": LINK_NODES, "S": seq, "prep_s": prep_s,
+                **held_to_p1("(e) gt link", task, B32_NAMES, seq,
+                             (("model", mesh),))}
+    del task
+    release()
+
+    def resident(tag):
+        """What this rank still holds when a sub-phase starts."""
+        n = release()
+        say(f"{tag} starts with {n / 2**30:.2f} GiB allocated")
+        return n
+
+    # ------------------------------------------------------------ (f)
+    rec["resident_bytes"] = {"f": resident("(f)")}
+    cfg_f = get_config(MOE_ARCH)
+    D, E = cfg_f.d_model, cfg_f.moe_experts
+    mine = slice(rank * E // P, (rank + 1) * E // P)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    # tokens sharing one direction, as a layer's tokens do: the router
+    # then prefers some experts (independent tokens load 128 experts so
+    # evenly that 1.25 of the mean load drops nothing)
+    x = (torch.randn(1, MESH_EP_TOKENS, D, generator=gen, device=dev) * 0.5
+         + torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    gy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    full = tmoe.MoE(cfg_f, device=dev)
+    with L.draw_on_device():
+        L.seeded_init(full, tmoe.moe_defs(cfg_f), seed=0)
+
+    def fwd_bwd(p, xx, g, **kw):
+        xx = xx.clone().requires_grad_()
+        y, aux = tmoe.moe_apply(p, cfg_f, xx, **kw)
+        obj = (y.float() * g.float()).sum() + aux
+        grads = torch.autograd.grad(obj, [p.router, p.w_gate, p.w_up,
+                                          p.w_down, xx])
+        return y.detach(), aux.detach(), list(grads)
+
+    torch.cuda.reset_peak_memory_stats()
+    y, aux, g = fwd_bwd(full, x, gy)          # dropless, no mesh context
+    ref = {"y": shard(y), "aux": aux, "grads": [g[0]] + [
+        w[mine].clone() for w in g[1:4]] + [shard(g[4])]}
+    part = tmoe.MoE(cfg_f, device=dev, experts=(rank, P))
+    with torch.no_grad():
+        part.router.copy_(full.router)
+        for n in ("w_gate", "w_up", "w_down"):
+            getattr(part, n).copy_(getattr(full, n)[mine])
+    f = {"tokens": MESH_EP_TOKENS, "experts_per_rank": E // P,
+         "dropless_peak_bytes": torch.cuda.max_memory_allocated()}
+    del full, y, g
+    release()
+    rec_ep = recipe(mesh, MESH_EP_TOKENS)
+    for cf in MESH_EP_CF:
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(3):
+            e0, e1 = event_pair()
+            e0.record()
+            with pax.axis_rules(rec_ep, mesh):
+                y, aux, g = fwd_bwd(part, shard(x), shard(gy),
+                                    capacity_factor=cf)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        dropped = C.all_reduce_(tmoe.LAST_CALL["dropped"].clone(), group)
+        C.all_reduce_(g[0], group)            # the router's, over the ranks
+        c = {"capacity": tmoe.capacity(MESH_EP_TOKENS, cfg_f, cf),
+             "fwd_bwd_ms": float(np.median(ms)),
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "dropped": int(dropped)}
+        if cf == MESH_EP_CF[0]:
+            # y and x's gradient sum a token's k = 8 slots in bf16, in
+            # another order than the dropless op's: rel within TOL_O and
+            # a cosine of MESH_MIN_GRAD_COSINE
+            names = ("y", "router", "w_gate", "w_up", "w_down", "x")
+            pairs = list(zip([y] + g, [ref["y"]] + ref["grads"]))
+            c["rel"] = dict(zip(names, (_rel(a, b) for a, b in pairs)))
+            c["cosine"] = dict(zip(names, (F.cosine_similarity(
+                a.flatten().float(), b.flatten().float(), dim=0,
+                eps=1e-30).item() for a, b in pairs)))
+            c["aux_err"] = abs(aux.item() - ref["aux"].item())
+            del pairs
+            ok = (max(c["rel"].values()) <= TOL_O["bfloat16"]
+                  and min(c["cosine"].values()) >= MESH_MIN_GRAD_COSINE
+                  and c["aux_err"] <= 1e-5 and c["dropped"] == 0)
+            what = (f"against the dropless op: rel "
+                    f"{ {k: float(f'{v:.3g}') for k, v in c['rel'].items()} }"
+                    f" (tol {TOL_O['bfloat16']}), min cosine "
+                    f"{min(c['cosine'].values()):.7f} (min "
+                    f"{MESH_MIN_GRAD_COSINE}), |daux| {c['aux_err']:.3g}")
+        else:
+            c["recount"] = tmoe.dropped_pairs(
+                part, cfg_f, x.reshape(-1, D), P, cf)
+            ok = c["dropped"] == c["recount"] > 0
+            what = f"host recount {c['recount']}"
+        say(f"(f) expert-parallel MoE op, {MESH_EP_TOKENS} tokens bf16, cf "
+            f"{cf} (c_e {c['capacity']}): dropped {c['dropped']} pairs, "
+            f"{what}; forward + backward {c['fwd_bwd_ms']:.2f} ms (median "
+            f"of 3), peak {c['peak_bytes'] / 2**30:.2f} GiB")
+        if not ok:
+            raise AssertionError(f"(f) cf {cf}: {c}")
+        f[f"cf_{cf}"] = c
+        del y, g
+    rec["f"] = f
+    del part, ref, x, gy
+    release()
+
+    # ------------------------------------------------------------ (g)
+    rec["resident_bytes"]["g"] = resident("(g)")
+    cfg_g = get_config(MOE_ARCH).replace(n_layers=MESH_MOE_LAYERS,
+                                         attn_backend="cluster_sparse",
+                                         remat="block")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with L.draw_on_device():
+        model = LMModel(cfg_g, device=dev, seed=0, experts=(rank, P))
+    torch.cuda.synchronize()
+    named = list(model.named_parameters())
+    g_rec = {"init_s": time.perf_counter() - t0,
+             "params": sum(p.numel() for _, p in named),
+             "expert_params": sum(p.numel() for n, p in named
+                                  if ".moe.w_" in n)}
+    # one batch every step, so that the loss's fall is the update's
+    dc = LMDataConfig(cfg_g.vocab_size, MESH_MOE_SEQ, 1, seed=0)
+    task = BatchFnTask(lambda s: lm_batch(dc, 0))
+    rec_g = recipe(mesh, MESH_MOE_SEQ)
+    task.prepare(model, mesh, rec_g)
+    with pax.axis_rules(rec_g, mesh):
+        g_rec["op_check"] = op_check(
+            f"(g) qwen3-235b-a22b rank {rank}", model, lm_loss,
+            task.batches(0), UNBIASED_NAMES, read_counts,
+            log_tag="graph-parallel")
+    tc = TrainerConfig(steps=MESH_MOE_STEPS, lr=1e-3, warmup=0,
+                       state_dtype="int8", max_bad_steps=0)
+    g_rec["run"], tr = trainer_steps(
+        f"(g) qwen3-235b-a22b 1 layer P={P} ulysses + experts", model, task,
+        tc, lambda hist: step_launches(cfg_g, UNBIASED_NAMES, len(hist)),
+        MESH_MOE_SEQ, mesh)
+    losses = g_rec["run"]["loss"]
+    say(f"(g) {g_rec['params']:,} parameters a rank ({g_rec['expert_params']:,}"
+        f" of its experts), init {g_rec['init_s']:.2f} s; losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(g) losses do not fall: {losses}")
+    rec["g"] = g_rec
+    del tr, task
+    release()
+
+    # ------------------------------------------------------------ (h)
+    def serve(mdl, prompts, max_len, mesh_model):
+        eng = ServeEngine(mdl, batch_slots=SERVE_SLOTS, page=SERVE_PAGE,
+                          chunk=SERVE_CHUNK, max_len=max_len,
+                          mesh_model=mesh_model)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, MESH_SERVE_NEW)
+        torch.cuda.synchronize()
+        stats = eng.run()
+        torch.cuda.synchronize()
+        stats["pool_bytes"] = eng.pool_bytes()
+        return eng.done, stats
+
+    def prompts_for(cfg, lo_hi, seed):
+        rng = np.random.default_rng(seed)
+        return [rng.integers(1, cfg.vocab_size // 8, int(n)).tolist()
+                for n in rng.integers(*lo_hi, MESH_SERVE_REQUESTS)]
+
+    h = {}
+    cfg_h = get_config("qwen3_0_6b").replace(dtype="float32")
+    prompts = prompts_for(cfg_h, MESH_SERVE_PROMPT, 7)
+    max_len = MESH_SERVE_PROMPT[1] + MESH_SERVE_NEW
+    with L.draw_on_device():
+        dense = LMModel(cfg_h, device=dev, seed=0)
+    if rank == 0:
+        want, h["dense_p1"] = serve(dense, prompts, max_len, 1)
+    dist.barrier()
+    done, h["dense"] = serve(dense, prompts, max_len, P)
+    if rank == 0:
+        flips = []
+        for rid, a in want.items():
+            b = done[rid]
+            if a == b:
+                continue
+            j = next(i for i, (u, v) in enumerate(zip(a, b)) if u != v)
+            toks = torch.tensor([prompts[rid] + a[:j]], device=dev)
+            with torch.no_grad():
+                hid, _ = lm_forward(dense, {"tokens": toks})
+                top = L.logits_fn(dense.embed, cfg_h, hid[:, -1:])[
+                    0, 0, :cfg_h.vocab_size].float().topk(2).values
+            flips.append((rid, j, (top[0] - top[1]).item()))
+        h["flips"] = flips
+        say(f"(h) qwen3-0.6b fp32 ServeEngine(mesh_model={P}) against P=1: "
+            f"{MESH_SERVE_REQUESTS} requests, {MESH_SERVE_NEW} new each, "
+            f"flips (request, position, top-2 margin) {flips} (a flip only "
+            f"below {MESH_TOKEN_MARGIN}); {h['dense']['tok_per_s']:.1f} "
+            f"tokens/s (P=1 {h['dense_p1']['tok_per_s']:.1f})")
+        if any(m >= MESH_TOKEN_MARGIN for _, _, m in flips):
+            raise AssertionError(f"(h) a token flipped off a near-tie: "
+                                 f"{flips}")
+    say(f"(h) qwen3-0.6b pool {h['dense']['pool_bytes']:,} bytes this rank")
+    del dense
+    release()
+    cfg_m = model.cfg
+    prompts = prompts_for(cfg_m, MESH_MOE_SERVE_PROMPT, 8)
+    done, h["moe"] = serve(model, prompts, MESH_MOE_SERVE_PROMPT[1]
+                           + MESH_SERVE_NEW, P)
+    ok = len(done) == MESH_SERVE_REQUESTS and all(
+        len(v) == MESH_SERVE_NEW for v in done.values())
+    say(f"(h) qwen3-235b-a22b 1 layer bf16, (g)'s weights: "
+        f"{h['moe']['requests']} requests, {h['moe']['tokens']} tokens in "
+        f"{h['moe']['seconds']:.2f} s ({h['moe']['tok_per_s']:.1f} "
+        f"tokens/s), pool {h['moe']['pool_bytes']:,} bytes this rank")
+    if not ok:
+        raise AssertionError(f"(h) moe serving: {h['moe']}")
+    rec["h"] = h
+    del model
+    release()
+
+    # ------------------------------------------------------------ (i)
+    i_rec = {}
+    task = GraphLevelTask(synthetic_graph_level_dataset(GRAPH_BATCH, gt,
+                                                        seed=1), gt,
+                          batch_graphs=GRAPH_BATCH, device=dev)
+    model = tgm.GraphModel(gt, device=dev, seed=0)
+    task.prepare(model, data_mesh, recipe(data_mesh, task.layout.seq_len))
+    params = list(model.parameters())
+    with task.context():
+        loss, _ = task.loss_variants["sparse"](model, task.batches(0))
+        grads = [torch.zeros_like(p) if x is None else x for x, p in zip(
+            torch.autograd.grad(loss, params, allow_unused=True), params)]
+    exact = [C.all_reduce_(x.clone(), None) / P for x in grads]
+    norm = torch.sqrt(sum((e.float() ** 2).sum() for e in exact))
+    for codec in ("int8", "topk"):
+        C.reset_bytes()
+        out = [tcomp.compressed_psum_int8(x, None, torch.zeros_like(x))
+               if codec == "int8" else
+               tcomp.compressed_psum_topk(x, None, torch.zeros_like(x))
+               for x in grads]
+        sent = C.BYTES["all_reduce"]
+        err = torch.sqrt(sum(((m - e) ** 2).sum()
+                             for (m, _), e in zip(out, exact))) / norm
+        kept = torch.sqrt(sum(((m + C.all_reduce_(r.clone(), None) / P - e)
+                               ** 2).sum()
+                              for (m, r), e in zip(out, exact))) / norm
+        res_max = max(r.abs().max().item() for _, r in out)
+        i_rec[codec] = {"rel": err.item(), "conserved_rel": kept.item(),
+                        "residual_max": res_max, "bytes_sent": sent,
+                        "grad_bytes": sum(x.numel() * 4 for x in grads)}
+        say(f"(i) {codec} all-reduce of GT's gradients at P={P}: rel "
+            f"{err.item():.4g} against the exact mean (int8's tol "
+            f"{MESH_COMPRESS_REL}), reduced + mean residual at "
+            f"{kept.item():.3g} (tol {MESH_CONSERVED_REL}), max |residual| "
+            f"{res_max:.3g}, {sent:,} bytes sent a rank (fp32 wire)")
+        if (codec == "int8" and err.item() >= MESH_COMPRESS_REL) or \
+                kept.item() > MESH_CONSERVED_REL or res_max <= 0:
+            raise AssertionError(f"(i) {codec}: {i_rec[codec]}")
+    del task, model, grads, exact, out
+
+    class Stage(torch.nn.Module):
+        def __init__(self, layers, cfg):
+            super().__init__()
+            self.layers = torch.nn.ModuleList(layers)
+            self.cfg = cfg
+
+        def forward(self, hh):
+            for layer in self.layers:
+                hh = tgm._layer(layer, hh, self.cfg, {}, None, True, None)
+            return hh
+
+    cfg_p = gt.replace(dtype="float32")
+    model = tgm.GraphModel(cfg_p, device=dev, seed=0)
+    per = cfg_p.n_layers // P
+    stage = Stage(list(model.layers)[rank * per:(rank + 1) * per], cfg_p)
+    snames = [n for n, _ in stage.named_parameters()]
+    sparams = [p for _, p in stage.named_parameters()]
+    gen = torch.Generator(device=dev).manual_seed(44)
+    xs = torch.randn(MESH_PIPE_MICRO, GRAPH_BATCH // MESH_PIPE_MICRO,
+                     MESH_PIPE_SEQ, cfg_p.d_model, generator=gen,
+                     device=dev)
+    gxs = torch.randn(xs.shape, generator=gen, device=dev)
+    xl = xs.clone().requires_grad_()
+    e0, e1 = event_pair()
+    e0.record()
+    out = pipeline_apply(lambda ps, a: torch.func.functional_call(
+        stage, dict(zip(snames, ps)), (a,)), sparams, xl, None)
+    got = torch.autograd.grad((out * gxs).sum(), sparams + [xl])
+    e1.record()
+    xf = xs.clone().requires_grad_()
+    hh = Stage(list(model.layers), cfg_p)(xf.flatten(0, 1))
+    want = torch.autograd.grad((hh * gxs.flatten(0, 1)).sum(),
+                               sparams + [xf])
+    torch.cuda.synchronize()
+    rels = [_rel(out, hh.view(out.shape))] + [
+        _rel(a, b) for a, b in zip(got, want)]
+    i_rec["pipeline"] = {"stages": P, "micro": MESH_PIPE_MICRO,
+                         "S": MESH_PIPE_SEQ, "out_rel": rels[0],
+                         "max_grad_rel": max(rels[1:]),
+                         "ms": e0.elapsed_time(e1)}
+    say(f"(i) {P}-stage pipeline of GT's fp32 layers, {MESH_PIPE_MICRO} "
+        f"microbatches: out rel {rels[0]:.3g}, worst gradient rel "
+        f"{max(rels[1:]):.3g} (tol {MESH_PIPE_TOL}) against the "
+        f"sequential apply; forward + backward "
+        f"{i_rec['pipeline']['ms']:.2f} ms")
+    if max(rels) > MESH_PIPE_TOL:
+        raise AssertionError(f"(i) pipeline: {i_rec['pipeline']}")
+    rec["i"] = i_rec
+    del model, stage, out, got, want, hh
+    release()
     return rec
 
 
@@ -3805,6 +4288,8 @@ def graph_parallel_phase(out_path: str) -> int:
     from repro_torch.kernels import cluster_attention_bwd as tcab
 
     t_start = time.perf_counter()
+    # two ranks' allocators share the card: (g) holds ~36 GiB a rank
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     # built before the ranks start, so that they only load the libraries
     kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
                       tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED_SM90,
@@ -3815,22 +4300,29 @@ def graph_parallel_phase(out_path: str) -> int:
         for r in range(GP_P):
             with open(os.path.join(tmp, f"rank{r}.json")) as fh:
                 ranks.append(json.load(fh))
-    p1_b, p1_c = ranks[0]["b"]["p1"], ranks[0]["c"]["p1"]
+    # every run held to rank 0's P = 1 run: (b), (c), and slice 17's
+    # (d) on the data and the model mesh and (e) on the model mesh
+    held = (("b", "run", TOL_STEP_LOSS_REL), ("c", "run",
+                                             TOL_LM_STEP_LOSS_REL),
+            ("d", "data", TOL_STEP_LOSS_REL), ("d", "model",
+                                               TOL_STEP_LOSS_REL),
+            ("e", "model", TOL_STEP_LOSS_REL))
     for r in ranks:
-        for part, ref_, tol in (("b", p1_b, TOL_STEP_LOSS_REL),
-                                ("c", p1_c, TOL_LM_STEP_LOSS_REL)):
-            got = r[part]["run"]["loss"]
+        for part, run, tol in held:
+            ref_ = ranks[0][part]["p1"]
+            got = r[part][run]["loss"]
             rel = [abs(x - y) / abs(y) for x, y in zip(got, ref_["loss"])]
-            r[part]["loss_rel_vs_p1"] = rel
-            log(f"[graph-parallel] ({part}) rank {r['rank']}: losses "
+            r[part][f"{run}_loss_rel_vs_p1"] = rel
+            log(f"[graph-parallel] ({part}) {run} rank {r['rank']}: losses "
                 f"{got} vs P=1 {ref_['loss']}, rel {rel} (tol {tol})")
             if len(got) != len(ref_["loss"]) or max(rel) > tol:
                 raise AssertionError(f"phase 15 ({part}) rank {r['rank']}: "
                                      f"losses {got} vs P=1 {ref_['loss']}")
     launches = {}
     for r in ranks:
-        for part in ("b", "c"):
-            for n, c in r[part]["run"]["launches"].items():
+        for part, run in (("b", "run"), ("c", "run"), ("d", "data"),
+                          ("d", "model"), ("e", "model"), ("g", "run")):
+            for n, c in r[part][run]["launches"].items():
                 launches[n] = launches.get(n, 0) + c
     rec = {"ranks": ranks, "launches": launches,
            "seconds": time.perf_counter() - t_start}
@@ -5928,6 +6420,7 @@ def main() -> int:
         cnt = {run: r["launches"][f"{name}_sm90_b16"]
                for run, r in graph_runs.items()}
         cnt["recovery"] = recovery["launches"][f"{name}_sm90_b16"]
+        cnt["graph_parallel"] = gp_rec["launches"][f"{name}_sm90_b16"]
         kernels.append({
             "name": f"{name}_b16", "route": "cuda",
             "source": csrc + f"{name}_sm90.cu",

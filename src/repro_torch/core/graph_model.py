@@ -23,8 +23,8 @@ Parameters are fp32; compute runs in ``cfg.dtype``.
 
 Under a mesh (``parallel.axes.axis_rules``) the batch holds this rank's
 S/P contiguous tokens of the per-node arrays (``dense_buckets`` its
-rows) and the whole layouts, and the forward is the reference's
-sharded one: the global tokens only at global positions below
+rows) and the whole layouts (of its data shard's graphs), and the
+forward is the reference's sharded one: the global tokens only at global positions below
 ``n_global``, the sparse step through ``sharded_cluster_attention``
 (shapes that cannot shard raise), the dense step sequence-parallel, and
 ``graph_loss`` the mean over every rank's tokens.
@@ -143,11 +143,14 @@ class GraphModel(nn.Module):
         return graph_forward(self, batch, impl=impl)
 
 
-def batch_to_torch(batch: dict, device, uploads: dict | None = None) -> dict:
+def batch_to_torch(batch: dict, device, uploads: dict | None = None,
+                   shard=None) -> dict:
     """The numpy batch of ``prepare_node_task`` as tensors on ``device``
     (the keys the model reads). ``uploads`` (``id(host array) -> tensor``)
     dedupes uploads of arrays shared between batches; the caller keeps
-    the host arrays alive while the dict is in use."""
+    the host arrays alive while the dict is in use. ``shard(key, arr)``,
+    when given, picks the part of each host array that is uploaded (a
+    rank's shard on a mesh), before the upload and its dedup."""
     dev = resolve(device)
     out = {}
     for key, dt in _BATCH_DTYPES.items():
@@ -157,7 +160,8 @@ def batch_to_torch(batch: dict, device, uploads: dict | None = None) -> dict:
         if uploads is not None and id(arr) in uploads:
             out[key] = uploads[id(arr)]
             continue
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+        host = arr if shard is None else shard(key, arr)
+        out[key] = torch.from_numpy(np.ascontiguousarray(host)).to(
             device=dev, dtype=dt)
         if uploads is not None:
             uploads[id(arr)] = out[key]
@@ -207,7 +211,7 @@ def _sharded_sparse(q, k, v, cfg, batch, bias_table, group, impl):
             f"KV={cfg.kv_heads} S={S} bq={bq} bk={bk} over a {p}-way "
             f"model group (recipe {recipe.name!r}); the reference hands "
             f"such shapes to GSPMD, which the port has no counterpart of "
-            f"(ROADMAP A8 part 2)")
+            f"(ROADMAP A8 part 3)")
     return sharded_cluster_attention(
         q, k, v, bi, bu, bias_table, batch.get("block_idx_t"), group=group,
         bq=bq, bk=bk, impl=impl)
@@ -252,9 +256,11 @@ def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
             h = torch.cat([g.expand(h.shape[0], -1, -1), h[:, n:]], dim=1)
     bu = batch.get("buckets")
     if bu is not None:
+        # the global sequence from the layout; the batch as the data
+        # shard gives it
         pax.logical(h, "batch", "seq_outer", "embed", full=(
-            h.shape[0], batch["block_idx"].shape[-2] * bu.shape[-2],
-            h.shape[2]))
+            h.shape[0] * pax.mesh_axis_size("batch"),
+            batch["block_idx"].shape[-2] * bu.shape[-2], h.shape[2]))
     body = functools.partial(_layer, cfg=cfg, batch=batch,
                              bias_table=getattr(model, "bias_table", None),
                              dense=dense, impl=impl)

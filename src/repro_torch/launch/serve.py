@@ -4,8 +4,13 @@ Token LMs (the dense and MoE archs) go through
 :class:`repro_torch.serve.ServeEngine`: chunked prefill + paged KV cache
 + continuous batching, two programs for the engine's life (audited on
 every run), optionally under the TorchGT cluster-sparse decode mask
-(``--sparse``). The SSM and hybrid archs have no paged serving path and
-are refused here, as in the reference.
+(``--sparse``), on one device or on a mesh of ``--mesh-model`` ranks
+over ``--backend`` (``gloo`` or ``nccl``, required with a mesh): under
+torchrun each process is one rank, else the CLI spawns its ranks
+(``launch/mesh.spawn``), which serve the same requests, each holding its
+share of the KV heads and experts, and rank 0 prints. The SSM and
+hybrid archs have no paged serving path and are refused here, as in
+the reference.
 
 Graph archs go through :class:`repro_torch.serve.GraphServe`: the CLI
 builds a degree-scaled SBM graph (expected intra-cluster degree
@@ -18,6 +23,8 @@ forward times.
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3_moe_235b_a22b --requests 6 --batch 2 --chunk 16 \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3_moe_235b_a22b --mesh-model 2 --backend gloo --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
       --full --requests 32 --batch 8 --prompt-len 2048 --max-tokens 128 \
       --max-len 4096 --chunk 256
@@ -32,14 +39,17 @@ forward times.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.graph import sbm_graph
 from repro_torch.core.graph_model import GraphModel
+from repro_torch.launch import mesh as lmesh
 from repro_torch.models.api import lm_model_class
 from repro_torch.serve import GraphServe, ServeEngine
 
@@ -66,7 +76,7 @@ def _sync(device) -> None:
 def serve_lm(model, args) -> int:
     eng = ServeEngine(model, batch_slots=args.batch, page=args.page,
                       max_len=args.max_len, chunk=args.chunk,
-                      sparse=args.sparse)
+                      sparse=args.sparse, mesh_model=args.mesh_model)
     rng = np.random.default_rng(0)
     cfg = model.cfg
     for rid in range(args.requests):
@@ -75,9 +85,15 @@ def serve_lm(model, args) -> int:
                    args.max_tokens,
                    arrival=rid * args.arrival_gap)
     stats = eng.run()
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return 0
     lat = sorted(r["latency_s"] for r in eng.request_stats)
     p50 = lat[len(lat) // 2]
     p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+    if args.mesh_model > 1:
+        print(f"mesh={{'data': 1, 'model': {args.mesh_model}}} "
+              f"recipe={eng.recipe.name} pool_bytes_per_rank="
+              f"{eng.pool_bytes()}")
     print(f"served {stats['requests']} requests / {stats['tokens']} tokens "
           f"in {stats['seconds']:.2f}s ({stats['tok_per_s']:.1f} tok/s, "
           f"{stats['prefill_calls']} prefill + {stats['decode_calls']} "
@@ -145,13 +161,32 @@ def main(argv=None):
     ap.add_argument("--arrival-gap", type=float, default=0.0,
                     help="seconds between request arrivals (offered load)")
     ap.add_argument("--sparse", action="store_true")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="ranks the KV heads and experts are sharded over")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="torch.distributed backend of a mesh (required "
+                         "with one)")
     # graph endpoint knobs
     ap.add_argument("--graph-nodes", type=int, default=96)
     ap.add_argument("--graph-clusters", type=int, default=4)
     ap.add_argument("--queries", type=int, default=8)
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.mesh_model > 1:
+        if cfg.family == "graph":
+            ap.error("--mesh-model serves token LMs; GraphServe runs on one "
+                     "device")
+        if args.backend is None:
+            ap.error("--mesh-model needs --backend (gloo or nccl)")
+        if not dist.is_initialized():
+            if not lmesh.torchrun_env():
+                lmesh.spawn(main, args.mesh_model, backend=args.backend,
+                            args=(argv,))
+                return 0
+            lmesh.from_torchrun(args.backend)
+        args.device = lmesh.rank_device(args.device)
     if cfg.family == "graph":
         return serve_graph(cfg, args)
     model_cls = lm_model_class(cfg)

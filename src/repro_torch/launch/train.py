@@ -52,14 +52,16 @@ says (the configs' default is ``"block"``).
 ``--mesh-model P`` and ``--mesh-data D`` train on a (D, P) mesh of
 P·D ranks, one process each, over ``--backend`` (``gloo`` or ``nccl``,
 never chosen for the caller): the sequence sharded P ways (the graph
-node task through ``sharded_cluster_attention``, the dense LMs through
-Ulysses or sequence-parallel attention), the batch D ways where it
-divides. Under torchrun (RANK and WORLD_SIZE set) each process is one
-rank; otherwise the CLI spawns the ranks itself and rank 0 prints. It
-prints the ``mesh=... recipe=... sharded_cluster_attention=...`` line
-of the reference. ``--task graph|link`` and the non-dense LM families
-on a mesh raise (ROADMAP A8 part 2). NCCL needs a card a rank; several
-ranks share one card over gloo (through the host).
+node, graph-level and link tasks through ``sharded_cluster_attention``,
+the dense and MoE LMs through Ulysses or sequence-parallel attention,
+the MoE's experts P ways, each rank holding its E/P), the batch D ways
+where it divides (graph-level: the mini-graphs). Under torchrun (RANK
+and WORLD_SIZE set) each process is one rank; otherwise the CLI spawns
+the ranks itself and rank 0 prints. It prints the ``mesh=... recipe=...
+sharded_cluster_attention=...`` line of the reference. The SSM and
+hybrid LM families on a mesh raise (ROADMAP A8 part 3), as does a
+checkpoint directory for an MoE on a model axis. NCCL needs a card a
+rank; several ranks share one card over gloo (through the host).
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch graphormer_slim --smoke --steps 20 --graph-nodes 96 \\
@@ -188,12 +190,9 @@ def main(argv=None):
         if args.backend is None:
             raise ValueError("--mesh-model/--mesh-data need --backend "
                              "(gloo or nccl)")
-        if cfg.family == "graph" and args.task != "node":
-            raise ValueError(f"--task {args.task} on a mesh is not ported "
-                             f"(ROADMAP A8 part 2)")
-        if cfg.family not in ("graph", "dense"):
+        if cfg.family not in ("graph", "dense", "moe"):
             raise ValueError(f"--arch {args.arch}: the {cfg.family} family "
-                             f"on a mesh is not ported (ROADMAP A8 part 2)")
+                             f"on a mesh is not ported (ROADMAP A8 part 3)")
         if not dist.is_initialized():
             if not lmesh.torchrun_env():
                 lmesh.spawn(main, world, backend=args.backend,
@@ -237,7 +236,7 @@ def main(argv=None):
                 f"sharded_cluster_attention cannot shard H={cfg.n_heads} "
                 f"KV={cfg.kv_heads} S={lay.seq_len} bq={lay.bq} "
                 f"bk={lay.bk} {args.mesh_model} ways, and the port has no "
-                f"unsharded fallback on a mesh (ROADMAP A8 part 2)")
+                f"unsharded fallback on a mesh (ROADMAP A8 part 3)")
 
     tc = TrainerConfig(steps=args.steps, lr=args.lr,
                        warmup=max(2, args.steps // 10),
@@ -299,24 +298,31 @@ def _lm_main(args, cfg):
             f"tokens, and the synthetic token stream has none; train it "
             f"through Trainer with a task that supplies them")
     world = args.mesh_model * args.mesh_data
-    model = lm_model_class(cfg)(cfg, device=args.device)
+    mesh = recipe = None
+    kw = {}
+    if world > 1:
+        mesh = lmesh.make_host_mesh(model=args.mesh_model,
+                                    data=args.mesh_data)
+        recipe = recipe_for(
+            ShapeConfig("train", "train", args.seq, args.batch), mesh)
+        if cfg.family == "moe" and args.mesh_model > 1:
+            # each rank holds its own experts
+            kw["experts"] = (mesh.get_local_rank("model"), args.mesh_model)
+    model = lm_model_class(cfg)(cfg, device=args.device, **kw)
     mixer = "ssm" if cfg.family == "ssm" else cfg.attn_backend
     n_params = sum(p.numel() for p in model.parameters())
     say = _printer()
     say(f"arch={cfg.name} params={n_params:,} device={model.device} "
         f"attn_backend={mixer} remat={cfg.remat} seq={args.seq} "
         f"batch={args.batch}")
-    mesh = recipe = None
-    if world > 1:
-        mesh = lmesh.make_host_mesh(model=args.mesh_model,
-                                    data=args.mesh_data)
-        recipe = recipe_for(
-            ShapeConfig("train", "train", args.seq, args.batch), mesh)
+    if mesh is not None:
         mode = "ulysses" if recipe.ulysses and can_ulysses(
             cfg.n_heads, cfg.kv_heads, args.seq, args.mesh_model) \
             else "seqpar"
+        experts = "" if "experts" not in kw else \
+            f" experts_per_rank={cfg.moe_experts // args.mesh_model}"
         say(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
-            f"recipe={recipe.name} attention={mode}")
+            f"recipe={recipe.name} attention={mode}{experts}")
     dc = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch)
     tc = TrainerConfig(steps=args.steps, lr=args.lr,

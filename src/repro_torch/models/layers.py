@@ -442,11 +442,16 @@ def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
     init families are the reference's: ``fan_in`` is a normal scaled by
     ``shape[0] ** -0.5``, ``normal``/``embed`` a normal scaled by 0.02;
     a float ``init`` is a normal of that scale; the random numbers are
-    the port's own."""
+    the port's own. A stack holding part of its experts (its
+    ``expert_part``) gets its rows of the whole stack's draw."""
     gens = {}
     for name, p in model.named_parameters():
         shape, init = defs[_def_name(name)]
-        assert tuple(p.shape) == shape, (name, p.shape, shape)
+        # a stack holding expert part m of P is rows [m n, (m+1) n) of
+        # the whole one, drawn whole so the stream stays the same
+        m, parts = getattr(p, "expert_part", (0, 1))
+        n = shape[0] // parts
+        assert tuple(p.shape) == (n, *shape[1:]), (name, p.shape, shape)
         if init == "zeros":
             p.zero_()
         elif init == "ones":
@@ -458,4 +463,4 @@ def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
             if dev not in gens:
                 gens[dev] = torch.Generator(device=dev).manual_seed(seed)
             p.copy_(torch.randn(shape, generator=gens[dev], device=dev)
-                    * scale)
+                    [m * n:(m + 1) * n] * scale)

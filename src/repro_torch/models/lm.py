@@ -71,9 +71,9 @@ The hybrid is ``models/hybrid.py``'s model, the SSM ``models/api.py``'s
 and the encoder-decoder ``models/encdec.py``'s.
 
 Under a mesh (``parallel.axes.axis_rules``, as the Trainer runs a step
-with ``mesh=``) the dense family trains sequence-sharded: each rank
-holds S/P contiguous tokens of the model group's sequence, RoPE at their
-global positions, and attention dispatches as the reference's
+with ``mesh=``) the dense and MoE families train sequence-sharded: each
+rank holds S/P contiguous tokens of the model group's sequence, RoPE at
+their global positions, and attention dispatches as the reference's
 ``attn_apply`` does:
 
 * Ulysses (``parallel/ulysses.py``) when the recipe asks for it and the
@@ -84,15 +84,26 @@ global positions, and attention dispatches as the reference's
   SmolLM's 9 heads two ways): the rank's queries against all-gathered
   k and v, causal at the queries' global offset, on the plain chunked
   attention. The cluster-sparse op takes no query offset, so that
-  combination raises (ROADMAP A8 part 2), as do the MoE, VLM and other
-  families on a mesh (expert parallelism is A8 part 2).
+  combination raises, as do the SSM, hybrid, VLM and enc-dec families
+  on a mesh (ROADMAP A8 part 3).
 
+The MoE FFN takes the expert-parallel path of ``models/moe.py``.
 ``lm_loss`` is then the global mean over every rank's shard.
+
+Serving on a mesh (``ServeEngine(mesh_model=P)``, under the "decode"
+recipe): the paged pool holds KV/P kv heads a rank, and each layer of
+``lm_prefill_chunk`` and ``lm_paged_decode_step`` computes this rank's
+H/P query heads and KV/P kv heads from its slices of the (replicated)
+projection weights, attends over its own heads, and sums the output
+projection's partial products over the model group with one
+all-reduce; the MoE FFN takes the expert-parallel path on the whole
+batch, every rank routing every token.
 """
 
 from __future__ import annotations
 
 import functools
+import types
 
 import numpy as np
 import torch
@@ -149,13 +160,14 @@ class LMLayer(nn.Module):
     """Pre-norm attention and an FFN: the MoE (``moe``) when ``moe``,
     else an MLP (``mlp``) of width ``cfg.dense_d_ff or cfg.d_ff``."""
 
-    def __init__(self, cfg, *, moe: bool = False, device=None):
+    def __init__(self, cfg, *, moe: bool = False, device=None,
+                 experts=None):
         super().__init__()
         self.attn_norm = L.RMSNorm(cfg.d_model, device=device)
         self.attn = L.Attention(cfg, device=device)
         self.mlp_norm = L.RMSNorm(cfg.d_model, device=device)
         if moe:
-            self.moe = MoE(cfg, device=device)
+            self.moe = MoE(cfg, device=device, experts=experts)
         else:
             self.mlp = L.MLP(cfg, cfg.dense_d_ff, device=device)
 
@@ -178,9 +190,13 @@ def _check_attn_backend(cfg) -> None:
 class LMModel(nn.Module):
     """A dense or MoE decoder-only LM with the reference's parameter names
     and shapes, so a JAX parameter tree loads through
-    ``convert.params_from_jax``. ``seed`` drives the port's own init."""
+    ``convert.params_from_jax``. ``seed`` drives the port's own init.
+    ``experts=(m, P)``: the MoE layers hold only expert part m of P (rank
+    m of a P-way model axis, ``models/moe.py``), with the same numbers
+    as those rows of the whole model's init."""
 
-    def __init__(self, cfg, *, device="cuda", seed: int = 0):
+    def __init__(self, cfg, *, device="cuda", seed: int = 0,
+                 experts=None):
         super().__init__()
         where = {"ssm": "models/api.SSMLMModel",
                  "hybrid": "models/hybrid.HybridLMModel",
@@ -196,7 +212,8 @@ class LMModel(nn.Module):
         self.embed = L.Embedding(cfg, device=dev)
         self.final_norm = L.RMSNorm(cfg.d_model, device=dev)
         self.layers = nn.ModuleList(
-            LMLayer(cfg, moe=bool(cfg.moe_experts), device=dev)
+            LMLayer(cfg, moe=bool(cfg.moe_experts), device=dev,
+                    experts=experts)
             for _ in range(cfg.n_layers - cfg.n_dense_layers))
         for i in range(cfg.n_dense_layers):
             setattr(self, f"dense_layer_{i}", LMLayer(cfg, device=dev))
@@ -273,11 +290,11 @@ class LMModel(nn.Module):
         return lm_paged_decode_step(self, pool, tokens, pos, block_tables,
                                     sparse=sparse)
 
-    def paged_cache_defs(self, num_blocks: int, page: int) -> dict:
+    def paged_cache_defs(self, num_blocks: int, page: int, **kw) -> dict:
         """A zeroed paged pool on the model's device:
         :func:`lm_paged_cache_defs`."""
         return lm_paged_cache_defs(self.cfg, num_blocks, page,
-                                   device=self.device)
+                                   device=self.device, **kw)
 
 
 def attention_fn(model, S: int, impl: str | None = None,
@@ -317,7 +334,7 @@ def sharded_attention_fn(model, S: int, group, impl: str | None = None):
             f"{cfg.name}: H={cfg.n_heads} KV={cfg.kv_heads} cannot split "
             f"{p} ways for Ulysses, and the cluster-sparse op takes no "
             f"query offset for sequence-parallel attention (S={S}; "
-            f"ROADMAP A8 part 2)")
+            f"ROADMAP A8 part 3)")
     return lambda q, k, v: seqpar_attention(
         q, k, v, group=group, attn_fn=lambda a, b, c, off:
         L.chunked_attention(a, b, c, causal=cfg.causal,
@@ -402,11 +419,12 @@ def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
     if group is None:
         off, attn = 0, attention_fn(model, S, impl)
     else:
-        if cfg.family != "dense" or return_kv:
+        if cfg.family not in ("dense", "moe") or return_kv:
             raise ValueError(
                 f"{cfg.name}: sequence-sharded {cfg.family} "
-                f"{'serving' if return_kv else 'training'} is not ported "
-                f"(ROADMAP A8 part 2); the dense family trains on a mesh")
+                f"{'prefill' if return_kv else 'training'} is not ported "
+                f"(ROADMAP A8 part 3); the dense and MoE families train "
+                f"on a mesh, and ServeEngine serves them on one")
         off = C.rank(group) * S
         attn = sharded_attention_fn(model, S * C.size(group), group, impl)
     # RoPE at the tokens' global positions
@@ -450,11 +468,12 @@ def _zeros_bf16(shape, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.bfloat16, device=device)
 
 
-def _kv_tree(cfg, rows: tuple, device) -> dict:
+def _kv_tree(cfg, rows: tuple, device, kv_heads: int | None = None) -> dict:
     """Zeroed bf16 ``{"layers": {"k", "v"}}`` of shape ``(n_scan, *rows,
     KV, Dh)``, and ``dense_layer_<i>: {"k", "v"}`` of ``(*rows, KV, Dh)``
-    for each leading dense layer: the reference's cache tree."""
-    one = (*rows, cfg.kv_heads, cfg.head_dim)
+    for each leading dense layer: the reference's cache tree (``KV`` =
+    ``kv_heads``, default ``cfg.kv_heads``)."""
+    one = (*rows, kv_heads or cfg.kv_heads, cfg.head_dim)
     n_scan = cfg.n_layers - cfg.n_dense_layers
     tree = {"layers": {"k": _zeros_bf16((n_scan, *one), device),
                        "v": _zeros_bf16((n_scan, *one), device)}}
@@ -540,7 +559,7 @@ def lm_decode_step(model: LMModel, cache: dict, tokens, pos, *,
 # ------------------------------------------------------------ paged serving
 
 def lm_paged_cache_defs(cfg, num_blocks: int, page: int, *,
-                        device="cpu") -> dict:
+                        device="cpu", kv_heads: int | None = None) -> dict:
     """The serving engine's zeroed paged KV pool on ``device``:
     ``{"layers": {"k", "v"}}``, each ``(n_layers - n_dense_layers,
     num_blocks, page, KV, Dh)`` bf16, and ``dense_layer_<i>: {"k", "v"}``
@@ -548,8 +567,9 @@ def lm_paged_cache_defs(cfg, num_blocks: int, page: int, *,
     per-request block tables map logical positions onto its blocks
     (``serve/``). Physical block 0 is the engine's scratch sink for idle
     decode slots and chunk padding: the allocator never hands it to a
-    request."""
-    return _kv_tree(cfg, (num_blocks, page), device)
+    request. ``kv_heads``: the heads a rank's pool holds on a serving
+    mesh (KV/P)."""
+    return _kv_tree(cfg, (num_blocks, page), device, kv_heads)
 
 
 def _pool_scatter(pk, pv, k_rows, v_rows, flat):
@@ -563,17 +583,38 @@ def _pool_scatter(pk, pv, k_rows, v_rows, flat):
     pv.view(NB * page, KV, Dh).index_copy_(0, flat, v_rows.to(pv.dtype))
 
 
+def _rank_heads(attn: L.Attention, cfg, group):
+    """The attention weights of this rank's heads on a serving mesh: its
+    KV/P kv heads and the H/P query heads that read them (views of the
+    replicated weights)."""
+    p, m = C.size(group), C.rank(group)
+    h, kv = cfg.n_heads // p, cfg.kv_heads // p
+    w = types.SimpleNamespace(
+        wq=attn.wq[:, m * h:(m + 1) * h], wk=attn.wk[:, m * kv:(m + 1) * kv],
+        wv=attn.wv[:, m * kv:(m + 1) * kv], wo=attn.wo[m * h:(m + 1) * h])
+    if cfg.qk_norm:
+        w.q_norm, w.k_norm = attn.q_norm, attn.k_norm
+    return w
+
+
 def _layer_paged(layer: LMLayer, h, cfg, pk, pv, rot, flat, block_tables,
                  cache_len, q_offset, mask):
     """One layer of paged serving, decode or prefill chunk: the tokens'
     k/v rows land in the pool first, then the queries attend over each
-    request's logical cache through its block table under ``mask``."""
+    request's logical cache through its block table under ``mask``. On
+    a serving mesh, over this rank's heads, the output projection's
+    partial products summed over the model group."""
     a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
-    q, k, v = L.project_qkv(layer.attn, cfg, a, rot)
+    group = pax.model_group()
+    w = layer.attn if group is None else _rank_heads(layer.attn, cfg, group)
+    q, k, v = L.project_qkv(w, cfg, a, rot)
     _pool_scatter(pk, pv, k.flatten(0, 1), v.flatten(0, 1), flat)
-    o = kops.paged_attention(q, pk, pv, block_tables, cache_len,
-                             q_offset=q_offset, mask=mask)
-    h = h + L.out_proj(layer.attn, o)
+    o = L.out_proj(w, kops.paged_attention(q, pk, pv, block_tables,
+                                           cache_len, q_offset=q_offset,
+                                           mask=mask))
+    if group is not None:
+        o = C.all_reduce_(o, group)
+    h = h + o
     y, _ = ffn(layer, cfg, L.rmsnorm(layer.mlp_norm, h, cfg.norm_eps))
     return h + y
 

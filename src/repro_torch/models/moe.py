@@ -1,6 +1,6 @@
-"""Mixture-of-Experts FFN on the port: the port of ``repro.models.moe``'s
-single-device path (``moe_defs``, ``_route``, ``_expert_ffn``,
-``moe_tokens``, ``moe_apply``).
+"""Mixture-of-Experts FFN on the port: the port of ``repro.models.moe``
+(``moe_defs``, ``_route``, ``_expert_ffn``, ``moe_tokens``, ``_ep_local``,
+``moe_apply``).
 
 Routing is the reference's: fp32 router logits and softmax, top-k, the
 top-k probabilities renormalised (floor 1e-9), and the switch load-balance
@@ -26,9 +26,26 @@ its routing and the backward's recomputation takes it back
 with atomics), a recomputed router logit near a top-k tie would route a
 token elsewhere than the forward did.
 
-The expert-parallel path of the reference (``_ep_local`` and the mesh
-branch of ``moe_apply``) needs a mesh: ``moe_apply`` raises under one
-(ROADMAP.md A8 part 2).
+Expert parallelism (``_ep_local``, the mesh branch of ``moe_apply``):
+under a mesh context whose "model" axis has P > 1 ranks, rank m owns
+experts ``[m E/P, (m+1) E/P)``: the whole stacks (it uses its slice) or
+only its own (``MoE(cfg, experts=(m, P))``, the parameters' storage on a
+mesh). Every rank routes every token of its model group; an expert
+takes ``c_e = ceil(T k cf / E)`` pairs (T the group's tokens, ``cf``
+the capacity factor, 1.25 by default), filled in the stable expert
+sort of the (token, slot) pairs, and the pairs past it **drop** (the
+reference's GShard dispatch; only the single-rank path is dropless).
+The local experts run as one batched product over (E/P, c_e, D)
+buffers, and each token sums its slots' weighted outputs in slot order
+(gathers, no atomics). Under the training recipes the tokens arrive
+sequence-sharded over "model" (the reference's "scatter" mode): they
+are all-gathered in (``GatherSeq``) and the partial outputs
+reduce-scattered over the sequence (``ScatterSeq``); under the serving
+recipes they arrive whole on every rank and the partial outputs are
+summed. The balance term is the mean over every rank of the mesh, as
+the reference's ``pmean``; on a mesh without a model axis the dropless
+path's term is computed from the statistics of every rank's tokens, as
+the reference's one program computes it over the global batch.
 """
 
 from __future__ import annotations
@@ -41,11 +58,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel import collectives as C
 
 F32 = torch.float32
 
 # the routing record of the recomputed region running on this thread
 _local = threading.local()
+# the pairs this process's last expert-parallel call dropped on its own
+# experts (a device tensor, read when wanted)
+LAST_CALL = {"dropped": None}
 
 
 def moe_defs(cfg) -> dict:
@@ -68,15 +90,28 @@ def moe_defs(cfg) -> dict:
 
 class MoE(nn.Module):
     """The parameters of :func:`moe_defs`, under the same names (the
-    shared experts as an :class:`layers.MLP` named ``shared``)."""
+    shared experts as an :class:`layers.MLP` named ``shared``).
+    ``experts=(m, P)`` holds only expert part m of P of the stacks
+    (``E / P`` experts from ``m E / P``; each stack carries the part as
+    ``expert_part``), the storage of rank m of a P-way model axis."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, experts=None):
         super().__init__()
         E, D, FF = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+        n = E
+        if experts is not None:
+            m, parts = experts
+            if E % parts or not 0 <= m < parts:
+                raise ValueError(f"expert part {m} of {parts} of {E} "
+                                 f"experts")
+            n = E // parts
         self.router = nn.Parameter(torch.empty(D, E, device=device))
-        self.w_gate = nn.Parameter(torch.empty(E, D, FF, device=device))
-        self.w_up = nn.Parameter(torch.empty(E, D, FF, device=device))
-        self.w_down = nn.Parameter(torch.empty(E, FF, D, device=device))
+        self.w_gate = nn.Parameter(torch.empty(n, D, FF, device=device))
+        self.w_up = nn.Parameter(torch.empty(n, D, FF, device=device))
+        self.w_down = nn.Parameter(torch.empty(n, FF, D, device=device))
+        if experts is not None:
+            for w in (self.w_gate, self.w_up, self.w_down):
+                w.expert_part = tuple(experts)
         if cfg.moe_shared_experts:
             self.shared = L.MLP(cfg, FF * cfg.moe_shared_experts,
                                 device=device)
@@ -124,18 +159,26 @@ def _top_k(probs, k: int):
     return topi
 
 
-def _route(router_w, xt, k: int):
+def _route(router_w, xt, k: int, *, group=None):
     """xt (T, D) -> (renormalised top-k probabilities (T, k) fp32, expert
-    indices (T, k) int64, aux loss () fp32)."""
+    indices (T, k) int64, aux loss () fp32). With ``group`` the aux
+    term's statistics (the mean probabilities, the choice counts) are
+    those of every rank's tokens in the group (equal token counts), the
+    same term on every rank; each rank's backward carries its own
+    tokens' share."""
     logits = xt.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)                       # (T, E)
     topi = _top_k(probs, k)
     topv = probs.gather(-1, topi)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     E = probs.shape[-1]
+    pe = probs.mean(0)
     fe = torch.bincount(topi.reshape(-1), minlength=E).to(F32)
+    if group is not None:
+        pe = C.SumAcross.apply(pe / C.size(group), group)
+        fe = C.all_reduce_(fe, group)
     fe = fe / torch.clamp(fe.sum(), min=1.0)
-    aux = E * torch.sum(probs.mean(0) * fe)
+    aux = E * torch.sum(pe * fe)
     return topv, topi, aux
 
 
@@ -156,12 +199,17 @@ def _expert_ffn(xg, sizes: list, w_gate, w_up, w_down):
     return torch.cat([r @ wd[e] for e, r in zip(live, hs)])
 
 
-def moe_tokens(p: MoE, cfg, xt):
+def moe_tokens(p: MoE, cfg, xt, group=None):
     """Dropless single-device MoE over flat tokens xt (T, D): ``(y (T, D)
-    in xt's dtype, aux)``. One host read of the per-expert row counts."""
+    in xt's dtype, aux)``. One host read of the per-expert row counts.
+    ``group``: the ranks whose tokens the aux term's statistics span
+    (:func:`_route`)."""
     T, D = xt.shape
     k, E = cfg.moe_top_k, cfg.moe_experts
-    topv, topi, aux = _route(p.router, xt, k)
+    if p.w_gate.shape[0] != E:
+        raise ValueError(f"the dropless path needs all {E} experts, this "
+                         f"module holds {p.w_gate.shape[0]}")
+    topv, topi, aux = _route(p.router, xt, k, group=group)
     fe = topi.reshape(-1)                                       # (T*k,)
     order = torch.sort(fe, stable=True).indices
     sizes = torch.bincount(fe, minlength=E).tolist()
@@ -178,18 +226,111 @@ def moe_tokens(p: MoE, cfg, xt):
     return y, aux
 
 
-def moe_apply(p: MoE, cfg, x, *, mesh_model: int = 1):
-    """x (B, S, D) -> ``(y (B, S, D), aux)``: the dropless single-device
-    path, plus the shared experts' MLP when the config has them.
-    ``mesh_model`` > 1 (experts sharded over a model axis) is the
-    reference's expert-parallel path, which needs a mesh and raises."""
-    if mesh_model > 1:
-        raise NotImplementedError(
-            f"moe_apply with mesh_model={mesh_model}: the expert-parallel "
-            f"path is not ported yet (ROADMAP.md A8 part 2)")
+def capacity(T: int, cfg, cf: float) -> int:
+    """Pairs an expert takes on the expert-parallel path: the reference's
+    ``max(1, ceil(T k cf / E))``, T the model group's tokens."""
+    return int(max(1, -(-T * cfg.moe_top_k * cf // max(cfg.moe_experts,
+                                                        1))))
+
+
+def _local_stacks(p: MoE, cfg, m: int, ep: int):
+    """Rank m's expert stacks (E/P, ...) of ``p``: its slice of the whole
+    stacks, or the stacks themselves when ``p`` holds part m of P."""
+    E = cfg.moe_experts
+    e_loc = E // ep
+    stacks = (p.w_gate, p.w_up, p.w_down)
+    if p.w_gate.shape[0] == E:
+        return tuple(w[m * e_loc:(m + 1) * e_loc] for w in stacks)
+    part = getattr(p.w_gate, "expert_part", None)
+    if part != (m, ep):
+        raise ValueError(f"rank {m} of a {ep}-way model axis needs its "
+                         f"{e_loc} experts, the module holds part {part} "
+                         f"({p.w_gate.shape[0]} experts)")
+    return stacks
+
+
+def _ep_local(p: MoE, cfg, xt, *, m: int, ep: int, cf: float):
+    """Rank m's part of the expert-parallel MoE over the model group's
+    tokens xt (T, D): ``(partial y (T, D) from its E/P experts, aux)``.
+    The reference's ``_ep_local``: slot-indexed dispatch into (E/P, c_e,
+    D) buffers, capacity ``c_e`` a local expert, over-capacity pairs
+    dropped in the stable expert sort of the pairs."""
+    T, D = xt.shape
+    k = cfg.moe_top_k
+    e_loc = cfg.moe_experts // ep
+    c_e = capacity(T, cfg, cf)
+    dev = xt.device
+    topv, topi, aux = _route(p.router, xt, k)
+    mine = topi // e_loc == m
+    fe = torch.where(mine, topi - m * e_loc, e_loc).reshape(-1)  # (T*k,)
+    order = torch.sort(fe, stable=True).indices     # the pairs by expert
+    gs = torch.bincount(fe, minlength=e_loc + 1)[:e_loc]
+    LAST_CALL["dropped"] = (gs - c_e).clamp(min=0).sum()
+    starts = torch.cumsum(gs, 0) - gs
+    ar = torch.arange(c_e, device=dev)
+    valid = ar[None, :] < gs[:, None]                          # (E/P, c_e)
+    pair = order[(starts[:, None] + ar[None, :]).clamp(max=T * k - 1)]
+    slot_tok = torch.where(valid, pair // k, 0)
+    buf = xt[slot_tok.reshape(-1)].view(e_loc, c_e, D) \
+        * valid[..., None].to(xt.dtype)
+    dt = xt.dtype
+    wg, wu, wd = (w.to(dt) for w in _local_stacks(p, cfg, m, ep))
+    h = F.silu(torch.bmm(buf, wg).float()).to(dt) * torch.bmm(buf, wu)
+    out = torch.bmm(h, wd).reshape(e_loc * c_e, D)
+    # combine: each pair reads the slot it filled (a zero row when it
+    # dropped or belongs to another rank), weighted, summed in slot order
+    where = torch.full((T * k,), e_loc * c_e, dtype=torch.long, device=dev)
+    where[pair[valid]] = torch.arange(e_loc * c_e, device=dev)[
+        valid.reshape(-1)]
+    out = torch.cat([out, out.new_zeros(1, D)])
+    w = torch.where(mine, topv, 0.0).to(dt)
+    yp = out[where].view(T, k, D) * w[..., None]
+    y = yp[:, 0]
+    for j in range(1, k):                      # slot order, no atomics
+        y = y + yp[:, j]
+    return y, aux
+
+
+def dropped_pairs(p: MoE, cfg, xt, ep: int, cf: float) -> int:
+    """The (token, slot) pairs the expert-parallel path drops over tokens
+    xt (T, D) on a ``ep``-way model axis: a host recount from the
+    routing (each expert's pairs past its capacity)."""
+    with torch.no_grad():
+        _, topi, _ = _route(p.router, xt, cfg.moe_top_k)
+    counts = torch.bincount(topi.reshape(-1),
+                            minlength=cfg.moe_experts).tolist()
+    c_e = capacity(xt.shape[0], cfg, cf)
+    return sum(max(0, n - c_e) for n in counts)
+
+
+def moe_apply(p: MoE, cfg, x, *, capacity_factor: float = 1.25):
+    """x (B, S, D) -> ``(y (B, S, D), aux)``, plus the shared experts'
+    MLP when the config has them. Outside a mesh context, or on a mesh
+    without a model axis, the dropless path; under one with a P-way
+    model axis the expert-parallel path at ``capacity_factor`` (P must
+    divide the experts; anything else raises)."""
+    ep = pax.mesh_axis_size("experts")
     B, S, D = x.shape
-    y, aux = moe_tokens(p, cfg, x.reshape(-1, D))
-    y = y.reshape(B, S, D)
+    if ep == 1:
+        y, aux = moe_tokens(p, cfg, x.reshape(-1, D), pax.mesh_group())
+        y = y.reshape(B, S, D)
+    else:
+        E = cfg.moe_experts
+        if E % ep:
+            raise ValueError(f"{cfg.name}: {E} experts do not split over a "
+                             f"{ep}-way model axis")
+        group = pax.model_group()
+        recipe = pax.current()[0]
+        # "scatter" mode: the tokens are sequence-sharded over the group
+        scatter = recipe.acts.get("seq_outer") == "model"
+        xx = C.GatherSeq.apply(x, group) if scatter else x
+        y, aux = _ep_local(p, cfg, xx.reshape(-1, D), m=C.rank(group),
+                           ep=ep, cf=capacity_factor)
+        y = y.view(xx.shape)
+        y = C.ScatterSeq.apply(y, group) if scatter else \
+            C.SumAcross.apply(y, group)
+        world = pax.mesh_group()
+        aux = C.SumAcross.apply(aux / C.size(world), world)
     if cfg.moe_shared_experts:
         y = y + L.mlp(p.shared, x)
     return y, aux

@@ -3,10 +3,14 @@
 
 Everything is written on three calls that mean the same in every torch
 version the port runs on: ``dist.all_to_all_single`` (equal splits),
-``dist.all_reduce`` and ``dist.broadcast``. The all-gather and the
-reduce-scatter of ``seqpar_attention`` are all-to-alls too: an
-all-gather is an all-to-all of the local chunk repeated P times, a
-reduce-scatter an all-to-all of the P chunks summed on arrival.
+``dist.all_reduce`` and ``dist.broadcast``; the port makes no
+point-to-point call. The all-gather and the reduce-scatter
+(``GatherSeq``, ``ScatterSeq``: ``seqpar_attention``, the MoE's expert
+parallelism) are all-to-alls too: an all-gather is an all-to-all of the
+local chunk repeated P times, a reduce-scatter an all-to-all of the P
+chunks summed on arrival. The pipeline's stage-to-stage shift
+(``parallel/pipeline.py``) is an all-to-all whose one non-zero chunk
+goes to the next stage.
 
 Gloo and CUDA tensors: gloo takes CUDA tensors for all three calls
 (``tools/gloo_cuda_probe.py``: torch 2.11 with CUDA 12.8 on an H100, two
@@ -15,10 +19,12 @@ itself, so the wrappers hand them over as they are and nothing stages
 them explicitly. NCCL takes CUDA tensors too, and needs a card for each
 rank.
 
-``BYTES`` counts the all-to-alls' payload (bytes of the local operand a
-rank sends, the reference's unit), apart from those of the all-gathers
-built on them: ``cluster_parallel`` holds the all-to-all bytes of a
-sharded attention call to ``cluster_a2a_budget``.
+``BYTES`` counts the payload a rank hands to each kind of call (bytes of
+its local operand, the reference's unit): the all-to-alls apart from
+the all-gathers, reduce-scatters and pipeline shifts built on them
+(``cluster_parallel`` holds the all-to-all bytes of a sharded attention
+call to ``cluster_a2a_budget``), and the all-reduces
+(``optim/compress.py`` reads the bytes its reductions send).
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-BYTES = {"all_to_all": 0, "all_gather": 0}
+BYTES = {"all_to_all": 0, "all_gather": 0, "reduce_scatter": 0,
+         "pipeline": 0, "all_reduce": 0}
 
 
 def reset_bytes() -> None:
@@ -64,6 +71,7 @@ def all_to_all(x: torch.Tensor, group, *,
 
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
     """In-place all-reduce of ``t``; returns ``t``."""
+    BYTES["all_reduce"] += t.numel() * t.element_size()
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -113,14 +121,41 @@ class GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        p = size(group)
-        rep = x.unsqueeze(0).expand(p, *x.shape)
-        got = all_to_all(rep, group, kind="all_gather")   # (P, B, S/P, ...)
-        return got.movedim(0, 1).flatten(1, 2)
+        return _gather_seq(x, group, "all_gather")
 
     @staticmethod
     def backward(ctx, g):
-        p = size(ctx.group)
-        B, S = g.shape[:2]
-        parts = g.reshape(B, p, S // p, *g.shape[2:]).movedim(1, 0)
-        return all_to_all(parts, ctx.group, kind="all_gather").sum(0), None
+        return _reduce_scatter_seq(g, ctx.group, "all_gather"), None
+
+
+def _gather_seq(x, group, kind):
+    p = size(group)
+    rep = x.unsqueeze(0).expand(p, *x.shape)
+    got = all_to_all(rep, group, kind=kind)           # (P, B, S/P, ...)
+    return got.movedim(0, 1).flatten(1, 2)
+
+
+def _reduce_scatter_seq(x, group, kind):
+    p = size(group)
+    B, S = x.shape[:2]
+    if S % p:
+        raise ValueError(f"a sequence of {S} does not split {p} ways")
+    parts = x.reshape(B, p, S // p, *x.shape[2:]).movedim(1, 0)
+    return all_to_all(parts, group, kind=kind).sum(0)
+
+
+class ScatterSeq(torch.autograd.Function):
+    """The dual of :class:`GatherSeq`: reduce-scatter of ``x`` (B, S, ...)
+    along dim 1, rank i getting (B, S/P, ...), the sum over the ranks of
+    their rows of its shard; the backward is the all-gather of the
+    gradient. Each rank holds a partial sum of the whole sequence (the
+    MoE's experts on this rank) and keeps its shard of the total."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter_seq(x, group, "reduce_scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.group, "reduce_scatter"), None

@@ -52,13 +52,17 @@ running this loop) the task hands each rank its shard of the batch and
 every variant's loss runs under ``parallel.axes.axis_rules``, which
 shards the sequence over "model" (``core/graph_model.py``,
 ``models/lm.py``). Parameters are replicated (``recipe.params`` is not
-applied, ROADMAP A8 part 2). A variant's loss is the mean over every
-rank's tokens (its numerator and count summed over the mesh; a batch
-the data axis cannot split is counted once a data group, which leaves
-the mean as it is), and each rank backpropagates its own share of it,
-so one all-reduce that sums the gradients over every rank gives the
-gradient of the global mean: summed over the model group, averaged over
-the data groups. The non-finite guard's flag and a SIGTERM are
+applied, ROADMAP A8 part 3), apart from the MoE's expert stacks of a
+model built with ``experts=(m, P)``, which hold rank m's experts only.
+A variant's loss is the mean over every rank's tokens (its numerator
+and count summed over the mesh; a batch the data axis cannot split is
+counted once a data group, which leaves the mean as it is), and each
+rank backpropagates its own share of it, so one all-reduce that sums
+the gradients over every rank gives the gradient of the global mean:
+summed over the model group, averaged over the data groups. The expert
+stacks' gradients are summed over the data group only (the model group
+holds other experts); such a model takes no checkpoints (its whole
+stacks live on no rank). The non-finite guard's flag and a SIGTERM are
 all-reduced, so every rank skips or stops together; rank 0 writes every
 checkpoint, every rank restores (a rollback waits for rank 0's writes
 first). The checkpoints hold whole tensors, so a run resumes on another
@@ -84,11 +88,13 @@ from repro_torch.ckpt.checkpoint import (CheckpointCorrupt, Checkpointer,
 from repro_torch.convert import (insert, leaf_groups, lookup,
                                  params_from_jax, params_to_jax)
 from repro_torch.optim.adamw import AdamW, warmup_cosine
+from repro_torch.parallel import axes as pax
 from repro_torch.parallel import collectives as C
 from repro_torch.resilience.faults import FaultPlan, Preempted
 
 KEEP = 3                 # checkpoint generations kept on disk
 STRAGGLER_FACTOR = 3.0   # a step this many times the EMA is a straggler
+REDUCE_BUCKET = 1 << 26  # elements of one gradient all-reduce (256 MiB)
 
 
 @dataclasses.dataclass
@@ -171,6 +177,15 @@ class Trainer:
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        # the expert stacks holding one rank's experts: reduced over the
+        # data group alone
+        self._parted = [hasattr(p, "expert_part") for p in self.params]
+        if any(self._parted) and (mesh is None or cfg.ckpt_dir):
+            raise ValueError(
+                "a model holding part of its experts trains on the mesh "
+                "whose model axis it was built for, without checkpoints "
+                "(the whole expert stacks live on no rank; ROADMAP A8 "
+                "part 3)")
         # the reference's parameter leaves: the unit of an int8 moment
         self.leaves = leaf_groups(self.names)
         self.opt = AdamW(self.params,
@@ -240,13 +255,33 @@ class Trainer:
                 **{k: float(v.detach()) for k, v in metrics.items()}}
 
     def _reduce(self, grads: list) -> list:
-        """The gradients summed over every rank of the mesh: one all-reduce
-        of every gradient, flattened together."""
-        flat = torch.cat([g.reshape(-1).float() for g in grads])
-        C.all_reduce_(flat, None)
-        out = []
-        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-            out.append(part.view(g.shape).to(g.dtype))
+        """The gradients summed over every rank of the mesh, the expert
+        stacks holding one rank's experts over the data group only: fp32
+        all-reduces of buckets of up to ``REDUCE_BUCKET`` elements (the
+        gradients flattened together), a larger fp32 gradient in place,
+        so the reduction's own memory is one bucket."""
+        out = list(grads)
+        reductions = [(False, None)]
+        if pax.mesh_shape(self.mesh).get("data", 1) > 1:
+            reductions.append((True, self.mesh.get_group("data")))
+        for parted, group in reductions:
+            bucket, size = [], 0
+            idx = [i for i, p in enumerate(self._parted) if p == parted]
+            for n, i in enumerate(idx):
+                g = grads[i]
+                if g.numel() >= REDUCE_BUCKET and g.dtype == torch.float32:
+                    out[i] = C.all_reduce_(g.contiguous(), group)
+                else:
+                    bucket.append(i)
+                    size += g.numel()
+                if bucket and (size >= REDUCE_BUCKET or n == len(idx) - 1):
+                    flat = torch.cat([grads[j].reshape(-1).float()
+                                      for j in bucket])
+                    C.all_reduce_(flat, group)
+                    for j, part in zip(bucket, flat.split(
+                            [grads[j].numel() for j in bucket])):
+                        out[j] = part.view(grads[j].shape).to(grads[j].dtype)
+                    bucket, size = [], 0
         return out
 
     def _barrier(self) -> None:

@@ -45,20 +45,37 @@ the run stats. All of it is host-side scheduling — a warm engine keeps
 its budget of 0 new signatures under overload and shedding.
 ``inject_burst`` is the deterministic arrival-burst fault hook.
 
-Not ported: ``mesh_model > 1`` (serving on a mesh, ROADMAP.md A8 part
-2) and the reference's ``ir_audit`` (its IR analysis is owed no port).
+On a mesh (``mesh_model=P`` > 1, in each of the P ranks of an
+initialised process group, ``launch/mesh.spawn`` or torchrun) both
+entry points run under the reference's "decode" recipe
+(``parallel.axes.axis_rules``): each rank's pool holds KV/P kv heads,
+its layers attend over its own heads and sum the output projection
+over the ranks, and the MoE FFN is expert-parallel with the
+reference's capacity (``models/lm.py``, ``models/moe.py``). The
+reference has one scheduler; here every rank runs one, and they must
+agree: every scheduling decision (sheds, admissions, retirements) is a
+function of the engine's state and its clock, and the clock each loop
+reads is rank 0's, broadcast, as is every sampled token. So every rank
+runs rank 0's schedule, whatever its own clock says.
+
+Not ported: the reference's ``ir_audit`` (its IR analysis is owed no
+port).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel import collectives as C
 from repro_torch.serve.paged import BlockAllocator
 
 
@@ -117,16 +134,18 @@ def _signature(args) -> tuple:
 
 
 class _Program:
-    """One serving entry point: runs ``fn`` without grad and records the
-    signature of every call."""
+    """One serving entry point: runs ``fn`` without grad, inside
+    ``context()`` (the mesh's axis rules), and records the signature of
+    every call."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, context=contextlib.nullcontext):
         self.fn = fn
+        self.context = context
         self.signatures: set = set()
 
     def __call__(self, *args, **kw):
         self.signatures.add(_signature(args))
-        with torch.inference_mode():
+        with torch.inference_mode(), self.context():
             return self.fn(*args, **kw)
 
 
@@ -147,10 +166,10 @@ class ServeEngine:
                 f"family {model.cfg.family!r} has no paged serving path "
                 f"(servable: dense/moe/vlm token LMs; graph archs go "
                 f"through GraphServe)")
+        self.mesh = self.recipe = None
         if mesh_model > 1:
-            raise NotImplementedError(
-                f"mesh_model={mesh_model}: serving under a host mesh is not "
-                f"ported yet (ROADMAP.md A8 part 2)")
+            self._join_mesh(model.cfg, int(mesh_model), int(batch_slots),
+                            int(max_len))
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -174,9 +193,12 @@ class ServeEngine:
             # enough for every slot at full budget, + the scratch block
             num_blocks = self.B * self.nmax + 1
         self.allocator = BlockAllocator(num_blocks, self.page)
-        self.pool = model.paged_cache_defs(num_blocks, self.page)
-        self._prefill = _Program(model.prefill_chunk)
-        self._decode = _Program(model.paged_decode)
+        self.pool = model.paged_cache_defs(
+            num_blocks, self.page, kv_heads=self.cfg.kv_heads // mesh_model)
+        context = contextlib.nullcontext if self.mesh is None else (
+            lambda: pax.axis_rules(self.recipe, self.mesh))
+        self._prefill = _Program(model.prefill_chunk, context)
+        self._decode = _Program(model.paged_decode, context)
         self._programs = {"prefill": self._prefill, "decode": self._decode}
 
         # host scheduling state
@@ -194,6 +216,38 @@ class ServeEngine:
         self.rejected_overload = 0   # watchdog counters (run stats)
         self.shed_deadline = 0
         self.queue_peak = 0
+
+    def _join_mesh(self, cfg, p: int, slots: int, max_len: int) -> None:
+        """The (1, p) mesh over the initialised process group's p ranks and
+        the reference's "decode" recipe for it; raises for a group of
+        another size and for heads or experts that do not split p ways."""
+        from repro_torch.configs import ShapeConfig
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.parallel.sharding import recipe_for
+
+        if not dist.is_initialized() or dist.get_world_size() != p:
+            raise RuntimeError(
+                f"mesh_model={p} needs an initialised process group of {p} "
+                f"ranks (launch/mesh.spawn or torchrun), one engine a rank")
+        for what, n in (("kv heads", cfg.kv_heads),
+                        ("query heads", cfg.n_heads),
+                        ("experts", cfg.moe_experts or p)):
+            if n % p:
+                raise ValueError(f"{cfg.name}: {n} {what} do not split over "
+                                 f"a {p}-way model axis")
+        self.mesh = make_host_mesh(model=p)
+        self.recipe = recipe_for(ShapeConfig("serve", "decode", max_len,
+                                             slots), self.mesh)
+
+    def _clock(self) -> float:
+        """Seconds since ``run()`` started: rank 0's on a mesh (every
+        rank schedules by the same clock)."""
+        now = time.perf_counter() - self._t0
+        if self.mesh is None:
+            return now
+        t = torch.tensor([now], dtype=torch.float64,
+                         device=C.control_device())
+        return C.broadcast_(t, 0).item()
 
     # ------------------------------------------------------------ metrics
 
@@ -299,8 +353,11 @@ class ServeEngine:
     def _sample(self, logits) -> list[int]:
         """Greedy tokens of logits ``(n, V_padded)``: the first index of
         the max of the fp32 logits over ``[:vocab_size]``, one host sync
-        for the rows together."""
-        return logits[:, :self.cfg.vocab_size].float().argmax(-1).tolist()
+        for the rows together; on a mesh rank 0's, broadcast."""
+        tok = logits[:, :self.cfg.vocab_size].float().argmax(-1)
+        if self.mesh is not None:
+            tok = C.broadcast_(tok.to(C.control_device()), 0)
+        return tok.tolist()
 
     def _retire(self, s: int, now: float):
         req = self._slots[s]
@@ -447,7 +504,7 @@ class ServeEngine:
 
     def _run_loop(self):
         while self._queue or any(r is not None for r in self._slots):
-            now = time.perf_counter() - self._t0
+            now = self._clock()
             self._shed_slots(now)
             self._admit(now)
             ran = self._prefill_step(now)

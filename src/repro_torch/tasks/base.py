@@ -18,9 +18,11 @@ families).
 
 On a mesh (one process a rank) ``batches`` returns this rank's shard:
 the sequence dim of the per-token arrays split over "model" (S/P
-contiguous tokens), the batch dim over "data" where it divides; a task
-runs its own model calls (``eval``) inside :meth:`Task.context`. Tasks
-with ``shardable = False`` refuse a mesh.
+contiguous tokens), the batch dim of every array over "data" where it
+divides (the per-graph layouts of packed mini-graphs follow their
+graphs); a task runs its own model calls (``eval``) inside
+:meth:`Task.context`. Every task of the port is ``shardable``; one that
+is not refuses a mesh.
 """
 
 from __future__ import annotations
@@ -79,8 +81,7 @@ class Task:
                 f"task prepared for config {cfg.name!r} but the model was "
                 f"built from {mcfg.name!r}")
         if mesh is not None and not self.shardable:
-            raise ValueError(f"the {self.name} task on a mesh is not ported "
-                             f"(ROADMAP A8 part 2)")
+            raise ValueError(f"the {self.name} task has no mesh form")
         self.model = model
         self.mesh, self.recipe = mesh, recipe
         return self

@@ -14,9 +14,12 @@ re-reformed layout:
 * tuner state and the move log round-trip through
   ``state_dict``/``load_state_dict``;
 * on a mesh every rank's batch is its sequence shard of the per-node
-  arrays (``SEQ_KEYS``; the layouts stay whole), and every rank feeds
-  its AutoTuner rank 0's loss and the slowest rank's epoch seconds, so
-  every rank makes the same ladder moves.
+  arrays (``SEQ_KEYS``) and its data shard of every array, the
+  per-graph layouts included (the layouts of a graph stay whole), cut
+  on the host before the upload, so each rank uploads each shared
+  array's shard once; every rank feeds its AutoTuner rank 0's loss and
+  the slowest rank's epoch seconds, so every rank makes the same ladder
+  moves.
 """
 
 from __future__ import annotations
@@ -82,6 +85,24 @@ class ElasticTask(Task):
         self.prep_seconds = sum(p.prep_seconds
                                 for ps in self._preps.values() for p in ps)
 
+    def prepare(self, model, mesh=None, recipe=None):
+        if mesh is not self.mesh:   # the cached uploads are another shard
+            self._batches_dev.clear()
+            self._uploads.clear()
+        return super().prepare(model, mesh, recipe)
+
+    def _shard(self, key: str, arr):
+        """This rank's part of the host array ``arr`` of batch key ``key``
+        (all of it without a mesh)."""
+        if self.mesh is None:
+            return arr
+        return shard_rows(arr, self.mesh, seq_dim=key in SEQ_KEYS)
+
+    def _upload(self, batch: dict, uploads: dict | None = None) -> dict:
+        """``batch`` (host arrays) on the task's device, this rank's shard
+        on a mesh."""
+        return batch_to_torch(batch, self.device, uploads, self._shard)
+
     @property
     def beta_thre(self) -> float:
         return self.tuner.beta_thre
@@ -107,12 +128,8 @@ class ElasticTask(Task):
         idx = step % self.n_batches
         key = (bt, idx)
         if key not in self._batches_dev:
-            b = batch_to_torch(self._preps[bt][idx].batch, self.device,
-                               self._uploads)
-            if self.mesh is not None:
-                b = {k: shard_rows(v, self.mesh).contiguous()
-                     if k in SEQ_KEYS else v for k, v in b.items()}
-            self._batches_dev[key] = b
+            self._batches_dev[key] = self._upload(
+                self._preps[bt][idx].batch, self._uploads)
         return self._batches_dev[key]
 
     def on_epoch(self, loss: float, epoch_seconds: float,

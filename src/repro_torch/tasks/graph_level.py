@@ -10,6 +10,14 @@ visiting-q-block count across (mini-batch x rung). Cycling ragged
 mini-batches and re-forming the layout both swap array contents, never
 shapes. The packed graphs use 16 x 16 blocks by default, as the
 reference does, and the bf16 biased kernels take them.
+
+On a mesh the graphs split over "data" (their per-graph layouts, dense
+buckets and labels with them) and each graph's sequence over "model"
+(``_sharded_sparse`` in ``core/graph_model.py``). The label sits on the
+global token at position 0, on model-rank 0's shard: the other model
+ranks add nothing to the loss's count, and ``graph_loss`` sums the
+numerator and the count over the mesh (``SumAcross``), so the loss is
+the global mean.
 """
 
 from __future__ import annotations
@@ -17,7 +25,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.graph_model import batch_to_torch
 from repro_torch.data.graph_pipeline import (pad_graph_batch,
                                              prepare_graph_task_ladder)
 from repro_torch.tasks.elastic import ElasticTask
@@ -33,6 +40,7 @@ class GraphLevelTask(ElasticTask):
     CPU)."""
 
     name = "graph_level"
+    shardable = True
 
     def __init__(self, graphs, cfg, *, eval_graphs=None,
                  batch_graphs: int | None = None, bq: int = 16,
@@ -79,11 +87,13 @@ class GraphLevelTask(ElasticTask):
     @torch.no_grad()
     def eval(self, model) -> dict:
         """Sparse-variant metrics (graph-label accuracy) on the held-out
-        graphs; {} when the task was built without ``eval_graphs``."""
+        graphs (on a mesh: over every rank's shard, the same on every
+        rank); {} when the task was built without ``eval_graphs``."""
         if self._eval_prep is None:
             return {}
-        b = batch_to_torch(self._eval_prep.batch, self.device)
-        _, metrics = self.loss_variants["sparse"](model, b)
+        b = self._upload(self._eval_prep.batch)
+        with self.context():
+            _, metrics = self.loss_variants["sparse"](model, b)
         return {k: float(v) for k, v in metrics.items()}
 
 

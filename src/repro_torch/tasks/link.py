@@ -13,6 +13,14 @@ shape ``(n_pairs,)``. A held-out edge set (``eval_frac``, split on
 *undirected* pairs so the symmetrized reverse edge cannot leak into
 training) is excluded from the per-step positive sampling and scored by
 ``eval(model)`` against fresh negatives.
+
+On a mesh the node sequence is sharded over "model", and a pair's two
+positions may live on other ranks: ``link_loss`` all-gathers ``h``
+(``GatherSeq``), each model rank scores its own 1/P of the pairs, and
+the numerator and the count are summed over the mesh (``SumAcross``),
+so the loss is the global mean. Were every rank to score every pair,
+the gather's backward (a reduce-scatter) would sum P copies of each
+gradient. The pair stream is the same on every rank and on every mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.graph_model import graph_forward, with_dense_bias
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel import collectives as C
 from repro_torch.tasks.node import NodeTask
 
 
@@ -30,15 +40,26 @@ def link_loss(model, batch: dict, *, dense: bool = False,
     """Dot-product edge scoring over the task's pair arrays:
     ``pair_src``/``pair_dst`` are sequence positions (node order already
     shifted by ``n_global``), ``pair_y`` in {0, 1}. ``(loss, {"xent",
-    "acc"})`` on fp32 scores."""
+    "acc"})`` on fp32 scores; on a mesh the mean over every rank's share
+    of the pairs."""
     h = graph_forward(model, batch, dense=dense, impl=impl)
+    src, dst, y = batch["pair_src"], batch["pair_dst"], batch["pair_y"]
+    group = pax.model_group()
+    if group is not None:   # the whole sequence, this rank's 1/P pairs
+        h = C.GatherSeq.apply(h, group)
+        part = lambda t: t.tensor_split(C.size(group))[  # noqa: E731
+            C.rank(group)]
+        src, dst, y = part(src), part(dst), part(y)
     hn = h[0].float()                           # (S, D); link graphs are B=1
-    u = hn[batch["pair_src"]]
-    w = hn[batch["pair_dst"]]
-    logits = (u * w).sum(-1) / np.sqrt(hn.shape[-1])
-    y = batch["pair_y"].float()
-    loss = (F.softplus(logits) - y * logits).mean()  # BCE with logits
-    acc = ((logits > 0) == (y > 0.5)).float().mean()
+    logits = (hn[src] * hn[dst]).sum(-1) / np.sqrt(hn.shape[-1])
+    y = y.float()
+    sums = torch.stack([(F.softplus(logits) - y * logits).sum(),  # BCE
+                        torch.tensor(float(y.numel()), device=y.device),
+                        ((logits > 0) == (y > 0.5)).float().sum()])
+    mesh = pax.mesh_group()
+    if mesh is not None:
+        sums = C.SumAcross.apply(sums, mesh)
+    loss, acc = sums[0] / sums[1], sums[2] / sums[1]
     return loss, {"xent": loss, "acc": acc}
 
 
@@ -50,7 +71,6 @@ class LinkTask(NodeTask):
     differ."""
 
     name = "link"
-    shardable = False   # its pair loss has no mesh form yet (A8 part 2)
 
     def __init__(self, g, cfg, *, n_pairs: int = 256,
                  eval_frac: float = 0.1, bq: int = 32, bk: int = 32,
@@ -137,5 +157,6 @@ class LinkTask(NodeTask):
             np.concatenate([es, neg_s]).astype(np.int32),
             np.concatenate([ed, neg_d]).astype(np.int32),
             np.concatenate([np.ones(k, np.int32), np.zeros(k, np.int32)]))
-        _, metrics = self.loss_variants["sparse"](model, b)
+        with self.context():
+            _, metrics = self.loss_variants["sparse"](model, b)
         return {k_: float(v) for k_, v in metrics.items()}

@@ -340,7 +340,7 @@ def test_unported_families_raise_naming_roadmap():
     with pytest.raises(ValueError, match="HybridLMModel"):
         tlm.LMModel(jamba, device="cpu")
     from repro_torch.serve import ServeEngine
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         ServeEngine(tlm.LMModel(cfg, device="cpu"), mesh_model=2)
 
 

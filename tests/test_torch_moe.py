@@ -144,9 +144,19 @@ def test_routing_ties_pick_the_lower_expert():
 
 
 def test_moe_raises_under_a_mesh():
+    """A model axis that does not divide the experts (8 over 3) raises
+    with its numbers: no path runs the experts unsharded on a mesh."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.parallel.axes import axis_rules
+    from repro_torch.parallel.sharding import recipe_for
+
     p, _, cfg, _ = _moe_world(0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tmoe.moe_apply(p, cfg, torch.zeros(1, 4, 32), mesh_model=2)
+    mesh = {"data": 1, "model": 3}
+    with axis_rules(recipe_for(ShapeConfig("t", "train", 6, 1), mesh),
+                    mesh):
+        with pytest.raises(ValueError, match="8 experts do not split over "
+                                             "a 3-way model axis"):
+            tmoe.moe_apply(p, cfg, torch.zeros(1, 2, 32))
 
 
 # ------------------------------------------------------------ the CLIs
@@ -195,11 +205,11 @@ def test_recomputation_routes_as_the_forward(monkeypatch, remat):
     drift = t(np.random.default_rng(10).standard_normal(
         tuple(model.layers[0].moe.router.shape)).astype(np.float32))
 
-    def drifting(w, xt, k):
+    def drifting(w, xt, k, **kw):
         calls.append(1)
         if len(calls) == 2:
             w = w + drift
-        out = real(w, xt, k)
+        out = real(w, xt, k, **kw)
         routes.append(out[1])
         inputs.append((w.detach(), xt.detach()))
         return out

@@ -381,13 +381,12 @@ def test_mesh_axis_size_matches_reference(multi_pod):
 
 def test_mesh_entry_points_refuse_what_they_cannot_run():
     """Without a process group there is no mesh; a mesh needs a recipe
-    and a backend; the graph-level and link tasks refuse a mesh (ROADMAP
-    A8 part 2)."""
-    from repro_torch.configs import get_smoke_config
+    and a backend; the SSM family on a mesh and a task without a mesh
+    form refuse one (ROADMAP A8 part 3)."""
     from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import train as train_cli
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    from repro_torch.tasks import LinkTask
+    from repro_torch.tasks import Task
 
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="process group"):
@@ -398,15 +397,8 @@ def test_mesh_entry_points_refuse_what_they_cannot_run():
             "--mesh-model", "2"]
     with pytest.raises(ValueError, match="--backend"):
         train_cli.main(argv)
-    with pytest.raises(ValueError, match="A8 part 2"):
-        train_cli.main(argv + ["--backend", "gloo", "--task", "link"])
-    with pytest.raises(ValueError, match="A8 part 2"):
+    with pytest.raises(ValueError, match="A8 part 3"):
         train_cli.main(["--arch", "mamba2_2_7b", "--smoke", "--device",
                         "cpu", "--mesh-model", "2", "--backend", "gloo"])
-    from repro_torch.core.graph import sbm_graph
-    cfg = get_smoke_config("gt")
-    task = LinkTask(sbm_graph(64, 2, 0.1, 0.01, feat_dim=cfg.feat_dim,
-                              n_classes=cfg.n_classes, seed=0), cfg,
-                    device="cpu")
-    with pytest.raises(ValueError, match="A8 part 2"):
-        task.prepare(None, {"model": 2}, object())
+    with pytest.raises(ValueError, match="no mesh form"):
+        Task().prepare(None, {"model": 2}, object())

@@ -313,8 +313,8 @@ def main() -> int:
     def routes_of(model, loss_fn, batch, impl, wrong=None):
         seen = []
 
-        def spy(w, xt, k):
-            r = real_route(w, xt, k)
+        def spy(w, xt, k, **kw):
+            r = real_route(w, xt, k, **kw)
             seen.append(r[1])
             return r
 
