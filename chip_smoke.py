@@ -62,7 +62,7 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    The same forward with the plain attention must give the same logits.
    Then Graphormer-Slim (Dh=8) on the same graph;
 5. train (the second main path): Graphormer-Large at full width, its
-   depth cut to 6 of 12 layers (phase 11 trains it at full depth), bf16
+   depth cut to 4 of 12 layers (phase 11 trains it at full depth), bf16
    compute, fp32 parameters and moments, on the 8192-node SBM through
    ``NodeTask`` and ``Trainer``: 16 steps, dense at 0 and 8, an AutoTuner
    epoch every step. Losses must be finite and fall. On every ladder rung
@@ -132,7 +132,7 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    and gradients of each held to "none" (the loss bitwise); Qwen3-0.6B
    at S=65536, 2 steps; Qwen3-1.7B at S=16384, 3 steps; Qwen3-4B at
    S=8192 (S=4096 if it does not fit, the cut recorded), 2 steps;
-   Mamba2-2.7B with 32 of its 64 layers at S=4096, 2 steps (the plain
+   Mamba2-2.7B with 8 of its 64 layers at S=4096, 2 steps (the plain
    SSD scan, as the reference's model: no kernel); Graphormer-Large node
    training on the serve phase's 32768-node graph, sparse steps only,
    the layout frozen, 3 steps under "none" and 3 under "block", held as
@@ -143,23 +143,23 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
 12. token serving (slice 13's main path), in a child process: Qwen3-0.6B
    as published (bf16, dense attention, seeded weights drawn on the
    card, as Mamba2-2.7B's in (e)) through
-   ``ServeEngine`` (8 slots, page 16, chunk 256): (a) 16 requests,
-   prompts 128-3840, 128 new tokens each, max_len 4096, then 4 more on
+   ``ServeEngine`` (8 slots, page 16, chunk 256): (a) 8 requests,
+   prompts 128-3840, 128 new tokens each, max_len 4096, then 2 more on
    the warm engine at half the measured request rate; (b) the
-   cluster-sparse decode mask at max_len 8192, 8 requests, prompts
+   cluster-sparse decode mask at max_len 8192, 4 requests, prompts
    4500-8000, 64 tokens; each with tokens and requests a second, latency
    and TTFT percentiles, ms a prefill chunk and a decode step, exactly
    two programs, the pool's bytes, peak memory, every block free at
-   drain, no kernel launched; (c) two requests of (a) and two of (b)
+   drain, no kernel launched; (c) two requests of (a) and one of (b)
    teacher-forced against oracles over the engine's own tokens (the full
    causal forward; contiguous sparse ``lm_decode_step``), each token the
    oracle's argmax where its top-2 margin exceeds a stated tolerance,
    and an fp32 engine's streams equal to the contiguous greedy decode's;
    (d) the cluster-sparse backend's ``lm_prefill`` at S=16384 held to
    ``impl="plain"`` (logits and every layer's k/v) and at S=65536, row 2
-   launched once a layer a prefill, then 64 tokens of sparse decode; (e)
-   Mamba2-2.7B's prefill logits at S=512 against 512 decode steps (the
-   reference's tolerance), then 64 tokens;
+   launched once a layer a prefill, then 16 tokens of sparse decode; (e)
+   Mamba2-2.7B's prefill logits at S=256 against 256 decode steps (the
+   reference's tolerance), then 16 tokens;
 13. the MoE family and the hybrid (slice 14's main path), in a child
    process: (a) Qwen3-235B-A22B at full width (d_model 4096, 64 heads
    over 4, 128 experts top-8 of width 1536, vocab 151936), its depth cut
@@ -181,7 +181,7 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    3584 every other layer, Mamba2 expand 2, state 16, head 64, vocab
    65536), one period of 8 layers: its attention op held as in (a),
    step 0 against plain, 3 steps at
-   S=2048 x 2, then its prefill at S=512 against 512 decode steps, fp32
+   S=2048 x 2, then its prefill at S=256 against 256 decode steps, fp32
    held to the reference's tolerance, bf16 reported;
 14. the enc-dec and VLM families and AdamW's reduced-precision moments
    (slice 15's main path), in a child process (``--a10 OUT``) with
@@ -196,11 +196,11 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    encoder (non-causal, S=1024, a full 8 x 8 layout) and of the decoder
    (causal, S=512), rows 2, 5 and 6 against their plain versions as in
    phase 11; step 0 against ``impl="plain"`` (the loss, every
-   gradient's cosine and its norm ratio); 4 steps through
+   gradient's cosine and its norm ratio); 2 steps through
    ``BatchFnTask`` and ``Trainer``, rows 2, 5 and 6 launched exactly 48,
    24 and 24 times a step and nothing else; step ms, frames and target
    tokens a second, peak memory, a profiled step; then the encoder run
-   once into the cross caches and 128 ``encdec_decode_step``s over the
+   once into the cross caches and 64 ``encdec_decode_step``s over the
    batch, the last logits against ``encdec_forward``'s: fp32 (fp32
    caches) gated at the reference test's atol 0.15 / rtol 0.05 and
    argmax, bf16 reported; ms a decode step. (b) InternVL2-76B at full
@@ -233,7 +233,7 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    and to the unsharded ``impl="plain"`` call (TOL_O, TOL_GRAD); the
    all-to-all bytes of a forward against ``cluster_a2a_budget``; the
    sharded forward timed, and the all-to-alls' share of it by CUDA
-   events; (b) Graphormer-Large (TRAIN_LAYERS layers, full width, bf16)
+   events; (b) Graphormer-Large (GP_TRAIN_LAYERS layers, full width, bf16)
    node training through ``NodeTask`` and the Trainer on a (1, 2) mesh,
    4 steps, dense at 0, the layout frozen: first the P = 1 run on rank 0
    (the other rank waiting), the sparse and the dense step's loss and
@@ -258,14 +258,32 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    under Ulysses and expert parallelism with int8 moments (fp32 ones do
    not fit two ranks on one card), its attention op held to plain, the
    losses finite and falling; (h) ``ServeEngine(mesh_model=2)``:
-   Qwen3-0.6B in fp32, 8 requests, 32 new tokens, against the P = 1
+   Qwen3-0.6B in fp32, 4 requests, 32 new tokens, against the P = 1
    engine (a token may flip only at a top-2 margin below
-   MESH_TOKEN_MARGIN), then (g)'s weights served (8 requests of
+   MESH_TOKEN_MARGIN), then (g)'s weights served (4 requests of
    128-1024 tokens), tokens a second and each rank's pool bytes; (i) the
    int8 and top-k all-reduces of GT's gradients against the exact mean
    and a 2-stage pipeline of GT's fp32 layers against the sequential
-   apply. Each rank's launches of rows 1, 3, 4 in (b), (d) and (e) and
-   2, 5, 6 in (c) and (g) are counted exactly; step ms, the
+   apply. Then slice 18's paths (``family_runs``), each held to its P = 1
+   run on rank 0 (the init step's loss, every gradient's cosine after
+   the Trainer's all-reduce, the losses), its attention op to
+   ``impl="plain"``: (k) Mamba2-2.7B at full width, 4 of 64 layers,
+   S=8192, its 80 SSM heads split over the ranks; (l) SeamlessM4T-medium
+   at full width, 4 + 4 of 12 + 12 layers, phase 14 (a)'s batch on the
+   cluster-sparse backend (the encoder non-causal, the decoder causal);
+   (m) InternVL2-76B at full width, one layer, 256 patches + 3840
+   tokens, int8 moments; (n) Jamba-v0.1 at phase 13 (c)'s quarter width,
+   one period, its MoE slots expert parallel at capacity E/k; each 2
+   steps on one batch; (o) an expert-parallel MoE (the Qwen3-235B-A22B
+   smoke config with 4 experts, all routed) checkpointed at P = 2 and
+   resumed at P = 2 (bitwise) and P = 1 (within FAM_CKPT_TOL), under
+   deterministic algorithms. Beside them, in three ranks of their own
+   started with the two, (j) GT graph-level at (d)'s shape on a (1, 3)
+   model mesh, whose 8 heads and 128 tokens do not split 3 ways: every
+   rank runs the unsharded op on the whole sequence (the reference's
+   GSPMD fallback), held as (d).
+   Each rank's launches of rows 1, 3, 4 in (b), (d), (e) and (j) and 2,
+   5, 6 in (c), (g), (l), (m) and (n) are counted exactly; step ms, the
    collectives' ms by CUDA events and peak memory per rank.
 
 Each main path runs with every kernel's launch count set to 0 just
@@ -340,7 +358,7 @@ SERVE_NODES = 32768
 YARDSTICK_NODES = 8192
 TRAIN_NODES = 8192      # the dense step's fp32 (1, H, S, S) bias must fit
 TRAIN_STEPS = 16
-TRAIN_LAYERS = 6        # of Large's 12: room for phase 13 (PERF.md 4)
+TRAIN_LAYERS = 4        # of Large's 12: room for phases 13, 15 (PERF.md 4)
 CLUSTERS = 32
 QUERIES = 64
 LM_SEQ = 16384          # Qwen3-0.6B training sequence (window 4096)
@@ -356,7 +374,7 @@ SLIM_GRAPH_STEPS = 8    # Graphormer-Slim
 # phases 8 and 9 also time the trainer's sparse step under "none" and
 # "block" in the same run: rounds of each, steps of each a round, and
 # the steps of a short Trainer loop of each a round
-STEP_AB_ROUNDS = 4
+STEP_AB_ROUNDS = 2      # cut from 4: room for phase 15
 STEP_AB_REPS = 4
 STEP_AB_LOOP_STEPS = 5
 LINK_NODES = 2048
@@ -933,6 +951,10 @@ B32_NAMES = ("cluster_attention_fwd_sm90", "cluster_attention_bwd_dq_sm90",
 UNBIASED_NAMES = ("cluster_attention_fwd_unbiased_sm90",
                   "cluster_attention_bwd_dq_unbiased_sm90",
                   "cluster_attention_bwd_dkv_unbiased_sm90")
+# the same rows' fp32 CUDA-core kernels
+UNBIASED_F32_NAMES = ("cluster_attention_fwd_unbiased",
+                      "cluster_attention_bwd_dq_unbiased",
+                      "cluster_attention_bwd_dkv_unbiased")
 
 
 def step_launches(cfg, names, steps: int = 1, layers: int = 0) -> dict:
@@ -1403,7 +1425,7 @@ def op_check(tag, model, loss_fn, batch, names, read_counts, seed=0,
 # Qwen3-0.6B and Graphormer-Large A/B run REMAT_AB_STEPS steps under
 # "none" and under "block" from the same initial parameters and batches;
 # the larger configs run only under "block", which they need to fit
-REMAT_AB_STEPS = 3
+REMAT_AB_STEPS = 2            # cut from 3: room for phase 15
 REMAT_LM_SEQ = 16384          # the A/B and Qwen3-1.7B (phase 6's shape)
 REMAT_LONG_SEQ = 65536        # Qwen3-0.6B beyond phase 6's sequence
 REMAT_LONG_STEPS = 2
@@ -1412,7 +1434,7 @@ REMAT_4B_SEQS = (8192, 4096)  # Qwen3-4B: the first that fits
 REMAT_4B_STEPS = 2
 REMAT_SSM_SEQ = 4096          # Mamba2-2.7B
 REMAT_SSM_STEPS = 2
-REMAT_SSM_LAYERS = 32         # of its 64: room for phase 13 (PERF.md 4)
+REMAT_SSM_LAYERS = 8          # of its 64: room for phases 13, 15 (PERF.md 4)
 REMAT_GRAPH_NODES = SERVE_NODES   # the serve phase's graph, S=32800
 
 
@@ -1454,7 +1476,10 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
         sparse, the layout frozen: the run's record."""
         cfg = model.cfg
         left = release()
-        tr = Trainer(model, TrainerConfig(steps=steps, lr=1e-3, warmup=2),
+        # max_bad_steps=0: no re-init rung, so run() takes no host copy of
+        # the parameters (16 GB for Qwen3-4B; phase 6 times that copy)
+        tr = Trainer(model, TrainerConfig(steps=steps, lr=1e-3, warmup=2,
+                                          max_bad_steps=0),
                      task=task)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1753,18 +1778,18 @@ SERVE_SLOTS = 8
 SERVE_PAGE = 16
 SERVE_CHUNK = 256
 SERVE_MAX_LEN = 4096
-SERVE_REQUESTS = 16             # room for phase 15 (PERF.md 4)
+SERVE_REQUESTS = 8              # room for phase 15 (PERF.md 4)
 SERVE_PROMPT = (128, 3840)
 SERVE_NEW = 128
-SERVE_WARM_REQUESTS = 4         # room for phases 13 and 15 (PERF.md 4)
+SERVE_WARM_REQUESTS = 2         # room for phases 13 and 15 (PERF.md 4)
 SPARSE_MAX_LEN = 8192           # past the window (4096), so that it binds
-SPARSE_REQUESTS = 8
+SPARSE_REQUESTS = 4             # room for phase 15 (PERF.md 4)
 SPARSE_PROMPT = (4500, 8000)
 SPARSE_NEW = 64
 F32_REQUESTS = 4
 F32_PROMPT = (64, 256)
 F32_NEW = 32
-CHECKED_REQUESTS = 2            # of (a) and of (b), held to their oracles
+CHECKED_REQUESTS = 1            # of (b), held to its oracle
 # (c): an engine token must be the oracle's argmax wherever the oracle's
 # top-2 margin exceeds this, and lie within it of the oracle's max
 # elsewhere. bf16 logits of magnitude 2-4 are 2^-6 apart; this is 4 such
@@ -1773,9 +1798,9 @@ CHECKED_REQUESTS = 2            # of (a) and of (b), held to their oracles
 TOL_TOKEN_MARGIN = 0.0625
 LONG_CHECK_SEQ = 16384          # (d), held to impl="plain"
 LONG_SEQ = 65536
-LONG_DECODE = 64
-SSM_PREFILL_SEQ = 512           # (e)
-SSM_DECODE = 64
+LONG_DECODE = 16                # cut from 64: room for phase 15
+SSM_PREFILL_SEQ = 256           # (e); cut from 512: room for phase 15
+SSM_DECODE = 16                 # (e); cut from 64
 # (e): the reference's prefill-vs-decode tolerance
 # (tests/test_serve_consistency.py:64-67), which holds the fp32 model; the
 # bf16 model's gap at 64 layers is reported beside it
@@ -1946,8 +1971,8 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
     engine's own tokens, and an fp32 engine's streams to the contiguous
     greedy decode; (d) Qwen3-0.6B on the cluster-sparse backend:
     ``lm_prefill`` at S=16384 held to ``impl="plain"``, at S=65536, then
-    64 tokens of sparse ``lm_decode_step``, row 2's launches counted
-    exactly; (e) Mamba2-2.7B's prefill against 512 decode steps, then 64
+    16 tokens of sparse ``lm_decode_step``, row 2's launches counted
+    exactly; (e) Mamba2-2.7B's prefill against 256 decode steps, then 16
     tokens. The engine's path launches no kernel (``paged_attention`` is
     plain on every device, as in the reference): its counts must stay 0.
     The engine's two programs are also replayed as CUDA graphs on the
@@ -1970,9 +1995,13 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
     launches = dict(zero)
     rng = np.random.default_rng(0)
 
-    def prompts_of(cfg, n, lo, hi):
-        return [rng.integers(1, cfg.vocab_size, int(m)).tolist()
-                for m in rng.integers(lo, hi + 1, n)]
+    def prompts_of(cfg, n, lo, hi, drawn=None):
+        """``n`` seeded prompts of ``lo``-``hi`` tokens, the first of
+        ``drawn`` (default ``n``) drawn: a run cut to fewer requests draws
+        as many as before, so the later draws stay the same prompts."""
+        got = [rng.integers(1, cfg.vocab_size, int(m)).tolist()
+               for m in rng.integers(lo, hi + 1, drawn or n)]
+        return got[:n]
 
     def run_engine(tag, eng, ev, prompts, n_new, gap=0.0, rid0=0):
         return serve_engine_run(tag, eng, ev, prompts, n_new, reset_counts,
@@ -2055,11 +2084,11 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
     model = LMModel(cfg, device=dev, seed=0)
     rec["init_s"] = time.perf_counter() - t0
     eng, ev = serve_engine(model, SERVE_MAX_LEN, sparse=False)
-    pa = prompts_of(cfg, SERVE_REQUESTS, *SERVE_PROMPT)
+    pa = prompts_of(cfg, SERVE_REQUESTS, *SERVE_PROMPT, drawn=16)
     rec["a"] = run_engine("(a) dense", eng, ev, pa, SERVE_NEW)
     rec["a_warm"] = run_engine(
         "(a) warm", eng, ev, prompts_of(cfg, SERVE_WARM_REQUESTS,
-                                        *SERVE_PROMPT),
+                                        *SERVE_PROMPT, drawn=4),
         SERVE_NEW, gap=2.0 / rec["a"]["req_per_s"], rid0=1000)
     rec["a"]["steps"] = engine_steps("(a)", eng)
 
@@ -2088,7 +2117,7 @@ def serve_runs(dev, reset_counts, read_counts) -> dict:
 
     # -------------------------------------------------- (b) sparse engine
     eng, ev = serve_engine(model, SPARSE_MAX_LEN, sparse=True)
-    pb = prompts_of(cfg, SPARSE_REQUESTS, *SPARSE_PROMPT)
+    pb = prompts_of(cfg, SPARSE_REQUESTS, *SPARSE_PROMPT, drawn=8)
     rec["b"] = run_engine("(b) sparse", eng, ev, pb, SPARSE_NEW)
     rec["b"]["steps"] = engine_steps("(b)", eng)
 
@@ -2435,7 +2464,7 @@ JAMBA_CUT = dict(n_layers=8, d_model=1024, n_heads=8, n_kv_heads=2,
 JAMBA_SEQ = 2048
 JAMBA_BATCH = 2
 JAMBA_STEPS = 3
-JAMBA_PREFILL_SEQ = 512
+JAMBA_PREFILL_SEQ = 256        # cut from 512: room for phase 15
 # (a): the MoE op on the card against the same op on the CPU, both fp32
 # with TF32 off: the largest difference over the largest output (sums in
 # another order). A token whose top-k differs between the two (a near
@@ -2463,7 +2492,7 @@ def moe_runs(dev, reset_counts, read_counts) -> dict:
     ``ServeEngine``, two requests held to the contiguous oracle; (c)
     Jamba-v0.1 at a quarter width trained the same way (its attention
     slot's kernels held by ``op_check`` too), then its prefill
-    against 512 decode steps. Every training run's launches of rows 2, 5
+    against JAMBA_PREFILL_SEQ decode steps. Every training run's launches of rows 2, 5
     and 6 counted exactly; returns the phase's record and those counts
     (``launches``, and the fp32 prefill's under ``launches_float32``)."""
     import numpy as np
@@ -2559,7 +2588,10 @@ def moe_runs(dev, reset_counts, read_counts) -> dict:
         """``steps`` sparse steps through the Trainer, counted exactly."""
         cfg = model.cfg
         left = release()
-        tr = Trainer(model, TrainerConfig(steps=steps, lr=1e-3, warmup=2),
+        # max_bad_steps=0: no re-init rung, so run() takes no host copy of
+        # the parameters (15 GB in (a); phase 6 times that copy)
+        tr = Trainer(model, TrainerConfig(steps=steps, lr=1e-3, warmup=2,
+                                          max_bad_steps=0),
                      task=task)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2824,7 +2856,7 @@ def moe_runs(dev, reset_counts, read_counts) -> dict:
     release()
 
     # prefill (the attention slot through row 2, without grad) against
-    # 512 decode steps over the same tokens; fp32 held to the reference's
+    # as many decode steps over the same tokens; fp32 held to the reference's
     # tolerance, bf16 reported
     Vj = jcfg.vocab_size
     tok = torch.from_numpy(rng.integers(1, Vj, (1, JAMBA_PREFILL_SEQ))).to(
@@ -2917,8 +2949,10 @@ A10_ENCDEC_ARCH = "seamless_m4t_medium"
 A10_ENCDEC_PARAMS = 978_384_896        # the reference's n_params()
 A10_ENCDEC_BATCH = 8                   # utterances a step
 A10_ENCDEC_TARGET = 512                # target tokens an utterance
-A10_ENCDEC_STEPS = 4
-A10_DECODE_STEPS = 128
+# (a): 2 steps and 64 decode steps (cut from 4 and 128): room
+# for phase 15's (j)-(o), whose (l) trains the enc-dec on a mesh
+A10_ENCDEC_STEPS = 2
+A10_DECODE_STEPS = 64
 # (b) InternVL2-76B at full width, its depth cut from 80 layers to 1
 A10_VLM_ARCH = "internvl2_76b"
 A10_VLM_LAYERS = 1
@@ -3466,6 +3500,7 @@ def a10_phase(out_path: str) -> int:
 
 GP_P = 2                     # ranks of phase 15, sharing card 0 over gloo
 GP_TRAIN_STEPS = 4           # (b): dense at 0 (interleave period 8)
+GP_TRAIN_LAYERS = 3          # (b): of Large's 12 (cut from 6)
 GP_LM_STEPS = 2              # (c)
 # (c): 4 of Qwen3-0.6B's 28 layers: at full depth its two steps took
 # 21-30 s on an H100 (the gloo collectives through the host), at 8 layers
@@ -3481,7 +3516,7 @@ MESH_EP_CF = (16.0, 1.25)    # (f): E/k (nothing drops), the default
 MESH_MOE_LAYERS = 1          # (g): of Qwen3-235B-A22B's 94
 MESH_MOE_SEQ = 2048
 MESH_MOE_STEPS = 2
-MESH_SERVE_REQUESTS = 8      # (h)
+MESH_SERVE_REQUESTS = 4      # (h); cut from 8
 MESH_SERVE_NEW = 32
 MESH_SERVE_PROMPT = (64, 512)        # Qwen3-0.6B, fp32
 MESH_MOE_SERVE_PROMPT = (128, 1024)  # Qwen3-235B-A22B, one layer, bf16
@@ -3491,6 +3526,19 @@ MESH_CONSERVED_REL = 1e-5    # (i): reduced + mean residual = exact mean
 MESH_PIPE_MICRO = 4          # (i): microbatches of 32 graphs' tokens
 MESH_PIPE_SEQ = 128          # (i): (d)'s packed sequence
 MESH_PIPE_TOL = 1e-4         # (i): fp32, pipeline against sequential
+# (j)-(o), slice 18's paths: (j) on a (1, 3) model mesh of its own ranks,
+# (k)-(o) on phase 15's two
+GP_FALLBACK_P = 3            # (j): GT's 8 heads do not split 3 ways
+FAM_STEPS = 2                # (k)-(n): steps on one batch
+FAM_SSM_LAYERS = 4           # (k): of Mamba2-2.7B's 64
+FAM_SSM_SEQ = 8192
+FAM_ENCDEC_LAYERS = 4        # (l): encoder and decoder layers, of 12 + 12
+FAM_VLM_LAYERS = 1           # (m): of InternVL2-76B's 80
+FAM_VLM_SEQ = 4096           # (m): 256 patches + 3840 tokens
+FAM_JAMBA_SEQ = 2048         # (n): phase 13 (c)'s shape, a quarter width
+FAM_JAMBA_BATCH = 2
+FAM_CKPT_STEPS = 4           # (o): saved at 2, resumed to 4
+FAM_CKPT_TOL = 1e-5          # (o): P = 1 against P = 2, fp32, relative
 
 
 def _gp_timed(mod, name, store):
@@ -3521,14 +3569,92 @@ def _gp_ms(store) -> dict:
     return out
 
 
-def gp_runs(rank: int, dev, reset_counts, read_counts) -> dict:
+def _gp_tools(say, reset_counts, read_counts, store):
+    """``(trainer_steps, grads_at_init)`` of phase 15's ranks: a Trainer
+    run with its collectives timed and its launches counted exactly, and
+    each variant's loss and gradients at the init."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import recipe_for
+    from repro_torch.runtime.trainer import Trainer
+
+    zero = {name: 0 for name in read_counts()}
+
+    def trainer_steps(tag, model, task, tc, want_fn, seq, mesh_=None,
+                      on_trainer=None):
+        """Train ``model`` on ``task`` (sequences of ``seq`` tokens), on
+        ``mesh_`` or on one process, the collectives timed; returns the
+        record and the Trainer. ``on_trainer(tr)`` sees the Trainer
+        before it runs."""
+        kw = {} if mesh_ is None else {
+            "mesh": mesh_, "recipe": recipe_for(ShapeConfig(
+                "t", "train", seq, 1), mesh_)}
+        tr = Trainer(model, tc, task=task, **kw)
+        if on_trainer is not None:
+            on_trainer(tr)
+        reals = [(n, _gp_timed(C, n, store)) for n in
+                 ("all_to_all", "all_reduce_")] if mesh_ is not None else []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            tr.run()
+        finally:
+            for n, f in reals:
+                setattr(C, n, f)
+        torch.cuda.synchronize()
+        out = {"run_s": time.perf_counter() - t0, "launches": read_counts(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "loss": [h["loss"] for h in tr.history],
+               "variant": [h["variant"] for h in tr.history],
+               "step_ms": [h["seconds"] * 1e3 for h in tr.history],
+               "collective_ms": _gp_ms(store) if mesh_ is not None else {}}
+        want = {**zero, **want_fn(tr.history)}
+        say(f"{tag}: losses {[round(x, 5) for x in out['loss']]}, variants "
+            f"{out['variant']}, step ms "
+            f"{[round(x, 2) for x in out['step_ms']]}, peak "
+            f"{out['peak_bytes'] / 2**30:.2f} GiB, collectives' ms "
+            f"{ {k: round(x, 1) for k, x in out['collective_ms'].items()} }"
+            f", launches { {n: c for n, c in out['launches'].items() if c} }")
+        if out["launches"] != want or not np.isfinite(out["loss"]).all():
+            raise AssertionError(f"{tag}: launches {out['launches']}, want "
+                                 f"{want}; losses {out['loss']}")
+        return out, tr
+
+    def grads_at_init(model, task, mesh_=None):
+        """Each variant's loss and gradients (summed over the ranks) at the
+        init, on the task's batch of step 0."""
+        out = {}
+        for variant, fn in model.loss_variants.items():
+            ctx = task.context()
+            with ctx:
+                loss, _ = fn(model, task.batches(0))
+                gs = torch.autograd.grad(loss, list(model.parameters()),
+                                         allow_unused=True)
+            gs = [torch.zeros_like(p) if x is None else x
+                  for x, p in zip(gs, model.parameters())]
+            if mesh_ is not None:
+                flat = torch.cat([x.reshape(-1) for x in gs])
+                C.all_reduce_(flat, None)
+                gs = list(flat.split([x.numel() for x in gs]))
+            out[variant] = (loss.item(), [x.reshape(-1) for x in gs])
+        return out
+
+    return trainer_steps, grads_at_init
+
+
+def gp_runs(rank: int, dev, reset_counts, read_counts, tmp) -> dict:
     """Phase 15's runs on this rank of a (1, GP_P) mesh over gloo, every
     rank on ``dev``: (a) ``sharded_cluster_attention`` at
     Graphormer-Large's width on the 8192-node graph's layout, in bf16,
     held to the unsharded kernel call and to ``impl="plain"``, its
     all-to-all bytes against ``cluster_a2a_budget``, the all-to-all's
     share of the call timed by CUDA events; (b) Graphormer-Large
-    (TRAIN_LAYERS layers) node training through ``NodeTask`` and the
+    (GP_TRAIN_LAYERS layers) node training through ``NodeTask`` and the
     Trainer on the mesh, GP_TRAIN_STEPS steps with the dense interleave
     at 0, held to the P = 1 run on rank 0 (losses, the gradients of both
     variants at the init); (c) Qwen3-0.6B on the cluster-sparse backend
@@ -3553,7 +3679,7 @@ def gp_runs(rank: int, dev, reset_counts, read_counts) -> dict:
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel import ulysses as tu
     from repro_torch.parallel.sharding import recipe_for
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.runtime.trainer import TrainerConfig
     from repro_torch.tasks import BatchFnTask, NodeTask
 
     P = dist.get_world_size()
@@ -3665,65 +3791,11 @@ def gp_runs(rank: int, dev, reset_counts, read_counts) -> dict:
     del q, k, v, dout, ql, kl, vl
     torch.cuda.empty_cache()
 
-    def trainer_steps(tag, model, task, tc, want_fn, seq, mesh_=None):
-        """Train ``model`` on ``task`` (sequences of ``seq`` tokens), on
-        ``mesh_`` or on one process, the collectives timed; returns the
-        record and the Trainer."""
-        kw = {} if mesh_ is None else {
-            "mesh": mesh_, "recipe": recipe_for(ShapeConfig(
-                "t", "train", seq, 1), mesh_)}
-        tr = Trainer(model, tc, task=task, **kw)
-        reals = [(n, _gp_timed(C, n, store)) for n in
-                 ("all_to_all", "all_reduce_")] if mesh_ is not None else []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        try:
-            tr.run()
-        finally:
-            for n, f in reals:
-                setattr(C, n, f)
-        torch.cuda.synchronize()
-        out = {"run_s": time.perf_counter() - t0, "launches": read_counts(),
-               "peak_bytes": torch.cuda.max_memory_allocated(),
-               "loss": [h["loss"] for h in tr.history],
-               "variant": [h["variant"] for h in tr.history],
-               "step_ms": [h["seconds"] * 1e3 for h in tr.history],
-               "collective_ms": _gp_ms(store) if mesh_ is not None else {}}
-        want = {**zero, **want_fn(tr.history)}
-        say(f"{tag}: losses {[round(x, 5) for x in out['loss']]}, variants "
-            f"{out['variant']}, step ms "
-            f"{[round(x, 2) for x in out['step_ms']]}, peak "
-            f"{out['peak_bytes'] / 2**30:.2f} GiB, collectives' ms "
-            f"{ {k: round(x, 1) for k, x in out['collective_ms'].items()} }"
-            f", launches { {n: c for n, c in out['launches'].items() if c} }")
-        if out["launches"] != want or not np.isfinite(out["loss"]).all():
-            raise AssertionError(f"{tag}: launches {out['launches']}, want "
-                                 f"{want}; losses {out['loss']}")
-        return out, tr
-
-    def grads_at_init(model, task, mesh_=None):
-        """Each variant's loss and gradients (summed over the ranks) at the
-        init, on the task's batch of step 0."""
-        out = {}
-        for variant, fn in model.loss_variants.items():
-            ctx = task.context()
-            with ctx:
-                loss, _ = fn(model, task.batches(0))
-                gs = torch.autograd.grad(loss, list(model.parameters()),
-                                         allow_unused=True)
-            gs = [torch.zeros_like(p) if x is None else x
-                  for x, p in zip(gs, model.parameters())]
-            if mesh_ is not None:
-                flat = torch.cat([x.reshape(-1) for x in gs])
-                C.all_reduce_(flat, None)
-                gs = list(flat.split([x.numel() for x in gs]))
-            out[variant] = (loss.item(), [x.reshape(-1) for x in gs])
-        return out
+    trainer_steps, grads_at_init = _gp_tools(say, reset_counts, read_counts,
+                                             store)
 
     # ---------------------------------------------------------------- (b)
-    cfg_b = get_config("graphormer_large").replace(n_layers=TRAIN_LAYERS)
+    cfg_b = get_config("graphormer_large").replace(n_layers=GP_TRAIN_LAYERS)
     train_mask = np.random.default_rng(0).random(g.n) < 0.5
     tc_b = TrainerConfig(steps=GP_TRAIN_STEPS, lr=1e-3, warmup=2,
                          interleave_period=cfg_b.interleave_period,
@@ -3806,7 +3878,84 @@ def gp_runs(rank: int, dev, reset_counts, read_counts) -> dict:
     release()
     rec.update(mesh_runs(rank, dev, mesh, say, trainer_steps, grads_at_init,
                          read_counts))
+    rec.update(family_runs(rank, dev, mesh, say, trainer_steps, tmp,
+                           read_counts))
     return rec
+
+
+def _gt_held_to_p1(tag, task, names, seq, meshes, *, rank, dev, say,
+                   trainer_steps, grads_at_init, read_counts,
+                   min_cosine=MESH_MIN_GRAD_COSINE) -> dict:
+    """GT at full width on ``task``: the P = 1 run on rank 0 (the other
+    ranks waiting), then on each ``(name, mesh)`` of ``meshes`` the init
+    step against it (the loss at TOL_STEP_LOSS_REL, every gradient at a
+    cosine of ``min_cosine``), the attention op held to
+    ``impl="plain"`` on the model mesh, and MESH_STEPS steps with the
+    dense step every MESH_INTERLEAVE; returns the runs and the init
+    checks. (d), (e) and (j)."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import graph_model as tgm
+    from repro_torch.parallel.sharding import recipe_for
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    gt = get_config("gt")
+    P = dist.get_world_size()
+
+    def recipe(m, seq):
+        return recipe_for(ShapeConfig("t", "train", seq, 1), m)
+
+    tc = TrainerConfig(steps=MESH_STEPS, lr=1e-3, warmup=2,
+                       interleave_period=MESH_INTERLEAVE,
+                       elastic_every=0, max_bad_steps=0)
+    want = lambda hist: step_launches(gt, names, sum(  # noqa: E731
+        1 for h in hist if h["variant"] == "sparse"))
+    out = {}
+    if rank == 0:
+        model = tgm.GraphModel(gt, device=dev, seed=0)
+        task.prepare(model)
+        ref = grads_at_init(model, task)
+        out["p1"] = trainer_steps(f"{tag} P=1", model, task, tc, want,
+                                  seq)[0]
+        del model
+    dist.barrier()
+    for name, m in meshes:
+        model = tgm.GraphModel(gt, device=dev, seed=0)
+        task.prepare(model, m, recipe(m, seq))
+        if name == "model":
+            with task.context():
+                out["op_check"] = op_check(
+                    f"{tag} model mesh, rank {rank}", model,
+                    task.loss_variants["sparse"], task.batches(0),
+                    names, read_counts, log_tag="graph-parallel")
+        got = grads_at_init(model, task, m)
+        if rank == 0:
+            for variant, (loss, gs) in got.items():
+                rl, rg = ref[variant]
+                cos = min(F.cosine_similarity(
+                    x.float(), y.float(), dim=0, eps=1e-30).item()
+                    for x, y in zip(gs, rg))
+                rel = abs(loss - rl) / abs(rl)
+                out[f"init_{name}_{variant}"] = {
+                    "loss": loss, "p1_loss": rl, "loss_rel": rel,
+                    "min_grad_cosine": cos}
+                say(f"{tag} {name} mesh, {variant} step at the init vs "
+                    f"P=1: loss rel {rel:.3g} (tol "
+                    f"{TOL_STEP_LOSS_REL}), min gradient cosine "
+                    f"{cos:.7f} (min {min_cosine})")
+                if rel > TOL_STEP_LOSS_REL or cos < min_cosine:
+                    raise AssertionError(f"{tag} {name} at the init: "
+                                         f"{out}")
+        del got
+        out[name] = trainer_steps(f"{tag} {name} mesh P={P}", model, task,
+                                  tc, want, seq, m)[0]
+        del model
+        release()
+    if rank == 0:
+        del ref
+    return out
 
 
 def mesh_runs(rank: int, dev, mesh, say, trainer_steps, grads_at_init,
@@ -3869,59 +4018,10 @@ def mesh_runs(rank: int, dev, mesh, say, trainer_steps, grads_at_init,
 
     # ------------------------------------------------------- (d), (e)
     def held_to_p1(tag, task, names, seq, meshes):
-        """GT on ``task``: the P = 1 run on rank 0 (the other ranks
-        waiting), then on each of ``meshes`` the init step against it
-        and the run; returns the runs and the init checks."""
-        tc = TrainerConfig(steps=MESH_STEPS, lr=1e-3, warmup=2,
-                           interleave_period=MESH_INTERLEAVE,
-                           elastic_every=0, max_bad_steps=0)
-        want = lambda hist: step_launches(gt, names, sum(  # noqa: E731
-            1 for h in hist if h["variant"] == "sparse"))
-        out = {}
-        if rank == 0:
-            model = tgm.GraphModel(gt, device=dev, seed=0)
-            task.prepare(model)
-            ref = grads_at_init(model, task)
-            out["p1"] = trainer_steps(f"{tag} P=1", model, task, tc,
-                                         want, seq)[0]
-            del model
-        dist.barrier()
-        for name, m in meshes:
-            model = tgm.GraphModel(gt, device=dev, seed=0)
-            task.prepare(model, m, recipe(m, seq))
-            if name == "model":
-                with task.context():
-                    out["op_check"] = op_check(
-                        f"{tag} model mesh, rank {rank}", model,
-                        task.loss_variants["sparse"], task.batches(0),
-                        names, read_counts, log_tag="graph-parallel")
-            got = grads_at_init(model, task, m)
-            if rank == 0:
-                for variant, (loss, gs) in got.items():
-                    rl, rg = ref[variant]
-                    cos = min(F.cosine_similarity(
-                        x.float(), y.float(), dim=0, eps=1e-30).item()
-                        for x, y in zip(gs, rg))
-                    rel = abs(loss - rl) / abs(rl)
-                    out[f"init_{name}_{variant}"] = {
-                        "loss": loss, "p1_loss": rl, "loss_rel": rel,
-                        "min_grad_cosine": cos}
-                    say(f"{tag} {name} mesh, {variant} step at the init vs "
-                        f"P=1: loss rel {rel:.3g} (tol "
-                        f"{TOL_STEP_LOSS_REL}), min gradient cosine "
-                        f"{cos:.7f} (min {MESH_MIN_GRAD_COSINE})")
-                    if rel > TOL_STEP_LOSS_REL or \
-                            cos < MESH_MIN_GRAD_COSINE:
-                        raise AssertionError(f"{tag} {name} at the init: "
-                                             f"{out}")
-            del got
-            out[name] = trainer_steps(f"{tag} {name} mesh P={P}", model,
-                                         task, tc, want, seq, m)[0]
-            del model
-            release()
-        if rank == 0:
-            del ref
-        return out
+        return _gt_held_to_p1(tag, task, names, seq, meshes, rank=rank,
+                              dev=dev, say=say, trainer_steps=trainer_steps,
+                              grads_at_init=grads_at_init,
+                              read_counts=read_counts)
 
     t0 = time.perf_counter()
     task = GraphLevelTask(synthetic_graph_level_dataset(GRAPH_BATCH, gt,
@@ -4247,8 +4347,390 @@ def mesh_runs(rank: int, dev, mesh, say, trainer_steps, grads_at_init,
     return rec
 
 
-def _gp_rank(rank, world, tmp, out_dir):
-    """A spawned rank of phase 15 (``graph_parallel_phase``)."""
+def family_runs(rank: int, dev, mesh, say, trainer_steps, tmp,
+                read_counts) -> dict:
+    """Phase 15's sub-phases (k)-(o), slice 18's paths, on this rank of
+    the two sharing card 0 (``mesh``: the (1, GP_P) model mesh). Each of
+    (k)-(n) is held to its P = 1 run on rank 0 (the other rank waiting):
+    the init step's loss (TOL_LM_STEP_LOSS_REL) and
+    every gradient, reduced over the ranks in the Trainer's first step,
+    at a cosine of MIN_GRAD_COSINE with the P = 1 one or, as phase 14
+    holds its bf16 gradients, by its distance from the fp32 plain path's
+    (``held``), and the FAM_STEPS losses
+    (TOL_STEP_LOSS_REL, in the parent); the attention op held to
+    ``impl="plain"`` (``op_check``) and rows 2, 5 and 6 counted exactly.
+    (k) Mamba2-2.7B at full width, FAM_SSM_LAYERS layers, S=FAM_SSM_SEQ,
+    its 80 SSM heads split over the ranks; (l) SeamlessM4T-medium at full
+    width, FAM_ENCDEC_LAYERS + FAM_ENCDEC_LAYERS layers, phase 14 (a)'s
+    batch, on the cluster-sparse backend (the encoder non-causal under
+    Ulysses, the decoder causal); (m) InternVL2-76B at full width, one
+    layer, 256 patches + 3840 tokens, int8 moments, the embedding tables'
+    gradients left out of the cosines (each 1.05e9 numbers: their P = 1
+    copy would not fit beside two ranks); (n) Jamba-v0.1 at phase 13
+    (c)'s quarter width in fp32, one period, its MoE slots expert
+    parallel at a
+    capacity factor of E/k, where no pair drops, as (f)'s first case (at
+    the default 1.25 pairs drop on the mesh and never at P = 1, so the
+    two compute other functions; (f) and (g) hold that path); (o) an
+    expert-parallel
+    MoE (Qwen3-235B-A22B smoke with 4 experts, each token routed to all
+    4, so nothing drops), each rank holding its 2 experts, checkpointed
+    at P = 2 and resumed at P = 2 (bitwise) and at P = 1 (within
+    FAM_CKPT_TOL of the unbroken run; two resumes bitwise alike), under
+    deterministic algorithms."""
+    import functools
+    import inspect
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+    from repro_torch.models import encdec as ted
+    from repro_torch.models import hybrid as thyb
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.api import SSMLMModel
+    from repro_torch.models.lm import LMModel
+    from repro_torch.parallel.sharding import recipe_for
+    from repro_torch.runtime.trainer import TrainerConfig
+    from repro_torch.tasks import BatchFnTask
+
+    P = dist.get_world_size()
+    rec = {}
+
+    def held(tag, make, batch_fn, seq, tc, n_attn, op_nths=(),
+             skip=lambda name: False, names=UNBIASED_NAMES):
+        """``make()`` a model: the P = 1 run on rank 0, then the P = GP_P
+        run on ``mesh``; ``skip`` names the gradients left out. Each
+        gradient of the P = GP_P run's first step is held to P = 1's at a
+        cosine of MIN_GRAD_COSINE or, where P = 1's own bf16 gradient is
+        that far from the fp32 one (the plain path in fp32: phase 14's
+        referee), by its distance from the fp32 gradient, at most
+        FP32_DISTANCE_FACTOR times P = 1's (in 1 - cosine)."""
+        want = lambda hist: ({} if not n_attn else  # noqa: E731
+                             step_launches(make.cfg, names, len(hist),
+                                           n_attn))
+        out = {}
+        ref = None
+        if rank == 0:
+            model = make()
+            task = BatchFnTask(batch_fn).prepare(model)
+            pnames = [n for n, _ in model.named_parameters()]
+            keep = [i for i, n in enumerate(pnames) if not skip(n)]
+            fn = model.loss_variants["sparse"]
+            plain = functools.partial(fn, impl="plain") if "impl" in \
+                inspect.signature(fn).parameters else fn
+            base = model.cfg
+            ref = {}
+            for key, dtype, loss_fn in (("grads", base.dtype, fn),
+                                        ("fp32", "float32", plain)):
+                model.cfg = base.replace(dtype=dtype)
+                loss, metrics = loss_fn(model, task.batches(0))
+                params = list(model.parameters())
+                gs = torch.autograd.grad(loss, [params[i] for i in keep])
+                # on the host: the card holds two ranks' runs next
+                ref[key] = {pnames[i]: g.reshape(-1).float().cpu()
+                            for i, g in zip(keep, gs)}
+                ref.setdefault("loss", loss.item())
+                # the metrics' graph holds the parameters
+                del loss, metrics, gs, params
+            model.cfg = base
+            ref["p1_fp32"] = {n: F.cosine_similarity(
+                g, ref["fp32"][n], dim=0, eps=1e-30).item()
+                for n, g in ref["grads"].items()}
+            out["p1"] = trainer_steps(f"{tag} P=1", model, task, tc, want,
+                                      seq)[0]
+            del model, task
+            release()
+        dist.barrier()
+        out["resident_bytes"] = release()
+        say(f"{tag} P={P} starts with {out['resident_bytes'] / 2**30:.2f} "
+            f"GiB allocated")
+        model = make()
+        task = BatchFnTask(batch_fn).prepare(model, mesh, recipe_for(
+            ShapeConfig("t", "train", seq, 1), mesh))
+        with task.context():
+            out["op_check"] = [op_check(
+                f"{tag} P={P} rank {rank}, attention call {nth}", model,
+                model.loss_variants["sparse"], task.batches(0), names,
+                read_counts, log_tag="graph-parallel", nth=nth)
+                for nth in op_nths]
+        cos, cos32 = {}, {}
+
+        def first_grads(tr):
+            real = tr._reduce
+
+            def reduce(grads):
+                got = real(grads)
+                if ref is not None and not cos:
+                    for n, g in zip(tr.names, got):
+                        if n in ref["grads"]:
+                            g = g.reshape(-1).float()
+                            cos[n], cos32[n] = (F.cosine_similarity(
+                                g, ref[k][n].to(g.device), dim=0,
+                                eps=1e-30).item() for k in ("grads", "fp32"))
+                return got
+            tr._reduce = reduce
+        out["run"], tr = trainer_steps(f"{tag} P={P}", model, task, tc,
+                                       want, seq, mesh,
+                                       on_trainer=first_grads)
+        if rank == 0:
+            refereed, failed = {}, {}
+            for n, c in cos.items():
+                if c >= MIN_GRAD_COSINE:
+                    continue
+                row = {"cos_p1": c, "cos_fp32": cos32[n],
+                       "cos_p1_fp32": ref["p1_fp32"][n]}
+                ok = 1 - cos32[n] <= FP32_DISTANCE_FACTOR * (
+                    1 - ref["p1_fp32"][n])
+                (refereed if ok else failed)[n] = row
+            worst = min(cos, key=cos.get)
+            rel = abs(out["run"]["loss"][0] - ref["loss"]) / abs(ref["loss"])
+            out["init"] = {
+                "loss": out["run"]["loss"][0], "p1_loss": ref["loss"],
+                "loss_rel": rel, "min_grad_cosine": cos[worst],
+                "worst": worst, "grads_compared": len(cos),
+                "min_cos_fp32": min(cos32.values()),
+                "min_cos_p1_fp32": min(ref["p1_fp32"].values()),
+                "refereed_by_fp32": refereed, "failed": failed}
+            say(f"{tag} init step P={P} vs P=1: loss rel {rel:.3g} (tol "
+                f"{TOL_LM_STEP_LOSS_REL}), min gradient cosine "
+                f"{cos[worst]:.6f} "
+                f"({worst}; min {MIN_GRAD_COSINE}) over {len(cos)} "
+                f"gradients; against fp32 plain P=1: min cosine P={P} "
+                f"{out['init']['min_cos_fp32']:.6f}, bf16 P=1 "
+                f"{out['init']['min_cos_p1_fp32']:.6f}; {len(refereed)} held "
+                f"by the fp32 referee {json.dumps(refereed)}")
+            if rel > TOL_LM_STEP_LOSS_REL or failed:
+                raise AssertionError(f"{tag} at the init: {out['init']}")
+        del tr, model, task, ref
+        release()
+        return out
+
+    def steps_cfg(**kw):
+        return TrainerConfig(steps=FAM_STEPS, lr=1e-3, warmup=0,
+                             max_bad_steps=0, **kw)
+
+    def on_card(cls, cfg):
+        def make(experts=None):
+            with L.draw_on_device():
+                return cls(cfg, device=dev, seed=0)
+        make.cfg = cfg
+        return make
+
+    # ------------------------------------------------------------ (k)
+    cfg_k = get_config("mamba2_2_7b").replace(n_layers=FAM_SSM_LAYERS)
+    dc_k = LMDataConfig(cfg_k.vocab_size, FAM_SSM_SEQ, 1, seed=0)
+    rec["k"] = {"layers": FAM_SSM_LAYERS, "S": FAM_SSM_SEQ, **held(
+        "(k) mamba2-2.7b", on_card(SSMLMModel, cfg_k),
+        lambda s: lm_batch(dc_k, 0), FAM_SSM_SEQ, steps_cfg(), 0)}
+
+    # ------------------------------------------------------------ (l)
+    cfg_l = get_config(A10_ENCDEC_ARCH).replace(
+        enc_layers=FAM_ENCDEC_LAYERS, n_layers=FAM_ENCDEC_LAYERS,
+        attn_backend="cluster_sparse", remat="block")
+    B, T, Tf = A10_ENCDEC_BATCH, A10_ENCDEC_TARGET, cfg_l.frontend_tokens
+    dc_l = LMDataConfig(cfg_l.vocab_size, T, B, seed=0)
+    frames = np.random.default_rng(1000).standard_normal(
+        (B, Tf, cfg_l.d_model), dtype=np.float32)
+    rec["l"] = {"layers": [FAM_ENCDEC_LAYERS] * 2, "batch": B, "frames": Tf,
+                "tokens": T, **held(
+                    "(l) seamless-m4t-medium", on_card(ted.EncDecModel,
+                                                       cfg_l),
+                    lambda s: {**lm_batch(dc_l, 0), "frames": frames}, T,
+                    steps_cfg(), 2 * FAM_ENCDEC_LAYERS,
+                    op_nths=(0, FAM_ENCDEC_LAYERS))}
+    del frames
+
+    # ------------------------------------------------------------ (m)
+    cfg_m = get_config(A10_VLM_ARCH).replace(
+        n_layers=FAM_VLM_LAYERS, attn_backend="cluster_sparse",
+        remat="block")
+    Tp = cfg_m.frontend_tokens
+    dc_m = LMDataConfig(cfg_m.vocab_size, FAM_VLM_SEQ - Tp, 1, seed=0)
+    patches = np.random.default_rng(2000).standard_normal(
+        (1, Tp, cfg_m.d_model), dtype=np.float32)
+    rec["m"] = {"layers": FAM_VLM_LAYERS, "S": FAM_VLM_SEQ, "patches": Tp,
+                **held("(m) internvl2-76b", on_card(LMModel, cfg_m),
+                       lambda s: {**lm_batch(dc_m, 0), "patches": patches},
+                       FAM_VLM_SEQ, steps_cfg(state_dtype="int8"),
+                       FAM_VLM_LAYERS, op_nths=(0,),
+                       skip=lambda n: n.startswith("embed."))}
+    del patches
+
+    # ------------------------------------------------------------ (n)
+    # fp32: in bf16 the split Mamba heads' and the experts' partial
+    # products round once more than P = 1's before their sum over the
+    # ranks, and a small gradient that cancels (a Mamba slot's a_log, 32
+    # numbers) then lands at a cosine of 0.94 with P = 1's (measured on one
+    # H100); (k), (f) and (g) run those paths in bf16
+    cfg_n = get_config(JAMBA_ARCH).replace(**JAMBA_CUT, dtype="float32",
+                                           attn_backend="cluster_sparse")
+    dc_n = LMDataConfig(cfg_n.vocab_size, FAM_JAMBA_SEQ, FAM_JAMBA_BATCH,
+                        seed=0)
+    cf = cfg_n.moe_experts / cfg_n.moe_top_k
+    drops = []
+    real_ep, real_apply = tmoe._ep_local, thyb.moe_apply
+
+    def counting(*a, **kw):
+        got = real_ep(*a, **kw)
+        drops.append(tmoe.LAST_CALL["dropped"])
+        return got
+    tmoe._ep_local = counting
+    thyb.moe_apply = functools.partial(real_apply, capacity_factor=cf)
+    try:
+        rec["n"] = {"cut": JAMBA_CUT, "S": FAM_JAMBA_SEQ,
+                    "batch": FAM_JAMBA_BATCH, "capacity_factor": cf, **held(
+                        "(n) jamba-v0.1 1/4 width",
+                        on_card(thyb.HybridLMModel, cfg_n),
+                        lambda s: lm_batch(dc_n, 0), FAM_JAMBA_SEQ,
+                        steps_cfg(), cfg_n.n_layers // cfg_n.attn_every,
+                        op_nths=(0,), names=UNBIASED_F32_NAMES)}
+    finally:
+        tmoe._ep_local, thyb.moe_apply = real_ep, real_apply
+    rec["n"]["ep_calls"] = len(drops)
+    rec["n"]["dropped_pairs"] = int(sum(int(d) for d in drops))
+    say(f"(n) {len(drops)} expert-parallel calls at capacity factor {cf} "
+        f"dropped {rec['n']['dropped_pairs']} pairs on this rank's experts")
+    if not drops or rec["n"]["dropped_pairs"]:
+        raise AssertionError(f"(n) expert-parallel calls {len(drops)}, "
+                             f"dropped {rec['n']['dropped_pairs']}")
+    del drops
+
+    # ------------------------------------------------------------ (o)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rec["o"] = _ckpt_runs(rank, dev, mesh, say, tmp)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    release()
+    return rec
+
+
+def _ckpt_runs(rank: int, dev, mesh, say, tmp) -> dict:
+    """(o): checkpoints of an expert-parallel MoE, fp32 and int8
+    moments: saved at step 2 of FAM_CKPT_STEPS at P = GP_P, each rank
+    holding its experts, resumed at P = GP_P and at P = 1."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
+    from repro_torch.models.lm import LMModel
+    from repro_torch.parallel.sharding import recipe_for
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tasks import BatchFnTask
+
+    P = dist.get_world_size()
+    cfg = get_smoke_config(MOE_ARCH).replace(dtype="float32", moe_experts=4,
+                                             moe_top_k=4)
+    dc = LMDataConfig(cfg.vocab_size, 256, 2, seed=0)
+
+    def run(sd, where, on_mesh):
+        kw = {"experts": (rank, P)} if on_mesh else {}
+        model = LMModel(cfg, device=dev, seed=0, **kw)
+        tr = Trainer(model, TrainerConfig(
+            steps=FAM_CKPT_STEPS, lr=1e-3, warmup=1, state_dtype=sd,
+            ckpt_dir=str(where), ckpt_every=2, max_bad_steps=0),
+            task=BatchFnTask(lambda s: lm_batch(dc, s)),
+            **({"mesh": mesh, "recipe": recipe_for(ShapeConfig(
+                "t", "train", 256, 2), mesh)} if on_mesh else {}))
+        t0 = time.perf_counter()
+        assert tr.run() == "done"
+        torch.cuda.synchronize()
+        return [h["loss"] for h in tr.history], time.perf_counter() - t0
+
+    out = {}
+    for sd in ("float32", "int8"):
+        d = {k: os.path.join(tmp, f"o_{sd}_{k}") for k in
+             ("unbroken", "p2", "p1a", "p1b")}
+        unbroken, secs = run(sd, d["unbroken"], True)
+        dist.barrier()
+        if rank == 0:     # the step-2 generation alone, to resume from
+            for k in ("p2", "p1a", "p1b"):
+                shutil.copytree(os.path.join(d["unbroken"], "step_00000002"),
+                                os.path.join(d[k], "step_00000002"))
+        dist.barrier()
+        p2 = run(sd, d["p2"], True)[0]
+        o = {"unbroken": unbroken, "unbroken_s": secs, "resumed_p2": p2}
+        ok = p2 == unbroken[2:]
+        if rank == 0:
+            p1a, p1b = run(sd, d["p1a"], False)[0], run(sd, d["p1b"],
+                                                        False)[0]
+            first = abs(p1a[0] - unbroken[2]) / abs(unbroken[2])
+            rel = max(abs(a - b) / abs(b) for a, b in zip(p1a, unbroken[2:]))
+            o.update(resumed_p1=p1a, resumed_p1_again=p1b,
+                     p1_first_rel=first, p1_rel=rel)
+            # int8 moments part P = 1 from P = 2 after an update (a second
+            # moment rounded to another level): the first loss is held
+            ok = ok and p1a == p1b and first <= FAM_CKPT_TOL and (
+                sd == "int8" or rel <= FAM_CKPT_TOL)
+        say(f"(o) expert-parallel checkpoint, {sd} moments: unbroken "
+            f"{unbroken}; resumed at P={P} {p2} (bitwise: "
+            f"{p2 == unbroken[2:]})"
+            + (f"; resumed at P=1 {o['resumed_p1']} (twice alike: "
+               f"{o['resumed_p1'] == o['resumed_p1_again']}), rel "
+               f"{o['p1_first_rel']:.3g} first, {o['p1_rel']:.3g} worst "
+               f"(tol {FAM_CKPT_TOL})" if rank == 0 else ""))
+        if not ok:
+            raise AssertionError(f"(o) {sd}: {o}")
+        out[sd] = o
+    return out
+
+
+def fallback_runs(rank: int, dev, reset_counts, read_counts) -> dict:
+    """Phase 15's (j), on this rank of a (1, GP_FALLBACK_P) model mesh of
+    its own over gloo, every rank on ``dev``: GT graph-level at full
+    width on (d)'s 128 graphs of S=128 at 16 x 16 blocks, whose 8 heads
+    (and 128 tokens) do not split 3 ways: every rank runs the unsharded
+    op on the whole sequence (the reference's GSPMD fallback), held to
+    the P = 1 run on rank 0 as (d) is; the attention op held to
+    ``impl="plain"``; rows 1, 3 and 4 counted exactly."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tasks import GraphLevelTask, synthetic_graph_level_dataset
+
+    P = dist.get_world_size()
+    mesh = make_host_mesh(model=P)
+    store = {}
+
+    def say(msg):
+        log(f"[graph-parallel] rank {rank}: {msg}")
+
+    trainer_steps, grads_at_init = _gp_tools(say, reset_counts, read_counts,
+                                             store)
+    gt = get_config("gt")
+    t0 = time.perf_counter()
+    task = GraphLevelTask(synthetic_graph_level_dataset(GRAPH_BATCH, gt,
+                                                        seed=1), gt,
+                          batch_graphs=GRAPH_BATCH, device=dev)
+    prep_s = time.perf_counter() - t0
+    seq = task.layout.seq_len
+    out = {"rank": rank, "j": {
+        "graphs": GRAPH_BATCH, "S": seq, "bq": task.layout.bq, "P": P,
+        "prep_s": prep_s, **_gt_held_to_p1(
+            "(j) gt graph-level, fallback", task, B16_NAMES, seq,
+            (("model", mesh),), rank=rank, dev=dev, say=say,
+            trainer_steps=trainer_steps, grads_at_init=grads_at_init,
+            read_counts=read_counts,
+            # every rank holds the whole sequence and backpropagates 1/3
+            # of the loss in bf16, which rounds otherwise than the whole
+            # (a factor that is no power of 2): phase 5's step gate
+            min_cosine=MIN_GRAD_COSINE)}}
+    return out
+
+
+def _gp_rank(rank, world, tmp, out_dir, which="main"):
+    """A spawned rank of phase 15 (``graph_parallel_phase``): its runs on
+    phase 15's two ranks (``gp_runs``) or, ``which="fallback"``, (j) on
+    GP_FALLBACK_P ranks (``fallback_runs``)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4260,8 +4742,10 @@ def _gp_rank(rank, world, tmp, out_dir):
     import torch.distributed as dist
     try:
         reset_counts, read_counts = kernel_counters()
-        rec = gp_runs(rank, torch.device("cuda", 0), reset_counts,
-                      read_counts)
+        dev = torch.device("cuda", 0)
+        rec = (gp_runs(rank, dev, reset_counts, read_counts, tmp)
+               if which == "main" else
+               fallback_runs(rank, dev, reset_counts, read_counts))
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(rec, fh)
     finally:
@@ -4293,23 +4777,45 @@ def graph_parallel_phase(out_path: str) -> int:
     # built before the ranks start, so that they only load the libraries
     kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
                       tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED_SM90,
-                      tcab.LIBRARY_UNBIASED_SM90))
+                      tcab.LIBRARY_UNBIASED_SM90, tca.LIBRARY_UNBIASED,
+                      tcab.LIBRARY_UNBIASED))
+    # both worlds at once: (j)'s three ranks are small (under a GiB
+    # each) and done within (a)-(c), so they take no wall of their own
+    ranks, fallback = [], []
+    worlds = (("main", GP_P, ranks), ("fallback", GP_FALLBACK_P, fallback))
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_gp_rank, args=(GP_P, tmp, tmp), nprocs=GP_P, join=True)
-        ranks = []
-        for r in range(GP_P):
-            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
-                ranks.append(json.load(fh))
+        t0 = time.perf_counter()
+        running = []
+        for which, world, got in worlds:
+            d = os.path.join(tmp, which)
+            os.makedirs(d)
+            running.append((which, world, got, d, mp.spawn(
+                _gp_rank, args=(world, d, d, which), nprocs=world,
+                join=False)))
+        for which, world, got, d, ctx in reversed(running):   # (j) first
+            while not ctx.join():
+                pass
+            log(f"[graph-parallel] {which} ranks ({world}): "
+                f"{time.perf_counter() - t0:.1f} s")
+            for r in range(world):
+                with open(os.path.join(d, f"rank{r}.json")) as fh:
+                    got.append(json.load(fh))
     # every run held to rank 0's P = 1 run: (b), (c), and slice 17's
     # (d) on the data and the model mesh and (e) on the model mesh
     held = (("b", "run", TOL_STEP_LOSS_REL), ("c", "run",
                                              TOL_LM_STEP_LOSS_REL),
             ("d", "data", TOL_STEP_LOSS_REL), ("d", "model",
                                                TOL_STEP_LOSS_REL),
-            ("e", "model", TOL_STEP_LOSS_REL))
-    for r in ranks:
+            ("e", "model", TOL_STEP_LOSS_REL),
+            # slice 18's: (j) on its own three ranks, (k)-(n) on these two
+            ("j", "model", TOL_STEP_LOSS_REL),
+            ("k", "run", TOL_STEP_LOSS_REL), ("l", "run", TOL_STEP_LOSS_REL),
+            ("m", "run", TOL_STEP_LOSS_REL), ("n", "run", TOL_STEP_LOSS_REL))
+    for r in ranks + fallback:
         for part, run, tol in held:
-            ref_ = ranks[0][part]["p1"]
+            if part not in r:
+                continue
+            ref_ = (fallback if part == "j" else ranks)[0][part]["p1"]
             got = r[part][run]["loss"]
             rel = [abs(x - y) / abs(y) for x, y in zip(got, ref_["loss"])]
             r[part][f"{run}_loss_rel_vs_p1"] = rel
@@ -4319,12 +4825,15 @@ def graph_parallel_phase(out_path: str) -> int:
                 raise AssertionError(f"phase 15 ({part}) rank {r['rank']}: "
                                      f"losses {got} vs P=1 {ref_['loss']}")
     launches = {}
-    for r in ranks:
+    for r in ranks + fallback:
         for part, run in (("b", "run"), ("c", "run"), ("d", "data"),
-                          ("d", "model"), ("e", "model"), ("g", "run")):
-            for n, c in r[part][run]["launches"].items():
-                launches[n] = launches.get(n, 0) + c
-    rec = {"ranks": ranks, "launches": launches,
+                          ("d", "model"), ("e", "model"), ("g", "run"),
+                          ("j", "model"), ("k", "run"), ("l", "run"),
+                          ("m", "run"), ("n", "run")):
+            if part in r:
+                for n, c in r[part][run]["launches"].items():
+                    launches[n] = launches.get(n, 0) + c
+    rec = {"ranks": ranks, "fallback_ranks": fallback, "launches": launches,
            "seconds": time.perf_counter() - t_start}
     with open(out_path, "w") as fh:
         json.dump(rec, fh)
@@ -6226,9 +6735,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "gp.json")
             t0 = time.perf_counter()
+            # deterministic cuBLAS for (o)'s bitwise resumes
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__),
-                 "--graph-parallel", path], timeout=600)
+                 "--graph-parallel", path], timeout=900,
+                env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
             wall = time.perf_counter() - t0
             if proc.returncode != 0:
                 raise AssertionError(f"phase 15 (graph parallelism) exited "
@@ -6358,11 +6869,12 @@ def main() -> int:
             **{k: v for k, v in b.items() if k.startswith("ms_without")},
             "source_float32": f"src/repro_torch/kernels/csrc/"
                               f"cluster_attention_unbiased_{src}.cu",
-            # the LM run's, phase 13's fp32 Jamba prefill and phase 14's
-            # fp32 enc-dec decode check
+            # the LM run's, phase 13's fp32 Jamba prefill, phase 14's
+            # fp32 enc-dec decode check and phase 15 (n)'s fp32 Jamba
             "launches_float32": (lm_run["launches"][name]
                                  + moe_rec["launches"][name]
-                                 + a10_rec["launches_float32"][name])})
+                                 + a10_rec["launches_float32"][name]
+                                 + gp_rec["launches"][name])})
     # the flash kernels and the SSD scan: times at full width in bf16,
     # launches from the tune phase, the main path. Rows 7-9 have a
     # kernel for each dtype: `source` is the bf16 tensor-core one, timed

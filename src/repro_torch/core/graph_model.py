@@ -25,9 +25,16 @@ Under a mesh (``parallel.axes.axis_rules``) the batch holds this rank's
 S/P contiguous tokens of the per-node arrays (``dense_buckets`` its
 rows) and the whole layouts (of its data shard's graphs), and the
 forward is the reference's sharded one: the global tokens only at global positions below
-``n_global``, the sparse step through ``sharded_cluster_attention``
-(shapes that cannot shard raise), the dense step sequence-parallel, and
-``graph_loss`` the mean over every rank's tokens.
+``n_global``, the sparse step through ``sharded_cluster_attention``,
+the dense step sequence-parallel, and ``graph_loss`` the mean over every
+rank's tokens. Where the sparse step cannot shard (heads or blocks that
+do not split over the group), each rank all-gathers q, k and v and runs
+the unsharded op on the whole sequence, keeping its own rows: the
+counterpart of the reference's GSPMD fallback, which computes the whole
+attention on every rank too. A sequence that does not split over the
+group at all stays whole on every rank (``tasks`` keep it so, and the
+recipe says so: ``pax.seq_group()`` is None), and every rank runs the
+single-device forward on it.
 """
 
 from __future__ import annotations
@@ -176,7 +183,7 @@ def _graph_attn(p: L.Attention, cfg, h, batch, bias_table, dense, impl):
     of ``dense_bias`` against all-gathered k and v)."""
     # the graph configs run no RoPE (rope_theta=0): no positions needed
     q, k, v = L.project_qkv(p, cfg, h, None)
-    group = pax.model_group()
+    group = pax.seq_group()
     bias = batch.get("dense_bias")
     if dense and group is None:
         o = L.chunked_attention(q, k, v, bias=bias)
@@ -196,25 +203,30 @@ def _graph_attn(p: L.Attention, cfg, h, batch, bias_table, dense, impl):
 
 def _sharded_sparse(q, k, v, cfg, batch, bias_table, group, impl):
     """The sparse step on a sequence shard (the reference's
-    ``_graph_attn`` under a model-axis mesh). Shapes that cannot shard
-    raise: the unsharded op on a shard would attend to S/P keys only."""
+    ``_graph_attn`` under a model-axis mesh): the sharded op where the
+    shapes shard, else the fallback: q, k and v all-gathered over the
+    group (``GatherSeq``, whose backward reduce-scatters their
+    gradients), the unsharded op on the whole sequence with the whole
+    ``bias_table``, and this rank's rows of its output. The fallback
+    computes the whole attention on every rank, as GSPMD's replicated
+    fallback does; each rank's ``bias_table`` gradient is its rows'
+    share, summed over the ranks by the Trainer's all-reduce."""
     bi, bu = batch["block_idx"], batch.get("buckets")
     p = C.size(group)
     S = q.shape[1] * p
     bq = S // bi.shape[-2]
     bk = bu.shape[-1] if bu is not None else bq
-    recipe = pax.current()[0]
-    if not (recipe.ulysses and can_shard_cluster(
-            cfg.n_heads, cfg.kv_heads, S, p, bq, bk)):
-        raise ValueError(
-            f"the sparse graph step cannot shard: H={cfg.n_heads} "
-            f"KV={cfg.kv_heads} S={S} bq={bq} bk={bk} over a {p}-way "
-            f"model group (recipe {recipe.name!r}); the reference hands "
-            f"such shapes to GSPMD, which the port has no counterpart of "
-            f"(ROADMAP A8 part 3)")
-    return sharded_cluster_attention(
-        q, k, v, bi, bu, bias_table, batch.get("block_idx_t"), group=group,
-        bq=bq, bk=bk, impl=impl)
+    if pax.current()[0].ulysses and can_shard_cluster(
+            cfg.n_heads, cfg.kv_heads, S, p, bq, bk):
+        return sharded_cluster_attention(
+            q, k, v, bi, bu, bias_table, batch.get("block_idx_t"),
+            group=group, bq=bq, bk=bk, impl=impl)
+    qf, kf, vf = (C.GatherSeq.apply(x, group) for x in (q, k, v))
+    o = kops.cluster_attention(qf, kf, vf, bi, bu, bias_table,
+                               batch.get("block_idx_t"), causal=False,
+                               impl=impl)
+    m, n = C.rank(group), q.shape[1]
+    return o[:, m * n:(m + 1) * n]
 
 
 def _layer(layer: GraphLayer, h, cfg, batch, bias_table, dense, impl):
@@ -276,7 +288,7 @@ def graph_forward(model: GraphModel, batch: dict, *, dense: bool = False,
 def _seq_offset(local_len: int) -> int:
     """The global position of this rank's first token: its rank in the
     model group times the shard length (0 without a mesh)."""
-    group = pax.model_group()
+    group = pax.seq_group()
     return 0 if group is None else C.rank(group) * local_len
 
 

@@ -8,7 +8,8 @@ every run), optionally under the TorchGT cluster-sparse decode mask
 over ``--backend`` (``gloo`` or ``nccl``, required with a mesh): under
 torchrun each process is one rank, else the CLI spawns its ranks
 (``launch/mesh.spawn``), which serve the same requests, each holding its
-share of the KV heads and experts, and rank 0 prints. The SSM and
+share of the KV heads (every head where they do not split) and
+experts, and rank 0 prints. The SSM and
 hybrid archs have no paged serving path and are refused here, as in
 the reference.
 

@@ -53,15 +53,18 @@ says (the configs' default is ``"block"``).
 P·D ranks, one process each, over ``--backend`` (``gloo`` or ``nccl``,
 never chosen for the caller): the sequence sharded P ways (the graph
 node, graph-level and link tasks through ``sharded_cluster_attention``,
-the dense and MoE LMs through Ulysses or sequence-parallel attention,
-the MoE's experts P ways, each rank holding its E/P), the batch D ways
+the token LMs of every family through Ulysses or sequence-parallel
+attention and the Mamba2 blocks over their SSM heads, the MoE's and the
+hybrid's experts P ways, each rank holding its E/P), the batch D ways
 where it divides (graph-level: the mini-graphs). Under torchrun (RANK
 and WORLD_SIZE set) each process is one rank; otherwise the CLI spawns
 the ranks itself and rank 0 prints. It prints the ``mesh=... recipe=...
-sharded_cluster_attention=...`` line of the reference. The SSM and
-hybrid LM families on a mesh raise (ROADMAP A8 part 3), as does a
-checkpoint directory for an MoE on a model axis. NCCL needs a card a
-rank; several ranks share one card over gloo (through the host).
+sharded_cluster_attention=...`` line of the reference; a graph shape
+that cannot shard prints ``sharded_cluster_attention=OFF (shape cannot
+shard; GSPMD fallback)`` and trains on through the unsharded op
+(``core/graph_model.py``; a sequence that does not split P ways stays
+whole on every rank). NCCL needs a card a rank; several ranks share one
+card over gloo (through the host).
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch graphormer_slim --smoke --steps 20 --graph-nodes 96 \\
@@ -92,6 +95,12 @@ rank; several ranks share one card over gloo (through the host).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
       --smoke --steps 4 --seq 256 --batch 2 --mesh-model 2 --mesh-data 2 \\
       --backend gloo --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_2_7b \\
+      --smoke --steps 4 --seq 96 --batch 2 --mesh-model 2 --backend gloo \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gt --smoke \\
+      --task graph --graphs 8 --batch-graphs 4 --steps 4 --mesh-model 3 \\
+      --backend gloo --device cpu
 """
 
 from __future__ import annotations
@@ -108,6 +117,7 @@ from repro_torch.core.graph_model import GraphModel
 from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
 from repro_torch.launch import mesh as lmesh
 from repro_torch.models.api import lm_model_class
+from repro_torch.models.ssm import ssm_dims
 from repro_torch.parallel.cluster_parallel import can_shard_cluster
 from repro_torch.parallel.sharding import recipe_for
 from repro_torch.parallel.ulysses import can_ulysses
@@ -190,9 +200,6 @@ def main(argv=None):
         if args.backend is None:
             raise ValueError("--mesh-model/--mesh-data need --backend "
                              "(gloo or nccl)")
-        if cfg.family not in ("graph", "dense", "moe"):
-            raise ValueError(f"--arch {args.arch}: the {cfg.family} family "
-                             f"on a mesh is not ported (ROADMAP A8 part 3)")
         if not dist.is_initialized():
             if not lmesh.torchrun_env():
                 lmesh.spawn(main, world, backend=args.backend,
@@ -228,15 +235,9 @@ def main(argv=None):
         ok = args.mesh_model == 1 or can_shard_cluster(
             cfg.n_heads, cfg.kv_heads, lay.seq_len, args.mesh_model,
             lay.bq, lay.bk)
+        sca = "on" if ok else "OFF (shape cannot shard; GSPMD fallback)"
         say(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
-            f"recipe={recipe.name} "
-            f"sharded_cluster_attention={'on' if ok else 'OFF'}")
-        if not ok:
-            raise ValueError(
-                f"sharded_cluster_attention cannot shard H={cfg.n_heads} "
-                f"KV={cfg.kv_heads} S={lay.seq_len} bq={lay.bq} "
-                f"bk={lay.bk} {args.mesh_model} ways, and the port has no "
-                f"unsharded fallback on a mesh (ROADMAP A8 part 3)")
+            f"recipe={recipe.name} sharded_cluster_attention={sca}")
 
     tc = TrainerConfig(steps=args.steps, lr=args.lr,
                        warmup=max(2, args.steps // 10),
@@ -305,7 +306,7 @@ def _lm_main(args, cfg):
                                     data=args.mesh_data)
         recipe = recipe_for(
             ShapeConfig("train", "train", args.seq, args.batch), mesh)
-        if cfg.family == "moe" and args.mesh_model > 1:
+        if cfg.moe_experts and args.mesh_model > 1:
             # each rank holds its own experts
             kw["experts"] = (mesh.get_local_rank("model"), args.mesh_model)
     model = lm_model_class(cfg)(cfg, device=args.device, **kw)
@@ -316,13 +317,23 @@ def _lm_main(args, cfg):
         f"attn_backend={mixer} remat={cfg.remat} seq={args.seq} "
         f"batch={args.batch}")
     if mesh is not None:
-        mode = "ulysses" if recipe.ulysses and can_ulysses(
-            cfg.n_heads, cfg.kv_heads, args.seq, args.mesh_model) \
-            else "seqpar"
-        experts = "" if "experts" not in kw else \
-            f" experts_per_rank={cfg.moe_experts // args.mesh_model}"
+        parts = []
+        if cfg.n_heads:
+            parts.append("attention=" + ("ulysses" if recipe.ulysses and
+                                         can_ulysses(cfg.n_heads,
+                                                     cfg.kv_heads, args.seq,
+                                                     args.mesh_model)
+                                         else "seqpar"))
+        if cfg.family in ("ssm", "hybrid") and args.mesh_model > 1:
+            H = ssm_dims(cfg)[1]
+            parts.append(f"ssm_heads_per_rank={H // args.mesh_model}"
+                         if H % args.mesh_model == 0 else
+                         "ssm=whole (heads cannot split)")
+        if "experts" in kw:
+            parts.append(f"experts_per_rank="
+                         f"{cfg.moe_experts // args.mesh_model}")
         say(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
-            f"recipe={recipe.name} attention={mode}{experts}")
+            f"recipe={recipe.name} {' '.join(parts)}")
     dc = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch)
     tc = TrainerConfig(steps=args.steps, lr=args.lr,

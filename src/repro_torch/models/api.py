@@ -15,6 +15,11 @@ state is no positional KV cache, so the model has no paged serving
 path: its ``prefill_chunk``, ``paged_decode`` and ``paged_cache_defs``
 are None, as the reference's ``Model`` fields are.
 
+On a mesh (``parallel.axes.axis_rules``) each rank holds S/P tokens of
+the sequence and each block runs ``models/ssm.mamba_mixer``
+(its H/P SSM heads on the gathered sequence, or the whole block where
+the heads do not split); the loss is the mean over every rank's shard.
+
 ``lm_model_class`` picks the port's model class of a token-LM config by
 its family, as the reference's ``build`` does: ``SSMLMModel``,
 ``models/hybrid.HybridLMModel``, ``models/encdec.EncDecModel`` or
@@ -30,8 +35,9 @@ from torch import nn
 
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
-from repro_torch.models.ssm import (Mamba, mamba_apply, mamba_cache_defs,
-                                    mamba_decode, mamba_defs)
+from repro_torch.models.ssm import (Mamba, mamba_cache_defs, mamba_decode,
+                                    mamba_defs, mamba_mixer)
+from repro_torch.parallel import axes as pax
 
 
 def ssm_lm_defs(cfg) -> dict:
@@ -117,10 +123,9 @@ def lm_model_class(cfg) -> type:
             "encdec": EncDecModel}.get(cfg.family, LMModel)
 
 
-def _layer(layer: SSMLayer, h, cfg):
-    a, _ = mamba_apply(layer.mamba, cfg,
-                       L.rmsnorm(layer.norm, h, cfg.norm_eps))
-    return h + a
+def _layer(layer: SSMLayer, h, cfg, group):
+    return h + mamba_mixer(layer.mamba, cfg,
+                           L.rmsnorm(layer.norm, h, cfg.norm_eps), group)
 
 
 def ssm_lm_forward(model: SSMLMModel, batch: dict):
@@ -129,7 +134,8 @@ def ssm_lm_forward(model: SSMLMModel, batch: dict):
     cfg = model.cfg
     h = L.embed_tokens(model.embed, batch["tokens"], getattr(torch,
                                                              cfg.dtype))
-    body = L.maybe_remat(functools.partial(_layer, cfg=cfg), cfg)
+    body = L.maybe_remat(functools.partial(_layer, cfg=cfg,
+                                           group=pax.seq_group()), cfg)
     for layer in model.layers:
         h = body(layer, h)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps)
@@ -137,9 +143,11 @@ def ssm_lm_forward(model: SSMLMModel, batch: dict):
 
 def ssm_lm_loss(model: SSMLMModel, batch: dict):
     """Mean next-token cross-entropy over ``batch["labels"]`` (-1
-    ignored), in sequence chunks: ``(loss, {"xent": loss})``."""
+    ignored), in sequence chunks: ``(loss, {"xent": loss})``; on a mesh
+    the mean over every rank's shard."""
     h = ssm_lm_forward(model, batch)
-    loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"])
+    loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"],
+                                  group=pax.mesh_group())
     return loss, {"xent": loss}
 
 

@@ -23,6 +23,17 @@ precomputed frame embeddings ``batch["frames"]`` (B, Tf, D).
 * both stacks recompute their layers in the backward as ``cfg.remat``
   says (``layers.maybe_remat``).
 
+On a mesh (``parallel.axes.axis_rules``) the frames arrive whole on
+every rank, as the reference's ``batch_shardings`` gives them, and the
+encoder runs on this rank's S/P of them, its self-attention through
+``lm.sharded_attention_fn(causal=False)`` (non-causal Ulysses); its
+output is all-gathered once (``GatherSeq``, whose backward
+reduce-scatters), since every decoder layer's cross-attention takes the
+whole encoder sequence. The decoder holds its S/P tokens, its
+self-attention sharded as the LM's, and each rank's queries attend the
+whole cross k and v (non-causal: no offset). Positions are global, and
+the loss is the mean over every rank's shard.
+
 ``encdec_loss`` is the chunked cross-entropy (``{"xent"}``), named
 ``"sparse"`` as every family's primary loss is. Serving:
 ``encdec_prefill`` (the last token's logits of the full forward and an
@@ -45,6 +56,8 @@ from torch import nn
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel import collectives as C
 
 
 def _layer_defs(cfg, prefix: str, cross: bool) -> dict:
@@ -137,18 +150,29 @@ class EncDecModel(nn.Module):
 
 def encode(model: EncDecModel, frames, *, impl: str | None = None):
     """The encoder: ``frames`` (B, Tf, D) cast to the compute dtype,
-    through every encoder layer non-causal, then ``enc_norm``."""
+    through every encoder layer non-causal, then ``enc_norm``: (B, Tf, D).
+    On a mesh each rank encodes its Tf/P frames and the output is
+    all-gathered."""
     cfg = model.cfg
     h = frames.to(getattr(torch, cfg.dtype))
+    group = pax.seq_group()
+    if group is not None:
+        p, m = C.size(group), C.rank(group)
+        if h.shape[1] % p:
+            raise ValueError(f"{h.shape[1]} frames do not split {p} ways")
+        n = h.shape[1] // p
+        h = h[:, m * n:(m + 1) * n]
     Tf = h.shape[1]
+    off, attn = LM.offset_and_attention(model, Tf, group, impl, causal=False)
     enc = cfg.replace(causal=False)
     body = L.maybe_remat(functools.partial(
         LM._layer, kv=None, cfg=enc,
-        pos=LM._rotation(cfg, torch.arange(Tf, device=h.device)),
-        attn=LM.attention_fn(model, Tf, impl, causal=False)), cfg)
+        pos=LM._rotation(cfg, torch.arange(off, off + Tf, device=h.device)),
+        attn=attn), cfg)
     for layer in model.enc_layers:
         h, _ = body(layer, h)
-    return L.rmsnorm(model.enc_norm, h, cfg.norm_eps)
+    h = L.rmsnorm(model.enc_norm, h, cfg.norm_eps)
+    return h if group is None else C.GatherSeq.apply(h, group)
 
 
 def cross_kv(attn: L.Attention, enc_out):
@@ -184,10 +208,12 @@ def encdec_forward(model: EncDecModel, batch: dict, *,
     tokens = batch["tokens"]
     h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype), cfg)
     S = tokens.shape[1]
+    off, attn = LM.offset_and_attention(model, S, pax.seq_group(), impl)
     body = L.maybe_remat(functools.partial(
         _dec_layer, cfg=cfg,
-        pos=LM._rotation(cfg, torch.arange(S, device=tokens.device)),
-        attn=LM.attention_fn(model, S, impl)), cfg)
+        pos=LM._rotation(cfg, torch.arange(off, off + S,
+                                           device=tokens.device)),
+        attn=attn), cfg)
     for layer in model.dec_layers:
         h = body(layer, h, enc_out)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps)
@@ -198,7 +224,8 @@ def encdec_loss(model: EncDecModel, batch: dict, *,
     """Mean next-token cross-entropy over ``batch["labels"]`` (-1
     ignored), in sequence chunks: ``(loss, {"xent": loss})``."""
     h = encdec_forward(model, batch, impl=impl)
-    loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"])
+    loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"],
+                                  group=pax.mesh_group())
     return loss, {"xent": loss}
 
 

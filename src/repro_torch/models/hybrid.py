@@ -22,6 +22,15 @@ the reference's model calls its jnp one. Each period runs under the
 recomputation of ``cfg.remat`` (``layers.maybe_remat``), as the
 reference wraps its period body.
 
+On a mesh (``parallel.axes.axis_rules``) each rank holds S/P tokens of
+the sequence: the Mamba slots run ``models/ssm.mamba_mixer`` on the
+shard (the rank's SSM heads on the gathered sequence), the attention
+slot ``lm.sharded_attention_fn`` (Ulysses, or sequence-parallel
+attention), the MoE slots the expert-parallel path of
+``models/moe.py``; positions are global, and the loss is the mean over
+every rank's shard. ``experts=(m, P)`` makes the MoE slots hold only
+expert part m of P, as ``LMModel``'s do.
+
 Serving: ``hybrid_prefill`` returns the last token's logits of the full
 forward and no cache (the reference's ``_hybrid_prefill``);
 ``hybrid_decode_step`` advances one token through every slot over the
@@ -42,11 +51,13 @@ from torch import nn
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models.lm import (LMModel, _check_attn_backend, _rotation,
-                                   _sparse_mask, attention_fn, attn_decode)
+                                   _sparse_mask, attn_decode,
+                                   offset_and_attention)
 from repro_torch.models.moe import (MoE, moe_apply, moe_defs,
                                     routing_contexts)
-from repro_torch.models.ssm import (Mamba, mamba_apply, mamba_cache_defs,
-                                    mamba_decode, mamba_defs)
+from repro_torch.models.ssm import (Mamba, mamba_cache_defs, mamba_decode,
+                                    mamba_defs, mamba_mixer)
+from repro_torch.parallel import axes as pax
 
 
 def _period_pattern(cfg) -> list:
@@ -84,30 +95,35 @@ def hybrid_defs(cfg) -> dict:
 
 
 class Slot(nn.Module):
-    def __init__(self, cfg, mixer: str, ffn: str, *, device=None):
+    def __init__(self, cfg, mixer: str, ffn: str, *, device=None,
+                 experts=None):
         super().__init__()
         self.mixer_norm = L.RMSNorm(cfg.d_model, device=device)
         self.mixer = (L.Attention(cfg, device=device) if mixer == "attn"
                       else Mamba(cfg, device=device))
         self.ffn_norm = L.RMSNorm(cfg.d_model, device=device)
-        self.ffn = (MoE(cfg, device=device) if ffn == "moe"
+        self.ffn = (MoE(cfg, device=device, experts=experts) if ffn == "moe"
                     else L.MLP(cfg, device=device))
 
 
 class Period(nn.Module):
     """One period's slots, ``slot0`` .. ``slot<attn_every - 1>``."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, experts=None):
         super().__init__()
         for j, (mixer, ffn) in enumerate(_period_pattern(cfg)):
-            setattr(self, f"slot{j}", Slot(cfg, mixer, ffn, device=device))
+            setattr(self, f"slot{j}", Slot(cfg, mixer, ffn, device=device,
+                                           experts=experts))
 
 
 class HybridLMModel(nn.Module):
     """A Jamba-style hybrid LM with the reference's parameter names and
-    shapes. ``seed`` drives the port's own init."""
+    shapes. ``seed`` drives the port's own init. ``experts=(m, P)``: the
+    MoE slots hold only expert part m of P (``models/moe.py``), with the
+    same numbers as those rows of the whole model's init."""
 
-    def __init__(self, cfg, *, device="cuda", seed: int = 0):
+    def __init__(self, cfg, *, device="cuda", seed: int = 0,
+                 experts=None):
         super().__init__()
         if cfg.family != "hybrid":
             raise ValueError(f"HybridLMModel is the hybrid family, got "
@@ -121,7 +137,7 @@ class HybridLMModel(nn.Module):
         self.embed = L.Embedding(cfg, device=dev)
         self.final_norm = L.RMSNorm(cfg.d_model, device=dev)
         self.periods = nn.ModuleList(
-            Period(cfg, device=dev)
+            Period(cfg, device=dev, experts=experts)
             for _ in range(cfg.n_layers // cfg.attn_every))
         self.reset_parameters(seed)
         self._layouts = {}
@@ -160,8 +176,10 @@ class HybridLMModel(nn.Module):
                                  device=self.device)
 
 
-def _period(period: Period, h, cfg, pos, attn):
-    """One period's slots: ``(h, aux summed over its MoE slots)``."""
+def _period(period: Period, h, cfg, pos, attn, group):
+    """One period's slots: ``(h, aux summed over its MoE slots)``; ``h``
+    this rank's shard of a sequence sharded over ``group`` when it is not
+    None."""
     aux = torch.zeros((), device=h.device)
     for j, (mixer, ffn) in enumerate(_period_pattern(cfg)):
         slot = getattr(period, f"slot{j}")
@@ -170,7 +188,7 @@ def _period(period: Period, h, cfg, pos, attn):
             q, k, v = L.project_qkv(slot.mixer, cfg, a, pos)
             a = L.out_proj(slot.mixer, attn(q, k, v))
         else:
-            a, _ = mamba_apply(slot.mixer, cfg, a)
+            a = mamba_mixer(slot.mixer, cfg, a, group)
         h = h + a
         m = L.rmsnorm(slot.ffn_norm, h, cfg.norm_eps)
         if ffn == "moe":
@@ -192,9 +210,11 @@ def hybrid_forward(model: HybridLMModel, batch: dict, *,
     tokens = batch["tokens"]
     h = L.embed_tokens(model.embed, tokens, getattr(torch, cfg.dtype))
     S = tokens.shape[1]
-    pos = _rotation(cfg, torch.arange(S, device=tokens.device))
+    group = pax.seq_group()
+    off, attn = offset_and_attention(model, S, group, impl)
+    pos = _rotation(cfg, torch.arange(off, off + S, device=tokens.device))
     body = L.maybe_remat(functools.partial(
-        _period, cfg=cfg, pos=pos, attn=attention_fn(model, S, impl)), cfg,
+        _period, cfg=cfg, pos=pos, attn=attn, group=group), cfg,
         routing_contexts)
     aux = torch.zeros((), device=h.device)
     for period in model.periods:
@@ -210,7 +230,8 @@ def hybrid_loss(model: HybridLMModel, batch: dict, *, aux_coef: float = 0.01,
     ignored), plus ``aux_coef`` times the balance term: ``(loss, {"xent",
     "aux"})``."""
     h, aux = hybrid_forward(model, batch, impl=impl)
-    loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"])
+    loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"],
+                                  group=pax.mesh_group())
     return loss + aux_coef * aux, {"xent": loss, "aux": aux}
 
 

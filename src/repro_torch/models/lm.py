@@ -71,10 +71,10 @@ The hybrid is ``models/hybrid.py``'s model, the SSM ``models/api.py``'s
 and the encoder-decoder ``models/encdec.py``'s.
 
 Under a mesh (``parallel.axes.axis_rules``, as the Trainer runs a step
-with ``mesh=``) the dense and MoE families train sequence-sharded: each
-rank holds S/P contiguous tokens of the model group's sequence, RoPE at
-their global positions, and attention dispatches as the reference's
-``attn_apply`` does:
+with ``mesh=``) the dense, MoE and VLM families train sequence-sharded:
+each rank holds S/P contiguous positions of the model group's sequence,
+RoPE at their global positions, and attention dispatches as the
+reference's ``attn_apply`` does:
 
 * Ulysses (``parallel/ulysses.py``) when the recipe asks for it and the
   heads split over the group (``can_ulysses``): the all-to-all gives
@@ -84,11 +84,19 @@ their global positions, and attention dispatches as the reference's
   SmolLM's 9 heads two ways): the rank's queries against all-gathered
   k and v, causal at the queries' global offset, on the plain chunked
   attention. The cluster-sparse op takes no query offset, so that
-  combination raises, as do the SSM, hybrid, VLM and enc-dec families
-  on a mesh (ROADMAP A8 part 3).
+  combination raises: the reference's ``attn_apply`` cannot run it
+  either (it calls its sparse op with a ``q_offset`` keyword the op
+  does not take).
 
 The MoE FFN takes the expert-parallel path of ``models/moe.py``.
-``lm_loss`` is then the global mean over every rank's shard.
+``lm_loss`` is then the global mean over every rank's shard. The VLM's
+sequence is its Tp patches and then its T tokens, sharded as one: the
+batch's ``tokens`` and ``labels`` are those of the rank's S/P positions
+of the Tp + T, with placeholders (label -1) at patch positions
+(``tasks/base.BatchFnTask``), and a rank projects the patches of its
+positions below Tp and embeds the tokens of the rest; its loss counts
+the text positions by their labels. Sequence-sharded prefill
+(``return_kv`` on a mesh) raises: no reference entry point runs it.
 
 Serving on a mesh (``ServeEngine(mesh_model=P)``, under the "decode"
 recipe): the paged pool holds KV/P kv heads a rank, and each layer of
@@ -97,7 +105,11 @@ H/P query heads and KV/P kv heads from its slices of the (replicated)
 projection weights, attends over its own heads, and sums the output
 projection's partial products over the model group with one
 all-reduce; the MoE FFN takes the expert-parallel path on the whole
-batch, every rank routing every token.
+batch, every rank routing every token. Where the query or kv heads do
+not split P ways (SmolLM's 9 and 3 two ways) the pool holds every head
+on every rank and every rank computes every head, with no all-reduce:
+the reference's ``fit_spec`` rule, an axis that does not divide staying
+whole (``heads_split``).
 """
 
 from __future__ import annotations
@@ -316,30 +328,47 @@ def attention_fn(model, S: int, impl: str | None = None,
         chunk_k=cfg.attn_chunk_k)
 
 
-def sharded_attention_fn(model, S: int, group, impl: str | None = None):
+def sharded_attention_fn(model, S: int, group, impl: str | None = None,
+                         causal: bool | None = None):
     """``fn(q, k, v) -> o`` on this rank's sequence shards, of a sequence
     of ``S`` tokens in all sharded over ``group``: Ulysses around
     :func:`attention_fn` where the recipe asks for it and the heads
     split, else sequence-parallel chunked attention (the reference's
-    ``attn_apply`` on a mesh)."""
+    ``attn_apply`` on a mesh); causal as ``causal`` says (default
+    ``cfg.causal``; the encoder-decoder's encoder passes False)."""
     cfg = model.cfg
+    causal = cfg.causal if causal is None else causal
     p = C.size(group)
     recipe = pax.current()[0]
     if recipe.ulysses and can_ulysses(cfg.n_heads, cfg.kv_heads, S, p):
-        inner = attention_fn(model, S, impl)
+        inner = attention_fn(model, S, impl, causal)
         return lambda q, k, v: ulysses_attention(q, k, v, group=group,
                                                  attn_fn=inner)
     if cfg.attn_backend == "cluster_sparse" and S >= 2 * LM_BLOCK:
+        # the reference's seqpar branch calls its sparse op with a
+        # q_offset keyword the op does not take, so it cannot run this
         raise ValueError(
             f"{cfg.name}: H={cfg.n_heads} KV={cfg.kv_heads} cannot split "
             f"{p} ways for Ulysses, and the cluster-sparse op takes no "
-            f"query offset for sequence-parallel attention (S={S}; "
-            f"ROADMAP A8 part 3)")
+            f"query offset for sequence-parallel attention (S={S}); the "
+            f"reference cannot run this combination either")
     return lambda q, k, v: seqpar_attention(
         q, k, v, group=group, attn_fn=lambda a, b, c, off:
-        L.chunked_attention(a, b, c, causal=cfg.causal,
+        L.chunked_attention(a, b, c, causal=causal,
                             chunk_q=cfg.attn_chunk_q,
                             chunk_k=cfg.attn_chunk_k, q_offset=off))
+
+
+def offset_and_attention(model, S: int, group, impl: str | None = None,
+                         causal: bool | None = None):
+    """``(offset, fn)`` for this rank's ``S`` positions: the global
+    position of its first and its attention (:func:`attention_fn` without
+    ``group``; with it, the shard's offset and :func:`sharded_attention_fn`
+    over the whole sequence of ``S`` times the group's size)."""
+    if group is None:
+        return 0, attention_fn(model, S, impl, causal)
+    return C.rank(group) * S, sharded_attention_fn(
+        model, S * C.size(group), group, impl, causal)
 
 
 def ffn(layer, cfg, m):
@@ -389,15 +418,25 @@ def _all_layers(model: LMModel, cache: dict):
         yield (layer, *_stacked_kv(cache, i))
 
 
-def _embed_inputs(model: LMModel, batch: dict, dtype):
+def _embed_inputs(model: LMModel, batch: dict, dtype, group=None):
     """The token embeddings, and for the VLM the projected patches before
     them: (B, Tp + T, D) in ``dtype``. The patches are cast to ``dtype``
-    and projected there, as in the reference."""
-    h = L.embed_tokens(model.embed, batch["tokens"], dtype)
-    if model.cfg.family == "vlm":
-        patches = batch["patches"].to(dtype)
-        h = torch.cat([patches @ model.frontend_proj.w.to(dtype), h], 1)
-    return h
+    and projected there, as in the reference. With ``group`` (the
+    sequence sharded over it) the VLM's ``tokens`` are this rank's
+    positions of the Tp + T (``tasks/base.BatchFnTask``): the positions
+    below Tp take their projected patches, the others their tokens."""
+    tokens = batch["tokens"]
+    if model.cfg.family != "vlm":
+        return L.embed_tokens(model.embed, tokens, dtype)
+    patches = batch["patches"]
+    if group is not None:
+        n = tokens.shape[1]
+        lo = C.rank(group) * n
+        npatch = min(max(patches.shape[1] - lo, 0), n)
+        patches, tokens = patches[:, lo:lo + npatch], tokens[:, npatch:]
+    h = L.embed_tokens(model.embed, tokens, dtype)
+    proj = patches.to(dtype) @ model.frontend_proj.w.to(dtype)
+    return torch.cat([proj, h], 1)
 
 
 def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
@@ -413,20 +452,15 @@ def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
     as the reference's do."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
-    h = _embed_inputs(model, batch, dtype)
+    group = pax.seq_group()
+    if group is not None and return_kv:
+        raise ValueError(
+            f"{cfg.name}: sequence-sharded prefill is not run by any entry "
+            f"point, here or in the reference; ServeEngine serves on a "
+            f"mesh by heads, through the paged path")
+    h = _embed_inputs(model, batch, dtype, group)
     B, S = h.shape[:2]
-    group = pax.model_group()
-    if group is None:
-        off, attn = 0, attention_fn(model, S, impl)
-    else:
-        if cfg.family not in ("dense", "moe") or return_kv:
-            raise ValueError(
-                f"{cfg.name}: sequence-sharded {cfg.family} "
-                f"{'prefill' if return_kv else 'training'} is not ported "
-                f"(ROADMAP A8 part 3); the dense and MoE families train "
-                f"on a mesh, and ServeEngine serves them on one")
-        off = C.rank(group) * S
-        attn = sharded_attention_fn(model, S * C.size(group), group, impl)
+    off, attn = offset_and_attention(model, S, group, impl)
     # RoPE at the tokens' global positions
     pos = _rotation(cfg, torch.arange(off, off + S, device=h.device))
     layer_fn = functools.partial(_layer, cfg=cfg, pos=pos, attn=attn)
@@ -455,7 +489,8 @@ def lm_loss(model: LMModel, batch: dict, *, aux_coef: float = 0.01,
     sequence chunks without the full logits: ``(loss, {"xent": loss,
     "aux": aux})``."""
     h, aux = lm_forward(model, batch, impl=impl)
-    if model.cfg.family == "vlm":
+    if model.cfg.family == "vlm" and pax.seq_group() is None:
+        # sharded, the labels at patch positions are -1 instead
         h = h[:, batch["patches"].shape[1]:]
     loss = L.chunked_softmax_xent(model.embed, model.cfg, h, batch["labels"],
                                   group=pax.mesh_group())
@@ -583,6 +618,13 @@ def _pool_scatter(pk, pv, k_rows, v_rows, flat):
     pv.view(NB * page, KV, Dh).index_copy_(0, flat, v_rows.to(pv.dtype))
 
 
+def heads_split(cfg, p: int) -> bool:
+    """Whether a serving mesh of ``p`` ranks splits the attention heads:
+    the query and the kv heads both divide ``p`` (else every rank holds
+    and computes them all)."""
+    return cfg.n_heads % p == 0 and cfg.kv_heads % p == 0
+
+
 def _rank_heads(attn: L.Attention, cfg, group):
     """The attention weights of this rank's heads on a serving mesh: its
     KV/P kv heads and the H/P query heads that read them (views of the
@@ -603,9 +645,12 @@ def _layer_paged(layer: LMLayer, h, cfg, pk, pv, rot, flat, block_tables,
     k/v rows land in the pool first, then the queries attend over each
     request's logical cache through its block table under ``mask``. On
     a serving mesh, over this rank's heads, the output projection's
-    partial products summed over the model group."""
+    partial products summed over the model group (every head, and no
+    sum, where the heads do not split)."""
     a = L.rmsnorm(layer.attn_norm, h, cfg.norm_eps)
     group = pax.model_group()
+    if group is not None and not heads_split(cfg, C.size(group)):
+        group = None            # every head on every rank
     w = layer.attn if group is None else _rank_heads(layer.attn, cfg, group)
     q, k, v = L.project_qkv(w, cfg, a, rot)
     _pool_scatter(pk, pv, k.flatten(0, 1), v.flatten(0, 1), flat)

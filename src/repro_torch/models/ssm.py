@@ -14,6 +14,17 @@ recurrence (``ssd_decode_step``), over the caches of
 
 Per-head layout: x (B,S,H,dh), dt (B,S,H), a (H,), b/c shared across heads
 (single group): (B,S,N).
+
+On a sequence shard (``mamba_apply_sharded``, the reference's "train"
+recipe: the sequence whole inside the mixer, ``inner`` on "model"): the
+residual's sequence is all-gathered; rank m takes its H/P SSM heads,
+``in_proj``'s z, x and dt columns of them and B and C whole, the causal
+conv over its channels, the plain ``ssd_chunked`` over its heads and the
+gated RMSNorm with its sum of squares summed over the group (the norm
+is over the whole ``d_inner``); ``out_proj``'s rows of its channels give
+a partial product, reduce-scattered back to the rank's shard. Where the
+heads do not split P ways every rank runs the whole mixer on the
+gathered sequence and keeps its own rows (the ``fit_spec`` rule).
 """
 
 from __future__ import annotations
@@ -21,6 +32,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.parallel import collectives as C
 
 F32 = torch.float32
 
@@ -173,6 +186,71 @@ def mamba_apply(p: Mamba, cfg, h):
     y = (y32 * torch.rsqrt(y32.square().mean(-1, keepdim=True)
                            + cfg.norm_eps) * p.norm.float()).to(dt_)
     return y @ p.out_proj.to(dt_), final
+
+
+def _mamba_heads(p: Mamba, cfg, h, m: int, parts: int, group):
+    """Rank m's part of the Mamba2 block over the whole sequence h
+    (B, S, D): its ``H / parts`` SSM heads and their ``d_inner / parts``
+    channels, B and C whole; returns its partial output (B, S, D) (the
+    sum over the ranks is :func:`mamba_apply`'s)."""
+    d_inner, H, dh, N = ssm_dims(cfg)
+    hl = H // parts
+    dl = hl * dh
+    h0, d0 = m * hl, m * dl
+    dt_ = h.dtype
+    w = p.in_proj
+    cols = torch.cat([w[:, d0:d0 + dl],                       # z
+                      w[:, d_inner + d0:d_inner + d0 + dl],   # x
+                      w[:, 2 * d_inner:2 * d_inner + 2 * N],  # B, C
+                      w[:, 2 * d_inner + 2 * N + h0:
+                        2 * d_inner + 2 * N + h0 + hl]], 1)   # dt
+    z, xi, b, c, dtp = torch.split(h @ cols.to(dt_), [dl, dl, N, N, hl],
+                                   dim=-1)
+    chans = lambda t: torch.cat([t[..., d0:d0 + dl],  # noqa: E731
+                                 t[..., d_inner:]], -1)
+    xbc = torch.cat([xi, b, c], dim=-1)
+    xbc = F.silu(_causal_conv(xbc, chans(p.conv_w).to(dt_),
+                              chans(p.conv_b).to(dt_)).float()).to(dt_)
+    xi, b, c = torch.split(xbc, [dl, N, N], dim=-1)
+    dt = F.softplus(dtp.float() + p.dt_bias[h0:h0 + hl].float())
+    a = -torch.exp(p.a_log[h0:h0 + hl].float())
+    B, S = h.shape[:2]
+    xh = xi.reshape(B, S, hl, dh)
+    y, _ = ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk)
+    y = y + xh * p.d_skip[h0:h0 + hl].to(dt_)[None, None, :, None]
+    y = y.reshape(B, S, dl) * F.silu(z.float()).to(dt_)
+    y32 = y.float()
+    # the gated RMSNorm normalises over the whole d_inner
+    ss = C.AllReduce.apply(y32.square().sum(-1, keepdim=True), group)
+    y = (y32 * torch.rsqrt(ss / d_inner + cfg.norm_eps)
+         * p.norm[d0:d0 + dl].float()).to(dt_)
+    return y @ p.out_proj[d0:d0 + dl].to(dt_)
+
+
+def mamba_apply_sharded(p: Mamba, cfg, h, group):
+    """The Mamba2 block on this rank's sequence shard h (B, S/P, D) of a
+    sequence sharded over ``group``: -> this rank's shard of the output
+    (B, S/P, D). The sequence is all-gathered (``GatherSeq``, whose
+    backward reduce-scatters); with the SSM heads split P ways the rank
+    runs its heads (:func:`_mamba_heads`) and the partial outputs are
+    reduce-scattered (``ScatterSeq``), else it runs the whole block and
+    keeps its rows."""
+    parts, m = C.size(group), C.rank(group)
+    hf = C.GatherSeq.apply(h, group)
+    if ssm_dims(cfg)[1] % parts == 0:
+        return C.ScatterSeq.apply(_mamba_heads(p, cfg, hf, m, parts, group),
+                                  group)
+    n = h.shape[1]
+    return mamba_apply(p, cfg, hf)[0][:, m * n:(m + 1) * n]
+
+
+def mamba_mixer(p: Mamba, cfg, h, group=None):
+    """The block's output alone: :func:`mamba_apply`'s, or with ``group``
+    (h this rank's shard of a sequence sharded over it)
+    :func:`mamba_apply_sharded`'s."""
+    if group is None:
+        return mamba_apply(p, cfg, h)[0]
+    return mamba_apply_sharded(p, cfg, h, group)
 
 
 def mamba_decode(p: Mamba, cfg, h, cache: dict):

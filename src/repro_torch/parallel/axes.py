@@ -14,8 +14,13 @@ raises on a mismatch. Outside any context it is the identity, so the
 same model code runs on one device.
 
 ``model_group()`` is the context mesh's "model" process group (None
-outside a context or on a size-1 axis): the model code's one question
-is whether its sequence is sharded, and over which group.
+outside a context or on a size-1 axis): the group a serving mesh splits
+heads over and expert parallelism splits experts over. ``seq_group()``
+is that group when the recipe also shards the sequence over it
+("seq_outer" on "model"): the model code's question of whether its
+sequence is sharded, and over which group. A recipe whose sequence
+cannot split keeps it whole (``parallel.sharding.fit_sequence``), and
+every rank then runs the whole sequence.
 ``mesh_group()`` spans every rank of the mesh: a loss is the mean over
 all of their shards.
 """
@@ -110,6 +115,15 @@ def model_group():
     if ctx is None or mesh_shape(ctx[1]).get("model", 1) <= 1:
         return None
     return ctx[1].get_group("model")
+
+
+def seq_group():
+    """The group this rank's sequence is a shard over: the "model" group
+    when the context's recipe maps "seq_outer" onto it, else None."""
+    ctx = current()
+    if ctx is None or ctx[0].acts.get("seq_outer") != "model":
+        return None
+    return model_group()
 
 
 def mesh_group():

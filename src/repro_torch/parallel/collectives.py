@@ -6,7 +6,7 @@ version the port runs on: ``dist.all_to_all_single`` (equal splits),
 ``dist.all_reduce`` and ``dist.broadcast``; the port makes no
 point-to-point call. The all-gather and the reduce-scatter
 (``GatherSeq``, ``ScatterSeq``: ``seqpar_attention``, the MoE's expert
-parallelism) are all-to-alls too: an all-gather is an all-to-all of the
+parallelism, the Mamba2 mixer on a sequence shard) are all-to-alls too: an all-gather is an all-to-all of the
 local chunk repeated P times, a reduce-scatter an all-to-all of the P
 chunks summed on arrival. The pipeline's stage-to-stage shift
 (``parallel/pipeline.py``) is an all-to-all whose one non-zero chunk
@@ -112,6 +112,24 @@ class SumAcross(torch.autograd.Function):
         return g, None
 
 
+class AllReduce(torch.autograd.Function):
+    """The sum of ``x`` over ``group`` in the forward and of the gradient
+    in the backward (the reference's ``psum``). For a partial sum that
+    every rank goes on to use in its own part of the computation, such
+    as the Mamba2 mixer's gated-norm sum of squares over its channels:
+    the loss depends on the total through every rank's part, so each
+    rank's gradient of it is the sum over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
 class GatherSeq(torch.autograd.Function):
     """All-gather of ``x`` (B, S/P, ...) along dim 1 into (B, S, ...), the
     ranks' shards in rank order; the backward is the reduce-scatter of
@@ -142,6 +160,13 @@ def _reduce_scatter_seq(x, group, kind):
         raise ValueError(f"a sequence of {S} does not split {p} ways")
     parts = x.reshape(B, p, S // p, *x.shape[2:]).movedim(1, 0)
     return all_to_all(parts, group, kind=kind).sum(0)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather of ``x`` (n, ...) along dim 0 into (P n, ...), the ranks'
+    rows in rank order (no autograd): the whole of a tensor each rank of
+    ``group`` holds a part of."""
+    return _gather_seq(x.unsqueeze(0), group, "all_gather")[0]
 
 
 class ScatterSeq(torch.autograd.Function):

@@ -119,3 +119,20 @@ def recipe_for(shape_cfg, mesh, *, ulysses: bool | None = None) -> Recipe:
         acts=_acts(kind, multi_pod),
         ulysses=ulysses,
     )
+
+
+def fit_sequence(recipe: Recipe, mesh, seq_len: int) -> Recipe:
+    """``recipe`` with the sequence kept whole ("seq" and "seq_outer"
+    mapped onto no mesh axis) when ``seq_len`` does not split over the
+    mesh axes "seq_outer" maps to: the reference's ``fit_spec`` rule,
+    under which GSPMD then runs every op on the whole sequence. Any
+    other recipe is returned as it is."""
+    size = 1
+    names = recipe.acts.get("seq_outer") or ()
+    for n in (names,) if isinstance(names, str) else names:
+        size *= mesh_shape(mesh).get(n, 1)
+    if size <= 1 or seq_len % size == 0:
+        return recipe
+    return recipe.replace(name=recipe.name + "_seq_whole",
+                          acts={**recipe.acts, "seq": None,
+                                "seq_outer": None})

@@ -51,9 +51,11 @@ from ``parallel/sharding.recipe_for``; one process a rank, every rank
 running this loop) the task hands each rank its shard of the batch and
 every variant's loss runs under ``parallel.axes.axis_rules``, which
 shards the sequence over "model" (``core/graph_model.py``,
-``models/lm.py``). Parameters are replicated (``recipe.params`` is not
-applied, ROADMAP A8 part 3), apart from the MoE's expert stacks of a
-model built with ``experts=(m, P)``, which hold rank m's experts only.
+``models/lm.py``). Parameters are replicated (``recipe.params`` is kept
+as data, as the reference's Trainer keeps it: its parameters and
+moments are initialised without a sharding), apart from the MoE's
+expert stacks of a model built with ``experts=(m, P)``, which hold
+rank m's experts only.
 A variant's loss is the mean over every rank's tokens (its numerator
 and count summed over the mesh; a batch the data axis cannot split is
 counted once a data group, which leaves the mean as it is), and each
@@ -61,8 +63,15 @@ rank backpropagates its own share of it, so one all-reduce that sums
 the gradients over every rank gives the gradient of the global mean:
 summed over the model group, averaged over the data groups. The expert
 stacks' gradients are summed over the data group only (the model group
-holds other experts); such a model takes no checkpoints (its whole
-stacks live on no rank). The non-finite guard's flag and a SIGTERM are
+holds other experts). Its checkpoints hold the whole stacks: every rank
+joins an all-gather of the stacks and of their moments over the model
+group and rank 0 writes the tree a P = 1 run of the same parameters
+would write (an int8 moment's blocks put back in the whole leaf's
+order; a part must fill whole 256-blocks, which is checked), so either
+package, and a run on any mesh, resumes from it; a restore takes each
+rank's E/P rows (blocks) of them. A crash save of such a model writes
+its rescue copy only (the gather needs every rank). The non-finite
+guard's flag and a SIGTERM are
 all-reduced, so every rank skips or stops together; rank 0 writes every
 checkpoint, every rank restores (a rollback waits for rank 0's writes
 first). The checkpoints hold whole tensors, so a run resumes on another
@@ -87,7 +96,7 @@ from repro_torch.ckpt.checkpoint import (CheckpointCorrupt, Checkpointer,
                                          snapshot)
 from repro_torch.convert import (insert, leaf_groups, lookup,
                                  params_from_jax, params_to_jax)
-from repro_torch.optim.adamw import AdamW, warmup_cosine
+from repro_torch.optim.adamw import Q_BLOCK, AdamW, warmup_cosine
 from repro_torch.parallel import axes as pax
 from repro_torch.parallel import collectives as C
 from repro_torch.resilience.faults import FaultPlan, Preempted
@@ -178,16 +187,23 @@ class Trainer:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         # the expert stacks holding one rank's experts: reduced over the
-        # data group alone
+        # data group alone, gathered over the model group for a checkpoint
         self._parted = [hasattr(p, "expert_part") for p in self.params]
-        if any(self._parted) and (mesh is None or cfg.ckpt_dir):
+        if any(self._parted) and mesh is None:
             raise ValueError(
                 "a model holding part of its experts trains on the mesh "
-                "whose model axis it was built for, without checkpoints "
-                "(the whole expert stacks live on no rank; ROADMAP A8 "
-                "part 3)")
+                "whose model axis it was built for")
         # the reference's parameter leaves: the unit of an int8 moment
         self.leaves = leaf_groups(self.names)
+        if cfg.state_dtype == "int8":
+            for leaf, idx in self.leaves:
+                if self._parted[idx[0]] and \
+                        self.params[idx[0]].numel() % Q_BLOCK:
+                    raise ValueError(
+                        f"{leaf}: an expert part of "
+                        f"{self.params[idx[0]].numel()} elements is no "
+                        f"whole number of {Q_BLOCK}-blocks, so its int8 "
+                        f"moments cannot take the blocks of the whole leaf")
         self.opt = AdamW(self.params,
                          lr=warmup_cosine(cfg.lr, cfg.warmup, cfg.steps),
                          weight_decay=cfg.weight_decay,
@@ -328,13 +344,64 @@ class Trainer:
                         for k in ("q", "s")})
         return out
 
+    def _whole(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Parameter ``i``'s tensor ``t`` (the parameter or a moment of it)
+        whole: gathered over the model group where it is an expert part."""
+        if not self._parted[i]:
+            return t
+        return C.gather_rows(t, self.mesh.get_group("model"))
+
+    def _part(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`_whole`: this rank's rows of ``t``."""
+        if not self._parted[i]:
+            return t
+        m, parts = self.params[i].expert_part
+        n = t.shape[0] // parts
+        return t[m * n:(m + 1) * n]
+
+    def _whole_blocks(self, k: int, qs: dict) -> dict:
+        """Leaf ``k``'s int8 moment whole: where its layers hold expert
+        parts, every rank's blocks gathered and put in the whole leaf's
+        order (each layer's parts in rank order)."""
+        idx = self.leaves[k][1]
+        if not self._parted[idx[0]]:
+            return qs
+        group = self.mesh.get_group("model")
+        out = {}
+        for key, t in qs.items():
+            got = C.gather_rows(t, group)               # (P L nb, ...)
+            parts = C.size(group)
+            out[key] = got.view(parts, len(idx), -1, t.shape[-1]).transpose(
+                0, 1).reshape(-1, t.shape[-1])
+        return out
+
+    def _part_blocks(self, k: int, qs: dict) -> dict:
+        """The inverse of :meth:`_whole_blocks`: this rank's blocks of a
+        whole leaf's int8 moment."""
+        idx = self.leaves[k][1]
+        if not self._parted[idx[0]]:
+            return qs
+        m, parts = self.params[idx[0]].expert_part
+        return {key: t.reshape(len(idx), parts, -1, t.shape[-1])[:, m]
+                .reshape(-1, t.shape[-1]) for key, t in qs.items()}
+
     def state_tree(self) -> dict:
         """The reference's state tree over the live tensors (parameters
-        and moments in the reference's layout, counters as 0-d int32)."""
+        and moments in the reference's layout, counters as 0-d int32).
+        With expert parts, whole: a collective that every rank of the
+        mesh must join."""
         opt = self.opt.state_dict()
-        return {"params": params_to_jax(dict(zip(self.names, self.params))),
-                "opt": {"m": self._moments_tree(opt["m"]),
-                        "v": self._moments_tree(opt["v"]),
+        whole = lambda ts: [self._whole(i, t)  # noqa: E731
+                            for i, t in enumerate(ts)]
+        if self.opt.state_dtype == "int8":
+            m, v = ([self._whole_blocks(k, qs) for k, qs in enumerate(x)]
+                    for x in (opt["m"], opt["v"]))
+        else:
+            m, v = whole(opt["m"]), whole(opt["v"])
+        return {"params": params_to_jax(dict(zip(self.names,
+                                                 whole(self.params)))),
+                "opt": {"m": self._moments_tree(m),
+                        "v": self._moments_tree(v),
                         "step": np.asarray(opt["step"], np.int32)},
                 "step": np.asarray(self.steps_done, np.int32),
                 "bad": np.asarray(self.bad, np.int32)}
@@ -349,8 +416,14 @@ class Trainer:
             raise ValueError(
                 f"checkpoint names {sorted(set(got) ^ set(self.names))} "
                 f"differ from the model's")
-        params = [got[n] for n in self.names]
+        params = [self._part(i, got[n]) for i, n in enumerate(self.names)]
         m, v = (self._moments_from(tree["opt"][k]) for k in ("m", "v"))
+        if self.opt.state_dtype == "int8":
+            m, v = ([self._part_blocks(k, qs) for k, qs in enumerate(x)]
+                    for x in (m, v))
+        else:
+            m, v = ([self._part(i, t) for i, t in enumerate(x)]
+                    for x in (m, v))
         # every shape before any copy: a mismatch leaves the state whole
         srcs = [params] if self.opt.state_dtype == "int8" else [params, m, v]
         for name, p, *got in zip(self.names, self.params, *srcs):
@@ -409,6 +482,18 @@ class Trainer:
         tree, step = got
         self._adopt(tree, step)
         return step
+
+    def _save(self, step: int, *, blocking: bool = False) -> None:
+        """Rank 0 writes a checkpoint of the live state at ``step`` (every
+        rank calls this: with expert parts the state is gathered
+        first)."""
+        if self.ckpt is None:
+            return
+        if self.writer:
+            self.ckpt.save(step, self.state_tree(), blocking=blocking,
+                           extra=self._ckpt_extra())
+        elif any(self._parted):
+            self.state_tree()        # this rank's part of the gather
 
     def _ckpt_extra(self) -> dict | None:
         sd = self.task.state_dict()
@@ -490,17 +575,14 @@ class Trainer:
                         (step + 1) % cfg.rescue_every == 0:
                     self.rescue_copy()
                 # the final blocking save below covers step == cfg.steps
-                if self.ckpt is not None and self.writer and \
+                if self.ckpt is not None and \
                         (step + 1) % cfg.ckpt_every == 0 and \
                         step + 1 != cfg.steps:
-                    self.ckpt.save(step + 1, self.state_tree(),
-                                   extra=self._ckpt_extra())
-                    self._maybe_corrupt(step + 1)
+                    self._save(step + 1)
+                    if self.writer:
+                        self._maybe_corrupt(step + 1)
                 if self._any_rank(self._preempted):
-                    if self.ckpt is not None and self.writer:
-                        self.ckpt.save(step + 1, self.state_tree(),
-                                       blocking=True,
-                                       extra=self._ckpt_extra())
+                    self._save(step + 1, blocking=True)
                     self._barrier()
                     return "preempted"
                 # escalation: the guard already skipped each bad update;
@@ -513,10 +595,10 @@ class Trainer:
                     epoch_losses, epoch_seconds = [], 0.0
                     continue
                 step += 1
-            if self.ckpt is not None and self.writer:
-                self.ckpt.save(cfg.steps, self.state_tree(), blocking=True,
-                               extra=self._ckpt_extra())
-                self._maybe_corrupt(cfg.steps)
+            if self.ckpt is not None:
+                self._save(cfg.steps, blocking=True)
+                if self.writer:
+                    self._maybe_corrupt(cfg.steps)
             self._barrier()
             return "done"
         except Exception as err:
@@ -605,11 +687,14 @@ class Trainer:
     def _crash_save(self) -> None:
         """Rescue checkpoint after an uncaught failure: the live state when
         it is whole, else the last rescue copy, else nothing (the restart
-        resumes from the last periodic checkpoint). Never torn state."""
+        resumes from the last periodic checkpoint). Never torn state. A
+        model holding expert parts writes its rescue copy only: gathering
+        its live stacks needs every rank, which a crash on one cannot
+        join."""
         if self.ckpt is None or not self.writer:
             return
         self.ckpt.wait()
-        if not self._torn:
+        if not self._torn and not any(self._parted):
             self.ckpt.save(self.steps_done, self.state_tree(), blocking=True,
                            extra=self._ckpt_extra())
         elif self._rescue is not None:

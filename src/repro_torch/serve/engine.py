@@ -50,7 +50,9 @@ initialised process group, ``launch/mesh.spawn`` or torchrun) both
 entry points run under the reference's "decode" recipe
 (``parallel.axes.axis_rules``): each rank's pool holds KV/P kv heads,
 its layers attend over its own heads and sum the output projection
-over the ranks, and the MoE FFN is expert-parallel with the
+over the ranks (where the heads do not split P ways, every rank holds
+and computes every head: the reference's ``fit_spec`` rule), and the
+MoE FFN is expert-parallel with the
 reference's capacity (``models/lm.py``, ``models/moe.py``). The
 reference has one scheduler; here every rank runs one, and they must
 agree: every scheduling decision (sheds, admissions, retirements) is a
@@ -74,6 +76,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models.lm import heads_split
 from repro_torch.parallel import axes as pax
 from repro_torch.parallel import collectives as C
 from repro_torch.serve.paged import BlockAllocator
@@ -193,8 +196,9 @@ class ServeEngine:
             # enough for every slot at full budget, + the scratch block
             num_blocks = self.B * self.nmax + 1
         self.allocator = BlockAllocator(num_blocks, self.page)
+        kv_parts = mesh_model if heads_split(self.cfg, mesh_model) else 1
         self.pool = model.paged_cache_defs(
-            num_blocks, self.page, kv_heads=self.cfg.kv_heads // mesh_model)
+            num_blocks, self.page, kv_heads=self.cfg.kv_heads // kv_parts)
         context = contextlib.nullcontext if self.mesh is None else (
             lambda: pax.axis_rules(self.recipe, self.mesh))
         self._prefill = _Program(model.prefill_chunk, context)
@@ -220,7 +224,8 @@ class ServeEngine:
     def _join_mesh(self, cfg, p: int, slots: int, max_len: int) -> None:
         """The (1, p) mesh over the initialised process group's p ranks and
         the reference's "decode" recipe for it; raises for a group of
-        another size and for heads or experts that do not split p ways."""
+        another size and for experts that do not split p ways. Heads that
+        do not split stay whole on every rank (``lm.heads_split``)."""
         from repro_torch.configs import ShapeConfig
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.parallel.sharding import recipe_for
@@ -229,12 +234,9 @@ class ServeEngine:
             raise RuntimeError(
                 f"mesh_model={p} needs an initialised process group of {p} "
                 f"ranks (launch/mesh.spawn or torchrun), one engine a rank")
-        for what, n in (("kv heads", cfg.kv_heads),
-                        ("query heads", cfg.n_heads),
-                        ("experts", cfg.moe_experts or p)):
-            if n % p:
-                raise ValueError(f"{cfg.name}: {n} {what} do not split over "
-                                 f"a {p}-way model axis")
+        if (cfg.moe_experts or p) % p:
+            raise ValueError(f"{cfg.name}: {cfg.moe_experts} experts do not "
+                             f"split over a {p}-way model axis")
         self.mesh = make_host_mesh(model=p)
         self.recipe = recipe_for(ShapeConfig("serve", "decode", max_len,
                                              slots), self.mesh)

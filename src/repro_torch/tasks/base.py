@@ -21,8 +21,11 @@ the sequence dim of the per-token arrays split over "model" (S/P
 contiguous tokens), the batch dim of every array over "data" where it
 divides (the per-graph layouts of packed mini-graphs follow their
 graphs); a task runs its own model calls (``eval``) inside
-:meth:`Task.context`. Every task of the port is ``shardable``; one that
-is not refuses a mesh.
+:meth:`Task.context`. A graph task whose sequence does not split over
+"model" keeps it whole on every rank (``parallel.sharding.fit_sequence``,
+the reference's ``fit_spec`` rule): ``seq_sharded`` is then False.
+Every task of the port is ``shardable``; one that is not refuses a
+mesh.
 """
 
 from __future__ import annotations
@@ -86,6 +89,15 @@ class Task:
         self.mesh, self.recipe = mesh, recipe
         return self
 
+    @property
+    def seq_sharded(self) -> bool:
+        """Whether this rank's batch holds a shard of the sequence: a mesh
+        whose recipe maps "seq_outer" onto a "model" axis of more than
+        one rank."""
+        return self.mesh is not None and \
+            self.recipe.acts.get("seq_outer") == "model" and \
+            pax.mesh_shape(self.mesh).get("model", 1) > 1
+
     def context(self):
         """The mesh's axis rules (``parallel.axes.axis_rules``) for a model
         call on this task's sharded batches; nothing without a mesh."""
@@ -133,7 +145,18 @@ class BatchFnTask(Task):
     arrays, e.g. ``data/lm_pipeline.lm_batch``) and the model's primary
     ("sparse") loss, as the reference's ``BatchFnTask``. Integer arrays
     reach the model's device as int64 (token ids, labels), float arrays
-    as they are."""
+    as they are.
+
+    On a mesh each array is cut as the reference's ``batch_shardings``
+    cuts it: ``patches`` and ``frames`` by batch over "data" only, whole
+    over "model"; every other array of two or more dims by batch over
+    "data" and by sequence over "model". The VLM's sequence is its Tp
+    patches and then its T tokens, so with ``patches`` in the batch and
+    a sharded sequence, ``tokens`` and ``labels`` are first put at their
+    positions in that sequence (Tp leading placeholders: token 0, label
+    -1) and then cut: a rank holds the tokens and labels of its S/P
+    positions of the Tp + T, and one whose positions are all patches
+    holds placeholders only."""
 
     name = "stream"
     shardable = True
@@ -142,9 +165,17 @@ class BatchFnTask(Task):
         self.batch_fn = batch_fn
 
     def batches(self, step: int) -> dict:
+        host = self.batch_fn(step)
+        tp = host["patches"].shape[1] \
+            if "patches" in host and self.seq_sharded else 0
         out = {}
-        for key, arr in self.batch_fn(step).items():
-            arr = shard_rows(arr, self.mesh, seq_dim=arr.ndim >= 2)
+        for key, arr in host.items():
+            if tp and key in ("tokens", "labels"):
+                fill = np.full((arr.shape[0], tp), 0 if key == "tokens"
+                               else -1, arr.dtype)
+                arr = np.concatenate([fill, arr], 1)
+            arr = shard_rows(arr, self.mesh, seq_dim=arr.ndim >= 2 and key
+                             not in ("patches", "frames"))
             x = torch.from_numpy(np.ascontiguousarray(arr))
             if not x.is_floating_point():
                 x = x.long()

@@ -17,7 +17,9 @@ re-reformed layout:
   arrays (``SEQ_KEYS``) and its data shard of every array, the
   per-graph layouts included (the layouts of a graph stay whole), cut
   on the host before the upload, so each rank uploads each shared
-  array's shard once; every rank feeds its AutoTuner rank 0's loss and
+  array's shard once (a sequence that does not split over "model" stays
+  whole on every rank, ``parallel.sharding.fit_sequence``); every rank
+  feeds its AutoTuner rank 0's loss and
   the slowest rank's epoch seconds, so every rank makes the same ladder
   moves.
 """
@@ -34,6 +36,7 @@ from repro_torch.core.auto_tuner import AutoTuner
 from repro_torch.core.graph_model import batch_to_torch
 from repro_torch.device import resolve
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import fit_sequence
 from repro_torch.tasks.base import Task, shard_rows
 
 # the batch arrays with a per-node sequence dim (dim 1), sharded on a
@@ -86,7 +89,12 @@ class ElasticTask(Task):
                                 for ps in self._preps.values() for p in ps)
 
     def prepare(self, model, mesh=None, recipe=None):
-        if mesh is not self.mesh:   # the cached uploads are another shard
+        if recipe is not None:
+            # a sequence that does not split over "model" stays whole on
+            # every rank (the rungs share one sequence length)
+            recipe = fit_sequence(recipe, mesh, self.layout.seq_len)
+        if mesh is not self.mesh or recipe is not self.recipe:
+            # the cached uploads are another shard
             self._batches_dev.clear()
             self._uploads.clear()
         return super().prepare(model, mesh, recipe)
@@ -96,7 +104,8 @@ class ElasticTask(Task):
         (all of it without a mesh)."""
         if self.mesh is None:
             return arr
-        return shard_rows(arr, self.mesh, seq_dim=key in SEQ_KEYS)
+        return shard_rows(arr, self.mesh,
+                          seq_dim=key in SEQ_KEYS and self.seq_sharded)
 
     def _upload(self, batch: dict, uploads: dict | None = None) -> dict:
         """``batch`` (host arrays) on the task's device, this rank's shard

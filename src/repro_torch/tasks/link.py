@@ -44,7 +44,7 @@ def link_loss(model, batch: dict, *, dense: bool = False,
     of the pairs."""
     h = graph_forward(model, batch, dense=dense, impl=impl)
     src, dst, y = batch["pair_src"], batch["pair_dst"], batch["pair_y"]
-    group = pax.model_group()
+    group = pax.seq_group()
     if group is not None:   # the whole sequence, this rank's 1/P pairs
         h = C.GatherSeq.apply(h, group)
         part = lambda t: t.tensor_split(C.size(group))[  # noqa: E731

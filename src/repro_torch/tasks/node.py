@@ -65,8 +65,8 @@ class NodeTask(ElasticTask):
         over every rank's shard, the same on every rank)."""
         b = dict(self.batches(0))
         b["labels"] = torch.from_numpy(shard_rows(
-            self._eval_labels, self.mesh).copy()).to(device=self.device,
-                                                     dtype=torch.long)
+            self._eval_labels, self.mesh, seq_dim=self.seq_sharded).copy()
+        ).to(device=self.device, dtype=torch.long)
         with self.context():
             _, metrics = model.loss_variants["sparse"](model, b)
         return {k: float(v) for k, v in metrics.items()}

@@ -381,12 +381,22 @@ def test_mesh_axis_size_matches_reference(multi_pod):
 
 def test_mesh_entry_points_refuse_what_they_cannot_run():
     """Without a process group there is no mesh; a mesh needs a recipe
-    and a backend; the SSM family on a mesh and a task without a mesh
-    form refuse one (ROADMAP A8 part 3)."""
+    and a backend; sequence-sharded prefill (``return_kv`` under a
+    sequence-sharding recipe, which no entry point runs here or in the
+    reference) and a task without a mesh form refuse one."""
+    from repro_torch.configs import get_smoke_config
     from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import train as train_cli
+    from repro_torch.models.lm import LMModel, lm_forward
+    from repro_torch.parallel.axes import axis_rules
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.tasks import Task
+
+    class Mesh:      # a (1, 2) mesh's shape; no group is ever reached
+        mesh_dim_names, shape = ("data", "model"), (1, 2)
+
+        def get_group(self, name):
+            return object()
 
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="process group"):
@@ -397,8 +407,11 @@ def test_mesh_entry_points_refuse_what_they_cannot_run():
             "--mesh-model", "2"]
     with pytest.raises(ValueError, match="--backend"):
         train_cli.main(argv)
-    with pytest.raises(ValueError, match="A8 part 3"):
-        train_cli.main(["--arch", "mamba2_2_7b", "--smoke", "--device",
-                        "cpu", "--mesh-model", "2", "--backend", "gloo"])
+    model = LMModel(get_smoke_config("qwen3_0_6b"), device="cpu")
+    recipe = tsh.recipe_for(ShapeConfig("t", "train", 8, 1), Mesh())
+    with axis_rules(recipe, Mesh()), \
+            pytest.raises(ValueError, match="sequence-sharded prefill"):
+        lm_forward(model, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                   return_kv=True)
     with pytest.raises(ValueError, match="no mesh form"):
         Task().prepare(None, {"model": 2}, object())

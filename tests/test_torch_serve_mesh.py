@@ -1,6 +1,7 @@
 """``ServeEngine`` on a mesh (``mesh_model=2``: the KV heads and the
-experts split over two ranks, ``launch/serve.py --mesh-model 2``)
-against the JAX package's engine on a 2-device mesh, on the CPU.
+experts split over two ranks, or every head on every rank where the
+heads do not split; ``launch/serve.py --mesh-model 2``) against the JAX
+package's engine on a 2-device mesh, on the CPU.
 
 The reference engine runs in a subprocess with 2 fake devices
 (``_subproc.run_code(..., devices=2)``) and writes its streams to a
@@ -13,7 +14,10 @@ as the reference's are) and the same seeded prompts.
   Qwen3-235B-A22B smoke (MoE, expert parallel at the reference's
   capacity, which drops pairs at a few decode slots): every rank's
   streams equal the reference engine's, both programs stay at one
-  signature each, and each rank's pool holds half the KV heads.
+  signature each, and each rank's pool holds half the KV heads;
+  SmolLM-135M smoke, whose 3 query and 3 kv heads do not split two
+  ways: the same, each rank's pool holding all 3 kv heads (the
+  reference's ``fit_spec`` keeps the axis whole).
 * Rank 0's schedule is the one every rank runs: with rank 1's clock
   1000 s ahead, requests whose deadline is 1000 s are still served in
   full on every rank (on its own clock rank 1 would shed them).
@@ -35,7 +39,8 @@ from repro_torch.convert import params_from_jax
 
 from test_torch_threads import worker_share
 
-ARCHS = {"qwen3_0_6b": True, "qwen3_moe_235b_a22b": False}  # -> sparse
+ARCHS = {"qwen3_0_6b": True, "qwen3_moe_235b_a22b": False,  # -> sparse
+         "smollm_135m": False}
 ENGINE = dict(batch_slots=4, page=8, chunk=8, max_len=64)
 PROMPT_LENS = (5, 12, 9, 20, 3, 15)
 NEW = 6
@@ -199,11 +204,14 @@ def runs(tmp_path_factory):
 def test_mesh_engine_streams_equal_reference_mesh_engine(runs, arch):
     want = runs["ref"][arch]
     assert len(want) == len(PROMPT_LENS)
+    from repro_torch.models.lm import heads_split
+
     cfg = get_smoke_config(arch)
     for r in runs["ranks"]:
         assert r[arch]["done"] == want
         assert r[arch]["programs"] == 2
-        assert r[arch]["pool_kv_heads"] == cfg.kv_heads // 2
+        assert r[arch]["pool_kv_heads"] == (
+            cfg.kv_heads // 2 if heads_split(cfg, 2) else cfg.kv_heads)
         # the MoE's every layer call went expert parallel, and dropped
         assert (r[arch]["ep_calls"] > 0) == (r[arch]["dropped"] > 0) == \
             bool(cfg.moe_experts)
