@@ -214,7 +214,9 @@ class Checkpointer:
         def background():
             try:
                 write()
-            except BaseException as e:  # handed to the caller by wait()
+            # not swallowed: wait() re-raises it in the caller's thread,
+            # so a failed async save never passes for a written one
+            except BaseException as e:  # repro-lint: disable=REP008
                 self._error = e
 
         self._thread = threading.Thread(target=background, daemon=True)

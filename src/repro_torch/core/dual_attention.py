@@ -6,15 +6,15 @@ the dense step's structural bias — the port of ``use_dense_step``,
 Sparse steps attend over the cluster-sparse layout (``kernels/ops.py``).
 Every ``period`` steps, or always when the sparse pattern failed the
 C1-C3 conditions, a dense step attends over all positions, biased where
-the sparse pattern defines structure and unbiased elsewhere.
+the sparse pattern defines structure and unbiased elsewhere. The dense
+bias's gradient is a sum by bucket (:func:`bucket_sums`), as is the
+sparse op's in its plain backward (``kernels/ref.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from repro_torch.kernels.ref import bucket_sums
 
 
 def use_dense_step(step: int, period: int, conditions_ok: bool) -> bool:
@@ -25,6 +25,22 @@ def use_dense_step(step: int, period: int, conditions_ok: bool) -> bool:
     if period <= 0:
         return False
     return step % period == 0
+
+
+def bucket_sums(x, buckets, nb: int):
+    """``(H, nb)`` fp32 sums of ``x`` ``(N, H, *r)`` by ``buckets``
+    ``(N, *r)``: column ``j`` sums the entries whose bucket is ``j``, the
+    last column also those above it (the kernels clip buckets to
+    ``nb - 1``); entries with a negative bucket count nowhere. One
+    reduction over ``x`` per bucket, deterministic, and no scatter of
+    millions of values onto ``nb`` slots."""
+    N, H = x.shape[:2]
+    xf = x.reshape(N, H, -1).float()
+    bf = buckets.reshape(N, -1)
+    cols = [torch.einsum("nhr,nr->h", xf,
+                         ((bf == j) if j < nb - 1 else (bf >= j)).float())
+            for j in range(nb)]
+    return torch.stack(cols, dim=1)
 
 
 def dense_buckets_from_layout(layout) -> np.ndarray:
@@ -48,7 +64,7 @@ def dense_buckets_from_layout(layout) -> np.ndarray:
 class _BucketGather(torch.autograd.Function):
     """``bias_table[h, bucket]`` where ``bucket >= 0``, 0 elsewhere. The
     backward sums the incoming ``(B, H, S, S)`` gradient per bucket
-    (``kernels/ref.bucket_sums``): autograd's own backward of the gather
+    (:func:`bucket_sums`): autograd's own backward of the gather
     scatters S*S values per head onto a handful of table entries, which
     serialises on the card."""
 

@@ -22,6 +22,15 @@ attention forwards:
 The kernels are compiled at first use (``kernels/build.py``: nvcc for
 ``sm_90a``, a plain C entry point, ``ctypes``).
 
+The schedule's rewrites are flags of these kernels, as of the reference's:
+``hoist_scale`` scales the fp32 q tile once before the product in the
+fp32 kernels; the bf16 kernels fold the scale with log2 e into their one
+fp32 ``exp2`` argument whatever the flag (a scaled q is no bf16 value),
+so both values launch the same code there. ``fuse_bias`` (biased only)
+hands the kernels ``ref.extend_bias_table``'s operand, one sentinel
+column wider, and they look the masked bucket -1 up in it instead of
+selecting the mask.
+
 The wrapper takes CUDA tensors only: it launches a kernel or raises.
 ``kernels/ops.py`` sends CPU tensors to the plain version
 (``kernels/ref.py``). Build and launch errors propagate: nothing falls
@@ -38,6 +47,7 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import CudaLibrary
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,21 +87,21 @@ def reset_count() -> None:
 def _bind(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_fwd.argtypes = (
-        [vp] * 8 + [i32] * 12 + [ctypes.c_float, vp])
+        [vp] * 8 + [i32] * 14 + [ctypes.c_float, vp])
     lib.cluster_attention_fwd.restype = i32
 
 
 def _bind_sm90(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_fwd_sm90.argtypes = (
-        [vp] * 12 + [i32] * 13 + [ctypes.c_float, vp])
+        [vp] * 12 + [i32] * 14 + [ctypes.c_float, vp])
     lib.cluster_attention_fwd_sm90.restype = i32
 
 
 def _bind_unbiased(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_fwd_unbiased.argtypes = (
-        [vp] * 6 + [i32] * 11 + [ctypes.c_float, vp])
+        [vp] * 6 + [i32] * 12 + [ctypes.c_float, vp])
     lib.cluster_attention_fwd_unbiased.restype = i32
 
 
@@ -315,20 +325,30 @@ def aligned(x):
 
 
 def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
-                          causal: bool = False, return_lse: bool = False):
+                          causal: bool = False, return_lse: bool = False,
+                          hoist_scale: bool = False,
+                          fuse_bias: bool = False):
     """Cluster-sparse attention forward on CUDA tensors (shape contract in
     ``kernels/ref.py``): launches the biased kernel of q's dtype (bf16:
     tensor cores, fp32: CUDA cores), or without buckets the unbiased
     one, or raises. ``block_idx`` entries are -1 or k-block
     ids below ``S // bk``, as the layout builders emit them; the kernels
     read whatever block an entry names, so the values are the caller's
-    contract (checking them would cost a device sync per call)."""
+    contract (checking them would cost a device sync per call). The same
+    holds for buckets: -1 or below ``n_buckets`` (``fuse_bias`` looks any
+    other negative or any bucket above up in the sentinel column, where
+    the select clips it onto the last column). ``hoist_scale`` and
+    ``fuse_bias`` are the schedule's rewrites (module docstring)."""
     check_args(q, k, v, block_idx, buckets, bias_table)
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"cluster_attention has no kernel for device {q.device}")
     if buckets is None:
-        return _fwd_unbiased(q, k, v, block_idx, causal, return_lse)
+        if fuse_bias:
+            raise ValueError("fuse_bias needs buckets: the unbiased op has "
+                             "no bias table to extend")
+        return _fwd_unbiased(q, k, v, block_idx, causal, return_lse,
+                             hoist_scale)
     if causal:
         raise ValueError("the bucketed cluster kernel has no causal mask "
                          "(masking lives in the buckets)")
@@ -342,7 +362,8 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
     plan = fwd_plan(block_idx, B) if sm90 else None
     q, k, v = aligned(q), aligned(k), aligned(v)
     block_idx, buckets = aligned(block_idx), aligned(buckets)
-    bias = bias_table.float().contiguous()
+    bias = _ref.extend_bias_table(bias_table) if fuse_bias \
+        else bias_table.float().contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -363,11 +384,13 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
                 *ptrs, _ptr(pieces), _ptr(splits), *outs, part_o.data_ptr(),
                 part_ml.data_ptr(), B, S, H, KV, Dh, nq, mb, bq, bk, nb,
                 int(block_idx.dim() == 3), len(pieces) if plan else 0,
-                len(splits) if plan else 0, Dh ** -0.5, stream)
+                len(splits) if plan else 0, int(fuse_bias), Dh ** -0.5,
+                stream)
         else:
             err = LIBRARY.lib().cluster_attention_fwd(
                 *ptrs, *outs, _DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, bq,
-                bk, nb, int(block_idx.dim() == 3), Dh ** -0.5, stream)
+                bk, nb, int(block_idx.dim() == 3), int(hoist_scale),
+                int(fuse_bias), Dh ** -0.5, stream)
     if err != 0:
         # e.g. 1 (invalid value): the tiles of bq, bk, Dh and n_buckets
         # (and, in bf16, the visit list of mb slots) need more shared
@@ -384,7 +407,7 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
     return (out, lse) if return_lse else out
 
 
-def _fwd_unbiased(q, k, v, block_idx, causal, return_lse):
+def _fwd_unbiased(q, k, v, block_idx, causal, return_lse, hoist_scale):
     check_unbiased_kernel(q, block_idx)
     B, S, H, Dh = q.shape
     KV = k.shape[2]
@@ -408,7 +431,7 @@ def _fwd_unbiased(q, k, v, block_idx, causal, return_lse):
         else:
             err = LIBRARY_UNBIASED.lib().cluster_attention_fwd_unbiased(
                 *ptrs, _DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, bq, bq,
-                int(causal), Dh ** -0.5, stream)
+                int(causal), int(hoist_scale), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_fwd_unbiased launch failed: "
                            f"CUDA error {err} (q {tuple(q.shape)}, k "

@@ -33,6 +33,12 @@ Around the launches, in plain PyTorch as the reference does it in jnp:
 biased dQ kernel's ``(B, H, nq, n_buckets)`` bucket partials into the
 ``bias_table`` gradient and the GQA group sum of the per-q-head dK/dV.
 
+The schedule's rewrites are flags of these kernels, as of the forward's
+(``cluster_attention``'s docstring): ``hoist_scale`` rebuilds the fp32
+scores from the scaled q tile, ``fuse_bias`` looks the masked bucket up
+in the sentinel column of ``ref.extend_bias_table``'s operand; the bias
+gradient keeps the table's width.
+
 The wrapper takes CUDA tensors only: it launches the kernels or raises.
 ``kernels/ops.py`` sends CPU tensors to the plain backward
 (``kernels/ref.py``).
@@ -76,34 +82,34 @@ def reset_count() -> None:
 def _bind(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_bwd_dq.argtypes = (
-        [vp] * 11 + [i32] * 12 + [ctypes.c_float, vp])
+        [vp] * 11 + [i32] * 14 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dq.restype = i32
     lib.cluster_attention_bwd_dkv.argtypes = (
-        [vp] * 11 + [i32] * 15 + [ctypes.c_float, vp])
+        [vp] * 11 + [i32] * 17 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dkv.restype = i32
 
 
 def _bind_dq_sm90(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_bwd_dq_sm90.argtypes = (
-        [vp] * 15 + [i32] * 13 + [ctypes.c_float, vp])
+        [vp] * 15 + [i32] * 14 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dq_sm90.restype = i32
 
 
 def _bind_dkv_sm90(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_bwd_dkv_sm90.argtypes = (
-        [vp] * 11 + [i32] * 14 + [ctypes.c_float, vp])
+        [vp] * 11 + [i32] * 15 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dkv_sm90.restype = i32
 
 
 def _bind_unbiased(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_bwd_dq_unbiased.argtypes = (
-        [vp] * 8 + [i32] * 11 + [ctypes.c_float, vp])
+        [vp] * 8 + [i32] * 12 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dq_unbiased.restype = i32
     lib.cluster_attention_bwd_dkv_unbiased.argtypes = (
-        [vp] * 9 + [i32] * 11 + [ctypes.c_float, vp])
+        [vp] * 9 + [i32] * 12 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dkv_unbiased.restype = i32
 
 
@@ -163,22 +169,26 @@ def check_block_idx_t(q, block_idx, buckets, block_idx_t):
                          f"{block_idx_t.dtype} {tuple(block_idx_t.shape)}")
 
 
-def _sizes(q, k, block_idx, buckets, bias):
+def _sizes(q, k, block_idx, buckets, bias, fuse_bias):
+    """The launch sizes; ``nb`` the table's width, one below the fused
+    operand's."""
     B, S, H, Dh = q.shape
     nq, mb = block_idx.shape[-2:]
     return B, S, H, k.shape[2], Dh, nq, mb, S // nq, buckets.shape[-1], \
-        bias.shape[1]
+        bias.shape[1] - int(fuse_bias)
 
 
-def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias):
+def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias, *,
+              hoist_scale: bool = False, fuse_bias: bool = False):
     """Launch the dQ kernel of q's dtype (bf16: tensor cores, fp32: CUDA
-    cores) on checked, aligned CUDA operands (``bias`` fp32, ``delta`` from
+    cores) on checked, aligned CUDA operands (``bias`` fp32, under
+    ``fuse_bias`` ``ref.extend_bias_table``'s; ``delta`` from
     ``ref.row_delta``); returns ``dq`` in q's dtype and the ``(B, H, nq,
-    n_buckets)`` fp32 bucket partials of ds. In bf16 the rows the
-    forward's plan cuts (``cluster_attention.fwd_plan``) run as pieces
-    whose fp32 partials a combine kernel sums."""
+    n_buckets)`` fp32 bucket partials of ds, at the table's width. In
+    bf16 the rows the forward's plan cuts (``cluster_attention.fwd_plan``)
+    run as pieces whose fp32 partials a combine kernel sums."""
     B, S, H, KV, Dh, nq, mb, bq, bk, nb = _sizes(q, k, block_idx, buckets,
-                                                 bias)
+                                                 bias, fuse_bias)
     dq = torch.empty_like(q)
     db_part = torch.empty((B, H, nq, nb), dtype=torch.float32,
                           device=q.device)
@@ -201,12 +211,14 @@ def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias):
                 db_part.data_ptr(), part_dq.data_ptr(), part_db.data_ptr(),
                 B, S, H, KV, Dh, nq, mb, bq, bk, nb,
                 int(block_idx.dim() == 3), len(pieces) if plan else 0,
-                len(splits) if plan else 0, Dh ** -0.5, stream)
+                len(splits) if plan else 0, int(fuse_bias), Dh ** -0.5,
+                stream)
         else:
             err = LIBRARY.lib().cluster_attention_bwd_dq(
                 *ptrs, dq.data_ptr(), db_part.data_ptr(),
                 _ca._DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, bq, bk, nb,
-                int(block_idx.dim() == 3), Dh ** -0.5, stream)
+                int(block_idx.dim() == 3), int(hoist_scale), int(fuse_bias),
+                Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd dQ launch failed: CUDA "
                            f"error {err} ({q.dtype}, bq={bq}, bk={bk}, "
@@ -222,13 +234,14 @@ def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias):
 
 
 def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
-               bias):
+               bias, *, hoist_scale: bool = False, fuse_bias: bool = False):
     """Launch the dK/dV kernel of q's dtype (bf16: tensor cores, fp32:
-    CUDA cores) on checked, aligned CUDA operands; returns per-q-head
-    ``(B, S, H, Dh)`` dk and dv in q's dtype. ``block_idx`` only lends
-    its shape (the buckets' ``nq``, ``mb``)."""
+    CUDA cores) on checked, aligned CUDA operands (``bias`` as for
+    :func:`dq_kernel`); returns per-q-head ``(B, S, H, Dh)`` dk and dv in
+    q's dtype. ``block_idx`` only lends its shape (the buckets' ``nq``,
+    ``mb``)."""
     B, S, H, KV, Dh, nq, mb, bq, bk, nb = _sizes(q, k, block_idx, buckets,
-                                                 bias)
+                                                 bias, fuse_bias)
     dkh = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     dvh = torch.empty_like(dkh)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -242,10 +255,11 @@ def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
     with torch.cuda.device(q.device):
         if sm90:
             err = LIBRARY_DKV_SM90.lib().cluster_attention_bwd_dkv_sm90(
-                *ptrs, *sizes, Dh ** -0.5, stream)
+                *ptrs, *sizes, int(fuse_bias), Dh ** -0.5, stream)
         else:
             err = LIBRARY.lib().cluster_attention_bwd_dkv(
-                *ptrs, _ca._DTYPES[q.dtype], *sizes, Dh ** -0.5, stream)
+                *ptrs, _ca._DTYPES[q.dtype], *sizes, int(hoist_scale),
+                int(fuse_bias), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd dK/dV launch failed: "
                            f"CUDA error {err} ({q.dtype}, bq={bq}, bk={bk}, "
@@ -261,10 +275,12 @@ def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
     return dkh, dvh
 
 
-def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal):
+def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal, *,
+                       hoist_scale: bool = False):
     """Launch the unbiased dQ kernel of q's dtype (bf16: tensor cores,
     fp32: CUDA cores) on checked, aligned CUDA operands; returns ``dq`` in
-    q's dtype."""
+    q's dtype. ``hoist_scale`` is the fp32 kernel's flag; the bf16 one
+    computes the same either way."""
     B, S, H, Dh = q.shape
     nq, mb = block_idx.shape[-2:]
     bq = S // nq
@@ -283,7 +299,7 @@ def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal):
         else:
             err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dq_unbiased(
                 *ptrs, _ca._DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nq, mb,
-                bq, bq, int(causal), Dh ** -0.5, stream)
+                bq, bq, int(causal), int(hoist_scale), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd unbiased dQ launch "
                            f"failed: CUDA error {err} ({q.dtype} q "
@@ -298,11 +314,12 @@ def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal):
 
 
 def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
-                        causal):
+                        causal, *, hoist_scale: bool = False):
     """Launch the unbiased dK/dV kernel of q's dtype (bf16: tensor cores,
     fp32: CUDA cores) on checked, aligned CUDA operands; returns
     per-q-head ``(B, S, H, Dh)`` dk and dv in q's dtype. ``block_idx``
-    only lends its shape (``bq``)."""
+    only lends its shape (``bq``); ``hoist_scale`` as for
+    :func:`dq_unbiased_kernel`."""
     B, S, H, Dh = q.shape
     bq = S // block_idx.shape[-2]
     nk, mt = block_idx_t.shape[-3:-1]
@@ -322,7 +339,7 @@ def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
         else:
             err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dkv_unbiased(
                 *ptrs, _ca._DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nk, mt,
-                bq, bq, int(causal), Dh ** -0.5, stream)
+                bq, bq, int(causal), int(hoist_scale), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd unbiased dK/dV launch "
                            f"failed: CUDA error {err} ({q.dtype} q "
@@ -338,12 +355,14 @@ def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
 
 def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
                           bias_table, block_idx_t=None, *,
-                          causal: bool = False):
+                          causal: bool = False, hoist_scale: bool = False,
+                          fuse_bias: bool = False):
     """Gradients ``(dq, dk, dv, dbias)`` of the cluster-sparse attention on
     CUDA tensors (shape contract in ``kernels/ref.py``): launches the dQ
     and dK/dV kernels, or raises. Without buckets the unbiased kernels run
     (``causal`` masks positionally) and ``dbias`` is None. ``out`` and
-    ``lse`` are the forward's output and logsumexp residual."""
+    ``lse`` are the forward's output and logsumexp residual, under the
+    same ``hoist_scale`` and ``fuse_bias`` (module docstring)."""
     check_args(q, k, v, dout, out, lse, block_idx, buckets, bias_table,
                block_idx_t)
     if q.device.type != "cuda":
@@ -353,6 +372,9 @@ def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
         raise ValueError("the bucketed cluster kernels have no causal mask "
                          "(masking lives in the buckets)")
     if buckets is None:
+        if fuse_bias:
+            raise ValueError("fuse_bias needs buckets: the unbiased op has "
+                             "no bias table to extend")
         _ca.check_unbiased_kernel(q, block_idx, block_idx_t,
                                   backward=True)
     else:
@@ -367,19 +389,23 @@ def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
         q, k, v, dout = (_ca.aligned(x) for x in (q, k, v, dout))
         lse, block_idx, block_idx_t = (
             x.contiguous() for x in (lse, block_idx, block_idx_t))
-        dq = dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal)
+        dq = dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal,
+                                hoist_scale=hoist_scale)
         dkh, dvh = dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx,
-                                       block_idx_t, causal)
+                                       block_idx_t, causal,
+                                       hoist_scale=hoist_scale)
         return (dq, _ref.group_sum(dkh, KV).to(k.dtype),
                 _ref.group_sum(dvh, KV).to(v.dtype), None)
     q, k, v, dout, lse, block_idx, block_idx_t, buckets = (
         _ca.aligned(x) for x in (q, k, v, dout, lse, block_idx, block_idx_t,
                                  buckets))
-    bias = bias_table.float().contiguous()
+    bias = _ref.extend_bias_table(bias_table) if fuse_bias \
+        else bias_table.float().contiguous()
+    flags = dict(hoist_scale=hoist_scale, fuse_bias=fuse_bias)
     dq, db_part = dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets,
-                            bias)
+                            bias, **flags)
     dkh, dvh = dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
-                          buckets, bias)
+                          buckets, bias, **flags)
     return (dq, _ref.group_sum(dkh, KV).to(k.dtype),
             _ref.group_sum(dvh, KV).to(v.dtype),
             db_part.sum(dim=(0, 2)).to(bias_table.dtype))

@@ -29,6 +29,14 @@
 // table is scaled by log2 e as it is staged, the q.k dot by scale *
 // log2 e, so one `exp2` per entry remains; lse leaves and enters in
 // natural units.
+//
+// The schedule's rewrites. `hoist_scale` needs no code here: a q tile
+// times Dh^-0.5 is no bf16 value, so the tensor cores could not take it,
+// and the scale already rides the one fp32 FMA of each score (folded
+// with log2 e into `scale2`); both values of the flag launch the same
+// kernels and compute the same thing. `fuse_bias` is the kernels' FUSE
+// template flag (their `fuse` argument picks the instantiation): the
+// table carries a sentinel column and the scores take `score2_fused`.
 
 #pragma once
 
@@ -347,6 +355,28 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ float score2(float dot, float scale2, int bkt,
                                         const float* bias2, int nb) {
   return bkt >= 0 ? fmaf(dot, scale2, bias2[min(bkt, nb - 1)]) : kNegInf;
+}
+
+// The same score under the `fuse_bias` rewrite: `bias2` holds nb + 1
+// columns, the last the sentinel -1e30 (times log2 e as staged, about
+// -1.44e30), and every bucket is looked up in it: -1, as an unsigned the
+// largest, lands on the sentinel, so one FMA replaces the select. It
+// agrees with `score2` on buckets in {-1} U [0, nb), all that
+// core/reformation.py emits; a row the sentinel masks entirely keeps its
+// running max at the -1e30 floor, which the dead-row tests (m <= kNegInf)
+// read.
+__device__ __forceinline__ float score2_fused(float dot, float scale2,
+                                              int bkt, const float* bias2,
+                                              int nb) {
+  return fmaf(dot, scale2, bias2[min((unsigned)bkt, (unsigned)nb)]);
+}
+
+// `score2` or, under the FUSE instantiation, `score2_fused`
+__device__ __forceinline__ float score2_sched(bool fuse, float dot,
+                                              float scale2, int bkt,
+                                              const float* bias2, int nb) {
+  return fuse ? score2_fused(dot, scale2, bkt, bias2, nb)
+              : score2(dot, scale2, bkt, bias2, nb);
 }
 
 // ------------------------------------------------------ online softmax

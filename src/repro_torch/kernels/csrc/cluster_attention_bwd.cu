@@ -28,6 +28,13 @@
 //               dk += scale * ds^T @ q, per q-head (the GQA group sum is
 //               the caller's).
 //
+// The forward's rewrites are template flags here too, so the scores are
+// rebuilt exactly as the forward built them: under `hoist_scale` the q
+// tile is staged times Dh^-0.5 (and dK, contracting that tile, takes no
+// second scale); under `fuse_bias` the table carries the sentinel column
+// and every bucket is looked up in it (biased_score). The bucket sums of
+// dS stay at the table's own nb columns: a masked entry's dS is 0.
+//
 // What bounds them on the card. At the serve shape (32768-node SBM,
 // S=32800, H=KV=32, Dh=24, bq=bk=32, 13125 active blocks) the dQ kernel
 // does 6 * 13125 * 32 * 32 * 24 * 32 = 61.9 GFLOP and the dK/dV kernel
@@ -60,32 +67,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The forward's score of one entry, biased or masked.
+// The forward's score of one entry, biased or masked: `dot` already
+// scaled under HOIST; under FUSE `sBias` holds nb + 1 columns, the last
+// the sentinel that bucket -1 lands on.
+template <bool HOIST, bool FUSE>
 __device__ __forceinline__ float biased_score(float dot, float sm_scale,
                                               int bkt, const float* sBias,
                                               int nb) {
-  const float s = dot * sm_scale;
+  const float s = HOIST ? dot : dot * sm_scale;
+  if (FUSE) return s + sBias[min((unsigned)bkt, (unsigned)nb)];
   return bkt >= 0 ? s + sBias[min(bkt, nb - 1)] : kNegInf;
 }
 
 // ------------------------------------------------------------- dQ kernel
 //
 // Shared-memory plan (floats, then the int8 bucket tile):
-//   sQ, sDO   bq x Dh        this q-block's q and dO, fp32
+//   sQ, sDO   bq x Dh        this q-block's q (times Dh^-0.5 under HOIST)
+//                            and dO, fp32
 //   sK, sV    bk x (Dh + 1)  the visited k-block (padded rows)
 //   sS        bq x (bk + 1)  ds of the visited block
 //   sAcc      bq x Dh        dq accumulator
 //   sLse, sDl bq             lse and delta of the rows
-//   sBias     nb             this head's row of the bias table
+//   sBias     nbo            this head's row of the bias table (nb + FUSE)
 //   sDb       kWarps x nb    per-warp bucket sums of ds
 //   sBkt      bq x bk int8   bucket tile
 __host__ __device__ inline size_t dq_smem_floats(int bq, int bk, int dh,
-                                                 int nb) {
+                                                 int nb, int nbo) {
   return (size_t)bq * dh * 3 + (size_t)bk * (dh + 1) * 2 +
-         (size_t)bq * (bk + 1) + (size_t)bq * 2 + (size_t)nb +
+         (size_t)bq * (bk + 1) + (size_t)bq * 2 + (size_t)nbo +
          (size_t)kWarps * nb;
 }
 
+template <bool HOIST, bool FUSE>
 __global__ void __launch_bounds__(kThreads)
 cluster_attn_dq_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -108,6 +121,7 @@ cluster_attn_dq_kernel(const float* __restrict__ q,
   const int b = blockIdx.x / (H * nq);
   const int kvh = h / (H / KV);
   const int dhp = dh + 1, bkp = bk + 1;
+  const int nbo = nb + FUSE;  // the bias operand's columns
 
   float* sQ = smem;
   float* sDO = sQ + bq * dh;
@@ -118,7 +132,7 @@ cluster_attn_dq_kernel(const float* __restrict__ q,
   float* sLse = sAcc + bq * dh;
   float* sDl = sLse + bq;
   float* sBias = sDl + bq;
-  float* sDb = sBias + nb;
+  float* sDb = sBias + nbo;
   int8_t* sBkt = reinterpret_cast<int8_t*>(sDb + kWarps * nb);
 
   const int gl = per_graph ? b : 0;
@@ -130,7 +144,7 @@ cluster_attn_dq_kernel(const float* __restrict__ q,
     const int r = e / dh, d = e - r * dh;
     const size_t s_pos = (size_t)b * S + (size_t)qi * bq + r;
     const size_t off = (s_pos * H + h) * dh + d;
-    sQ[e] = q[off];
+    sQ[e] = HOIST ? q[off] * sm_scale : q[off];
     sDO[e] = dout[off];
     sAcc[e] = 0.f;
   }
@@ -138,7 +152,7 @@ cluster_attn_dq_kernel(const float* __restrict__ q,
     sLse[r] = lse[row0 + r];
     sDl[r] = delta[row0 + r];
   }
-  for (int e = tid; e < nb; e += kThreads) sBias[e] = bias[h * nb + e];
+  for (int e = tid; e < nbo; e += kThreads) sBias[e] = bias[h * nbo + e];
   for (int e = tid; e < kWarps * nb; e += kThreads) sDb[e] = 0.f;
 
   const int n_el = bq * bk;
@@ -170,7 +184,8 @@ cluster_attn_dq_kernel(const float* __restrict__ q,
         qk = fmaf(qr[d], kc[d], qk);
         dp = fmaf(dor[d], vc[d], dp);
       }
-      const float s = biased_score(qk, sm_scale, sBkt[e], sBias, nb);
+      const float s =
+          biased_score<HOIST, FUSE>(qk, sm_scale, sBkt[e], sBias, nb);
       const float p = expf(s - sLse[r]);
       sS[r * bkp + c] = p * (dp - sDl[r]);
     }
@@ -220,19 +235,21 @@ cluster_attn_dq_kernel(const float* __restrict__ q,
 //
 // Shared-memory plan (floats, then the int8 bucket tile):
 //   sK, sV    bk x (Dh + 1)  this k-block's k and v, fp32
-//   sQ, sDO   bq x Dh        the visiting q-block's q and dO
+//   sQ, sDO   bq x Dh        the visiting q-block's q (times Dh^-0.5
+//                            under HOIST) and dO
 //   sP, sDS   bq x (bk + 1)  p and ds of the visited block
 //   sDK, sDV  bk x Dh        accumulators
 //   sLse, sDl bq
-//   sBias     nb
+//   sBias     nbo            (nb + FUSE)
 //   sBkt      bq x bk int8
 __host__ __device__ inline size_t dkv_smem_floats(int bq, int bk, int dh,
-                                                  int nb) {
+                                                  int nbo) {
   return (size_t)bk * (dh + 1) * 2 + (size_t)bq * dh * 2 +
          (size_t)bq * (bk + 1) * 2 + (size_t)bk * dh * 2 + (size_t)bq * 2 +
-         (size_t)nb;
+         (size_t)nbo;
 }
 
+template <bool HOIST, bool FUSE>
 __global__ void __launch_bounds__(kThreads)
 cluster_attn_dkv_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -254,6 +271,7 @@ cluster_attn_dkv_kernel(const float* __restrict__ q,
   const int b = blockIdx.x / (H * nk);
   const int kvh = h / (H / KV);
   const int dhp = dh + 1, bkp = bk + 1;
+  const int nbo = nb + FUSE;  // the bias operand's columns
 
   float* sK = smem;
   float* sV = sK + bk * dhp;
@@ -266,7 +284,7 @@ cluster_attn_dkv_kernel(const float* __restrict__ q,
   float* sLse = sDV + bk * dh;
   float* sDl = sLse + bq;
   float* sBias = sDl + bq;
-  int8_t* sBkt = reinterpret_cast<int8_t*>(sBias + nb);
+  int8_t* sBkt = reinterpret_cast<int8_t*>(sBias + nbo);
 
   const int gl = per_graph ? b : 0;
   const int glt = per_graph_t ? b : 0;
@@ -282,7 +300,7 @@ cluster_attn_dkv_kernel(const float* __restrict__ q,
     sDK[e] = 0.f;
     sDV[e] = 0.f;
   }
-  for (int e = tid; e < nb; e += kThreads) sBias[e] = bias[h * nb + e];
+  for (int e = tid; e < nbo; e += kThreads) sBias[e] = bias[h * nbo + e];
 
   const int n_el = bq * bk;
   for (int t = 0; t < mt; ++t) {
@@ -294,7 +312,7 @@ cluster_attn_dkv_kernel(const float* __restrict__ q,
       const int r = e / dh, d = e - r * dh;
       const size_t s_pos = (size_t)b * S + (size_t)qrow * bq + r;
       const size_t off = (s_pos * H + h) * dh + d;
-      sQ[e] = q[off];
+      sQ[e] = HOIST ? q[off] * sm_scale : q[off];
       sDO[e] = dout[off];
     }
     const size_t row0 = ((size_t)b * H + h) * S + (size_t)qrow * bq;
@@ -318,14 +336,16 @@ cluster_attn_dkv_kernel(const float* __restrict__ q,
         qk = fmaf(qr[d], kc[d], qk);
         dp = fmaf(dor[d], vc[d], dp);
       }
-      const float s = biased_score(qk, sm_scale, sBkt[e], sBias, nb);
+      const float s =
+          biased_score<HOIST, FUSE>(qk, sm_scale, sBkt[e], sBias, nb);
       const float p = expf(s - sLse[r]);
       sP[r * bkp + c] = p;
       sDS[r * bkp + c] = p * (dp - sDl[r]);
     }
     __syncthreads();
 
-    // dv += p^T @ dO, dk += scale * ds^T @ q
+    // dv += p^T @ dO, dk += scale * ds^T @ q (under HOIST sQ already
+    // carries the scale)
     for (int e = tid; e < bk * dh; e += kThreads) {
       const int c = e / dh, d = e - c * dh;
       float av = 0.f, ak = 0.f;
@@ -334,7 +354,7 @@ cluster_attn_dkv_kernel(const float* __restrict__ q,
         ak = fmaf(sDS[r * bkp + c], sQ[r * dh + d], ak);
       }
       sDV[e] += av;
-      sDK[e] += sm_scale * ak;
+      sDK[e] += HOIST ? ak : sm_scale * ak;
     }
   }
   __syncthreads();
@@ -348,20 +368,22 @@ cluster_attn_dkv_kernel(const float* __restrict__ q,
   }
 }
 
+template <bool HOIST, bool FUSE>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* block_idx,
               const void* buckets, const void* bias, void* dq,
               void* dbias_part, int B, int S, int H, int KV, int dh, int nq,
               int mb, int bq, int bk, int nb, int per_graph, float sm_scale,
               cudaStream_t stream) {
-  const size_t smem =
-      dq_smem_floats(bq, bk, dh, nb) * sizeof(float) + (size_t)bq * bk;
+  const size_t smem = dq_smem_floats(bq, bk, dh, nb, nb + FUSE) *
+                          sizeof(float) +
+                      (size_t)bq * bk;
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      cluster_attn_dq_kernel<HOIST, FUSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nq * H;
-  cluster_attn_dq_kernel<<<grid, kThreads, smem, stream>>>(
+  cluster_attn_dq_kernel<HOIST, FUSE><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -372,6 +394,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <bool HOIST, bool FUSE>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* block_idx_t, const void* buckets,
@@ -379,14 +402,14 @@ int launch_dkv(const void* q, const void* k, const void* v,
                int KV, int dh, int nq, int mb, int nk, int mt, int bq,
                int bk, int nb, int per_graph, int per_graph_t,
                float sm_scale, cudaStream_t stream) {
-  const size_t smem =
-      dkv_smem_floats(bq, bk, dh, nb) * sizeof(float) + (size_t)bq * bk;
+  const size_t smem = dkv_smem_floats(bq, bk, dh, nb + FUSE) * sizeof(float) +
+                      (size_t)bq * bk;
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_dkv_kernel,
+      cluster_attn_dkv_kernel<HOIST, FUSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nk * H;
-  cluster_attn_dkv_kernel<<<grid, kThreads, smem, stream>>>(
+  cluster_attn_dkv_kernel<HOIST, FUSE><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -406,9 +429,10 @@ extern "C" {
 // cluster_attention_bwd_dq_sm90.cu, and returns cudaErrorInvalidValue
 // here). q, dout and dq (B,S,H,Dh); k/v (B,S,KV,Dh); lse, delta (B*H,S)
 // fp32; block_idx (nq,mb) or (B,nq,mb) int32 (per_graph selects),
-// buckets the matching (...,bq,bk) int8; bias (H,nb) fp32; dbias_part
-// (B,H,nq,nb) fp32. Returns the CUDA error code of the launch (0 =
-// launched).
+// buckets the matching (...,bq,bk) int8; bias (H,nb) fp32, (H,nb+1) with
+// the sentinel column when fuse; dbias_part (B,H,nq,nb) fp32. hoist and
+// fuse are the forward's rewrites (0 or 1). Returns the CUDA error code
+// of the launch (0 = launched).
 int cluster_attention_bwd_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, const void* block_idx,
@@ -416,13 +440,21 @@ int cluster_attention_bwd_dq(const void* q, const void* k, const void* v,
                              void* dq, void* dbias_part, int dtype, int B,
                              int S, int H, int KV, int dh, int nq, int mb,
                              int bq, int bk, int nb, int per_graph,
-                             float sm_scale, void* stream) {
+                             int hoist, int fuse, float sm_scale,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dq(q, k, v, dout, lse, delta, block_idx, buckets, bias,
-                     dq, dbias_part, B, S, H, KV, dh, nq, mb, bq, bk, nb,
-                     per_graph, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+#define DQ_LAUNCH(HO, FU)                                                  \
+  return launch_dq<HO, FU>(q, k, v, dout, lse, delta, block_idx, buckets,  \
+                           bias, dq, dbias_part, B, S, H, KV, dh, nq, mb,  \
+                           bq, bk, nb, per_graph, sm_scale, st)
+  if (hoist) {
+    if (fuse) DQ_LAUNCH(true, true);
+    DQ_LAUNCH(true, false);
+  }
+  if (fuse) DQ_LAUNCH(false, true);
+  DQ_LAUNCH(false, false);
+#undef DQ_LAUNCH
 }
 
 // As above (bfloat16 has its own source,
@@ -436,14 +468,22 @@ int cluster_attention_bwd_dkv(const void* q, const void* k, const void* v,
                               void* dk, void* dv, int dtype, int B, int S,
                               int H, int KV, int dh, int nq, int mb, int nk,
                               int mt, int bq, int bk, int nb, int per_graph,
-                              int per_graph_t, float sm_scale,
-                              void* stream) {
+                              int per_graph_t, int hoist, int fuse,
+                              float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dkv(q, k, v, dout, lse, delta, block_idx_t, buckets, bias,
-                      dk, dv, B, S, H, KV, dh, nq, mb, nk, mt, bq, bk, nb,
-                      per_graph, per_graph_t, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+#define DKV_LAUNCH(HO, FU)                                                 \
+  return launch_dkv<HO, FU>(q, k, v, dout, lse, delta, block_idx_t,        \
+                            buckets, bias, dk, dv, B, S, H, KV, dh, nq,    \
+                            mb, nk, mt, bq, bk, nb, per_graph,             \
+                            per_graph_t, sm_scale, st)
+  if (hoist) {
+    if (fuse) DKV_LAUNCH(true, true);
+    DKV_LAUNCH(true, false);
+  }
+  if (fuse) DKV_LAUNCH(false, true);
+  DKV_LAUNCH(false, false);
+#undef DKV_LAUNCH
 }
 
 }  // extern "C"

@@ -5,7 +5,11 @@
 // src/repro/kernels/cluster_attention_bwd.py for bf16 inputs: the
 // graph transformer's training path; fp32 stays on the CUDA-core kernel
 // of cluster_attention_bwd.cu. The bf16 dQ is its mirror image,
-// cluster_attention_bwd_dq_sm90.cu.
+// cluster_attention_bwd_dq_sm90.cu. The forward's rewrites as there:
+// `hoist_scale` launches this same kernel (the scale rides the one fp32
+// FMA of each rebuilt score; a scaled q is no bf16 value), `fuse_bias` is
+// the `fuse` argument, which picks the kernel's FUSE instantiation (the
+// table nb + 1 wide, biased_tiles.cuh `score2_fused`).
 // Same function as that kernel and `kernels/ref.py` `bwd_dkv`: for each
 // k-block, over the (q-row, forward slot) pairs that the transposed
 // layout `block_idx_t` lists (-1 pairs, wherever they stand, skipped), it
@@ -69,15 +73,15 @@ using namespace biased;
 // (G x BLK fp32 each), the compacted visitors (q-row, slot), kMaxWarps
 // ints of scratch, the G bias rows.
 template <int DH, int BLK>
-size_t dkv_smem_bytes(int G, int nkv, int mt, int nb) {
+size_t dkv_smem_bytes(int G, int nkv, int mt, int nbo) {
   using D = Dims<DH, BLK>;
   return (size_t)(2 * nkv + kStages * 2 * G) * D::TILE * sizeof(bf16) +
          (size_t)kStages * (D::BKT + 2 * G * BLK * sizeof(float)) +
          (size_t)mt * sizeof(int2) + kMaxWarps * sizeof(int) +
-         (size_t)G * nb * sizeof(float);
+         (size_t)G * nbo * sizeof(float);
 }
 
-template <int DH, int BLK>
+template <int DH, int BLK, bool FUSE>
 __global__ void __launch_bounds__(kMaxWarps * 32, DH <= 24 ? 3 : 2)
 cluster_biased_dkv_sm90(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
@@ -131,8 +135,9 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
     load_tile<DH, BLK>(sK + (nkv + t) * D::TILE, v + off, (size_t)KV * DH,
                        tid, nthr);
   }
-  for (int e = tid; e < G * nb; e += nthr)
-    sBias[e] = bias[(size_t)h0 * nb + e] * kLog2e;
+  const int nbo = nb + FUSE;  // the bias operand's columns
+  for (int e = tid; e < G * nbo; e += nthr)
+    sBias[e] = bias[(size_t)h0 * nbo + e] * kLog2e;
   const int nvis = compact(mt, [&](int t) { return idxt_row[t]; }, sList,
                            sCnt);
 
@@ -170,7 +175,7 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
     for (int nt = 0; nt < D::NT; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) dka[m2][nt][r] = dva[m2][nt][r] = 0.f;
-  const float* bias2 = sBias + warp * nb;
+  const float* bias2 = sBias + warp * nbo;
   const bf16* sKw = sK + kvt * D::TILE;
   const bf16* sVw = sK + (nkv + kvt) * D::TILE;
   const int g = lane >> 2, c = lane & 3;
@@ -205,8 +210,9 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
 #pragma unroll
           for (int i2 = 0; i2 < 2; ++i2) {
             const int r = 2 * i2 + j;
-            const float x = score2(p[m2][nt][r], scale2,
-                                   bcol[m2 * 16 + g + 8 * i2], bias2, nb);
+            const float x =
+                score2_sched(FUSE, p[m2][nt][r], scale2,
+                             bcol[m2 * 16 + g + 8 * i2], bias2, nb);
             const float pv = ex2(x - lse2);
             p[m2][nt][r] = pv;
             dp[m2][nt][r] = pv * (dp[m2][nt][r] - dl);  // dS^T
@@ -225,7 +231,7 @@ cluster_biased_dkv_sm90(const bf16* __restrict__ q,
   store_rows(dva, RowMul<MT>(1.f).v, dv + off, (size_t)H * DH);
 }
 
-template <int DH, int BLK>
+template <int DH, int BLK, bool FUSE>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* block_idx_t,
            const void* buckets, const void* bias, void* dk, void* dv, int B,
@@ -233,13 +239,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int per_graph, int per_graph_t, float sm_scale,
            cudaStream_t stream) {
   const int G = heads_per_cta(H, KV), nkv = kv_per_cta(G, H, KV);
-  const size_t smem = dkv_smem_bytes<DH, BLK>(G, nkv, mt, nb);
+  const size_t smem = dkv_smem_bytes<DH, BLK>(G, nkv, mt, nb + FUSE);
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_biased_dkv_sm90<DH, BLK>,
+      cluster_biased_dkv_sm90<DH, BLK, FUSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nk * (H / G);
-  cluster_biased_dkv_sm90<DH, BLK><<<grid, 32 * G, smem, stream>>>(
+  cluster_biased_dkv_sm90<DH, BLK, FUSE><<<grid, 32 * G, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -257,12 +263,12 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
               const void* block_idx_t, const void* buckets, const void* bias,
               void* dk, void* dv, int B, int S, int H, int KV, int nq,
               int mb, int nk, int mt, int nb, int per_graph, int per_graph_t,
-              float sm_scale, cudaStream_t st) {
+              int fuse, float sm_scale, cudaStream_t st) {
 #define DKV_CASE(D)                                                        \
   case D:                                                                  \
-    return launch<D, BLK>(q, k, v, dout, lse, delta, block_idx_t,          \
-                          buckets, bias, dk, dv, B, S, H, KV, nq, mb, nk,  \
-                          mt, nb, per_graph, per_graph_t, sm_scale, st);
+    return (fuse ? launch<D, BLK, true> : launch<D, BLK, false>)(          \
+        q, k, v, dout, lse, delta, block_idx_t, buckets, bias, dk, dv, B, S, \
+        H, KV, nq, mb, nk, mt, nb, per_graph, per_graph_t, sm_scale, st);
   switch (dh) {
     DKV_CASE(8)
     DKV_CASE(16)
@@ -285,7 +291,9 @@ extern "C" {
 // delta (B*H,S) fp32; block_idx_t (nk,mt,2) or (B,nk,mt,2) int32
 // (per_graph_t selects) lists (q-row, forward slot) pairs, -1 padded;
 // buckets (nq,mb,bq,bk) or (B,nq,mb,bq,bk) int8 (per_graph selects);
-// bias (H,nb) fp32; dk/dv (B,S,H,Dh) bf16, per q-head. Takes bq = bk in
+// bias (H,nb) fp32, (H,nb+1) with the sentinel column when fuse (0 or 1;
+// no hoist argument, see the header); dk/dv (B,S,H,Dh) bf16, per q-head.
+// Takes bq = bk in
 // {16, 32} and Dh a multiple of 8 from 8 to 64; anything else returns
 // cudaErrorInvalidValue. Returns the CUDA error code of the launch (0 =
 // launched).
@@ -297,7 +305,7 @@ int cluster_attention_bwd_dkv_sm90(const void* q, const void* k,
                                    void* dk, void* dv, int B, int S, int H,
                                    int KV, int dh, int nq, int mb, int nk,
                                    int mt, int bq, int bk, int nb,
-                                   int per_graph, int per_graph_t,
+                                   int per_graph, int per_graph_t, int fuse,
                                    float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq != bk || nq * bq != S || nk * bk != S)
@@ -305,11 +313,11 @@ int cluster_attention_bwd_dkv_sm90(const void* q, const void* k,
   if (bq == 16)
     return launch_dh<16>(dh, q, k, v, dout, lse, delta, block_idx_t,
                          buckets, bias, dk, dv, B, S, H, KV, nq, mb, nk, mt,
-                         nb, per_graph, per_graph_t, sm_scale, st);
+                         nb, per_graph, per_graph_t, fuse, sm_scale, st);
   if (bq == 32)
     return launch_dh<32>(dh, q, k, v, dout, lse, delta, block_idx_t,
                          buckets, bias, dk, dv, B, S, H, KV, nq, mb, nk, mt,
-                         nb, per_graph, per_graph_t, sm_scale, st);
+                         nb, per_graph, per_graph_t, fuse, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

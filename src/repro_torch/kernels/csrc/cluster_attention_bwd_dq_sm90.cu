@@ -19,6 +19,14 @@
 // bias_table gradient. No float atomics: each CTA owns its output rows and
 // its partials, so the result is deterministic.
 //
+// The forward's rewrites: `hoist_scale` launches this same kernel (the
+// scale rides the one fp32 FMA of each rebuilt score for both values of
+// the flag; a scaled q is no bf16 value); `fuse_bias` is the `fuse`
+// argument, which picks the kernel's FUSE instantiation: the table then
+// nb + 1 wide with the sentinel column that the masked bucket looks up
+// (biased_tiles.cuh `score2_fused`). The bucket
+// sums stay nb wide: a masked entry's dS is 0.
+//
 // What bounds it on the card. At the nearly dense training rung of the
 // 8192-node graph (S=8224, Graphormer-Large: H=KV=32, Dh=24, 64729
 // visited 32 x 32 blocks) the three products are 6 * 64729 * 32 * 32 *
@@ -75,15 +83,15 @@ constexpr int kBucketRegs = 4;  // bucket sums a lane keeps in registers
 // (slot, block), kMaxWarps ints of scratch, the G bias rows, and each
 // thread's sum of every bucket (nb x 32 G).
 template <int DH, int BLK>
-size_t dq_smem_bytes(int G, int nkv, int mb, int nb) {
+size_t dq_smem_bytes(int G, int nkv, int mb, int nb, int nbo) {
   using D = Dims<DH, BLK>;
   return (size_t)(2 * G + kStages * 2 * nkv) * D::TILE * sizeof(bf16) +
          (size_t)kStages * D::BKT + (size_t)mb * sizeof(int2) +
-         kMaxWarps * sizeof(int) + (size_t)G * nb * sizeof(float) +
+         kMaxWarps * sizeof(int) + (size_t)G * nbo * sizeof(float) +
          (size_t)nb * 32 * G * sizeof(float);
 }
 
-template <int DH, int BLK>
+template <int DH, int BLK, bool FUSE>
 __global__ void __launch_bounds__(kMaxWarps * 32, DH <= 24 ? 3 : 2)
 cluster_biased_dq_sm90(const bf16* __restrict__ q,
                        const bf16* __restrict__ k,
@@ -125,8 +133,9 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
                                                         D::TILE);
   int2* sList = reinterpret_cast<int2*>(sBkt + kStages * D::BKT);
   int* sCnt = reinterpret_cast<int*>(sList + mb);
+  const int nbo = nb + FUSE;  // the bias operand's columns
   float* sBias = reinterpret_cast<float*>(sCnt + kMaxWarps);
-  float* sDb = sBias + G * nb;
+  float* sDb = sBias + G * nbo;
 
   const int gl = per_graph ? b : 0;
   const int32_t* idx_row = block_idx + ((size_t)gl * nq + qi) * mb;
@@ -142,8 +151,8 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
     load_tile<DH, BLK>(sQ + (G + w) * D::TILE, dout + off, (size_t)H * DH,
                        tid, nthr);
   }
-  for (int e = tid; e < G * nb; e += nthr)
-    sBias[e] = bias[(size_t)h0 * nb + e] * kLog2e;
+  for (int e = tid; e < G * nbo; e += nthr)
+    sBias[e] = bias[(size_t)h0 * nbo + e] * kLog2e;
   for (int e = tid; e < nb * nthr; e += nthr) sDb[e] = 0.f;
   const int nvis = compact(
       mb, [&](int m) { return make_int2(idx_row[m] >= 0 ? m : -1,
@@ -194,7 +203,7 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
     for (int nt = 0; nt < D::NT; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) dqa[mt][nt][r] = 0.f;
-  const float* bias2 = sBias + warp * nb;
+  const float* bias2 = sBias + warp * nbo;
   const bf16* sQw = sQ + warp * D::TILE;
   const bf16* sDOw = sQ + (G + warp) * D::TILE;
   float* db_own = sDb + tid;  // this thread's bucket sums, nthr apart
@@ -225,8 +234,9 @@ cluster_biased_dq_sm90(const bf16* __restrict__ q,
           const char2 bb = *reinterpret_cast<const char2*>(brow + nt * 8);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const float x = score2(s[mt][nt][2 * i2 + j], scale2,
-                                   j ? bb.y : bb.x, bias2, nb);
+            const float x = score2_sched(FUSE, s[mt][nt][2 * i2 + j],
+                                         scale2, j ? bb.y : bb.x, bias2,
+                                         nb);
             s[mt][nt][2 * i2 + j] = ex2(x - lse2[mt][i2]) *
                                     (dp[mt][nt][2 * i2 + j] - dl[mt][i2]);
           }
@@ -314,23 +324,24 @@ cluster_biased_dq_combine(const int4* __restrict__ splits,
   }
 }
 
-template <int DH, int BLK>
+template <int DH, int BLK, bool FUSE>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* block_idx,
            const void* buckets, const void* bias, const void* pieces,
            const void* splits, void* dq, void* db_part, void* part_dq,
            void* part_db, int B, int S, int H, int KV, int nq, int mb,
-           int nb, int per_graph, int n_pieces, int n_splits, float sm_scale,
-           cudaStream_t stream) {
+           int nb, int per_graph, int n_pieces, int n_splits,
+           float sm_scale, cudaStream_t stream) {
   const int G = heads_per_cta(H, KV), nkv = kv_per_cta(G, H, KV);
-  const size_t smem = dq_smem_bytes<DH, BLK>(G, nkv, mb, nb);
+  const size_t smem = dq_smem_bytes<DH, BLK>(G, nkv, mb, nb, nb + FUSE);
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_biased_dq_sm90<DH, BLK>,
+      cluster_biased_dq_sm90<DH, BLK, FUSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned rows = pieces != nullptr ? (unsigned)n_pieces
                                           : (unsigned)B * nq;
-  cluster_biased_dq_sm90<DH, BLK><<<rows * (H / G), 32 * G, smem, stream>>>(
+  cluster_biased_dq_sm90<DH, BLK, FUSE>
+      <<<rows * (H / G), 32 * G, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -357,13 +368,14 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
               const void* pieces, const void* splits, void* dq,
               void* db_part, void* part_dq, void* part_db, int B, int S,
               int H, int KV, int nq, int mb, int nb, int per_graph,
-              int n_pieces, int n_splits, float sm_scale, cudaStream_t st) {
+              int n_pieces, int n_splits, int fuse, float sm_scale,
+              cudaStream_t st) {
 #define DQ_CASE(D)                                                          \
   case D:                                                                   \
-    return launch<D, BLK>(q, k, v, dout, lse, delta, block_idx, buckets,    \
-                          bias, pieces, splits, dq, db_part, part_dq,       \
-                          part_db, B, S, H, KV, nq, mb, nb, per_graph,      \
-                          n_pieces, n_splits, sm_scale, st);
+    return (fuse ? launch<D, BLK, true> : launch<D, BLK, false>)(           \
+        q, k, v, dout, lse, delta, block_idx, buckets, bias, pieces, splits, \
+        dq, db_part, part_dq, part_db, B, S, H, KV, nq, mb, nb, per_graph,  \
+        n_pieces, n_splits, sm_scale, st);
   switch (dh) {
     DQ_CASE(8)
     DQ_CASE(16)
@@ -385,7 +397,9 @@ extern "C" {
 // bf16 q, dout and dq (B,S,H,Dh), k/v (B,S,KV,Dh), all 16-byte aligned;
 // lse, delta (B*H,S) fp32; block_idx (nq,mb) or (B,nq,mb) int32
 // (per_graph selects), buckets the matching (...,bq,bk) int8; bias (H,nb)
-// fp32; db_part (B,H,nq,nb) fp32. pieces NULL runs one CTA group per
+// fp32, (H,nb+1) with the sentinel column when fuse (0 or 1; no hoist
+// argument, see the header); db_part (B,H,nq,nb) fp32. pieces NULL runs
+// one CTA group per
 // q-block row; else it lists n_pieces int4 work items (b*nq+qi, v0, v1,
 // slot or -1), and splits the n_splits int4 rows (b*nq+qi, first slot, n,
 // 0) to sum from part_dq (slots,H,bq,Dh) and part_db (slots,H,nb) fp32
@@ -402,7 +416,7 @@ int cluster_attention_bwd_dq_sm90(const void* q, const void* k,
                                   void* part_db, int B, int S, int H, int KV,
                                   int dh, int nq, int mb, int bq, int bk,
                                   int nb, int per_graph, int n_pieces,
-                                  int n_splits, float sm_scale,
+                                  int n_splits, int fuse, float sm_scale,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq != bk || nq * bq != S) return (int)cudaErrorInvalidValue;
@@ -410,12 +424,12 @@ int cluster_attention_bwd_dq_sm90(const void* q, const void* k,
     return launch_dh<16>(dh, q, k, v, dout, lse, delta, block_idx, buckets,
                          bias, pieces, splits, dq, db_part, part_dq, part_db,
                          B, S, H, KV, nq, mb, nb, per_graph, n_pieces,
-                         n_splits, sm_scale, st);
+                         n_splits, fuse, sm_scale, st);
   if (bq == 32)
     return launch_dh<32>(dh, q, k, v, dout, lse, delta, block_idx, buckets,
                          bias, pieces, splits, dq, db_part, part_dq, part_db,
                          B, S, H, KV, nq, mb, nb, per_graph, n_pieces,
-                         n_splits, sm_scale, st);
+                         n_splits, fuse, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

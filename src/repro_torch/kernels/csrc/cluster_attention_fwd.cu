@@ -11,6 +11,17 @@
 // masks the position, and an online softmax in fp32 accumulates O. Rows
 // with no unmasked entry write O = 0 and lse = 0.
 //
+// The reference's two dataflow rewrites are template flags, picked at
+// launch from the schedule: `hoist_scale` multiplies the fp32 q tile by
+// Dh^-0.5 once as it is staged, so a score is the bare dot; `fuse_bias`
+// takes the bias table with one trailing sentinel column (-1e30, the
+// wrapper's `extend_bias_table`) and looks every bucket up in it, the
+// masked -1 landing on the sentinel (an unsigned min onto the last
+// column), so `s + bias` replaces the select between the biased score
+// and the mask. Both agree with the unfused lookup on buckets in {-1} U
+// [0, nb), all that core/reformation.py emits. A row the sentinel masks
+// entirely has a running max at or below -1e30 and stays dead.
+//
 // What bounds it on the card. At the serve shape (32768-node SBM,
 // S=32800, H=KV=32, Dh=24, bq=bk=32, 13125 active blocks) q, k, v and O
 // are about 100 MB each in fp32 and the active bucket tiles 13.4 MB:
@@ -47,13 +58,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Shared-memory plan (floats, then the int8 bucket tile):
-//   sQ   bq x Dh          the q tile, fp32
+//   sQ   bq x Dh          the q tile, fp32 (times Dh^-0.5 under HOIST)
 //   sK   bk x (Dh + 1)    k tile (padded row: conflict-free column reads)
 //   sV   bk x (Dh + 1)
 //   sS   bq x (bk + 1)    scores, then probabilities
 //   sAcc bq x Dh          output accumulator
 //   sM, sL, sC  bq        running max, running sum, correction
-//   sBias nb              this head's row of the bias table
+//   sBias nb (+1 FUSE)    this head's row of the bias table
 //   sBkt bq x bk int8     bucket tile
 __host__ __device__ inline size_t smem_floats(int bq, int bk, int dh,
                                               int nb) {
@@ -61,6 +72,7 @@ __host__ __device__ inline size_t smem_floats(int bq, int bk, int dh,
          (size_t)bq * (bk + 1) + (size_t)bq * 3 + (size_t)nb;
 }
 
+template <bool HOIST, bool FUSE>
 __global__ void __launch_bounds__(kThreads)
 cluster_attn_fwd_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -81,6 +93,7 @@ cluster_attn_fwd_kernel(const float* __restrict__ q,
   const int b = blockIdx.x / (H * nq);
   const int kvh = h / (H / KV);
   const int dhp = dh + 1, bkp = bk + 1;
+  const int nbo = nb + FUSE;  // the operand's columns
 
   float* sQ = smem;
   float* sK = sQ + bq * dh;
@@ -91,7 +104,7 @@ cluster_attn_fwd_kernel(const float* __restrict__ q,
   float* sL = sM + bq;
   float* sC = sL + bq;
   float* sBias = sC + bq;
-  int8_t* sBkt = reinterpret_cast<int8_t*>(sBias + nb);
+  int8_t* sBkt = reinterpret_cast<int8_t*>(sBias + nbo);
 
   const int gl = per_graph ? b : 0;
   const int32_t* idx_row = block_idx + ((size_t)gl * nq + qi) * mb;
@@ -100,14 +113,15 @@ cluster_attn_fwd_kernel(const float* __restrict__ q,
   for (int e = tid; e < bq * dh; e += kThreads) {
     const int r = e / dh, d = e - r * dh;
     const size_t s_pos = (size_t)b * S + (size_t)qi * bq + r;
-    sQ[e] = q[(s_pos * H + h) * dh + d];
+    const float x = q[(s_pos * H + h) * dh + d];
+    sQ[e] = HOIST ? x * sm_scale : x;
     sAcc[e] = 0.f;
   }
   for (int e = tid; e < bq; e += kThreads) {
     sM[e] = kNegInf;
     sL[e] = 0.f;
   }
-  for (int e = tid; e < nb; e += kThreads) sBias[e] = bias[h * nb + e];
+  for (int e = tid; e < nbo; e += kThreads) sBias[e] = bias[h * nbo + e];
 
   for (int m = 0; m < mb; ++m) {
     const int blk = idx_row[m];  // uniform across the CTA
@@ -131,9 +145,11 @@ cluster_attn_fwd_kernel(const float* __restrict__ q,
       const float* kc = sK + c * dhp;
       float acc = 0.f;
       for (int d = 0; d < dh; ++d) acc = fmaf(qr[d], kc[d], acc);
-      float s = acc * sm_scale;
+      float s = HOIST ? acc : acc * sm_scale;
       const int bkt = sBkt[e];
-      if (bkt >= 0) {
+      if (FUSE) {
+        s += sBias[min((unsigned)bkt, (unsigned)nb)];  // -1 -> sentinel
+      } else if (bkt >= 0) {
         s += sBias[min(bkt, nb - 1)];
       } else {
         s = kNegInf;
@@ -191,19 +207,20 @@ cluster_attn_fwd_kernel(const float* __restrict__ q,
   }
 }
 
+template <bool HOIST, bool FUSE>
 int launch(const void* q, const void* k, const void* v, const void* block_idx,
            const void* buckets, const void* bias, void* out, void* lse,
            int B, int S, int H, int KV, int dh, int nq, int mb, int bq,
            int bk, int nb, int per_graph, float sm_scale,
            cudaStream_t stream) {
-  const size_t smem = smem_floats(bq, bk, dh, nb) * sizeof(float) +
+  const size_t smem = smem_floats(bq, bk, dh, nb + FUSE) * sizeof(float) +
                       (size_t)bq * bk;
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      cluster_attn_fwd_kernel<HOIST, FUSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nq * H;
-  cluster_attn_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+  cluster_attn_fwd_kernel<HOIST, FUSE><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(block_idx),
       static_cast<const int8_t*>(buckets), static_cast<const float*>(bias),
@@ -219,20 +236,30 @@ extern "C" {
 // dtype: 0 = float32 (bfloat16, 1, has its own source and returns
 // cudaErrorInvalidValue here). q (B,S,H,Dh), k/v (B,S,KV,Dh), out like
 // q; block_idx (nq,mb) or (B,nq,mb) int32 (per_graph selects), buckets the
-// matching (...,bq,bk) int8; bias (H,nb) fp32; lse (B*H,S) fp32 or NULL.
-// Returns the CUDA error code of the launch (0 = launched); a tile set
-// that needs more shared memory than the card allows fails as invalid value.
+// matching (...,bq,bk) int8; bias (H,nb) fp32, (H,nb+1) with the sentinel
+// column when fuse; lse (B*H,S) fp32 or NULL. hoist and fuse are the
+// schedule's rewrites (0 or 1). Returns the CUDA error code of the launch
+// (0 = launched); a tile set that needs more shared memory than the card
+// allows fails as invalid value.
 int cluster_attention_fwd(const void* q, const void* k, const void* v,
                           const void* block_idx, const void* buckets,
                           const void* bias, void* out, void* lse, int dtype,
                           int B, int S, int H, int KV, int dh, int nq, int mb,
-                          int bq, int bk, int nb, int per_graph,
-                          float sm_scale, void* stream) {
+                          int bq, int bk, int nb, int per_graph, int hoist,
+                          int fuse, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(q, k, v, block_idx, buckets, bias, out, lse, B, S, H, KV,
-                  dh, nq, mb, bq, bk, nb, per_graph, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+#define FWD_LAUNCH(HO, FU)                                                 \
+  return launch<HO, FU>(q, k, v, block_idx, buckets, bias, out, lse, B, S, \
+                        H, KV, dh, nq, mb, bq, bk, nb, per_graph, sm_scale, \
+                        st)
+  if (hoist) {
+    if (fuse) FWD_LAUNCH(true, true);
+    FWD_LAUNCH(true, false);
+  }
+  if (fuse) FWD_LAUNCH(false, true);
+  FWD_LAUNCH(false, false);
+#undef FWD_LAUNCH
 }
 
 }  // extern "C"

@@ -13,6 +13,14 @@
 // -1e30; O in bf16 and the natural logsumexp lse (B*H, S) in fp32. Rows
 // with no unmasked entry write O = 0 and lse = 0.
 //
+// `hoist_scale` launches this same kernel: q Dh^-0.5 is no bf16 value,
+// so the scale rides the one fp32 FMA of each score (with log2 e) for
+// both values of the flag, which differ by fp32 rounding alone.
+// `fuse_bias` is the `fuse` argument, which picks the kernel's FUSE
+// instantiation: the table comes with the sentinel column (nb + 1 wide)
+// and the scores look the bucket up in it (biased_tiles.cuh
+// `score2_fused`) instead of selecting the mask.
+//
 // What bounds it on the card. At the nearly dense training rung of the
 // 8192-node graph (S=8224, Graphormer-Large: H=KV=32, Dh=24, 64729 of
 // 66049 32 x 32 blocks visited) the products are 4 * 64729 * 32 * 32 *
@@ -78,7 +86,7 @@ size_t fwd_smem_bytes(int G, int nkv, int mb, int nb) {
          kMaxWarps * sizeof(int) + (size_t)G * nb * sizeof(float);
 }
 
-template <int DH, int BLK>
+template <int DH, int BLK, bool FUSE>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 cluster_biased_fwd_sm90(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
@@ -129,8 +137,9 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
   for (int w = 0; w < G; ++w)
     load_tile<DH, BLK>(sQ + w * D::TILE, q + (q_row0 * H + h0 + w) * DH,
                        (size_t)H * DH, tid, nthr);
-  for (int e = tid; e < G * nb; e += nthr)
-    sBias[e] = bias[(size_t)h0 * nb + e] * kLog2e;
+  const int nbo = nb + FUSE;  // the bias operand's columns
+  for (int e = tid; e < G * nbo; e += nthr)
+    sBias[e] = bias[(size_t)h0 * nbo + e] * kLog2e;
   const int nvis = compact(
       mb, [&](int m) { return make_int2(idx_row[m] >= 0 ? m : -1,
                                         idx_row[m]); },
@@ -169,7 +178,7 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
 #pragma unroll
       for (int r = 0; r < 4; ++r) o[mt][nt][r] = 0.f;
   OnlineSoftmax<BLK> sm;
-  const float* bias2 = sBias + warp * nb;
+  const float* bias2 = sBias + warp * nbo;
   const int g = lane >> 2, c = lane & 3;
 
   for (int i = 0; i < nit; ++i) {
@@ -193,10 +202,10 @@ cluster_biased_fwd_sm90(const bf16* __restrict__ q,
 #pragma unroll
         for (int nt = 0; nt < NS; ++nt) {
           const char2 bb = *reinterpret_cast<const char2*>(brow + nt * 8);
-          s[mt][nt][2 * i2] =
-              score2(s[mt][nt][2 * i2], scale2, bb.x, bias2, nb);
-          s[mt][nt][2 * i2 + 1] =
-              score2(s[mt][nt][2 * i2 + 1], scale2, bb.y, bias2, nb);
+          s[mt][nt][2 * i2] = score2_sched(FUSE, s[mt][nt][2 * i2], scale2,
+                                           bb.x, bias2, nb);
+          s[mt][nt][2 * i2 + 1] = score2_sched(
+              FUSE, s[mt][nt][2 * i2 + 1], scale2, bb.y, bias2, nb);
         }
       }
     sm.update(s, o);
@@ -276,7 +285,7 @@ cluster_biased_fwd_combine(const int4* __restrict__ splits,
   }
 }
 
-template <int DH, int BLK>
+template <int DH, int BLK, bool FUSE>
 int launch(const void* q, const void* k, const void* v, const void* block_idx,
            const void* buckets, const void* bias, const void* pieces,
            const void* splits, void* out, void* lse, void* part_o,
@@ -284,15 +293,15 @@ int launch(const void* q, const void* k, const void* v, const void* block_idx,
            int nb, int per_graph, int n_pieces, int n_splits,
            float sm_scale, cudaStream_t stream) {
   const int G = heads_per_cta(H, KV), nkv = kv_per_cta(G, H, KV);
-  const size_t smem = fwd_smem_bytes<DH, BLK>(G, nkv, mb, nb);
+  const size_t smem = fwd_smem_bytes<DH, BLK>(G, nkv, mb, nb + FUSE);
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_biased_fwd_sm90<DH, BLK>,
+      cluster_biased_fwd_sm90<DH, BLK, FUSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned rows = pieces != nullptr ? (unsigned)n_pieces
                                           : (unsigned)B * nq;
-  cluster_biased_fwd_sm90<DH, BLK><<<rows * (H / G), 32 * G, smem,
-                                     stream>>>(
+  cluster_biased_fwd_sm90<DH, BLK, FUSE><<<rows * (H / G), 32 * G, smem,
+                                           stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int32_t*>(block_idx),
       static_cast<const int8_t*>(buckets), static_cast<const float*>(bias),
@@ -318,13 +327,13 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
               const void* pieces, const void* splits, void* out, void* lse,
               void* part_o, void* part_ml, int B, int S, int H, int KV,
               int nq, int mb, int nb, int per_graph, int n_pieces,
-              int n_splits, float sm_scale, cudaStream_t st) {
-#define FWD_CASE(D)                                                       \
-  case D:                                                                 \
-    return launch<D, BLK>(q, k, v, block_idx, buckets, bias, pieces,      \
-                          splits, out, lse, part_o, part_ml, B, S, H, KV, \
-                          nq, mb, nb, per_graph, n_pieces, n_splits,      \
-                          sm_scale, st);
+              int n_splits, int fuse, float sm_scale, cudaStream_t st) {
+#define FWD_CASE(D)                                                        \
+  case D:                                                                  \
+    return (fuse ? launch<D, BLK, true> : launch<D, BLK, false>)(          \
+        q, k, v, block_idx, buckets, bias, pieces, splits, out, lse, part_o, \
+        part_ml, B, S, H, KV, nq, mb, nb, per_graph, n_pieces, n_splits,   \
+        sm_scale, st);
   switch (dh) {
     FWD_CASE(8)
     FWD_CASE(16)
@@ -345,7 +354,9 @@ extern "C" {
 
 // bf16 q (B,S,H,Dh), k/v (B,S,KV,Dh), out like q, all 16-byte aligned;
 // block_idx (nq,mb) or (B,nq,mb) int32 (per_graph selects), buckets the
-// matching (...,bq,bk) int8; bias (H,nb) fp32; lse (B*H,S) fp32 or NULL.
+// matching (...,bq,bk) int8; bias (H,nb) fp32, (H,nb+1) with the sentinel
+// column when fuse (0 or 1); lse (B*H,S) fp32 or NULL. No hoist argument:
+// both values compute the same thing here (see the header).
 // pieces NULL runs one CTA group per q-block row; else it lists n_pieces
 // int4 work items (b*nq+qi, v0, v1, slot or -1), and splits the n_splits
 // int4 rows (b*nq+qi, first slot, n, 0) to combine from part_o
@@ -360,17 +371,20 @@ int cluster_attention_fwd_sm90(const void* q, const void* k, const void* v,
                                void* part_o, void* part_ml, int B, int S,
                                int H, int KV, int dh, int nq, int mb, int bq,
                                int bk, int nb, int per_graph, int n_pieces,
-                               int n_splits, float sm_scale, void* stream) {
+                               int n_splits, int fuse, float sm_scale,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq != bk || nq * bq != S) return (int)cudaErrorInvalidValue;
   if (bq == 16)
     return launch_dh<16>(dh, q, k, v, block_idx, buckets, bias, pieces,
                          splits, out, lse, part_o, part_ml, B, S, H, KV, nq,
-                         mb, nb, per_graph, n_pieces, n_splits, sm_scale, st);
+                         mb, nb, per_graph, n_pieces, n_splits, fuse,
+                         sm_scale, st);
   if (bq == 32)
     return launch_dh<32>(dh, q, k, v, block_idx, buckets, bias, pieces,
                          splits, out, lse, part_o, part_ml, B, S, H, KV, nq,
-                         mb, nb, per_graph, n_pieces, n_splits, sm_scale, st);
+                         mb, nb, per_graph, n_pieces, n_splits, fuse,
+                         sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

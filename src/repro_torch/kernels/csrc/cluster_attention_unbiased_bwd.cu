@@ -24,6 +24,10 @@
 //                64-row chunks: dv += p^T @ dO, dk += scale * ds^T @ q,
 //                per q-head (the GQA group sum is the caller's).
 //
+// The forward's `hoist_scale` is a template flag here too, so the scores
+// are rebuilt as the forward built them: the q tile is staged times
+// Dh^-0.5, and dK, contracting that tile, takes no second scale.
+//
 // What bounds them on the card. At the Qwen3-0.6B training shape
 // (S=16384, H=16 over KV=8, Dh=128, 3696 visited 128 x 128 blocks, the
 // causal diagonal blocks half full) dQ does ~732 GFLOP (10.9 ms at the
@@ -63,7 +67,7 @@ constexpr size_t dkv_smem_bytes() {
 
 // ------------------------------------------------------------- dQ kernel
 
-template <typename T, int DH>
+template <typename T, int DH, bool HOIST>
 __global__ void __launch_bounds__(kThreads, 1)
 cluster_attn_dq_unbiased_kernel(const T* __restrict__ q,
                                 const T* __restrict__ k,
@@ -98,7 +102,8 @@ cluster_attn_dq_unbiased_kernel(const T* __restrict__ q,
   const size_t qs = (size_t)H * DH, ks = (size_t)KV * DH;
   const size_t qoff = ((size_t)b * S + q0) * qs + (size_t)h * DH;
 
-  load_rows<DH>(sQ, q + qoff, qs, kTile);
+  load_rows_upto<DH>(sQ, q + qoff, qs, kTile, kTile,
+                     HOIST ? sm_scale : 1.f);
   load_rows<DH>(sDO, dout + qoff, qs, kTile);
   float rl[4], rd[4];  // lse and delta of the thread's rows
   const size_t row0 = ((size_t)b * H + h) * S + q0;
@@ -143,7 +148,7 @@ cluster_attn_dq_unbiased_kernel(const T* __restrict__ q,
         const int qp = q0 + tr + 16 * i;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          float sv = sc[i][j] * sm_scale;
+          float sv = HOIST ? sc[i][j] : sc[i][j] * sm_scale;
           if (partial && qp < k0 + tc + 16 * j) sv = kNegInf;
           const float p = expf(sv - rl[i]);
           sDS[(tr + 16 * i) * kLP + tc + 16 * j] = p * (dp[i][j] - rd[i]);
@@ -158,7 +163,7 @@ cluster_attn_dq_unbiased_kernel(const T* __restrict__ q,
 
 // ---------------------------------------------------------- dK/dV kernel
 
-template <typename T, int DH>
+template <typename T, int DH, bool HOIST>
 __global__ void __launch_bounds__(kThreads, 1)
 cluster_attn_dkv_unbiased_kernel(const T* __restrict__ q,
                                  const T* __restrict__ k,
@@ -217,7 +222,8 @@ cluster_attn_dkv_unbiased_kernel(const T* __restrict__ q,
       if (causal && q0 + kTile - 1 < k0) continue;  // every entry masked
       __syncthreads();  // the previous chunk's readers are done
       const size_t qoff = ((size_t)b * S + q0) * qs + (size_t)h * DH;
-      load_rows<DH>(sQ, q + qoff, qs, kTile);
+      load_rows_upto<DH>(sQ, q + qoff, qs, kTile, kTile,
+                         HOIST ? sm_scale : 1.f);
       load_rows<DH>(sDO, dout + qoff, qs, kTile);
       if (tid < kTile) {
         const size_t r = ((size_t)b * H + h) * S + q0 + tid;
@@ -242,7 +248,7 @@ cluster_attn_dkv_unbiased_kernel(const T* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = tc + 16 * j;
-          float sv = st[i][j] * sm_scale;
+          float sv = HOIST ? st[i][j] : st[i][j] * sm_scale;
           if (partial && q0 + r < kp) sv = kNegInf;
           const float p = expf(sv - sLse[r]);
           sPT[(tr + 16 * i) * kLP + r] = p;
@@ -255,22 +261,24 @@ cluster_attn_dkv_unbiased_kernel(const T* __restrict__ q,
     }
   }
   const size_t hoff = ((size_t)b * S + k0) * qs + (size_t)h * DH;
-  store_rows<DH>(dk + hoff, qs, tr, tc, acc_k, sm_scale);
+  // under HOIST sQ held q * scale, so ds^T @ sQ already carries it
+  store_rows<DH>(dk + hoff, qs, tr, tc, acc_k, HOIST ? 1.f : sm_scale);
   store_rows<DH>(dv + hoff, qs, tr, tc, acc_v, 1.f);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool HOIST>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* block_idx,
               void* dq, int B, int S, int H, int KV, int nq, int mb, int bq,
               int bk, int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_dq_unbiased_kernel<T, DH>,
+      cluster_attn_dq_unbiased_kernel<T, DH, HOIST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nq * (bq / kTile) * H;
-  cluster_attn_dq_unbiased_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  cluster_attn_dq_unbiased_kernel<T, DH, HOIST>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -279,7 +287,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool HOIST>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* block_idx_t, void* dk, void* dv, int B, int S,
@@ -287,11 +295,12 @@ int launch_dkv(const void* q, const void* k, const void* v,
                float sm_scale, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_dkv_unbiased_kernel<T, DH>,
+      cluster_attn_dkv_unbiased_kernel<T, DH, HOIST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nk * (bk / kTile) * H;
-  cluster_attn_dkv_unbiased_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  cluster_attn_dkv_unbiased_kernel<T, DH, HOIST>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -300,7 +309,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool HOIST>
 int dq_dh(int dh, const void* q, const void* k, const void* v,
           const void* dout, const void* lse, const void* delta,
           const void* block_idx, void* dq, int B, int S, int H, int KV,
@@ -308,18 +317,19 @@ int dq_dh(int dh, const void* q, const void* k, const void* v,
           cudaStream_t st) {
   switch (dh) {
     case 64:
-      return launch_dq<T, 64>(q, k, v, dout, lse, delta, block_idx, dq, B, S,
-                              H, KV, nq, mb, bq, bk, causal, sm_scale, st);
+      return launch_dq<T, 64, HOIST>(q, k, v, dout, lse, delta, block_idx,
+                                     dq, B, S, H, KV, nq, mb, bq, bk, causal,
+                                     sm_scale, st);
     case 128:
-      return launch_dq<T, 128>(q, k, v, dout, lse, delta, block_idx, dq, B,
-                               S, H, KV, nq, mb, bq, bk, causal, sm_scale,
-                               st);
+      return launch_dq<T, 128, HOIST>(q, k, v, dout, lse, delta, block_idx,
+                                      dq, B, S, H, KV, nq, mb, bq, bk,
+                                      causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool HOIST>
 int dkv_dh(int dh, const void* q, const void* k, const void* v,
            const void* dout, const void* lse, const void* delta,
            const void* block_idx_t, void* dk, void* dv, int B, int S, int H,
@@ -327,13 +337,13 @@ int dkv_dh(int dh, const void* q, const void* k, const void* v,
            float sm_scale, cudaStream_t st) {
   switch (dh) {
     case 64:
-      return launch_dkv<T, 64>(q, k, v, dout, lse, delta, block_idx_t, dk,
-                               dv, B, S, H, KV, nk, mt, bq, bk, causal,
-                               sm_scale, st);
+      return launch_dkv<T, 64, HOIST>(q, k, v, dout, lse, delta, block_idx_t,
+                                      dk, dv, B, S, H, KV, nk, mt, bq, bk,
+                                      causal, sm_scale, st);
     case 128:
-      return launch_dkv<T, 128>(q, k, v, dout, lse, delta, block_idx_t, dk,
-                                dv, B, S, H, KV, nk, mt, bq, bk, causal,
-                                sm_scale, st);
+      return launch_dkv<T, 128, HOIST>(q, k, v, dout, lse, delta,
+                                       block_idx_t, dk, dv, B, S, H, KV, nk,
+                                       mt, bq, bk, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -347,22 +357,27 @@ extern "C" {
 // dtype: 0 = float32 (bfloat16 is cluster_attention_bwd_dq_unbiased_sm90's).
 // q, dout and dq (B,S,H,Dh); k/v (B,S,KV,Dh), all contiguous and 16-byte
 // aligned; lse, delta (B*H,S) fp32; block_idx (nq,mb) int32, shared by
-// the batch. Takes Dh in {64, 128}, bq = bk a multiple of 64. Returns the
-// CUDA error code of the launch (0 = launched).
+// the batch; hoist the forward's rewrite (0 or 1). Takes Dh in {64,
+// 128}, bq = bk a multiple of 64. Returns the CUDA error code of the
+// launch (0 = launched).
 int cluster_attention_bwd_dq_unbiased(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       const void* block_idx, void* dq,
                                       int dtype, int B, int S, int H, int KV,
                                       int dh, int nq, int mb, int bq, int bk,
-                                      int causal, float sm_scale,
+                                      int causal, int hoist, float sm_scale,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  return unbiased::dq_dh<float>(dh, q, k, v, dout, lse, delta, block_idx, dq,
-                                B, S, H, KV, nq, mb, bq, bk, causal, sm_scale,
-                                st);
+  if (hoist)
+    return unbiased::dq_dh<float, true>(dh, q, k, v, dout, lse, delta,
+                                        block_idx, dq, B, S, H, KV, nq, mb,
+                                        bq, bk, causal, sm_scale, st);
+  return unbiased::dq_dh<float, false>(dh, q, k, v, dout, lse, delta,
+                                       block_idx, dq, B, S, H, KV, nq, mb, bq,
+                                       bk, causal, sm_scale, st);
 }
 
 // As above (fp32 only); block_idx_t (nk,mt,2) int32, shared by the
@@ -374,14 +389,18 @@ int cluster_attention_bwd_dkv_unbiased(const void* q, const void* k,
                                        const void* block_idx_t, void* dk,
                                        void* dv, int dtype, int B, int S,
                                        int H, int KV, int dh, int nk, int mt,
-                                       int bq, int bk, int causal,
+                                       int bq, int bk, int causal, int hoist,
                                        float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  return unbiased::dkv_dh<float>(dh, q, k, v, dout, lse, delta, block_idx_t,
-                                 dk, dv, B, S, H, KV, nk, mt, bq, bk, causal,
-                                 sm_scale, st);
+  if (hoist)
+    return unbiased::dkv_dh<float, true>(dh, q, k, v, dout, lse, delta,
+                                         block_idx_t, dk, dv, B, S, H, KV, nk,
+                                         mt, bq, bk, causal, sm_scale, st);
+  return unbiased::dkv_dh<float, false>(dh, q, k, v, dout, lse, delta,
+                                        block_idx_t, dk, dv, B, S, H, KV, nk,
+                                        mt, bq, bk, causal, sm_scale, st);
 }
 
 }  // extern "C"

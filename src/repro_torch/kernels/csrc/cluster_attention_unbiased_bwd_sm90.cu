@@ -22,6 +22,14 @@
 // caller's. A q-block row with no entry writes dq = 0, a k-block no row
 // visits dk = dv = 0.
 //
+// `hoist_scale`. The reference rewrite multiplies q by Dh^-0.5 before the
+// product. q Dh^-0.5 is no bf16 value, so the tensor cores cannot take
+// the scaled tile; this source applies the scale to the fp32 scores
+// instead, folded with log2(e) into the one exp2 argument. That differs
+// from the plain `(q * scale) . k` by fp32 rounding alone, so both values
+// of the flag launch these kernels and compute the same thing (the entry
+// points take no flag).
+//
 // What bounds them on the card. At the Qwen3-0.6B training shape
 // (S=16384, H=16 over KV=8, Dh=128, window 4096 + one global block: 3696
 // visited blocks of 128 x 128, the causal diagonal blocks half full) dQ

@@ -12,6 +12,10 @@
 // causal, and an online softmax in fp32 accumulates O. Rows with no
 // unmasked entry write O = 0 and lse = 0. No buckets, no bias.
 //
+// The reference's `hoist_scale` rewrite is a template flag, picked at
+// launch from the schedule: the q tile is staged times Dh^-0.5 once, so
+// a score is the bare dot product.
+//
 // What bounds it on the card. At the Qwen3-0.6B training shape (S=16384,
 // H=16 over KV=8, Dh=128, window 4096 + one global block: 3696 visited
 // blocks of 128 x 128, the causal diagonal blocks half full) the score
@@ -46,7 +50,7 @@ constexpr size_t fwd_smem_bytes() {
   return (size_t)(3 * kTile * Shape<DH>::LD + kTile * kLP) * sizeof(float);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool HOIST>
 __global__ void __launch_bounds__(kThreads, 1)
 cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
                                  const T* __restrict__ k,
@@ -77,8 +81,8 @@ cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
   const int q0 = qi * bq + sub * kTile;  // first q position of the tile
   const size_t qs = (size_t)H * DH, ks = (size_t)KV * DH;
 
-  load_rows<DH>(sQ, q + ((size_t)b * S + q0) * qs + (size_t)h * DH, qs,
-                kTile);
+  load_rows_upto<DH>(sQ, q + ((size_t)b * S + q0) * qs + (size_t)h * DH, qs,
+                     kTile, kTile, HOIST ? sm_scale : 1.f);
   float acc[4][NG][VW];
   float m[4], l[4];
 #pragma unroll
@@ -119,7 +123,7 @@ cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
         float mx = kNegInf;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          float sv = sc[i][j] * sm_scale;
+          float sv = HOIST ? sc[i][j] : sc[i][j] * sm_scale;
           if (partial && qp < k0 + tc + 16 * j) sv = kNegInf;
           sc[i][j] = sv;
           mx = fmaxf(mx, sv);
@@ -163,18 +167,19 @@ cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool HOIST>
 int launch(const void* q, const void* k, const void* v,
            const void* block_idx, void* out, void* lse, int B, int S, int H,
            int KV, int nq, int mb, int bq, int bk, int causal,
            float sm_scale, cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_attn_fwd_unbiased_kernel<T, DH>,
+      cluster_attn_fwd_unbiased_kernel<T, DH, HOIST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)B * nq * (bq / kTile) * H;
-  cluster_attn_fwd_unbiased_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  cluster_attn_fwd_unbiased_kernel<T, DH, HOIST>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(block_idx),
       static_cast<T*>(out), static_cast<float*>(lse), S, H, KV, nq, mb, bq,
@@ -182,18 +187,18 @@ int launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool HOIST>
 int launch_dh(int dh, const void* q, const void* k, const void* v,
               const void* block_idx, void* out, void* lse, int B, int S,
               int H, int KV, int nq, int mb, int bq, int bk, int causal,
               float sm_scale, cudaStream_t st) {
   switch (dh) {
     case 64:
-      return launch<T, 64>(q, k, v, block_idx, out, lse, B, S, H, KV, nq, mb,
-                           bq, bk, causal, sm_scale, st);
+      return launch<T, 64, HOIST>(q, k, v, block_idx, out, lse, B, S, H, KV,
+                                  nq, mb, bq, bk, causal, sm_scale, st);
     case 128:
-      return launch<T, 128>(q, k, v, block_idx, out, lse, B, S, H, KV, nq,
-                            mb, bq, bk, causal, sm_scale, st);
+      return launch<T, 128, HOIST>(q, k, v, block_idx, out, lse, B, S, H,
+                                   KV, nq, mb, bq, bk, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -207,20 +212,25 @@ extern "C" {
 // dtype: 0 = float32 (bfloat16 is cluster_attention_fwd_unbiased_sm90's).
 // q (B,S,H,Dh), k/v (B,S,KV,Dh), out like q, all contiguous and 16-byte
 // aligned; block_idx (nq,mb) int32, shared by the batch; lse (B*H,S) fp32
-// or NULL. Takes Dh in {64, 128}, bq = bk a multiple of 64. Returns the
-// CUDA error code of the launch (0 = launched).
+// or NULL; hoist the schedule's rewrite (0 or 1). Takes Dh in {64, 128},
+// bq = bk a multiple of 64. Returns the CUDA error code of the launch (0
+// = launched).
 int cluster_attention_fwd_unbiased(const void* q, const void* k,
                                    const void* v, const void* block_idx,
                                    void* out, void* lse, int dtype, int B,
                                    int S, int H, int KV, int dh, int nq,
                                    int mb, int bq, int bk, int causal,
-                                   float sm_scale, void* stream) {
+                                   int hoist, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  return unbiased::launch_dh<float>(dh, q, k, v, block_idx, out, lse, B, S,
-                                    H, KV, nq, mb, bq, bk, causal, sm_scale,
-                                    st);
+  if (hoist)
+    return unbiased::launch_dh<float, true>(dh, q, k, v, block_idx, out, lse,
+                                            B, S, H, KV, nq, mb, bq, bk,
+                                            causal, sm_scale, st);
+  return unbiased::launch_dh<float, false>(dh, q, k, v, block_idx, out, lse,
+                                           B, S, H, KV, nq, mb, bq, bk,
+                                           causal, sm_scale, st);
 }
 
 }  // extern "C"

@@ -15,6 +15,14 @@
 // (cluster_attention_unbiased_bwd.cu) rebuild `exp(s - lse)` against. A
 // row with no unmasked entry writes O = 0 and lse = 0.
 //
+// `hoist_scale`. The reference rewrite multiplies q by Dh^-0.5 before the
+// product. q Dh^-0.5 is no bf16 value, so the tensor cores cannot take
+// the scaled tile; this source applies the scale to the fp32 scores
+// instead, folded with log2(e) into the one exp2 argument. That differs
+// from the plain `(q * scale) . k` by fp32 rounding alone, so both values
+// of the flag launch these kernels and compute the same thing (the entry
+// points take no flag).
+//
 // What bounds it on the card. At the Qwen3-0.6B training shape (S=16384,
 // H=16 over KV=8, Dh=128, window 4096 + one global block: 3696 visited
 // blocks of 128 x 128, the causal diagonal blocks half full) the score

@@ -19,10 +19,14 @@ fallback would hide the kernel. ``paged_attention`` is the exception the
 reference makes too: it has no kernel, so its plain version runs on every
 device.
 
-The flash block sizes and the SSD chunk come from the autotuner's winner
-table (:func:`resolve_schedule`, ``repro_torch.tune.runtime``), or from
-``DEFAULT_SCHEDULES`` without one. A table gated on the CPU is stale for
-CUDA tensors: no entry that was not gated on the kernels reaches them.
+The cluster op's rewrites (``hoist_scale``, ``fuse_bias``) and row
+chunking, the flash block sizes and ``hoist_scale``, and the SSD chunk
+come from the autotuner's winner table (:func:`resolve_schedule`,
+``repro_torch.tune.runtime``), or from ``DEFAULT_SCHEDULES`` without
+one. A table gated on the CPU is stale for CUDA tensors: no entry that
+was not gated on the kernels reaches them. The launch checks of the
+flash and SSD kernels are re-exported here for the tuner's enumerator,
+which reaches the kernels through this module only.
 """
 
 from __future__ import annotations
@@ -39,23 +43,42 @@ from repro_torch.tune.schedule import DEFAULT_SCHEDULES, shape_bucket
 
 IMPLS = (None, "plain")
 
+# what the flash and SSD kernels take, for the tuner's enumerator
+flash_check_launch = _fa.check_launch
+ssd_check_launch = _ssd.check_launch
+
+
+def _cluster_fwd(plain, q, k, v, block_idx, buckets, bias_table, causal,
+                 return_lse, sched):
+    """The forward of ``sched`` = ``(hoist_scale, fuse_bias, row_chunk)``:
+    the plain version takes all three, the kernels the two rewrites
+    (row chunking is the plain version's, as in the reference)."""
+    hoist, fuse, row_chunk = sched
+    if plain:
+        return _ref.cluster_sparse_attention(
+            q, k, v, block_idx, buckets, bias_table, causal=causal,
+            return_lse=return_lse, hoist_scale=hoist, fuse_bias=fuse,
+            row_chunk=row_chunk)
+    return _ca.cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table,
+                                     causal=causal, return_lse=return_lse,
+                                     hoist_scale=hoist, fuse_bias=fuse)
+
 
 class _ClusterAttention(torch.autograd.Function):
     """Cluster-sparse attention with the recomputation backward, biased
     (buckets and a bias table) or unbiased (neither, optionally causal):
     saves q, k, v, O and the logsumexp; the layout arrays get no gradient,
-    and without a table there is no bias gradient."""
+    and without a table there is no bias gradient. The backward runs
+    under the forward's schedule ``sched``."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_table, block_idx, buckets, block_idx_t,
-                causal, plain):
-        fwd = _ref.cluster_sparse_attention if plain \
-            else _ca.cluster_attention_fwd
-        out, lse = fwd(q, k, v, block_idx, buckets, bias_table,
-                       causal=causal, return_lse=True)
+                causal, plain, sched):
+        out, lse = _cluster_fwd(plain, q, k, v, block_idx, buckets,
+                                bias_table, causal, True, sched)
         ctx.save_for_backward(q, k, v, bias_table, block_idx, buckets,
                               block_idx_t, out, lse)
-        ctx.causal, ctx.plain = causal, plain
+        ctx.causal, ctx.plain, ctx.sched = causal, plain, sched
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -63,12 +86,17 @@ class _ClusterAttention(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, bias_table, block_idx, buckets, block_idx_t, out, lse = \
             ctx.saved_tensors
-        bwd = _ref.cluster_attention_bwd if ctx.plain \
-            else _cab.cluster_attention_bwd
-        dq, dk, dv, dbias = bwd(q, k, v, dout.contiguous(), out, lse,
-                                block_idx, buckets, bias_table, block_idx_t,
-                                causal=ctx.causal)
-        return dq, dk, dv, dbias, None, None, None, None, None
+        hoist, fuse, row_chunk = ctx.sched
+        args = (q, k, v, dout.contiguous(), out, lse, block_idx, buckets,
+                bias_table, block_idx_t)
+        if ctx.plain:
+            grads = _ref.cluster_attention_bwd(
+                *args, causal=ctx.causal, hoist_scale=hoist, fuse_bias=fuse,
+                row_chunk=row_chunk)
+        else:
+            grads = _cab.cluster_attention_bwd(
+                *args, causal=ctx.causal, hoist_scale=hoist, fuse_bias=fuse)
+        return (*grads, None, None, None, None, None, None)
 
 
 def cluster_attention(q, k, v, block_idx, buckets=None, bias_table=None,
@@ -88,7 +116,13 @@ def cluster_attention(q, k, v, block_idx, buckets=None, bias_table=None,
     Differentiable in q, k, v and ``bias_table``. ``block_idx_t`` is the
     transposed layout ``(nk, mt, 2)`` / ``(B, nk, mt, 2)`` the dK/dV
     backward walks (derived at the dense bound ``mt = nq`` when
-    omitted); the forward never reads it."""
+    omitted); the forward never reads it.
+
+    The schedule is the winner table's for this shape bucket (memoised,
+    :func:`resolve_schedule`), as the reference resolves it:
+    ``hoist_scale`` on every path, ``fuse_bias`` where there are buckets,
+    and ``row_chunk`` on the plain version, which the kernels do not
+    read."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if causal and buckets is not None:
@@ -102,15 +136,19 @@ def cluster_attention(q, k, v, block_idx, buckets=None, bias_table=None,
     _ca.check_args(q, k, v, block_idx, buckets, bias_table)
     if block_idx_t is not None:
         _cab.check_block_idx_t(q, block_idx, buckets, block_idx_t)
+    s = resolve_schedule("cluster_attention", seq_len=q.shape[1],
+                         heads=q.shape[2], d_head=q.shape[3], dtype=q.dtype,
+                         device_type=q.device.type)
+    sched = (s.hoist_scale, s.fuse_bias and buckets is not None,
+             _sched_field(s, "row_chunk"))
     grad = torch.is_grad_enabled() and any(
         x is not None and x.requires_grad for x in (q, k, v, bias_table))
     if not grad:
-        fwd = _ref.cluster_sparse_attention if plain \
-            else _ca.cluster_attention_fwd
-        return fwd(q, k, v, block_idx, buckets, bias_table, causal=causal,
-                   return_lse=return_lse)
+        return _cluster_fwd(plain, q, k, v, block_idx, buckets, bias_table,
+                            causal, return_lse, sched)
     out, lse = _ClusterAttention.apply(q, k, v, bias_table, block_idx,
-                                       buckets, block_idx_t, causal, plain)
+                                       buckets, block_idx_t, causal, plain,
+                                       sched)
     return (out, lse) if return_lse else out
 
 

@@ -36,17 +36,38 @@ every visited block from q, k and the forward's logsumexp, as the CUDA
 kernels do: dQ and the ``bias_table`` gradient over the forward layout,
 dK and dV over the transposed one. Without buckets it is the unbiased
 op's backward (the LM path), the positional causal mask included.
+
+The forward and the backward take the schedule of the reference's
+cluster kernels and oracle (``repro_torch.tune.schedule``):
+
+* ``hoist_scale`` multiplies the fp32 q tile by ``Dh**-0.5`` before the
+  product instead of every score after it (the backward rebuilds the
+  scores the same way; its dK still contracts the unscaled q);
+* ``fuse_bias`` looks the bias up in :func:`extend_bias_table`'s operand,
+  whose trailing ``NEG_SENTINEL`` column the masked bucket -1 wraps onto,
+  instead of clipping the bucket and masking with a select. The two
+  agree on buckets in ``{-1} U [0, n_buckets)``, all that
+  ``core/reformation.py`` emits; the bias gradient keeps the table's
+  width;
+* ``row_chunk`` cuts the work at q-block row chunks of the largest
+  divisor of ``nq`` not above it (the reference oracle's rule): a pass
+  takes whole row chunks, as many as fit under ``MAX_CHUNK_ENTRIES``,
+  and a chunk above that bound is cut by it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.dual_attention import bucket_sums
 from repro_torch.models.layers import (attention_mask, chunked_attention,
                                        masked_attention)
 from repro_torch.models.ssm import ssd_chunked
 
 NEG_INF = float("-inf")
+# the reference kernels' finite mask value (``repro.kernels.policy``'s
+# NEG_INF): the fused bias table's sentinel column
+NEG_SENTINEL = -1e30
 # fp32 score entries (blocks x heads x bq x bk) computed at once
 MAX_CHUNK_ENTRIES = 1 << 26
 
@@ -55,6 +76,79 @@ def _chunks(n: int, per_block: int):
     """Slices of ``range(n)`` active blocks, each within the chunk bound."""
     step = max(1, MAX_CHUNK_ENTRIES // per_block)
     return [slice(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def row_chunk_rows(nq: int, row_chunk: int) -> int:
+    """The q-block rows of one ``row_chunk``: the largest divisor of
+    ``nq`` not above it (the reference oracle's rule)."""
+    rc = min(row_chunk, nq)
+    while nq % rc:
+        rc -= 1
+    return rc
+
+
+def _passes(rows, nq: int, row_chunk, per_block: int):
+    """The passes over the active blocks whose flattened q-block rows
+    (``b * nq + qi``) are ``rows``: ``(order, slices)``, the blocks to take
+    in ``order`` (None: as they are) and cut at ``slices``. Without
+    ``row_chunk`` the cuts fall at the entry bound alone; with it a pass
+    takes whole chunks of :func:`row_chunk_rows` rows, as many as fit
+    under the bound, and a chunk above the bound is cut by it."""
+    if row_chunk is None:
+        return None, _chunks(rows.numel(), per_block)
+    key = rows // row_chunk_rows(nq, row_chunk)
+    order = torch.argsort(key, stable=True)
+    counts = torch.unique_consecutive(key[order],
+                                      return_counts=True)[1].tolist()
+    step = max(1, MAX_CHUNK_ENTRIES // per_block)
+    out, a, start = [], 0, 0
+    for n in counts:
+        if a + n - start > step and a > start:
+            out.append(slice(start, a))
+            start = a
+        a += n
+        while a - start > step:
+            out.append(slice(start, start + step))
+            start += step
+    if a > start:
+        out.append(slice(start, a))
+    return order, out
+
+
+def _take(order, *xs):
+    return xs if order is None else tuple(x[order] for x in xs)
+
+
+def extend_bias_table(bias_table):
+    """The ``fuse_bias`` rewrite's bias operand: the ``(H, n_buckets)``
+    table in fp32 with one trailing ``NEG_SENTINEL`` column, onto which
+    the masked bucket -1 wraps (the reference's ``extend_bias_table``).
+    ``s + NEG_SENTINEL`` is ``NEG_SENTINEL`` in fp32 for every finite
+    score the op produces."""
+    bt = bias_table.float()
+    return torch.cat([bt, bt.new_full((bt.shape[0], 1), NEG_SENTINEL)],
+                     dim=1)
+
+
+def _biased(s, bkt, bias_table, fuse_bias):
+    """Scores ``s`` ``(A, H, bq, bk)`` plus the bias of buckets ``bkt``
+    ``(A, bq, bk)``, masked where the bucket is negative: the sentinel
+    column under ``fuse_bias`` (the bucket wraps onto it), else the
+    bucket clipped to the table and ``NEG_INF`` by a select."""
+    if fuse_bias:
+        ext = extend_bias_table(bias_table)
+        return s + ext[:, bkt.remainder(ext.shape[1])].permute(1, 0, 2, 3)
+    nb = bias_table.shape[1]
+    s = s + bias_table.float()[:, bkt.clamp(0, nb - 1)].permute(1, 0, 2, 3)
+    return s.masked_fill((bkt < 0)[:, None], NEG_INF)
+
+
+def _qk(qa, ka, scale, hoist_scale, eq):
+    """The scaled dot products ``einsum(eq, qa, ka)``: q times ``scale``
+    first under ``hoist_scale``, else the products times it."""
+    if hoist_scale:
+        return torch.einsum(eq, qa * scale, ka)
+    return torch.einsum(eq, qa, ka) * scale
 
 
 def _causal_keep(ii, jj, bq: int, bk: int):
@@ -76,10 +170,14 @@ def _batched(block_idx, buckets, B):
 
 def cluster_sparse_attention(q, k, v, block_idx, buckets=None,
                              bias_table=None, *, causal: bool = False,
-                             return_lse: bool = False):
+                             return_lse: bool = False,
+                             hoist_scale: bool = False,
+                             fuse_bias: bool = False, row_chunk=None):
     """Returns O ``(B, S, H, Dh)`` in q's dtype and, with ``return_lse``,
     the per-row logsumexp ``(B*H, S)`` fp32 (the reference kernel's
-    residual layout)."""
+    residual layout). ``hoist_scale``, ``fuse_bias`` and ``row_chunk``
+    are the schedule's (module docstring); ``fuse_bias`` needs buckets
+    and a table."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -92,6 +190,8 @@ def cluster_sparse_attention(q, k, v, block_idx, buckets=None,
     dev = q.device
 
     bb, ii, mm = torch.nonzero(block_idx >= 0, as_tuple=True)
+    order, chunks = _passes(bb * nq + ii, nq, row_chunk, H * bq * bk)
+    bb, ii, mm = _take(order, bb, ii, mm)
     jj = block_idx[bb, ii, mm].long()
     row = bb * nq + ii                                      # (A,)
     qv = q.reshape(B, nq, bq, KV, G, Dh)
@@ -103,33 +203,29 @@ def cluster_sparse_attention(q, k, v, block_idx, buckets=None,
         a = b_.numel()
         qa = qv[b_, i_].float()                             # (a,bq,KV,G,Dh)
         ka = kv_[b_, j_].float()                            # (a,bk,KV,Dh)
-        s = torch.einsum("aqkgd,ackd->akgqc", qa, ka) * scale
+        s = _qk(qa, ka, scale, hoist_scale, "aqkgd,ackd->akgqc")
         s = s.reshape(a, H, bq, bk)
-        valid = None
         if buckets is not None:
             bkt = buckets[b_, i_, mm[c]].long()             # (a,bq,bk)
-            valid = (bkt >= 0)[:, None]
             if bias_table is not None:
-                nb = bias_table.shape[1]
-                bias = bias_table.float()[:, bkt.clamp(0, nb - 1)]
-                s = s + bias.permute(1, 0, 2, 3)
+                s = _biased(s, bkt, bias_table, fuse_bias)
+            else:
+                s = s.masked_fill((bkt < 0)[:, None], NEG_INF)
         if causal:
-            cm = _causal_keep(i_, j_, bq, bk)[:, None]
-            valid = cm if valid is None else valid & cm
-        if valid is not None:
-            s = s.masked_fill(~valid, NEG_INF)
+            s = s.masked_fill(~_causal_keep(i_, j_, bq, bk)[:, None],
+                              NEG_INF)
         return s
 
     # pass 1: row maxima over every block the row visits. The max only
     # shifts the softmax (its gradient cancels), so it carries none
-    chunks = _chunks(bb.numel(), H * bq * bk)
     m = torch.full((B * nq, H, bq), NEG_INF, device=dev)
     with torch.no_grad():
         for c in chunks:
             bmax = scores(c).amax(-1)                       # (a,H,bq)
             m.scatter_reduce_(0, row[c, None, None].expand_as(bmax), bmax,
                               "amax")
-    dead = torch.isneginf(m)
+    # a row with nothing unmasked: NEG_INF, or the fused sentinel
+    dead = m <= NEG_SENTINEL
     m = m.masked_fill(dead, 0.0)
     # pass 2: the scores again, their exponentials, the PV products
     l = torch.zeros((B * nq, H, bq), device=dev)
@@ -270,28 +366,14 @@ def group_sum(x, KV: int):
     return x.float().view(B, S, KV, H // KV, Dh).sum(3)
 
 
-def bucket_sums(x, buckets, nb: int):
-    """``(H, nb)`` fp32 sums of ``x`` ``(N, H, *r)`` by ``buckets``
-    ``(N, *r)``: column ``j`` sums the entries whose bucket is ``j``, the
-    last column also those above it (the kernels clip buckets to
-    ``nb - 1``); entries with a negative bucket count nowhere. One
-    reduction over ``x`` per bucket, deterministic, and no scatter of
-    millions of values onto ``nb`` slots."""
-    N, H = x.shape[:2]
-    xf = x.reshape(N, H, -1).float()
-    bf = buckets.reshape(N, -1)
-    cols = [torch.einsum("nhr,nr->h", xf,
-                         ((bf == j) if j < nb - 1 else (bf >= j)).float())
-            for j in range(nb)]
-    return torch.stack(cols, dim=1)
-
-
 def _block_terms(q, k, v, dout, lse, delta, bb, ii, mm, jj, nq, bk,
-                 buckets, bias_table, causal):
+                 buckets, bias_table, causal, hoist_scale=False,
+                 fuse_bias=False):
     """Recomputed ``p`` and ``ds`` ``(A, H, bq, bk)`` of the active blocks
     ``(graph bb, q-row ii, slot mm, k-block jj)``, with the gathered
-    fp32 q, dO, k tiles and the blocks' bucket tiles (None without
-    buckets)."""
+    fp32 q (unscaled under ``hoist_scale`` too), dO, k tiles and the
+    blocks' bucket tiles (None without buckets). The scores are rebuilt
+    as the forward built them, under the same schedule flags."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -302,15 +384,12 @@ def _block_terms(q, k, v, dout, lse, delta, bb, ii, mm, jj, nq, bk,
     doa = dout.reshape(B, nq, bq, KV, G, Dh)[bb, ii].float()
     ka = k.reshape(B, nk, bk, KV, Dh)[bb, jj].float()       # (A,bk,KV,Dh)
     va = v.reshape(B, nk, bk, KV, Dh)[bb, jj].float()
-    s = torch.einsum("aqkgd,ackd->akgqc", qa, ka).reshape(A, H, bq, bk)
-    s = s * Dh ** -0.5
+    s = _qk(qa, ka, Dh ** -0.5, hoist_scale,
+            "aqkgd,ackd->akgqc").reshape(A, H, bq, bk)
     bkt = None
     if buckets is not None:
-        nb = bias_table.shape[1]
         bkt = buckets[bb, ii, mm].long()                    # (A,bq,bk)
-        s = s + bias_table.float()[:, bkt.clamp(0, nb - 1)].permute(
-            1, 0, 2, 3)
-        s = s.masked_fill((bkt < 0)[:, None], NEG_INF)
+        s = _biased(s, bkt, bias_table, fuse_bias)
     if causal:
         s = s.masked_fill(~_causal_keep(ii, jj, bq, bk)[:, None], NEG_INF)
     rows = (bb, slice(None), ii)
@@ -329,25 +408,28 @@ def block_dims(q, block_idx, buckets):
 
 
 def bwd_dq(q, k, v, dout, lse, delta, block_idx, buckets, bias_table, *,
-           causal: bool = False):
+           causal: bool = False, hoist_scale: bool = False,
+           fuse_bias: bool = False, row_chunk=None):
     """dq ``(B, S, H, Dh)`` fp32 and the ``(H, n_buckets)`` fp32 bias
     gradient (None without buckets), over the forward layout: the dQ
-    kernels' function."""
+    kernels' function, under the schedule's flags (module docstring)."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     nq, bq, bk = block_dims(q, block_idx, buckets)
     bi, bu = _batched(block_idx, buckets, B)
     bb, ii, mm = torch.nonzero(bi >= 0, as_tuple=True)
+    order, chunks = _passes(bb * nq + ii, nq, row_chunk, H * bq * bk)
+    bb, ii, mm = _take(order, bb, ii, mm)
     jj = bi[bb, ii, mm].long()
     dq = torch.zeros((B * nq, bq, H, Dh), device=q.device)
     dbias = None
     if bu is not None:
         nb = bias_table.shape[1]
         dbias = torch.zeros((H, nb), device=q.device)
-    for c in _chunks(bb.numel(), H * bq * bk):
+    for c in chunks:
         _, ds, _, _, ka, bkt = _block_terms(
             q, k, v, dout, lse, delta, bb[c], ii[c], mm[c], jj[c], nq, bk,
-            bu, bias_table, causal)
+            bu, bias_table, causal, hoist_scale, fuse_bias)
         a = ds.shape[0]
         dqa = torch.einsum("akgqc,ackd->aqkgd",
                            ds.view(a, KV, H // KV, bq, bk), ka)
@@ -418,9 +500,11 @@ def bwd_dq_split(q, k, v, dout, lse, delta, block_idx, buckets, bias_table,
 
 
 def bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
-            bias_table, *, causal: bool = False):
+            bias_table, *, causal: bool = False, hoist_scale: bool = False,
+            fuse_bias: bool = False, row_chunk=None):
     """Per-q-head dk and dv ``(B, S, H, Dh)`` fp32 over the transposed
-    layout: the dK/dV kernels' function."""
+    layout: the dK/dV kernels' function, under the schedule's flags
+    (module docstring; ``row_chunk`` groups the visits by their q-rows)."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -432,12 +516,14 @@ def bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
     bb, jj, tt = torch.nonzero(bit[..., 0] >= 0, as_tuple=True)
     ii = bit[bb, jj, tt, 0].long()
     mm = bit[bb, jj, tt, 1].long()
+    order, chunks = _passes(bb * nq + ii, nq, row_chunk, H * bq * bk)
+    bb, jj, ii, mm = _take(order, bb, jj, ii, mm)
     dkh = torch.zeros((B * nk, bk, H, Dh), device=q.device)
     dvh = torch.zeros((B * nk, bk, H, Dh), device=q.device)
-    for c in _chunks(bb.numel(), H * bq * bk):
+    for c in chunks:
         p, ds, qa, doa, _, _ = _block_terms(
             q, k, v, dout, lse, delta, bb[c], ii[c], mm[c], jj[c], nq, bk,
-            bu, bias_table, causal)
+            bu, bias_table, causal, hoist_scale, fuse_bias)
         a = p.shape[0]
         dva = torch.einsum("akgqc,aqkgd->ackgd", p.view(a, KV, G, bq, bk),
                            doa)
@@ -451,23 +537,27 @@ def bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
 
 def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
                           bias_table, block_idx_t=None, *,
-                          causal: bool = False):
+                          causal: bool = False, hoist_scale: bool = False,
+                          fuse_bias: bool = False, row_chunk=None):
     """Gradients ``(dq, dk, dv, dbias)`` of the op, in the dtypes of q, k,
     v and ``bias_table`` (``dbias`` is None without buckets; ``causal``
     masks positionally, as the unbiased forward). ``out`` and ``lse`` are
-    the forward's output and logsumexp; ``block_idx_t`` is the transposed
-    layout the dK/dV pass walks (derived at the dense bound when
-    omitted). Rows the forward found dead carry ``lse = 0``, so their
-    ``p`` underflows to 0, as in the kernels."""
+    the forward's output and logsumexp, computed under the same schedule
+    flags; ``block_idx_t`` is the transposed layout the dK/dV pass walks
+    (derived at the dense bound when omitted). Rows the forward found
+    dead carry ``lse = 0``, so their ``p`` underflows to 0, as in the
+    kernels."""
     KV = k.shape[2]
     delta = row_delta(dout, out)
+    sched = dict(causal=causal, hoist_scale=hoist_scale,
+                 fuse_bias=fuse_bias, row_chunk=row_chunk)
     dq, dbias = bwd_dq(q, k, v, dout, lse, delta, block_idx, buckets,
-                       bias_table, causal=causal)
+                       bias_table, **sched)
     if block_idx_t is None:
         block_idx_t = derive_block_idx_t(
             block_idx, q.shape[1] // block_dims(q, block_idx, buckets)[2])
     dkh, dvh = bwd_dkv(q, k, v, dout, lse, delta, block_idx, block_idx_t,
-                       buckets, bias_table, causal=causal)
+                       buckets, bias_table, **sched)
     return (dq.to(q.dtype), group_sum(dkh, KV).to(k.dtype),
             group_sum(dvh, KV).to(v.dtype),
             None if dbias is None else dbias.to(bias_table.dtype))

@@ -234,7 +234,7 @@ def run_case(name: str, kind: str, call) -> dict:
                    n_warnings=len(caught), facts=facts)
     # the sweep must survive every fault: a crash IS the finding —
     # recorded unrecovered here and turned into a failing report
-    except Exception as e:  # noqa: BLE001
+    except Exception as e:  # noqa: BLE001  # repro-lint: disable=REP008
         rec.update(recovered=False, replay="none",
                    detail=f"sweep case died: {type(e).__name__}: {e}",
                    n_warnings=0, facts={})

@@ -606,6 +606,8 @@ class Trainer:
             # a failing save is attached to the crash, never in its place
             try:
                 self._crash_save()
+            # not swallowed: the save's error rides the crash as a note,
+            # and the crash is re-raised below  # repro-lint: disable=REP008
             except Exception as save_err:
                 err.add_note(f"repro_torch.runtime: the crash save failed "
                              f"too: {save_err!r}")

@@ -45,7 +45,11 @@ def cluster_grad_case(n_nodes: int, *, bq: int = 64, d_b: int = 8,
                       heads: int = 4, d_head: int = 32, seed: int = 0,
                       device="cuda"):
     """One SBM graph layout and the forward-only and (loss, grads)
-    closures over ops.cluster_attention (the biased kernels)."""
+    closures over ops.cluster_attention (the biased kernels). Each call
+    runs under the schedule the winner table holds for the case's bucket
+    (``hoist_scale``, ``fuse_bias``, ``row_chunk``), so the search times
+    and gates every candidate through the op's own dispatch, as it does
+    the flash case's."""
     from repro_torch.core.graph import sbm_graph
     from repro_torch.core.reformation import build_layout
     from repro_torch.kernels import ops as kops

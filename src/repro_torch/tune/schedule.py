@@ -7,23 +7,28 @@ stage), the SSD kernel's ``chunk``, and the dataflow rewrites:
 
 ``hoist_scale``
     multiply the softmax scale onto the q tile once, as it is loaded,
-    instead of onto every score — the flash forward and both backward
-    kernels rebuild the same scores (a template flag of each kernel).
+    instead of onto every score — the flash and cluster forwards and
+    their backward kernels rebuild the same scores (a flag of each fp32
+    kernel; the bf16 kernels fold the scale into their fp32 ``exp2``
+    argument either way).
 ``fuse_bias``
-    the reference's sentinel-column bias lookup in the *cluster* kernels.
-    The port's cluster kernels do not implement it, nor ``hoist_scale``,
-    so the enumerator offers them no such candidate.
-
-``row_chunk`` (the reference's cluster-oracle q-row chunking) is kept so
-that schedules and tables read the reference's JSON; nothing in the port
-reads it.
+    the cluster kernels' sentinel-column bias lookup: the bias table
+    grows one ``-1e30`` column onto which the masked bucket -1 lands, so
+    ``s + bias`` replaces the clip and the select (biased cluster op
+    only).
+``row_chunk``
+    the q-block rows of one pass of the cluster op's plain version (the
+    reference's oracle chunking: the largest divisor of ``nq`` not above
+    it); the kernels do not read it.
 
 ``Schedule``, ``DEFAULT_SCHEDULES``, ``SCHEDULE_CACHE_VERSION`` and
 :func:`shape_bucket` are the reference's (``repro.tune.schedule``), so a
 bucket string means the same shape in both packages. Legality is the
 port kernels' own: :func:`enumerate_schedules` prunes every candidate the
 kernel would refuse (``kernels/flash_attention.check_launch``,
-``kernels/ssd.check_launch``), with the reason, before it is timed.
+``kernels/ssd.check_launch``, both reached through ``kernels/ops.py``;
+a cluster ``fuse_bias`` without buckets, a ``row_chunk`` that does not
+divide the layout's q-block rows), with the reason, before it is timed.
 """
 
 from __future__ import annotations
@@ -115,23 +120,16 @@ def shape_bucket(op: str, *, seq_len: int, heads: int | None = None,
 
 # ------------------------------------------------------------ enumerator
 
-# why the port offers the cluster op no rewrite candidate
-CLUSTER_REWRITES_PRUNED = (
-    "the port's cluster kernels implement neither hoist_scale nor "
-    "fuse_bias, and their plain version has no row chunking")
-
-
 def enumerate_schedules(op: str, case: dict, pruned: list | None = None
                         ) -> list[Schedule]:
     """Legal candidate schedules for ``op`` on ``case`` (a dict from
-    :mod:`repro_torch.tune.cases` carrying the concrete shapes). The
-    reference's candidate grid, each candidate kept only if the port's
-    kernel takes it; the default is always candidate 0, so a search can
-    never come back empty or lose to the status quo by omission. With a
-    list ``pruned``, each refused candidate is appended to it as
-    ``(schedule, reason)``."""
-    from repro_torch.kernels import flash_attention as _fa
-    from repro_torch.kernels import ssd as _ssd
+    :mod:`repro_torch.tune.cases` carrying the concrete shapes, and for
+    the cluster op its layout ``lay``). The reference's candidate grid,
+    in its order, each candidate kept only if the port's kernel takes it;
+    the default is always candidate 0, so a search can never come back
+    empty or lose to the status quo by omission. With a list ``pruned``,
+    each refused candidate is appended to it as ``(schedule, reason)``."""
+    from repro_torch.kernels import ops as kops
 
     def refuse(cand, reason):
         if pruned is not None:
@@ -145,7 +143,7 @@ def enumerate_schedules(op: str, case: dict, pruned: list | None = None
         Dh = case["d_head"]
         for bq in (32, 64, 128, 256):
             for bk in (32, 64, 128, 256):
-                reason = _fa.check_launch(Dh, bq, bk, dtype)
+                reason = kops.flash_check_launch(Dh, bq, bk, dtype)
                 for hoist in (False, True):
                     cand = Schedule(op, block_q=bq, block_k=bk,
                                     hoist_scale=hoist)
@@ -157,13 +155,25 @@ def enumerate_schedules(op: str, case: dict, pruned: list | None = None
                         refuse(cand, reason)
 
     elif op == "cluster_attention":
+        # the block shape is the layout's; candidates vary the rewrites
+        # and the plain version's row chunk
+        lay = case["lay"]
+        nq = lay.block_idx.shape[-2]
         for fuse in (False, True):
             for hoist in (False, True):
                 for rc in (4, 8, 16):
                     cand = Schedule(op, row_chunk=rc, hoist_scale=hoist,
                                     fuse_bias=fuse)
-                    if cand != default:
-                        refuse(cand, CLUSTER_REWRITES_PRUNED)
+                    if cand == default:
+                        continue
+                    if fuse and lay.buckets is None:
+                        refuse(cand, "fuse_bias needs buckets: the unbiased "
+                                     "op has no bias table to extend")
+                    elif nq % min(rc, nq):
+                        refuse(cand, f"row_chunk {rc} does not divide the "
+                                     f"{nq} q-block rows")
+                    else:
+                        out.append(cand)
 
     elif op == "ssd":
         S = case["seq_len"]
@@ -172,7 +182,8 @@ def enumerate_schedules(op: str, case: dict, pruned: list | None = None
             cand = Schedule(op, chunk=chunk)
             Q = min(chunk, S)
             reason = (f"chunk {Q} does not tile the sequence {S}" if S % Q
-                      else _ssd.check_launch(case["d_head"], N, Q, dtype))
+                      else kops.ssd_check_launch(case["d_head"], N, Q,
+                                                 dtype))
             if reason is not None:
                 refuse(cand, reason)
             elif cand != default:

@@ -8,8 +8,10 @@ wall-clock (``offline=False``, CUDA only)
     a one-entry winner table is installed (``runtime.use_table``), and
     :func:`repro_torch.tune.timing.time_candidate` takes a trimmed mean
     of CUDA-event times of the kernel path. Forward and (loss, grads) are
-    timed separately. Without CUDA it raises: the plain version on the
-    CPU is not the kernel.
+    timed separately. The cluster op's candidates that differ only in
+    ``row_chunk``, which the kernels do not read, are one launch and
+    are timed once (:func:`launched`). Without CUDA it raises: the plain
+    version on the CPU is not the kernel.
 
 offline (``offline=True``, the CPU / CI mode)
     The reference's deterministic cost model (:func:`_offline_cost`):
@@ -27,6 +29,8 @@ gated. The table records where it was gated (``backend``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -132,6 +136,17 @@ def time_schedule(case: dict, sched: Schedule, *, warmup: int = 2,
     return fwd_us, bwd_us
 
 
+def launched(op: str, sched: Schedule, device) -> Schedule:
+    """``sched`` as ``device`` runs it: the cluster kernels do not read
+    ``row_chunk`` (the plain version's q-row chunking), so on CUDA the
+    cluster op's candidates that differ only there are one launch, taken
+    at the op default's ``row_chunk``."""
+    if op == "cluster_attention" and torch.device(device).type == "cuda":
+        return dataclasses.replace(
+            sched, row_chunk=DEFAULT_SCHEDULES[op].row_chunk)
+    return sched
+
+
 # ------------------------------------------------------- offline cost model
 
 def _offline_cost(op: str, case: dict, s: Schedule) -> float:
@@ -200,6 +215,15 @@ def tune_op(op: str, *, offline: bool = False, case: dict | None = None,
     cands = enumerate_schedules(op, case, pruned)
     use_model = offline or case.get("fns") is None
     on_cuda = case["device"].type == "cuda"
+    if not use_model:   # time each launch once
+        kept = []
+        for c in cands:
+            k = launched(op, c, case["device"])
+            if k in kept:
+                pruned.append((c, "the kernels do not read row_chunk"))
+            else:
+                kept.append(k)
+        cands = kept
     mode = "offline" if use_model else "wallclock"
     source = "offline-cost-model" if use_model else "wallclock"
     if log:
@@ -223,6 +247,9 @@ def tune_op(op: str, *, offline: bool = False, case: dict | None = None,
         else:
             f, b = time_schedule(case, c, warmup=warmup, iters=iters)
             scored.append((f + b, round(f, 1), round(b, 1), i))
+            if log:
+                log(f"# tune: {op}: {c.describe()} fwd {f:.1f} us, "
+                    f"fwd+grads {b:.1f} us")
     by_index = {s[3]: s for s in scored}
     d_fwd, d_bwd = by_index[0][1], by_index[0][2]
     winner = None
@@ -277,12 +304,14 @@ def check_regression(table: WinnerTable, *, threshold: float = 1.2,
     are compared: the default cases take about a millisecond of
     host-side launch work on the card, where the trimmed means of the
     same schedule came out up to 27% apart and the fastest calls up to
-    10%. A tuned schedule equal to the default is the same launch: it is
-    timed once, ratio 1. Needs CUDA."""
+    10%. A tuned schedule that launches as the default does
+    (:func:`launched`) is the same launch: it is timed once, ratio 1.
+    Needs CUDA."""
     case = default_case(op, device) if case is None else case
     bucket = bucket_of(case)
     default = DEFAULT_SCHEDULES[op]
-    sched = table.lookup(bucket) or default
+    tabled = table.lookup(bucket) or default
+    sched = launched(op, tabled, case["device"])
     kw = {"warmup": warmup, "iters": iters, "reduce": "min"}
     default_us, tuned_us = [], []
     for _ in range(rounds):
@@ -294,7 +323,7 @@ def check_regression(table: WinnerTable, *, threshold: float = 1.2,
         else d_us
     ratio = t_us / max(d_us, 1e-9)
     out = {"op": op, "bucket": bucket, "mode": "wallclock",
-           "schedule": sched.to_json(), "tuned_us": round(t_us, 1),
+           "schedule": tabled.to_json(), "tuned_us": round(t_us, 1),
            "default_us": round(d_us, 1), "ratio": round(ratio, 3),
            "threshold": threshold, "ok": bool(ratio <= threshold)}
     if log:

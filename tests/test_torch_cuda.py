@@ -3,7 +3,8 @@ cluster-attention kernels (the biased forward, dQ and dK/dV kernels of
 the graph path, in bf16 on the tensor cores at 32 x 32 and at the
 graph-level task's 16 x 16 blocks; and
 the unbiased, optionally causal ones of the LM path, in bf16 the
-forward, dQ and dK/dV on the tensor cores),
+forward, dQ and dK/dV on the tensor cores; each under every value of
+the schedule's ``hoist_scale`` and, biased, ``fuse_bias``),
 the dense flash
 forward, dQ and dK/dV kernels (bf16 on the tensor cores, fp32 on CUDA
 cores), and the SSD scan.
@@ -402,13 +403,13 @@ def test_biased_dq_sources_refuse_what_they_do_not_take(dev):
     stream = torch.cuda.current_stream().cuda_stream
     err = tcab.LIBRARY.lib().cluster_attention_bwd_dq(
         *ptrs, dq.data_ptr(), db.data_ptr(), 1, B, S, H, H, Dh, nq, mb, 32,
-        32, lay.n_buckets, 0, Dh ** -0.5, stream)
+        32, lay.n_buckets, 0, 0, 0, Dh ** -0.5, stream)
     assert err == 1   # cudaErrorInvalidValue
     lib = tcab.LIBRARY_DQ_SM90.lib()
     for dh, bq in ((12, 32), (24, 8)):
         err = lib.cluster_attention_bwd_dq_sm90(
             *ptrs, None, None, dq.data_ptr(), db.data_ptr(), None, None, B,
-            S, H, H, dh, S // bq, mb, bq, bq, lay.n_buckets, 0, 0, 0,
+            S, H, H, dh, S // bq, mb, bq, bq, lay.n_buckets, 0, 0, 0, 0,
             Dh ** -0.5, stream)
         assert err == 1, (dh, bq)
 
@@ -883,3 +884,122 @@ def test_ssd_kernel_refuses_gradients_and_unported_shapes(dev):
                 chunk=64)
     with pytest.raises(ValueError, match="not tiled"):
         ops.ssd(x.detach(), dtv, a, b, b, chunk=48)
+
+
+# ---------------------------------------------- the cluster op's schedule
+
+SCHEDULE_FLAGS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("dtype,blk", [(torch.float32, 32),
+                                       (torch.bfloat16, 32),
+                                       (torch.bfloat16, 16)])
+@pytest.mark.parametrize("hoist,fuse", SCHEDULE_FLAGS)
+def test_biased_kernels_under_each_schedule(dev, dtype, blk, hoist, fuse):
+    """Rows 1, 3, 4 under each ``hoist_scale`` x ``fuse_bias``: the kernels
+    (bf16 at 32 x 32 and 16 x 16, fp32) against the plain versions under
+    the same flags, with buckets past nb - 1 left out (the two lookups
+    agree on {-1} U [0, nb) only), a row with no visit and a row whose
+    visits are all masked (O, lse and dq 0 through the sentinel too)."""
+    S, bi, bu, nb = _heavy_layout(nq=12, blk=blk)
+    bu = np.minimum(bu, nb - 1)
+    bi[2] = -1
+    bu[3] = -1
+    q, k, v, bias = qkv(2, S, 8, 2, 24, n_buckets=nb)
+    args = [torch.from_numpy(np.array(x, copy=True)).to(dev)
+            for x in (q, k, v, bi, bu, bias)]
+    for i in range(3):
+        args[i] = args[i].to(dtype)
+    q, k, v, bi, bu, bias = args
+    flags = dict(hoist_scale=hoist, fuse_bias=fuse)
+    o, lse = tca.cluster_attention_fwd(q, k, v, bi, bu, bias,
+                                       return_lse=True, **flags)
+    po, plse = ref.cluster_sparse_attention(q, k, v, bi, bu, bias,
+                                            return_lse=True, **flags)
+    torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    rows = slice(2 * blk, 4 * blk)
+    assert not o[:, rows].any() and not lse.view(2, 8, -1)[..., rows].any()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dout = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+    bit = torch.from_numpy(transpose_block_idx(bi.cpu().numpy(),
+                                               S // blk)).to(dev)
+    got = tcab.cluster_attention_bwd(q, k, v, dout, o, lse, bi, bu, bias,
+                                     bit, **flags)
+    want = ref.cluster_attention_bwd(q, k, v, dout, o, lse, bi, bu, bias,
+                                     bit, **flags)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= TOL_GRAD[dtype], (name, rel)
+    assert got[3].shape == (8, nb)
+    assert not got[0][:, rows].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hoist", [False, True])
+def test_unbiased_kernels_under_hoist_scale(dev, dtype, hoist):
+    """Rows 2, 5, 6 under ``hoist_scale`` (the bf16 kernels compute the
+    same for both values), causal, against the plain versions under the
+    same flag."""
+    lay = lm_local_global_layout(512, window=128, n_global=128)
+    q, k, v, _ = qkv(2, lay.seq_len, 4, 2, 64, seed=5)
+    q, k, v = (torch.from_numpy(x).to(dev).to(dtype) for x in (q, k, v))
+    bi = torch.from_numpy(lay.block_idx).to(dev)
+    bit = torch.from_numpy(lay.block_idx_t).to(dev)
+    o, lse = tca.cluster_attention_fwd(q, k, v, bi, None, None, causal=True,
+                                       return_lse=True, hoist_scale=hoist)
+    po, plse = ref.cluster_sparse_attention(q, k, v, bi, causal=True,
+                                            return_lse=True,
+                                            hoist_scale=hoist)
+    atol, rtol = TOL_O_BF16 if dtype == torch.bfloat16 else (TOL[dtype],) * 2
+    torch.testing.assert_close(o.float(), po.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dout = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+    got = tcab.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None, None,
+                                     bit, causal=True, hoist_scale=hoist)
+    want = ref.cluster_attention_bwd(q, k, v, dout, o, lse, bi, None, None,
+                                     bit, causal=True, hoist_scale=hoist)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= TOL_GRAD[dtype], (name, rel)
+
+
+def test_op_applies_an_installed_cluster_winner_on_the_card(dev, monkeypatch):
+    """A winner table gated on CUDA reaches the kernels: the forward and
+    both backward kernels launch with its flags."""
+    from repro_torch.tune import runtime as rt
+    from repro_torch.tune.schedule import Schedule, shape_bucket
+    from repro_torch.tune.table import WinnerTable
+
+    seen = []
+    for mod, name in ((tca, "cluster_attention_fwd"),
+                      (tcab, "cluster_attention_bwd")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: (
+            seen.append((_n, kw["hoist_scale"], kw["fuse_bias"]))
+            or _fn(*a, **kw)))
+    lay = graph_layout()
+    q, k, v, bias = qkv(1, lay.seq_len, 4, 4, 16, n_buckets=lay.n_buckets)
+    leaves = [torch.from_numpy(x).to(dev).requires_grad_()
+              for x in (q, k, v, bias)]
+    table = WinnerTable(backend=f"cuda:{torch.cuda.get_device_name(dev)}")
+    table.put(shape_bucket("cluster_attention", seq_len=lay.seq_len,
+                           heads=4, d_head=16, dtype="float32"),
+              Schedule("cluster_attention", row_chunk=4, hoist_scale=True,
+                       fuse_bias=True), source="test")
+    with rt.use_table(table):
+        o = ops.cluster_attention(*leaves[:3],
+                                  torch.from_numpy(lay.block_idx).to(dev),
+                                  torch.from_numpy(lay.buckets).to(dev),
+                                  leaves[3])
+        o.float().sum().backward()
+    torch.cuda.synchronize()
+    assert seen == [("cluster_attention_fwd", True, True),
+                    ("cluster_attention_bwd", True, True)]

@@ -35,8 +35,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.tune import cases as tcases
 from repro_torch.tune import runtime as rt
 from repro_torch.tune import search
-from repro_torch.tune.schedule import (CLUSTER_REWRITES_PRUNED,
-                                       DEFAULT_SCHEDULES,
+from repro_torch.tune.schedule import (DEFAULT_SCHEDULES,
                                        SCHEDULE_CACHE_VERSION, Schedule,
                                        enumerate_schedules, shape_bucket)
 from repro_torch.tune.table import _KNOWN_CODECS, WinnerTable
@@ -252,12 +251,44 @@ def test_enumerator_ssd_pruning_matches_reference_where_the_kernel_fits():
     assert all("dh=128" in why for _, why in pruned)
 
 
-def test_enumerator_offers_cluster_default_only():
+def _cluster_layout(kind):
+    """A layout of ``nq`` q-block rows: the tuner's graph case (8 rows,
+    buckets), the LM's causal local+global layout (8 rows, no buckets),
+    or 6 rows with buckets, which row_chunk 4 does not divide."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.reformation import lm_local_global_layout
+    if kind == "graph":
+        return tcases.cluster_grad_case(244, bq=32, device="cpu")["lay"]
+    if kind == "lm":
+        return lm_local_global_layout(1024, window=256, n_global=128)
+    return SimpleNamespace(block_idx=np.zeros((6, 3), np.int32),
+                           buckets=np.zeros((6, 3, 16, 16), np.int8))
+
+
+@pytest.mark.parametrize("kind,n_cands,reasons", [
+    ("graph", 12, set()),
+    ("lm", 6, {"fuse_bias needs buckets: the unbiased op has no bias "
+               "table to extend"}),
+    ("ragged_rows", 8, {"row_chunk 4 does not divide the 6 q-block rows"}),
+], ids=("graph", "lm", "ragged_rows"))
+def test_enumerator_offers_cluster_rewrites(kind, n_cands, reasons):
+    """The reference's grid of ``fuse_bias`` x ``hoist_scale`` x
+    ``row_chunk`` in {4, 8, 16}, the default first and once; what the
+    port's kernels refuse is pruned with its reason: ``fuse_bias``
+    without buckets, a row chunk that does not divide ``nq``."""
     pruned = []
-    cands = enumerate_schedules("cluster_attention", {}, pruned)
-    assert cands == [DEFAULT_SCHEDULES["cluster_attention"]]
-    assert len(pruned) == 11
-    assert {why for _, why in pruned} == {CLUSTER_REWRITES_PRUNED}
+    case = {"op": "cluster_attention", "lay": _cluster_layout(kind)}
+    cands = enumerate_schedules("cluster_attention", case, pruned)
+    assert cands[0] == DEFAULT_SCHEDULES["cluster_attention"]
+    assert len(cands) == len(set(cands)) == n_cands
+    assert len(cands) + len(pruned) == 12
+    assert {why for _, why in pruned} == reasons
+    if kind == "lm":
+        assert not any(c.fuse_bias for c in cands)
+        assert {c.hoist_scale for c in cands} == {False, True}
+    if kind == "ragged_rows":
+        assert all(c.row_chunk != 4 for c in cands)
 
 
 # ------------------------------------------------------------ cost model
@@ -304,6 +335,34 @@ def test_wallclock_search_and_check_need_cuda():
                                 case=case)
     with pytest.raises(RuntimeError, match="is_available"):
         search.default_case("ssd")   # device="cuda" by default
+
+
+def test_cuda_search_times_each_cluster_launch_once(monkeypatch):
+    """The cluster kernels do not read ``row_chunk``: on CUDA the
+    wall-clock search times each (``hoist_scale``, ``fuse_bias``) launch
+    once, at the default row chunk, and ``check_regression`` times a
+    winner that differs from the default only there as the default."""
+    case = dict(tcases.cluster_grad_case(244, bq=32, device="cpu"),
+                device=torch.device("cuda"))
+    timed, logs = [], []
+    monkeypatch.setattr(search, "time_schedule",
+                        lambda case, s, **kw: timed.append(s) or (1.0, 2.0))
+    monkeypatch.setattr(search, "oracle_equivalent", lambda case, s: True)
+    winner, rec = search.tune_op("cluster_attention", case=case,
+                                 log=logs.append)
+    assert timed == [Schedule("cluster_attention", row_chunk=8,
+                              hoist_scale=h, fuse_bias=f)
+                     for f in (False, True) for h in (False, True)]
+    assert winner == DEFAULT_SCHEDULES["cluster_attention"]
+    assert rec["speedup"] == 1.0
+    assert any("pruned 8 candidate(s)" in m
+               and "the kernels do not read row_chunk" in m for m in logs)
+    timed.clear()
+    table = WinnerTable(backend="cuda:test")
+    table.put(rec["bucket"], Schedule("cluster_attention", row_chunk=4))
+    out = search.check_regression(table, case=case, rounds=3)
+    assert timed == [DEFAULT_SCHEDULES["cluster_attention"]] * 3
+    assert out["ratio"] == 1.0 and out["schedule"]["row_chunk"] == 4
 
 
 def _cli(*args, cwd):
@@ -356,10 +415,14 @@ def test_trainer_retune_every_reloads_the_winner_table(tmp_path, capsys,
     monkeypatch.setattr(rt, "refresh",
                         lambda p=None: calls.append(p) or refresh(p))
     gen = rt.generation()
-    tr = train_cli.main(["--arch", "gt", "--smoke", "--task", "graph",
-                         "--graphs", "8", "--batch-graphs", "4", "--steps",
-                         "4", "--device", "cpu", "--retune-every", "2",
-                         "--tune-table", path])
+    # the graph model's cluster op reads the table too, which has no entry
+    # for its bucket: it warns (once a load) and takes the default
+    with pytest.warns(RuntimeWarning,
+                      match="no entry for cluster_attention/S128"):
+        tr = train_cli.main(["--arch", "gt", "--smoke", "--task", "graph",
+                             "--graphs", "8", "--batch-graphs", "4",
+                             "--steps", "4", "--device", "cpu",
+                             "--retune-every", "2", "--tune-table", path])
     assert "status=done" in capsys.readouterr().out
     assert len(tr.history) == 4
     assert calls == [path, path]
