@@ -121,6 +121,21 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
 9. link train (``--task link``): GT at full width on the launcher's
    2048-node SBM at 32 x 32 blocks, 256 pairs a step, 16 steps, dense at
    0 and 8, checked and reported as phase 8;
+9b. the paper's three systems (slice 20's main path, as ``python -m
+   repro_torch.launch.node_classification`` runs it): the harness's
+   ``GraphTrainBench`` with Graphormer-Slim as published (4 layers, d
+   64, 8 heads of 8, bf16) on its SBM of 8192 nodes at 32 x 32 blocks,
+   trained from the seeded init in each mode: GP-RAW (``raw``, dense
+   with the structural bias) and GP-FLASH (``flash``, dense without it)
+   6 epochs each, pure ``sparse`` and TorchGT (``torchgt``, dense at 0,
+   8 and 16) 18 each; each dense epoch must launch no kernel, each
+   sparse one rows 1, 3 and 4 as ``step_launches`` says, the held-out
+   evaluation the forward once a layer; losses finite and falling; one
+   sparse step at TorchGT's trained parameters held to ``impl="plain"``
+   (the 32 x 32 backward at Dh 8); epoch ms (median without epochs 0-1,
+   each to a synchronisation), held-out accuracy and peak memory of each
+   mode, beta_G, the layout's density and the prep seconds; the paper's
+   accuracy ordering printed, not gated;
 10. recovery (slice 11's main path), in a child process with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and deterministic algorithms, so
    that a replay is bitwise comparable: GT graph-level at phase 8's shape,
@@ -137,9 +152,11 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    parent fails on the child's non-zero exit or any unrecovered case.
    Each child of phases 10-15 is started while the phase before it runs
    (``ChildPhase``, ``--warm``): its interpreter, torch and port imports
-   and CUDA initialisation overlap that phase, and it waits on its
-   standard input for its turn, then leaves with ``os._exit`` once its
-   record is written;
+   and CUDA initialisation overlap that phase, as does its host-only
+   set-up (phase 10's first task, phase 11's Graphormer-Large graph and
+   task, phase 14's SeamlessM4T init, phase 15's ranks' start-up), and
+   it waits on its standard input for its turn, then leaves with
+   ``os._exit`` once its record is written;
 11. recomputation (slice 12's main path, ``cfg.remat``), in a child
    process with deterministic cuBLAS, so Qwen3-4B meets an empty card:
    Qwen3-0.6B at S=16384, 3 steps under "none" and 3 under "block" from
@@ -150,7 +167,9 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    Mamba2-2.7B with 8 of its 64 layers at S=4096, 2 steps (the plain
    SSD scan, as the reference's model: no kernel); Graphormer-Large node
    training on the serve phase's 32768-node graph, sparse steps only,
-   the layout frozen, 3 steps under "none" and 3 under "block", held as
+   the layout frozen (so its task prepares the AutoTuner's start rung
+   alone, ``start_rung_task``), 3 steps under "none" and 3 under
+   "block", held as
    the Qwen3 A/B. All at full width, and but for Mamba2 at full depth,
    the LMs on the cluster-sparse backend, batch 1, every seeded init
    drawn on the card (``layers.draw_on_device``); each run's peak
@@ -238,6 +257,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    copy of the parameters.
 15. graph parallelism (slice 16's main path), in a child process
    (``--graph-parallel OUT``) that spawns two ranks sharing this card
+   (started, with (j)'s three, ahead of the phase's turn, each waiting
+   for it on a gate file once its start-up is done)
    over gloo (``torch.distributed``; gloo moves the collectives' CUDA
    tensors through the host, so their times are host staging, not
    NVLink): (a) ``sharded_cluster_attention`` at Graphormer-Large's
@@ -1159,6 +1180,176 @@ def checkpoint_costs(tr, fresh, tag):
     return checkpoint_finish(checkpoint_start(tr, tag), fresh)
 
 
+def step_check(model, loss_fn, batch, tag, what="step 0 sparse"):
+    """One sparse step's loss and gradients, kernel path vs
+    ``impl="plain"`` on the same parameters and batch (outside any run's
+    launch counts): loss within TOL_STEP_LOSS_REL, every reached
+    parameter's gradient at a cosine of at least MIN_GRAD_COSINE."""
+    import torch
+    import torch.nn.functional as F
+
+    named = list(model.named_parameters())
+
+    def loss_grads(impl):
+        loss, _ = loss_fn(model, batch, impl=impl)
+        return loss.detach().float(), torch.autograd.grad(
+            loss, [p for _, p in named], allow_unused=True)
+    kl, kg = loss_grads(None)
+    pl_, pg = loss_grads("plain")
+    loss_rel = (abs(kl - pl_) / abs(pl_)).item()
+    cos = {n: F.cosine_similarity(a.flatten().float(),
+                                  c.flatten().float(), dim=0,
+                                  eps=1e-30).item()
+           for (n, _), a, c in zip(named, kg, pg) if a is not None}
+    worst = min(cos, key=cos.get)
+    log(f"[{tag}] {what}, kernel vs plain path: loss "
+        f"{kl.item():.6f} vs {pl_.item():.6f} (rel {loss_rel:.3g}, tol "
+        f"{TOL_STEP_LOSS_REL}); gradient cosine min {cos[worst]:.6f} "
+        f"({worst}; min {MIN_GRAD_COSINE})")
+    if not (loss_rel <= TOL_STEP_LOSS_REL
+            and cos[worst] >= MIN_GRAD_COSINE):
+        raise AssertionError(f"{tag}: kernel and plain paths disagree")
+    return {"loss_rel": loss_rel, "min_grad_cosine": [worst, cos[worst]]}
+
+
+def start_rung_task(*args, **kw):
+    """A ``NodeTask`` that prepares only the AutoTuner's start rung, for
+    runs whose layout stays frozen (``elastic_every=0``): a run that never
+    moves on the ladder trains on that rung alone. The start rung is the
+    ladder's densest, so its own ``mb`` and ``mt`` are the capacities the
+    whole ladder would pad it to."""
+    from repro_torch.tasks import NodeTask
+
+    class StartRungTask(NodeTask):
+        def _init_ladder(self, beta_g, delta, device):
+            super()._init_ladder(beta_g, delta, device)
+            return [self.tuner.beta_thre]
+    return StartRungTask(*args, **kw)
+
+
+# phase 9b: the paper's three systems (and pure sparse) through the port's
+# node-classification harness, Graphormer-Slim as published on an SBM of
+# NC_NODES nodes; torchgt dense at 0, 8 and 16
+NC_NODES = 8192
+NC_EPOCHS = {"raw": 6, "flash": 6, "sparse": 18, "torchgt": 18}
+NC_PERIOD = 8
+# the paper's ordering (Fig 10/11), reported: the reference gates it at
+# n=384 on the CPU only
+NC_ORDER = {"sparse": 0.02, "raw": 0.10}
+
+
+def node_classification_runs(dev, reset_counts, read_counts) -> dict:
+    """Phase 9b: ``launch.node_classification.GraphTrainBench`` with
+    Graphormer-Slim's published config (4 layers, d 64, 8 heads of 8,
+    bf16) on its SBM of NC_NODES nodes, each mode trained from the seeded
+    init for NC_EPOCHS epochs: every ``raw`` and ``flash`` epoch (and each
+    dense ``torchgt`` epoch) must launch no kernel, every sparse epoch
+    rows 1, 3 and 4 at 32 x 32 as ``step_launches`` says, the held-out
+    evaluation the forward once a layer; each mode's losses finite and
+    falling. Then one sparse step at ``torchgt``'s trained parameters,
+    kernel path vs ``impl="plain"`` (``step_check``). Returns the phase's
+    record, each mode's launches under ``launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.dual_attention import use_dense_step
+    from repro_torch.core.graph_model import graph_loss
+    from repro_torch.launch.node_classification import (MODES,
+                                                        GraphTrainBench)
+
+    t0 = time.perf_counter()
+    bench = GraphTrainBench(arch="graphormer_slim", n=NC_NODES, device=dev,
+                            config="full")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    cfg, lay = bench.cfg, bench.prep.layout
+    rec = {"config": cfg.name, "nodes": NC_NODES, "S": lay.seq_len,
+           "beta_G": bench.g.sparsity, "density": lay.density(),
+           "active_blocks": int((lay.block_idx >= 0).sum()),
+           "conditions_ok": bool(bench.prep.report.ok), "prep_s": prep_s,
+           "epochs": NC_EPOCHS, "interleave_period": NC_PERIOD,
+           "modes": {}, "launches": {}}
+    log(f"[node-cls] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads} of {cfg.head_dim}, {cfg.dtype};"
+        f" SBM(n={NC_NODES}) beta_G={rec['beta_G']:.6f}, S={lay.seq_len}, "
+        f"layout density {rec['density']:.4f} ({rec['active_blocks']} "
+        f"blocks), conditions ok {rec['conditions_ok']}; two preps and the "
+        f"uploads {prep_s:.2f}s")
+    per_step = step_launches(cfg, B32_NAMES)
+    run_step = bench._step
+
+    def checked_step(opt, *, dense, bias):
+        before = read_counts()
+        out = run_step(opt, dense=dense, bias=bias)
+        now = read_counts()
+        got = {n: now[n] - before[n] for n in now if now[n] != before[n]}
+        want = {} if dense else per_step
+        if got != want:
+            raise AssertionError(f"node-cls: a {'dense' if dense else 'sparse'}"
+                                 f" epoch launched {got}, want {want}")
+        return out
+    bench._step = checked_step
+    for mode in MODES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        hist, t_epoch, acc = bench.train(mode, epochs=NC_EPOCHS[mode],
+                                         interleave_period=NC_PERIOD)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in hist]
+        n_sparse = sum(1 for ep in range(NC_EPOCHS[mode])
+                       if mode == "sparse" or (
+                           mode == "torchgt" and not use_dense_step(
+                               ep, NC_PERIOD, bench.prep.report.ok)))
+        want = step_launches(cfg, B32_NAMES, n_sparse)
+        # the held-out accuracy: one forward a layer, without grad
+        want[B32_NAMES[0]] += cfg.n_layers
+        want = {n: want.get(n, 0) for n in counts}
+        m = rec["modes"][mode] = {
+            "epoch_ms": t_epoch * 1e3, "test_acc": acc, "peak_bytes": peak,
+            "wall_s": wall, "sparse_epochs": n_sparse, "losses": losses,
+            "train_acc": [h["train_acc"] for h in hist]}
+        rec["launches"][mode] = counts
+        log(f"[node-cls] {mode:7s}: {NC_EPOCHS[mode]} epochs in {wall:.2f}s,"
+            f" epoch median {m['epoch_ms']:.2f} ms, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, test acc {acc:.4f}, peak "
+            f"{peak / 2**30:.2f} GiB, launches "
+            f"{ {n: c for n, c in counts.items() if c} }")
+        if counts != want or not np.isfinite(losses).all() or not \
+                losses[-1] < losses[0]:
+            raise AssertionError(f"node-cls {mode}: launches {counts} (want "
+                                 f"{want}), losses {losses}")
+    bench._step = run_step
+    # the 32 x 32 backward at Dh 8 on a trained model
+    rec["torchgt_step_check"] = step_check(
+        bench.model, graph_loss, bench.batch, "node-cls",
+        "one sparse step at torchgt's trained parameters")
+    acc = {mode: m["test_acc"] for mode, m in rec["modes"].items()}
+    rec["paper_order"] = {
+        other: acc["torchgt"] >= acc[other] - slack
+        for other, slack in NC_ORDER.items()}
+    ms = {mode: m["epoch_ms"] for mode, m in rec["modes"].items()}
+    rec["flash_over_torchgt"] = ms["flash"] / ms["torchgt"]
+    log(f"[node-cls] {'system':10s} {'t_epoch':>11s} {'test_acc':>9s} "
+        f"{'peak GiB':>9s}")
+    for mode, label in (("raw", "GP-RAW"), ("flash", "GP-FLASH"),
+                        ("sparse", "sparse"), ("torchgt", "TorchGT")):
+        m = rec["modes"][mode]
+        log(f"[node-cls] {label:10s} {m['epoch_ms']:9.2f}ms "
+            f"{m['test_acc']:9.4f} {m['peak_bytes'] / 2**30:9.2f}")
+    log(f"[node-cls] TorchGT speedup vs GP-FLASH: "
+        f"{rec['flash_over_torchgt']:.2f}x (median epoch wall); the paper's "
+        f"ordering, reported not gated: torchgt >= sparse - "
+        f"{NC_ORDER['sparse']} {rec['paper_order']['sparse']}, >= raw - "
+        f"{NC_ORDER['raw']} {rec['paper_order']['raw']}")
+    del bench
+    torch.cuda.empty_cache()
+    return rec
+
+
 # phase 10: the GT graph-level recovery cases' fault steps (16 steps,
 # checkpoints every 4): skip at 6, a streak at 5-7 (the generation saved
 # at 8 lies inside it), a preemption at 10 (rescued: resume at 10;
@@ -1211,20 +1402,26 @@ def recovery_phase(out_path: str) -> int:
                                    synthetic_graph_level_dataset)
 
     dev = torch.device("cuda")
-    await_turn(torch)
-    t_start = time.perf_counter()
-    kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
-                      tcab.LIBRARY_DKV_SM90))
-    reset_counts, read_counts = kernel_counters()
     gt = get_config("gt")
-    log(f"[recovery] deterministic algorithms "
-        f"{torch.are_deterministic_algorithms_enabled()}, "
-        f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
 
     def graph_task():
         return GraphLevelTask(
             synthetic_graph_level_dataset(GRAPH_TRAIN, gt, seed=1), gt,
             batch_graphs=GRAPH_BATCH, device=dev)
+
+    # the cases' task is host work (it uploads on first use): ahead of
+    # the turn
+    t0 = time.perf_counter()
+    task = graph_task()
+    prep_s = time.perf_counter() - t0
+    await_turn(torch)
+    t_start = time.perf_counter()
+    kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
+                      tcab.LIBRARY_DKV_SM90))
+    reset_counts, read_counts = kernel_counters()
+    log(f"[recovery] deterministic algorithms "
+        f"{torch.are_deterministic_algorithms_enabled()}, "
+        f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
 
     # sparse steps the case's trainers ran (every call of Trainer.step:
     # faulted, preempted and replayed steps launch their kernels too)
@@ -1286,14 +1483,11 @@ def recovery_phase(out_path: str) -> int:
         return bad
 
     # ------------------------------------------- the cases, GT graph-level
-    t0 = time.perf_counter()
-    task = graph_task()
-    prep_s = time.perf_counter() - t0
     log(f"[recovery] GT graph-level: {task.n_batches} mini-batches of "
         f"{GRAPH_BATCH} graphs, S={task.layout.seq_len}, bq={task.layout.bq};"
         f" {RECOVERY_STEPS} steps, dense every {gt.interleave_period}, "
         f"checkpoints every {RECOVERY_CKPT_EVERY}, faults {RECOVERY_AT}; "
-        f"host prep {prep_s:.2f}s")
+        f"host prep {prep_s:.2f}s ahead of the phase's turn")
     make = factory(task, elastic_every=0)
     out = run_training_cases(make, steps=RECOVERY_STEPS,
                              ckpt_every=RECOVERY_CKPT_EVERY, at=RECOVERY_AT,
@@ -1519,7 +1713,28 @@ REMAT_SSM_LAYERS = 8          # of its 64: room for phases 13, 15 (PERF.md 4)
 REMAT_GRAPH_NODES = SERVE_NODES   # the serve phase's graph, S=32800
 
 
-def remat_runs(dev, reset_counts, read_counts) -> dict:
+def remat_graph_task(dev):
+    """Phase 11's Graphormer-Large config (sparse steps only, the layout
+    frozen, no recomputation), its 32768-node graph and its task, host
+    work only (the task uploads on first use): ``(cfg, graph, task,
+    seconds)``. The layout stays frozen, so the task prepares the start
+    rung alone (``start_rung_task``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import degree_scaled_sbm
+
+    large = get_config("graphormer_large").replace(
+        interleave_period=0, elastic_every=0, remat="none")
+    t0 = time.perf_counter()
+    g = degree_scaled_sbm(REMAT_GRAPH_NODES, CLUSTERS, large, seed=0)
+    task = start_rung_task(g, large, bq=32, bk=32, d_b=8, device=dev,
+                           train_mask=np.random.default_rng(0).random(g.n)
+                           < 0.5)
+    return large, g, task, time.perf_counter() - t0
+
+
+def remat_runs(dev, reset_counts, read_counts, graph) -> dict:
     """Phase 11's runs on ``dev``: every config through the Trainer as a
     user trains it, each run's launches counted exactly
     (``step_launches``) and appended to ``counted``, its losses finite
@@ -1529,6 +1744,7 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     its plain version at the shapes the run gives it (``op_check``). The
     A/B also holds step 0's loss and gradients of the recomputing
     backward to the one that keeps every activation, bit for bit.
+    ``graph`` is ``remat_graph_task``'s, made ahead of the turn.
     Returns the phase's record and ``counted``."""
     import numpy as np
     import torch
@@ -1537,11 +1753,10 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.graph_model import GraphModel, graph_loss
     from repro_torch.data.lm_pipeline import LMDataConfig, lm_batch
-    from repro_torch.launch.serve import degree_scaled_sbm
     from repro_torch.models.api import SSMLMModel
     from repro_torch.models.lm import LMModel, lm_loss
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    from repro_torch.tasks import BatchFnTask, NodeTask
+    from repro_torch.tasks import BatchFnTask
 
     counted = []   # every trainer run's launch counts
 
@@ -1771,20 +1986,15 @@ def remat_runs(dev, reset_counts, read_counts) -> dict:
     del model
 
     # ---------------- Graphormer-Large node training on the serve graph
-    large = get_config("graphormer_large").replace(
-        interleave_period=0, elastic_every=0, remat="none")
     release()
-    t0 = time.perf_counter()
-    g = degree_scaled_sbm(REMAT_GRAPH_NODES, CLUSTERS, large, seed=0)
-    task = NodeTask(g, large, bq=32, bk=32, d_b=8, device=dev,
-                    train_mask=np.random.default_rng(0).random(g.n) < 0.5)
-    prep_s = time.perf_counter() - t0
+    large, g, task, prep_s = graph
     lay = task.layout
     log(f"[remat] graphormer-large: {g.n} nodes, {g.e} edges, "
         f"S={lay.seq_len}, rung beta_thre={task.beta_thre:.5f} "
         f"({lay.stats['active_blocks']} active blocks, mb_cap "
-        f"{task.mb_cap}); {len(task._preps)} ladder rungs prepared in "
-        f"{prep_s:.2f}s; sparse steps only (interleave_period=0: the "
+        f"{task.mb_cap}); {len(task._preps)} ladder rung(s) prepared in "
+        f"{prep_s:.2f}s ahead of the phase's turn; sparse steps only "
+        f"(interleave_period=0: the "
         f"dense step's fp32 (1, H, S, S) bias would be "
         f"{large.n_heads * lay.seq_len ** 2 * 4 / 1e9:.1f} GB), the layout "
         f"frozen (elastic_every=0)")
@@ -1832,6 +2042,9 @@ def remat_phase(out_path: str) -> int:
     from repro_torch.kernels import cluster_attention_bwd as tcab
     from repro_torch.models import layers as L
 
+    # the Large run's graph and task are host work: ahead of the turn
+    dev = torch.device("cuda")
+    graph = remat_graph_task(dev)
     await_turn(torch)
     t_start = time.perf_counter()
     kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
@@ -1842,8 +2055,7 @@ def remat_phase(out_path: str) -> int:
     # every seeded init drawn on the card: no host time (the configs'
     # checks compare runs from one init with each other)
     with L.draw_on_device():
-        rec, counted = remat_runs(torch.device("cuda"), reset_counts,
-                                  read_counts)
+        rec, counted = remat_runs(dev, reset_counts, read_counts, graph)
     rec["launches"] = {k: sum(c[k] for c in counted) for k in read_counts()}
     rec["seconds"] = time.perf_counter() - t_start
     with open(out_path, "w") as fh:
@@ -3065,7 +3277,17 @@ A10_INT8_OFF_SHARE = 0.01
 A10_CPU_CHECK_ELEMENTS = 1 << 20       # a leaf's first elements (4096 blocks)
 
 
-def a10_runs(dev, reset_counts, read_counts) -> dict:
+def a10_encdec_config():
+    """Phase 14 (a)'s config: SeamlessM4T-medium as published, on the
+    cluster-sparse backend, each layer recomputed."""
+    from repro_torch.configs import get_config
+
+    return get_config(A10_ENCDEC_ARCH).replace(attn_backend="cluster_sparse",
+                                               remat="block")
+
+
+def a10_runs(dev, reset_counts, read_counts, host_model,
+             host_init_s) -> dict:
     """Phase 14's runs on ``dev``: (a) SeamlessM4T-medium at full width
     and depth trained through the Trainer on the cluster-sparse backend
     (its encoder's non-causal and its decoder's causal attention op held
@@ -3078,7 +3300,10 @@ def a10_runs(dev, reset_counts, read_counts) -> dict:
     to the port's AdamW on the CPU. Every training run's launches of rows
     2, 5 and 6 counted exactly; returns the phase's record and those
     counts (``launches``, and the fp32 decode check's under
-    ``launches_float32``)."""
+    ``launches_float32``). ``host_model`` is (a)'s model already drawn on
+    the CPU (``a10_phase`` draws it ahead of its turn, in
+    ``host_init_s``): it is moved to ``dev``, the same weights as a model
+    made there (the seeded init draws on the CPU either way)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3284,20 +3509,21 @@ def a10_runs(dev, reset_counts, read_counts) -> dict:
         return tr, out
 
     # ------------------------------ (a) SeamlessM4T-medium, full depth
-    cfg = get_config(A10_ENCDEC_ARCH).replace(attn_backend="cluster_sparse",
-                                              remat="block")
+    cfg = a10_encdec_config()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = ted.EncDecModel(cfg, device=dev, seed=0)
+    model = host_model.to(dev)
+    del host_model
     torch.cuda.synchronize()
-    a = {"init_s": time.perf_counter() - t0}
+    a = {"init_s": time.perf_counter() - t0, "host_init_s": host_init_s}
     n_params = sum(p.numel() for p in model.parameters())
     a["params"] = n_params
     log(f"[a10] (a) {cfg.name}: {cfg.enc_layers} + {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params:,} params "
         f"(reference {A10_ENCDEC_PARAMS:,}); seeded init (drawn on the "
-        f"CPU) {a['init_s']:.1f} s")
+        f"CPU) {a['init_s']:.1f} s to the card, drawn ahead of the phase's "
+        f"turn in {host_init_s:.1f} s")
     if n_params != A10_ENCDEC_PARAMS:
         raise AssertionError(f"(a) {n_params} parameters, the reference "
                              f"has {A10_ENCDEC_PARAMS}")
@@ -3568,12 +3794,20 @@ def a10_phase(out_path: str) -> int:
     from repro_torch.kernels import cluster_attention as tca
     from repro_torch.kernels import cluster_attention_bwd as tcab
 
+    from repro_torch.models import encdec as ted
+
+    # (a)'s seeded init draws on the CPU: ahead of the turn, beside the
+    # phase before this one, and moved to the card at the turn
+    t0 = time.perf_counter()
+    host_model = ted.EncDecModel(a10_encdec_config(), device="cpu", seed=0)
+    host_init_s = time.perf_counter() - t0
     await_turn(torch)
     t_start = time.perf_counter()
     kbuild.build_all((tca.LIBRARY_UNBIASED_SM90, tcab.LIBRARY_UNBIASED_SM90,
                       tca.LIBRARY_UNBIASED))
     reset_counts, read_counts = kernel_counters()
-    rec = a10_runs(torch.device("cuda"), reset_counts, read_counts)
+    rec = a10_runs(torch.device("cuda"), reset_counts, read_counts,
+                   host_model, host_init_s)
     rec["seconds"] = time.perf_counter() - t_start
     with open(out_path, "w") as fh:
         json.dump(rec, fh)
@@ -3765,7 +3999,7 @@ def gp_runs(rank: int, dev, reset_counts, read_counts, tmp) -> dict:
     from repro_torch.parallel import ulysses as tu
     from repro_torch.parallel.sharding import recipe_for
     from repro_torch.runtime.trainer import TrainerConfig
-    from repro_torch.tasks import BatchFnTask, NodeTask
+    from repro_torch.tasks import BatchFnTask
 
     P = dist.get_world_size()
     mesh = make_host_mesh(model=P)
@@ -3773,9 +4007,12 @@ def gp_runs(rank: int, dev, reset_counts, read_counts, tmp) -> dict:
     rec = {"rank": rank}
     zero = {name: 0 for name in read_counts()}
     store = {}
+    t_rank = time.perf_counter()
 
     def say(msg):
-        log(f"[graph-parallel] rank {rank}: {msg}")
+        # the seconds since this rank's turn: each sub-phase's share
+        log(f"[graph-parallel] rank {rank} at "
+            f"{time.perf_counter() - t_rank:.1f} s: {msg}")
 
     def shard(x):
         n = x.shape[1] // P
@@ -3892,8 +4129,8 @@ def gp_runs(rank: int, dev, reset_counts, read_counts, tmp) -> dict:
     ref_b = None
     if rank == 0:   # the P = 1 run, while the other ranks wait
         model = GraphModel(cfg_b, device=dev, seed=0)
-        task = NodeTask(g, cfg_b, train_mask=train_mask, bq=32, bk=32,
-                        d_b=8, device=dev).prepare(model)
+        task = start_rung_task(g, cfg_b, train_mask=train_mask, bq=32,
+                               bk=32, d_b=8, device=dev).prepare(model)
         ref_grads = grads_at_init(model, task)
         ref_b = trainer_steps("(b) graphormer-large P=1", model, task,
                                  tc_b, want_b, S)[0]
@@ -3901,8 +4138,8 @@ def gp_runs(rank: int, dev, reset_counts, read_counts, tmp) -> dict:
         torch.cuda.empty_cache()
     dist.barrier()
     model = GraphModel(cfg_b, device=dev, seed=0)
-    task = NodeTask(g, cfg_b, train_mask=train_mask, bq=32, bk=32, d_b=8,
-                    device=dev)
+    task = start_rung_task(g, cfg_b, train_mask=train_mask, bq=32, bk=32,
+                           d_b=8, device=dev)
     recipe = recipe_for(ShapeConfig("t", "train", S, 1), mesh)
     task.prepare(model, mesh, recipe)
     got = grads_at_init(model, task, mesh)
@@ -4812,10 +5049,26 @@ def fallback_runs(rank: int, dev, reset_counts, read_counts) -> dict:
     return out
 
 
-def _gp_rank(rank, world, tmp, out_dir, which="main"):
+GP_GATE_TIMEOUT = 1800.0     # seconds a rank waits for its phase's turn
+
+
+def _await_gate(gate: str) -> None:
+    """In a rank of phase 15, started ahead of the phase's turn: wait for
+    the file ``gate`` (the turn) or ``gate + ".stop"`` (no turn: leave)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(gate):
+        if os.path.exists(gate + ".stop") or \
+                time.perf_counter() - t0 > GP_GATE_TIMEOUT:
+            raise SystemExit(3)
+        time.sleep(0.02)
+
+
+def _gp_rank(rank, world, tmp, out_dir, which="main", gate=None):
     """A spawned rank of phase 15 (``graph_parallel_phase``): its runs on
     phase 15's two ranks (``gp_runs``) or, ``which="fallback"``, (j) on
-    GP_FALLBACK_P ranks (``fallback_runs``)."""
+    GP_FALLBACK_P ranks (``fallback_runs``). With ``gate``, it imports
+    torch and the port, initialises CUDA and joins its world, then waits
+    for the phase's turn (``_await_gate``)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4826,6 +5079,9 @@ def _gp_rank(rank, world, tmp, out_dir, which="main"):
     init_distributed("gloo", rank, world, f"file://{tmp}/rdzv")
     import torch.distributed as dist
     try:
+        if gate is not None:
+            torch.cuda.init()
+            _await_gate(gate)
         reset_counts, read_counts = kernel_counters()
         dev = torch.device("cuda", 0)
         rec = (gp_runs(rank, dev, reset_counts, read_counts, tmp)
@@ -4859,26 +5115,39 @@ def graph_parallel_phase(out_path: str) -> int:
     # two ranks' allocators share the card: (g) holds ~36 GiB a rank (set
     # before this process initialises CUDA, as the ranks inherit it)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-    await_turn(torch)
-    t_start = time.perf_counter()
-    # built before the ranks start, so that they only load the libraries
-    kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
-                      tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED_SM90,
-                      tcab.LIBRARY_UNBIASED_SM90, tca.LIBRARY_UNBIASED,
-                      tcab.LIBRARY_UNBIASED))
     # both worlds at once: (j)'s three ranks are small (under a GiB
-    # each) and done within (a)-(c), so they take no wall of their own
+    # each) and done within (a)-(c), so they take no wall of their own.
+    # The ranks start ahead of the phase's turn, their start-up (imports,
+    # CUDA, the worlds' rendezvous) overlapping the phase before, and wait
+    # for the gate file this process writes at its turn
     ranks, fallback = [], []
     worlds = (("main", GP_P, ranks), ("fallback", GP_FALLBACK_P, fallback))
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
+        gate = os.path.join(tmp, "turn")
         running = []
         for which, world, got in worlds:
             d = os.path.join(tmp, which)
             os.makedirs(d)
             running.append((which, world, got, d, mp.spawn(
-                _gp_rank, args=(world, d, d, which), nprocs=world,
+                _gp_rank, args=(world, d, d, which, gate), nprocs=world,
                 join=False)))
+        try:
+            await_turn(torch)
+        except SystemExit:      # no turn: the ranks leave, then this
+            open(gate + ".stop", "w").close()
+            for *_, ctx in running:
+                for proc in ctx.processes:
+                    proc.join(60)
+            raise
+        t_start = time.perf_counter()
+        # built before the ranks' turn, so that they only load the
+        # libraries
+        kbuild.build_all((tca.LIBRARY_SM90, tcab.LIBRARY_DQ_SM90,
+                          tcab.LIBRARY_DKV_SM90, tca.LIBRARY_UNBIASED_SM90,
+                          tcab.LIBRARY_UNBIASED_SM90, tca.LIBRARY_UNBIASED,
+                          tcab.LIBRARY_UNBIASED))
+        t0 = time.perf_counter()
+        open(gate, "w").close()
         for which, world, got, d, ctx in reversed(running):   # (j) first
             while not ctx.join():
                 pass
@@ -6618,35 +6887,6 @@ def main() -> int:
 
     # ------------------- 8. graph-level train and 9. link train (slice 10)
     log(f"[phase] 8 starts at {time.perf_counter() - t_start:.1f} s")
-    def step_check(model, loss_fn, batch, tag):
-        """One sparse step's loss and gradients on the initial parameters,
-        kernel path vs ``impl="plain"`` on the same batch (before the run,
-        outside its launch counts): loss within TOL_STEP_LOSS_REL, every
-        reached parameter's gradient at a cosine of at least
-        MIN_GRAD_COSINE."""
-        named = list(model.named_parameters())
-
-        def loss_grads(impl):
-            loss, _ = loss_fn(model, batch, impl=impl)
-            return loss.detach().float(), torch.autograd.grad(
-                loss, [p for _, p in named], allow_unused=True)
-        kl, kg = loss_grads(None)
-        pl_, pg = loss_grads("plain")
-        loss_rel = (abs(kl - pl_) / abs(pl_)).item()
-        cos = {n: F.cosine_similarity(a.flatten().float(),
-                                      c.flatten().float(), dim=0,
-                                      eps=1e-30).item()
-               for (n, _), a, c in zip(named, kg, pg) if a is not None}
-        worst = min(cos, key=cos.get)
-        log(f"[{tag}] step 0 sparse, kernel vs plain path: loss "
-            f"{kl.item():.6f} vs {pl_.item():.6f} (rel {loss_rel:.3g}, tol "
-            f"{TOL_STEP_LOSS_REL}); gradient cosine min {cos[worst]:.6f} "
-            f"({worst}; min {MIN_GRAD_COSINE})")
-        if not (loss_rel <= TOL_STEP_LOSS_REL
-                and cos[worst] >= MIN_GRAD_COSINE):
-            raise AssertionError(f"{tag}: kernel and plain paths disagree")
-        return {"loss_rel": loss_rel, "min_grad_cosine": [worst, cos[worst]]}
-
     def remat_step_ab(tr, step, batch, tag):
         """The same run's A/B of the layer recomputation on the trainer's
         sparse step, outside the run's launch counts. STEP_AB_ROUNDS
@@ -6860,6 +7100,14 @@ def main() -> int:
                           time.perf_counter() - t0)
     del ltask
 
+    # ------------- 9b. the paper's three systems (slice 20's main path)
+    log(f"[phase] 9b starts at {time.perf_counter() - t_start:.1f} s")
+    nc_run = node_classification_runs(dev, reset_counts, read_counts)
+    nc_launches = {}
+    for counts in nc_run["launches"].values():
+        for n, c in counts.items():
+            nc_launches[n] = nc_launches.get(n, 0) + c
+
     # ------------------------------------ 10. recovery (slice 11's path)
     log(f"[phase] 10 starts at {time.perf_counter() - t_start:.1f} s")
     def recovery_run():
@@ -6943,8 +7191,9 @@ def main() -> int:
 
     def launches(name):
         return (main_path["launches"][name] + train_run["launches"][name]
-                + link_run["launches"][name] + recovery["launches"][name]
-                + remat["launches"][name] + gp_rec["launches"][name])
+                + link_run["launches"][name] + nc_launches[name]
+                + recovery["launches"][name] + remat["launches"][name]
+                + gp_rec["launches"][name])
 
     rung = train_run["rung"]
     csrc = "src/repro_torch/kernels/csrc/"
@@ -6966,6 +7215,7 @@ def main() -> int:
             "serve": main_path["launches"]["cluster_attention_fwd_sm90"],
             "train": train_run["launches"]["cluster_attention_fwd_sm90"],
             "link_train": link_run["launches"]["cluster_attention_fwd_sm90"],
+            "node_classification": nc_launches["cluster_attention_fwd_sm90"],
             "recovery": recovery["launches"]["cluster_attention_fwd_sm90"],
             "remat": remat["launches"]["cluster_attention_fwd_sm90"],
             "graph_parallel": gp_rec["launches"][
@@ -6992,6 +7242,7 @@ def main() -> int:
             "source": csrc + f"{name}_sm90.cu",
             "replaces": f"src/repro/kernels/cluster_attention_bwd.py:{line}",
             "launches": launches(name + "_sm90"),
+            "launches_node_classification": nc_launches[name + "_sm90"],
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "exp_floor_ms": b["exp_floor_ms"],
@@ -7147,6 +7398,7 @@ def main() -> int:
     for name, key, val in (
             ("cluster_attention_fwd", "train", train_run),
             ("cluster_attention_fwd", "link_train", link_run),
+            ("cluster_attention_fwd", "node_classification", nc_run),
             ("cluster_attention_bwd_dq", "sparse_rung",
              train_run["sparse_rung"]),
             ("cluster_attention_fwd_unbiased", "lm_yardstick", lm_yard),

@@ -173,7 +173,9 @@ def lint_paths(paths: Iterable[pathlib.Path | str], *,
 
 # ------------------------------------------------------------- baseline
 
-def load_baseline(path: pathlib.Path | str) -> dict[str, int]:
+def load_baseline(path: pathlib.Path | str | None) -> dict[str, int]:
+    if path is None:
+        return {}
     path = pathlib.Path(path)
     if not path.exists():
         return {}

@@ -1,7 +1,7 @@
 """Dual-interleaved Attention (paper §III-B): the interleave schedule and
 the dense step's structural bias — the port of ``use_dense_step``,
-``dense_buckets_from_layout`` and ``dense_bias_from_buckets`` in
-``repro.core.dual_attention``.
+``dense_buckets_from_layout``, ``dense_bias_from_buckets`` and
+``dense_bias_from_layout`` in ``repro.core.dual_attention``.
 
 Sparse steps attend over the cluster-sparse layout (``kernels/ops.py``).
 Every ``period`` steps, or always when the sparse pattern failed the
@@ -92,3 +92,21 @@ def dense_bias_from_buckets(dense_buckets, bias_table, n_heads: int):
         return torch.zeros((bk.shape[0], n_heads) + tuple(bk.shape[1:]),
                            dtype=torch.float32, device=bk.device)
     return _BucketGather.apply(bias_table, bk)
+
+
+def dense_bias_from_layout(layout, bias_table, n_heads: int):
+    """``(1, H, S, S)`` fp32 additive bias from a host-side
+    ``ClusterLayout``: its bucket matrix (:func:`dense_buckets_from_layout`)
+    built on the host and uploaded to the table's device, then gathered
+    from ``bias_table`` (:func:`dense_bias_from_buckets`). Zeros (on the
+    table's device, else the CPU) when the table or the layout's buckets
+    are absent. A caller that biases many steps with one layout builds
+    and uploads the bucket matrix once and calls
+    :func:`dense_bias_from_buckets` each step."""
+    device = "cpu" if bias_table is None else bias_table.device
+    S = layout.seq_len
+    if bias_table is None or layout.buckets is None:
+        return torch.zeros((1, n_heads, S, S), dtype=torch.float32,
+                           device=device)
+    bk = torch.from_numpy(dense_buckets_from_layout(layout)).to(device)
+    return dense_bias_from_buckets(bk, bias_table, n_heads)

@@ -68,6 +68,11 @@ class ClusterLayout:
         """Capacity of the transposed pattern's visiting-q-block axis."""
         return 0 if self.block_idx_t is None else self.block_idx_t.shape[1]
 
+    def density(self) -> float:
+        """Fraction of the full S^2 score matrix actually computed."""
+        active = int((self.block_idx >= 0).sum())
+        return active * self.bq * self.bk / float(self.seq_len) ** 2
+
 
 def _pad_to(x: int, m: int) -> int:
     return -(-x // m) * m

@@ -10,8 +10,11 @@ wall-clock (``offline=False``, CUDA only)
     of CUDA-event times of the kernel path. Forward and (loss, grads) are
     timed separately. The cluster op's candidates that differ only in
     ``row_chunk``, which the kernels do not read, are one launch and
-    are timed once (:func:`launched`). Without CUDA it raises: the plain
-    version on the CPU is not the kernel.
+    are timed once (:func:`launched`). On a host-bound case a winner
+    other than the default must confirm its lead timed in turns with it
+    (:func:`fastest_in_turns`), as ``check_regression`` times them.
+    Without CUDA it raises: the plain version on the CPU is not the
+    kernel.
 
 offline (``offline=True``, the CPU / CI mode)
     The reference's deterministic cost model (:func:`_offline_cost`):
@@ -48,6 +51,14 @@ TUNABLE_OPS = ("cluster_attention", "flash_attention", "ssd",
 # ``source`` field says which.
 AUTOTUNE_SCHEMA = ("op", "bucket", "mode", "schedule", "source", "fwd_us",
                    "bwd_us", "default_fwd_us", "default_bwd_us", "speedup")
+
+# a wall-clock winner other than the default, on a case whose default
+# call takes under CONFIRM_BELOW_US (host-side launch work, where one
+# timing of each candidate is mostly noise), keeps its place only if it
+# is still faster when the two are timed in turns CONFIRM_ROUNDS times,
+# as check_regression times them
+CONFIRM_BELOW_US = 20_000.0
+CONFIRM_ROUNDS = 3
 
 _TILE_OVERHEAD = 4096   # per-grid-cell cost: DMA setup + pipeline bubble
 _BWD_FACTOR = 2.5       # recompute backward ~ dq pass + dkv pass + fwd
@@ -134,6 +145,21 @@ def time_schedule(case: dict, sched: Schedule, *, warmup: int = 2,
         if vg is not None:   # forward-only kernels (ssd) time fwd alone
             bwd_us, _ = timing.time_candidate(vg, *case["args"], **kw)
     return fwd_us, bwd_us
+
+
+def fastest_in_turns(case: dict, scheds, *, warmup: int = 2,
+                     iters: int = 5, rounds: int = 3) -> list:
+    """Each of ``scheds``' fastest forward plus fastest (loss, grads)
+    call in microseconds, the schedules timed in turns ``rounds`` times
+    (:func:`time_schedule`, the fastest of ``iters`` calls each time): on
+    a case bound by host-side launch work, interference only ever adds
+    time, and turns spread it over the schedules."""
+    kw = {"warmup": warmup, "iters": iters, "reduce": "min"}
+    times = [[] for _ in scheds]
+    for _ in range(rounds):
+        for t, sched in zip(times, scheds):
+            t.append(time_schedule(case, sched, **kw))
+    return [sum(min(r[i] for r in t) for i in (0, 1)) for t in times]
 
 
 def launched(op: str, sched: Schedule, device) -> Schedule:
@@ -264,6 +290,18 @@ def tune_op(op: str, *, offline: bool = False, case: dict | None = None,
     if winner is None:   # the default too: the kernel disagrees
         raise RuntimeError(f"tune: {op}: no candidate, the default "
                            f"included, matched the plain version on {bucket}")
+    default = cands[0]
+    if not use_model and winner != default and \
+            d_fwd + d_bwd < CONFIRM_BELOW_US:
+        w_us, d_us = fastest_in_turns(case, [winner, default], warmup=warmup,
+                                      iters=iters, rounds=CONFIRM_ROUNDS)
+        kept = w_us < d_us or not oracle_equivalent(case, default)
+        if log:
+            log(f"# tune: {op}: {winner.describe()} in turns with the "
+                f"default, fastest calls: {w_us:.1f} vs {d_us:.1f} us; "
+                + ("kept" if kept else "the default wins"))
+        if not kept:
+            winner, w_fwd, w_bwd = default, d_fwd, d_bwd
 
     speedup = (d_fwd + d_bwd) / max(w_fwd + w_bwd, 1e-9)
     rec = dict(zip(AUTOTUNE_SCHEMA, (
@@ -312,15 +350,10 @@ def check_regression(table: WinnerTable, *, threshold: float = 1.2,
     default = DEFAULT_SCHEDULES[op]
     tabled = table.lookup(bucket) or default
     sched = launched(op, tabled, case["device"])
-    kw = {"warmup": warmup, "iters": iters, "reduce": "min"}
-    default_us, tuned_us = [], []
-    for _ in range(rounds):
-        default_us.append(time_schedule(case, default, **kw))
-        if sched != default:
-            tuned_us.append(time_schedule(case, sched, **kw))
-    d_us = sum(min(t[i] for t in default_us) for i in (0, 1))
-    t_us = sum(min(t[i] for t in tuned_us) for i in (0, 1)) if tuned_us \
-        else d_us
+    scheds = [default] if sched == default else [default, sched]
+    us = fastest_in_turns(case, scheds, warmup=warmup, iters=iters,
+                          rounds=rounds)
+    d_us, t_us = us[0], us[-1]
     ratio = t_us / max(d_us, 1e-9)
     out = {"op": op, "bucket": bucket, "mode": "wallclock",
            "schedule": tabled.to_json(), "tuned_us": round(t_us, 1),

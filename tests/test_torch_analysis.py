@@ -321,3 +321,52 @@ def test_cli_exits_nonzero_on_an_injected_violation(tmp_path, code):
     assert {r_["code"] for r_ in doc["rules"]} == set(RULES_BY_CODE)
     assert [v["code"] for v in doc["new_violations"]] == [code]
     assert doc["counts"] == {f"{rel}::{code}": 1}
+
+
+def test_cli_list_rules_prints_the_registry():
+    r = _run_cli("--list-rules")
+    assert r.returncode == 0, r.stdout + r.stderr
+    for rule in RULES:
+        assert rule.code in r.stdout and rule.origin in r.stdout
+        assert rule.fix_hint in r.stdout
+    assert [ln.split()[0] for ln in r.stdout.splitlines()
+            if ln.startswith("REP")] == ["REP002", "REP005", "REP007",
+                                          "REP008"]
+
+
+def _bad_tree(tmp_path):
+    (tmp_path / "ROADMAP.md").write_text("fixture root marker\n")
+    rel, src = _INJECTED["REP008"]
+    bad = tmp_path / rel
+    bad.parent.mkdir(parents=True)
+    bad.write_text(src)
+    return str(tmp_path)
+
+
+def test_cli_update_baseline_then_the_violation_is_baselined(tmp_path):
+    tree = _bad_tree(tmp_path)
+    base = tmp_path / "base.json"
+    r = _run_cli(tree, "--update-baseline", "--baseline", str(base))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "1 violation(s) accepted" in r.stdout
+    assert lint.load_baseline(base) == {
+        "src/repro_torch/runtime/bad.py::REP008": 1}
+    r = _run_cli(tree, "--baseline", str(base))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "0 new violation(s), 1 baselined" in r.stdout
+    # the checked-in baseline was not touched
+    assert lint.load_baseline(BASELINE) == {}
+
+
+def test_cli_update_baseline_without_a_path_returns_2(tmp_path):
+    r = _run_cli(_bad_tree(tmp_path), "--update-baseline",
+                 "--baseline", "none")
+    assert r.returncode == 2, r.stdout + r.stderr
+    assert "needs a baseline path" in r.stderr
+
+
+def test_cli_baseline_none_fails_on_a_violation(tmp_path):
+    r = _run_cli(_bad_tree(tmp_path), "--baseline", "none")
+    assert r.returncode == 1, r.stdout + r.stderr
+    assert "REP008" in r.stdout and "1 new violation(s), 0 baselined" \
+        in r.stdout

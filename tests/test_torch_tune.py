@@ -365,6 +365,46 @@ def test_cuda_search_times_each_cluster_launch_once(monkeypatch):
     assert out["ratio"] == 1.0 and out["schedule"]["row_chunk"] == 4
 
 
+@pytest.mark.parametrize("lead_holds", [False, True])
+def test_cuda_search_confirms_a_host_bound_lead_in_turns(monkeypatch,
+                                                         lead_holds):
+    """On a host-bound case the search's one timing of each candidate is
+    mostly noise: a winner other than the default keeps its place only
+    if it is still faster than the default when the two are timed in
+    turns (the fastest calls, as ``check_regression`` times them);
+    otherwise the default wins."""
+    case = dict(tcases.cluster_grad_case(244, bq=32, device="cpu"),
+                device=torch.device("cuda"))
+    fast = Schedule("cluster_attention", row_chunk=8, hoist_scale=True,
+                    fuse_bias=True)
+    turns = []
+
+    def fake(case, s, **kw):
+        if kw.get("reduce") == "min":   # timed in turns
+            turns.append(s)
+            lead = (s == fast) == lead_holds
+            return (1.0, 2.0) if lead else (1.5, 3.0)
+        return (0.5, 1.0) if s == fast else (1.0, 2.0)
+    monkeypatch.setattr(search, "time_schedule", fake)
+    monkeypatch.setattr(search, "oracle_equivalent", lambda case, s: True)
+    logs = []
+    winner, rec = search.tune_op("cluster_attention", case=case,
+                                 log=logs.append)
+    default = DEFAULT_SCHEDULES["cluster_attention"]
+    assert turns == [fast, default] * search.CONFIRM_ROUNDS
+    assert winner == (fast if lead_holds else default)
+    assert rec["speedup"] == (2.0 if lead_holds else 1.0)
+    assert any("in turns with the default" in m and
+               ("kept" if lead_holds else "the default wins") in m
+               for m in logs)
+    # a case whose default call takes longer than the bound is not
+    # host-bound: its search timing stands
+    turns.clear()
+    monkeypatch.setattr(search, "CONFIRM_BELOW_US", 2.0)
+    winner, _ = search.tune_op("cluster_attention", case=case)
+    assert winner == fast and turns == []
+
+
 def _cli(*args, cwd):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
