@@ -51,7 +51,8 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    (non-causal, ragged S, Dh 32 and 64, B=2, hoist_scale, the SSD
    default case); bf16 flash runs the tensor-core forward, dQ and dK/dV
    (each dQ launch checked on its dtype's counter); each kernel timed,
-   each plain half timed by one call (2-4 s a call at S=16384), one
+   each plain half timed by its checking call (2-4 s a call at
+   S=16384), one
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    timed beside the flash kernels, forward and backward;
 3e. the biased forward, dQ and dK/dV at the graph-level task's 16 x 16
@@ -136,6 +137,24 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    each to a synchronisation), held-out accuracy and peak memory of each
    mode, beta_G, the layout's density and the prep seconds; the paper's
    accuracy ordering printed, not gated;
+9c. the paper's scale (slice 21's main path, Fig. 9a's "up to 1M", as
+   ``python -m repro_torch.launch.graph_dryrun`` runs it): Graphormer in
+   mask-free cluster-sparse mode (no bias table, a layout per graph,
+   bq 128, 16 live k-blocks a q-block row: the diagonal and 15 others),
+   bf16, ``remat="block"``, the batches drawn on a thread during phase
+   3. (a) Rows 2, 5 and 6 at Dh 8 (Slim's 8 heads) and Dh 24
+   (Large's 32) on two sequences of S=16384, a layout each, bf16 and
+   fp32, against their plain versions at phase 3c's tolerances, each
+   kernel and plain half timed with its bound, and one SDPA call with
+   the layouts as a dense boolean mask, forward and backward; (b) one
+   step of Slim and of Large (4 of its 12 layers) at S=16384 held to
+   ``impl="plain"`` (the loss, every gradient, the fp32 plain path as
+   referee, as phase 14); (c) Graphormer-Slim at S=1,048,576 and
+   Graphormer-Large at S=262,144, 3 steps each through
+   ``graph_dryrun.run`` on the kernel path: rows 2, 5 and 6 launched
+   exactly, every loss finite, each record (peak memory, step ms, the
+   roofline terms, MFU) printed with the card's name and power limit,
+   then one more step at each shape profiled (device time by kind);
 10. recovery (slice 11's main path), in a child process with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and deterministic algorithms, so
    that a replay is bitwise comparable: GT graph-level at phase 8's shape,
@@ -309,9 +328,10 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    cluster-sparse backend (the encoder non-causal, the decoder causal);
    (m) InternVL2-76B at full width, one layer, 256 patches + 3840
    tokens, int8 moments; (n) Jamba-v0.1 at phase 13 (c)'s quarter width,
-   one period, its MoE slots expert parallel at capacity E/k; each 2
-   steps on one batch; (o) an expert-parallel MoE (the Qwen3-235B-A22B
-   smoke config with 4 experts, all routed) checkpointed at P = 2 and
+   one period, its MoE slots expert parallel at capacity E/k; each one
+   step on one batch; (o) an expert-parallel MoE (the
+   Qwen3-235B-A22B smoke config with 4 experts, all routed) checkpointed
+   at P = 2 and
    resumed at P = 2 (bitwise) and P = 1 (within FAM_CKPT_TOL), under
    deterministic algorithms. Beside them, in three ranks of their own
    started with the two, (j) GT graph-level at (d)'s shape on a (1, 3)
@@ -336,6 +356,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -481,6 +502,21 @@ class ChildPhase:
                 return json.load(fh), wall
         finally:
             shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def timed_call(fn):
+    """``(fn(), ms)``: one call of ``fn`` between two CUDA events, no
+    warm-up: a plain version whose checking call is its timing too."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def cuda_ms(fn, reps, warm=True):
@@ -661,16 +697,19 @@ def compare_flash(tag, q, k, v, dout, kw):
     the dQ and dK/dV kernels against the plain dQ and dK/dV on the
     forward kernel's O and lse and ``dout``: O held to TOL_O and, element
     by element, to TOL_O_ELEM; dq and the per-q-head dk and dv as
-    max|diff| over max|plain| to TOL_GRAD. Returns the max abs errors
-    {"fwd", "dq", "dkv"} and the backward's operands."""
+    max|diff| over max|plain| to TOL_GRAD. Each plain half's one call is
+    timed (``timed_call``: 2-4 s a call at S=16384, so it is not called
+    again to be timed). Returns the max abs errors {"fwd", "dq", "dkv"},
+    the backward's operands and the plain halves' ms {"fwd", "dq",
+    "dkv"}."""
     import torch
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
 
     dt = _dtype_name(q)
     o, lse = tfa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-    po, plse = ref.flash_fwd(q, k, v, return_lse=True, **kw)
-    torch.cuda.synchronize()
+    (po, plse), fwd_ms = timed_call(
+        lambda: ref.flash_fwd(q, k, v, return_lse=True, **kw))
     diff = (o.float() - po.float()).abs()
     atol, rtol = TOL_O_ELEM[dt]
     share = (diff / (atol + rtol * po.float().abs())).max().item()
@@ -691,9 +730,11 @@ def compare_flash(tag, q, k, v, dout, kw):
         raise AssertionError(f"the {dt} dQ launch went to the other dtype's "
                              f"kernel: {tag}")
     got += tfa.dkv_kernel(*ops_, lse, delta, *flags)
-    want = (ref.flash_bwd_dq(q, k, v, dout, lse, delta, **kw),) + \
-        ref.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
-    torch.cuda.synchronize()
+    want_dq, dq_ms = timed_call(
+        lambda: ref.flash_bwd_dq(q, k, v, dout, lse, delta, **kw))
+    want_dkv, dkv_ms = timed_call(
+        lambda: ref.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw))
+    want = (want_dq,) + want_dkv
     rels = [_rel(x, y) for x, y in zip(got, want)]
     errs = [(x.float() - y.float()).abs().max().item()
             for x, y in zip(got, want)]
@@ -707,9 +748,10 @@ def compare_flash(tag, q, k, v, dout, kw):
     if not ok:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {tag} {dt}")
-    del got, want
+    del got, want, want_dq, want_dkv
     return ({"fwd": err, "dq": errs[0], "dkv": max(errs[1], errs[2])},
-            (o, lse, delta, ops_))
+            (o, lse, delta, ops_), {"fwd": fwd_ms, "dq": dq_ms,
+                                    "dkv": dkv_ms})
 
 
 def compare_ssd(tag, x, dt, a, b, c, chunk):
@@ -806,26 +848,21 @@ def flash_ssd_kernels(dev):
         dt = str(dtype).split(".")[1]
         q, k, v, dout = _flash_inputs(dev, dtype, 1, FLASH_SEQ, FLASH_SEQ,
                                       16, 8, 128, seed=51)
-        errs, (o, lse, delta, (qa, ka, va, da)) = compare_flash(
+        errs, (o, lse, delta, (qa, ka, va, da)), plain_ms = compare_flash(
             "Qwen3-0.6B attention, S=16384, causal", q, k, v, dout, kw)
         runs = {
-            "fwd": (lambda: tfa.flash_attention_fwd(
-                        q, k, v, return_lse=True, **kw),
-                    lambda: ref.flash_fwd(q, k, v, return_lse=True, **kw)),
-            "dq": (lambda: tfa.dq_kernel(qa, ka, va, da, lse, delta, True,
-                                         False),
-                   lambda: ref.flash_bwd_dq(q, k, v, dout, lse, delta,
-                                            **kw)),
-            "dkv": (lambda: tfa.dkv_kernel(qa, ka, va, da, lse, delta, True,
-                                           False),
-                    lambda: ref.flash_bwd_dkv(q, k, v, dout, lse, delta,
-                                              **kw))}
+            "fwd": lambda: tfa.flash_attention_fwd(q, k, v, return_lse=True,
+                                                   **kw),
+            "dq": lambda: tfa.dq_kernel(qa, ka, va, da, lse, delta, True,
+                                        False),
+            "dkv": lambda: tfa.dkv_kernel(qa, ka, va, da, lse, delta, True,
+                                          False)}
         rec[dt] = {}
-        for half, (kern, plain) in runs.items():
+        for half, kern in runs.items():
             r = rec[dt][half] = {"max_abs_err": errs[half]}
             r["ms"] = cuda_ms(kern, 5)
-            # one call, unwarmed: compare_flash has run it (2-4 s a call)
-            r["plain_ms"] = cuda_ms(plain, 1, warm=False)
+            # the check's own call, unwarmed (2-4 s a call)
+            r["plain_ms"] = plain_ms[half]
             r["bound_ms"], r["bound_by"] = flash_bound(half, q, k, True)
             log(f"[flash-kernel] S={FLASH_SEQ} {dt} {half}: kernel "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -1347,6 +1384,323 @@ def node_classification_runs(dev, reset_counts, read_counts) -> dict:
         f"{NC_ORDER['raw']} {rec['paper_order']['raw']}")
     del bench
     torch.cuda.empty_cache()
+    return rec
+
+
+# phase 9c: the paper's scale (Fig. 9a, "graph sequence lengths of up to
+# 1M"), slice 21's main path, as ``python -m
+# repro_torch.launch.graph_dryrun`` runs it: Graphormer in mask-free
+# cluster-sparse mode (no bias table, one layout a graph), bf16,
+# remat="block"
+SCALE_RUNS = (("graphormer_slim", 1 << 20), ("graphormer_large", 262_144))
+SCALE_STEPS = 3
+SCALE_CHECK_SEQ = 16384     # (a), (b): where a dense boolean mask fits
+SCALE_KERNEL_B = 2          # (a): two sequences, a layout each
+SCALE_MB = 16               # live k-blocks a q-block row (graph_batch's)
+# (b): the step held to plain at 4 layers (Slim's depth, 4 of Large's
+# 12): its plain passes at S=16384 take ~0.4 s a Large layer; (c) runs
+# the full depth on the kernels
+SCALE_CHECK_LAYERS = 4
+# (a): the heads of each arch (H, Dh): rows 2, 5, 6 at Dh 8 and 24
+SCALE_HEADS = {"graphormer_slim": (8, 8), "graphormer_large": (32, 24)}
+
+
+def scale_draws() -> dict:
+    """Phase 9c's host draws, made on a thread during phase 3:
+    ``graph_dryrun.graph_batch`` at each run's size (seed 0) and at
+    SCALE_CHECK_SEQ for each arch (seed 1), and (a)'s SCALE_KERNEL_B
+    layouts, one a sequence, with their tight transposed layouts padded
+    to one ``mt``."""
+    import numpy as np
+
+    from repro_torch.core.reformation import transpose_block_idx
+    from repro_torch.launch import graph_dryrun as gd
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    nq = SCALE_CHECK_SEQ // 128
+    bis = [gd.block_layout(nq, SCALE_MB, rng) for _ in range(SCALE_KERNEL_B)]
+    bits = [transpose_block_idx(b, nq) for b in bis]
+    mt = max(b.shape[1] for b in bits)
+    out = {"kernel_layout": (np.stack(bis), np.stack([
+        np.pad(b, ((0, 0), (0, mt - b.shape[1]), (0, 0)),
+               constant_values=-1) for b in bits]))}
+    for arch, S in SCALE_RUNS:
+        cfg = gd.scale_config(arch)
+        out[(arch, S)] = gd.graph_batch(cfg, S, mb=SCALE_MB, seed=0)
+        out[(arch, SCALE_CHECK_SEQ)] = gd.graph_batch(
+            cfg, SCALE_CHECK_SEQ, mb=SCALE_MB, seed=1)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def scale_step_check(tag, model, batch, read_counts, want):
+    """One step of the scale run's loss (``graph_dryrun.loss_and_grads``),
+    kernel path against ``impl="plain"`` on the same parameters and
+    batch, with the plain path in fp32 as referee (phase 14's rule): the
+    loss within TOL_STEP_LOSS_REL; every gradient at a cosine of at least
+    MIN_GRAD_COSINE with the plain one and its norm within
+    MAX_GRAD_NORM_REL, or no further from the fp32 gradient than
+    FP32_DISTANCE_FACTOR times the bf16 plain one (in 1 - cosine and in
+    the norm ratio's distance from 1). The kernel path launches ``want``
+    exactly, the plain paths nothing."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.launch import graph_dryrun as gd
+
+    cfg = model.cfg
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for key, impl, dtype in (("kernel", None, cfg.dtype),
+                             ("plain", "plain", cfg.dtype),
+                             ("fp32", "plain", "float32")):
+        model.cfg = cfg.replace(dtype=dtype)
+        before = read_counts()
+        try:
+            loss, _, grads = gd.loss_and_grads(model, batch, impl=impl)
+        finally:
+            model.cfg = cfg
+        torch.cuda.synchronize()
+        out[key] = (loss.detach().float(), grads,
+                    {n: c - before[n] for n, c in read_counts().items()
+                     if c != before[n]})
+        del loss, grads
+
+    def compare(xs, ys):
+        return [(F.cosine_similarity(a.flatten().float(), c.flatten().float(),
+                                     dim=0, eps=1e-30).item(),
+                 (a.float().norm() / c.float().norm().clamp_min(1e-30))
+                 .item()) for a, c in zip(xs, ys)]
+    (kl, kg, kn), (pl_, pg, pn), (fl, fg, fn) = (out["kernel"], out["plain"],
+                                                 out["fp32"])
+    kp, kf, pf = compare(kg, pg), compare(kg, fg), compare(pg, fg)
+    refereed, failed = {}, {}
+    for i, n in enumerate(names):
+        if kp[i][0] >= MIN_GRAD_COSINE and abs(kp[i][1] - 1) \
+                <= MAX_GRAD_NORM_REL:
+            continue
+        row = {"cos_kernel_plain": kp[i][0], "norm_ratio": kp[i][1],
+               "cos_kernel_fp32": kf[i][0], "cos_plain_fp32": pf[i][0]}
+        ok = 1 - kf[i][0] <= FP32_DISTANCE_FACTOR * (1 - pf[i][0]) \
+            and abs(kf[i][1] - 1) <= max(
+                FP32_DISTANCE_FACTOR * abs(pf[i][1] - 1), MAX_GRAD_NORM_REL)
+        (refereed if ok else failed)[n] = row
+    worst = min(range(len(names)), key=lambda i: kp[i][0])
+    res = {"loss": kl.item(), "plain_loss": pl_.item(),
+           "fp32_loss": fl.item(),
+           "loss_rel": (abs(kl - pl_) / abs(pl_)).item(),
+           "min_grad_cosine": [names[worst], kp[worst][0]],
+           "min_cos_kernel_fp32": min(c for c, _ in kf),
+           "min_cos_plain_fp32": min(c for c, _ in pf),
+           "refereed_by_fp32": refereed, "failed": failed, "launched": kn}
+    log(f"[scale] {tag}: one step, kernel vs plain path: loss "
+        f"{res['loss']:.6f} vs {res['plain_loss']:.6f} (rel "
+        f"{res['loss_rel']:.3g}, tol {TOL_STEP_LOSS_REL}; fp32 "
+        f"{res['fp32_loss']:.6f}); gradient cosine min {kp[worst][0]:.6f} "
+        f"({names[worst]}; min {MIN_GRAD_COSINE}); against fp32 plain: min "
+        f"cosine kernel {res['min_cos_kernel_fp32']:.6f}, bf16 plain "
+        f"{res['min_cos_plain_fp32']:.6f}; {len(refereed)} of {len(names)} "
+        f"gradients held by the fp32 referee {json.dumps(refereed)}; "
+        f"kernels launched {kn}")
+    if not (res["loss_rel"] <= TOL_STEP_LOSS_REL and not failed
+            and kn == want and not pn and not fn):
+        raise AssertionError(f"{tag}: kernel and plain paths disagree: "
+                             f"{res}, plain launched {pn}, fp32 {fn}")
+    return res
+
+
+def scale_phase(dev, reset_counts, read_counts, draws, compare_unbiased,
+                bound_unbiased, smi) -> dict:
+    """Phase 9c. (a) Rows 2, 5 and 6 at the scale run's shapes against
+    their plain versions (``compare_unbiased``: phase 3c's tolerances):
+    SCALE_KERNEL_B sequences of SCALE_CHECK_SEQ, a layout each, bq 128,
+    each arch's heads (Slim Dh 8, Large Dh 24), bf16 and fp32; each
+    kernel and plain half timed, its bound, and for bf16 one SDPA call
+    with the layouts as a dense boolean mask, forward and backward. (b)
+    One step of each arch (SCALE_CHECK_LAYERS layers) at SCALE_CHECK_SEQ
+    held to ``impl="plain"`` (``scale_step_check``). (c) The main path: Graphormer-Slim at S =
+    1,048,576 and Graphormer-Large at S = 262,144, SCALE_STEPS steps each
+    through ``graph_dryrun.run`` on the kernel path, the counts set to 0
+    before each and read after: rows 2, 5 and 6 launched exactly as
+    ``step_launches`` says, every loss finite; each record printed with
+    the card's name and power limit; then one more step at each run's
+    shape profiled (``scale_profile``)."""
+    import torch
+
+    from repro_torch.core.graph_model import GraphModel
+    from repro_torch.kernels import cluster_attention as tca
+    from repro_torch.kernels import cluster_attention_bwd as tcab
+    from repro_torch.kernels import ref
+    from repro_torch.launch import graph_dryrun as gd
+
+    t0 = time.perf_counter()
+    rec = {"draw_s": draws["seconds"], "kernels": {}, "steps": {},
+           "runs": {}}
+    zero = {n: 0 for n in read_counts()}
+    S, B = SCALE_CHECK_SEQ, SCALE_KERNEL_B
+    bi, bit = (torch.from_numpy(x).to(dev) for x in draws["kernel_layout"])
+    rec["kernel_layout"] = {"B": B, "S": S, "nq": bi.shape[1],
+                            "mb": bi.shape[2], "mt": bit.shape[2],
+                            "live": int((bi >= 0).sum())}
+
+    # ------------------------------------------------------------ (a)
+    for arch, (H, Dh) in SCALE_HEADS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).split(".")[1]
+            gen = torch.Generator(device=dev).manual_seed(70 + Dh)
+            q, k, v = (torch.randn(B, S, H, Dh, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            errs, (o, lse, dout) = compare_unbiased(
+                f"{arch} heads (H={H}, Dh={Dh}), per-graph B={B}, S={S}",
+                q, k, v, bi, bit, False, seed=71 + Dh)
+            delta = ref.row_delta(dout, o)
+            qa, ka, va, da = (tca.aligned(x) for x in (q, k, v, dout))
+            runs = {
+                "fwd": (lambda: tca.cluster_attention_fwd(
+                            q, k, v, bi, None, None, return_lse=True),
+                        lambda: ref.cluster_sparse_attention(
+                            q, k, v, bi, return_lse=True)),
+                "dq": (lambda: tcab.dq_unbiased_kernel(
+                           qa, ka, va, da, lse, delta, bi, False),
+                       lambda: ref.bwd_dq(q, k, v, dout, lse, delta, bi,
+                                          None, None)),
+                "dkv": (lambda: tcab.dkv_unbiased_kernel(
+                            qa, ka, va, da, lse, delta, bi, bit, False),
+                        lambda: ref.bwd_dkv(q, k, v, dout, lse, delta, bi,
+                                            bit, None, None))}
+            r = {}
+            for (half, (kern, plain)), err in zip(runs.items(), errs):
+                r[half] = {"max_abs_err": err, "ms": cuda_ms(kern, 5),
+                           "plain_ms": cuda_ms(plain, 1)}
+                r[half]["bound_ms"], r[half]["bound_by"] = bound_unbiased(
+                    half, q, k, bi, bit, False)
+                log(f"[scale] {arch} heads {dt} {half}: kernel "
+                    f"{r[half]['ms']:.4f} ms, plain "
+                    f"{r[half]['plain_ms']:.4f} ms, bound "
+                    f"{r[half]['bound_ms']:.4f} ms ({r[half]['bound_by']}), "
+                    f"{r[half]['bound_ms'] / r[half]['ms']:.2%} of bound")
+            if dtype == torch.bfloat16:
+                r["yardstick"] = scale_sdpa(q, k, v, bi, o, dev)
+            rec["kernels"][f"{arch}_{dt}"] = r
+            del q, k, v, o, lse, dout, delta, qa, ka, va, da
+            release()
+    del bi, bit
+
+    # ------------------------------------------------------------ (b)
+    for arch, _ in SCALE_RUNS:
+        cfg = gd.scale_config(arch)
+        cfg = cfg.replace(n_layers=min(cfg.n_layers, SCALE_CHECK_LAYERS))
+        model = GraphModel(cfg, device=dev, seed=0)
+        batch = {k: v.to(dev) for k, v in draws[(arch, S)].items()}
+        rec["steps"][arch] = scale_step_check(
+            f"{arch} at S={S}", model, batch, read_counts,
+            step_launches(cfg, UNBIASED_NAMES))
+        del model, batch
+        release()
+
+    # ------------------------------------------------- (c) the main path
+    launches = dict(zero)
+    for arch, S_ in SCALE_RUNS:
+        cfg = gd.scale_config(arch)
+        host = draws.pop((arch, S_))
+        resident = release()
+        reset_counts()
+        r = gd.run(arch, S_, steps=SCALE_STEPS, device=dev, batch=host)
+        counts = read_counts()
+        want = {**zero, **step_launches(cfg, UNBIASED_NAMES, SCALE_STEPS)}
+        r["launches"] = {n: c for n, c in counts.items() if c}
+        r["resident_bytes_before"] = resident
+        log(f"[scale] {smi}")
+        log(f"[scale] {json.dumps(r)}")
+        if counts != want or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"phase 9c {arch} S={S_}: launches "
+                                 f"{counts}, want {want}; losses "
+                                 f"{r['losses']}")
+        for n, c in counts.items():
+            launches[n] += c
+        release()
+        r["profile"] = scale_profile(arch, S_, host, dev, r["step_ms"])
+        rec["runs"][f"{arch}_{S_}"] = r
+        del host
+        release()
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[scale] phase 9c: {rec['seconds']:.1f} s (host draws "
+        f"{rec['draw_s']:.1f} s on a thread during phase 3)")
+    return rec
+
+
+def scale_profile(arch, S, host, dev, step_ms):
+    """Where a step of the scale run goes: a fresh seeded model and AdamW
+    at the run's shape and batch, one step to warm up, then one step
+    profiled (``device_breakdown``), its wall to a synchronisation the
+    run's median step (``step_ms``), outside the run's launch counts."""
+    import torch
+
+    from repro_torch.core.graph_model import GraphModel
+    from repro_torch.launch import graph_dryrun as gd
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+
+    model = GraphModel(gd.scale_config(arch), device=dev)
+    opt = AdamW(list(model.parameters()),
+                lr=warmup_cosine(gd.LR, 100, 10_000))
+    batch = {k: v.to(dev) for k, v in host.items()}
+
+    def step():
+        opt.update(gd.loss_and_grads(model, batch)[2])
+    step()
+    out = device_breakdown(step, step_ms, tag="scale",
+                           what=f"one {arch} step at S={S}", focus="cluster")
+    del model, opt, batch
+    return out
+
+
+def scale_sdpa(q, k, v, bi, o, dev) -> dict:
+    """One SDPA call (PyTorch's pick of backend) with the per-graph
+    layouts as a dense boolean (B, 1, S, S) mask, forward and backward
+    (dq, dk, dv); its forward held to the kernel's O at TOL_O."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, H, _ = q.shape
+    nq = bi.shape[-2]
+    bq = S // nq
+    mask = torch.zeros((B, 1, S, S), dtype=torch.bool, device=dev)
+    for b in range(B):
+        ii, mm = torch.nonzero(bi[b] >= 0, as_tuple=True)
+        mask[b, 0].view(nq, bq, nq, bq).permute(0, 2, 1, 3)[
+            ii, bi[b, ii, mm].long()] = True
+    rec = {}
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    try:
+        with torch.no_grad():
+            got = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask).transpose(1, 2).float()
+        rec["max_abs_err_vs_kernel"] = (got - o.float()).abs().max().item()
+        if not torch.allclose(got, o.float(), atol=TOL_O["bfloat16"],
+                              rtol=TOL_O["bfloat16"]):
+            raise AssertionError(f"kernel vs SDPA with the layout mask: "
+                                 f"max|dO|={rec['max_abs_err_vs_kernel']}")
+        del got
+        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *(x.detach() for x in leaves), attn_mask=mask), 5)
+        og = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        gout = torch.randn_like(og)
+        rec["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            og, leaves, gout, retain_graph=True), 5)
+        del og, gout
+    except RuntimeError as e:   # out of memory included: recorded
+        rec["library_error"] = \
+            f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+    log(f"[scale] SDPA with the layouts as a (B, 1, S, S) boolean mask, "
+        f"B={B} S={S} H={H}: " + (
+            f"fwd {rec['library_ms']:.4f} ms, bwd "
+            f"{rec['library_bwd_ms']:.4f} ms (max|dO| vs kernel "
+            f"{rec['max_abs_err_vs_kernel']:.3g})"
+            if "library_bwd_ms" in rec else rec["library_error"]))
+    del mask, leaves
+    release()
     return rec
 
 
@@ -3848,7 +4202,10 @@ MESH_PIPE_TOL = 1e-4         # (i): fp32, pipeline against sequential
 # (j)-(o), slice 18's paths: (j) on a (1, 3) model mesh of its own ranks,
 # (k)-(o) on phase 15's two
 GP_FALLBACK_P = 3            # (j): GT's 8 heads do not split 3 ways
-FAM_STEPS = 2                # (k)-(n): steps on one batch
+# (k)-(n): one step each on one batch, cut from 2 (room for phase 9c):
+# each step's gradients cross the host twice in gloo's all-reduce
+# (PERF.md 7)
+FAM_STEPS = 1
 FAM_SSM_LAYERS = 4           # (k): of Mamba2-2.7B's 64
 FAM_SSM_SEQ = 8192
 FAM_ENCDEC_LAYERS = 4        # (l): encoder and decoder layers, of 12 + 12
@@ -4678,8 +5035,8 @@ def family_runs(rank: int, dev, mesh, say, trainer_steps, tmp,
     every gradient, reduced over the ranks in the Trainer's first step,
     at a cosine of MIN_GRAD_COSINE with the P = 1 one or, as phase 14
     holds its bf16 gradients, by its distance from the fp32 plain path's
-    (``held``), and the FAM_STEPS losses
-    (TOL_STEP_LOSS_REL, in the parent); the attention op held to
+    (``held``), and the losses of its FAM_STEPS steps (TOL_STEP_LOSS_REL,
+    in the parent); the attention op held to
     ``impl="plain"`` (``op_check``) and rows 2, 5 and 6 counted exactly.
     (k) Mamba2-2.7B at full width, FAM_SSM_LAYERS layers, S=FAM_SSM_SEQ,
     its 80 SSM heads split over the ranks; (l) SeamlessM4T-medium at full
@@ -5275,6 +5632,13 @@ def main() -> int:
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build]   {line.strip()}")
+
+    # phase 9c's host draws (seconds of numpy), on a thread beside the
+    # device-bound kernel checks of phase 3 (beside the build they slowed
+    # nvcc, which has the host's cores)
+    from concurrent.futures import ThreadPoolExecutor
+    draw_pool = ThreadPoolExecutor(1)
+    scale_future = draw_pool.submit(scale_draws)
 
     # -------------------------------------------- 3. kernels vs plain
     log(f"[phase] 3 starts at {time.perf_counter() - t_start:.1f} s")
@@ -5902,9 +6266,10 @@ def main() -> int:
     log(f"[phase] 3c starts at {time.perf_counter() - t_start:.1f} s")
     def unbiased_entries(bi, bq, causal):
         """Score entries one head of one sequence needs over the visited
-        blocks of a batch-shared (nq, mb) layout with bq = bk: every
-        entry of a block, or with the causal mask only the (qpos, kpos)
-        pairs with qpos >= kpos."""
+        blocks of a (nq, mb) layout with bq = bk (or of every sequence's
+        of a per-sequence (B, nq, mb) one): every entry of a block, or
+        with the causal mask (a shared layout) only the (qpos, kpos) pairs
+        with qpos >= kpos."""
         live = bi >= 0
         j = bi[live].long()
         if not causal:
@@ -5926,8 +6291,11 @@ def main() -> int:
         per-q-head dk and dv out, 8 (scores, dp, dv, dk). Returns (ms,
         "bytes" | "operations")."""
         B, S, H, Dh = q.shape
-        bq = S // bi.shape[0]
-        entries = B * unbiased_entries(bi, bq, causal)
+        bq = S // bi.shape[-2]
+        # a layout shared by the batch counts once a sequence, one per
+        # sequence (causal only shared) once
+        entries = (B if bi.dim() == 2 else 1) * unbiased_entries(bi, bq,
+                                                                 causal)
         elt = q.element_size()
         rows = B * H * S * 4
         qkv_b = (q.numel() + 2 * k.numel()) * elt
@@ -7108,6 +7476,13 @@ def main() -> int:
         for n, c in counts.items():
             nc_launches[n] = nc_launches.get(n, 0) + c
 
+    # ------------------- 9c. the paper's scale (slice 21's main path)
+    log(f"[phase] 9c starts at {time.perf_counter() - t_start:.1f} s")
+    scale_rec = scale_phase(dev, reset_counts, read_counts,
+                            scale_future.result(), compare_unbiased,
+                            bound_unbiased, smi)
+    draw_pool.shutdown()
+
     # ------------------------------------ 10. recovery (slice 11's path)
     log(f"[phase] 10 starts at {time.perf_counter() - t_start:.1f} s")
     def recovery_run():
@@ -7310,6 +7685,49 @@ def main() -> int:
                                  + moe_rec["launches"][name]
                                  + a10_rec["launches_float32"][name]
                                  + gp_rec["launches"][name])})
+    # the same kernels at the paper's scale run's shapes (phase 9c): the
+    # Dh 8 and 24 instantiations on a layout per sequence. Times at
+    # Graphormer-Large's heads (B=2, S=16384, Dh 24) in bf16, Slim's
+    # (Dh 8) and fp32 beside them; launches from the scale runs
+    for half, name, src, line in (
+            ("fwd", "cluster_attention_fwd_unbiased", "fwd",
+             "cluster_attention.py:80"),
+            ("dq", "cluster_attention_bwd_dq_unbiased", "bwd",
+             "cluster_attention_bwd.py:118"),
+            ("dkv", "cluster_attention_bwd_dkv_unbiased", "bwd",
+             "cluster_attention_bwd.py:206")):
+        sk = scale_rec["kernels"]
+        b = sk["graphormer_large_bfloat16"][half]
+        yard_g = sk["graphormer_large_bfloat16"]["yardstick"]
+        kernels.append({
+            "name": name + "_graph", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"cluster_attention_unbiased_{src}_sm90.cu",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": scale_rec["launches"][name + "_sm90"],
+            "launches_by_path": {
+                run: r["launches"].get(name + "_sm90", 0)
+                for run, r in scale_rec["runs"].items()},
+            "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            # one SDPA call with the layouts as a dense boolean mask (its
+            # backward, dq + dk + dv, for dQ and dK/dV), or null with the
+            # error it hit
+            "library_ms": yard_g.get("library_ms" if half == "fwd"
+                                     else "library_bwd_ms"),
+            "library_error": yard_g.get("library_error"),
+            "shape": {**scale_rec["kernel_layout"], "H": 32, "Dh": 24},
+            "graphormer_slim": {
+                **sk["graphormer_slim_bfloat16"][half],
+                "library_ms": sk["graphormer_slim_bfloat16"][
+                    "yardstick"].get("library_ms" if half == "fwd"
+                                     else "library_bwd_ms")},
+            "float32": sk["graphormer_large_float32"][half],
+            "float32_slim": sk["graphormer_slim_float32"][half],
+            "source_float32": f"src/repro_torch/kernels/csrc/"
+                              f"cluster_attention_unbiased_{src}.cu",
+            "launches_float32": scale_rec["launches"][name]})
     # the flash kernels and the SSD scan: times at full width in bf16,
     # launches from the tune phase, the main path. Rows 7-9 have a
     # kernel for each dtype: `source` is the bf16 tensor-core one, timed
@@ -7410,7 +7828,9 @@ def main() -> int:
             ("cluster_attention_fwd", "graph_parallel", gp_rec),
             ("ssd_fwd", "tune", tune_run),
             ("cluster_attention_fwd_b16", "graph_train", graph_runs),
-            ("cluster_attention_fwd_b16", "recovery", recovery)):
+            ("cluster_attention_fwd_b16", "recovery", recovery),
+            ("cluster_attention_fwd_unbiased_graph", "scale",
+             {k: v for k, v in scale_rec.items() if k != "kernels"})):
         by_name[name][key] = val
     # the schedule's rewrites held to the plain versions (the same kernels
     # under their flags; fp32 timed under each): rows 1, 3, 4 at the serve

@@ -11,7 +11,9 @@ attention forwards:
   (``csrc/cluster_attention_fwd.cu``). ``biased_kernel_reason`` states
   what the bf16 kernel takes;
 * the ports of ``_cluster_kernel``: no buckets, an optional positional
-  causal mask, the token LM's local+global path. Each dtype has exactly
+  causal mask, the token LM's local+global path and the mask-free graph
+  batch of the paper's scale run (``launch/graph_dryrun.py``: one layout
+  per graph, Graphormer's head dims 8 and 24). Each dtype has exactly
   one kernel, with no fallback between them: bfloat16 runs on the tensor
   cores (``csrc/cluster_attention_unbiased_fwd_sm90.cu``: TMA copies of
   the visited k-blocks into a ring of shared-memory stages feeding
@@ -51,18 +53,20 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import CudaLibrary
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# what the unbiased kernels take: head dims; fp32 q/k-blocks in multiples
-# of their 64 x 64 score tiles; bf16 (forward and backward) the LM's
-# q/k-blocks of 128 rows, one TMA box each
-UNBIASED_HEAD_DIMS = (64, 128)
-UNBIASED_TILE = 64
-UNBIASED_SM90_BLOCK = 128
 # what the bf16 biased kernels (forward, dQ and dK/dV) take: the graph
 # layouts' square blocks of 16 (the graph-level task's packed mini-graphs)
 # or 32 (one large graph) rows, each its own instantiation, and head dims
 # a multiple of 8 up to 64
 BIASED_SM90_BLOCKS = (16, 32)
 BIASED_SM90_HEAD_DIMS = tuple(range(8, 65, 8))
+# what the unbiased kernels take: the graph models' head dims (the biased
+# bf16 kernels') and the LM's 128, each its own instantiation; fp32
+# q/k-blocks in multiples of their 64 x 64 score tiles; bf16 (forward and
+# backward) q/k-blocks of 128 rows, one TMA box each. Both take a layout
+# shared by the batch or one per sequence.
+UNBIASED_HEAD_DIMS = BIASED_SM90_HEAD_DIMS + (128,)
+UNBIASED_TILE = 64
+UNBIASED_SM90_BLOCK = 128
 # the bf16 forward and dQ cut a q-block row with more visits than
 # max(SPLIT_MIN_PIECE, SPLIT_MEAN_FACTOR x the mean row) into pieces of
 # about that many visits (``split_plan``)
@@ -101,14 +105,14 @@ def _bind_sm90(lib) -> None:
 def _bind_unbiased(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_fwd_unbiased.argtypes = (
-        [vp] * 6 + [i32] * 12 + [ctypes.c_float, vp])
+        [vp] * 6 + [i32] * 13 + [ctypes.c_float, vp])
     lib.cluster_attention_fwd_unbiased.restype = i32
 
 
 def _bind_unbiased_sm90(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_fwd_unbiased_sm90.argtypes = (
-        [vp] * 6 + [i32] * 8 + [ctypes.c_float, vp])
+        [vp] * 6 + [i32] * 9 + [ctypes.c_float, vp])
     lib.cluster_attention_fwd_unbiased_sm90.restype = i32
 
 
@@ -268,15 +272,16 @@ def check_biased_kernel(q, block_idx, buckets):
             f"{tuple(block_idx.shape)}, buckets {tuple(buckets.shape)}")
 
 
-def unbiased_kernel_reason(dtype, d_head: int, bq: int, shared: bool, *,
+def unbiased_kernel_reason(dtype, d_head: int, bq: int, *,
                            backward: bool = False) -> str | None:
     """Why the unbiased kernel of ``dtype`` (a torch dtype) does not take
-    head dim ``d_head``, q/k-blocks of ``bq`` rows and a batch-shared
-    layout (``shared``), or None when it does. ``backward`` asks about
-    the dQ and dK/dV kernels, which take what the forward of the same
-    dtype takes."""
+    head dim ``d_head`` and q/k-blocks of ``bq`` rows, or None when it
+    does. ``backward`` asks about the dQ and dK/dV kernels, which take
+    what the forward of the same dtype takes. Every kernel takes a layout
+    shared by the batch and one per sequence."""
     if d_head not in UNBIASED_HEAD_DIMS:
-        return f"Dh={d_head} (the kernels take Dh in {UNBIASED_HEAD_DIMS})"
+        return (f"Dh={d_head} (the kernels take Dh a multiple of 8 from 8 "
+                f"to 64, or 128)")
     if dtype == torch.bfloat16:
         if bq != UNBIASED_SM90_BLOCK:
             half = "backward" if backward else "forward"
@@ -285,8 +290,6 @@ def unbiased_kernel_reason(dtype, d_head: int, bq: int, shared: bool, *,
     elif bq % UNBIASED_TILE:
         return (f"bq=bk={bq} (the kernels take bq = bk a multiple of "
                 f"{UNBIASED_TILE})")
-    if not shared:
-        return "a per-sequence layout (the kernels take a batch-shared one)"
     return None
 
 
@@ -295,21 +298,26 @@ def check_unbiased_kernel(q, block_idx, block_idx_t=None, *,
     """Raise ``NotImplementedError`` with the shapes unless the unbiased
     kernels of q's dtype take them (``unbiased_kernel_reason``): Dh in
     ``UNBIASED_HEAD_DIMS``; bf16 ``bq`` = bk = ``UNBIASED_SM90_BLOCK``,
-    fp32 ``bq`` a multiple of ``UNBIASED_TILE``; and the batch-shared
-    layout of the LM path
-    (``block_idx`` (nq, mb), ``block_idx_t`` (nk, mt, 2))."""
+    fp32 ``bq`` a multiple of ``UNBIASED_TILE``. The layouts may be
+    shared by the batch (``block_idx`` (nq, mb), ``block_idx_t`` (nk, mt,
+    2)) or per sequence (``(B, nq, mb)``, ``(B, nk, mt, 2)``)."""
     Dh = q.shape[3]
     bq = q.shape[1] // block_idx.shape[-2]
-    shared = block_idx.dim() == 2 and (block_idx_t is None
-                                       or block_idx_t.dim() == 3)
-    reason = unbiased_kernel_reason(q.dtype, Dh, bq, shared,
-                                    backward=backward)
+    reason = unbiased_kernel_reason(q.dtype, Dh, bq, backward=backward)
     if reason is not None:
         t_shape = None if block_idx_t is None else tuple(block_idx_t.shape)
         raise NotImplementedError(
             f"the unbiased cluster_attention kernels do not take {reason}: "
             f"{str(q.dtype).split('.')[-1]} q {tuple(q.shape)}, block_idx "
             f"{tuple(block_idx.shape)}, block_idx_t {t_shape}")
+
+
+def layout_stride(layout, shared_dim: int) -> int:
+    """The batch stride, in entries, that the unbiased kernels take for a
+    layout tensor whose batch-shared form has ``shared_dim`` dims
+    (``block_idx`` 2, ``block_idx_t`` 3): 0 for a shared one, one
+    sequence's entries for a per-sequence one."""
+    return layout[0].numel() if layout.dim() == shared_dim + 1 else 0
 
 
 def _ptr(x):
@@ -415,6 +423,7 @@ def _fwd_unbiased(q, k, v, block_idx, causal, return_lse, hoist_scale):
     bq = S // nq
     q, k, v = aligned(q), aligned(k), aligned(v)
     block_idx = block_idx.contiguous()
+    stride = layout_stride(block_idx, 2)
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -426,12 +435,12 @@ def _fwd_unbiased(q, k, v, block_idx, causal, return_lse, hoist_scale):
         if q.dtype == torch.bfloat16:
             err = LIBRARY_UNBIASED_SM90.lib() \
                 .cluster_attention_fwd_unbiased_sm90(
-                    *ptrs, B, S, H, KV, Dh, nq, mb, int(causal), Dh ** -0.5,
-                    stream)
+                    *ptrs, B, S, H, KV, Dh, nq, mb, stride, int(causal),
+                    Dh ** -0.5, stream)
         else:
             err = LIBRARY_UNBIASED.lib().cluster_attention_fwd_unbiased(
-                *ptrs, _DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, bq, bq,
-                int(causal), int(hoist_scale), Dh ** -0.5, stream)
+                *ptrs, _DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, stride,
+                bq, bq, int(causal), int(hoist_scale), Dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_fwd_unbiased launch failed: "
                            f"CUDA error {err} (q {tuple(q.shape)}, k "

@@ -12,7 +12,8 @@ attention backward kernels:
   on CUDA cores (``csrc/cluster_attention_bwd.cu``).
   ``cluster_attention.biased_kernel_reason`` states what bf16 takes;
 * the ports of ``_dq_kernel`` and ``_dkv_kernel``: no buckets, an
-  optional positional causal mask, the token LM's path. Each dtype has
+  optional positional causal mask, the token LM's path and the mask-free
+  graph batch (one layout per graph, Dh 8 and 24). Each dtype has
   exactly one dQ and one dK/dV kernel, with no fallback between them:
   bfloat16 runs on the tensor cores
   (``csrc/cluster_attention_unbiased_bwd_sm90.cu``: TMA copies of the
@@ -106,20 +107,20 @@ def _bind_dkv_sm90(lib) -> None:
 def _bind_unbiased(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_bwd_dq_unbiased.argtypes = (
-        [vp] * 8 + [i32] * 12 + [ctypes.c_float, vp])
+        [vp] * 8 + [i32] * 13 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dq_unbiased.restype = i32
     lib.cluster_attention_bwd_dkv_unbiased.argtypes = (
-        [vp] * 9 + [i32] * 12 + [ctypes.c_float, vp])
+        [vp] * 9 + [i32] * 13 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dkv_unbiased.restype = i32
 
 
 def _bind_unbiased_sm90(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cluster_attention_bwd_dq_unbiased_sm90.argtypes = (
-        [vp] * 8 + [i32] * 8 + [ctypes.c_float, vp])
+        [vp] * 8 + [i32] * 9 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dq_unbiased_sm90.restype = i32
     lib.cluster_attention_bwd_dkv_unbiased_sm90.argtypes = (
-        [vp] * 9 + [i32] * 8 + [ctypes.c_float, vp])
+        [vp] * 9 + [i32] * 9 + [ctypes.c_float, vp])
     lib.cluster_attention_bwd_dkv_unbiased_sm90.restype = i32
 
 
@@ -284,6 +285,7 @@ def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal, *,
     B, S, H, Dh = q.shape
     nq, mb = block_idx.shape[-2:]
     bq = S // nq
+    stride = _ca.layout_stride(block_idx, 2)
     dq = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx.data_ptr(),
@@ -294,12 +296,13 @@ def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal, *,
         if sm90:
             err = LIBRARY_UNBIASED_SM90.lib() \
                 .cluster_attention_bwd_dq_unbiased_sm90(
-                    *ptrs, B, S, H, k.shape[2], Dh, nq, mb, int(causal),
-                    Dh ** -0.5, stream)
+                    *ptrs, B, S, H, k.shape[2], Dh, nq, mb, stride,
+                    int(causal), Dh ** -0.5, stream)
         else:
             err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dq_unbiased(
                 *ptrs, _ca._DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nq, mb,
-                bq, bq, int(causal), int(hoist_scale), Dh ** -0.5, stream)
+                stride, bq, bq, int(causal), int(hoist_scale), Dh ** -0.5,
+                stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd unbiased dQ launch "
                            f"failed: CUDA error {err} ({q.dtype} q "
@@ -323,6 +326,7 @@ def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
     B, S, H, Dh = q.shape
     bq = S // block_idx.shape[-2]
     nk, mt = block_idx_t.shape[-3:-1]
+    stride = _ca.layout_stride(block_idx_t, 3)
     dkh = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     dvh = torch.empty_like(dkh)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -334,12 +338,13 @@ def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
         if sm90:
             err = LIBRARY_UNBIASED_SM90.lib() \
                 .cluster_attention_bwd_dkv_unbiased_sm90(
-                    *ptrs, B, S, H, k.shape[2], Dh, nk, mt, int(causal),
-                    Dh ** -0.5, stream)
+                    *ptrs, B, S, H, k.shape[2], Dh, nk, mt, stride,
+                    int(causal), Dh ** -0.5, stream)
         else:
             err = LIBRARY_UNBIASED.lib().cluster_attention_bwd_dkv_unbiased(
                 *ptrs, _ca._DTYPES[q.dtype], B, S, H, k.shape[2], Dh, nk, mt,
-                bq, bq, int(causal), int(hoist_scale), Dh ** -0.5, stream)
+                stride, bq, bq, int(causal), int(hoist_scale), Dh ** -0.5,
+                stream)
     if err != 0:
         raise RuntimeError(f"cluster_attention_bwd unbiased dK/dV launch "
                            f"failed: CUDA error {err} ({q.dtype} q "

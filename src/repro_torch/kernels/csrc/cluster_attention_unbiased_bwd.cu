@@ -23,6 +23,11 @@
 //                of (q-row, forward slot) pairs, each visiting q-block in
 //                64-row chunks: dv += p^T @ dO, dk += scale * ds^T @ q,
 //                per q-head (the GQA group sum is the caller's).
+// Each layout is shared by the batch (a stride of 0) or one per sequence
+// (`idx_stride` and `t_stride` entries apart: the graph path's per-graph
+// layout). Dh is a multiple of 8 up to 64, or 128, in tiles of DP = Dh
+// rounded up to 16 columns (unbiased_tiles.cuh): the pad columns are
+// cleared once and never stored.
 //
 // The forward's `hoist_scale` is a template flag here too, so the scores
 // are rebuilt as the forward built them: the q tile is staged times
@@ -77,8 +82,8 @@ cluster_attn_dq_unbiased_kernel(const T* __restrict__ q,
                                 const float* __restrict__ delta,
                                 const int32_t* __restrict__ block_idx,
                                 T* __restrict__ dq, int S, int H, int KV,
-                                int nq, int mb, int bq, int bk, int causal,
-                                float sm_scale) {
+                                int nq, int mb, int idx_stride, int bq,
+                                int bk, int causal, float sm_scale) {
   using Sh = Shape<DH>;
   constexpr int LD = Sh::LD, NG = Sh::NG, VW = Sh::VW;
   extern __shared__ float4 smem4[];
@@ -102,6 +107,7 @@ cluster_attn_dq_unbiased_kernel(const T* __restrict__ q,
   const size_t qs = (size_t)H * DH, ks = (size_t)KV * DH;
   const size_t qoff = ((size_t)b * S + q0) * qs + (size_t)h * DH;
 
+  if constexpr (DH != Sh::DP) clear_smem(sQ, 4 * kTile * LD);
   load_rows_upto<DH>(sQ, q + qoff, qs, kTile, kTile,
                      HOIST ? sm_scale : 1.f);
   load_rows<DH>(sDO, dout + qoff, qs, kTile);
@@ -120,7 +126,8 @@ cluster_attn_dq_unbiased_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < VW; ++e) acc[i][g][e] = 0.f;
 
-  const int32_t* row = block_idx + (size_t)qi * mb;  // shared by the batch
+  // this sequence's row: idx_stride 0 for a layout shared by the batch
+  const int32_t* row = block_idx + (size_t)b * idx_stride + (size_t)qi * mb;
   const int chunks = bk / kTile;
   for (int s = 0; s < mb; ++s) {
     const int blk = row[s];  // uniform across the CTA
@@ -174,7 +181,7 @@ cluster_attn_dkv_unbiased_kernel(const T* __restrict__ q,
                                  const int32_t* __restrict__ block_idx_t,
                                  T* __restrict__ dk, T* __restrict__ dv,
                                  int S, int H, int KV, int nk, int mt,
-                                 int bq, int bk, int causal,
+                                 int t_stride, int bq, int bk, int causal,
                                  float sm_scale) {
   using Sh = Shape<DH>;
   constexpr int LD = Sh::LD, NG = Sh::NG, VW = Sh::VW;
@@ -202,6 +209,7 @@ cluster_attn_dkv_unbiased_kernel(const T* __restrict__ q,
   const size_t qs = (size_t)H * DH, ks = (size_t)KV * DH;
   const size_t koff = ((size_t)b * S + k0) * ks + (size_t)kvh * DH;
 
+  if constexpr (DH != Sh::DP) clear_smem(sK, 4 * kTile * LD);
   load_rows<DH>(sK, k + koff, ks, kTile);
   load_rows<DH>(sV, v + koff, ks, kTile);
   float acc_k[4][NG][VW], acc_v[4][NG][VW];
@@ -212,7 +220,9 @@ cluster_attn_dkv_unbiased_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < VW; ++e) acc_k[i][g][e] = acc_v[i][g][e] = 0.f;
 
-  const int32_t* pairs = block_idx_t + (size_t)ki * mt * 2;  // batch-shared
+  // this sequence's pairs: t_stride 0 for a layout shared by the batch
+  const int32_t* pairs =
+      block_idx_t + (size_t)b * t_stride + (size_t)ki * mt * 2;
   const int chunks = bq / kTile;
   for (int t = 0; t < mt; ++t) {
     const int qrow = pairs[2 * t];  // uniform across the CTA
@@ -269,8 +279,9 @@ cluster_attn_dkv_unbiased_kernel(const T* __restrict__ q,
 template <typename T, int DH, bool HOIST>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* block_idx,
-              void* dq, int B, int S, int H, int KV, int nq, int mb, int bq,
-              int bk, int causal, float sm_scale, cudaStream_t stream) {
+              void* dq, int B, int S, int H, int KV, int nq, int mb,
+              int idx_stride, int bq, int bk, int causal, float sm_scale,
+              cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       cluster_attn_dq_unbiased_kernel<T, DH, HOIST>,
@@ -283,7 +294,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(block_idx), static_cast<T*>(dq), S, H, KV,
-      nq, mb, bq, bk, causal, sm_scale);
+      nq, mb, idx_stride, bq, bk, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -291,8 +302,8 @@ template <typename T, int DH, bool HOIST>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* block_idx_t, void* dk, void* dv, int B, int S,
-               int H, int KV, int nk, int mt, int bq, int bk, int causal,
-               float sm_scale, cudaStream_t stream) {
+               int H, int KV, int nk, int mt, int t_stride, int bq, int bk,
+               int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       cluster_attn_dkv_unbiased_kernel<T, DH, HOIST>,
@@ -305,49 +316,53 @@ int launch_dkv(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(block_idx_t), static_cast<T*>(dk),
-      static_cast<T*>(dv), S, H, KV, nk, mt, bq, bk, causal, sm_scale);
+      static_cast<T*>(dv), S, H, KV, nk, mt, t_stride, bq, bk, causal,
+      sm_scale);
   return (int)cudaGetLastError();
 }
+
+#define UNBIASED_DH_CASES(X) \
+  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(128)
 
 template <typename T, bool HOIST>
 int dq_dh(int dh, const void* q, const void* k, const void* v,
           const void* dout, const void* lse, const void* delta,
           const void* block_idx, void* dq, int B, int S, int H, int KV,
-          int nq, int mb, int bq, int bk, int causal, float sm_scale,
-          cudaStream_t st) {
+          int nq, int mb, int idx_stride, int bq, int bk, int causal,
+          float sm_scale, cudaStream_t st) {
+#define DQ_CASE(D)                                                          \
+  case D:                                                                   \
+    return launch_dq<T, D, HOIST>(q, k, v, dout, lse, delta, block_idx, dq, \
+                                  B, S, H, KV, nq, mb, idx_stride, bq, bk,  \
+                                  causal, sm_scale, st);
   switch (dh) {
-    case 64:
-      return launch_dq<T, 64, HOIST>(q, k, v, dout, lse, delta, block_idx,
-                                     dq, B, S, H, KV, nq, mb, bq, bk, causal,
-                                     sm_scale, st);
-    case 128:
-      return launch_dq<T, 128, HOIST>(q, k, v, dout, lse, delta, block_idx,
-                                      dq, B, S, H, KV, nq, mb, bq, bk,
-                                      causal, sm_scale, st);
+    UNBIASED_DH_CASES(DQ_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DQ_CASE
 }
 
 template <typename T, bool HOIST>
 int dkv_dh(int dh, const void* q, const void* k, const void* v,
            const void* dout, const void* lse, const void* delta,
            const void* block_idx_t, void* dk, void* dv, int B, int S, int H,
-           int KV, int nk, int mt, int bq, int bk, int causal,
+           int KV, int nk, int mt, int t_stride, int bq, int bk, int causal,
            float sm_scale, cudaStream_t st) {
+#define DKV_CASE(D)                                                         \
+  case D:                                                                   \
+    return launch_dkv<T, D, HOIST>(q, k, v, dout, lse, delta, block_idx_t,  \
+                                   dk, dv, B, S, H, KV, nk, mt, t_stride,   \
+                                   bq, bk, causal, sm_scale, st);
   switch (dh) {
-    case 64:
-      return launch_dkv<T, 64, HOIST>(q, k, v, dout, lse, delta, block_idx_t,
-                                      dk, dv, B, S, H, KV, nk, mt, bq, bk,
-                                      causal, sm_scale, st);
-    case 128:
-      return launch_dkv<T, 128, HOIST>(q, k, v, dout, lse, delta,
-                                       block_idx_t, dk, dv, B, S, H, KV, nk,
-                                       mt, bq, bk, causal, sm_scale, st);
+    UNBIASED_DH_CASES(DKV_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DKV_CASE
 }
+
+#undef UNBIASED_DH_CASES
 
 }  // namespace
 }  // namespace unbiased
@@ -356,51 +371,57 @@ extern "C" {
 
 // dtype: 0 = float32 (bfloat16 is cluster_attention_bwd_dq_unbiased_sm90's).
 // q, dout and dq (B,S,H,Dh); k/v (B,S,KV,Dh), all contiguous and 16-byte
-// aligned; lse, delta (B*H,S) fp32; block_idx (nq,mb) int32, shared by
-// the batch; hoist the forward's rewrite (0 or 1). Takes Dh in {64,
-// 128}, bq = bk a multiple of 64. Returns the CUDA error code of the
-// launch (0 = launched).
+// aligned; lse, delta (B*H,S) fp32; block_idx (nq,mb) int32 shared by
+// the batch (idx_stride 0) or (B,nq,mb) (idx_stride nq*mb); hoist the
+// forward's rewrite (0 or 1). Takes Dh a multiple of 8 up to 64, or 128,
+// bq = bk a multiple of 64. Returns the CUDA error code of the launch (0
+// = launched).
 int cluster_attention_bwd_dq_unbiased(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       const void* block_idx, void* dq,
                                       int dtype, int B, int S, int H, int KV,
-                                      int dh, int nq, int mb, int bq, int bk,
-                                      int causal, int hoist, float sm_scale,
-                                      void* stream) {
+                                      int dh, int nq, int mb, int idx_stride,
+                                      int bq, int bk, int causal, int hoist,
+                                      float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
   if (hoist)
     return unbiased::dq_dh<float, true>(dh, q, k, v, dout, lse, delta,
                                         block_idx, dq, B, S, H, KV, nq, mb,
-                                        bq, bk, causal, sm_scale, st);
+                                        idx_stride, bq, bk, causal, sm_scale,
+                                        st);
   return unbiased::dq_dh<float, false>(dh, q, k, v, dout, lse, delta,
-                                       block_idx, dq, B, S, H, KV, nq, mb, bq,
-                                       bk, causal, sm_scale, st);
+                                       block_idx, dq, B, S, H, KV, nq, mb,
+                                       idx_stride, bq, bk, causal, sm_scale,
+                                       st);
 }
 
-// As above (fp32 only); block_idx_t (nk,mt,2) int32, shared by the
-// batch, lists (q-row, forward slot) pairs, -1 padded; dk/dv (B,S,H,Dh)
-// fp32 per q-head.
+// As above (fp32 only); block_idx_t (nk,mt,2) int32 shared by the batch
+// (t_stride 0) or (B,nk,mt,2) (t_stride nk*mt*2), lists (q-row, forward
+// slot) pairs, -1 padded; dk/dv (B,S,H,Dh) fp32 per q-head.
 int cluster_attention_bwd_dkv_unbiased(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        const void* block_idx_t, void* dk,
                                        void* dv, int dtype, int B, int S,
                                        int H, int KV, int dh, int nk, int mt,
-                                       int bq, int bk, int causal, int hoist,
-                                       float sm_scale, void* stream) {
+                                       int t_stride, int bq, int bk,
+                                       int causal, int hoist, float sm_scale,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
   if (hoist)
     return unbiased::dkv_dh<float, true>(dh, q, k, v, dout, lse, delta,
                                          block_idx_t, dk, dv, B, S, H, KV, nk,
-                                         mt, bq, bk, causal, sm_scale, st);
+                                         mt, t_stride, bq, bk, causal,
+                                         sm_scale, st);
   return unbiased::dkv_dh<float, false>(dh, q, k, v, dout, lse, delta,
                                         block_idx_t, dk, dv, B, S, H, KV, nk,
-                                        mt, bq, bk, causal, sm_scale, st);
+                                        mt, t_stride, bq, bk, causal,
+                                        sm_scale, st);
 }
 
 }  // extern "C"

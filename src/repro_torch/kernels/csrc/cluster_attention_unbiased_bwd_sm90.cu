@@ -5,7 +5,9 @@
 // Replace the TPU kernels `_dq_kernel` and `_dkv_kernel` in
 // src/repro/kernels/cluster_attention_bwd.py for bf16 inputs: the token
 // LM's local+global layout (core/reformation.lm_local_global_layout,
-// bq = bk = 128); fp32 inputs stay on cluster_attention_unbiased_bwd.cu,
+// bq = bk = 128) and the mask-free graph batch of the paper's scale run
+// (launch/graph_dryrun.py: one layout per graph, Dh 8 or 24); fp32
+// inputs stay on cluster_attention_unbiased_bwd.cu,
 // on CUDA cores (TF32 would not meet their tolerances). They compute that
 // kernel pair's function and `kernels/ref.py` `bwd_dq` / `bwd_dkv`: with
 // the natural logsumexp `lse` of cluster_attention_unbiased_fwd_sm90.cu
@@ -16,8 +18,14 @@
 //   dq = Dh^-0.5 sum ds k,  dv = sum p^T dO,  dk = Dh^-0.5 sum ds^T q,
 // with p = 0 where qpos < kpos when causal. The dQ kernel walks the
 // forward layout `block_idx` (nq, mb), the dK/dV kernel the transposed
-// one, `block_idx_t` (nk, mt, 2) of (q-row, forward slot) pairs; both are
-// shared by the batch, and a -1 entry is skipped wherever it stands. dK
+// one, `block_idx_t` (nk, mt, 2) of (q-row, forward slot) pairs; each is
+// shared by the batch or one per sequence ((B, nq, mb), (B, nk, mt, 2);
+// `idx_stride`, `t_stride` entries apart), and a -1 entry is skipped
+// wherever it stands. Head dims as the forward's
+// (cluster_attention_unbiased_fwd_sm90.cu): Dh 32, 64, 128 as they are,
+// any other multiple of 8 up to 64 in tiles of DHP = Dh rounded up to 16
+// columns whose pad TMA zero-fills; the accumulators run at DHP and the
+// stores write the first Dh columns. dK
 // and dV are per q head, (B, S, H, Dh) bf16; the GQA group sum is the
 // caller's. A q-block row with no entry writes dq = 0, a k-block no row
 // visits dk = dv = 0.
@@ -85,8 +93,9 @@ constexpr int kThreads = 384;
 
 template <int DH>
 struct Cfg : sm90::Atom<DH> {
-  static constexpr int RES = kBlock * DH * 2;   // a resident tile
-  static constexpr int TILE = kHalf * DH * 2;   // a stage's tile
+  static constexpr int DP = sm90::Atom<DH>::DHP;  // columns a tile row holds
+  static constexpr int RES = kBlock * DP * 2;     // a resident tile
+  static constexpr int TILE = kHalf * DP * 2;     // a stage's tile
   // dQ: k, then v; dK/dV: q, dO, then 64 lse and 64 delta
   static constexpr int DQ_STAGE = 2 * TILE;
   static constexpr int DKV_STAGE = 2 * TILE + 1024;
@@ -106,10 +115,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tdo,
           const float* __restrict__ lse, const float* __restrict__ delta,
           const int32_t* __restrict__ block_idx, bf16* __restrict__ dq,
-          int S, int H, int KV, int nq, int mb, int causal, float c2,
-          float sm_scale) {
+          int S, int H, int KV, int nq, int mb, int idx_stride, int causal,
+          float c2, float sm_scale) {
   using C = Cfg<DH>;
-  constexpr int SWB = C::SWB;
+  constexpr int SWB = C::SWB, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -128,7 +137,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = x / nq;
   const int kvh = h / (H / KV);
   const int q0 = qi * kBlock;
-  const int32_t* entries = block_idx + (size_t)qi * mb;  // shared by batch
+  // this sequence's row: idx_stride 0 for a layout shared by the batch
+  const int32_t* entries =
+      block_idx + (size_t)b * idx_stride + (size_t)qi * mb;
   // a listed block is visited unless the causal mask empties it for
   // every row of the q-block (bq = bk: it lies past the diagonal)
   auto visited = [&](int blk) { return blk >= 0 && !(causal && blk > qi); };
@@ -192,9 +203,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
       lse2[i] = lse[row0 + row + 8 * i] * sm90::kLog2e;
       dl[i] = delta[row0 + row + 8 * i];
     }
-    float acc[DH / 2];
+    float acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
     sm90::mbar_wait(full_q, 0);
     int n = 0;
@@ -211,7 +222,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
         sm90::mbar_wait(full + s, (n / kStages) & 1);
         // on the diagonal, keys past the warpgroup's last row are masked
         if (!(diag && k0 >= r0 + kRows))  // uniform over the warpgroup
-          sm90::dq_stage<DH, SWB>(
+          sm90::dq_stage<DP, SWB>(
               acc, myq, mydo, kBlock, sk, sk + C::TILE, lse2, dl, c2, col,
               diag && k0 + kHalf - 1 > r0,
               [&](int kc, int i) { return k0 + kc > row + 8 * i; });
@@ -220,7 +231,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    sm90::store_scaled<DH>(acc, dq, b, h, H, S, row, col, sm_scale);
+    sm90::store_scaled<DH, DP>(acc, dq, b, h, H, S, row, col, sm_scale);
   }
 }
 
@@ -235,9 +246,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
            const float* __restrict__ lse, const float* __restrict__ delta,
            const int32_t* __restrict__ block_idx_t, bf16* __restrict__ dk,
            bf16* __restrict__ dv, int S, int H, int KV, int nk, int mt,
-           int causal, float c2, float sm_scale) {
+           int t_stride, int causal, float c2, float sm_scale) {
   using C = Cfg<DH>;
-  constexpr int SWB = C::SWB;
+  constexpr int SWB = C::SWB, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sK = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -256,8 +267,10 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = x / nk;
   const int kvh = h / (H / KV);
   const int k0 = ki * kBlock;
-  // the (q-row, forward slot) pairs of this k-block, shared by the batch
-  const int32_t* pairs = block_idx_t + (size_t)ki * mt * 2;
+  // the (q-row, forward slot) pairs of this k-block in this sequence's
+  // layout: t_stride 0 for a layout shared by the batch
+  const int32_t* pairs =
+      block_idx_t + (size_t)b * t_stride + (size_t)ki * mt * 2;
   // a visiting q-block counts unless the causal mask empties it for every
   // key of the k-block (it lies before the diagonal)
   auto visited = [&](int qrow) {
@@ -327,9 +340,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
     const uint8_t* myk = sK + wg * kRows * SWB;
     const uint8_t* myv = sV + wg * kRows * SWB;
 
-    float acc_k[DH / 2], acc_v[DH / 2];
+    float acc_k[DP / 2], acc_v[DP / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
     sm90::mbar_wait(full_kv, 0);
     int n = 0;
@@ -347,7 +360,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
         // on the diagonal, q rows before the warpgroup's first key see none
         // of its keys
         if (!(diag && q0 + kHalf - 1 < kr0))  // uniform over the warpgroup
-          sm90::dkv_stage<DH, SWB>(
+          sm90::dkv_stage<DP, SWB>(
               acc_k, acc_v, myk, myv, kBlock, sq, sq + C::TILE, slse,
               slse + kHalf, c2, col, diag && q0 < kr0 + kRows - 1,
               [&](int qc, int i) { return q0 + qc < krow + 8 * i; });
@@ -356,8 +369,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    sm90::store_scaled<DH>(acc_k, dk, b, h, H, S, krow, col, sm_scale);
-    sm90::store_scaled<DH>(acc_v, dv, b, h, H, S, krow, col, 1.f);
+    sm90::store_scaled<DH, DP>(acc_k, dk, b, h, H, S, krow, col, sm_scale);
+    sm90::store_scaled<DH, DP>(acc_v, dv, b, h, H, S, krow, col, 1.f);
   }
 }
 
@@ -380,7 +393,8 @@ template <int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* block_idx,
               void* dq, int B, int S, int H, int KV, int nq, int mb,
-              int causal, float sm_scale, cudaStream_t stream) {
+              int idx_stride, int causal, float sm_scale,
+              cudaStream_t stream) {
   using C = Cfg<DH>;
   CUtensorMap tq, tk, tv, tdo;
   int err = encode_maps<DH>(&tq, &tk, &tv, &tdo, q, k, v, dout, B, S, H, KV,
@@ -395,7 +409,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta),
       static_cast<const int32_t*>(block_idx), static_cast<bf16*>(dq), S, H,
-      KV, nq, mb, causal, sm_scale * sm90::kLog2e, sm_scale);
+      KV, nq, mb, idx_stride, causal, sm_scale * sm90::kLog2e, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -403,8 +417,8 @@ template <int DH>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* block_idx_t, void* dk, void* dv, int B, int S,
-               int H, int KV, int nk, int mt, int causal, float sm_scale,
-               cudaStream_t stream) {
+               int H, int KV, int nk, int mt, int t_stride, int causal,
+               float sm_scale, cudaStream_t stream) {
   using C = Cfg<DH>;
   CUtensorMap tq, tk, tv, tdo;
   int err = encode_maps<DH>(&tq, &tk, &tv, &tdo, q, k, v, dout, B, S, H, KV,
@@ -419,7 +433,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta),
       static_cast<const int32_t*>(block_idx_t), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, H, KV, nk, mt, causal,
+      static_cast<bf16*>(dv), S, H, KV, nk, mt, t_stride, causal,
       sm_scale * sm90::kLog2e, sm_scale);
   return (int)cudaGetLastError();
 }
@@ -427,41 +441,46 @@ int launch_dkv(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace cluster_bwd_sm90
 
+#define UNBIASED_SM90_DH_CASES(X) \
+  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(128)
+
 extern "C" {
 
 // The bf16 unbiased dQ: q, dout, dq (B,S,H,Dh); k/v (B,S,KV,Dh), all
 // bf16, contiguous and 16-byte aligned; lse, delta (B*H,S) fp32;
-// block_idx (nq,mb) int32, shared by the batch, with S = 128 nq
-// (bq = bk = 128). Takes Dh in {64, 128}. Returns the CUDA error code of
-// the launch (0 = launched).
+// block_idx (nq,mb) int32 shared by the batch (idx_stride 0) or
+// (B,nq,mb) (idx_stride nq*mb), with S = 128 nq (bq = bk = 128). Takes Dh
+// a multiple of 8 up to 64, or 128. Returns the CUDA error code of the
+// launch (0 = launched).
 int cluster_attention_bwd_dq_unbiased_sm90(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* lse, const void* delta,
                                            const void* block_idx, void* dq,
                                            int B, int S, int H, int KV,
                                            int dh, int nq, int mb,
-                                           int causal, float sm_scale,
-                                           void* stream) {
+                                           int idx_stride, int causal,
+                                           float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nq <= 0 || S != nq * cluster_bwd_sm90::kBlock)
     return (int)cudaErrorInvalidValue;
+#define DQ_CASE(D)                                                          \
+  case D:                                                                   \
+    return cluster_bwd_sm90::launch_dq<D>(q, k, v, dout, lse, delta,        \
+                                          block_idx, dq, B, S, H, KV, nq,   \
+                                          mb, idx_stride, causal, sm_scale, \
+                                          st);
   switch (dh) {
-    case 64:
-      return cluster_bwd_sm90::launch_dq<64>(q, k, v, dout, lse, delta,
-                                             block_idx, dq, B, S, H, KV, nq,
-                                             mb, causal, sm_scale, st);
-    case 128:
-      return cluster_bwd_sm90::launch_dq<128>(q, k, v, dout, lse, delta,
-                                              block_idx, dq, B, S, H, KV, nq,
-                                              mb, causal, sm_scale, st);
+    UNBIASED_SM90_DH_CASES(DQ_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DQ_CASE
 }
 
-// The bf16 unbiased dK/dV, as above; block_idx_t (nk,mt,2) int32, shared
-// by the batch, lists (q-row, forward slot) pairs, -1 padded, with
-// S = 128 nk; dk/dv (B,S,H,Dh) bf16 per q head.
+// The bf16 unbiased dK/dV, as above; block_idx_t (nk,mt,2) int32 shared
+// by the batch (t_stride 0) or (B,nk,mt,2) (t_stride nk*mt*2) lists
+// (q-row, forward slot) pairs, -1 padded, with S = 128 nk; dk/dv
+// (B,S,H,Dh) bf16 per q head.
 int cluster_attention_bwd_dkv_unbiased_sm90(const void* q, const void* k,
                                             const void* v, const void* dout,
                                             const void* lse,
@@ -469,25 +488,25 @@ int cluster_attention_bwd_dkv_unbiased_sm90(const void* q, const void* k,
                                             const void* block_idx_t,
                                             void* dk, void* dv, int B, int S,
                                             int H, int KV, int dh, int nk,
-                                            int mt, int causal,
+                                            int mt, int t_stride, int causal,
                                             float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nk <= 0 || S != nk * cluster_bwd_sm90::kBlock)
     return (int)cudaErrorInvalidValue;
+#define DKV_CASE(D)                                                         \
+  case D:                                                                   \
+    return cluster_bwd_sm90::launch_dkv<D>(q, k, v, dout, lse, delta,       \
+                                           block_idx_t, dk, dv, B, S, H,    \
+                                           KV, nk, mt, t_stride, causal,    \
+                                           sm_scale, st);
   switch (dh) {
-    case 64:
-      return cluster_bwd_sm90::launch_dkv<64>(q, k, v, dout, lse, delta,
-                                              block_idx_t, dk, dv, B, S, H,
-                                              KV, nk, mt, causal, sm_scale,
-                                              st);
-    case 128:
-      return cluster_bwd_sm90::launch_dkv<128>(q, k, v, dout, lse, delta,
-                                               block_idx_t, dk, dv, B, S, H,
-                                               KV, nk, mt, causal, sm_scale,
-                                               st);
+    UNBIASED_SM90_DH_CASES(DKV_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DKV_CASE
 }
 
 }  // extern "C"
+
+#undef UNBIASED_SM90_DH_CASES

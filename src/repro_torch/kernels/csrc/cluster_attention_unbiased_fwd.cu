@@ -4,10 +4,12 @@
 // Replaces the TPU kernel `_cluster_kernel` in
 // src/repro/kernels/cluster_attention.py for fp32 q, k and v: the token
 // LM's local+global layout (core/reformation.lm_local_global_layout,
-// bq = bk = 128); bf16 inputs go to the tensor-core kernel of
-// cluster_attention_unbiased_fwd_sm90.cu. For
+// bq = bk = 128) and the mask-free graph batch (launch/graph_dryrun.py,
+// bq = bk = 128, one layout per graph); bf16 inputs go to the
+// tensor-core kernel of cluster_attention_unbiased_fwd_sm90.cu. For
 // each q-block row the layout lists the k-blocks to visit (`block_idx`,
-// -1 padded); inside a visited block every score is `(q . k) * Dh^-0.5`
+// -1 padded; shared by the batch, or one per sequence `idx_stride`
+// entries apart); inside a visited block every score is `(q . k) * Dh^-0.5`
 // in fp32, masked to the finite sentinel -1e30 where `qpos < kpos` when
 // causal, and an online softmax in fp32 accumulates O. Rows with no
 // unmasked entry write O = 0 and lse = 0. No buckets, no bias.
@@ -22,6 +24,11 @@
 // and PV products are ~488 GFLOP, 7.3 ms at the fp32 CUDA-core peak of
 // 67 TFLOP/s, against ~0.4 GB of fp32 q, k, v, O and lse (0.12 ms at
 // 3.35 TB/s): bound by operations.
+//
+// Head dims. Dh a multiple of 8 up to 64 (the graph models': Slim 8,
+// GT 16, Large 24) or 128: a tile row holds DP = Dh rounded up to 16
+// columns (unbiased_tiles.cuh), so the thread layout stays 16 threads a
+// row; the pad columns are cleared once and never stored.
 //
 // What this design does about it. The slice-1/2 kernels keep a whole
 // block's fp32 tiles in shared memory, which at bq = bk = Dh = 128 would
@@ -58,8 +65,9 @@ cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
                                  const int32_t* __restrict__ block_idx,
                                  T* __restrict__ out,
                                  float* __restrict__ lse, int S, int H,
-                                 int KV, int nq, int mb, int bq, int bk,
-                                 int causal, float sm_scale) {
+                                 int KV, int nq, int mb, int idx_stride,
+                                 int bq, int bk, int causal,
+                                 float sm_scale) {
   using Sh = Shape<DH>;
   constexpr int LD = Sh::LD, NG = Sh::NG, VW = Sh::VW;
   extern __shared__ float4 smem4[];
@@ -81,6 +89,7 @@ cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
   const int q0 = qi * bq + sub * kTile;  // first q position of the tile
   const size_t qs = (size_t)H * DH, ks = (size_t)KV * DH;
 
+  if constexpr (DH != Sh::DP) clear_smem(sQ, 3 * kTile * LD);
   load_rows_upto<DH>(sQ, q + ((size_t)b * S + q0) * qs + (size_t)h * DH, qs,
                      kTile, kTile, HOIST ? sm_scale : 1.f);
   float acc[4][NG][VW];
@@ -95,7 +104,8 @@ cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
       for (int e = 0; e < VW; ++e) acc[i][g][e] = 0.f;
   }
 
-  const int32_t* row = block_idx + (size_t)qi * mb;  // shared by the batch
+  // this sequence's row: idx_stride 0 for a layout shared by the batch
+  const int32_t* row = block_idx + (size_t)b * idx_stride + (size_t)qi * mb;
   const int chunks = bk / kTile;
   for (int s = 0; s < mb; ++s) {
     const int blk = row[s];  // uniform across the CTA
@@ -160,7 +170,8 @@ cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int e = 0; e < VW; ++e)
-        orow[Sh::col(g, tc) + e] = from_f32<T>(acc[i][g][e] / den);
+        if (Sh::live(Sh::col(g, tc) + e))
+          orow[Sh::col(g, tc) + e] = from_f32<T>(acc[i][g][e] / den);
     if (lse != nullptr && tc == 0)
       lse[((size_t)b * H + h) * S + r] =
           l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-30f)) : 0.f;
@@ -170,8 +181,8 @@ cluster_attn_fwd_unbiased_kernel(const T* __restrict__ q,
 template <typename T, int DH, bool HOIST>
 int launch(const void* q, const void* k, const void* v,
            const void* block_idx, void* out, void* lse, int B, int S, int H,
-           int KV, int nq, int mb, int bq, int bk, int causal,
-           float sm_scale, cudaStream_t stream) {
+           int KV, int nq, int mb, int idx_stride, int bq, int bk,
+           int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       cluster_attn_fwd_unbiased_kernel<T, DH, HOIST>,
@@ -182,26 +193,35 @@ int launch(const void* q, const void* k, const void* v,
       <<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(block_idx),
-      static_cast<T*>(out), static_cast<float*>(lse), S, H, KV, nq, mb, bq,
-      bk, causal, sm_scale);
+      static_cast<T*>(out), static_cast<float*>(lse), S, H, KV, nq, mb,
+      idx_stride, bq, bk, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool HOIST>
 int launch_dh(int dh, const void* q, const void* k, const void* v,
               const void* block_idx, void* out, void* lse, int B, int S,
-              int H, int KV, int nq, int mb, int bq, int bk, int causal,
-              float sm_scale, cudaStream_t st) {
+              int H, int KV, int nq, int mb, int idx_stride, int bq, int bk,
+              int causal, float sm_scale, cudaStream_t st) {
+#define UNBIASED_FWD_CASE(D)                                                \
+  case D:                                                                   \
+    return launch<T, D, HOIST>(q, k, v, block_idx, out, lse, B, S, H, KV,   \
+                               nq, mb, idx_stride, bq, bk, causal,          \
+                               sm_scale, st);
   switch (dh) {
-    case 64:
-      return launch<T, 64, HOIST>(q, k, v, block_idx, out, lse, B, S, H, KV,
-                                  nq, mb, bq, bk, causal, sm_scale, st);
-    case 128:
-      return launch<T, 128, HOIST>(q, k, v, block_idx, out, lse, B, S, H,
-                                   KV, nq, mb, bq, bk, causal, sm_scale, st);
+    UNBIASED_FWD_CASE(8)
+    UNBIASED_FWD_CASE(16)
+    UNBIASED_FWD_CASE(24)
+    UNBIASED_FWD_CASE(32)
+    UNBIASED_FWD_CASE(40)
+    UNBIASED_FWD_CASE(48)
+    UNBIASED_FWD_CASE(56)
+    UNBIASED_FWD_CASE(64)
+    UNBIASED_FWD_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef UNBIASED_FWD_CASE
 }
 
 }  // namespace
@@ -211,26 +231,28 @@ extern "C" {
 
 // dtype: 0 = float32 (bfloat16 is cluster_attention_fwd_unbiased_sm90's).
 // q (B,S,H,Dh), k/v (B,S,KV,Dh), out like q, all contiguous and 16-byte
-// aligned; block_idx (nq,mb) int32, shared by the batch; lse (B*H,S) fp32
-// or NULL; hoist the schedule's rewrite (0 or 1). Takes Dh in {64, 128},
+// aligned; block_idx (nq,mb) int32 shared by the batch (idx_stride 0) or
+// (B,nq,mb) (idx_stride nq*mb); lse (B*H,S) fp32 or NULL; hoist the
+// schedule's rewrite (0 or 1). Takes Dh a multiple of 8 up to 64, or 128,
 // bq = bk a multiple of 64. Returns the CUDA error code of the launch (0
 // = launched).
 int cluster_attention_fwd_unbiased(const void* q, const void* k,
                                    const void* v, const void* block_idx,
                                    void* out, void* lse, int dtype, int B,
                                    int S, int H, int KV, int dh, int nq,
-                                   int mb, int bq, int bk, int causal,
-                                   int hoist, float sm_scale, void* stream) {
+                                   int mb, int idx_stride, int bq, int bk,
+                                   int causal, int hoist, float sm_scale,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bq % unbiased::kTile || bk % unbiased::kTile || dtype != 0)
     return (int)cudaErrorInvalidValue;
   if (hoist)
     return unbiased::launch_dh<float, true>(dh, q, k, v, block_idx, out, lse,
-                                            B, S, H, KV, nq, mb, bq, bk,
-                                            causal, sm_scale, st);
+                                            B, S, H, KV, nq, mb, idx_stride,
+                                            bq, bk, causal, sm_scale, st);
   return unbiased::launch_dh<float, false>(dh, q, k, v, block_idx, out, lse,
-                                           B, S, H, KV, nq, mb, bq, bk,
-                                           causal, sm_scale, st);
+                                           B, S, H, KV, nq, mb, idx_stride,
+                                           bq, bk, causal, sm_scale, st);
 }
 
 }  // extern "C"

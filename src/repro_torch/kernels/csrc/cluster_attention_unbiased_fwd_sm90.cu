@@ -4,12 +4,15 @@
 // Replaces the TPU kernel `_cluster_kernel` in
 // src/repro/kernels/cluster_attention.py for bf16 inputs: the token LM's
 // local+global layout (core/reformation.lm_local_global_layout,
-// bq = bk = 128); fp32 inputs stay on cluster_attention_unbiased_fwd.cu,
+// bq = bk = 128) and the mask-free graph batch of the paper's scale run
+// (launch/graph_dryrun.py: bq = bk = 128, one layout per graph, Dh 8 or
+// 24); fp32 inputs stay on cluster_attention_unbiased_fwd.cu,
 // on CUDA cores (TF32 would not meet their tolerances). It computes the
 // same function as that kernel and `kernels/ref.py`
 // `cluster_sparse_attention`: for each q-block row an online softmax over
-// the k-blocks that `block_idx` (nq, mb) lists (shared by the batch; a -1
-// entry, wherever it stands, is skipped), scores `(q . k) Dh^-0.5` in
+// the k-blocks that `block_idx` (nq, mb) lists (shared by the batch, or
+// (B, nq, mb), one per sequence, `idx_stride` entries apart; a -1 entry,
+// wherever it stands, is skipped), scores `(q . k) Dh^-0.5` in
 // fp32, -inf where `qpos < kpos` when causal, O in bf16 and the natural
 // logsumexp `lse` (B*H, S) in fp32 that the backward kernels
 // (cluster_attention_unbiased_bwd.cu) rebuild `exp(s - lse)` against. A
@@ -56,6 +59,13 @@
 //   0, where a P rounded once to bf16 misses 1e-5. P = P_hi + P_lo, two
 //   register-operand `wgmma`s into the same O: 1.5x the tensor-core work
 //   of the function, an error near 2^-17.
+// * Head dims: Dh 32, 64 and 128 are copied as they are; any other
+//   multiple of 8 up to 64 is held as DHP = Dh rounded up to 16 columns,
+//   in 16-column atoms with a 32-byte swizzle whose last TMA box reaches
+//   past Dh and is zero-filled there (sm90_tiles.cuh). The products run
+//   at DHP: S = Q K^T over DHP / 16 steps of 16, O = P V at n = DHP. q, k
+//   and v are never padded in device memory: at S = 1048576 with
+//   Graphormer-Large that would copy three 1.6 GB tensors a layer.
 // * Registers: the 64 x Dh fp32 O and the 64 x 128 S, with P's two bf16
 //   halves: the producer gives registers up (`setmaxnreg` 24) and the
 //   consumers take 240. Shared memory at Dh 128: q 32 KB, two stages of
@@ -75,7 +85,8 @@ constexpr int kThreads = 384;
 
 template <int DH>
 struct Cfg : sm90::Atom<DH> {
-  static constexpr int TILE = kBlock * DH * 2;  // q, or a stage's k or v
+  // q, or a stage's k or v: DHP columns a row
+  static constexpr int TILE = kBlock * sm90::Atom<DH>::DHP * 2;
   // q, the ring, 1 + 3 kStages barriers, and slack to align to 1024
   static constexpr int SMEM = TILE + 2 * kStages * TILE + 1024 + 1024;
 };
@@ -87,9 +98,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tv,
            const int32_t* __restrict__ block_idx, bf16* __restrict__ out,
            float* __restrict__ lse, int S, int H, int KV, int nq, int mb,
-           int causal, float c2) {
+           int idx_stride, int causal, float c2) {
   using C = Cfg<DH>;
-  constexpr int SWB = C::SWB;
+  constexpr int SWB = C::SWB, DP = C::DHP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -108,7 +119,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = x / nq;
   const int kvh = h / (H / KV);
   const int q0 = qi * kBlock;
-  const int32_t* entries = block_idx + (size_t)qi * mb;  // shared by batch
+  // this sequence's row: idx_stride 0 for a layout shared by the batch
+  const int32_t* entries =
+      block_idx + (size_t)b * idx_stride + (size_t)qi * mb;
   // a listed block is visited unless the causal mask empties it for
   // every row of the q-block (bq = bk: it lies past the diagonal)
   auto visited = [&](int blk) { return blk >= 0 && !(causal && blk > qi); };
@@ -161,9 +174,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const int col = 2 * (lane % 4);                 // row, row + 8
     const uint8_t* myq = sQ + wg * kRows * SWB;
 
-    float o[DH / 2];
+    float o[DP / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     sm90::mbar_wait(full_q, 0);
@@ -179,11 +192,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
       const uint8_t* sv = sk + C::TILE;
       sm90::mbar_wait(full_k + s, par);
 
-      // S = Q K^T over Dh, fp32
+      // S = Q K^T over Dh (the pad columns are zero), fp32
       float sc[kBlock / 2];
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         sm90::ss<kBlock>(sc, sm90::desc_k<SWB>(myq, kBlock, kk * 16),
                          sm90::desc_k<SWB>(sk, kBlock, kk * 16), kk > 0);
       sm90::wgmma_commit();
@@ -192,27 +205,27 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
       // the causal mask on the diagonal block; the online softmax
       uint32_t phi[kBlock / 16][4], plo[kBlock / 16][4];
-      sm90::softmax_chunk<kBlock, DH>(
+      sm90::softmax_chunk<kBlock, DP>(
           sc, o, m, l, c2, col, causal && k0 + kBlock - 1 > r0,
           [&](int kc, int i) { return k0 + kc > row + 8 * i; }, phi, plo);
 
       // O += P_hi V + P_lo V
       sm90::mbar_wait(full_v + s, par);
-      sm90::pv_split<kBlock, DH, SWB>(o, phi, plo, sv, kBlock, 0);
+      sm90::pv_split<kBlock, DP, SWB>(o, phi, plo, sv, kBlock, 0);
       // the stage's k and v are read: hand it back to the producer
       __syncwarp();
       if (lane == 0) sm90::mbar_arrive(empty + s);
     }
 
-    sm90::store_rows<DH>(o, m, l, out, lse, b, h, H, S, row, col);
+    sm90::store_rows<DH, DP>(o, m, l, out, lse, b, h, H, S, row, col);
   }
 }
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v,
            const void* block_idx, void* out, void* lse, int B, int S, int H,
-           int KV, int nq, int mb, int causal, float sm_scale,
-           cudaStream_t stream) {
+           int KV, int nq, int mb, int idx_stride, int causal,
+           float sm_scale, cudaStream_t stream) {
   using C = Cfg<DH>;
   CUtensorMap tq, tk, tv;
   int err = sm90::encode_rows(&tq, q, B, S, H, DH, kBlock, C::SWB);
@@ -226,7 +239,7 @@ int launch(const void* q, const void* k, const void* v,
   fwd_kernel<DH><<<grid, kThreads, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<const int32_t*>(block_idx),
       static_cast<bf16*>(out), static_cast<float*>(lse), S, H, KV, nq, mb,
-      causal, sm_scale * sm90::kLog2e);
+      idx_stride, causal, sm_scale * sm90::kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -236,29 +249,39 @@ int launch(const void* q, const void* k, const void* v,
 extern "C" {
 
 // The bf16 unbiased forward: q (B,S,H,Dh), k/v (B,S,KV,Dh), out like q,
-// all bf16, contiguous and 16-byte aligned; block_idx (nq,mb) int32,
-// shared by the batch, with S = 128 nq (bq = bk = 128); lse (B*H,S) fp32
-// or NULL. Takes Dh in {64, 128}. Returns the CUDA error code of the
+// all bf16, contiguous and 16-byte aligned; block_idx (nq,mb) int32
+// shared by the batch (idx_stride 0) or (B,nq,mb) (idx_stride nq*mb),
+// with S = 128 nq (bq = bk = 128); lse (B*H,S) fp32 or NULL. Takes Dh a
+// multiple of 8 up to 64, or 128. Returns the CUDA error code of the
 // launch (0 = launched).
 int cluster_attention_fwd_unbiased_sm90(const void* q, const void* k,
                                         const void* v, const void* block_idx,
                                         void* out, void* lse, int B, int S,
                                         int H, int KV, int dh, int nq, int mb,
-                                        int causal, float sm_scale,
-                                        void* stream) {
+                                        int idx_stride, int causal,
+                                        float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nq <= 0 || S != nq * cluster_sm90::kBlock)
     return (int)cudaErrorInvalidValue;
+#define FWD_CASE(D)                                                         \
+  case D:                                                                   \
+    return cluster_sm90::launch<D>(q, k, v, block_idx, out, lse, B, S, H,   \
+                                   KV, nq, mb, idx_stride, causal,          \
+                                   sm_scale, st);
   switch (dh) {
-    case 64:
-      return cluster_sm90::launch<64>(q, k, v, block_idx, out, lse, B, S, H,
-                                      KV, nq, mb, causal, sm_scale, st);
-    case 128:
-      return cluster_sm90::launch<128>(q, k, v, block_idx, out, lse, B, S, H,
-                                       KV, nq, mb, causal, sm_scale, st);
+    FWD_CASE(8)
+    FWD_CASE(16)
+    FWD_CASE(24)
+    FWD_CASE(32)
+    FWD_CASE(40)
+    FWD_CASE(48)
+    FWD_CASE(56)
+    FWD_CASE(64)
+    FWD_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FWD_CASE
 }
 
 }  // extern "C"

@@ -12,6 +12,14 @@
 // "atom" holds SWE = SWB / 2 columns of every row, SWB bytes a row, eight
 // rows a 1024- (or 512-) byte swizzle period. Dh 128 is two atoms, stored
 // one after the other (columns 0-63 of all rows, then columns 64-127).
+// Any other head dim (a multiple of 8 up to 64: the graph models' 8, 16,
+// 24, ...) fits no swizzle span as it is: its tile holds DHP = Dh rounded
+// up to 16 columns, in atoms of 16 columns with a 32-byte swizzle (eight
+// rows a 256-byte period), and each atom is one TMA box of 16 columns.
+// The box of the last atom reaches past Dh, outside the tensor's first
+// dimension, and TMA writes zeros there: the pad columns add nothing to
+// q.k, and the pad columns of O, dQ, dK and dV that they yield are never
+// stored. No operand is padded in device memory.
 // One tile serves two kinds of `wgmma` operand:
 //   K-major (the reduction runs along Dh, a row's contiguous dimension):
 //     the A and B of S = Q K^T; a 16-column step moves the start address
@@ -35,14 +43,18 @@ namespace sm90 {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The swizzle of a (rows x DH) bf16 tile: its span SWB in bytes, the
-// SWE columns of an atom, the NATOM atoms a row spans.
+// The swizzle of a (rows x DH) bf16 tile: the DHP columns a row holds
+// (DH, or DH padded to 16), its span SWB in bytes, the SWE columns of an
+// atom, the NATOM atoms a row spans.
 template <int DH>
 struct Atom {
-  static_assert(DH == 32 || DH == 64 || DH == 128, "Dh in {32, 64, 128}");
-  static constexpr int SWB = DH >= 64 ? 128 : 64;
+  static_assert(DH % 8 == 0 && ((DH >= 8 && DH <= 64) || DH == 128),
+                "Dh a multiple of 8 up to 64, or 128");
+  static constexpr bool PAD = !(DH == 32 || DH == 64 || DH == 128);
+  static constexpr int DHP = PAD ? (DH + 15) / 16 * 16 : DH;
+  static constexpr int SWB = PAD ? 32 : DH >= 64 ? 128 : 64;
   static constexpr int SWE = SWB / 2;
-  static constexpr int NATOM = DH / SWE;
+  static constexpr int NATOM = DHP / SWE;
 };
 
 // ------------------------------------------------------------ addresses
@@ -121,12 +133,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // ---------------------------------------------------------------- wgmma
 
 // The shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle (1 = 128 bytes, 2 = 64).
+// byte offsets (16-byte units) and the swizzle (1 = 128 bytes, 2 = 64,
+// 3 = 32).
 template <int SWB>
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
                                          uint32_t sbo) {
-  static_assert(SWB == 128 || SWB == 64, "128- or 64-byte swizzle");
-  constexpr uint64_t layout = SWB == 128 ? 1 : 2;
+  static_assert(SWB == 128 || SWB == 64 || SWB == 32,
+                "128-, 64- or 32-byte swizzle");
+  constexpr uint64_t layout = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
@@ -243,6 +257,19 @@ __device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 16, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x
+// 16), B MN-major in shared memory
+__device__ __forceinline__ void rs_n16(float (&d)[8],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : ACC8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x
 // 32), B MN-major in shared memory
 __device__ __forceinline__ void rs_n32(float (&d)[16],
@@ -254,6 +281,21 @@ __device__ __forceinline__ void rs_n32(float (&d)[16],
       "%8, %9, %10, %11, %12, %13, %14, %15}, "
       "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : ACC8(0), ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 48, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x
+// 48), B MN-major in shared memory
+__device__ __forceinline__ void rs_n48(float (&d)[24],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -308,8 +350,12 @@ __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da,
 template <int N>
 __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                    uint64_t db) {
-  if constexpr (N == 32)
+  if constexpr (N == 16)
+    rs_n16(d, a, db);
+  else if constexpr (N == 32)
     rs_n32(d, a, db);
+  else if constexpr (N == 48)
+    rs_n48(d, a, db);
   else if constexpr (N == 64)
     rs_n64(d, a, db);
   else
@@ -409,9 +455,10 @@ __device__ __forceinline__ void pv_split(float (&o)[DH / 2],
 // The forwards' epilogue: the quads' row sums, then O / l in bf16 and the
 // natural logsumexp m ln 2 + log l of the thread's rows `row` and
 // `row` + 8 below S (a row with l = 0, nothing unmasked, writes O = 0
-// and lse = 0). `out` (B, S, H, DH), `lse` (B*H, S) or NULL.
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&o)[DH / 2],
+// and lse = 0). `o` holds DP >= DH columns (a padded tile's), of which
+// the first DH are stored. `out` (B, S, H, DH), `lse` (B*H, S) or NULL.
+template <int DH, int DP = DH>
+__device__ __forceinline__ void store_rows(const float (&o)[DP / 2],
                                            const float (&m)[2], float (&l)[2],
                                            __nv_bfloat16* out, float* lse,
                                            int b, int h, int H, int S,
@@ -576,10 +623,10 @@ __device__ __forceinline__ void dkv_stage(
 }
 
 // The backwards' epilogue: the thread's rows `row` and `row` + 8 below S
-// of a 64 x DH fp32 accumulator, times `scale`, in bf16 into `out`
-// (B, S, H, DH).
-template <int DH>
-__device__ __forceinline__ void store_scaled(const float (&acc)[DH / 2],
+// of a 64 x DP fp32 accumulator (DP >= DH, a padded tile's), its first DH
+// columns times `scale`, in bf16 into `out` (B, S, H, DH).
+template <int DH, int DP = DH>
+__device__ __forceinline__ void store_scaled(const float (&acc)[DP / 2],
                                              __nv_bfloat16* out, int b,
                                              int h, int H, int S, int row,
                                              int col, float scale) {
@@ -626,7 +673,9 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A (B, S, heads, Dh) bf16 tensor as a rank-4 map whose box is `rows`
-// rows of one head and one swizzle atom (SWB bytes) of columns.
+// rows of one head and one swizzle atom (SWB bytes) of columns; with a
+// 32-byte swizzle a box may reach past Dh, and TMA fills that part with
+// zeros.
 inline int encode_rows(CUtensorMap* map, const void* base, int B, int S,
                        int heads, int dh, int rows, int swb) {
   EncodeTiledFn fn = encode_tiled();
@@ -641,8 +690,9 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int S,
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<void*>(base), dims, strides, box, unit,
                   CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  swb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_64B,
+                  swb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : swb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

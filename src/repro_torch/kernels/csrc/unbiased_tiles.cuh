@@ -7,14 +7,19 @@
 // owns rows `tr + 16 i` and columns `tc + 16 j` (i, j < 4) of a score
 // tile, with tr = tid / 16 and tc = tid % 16, so the 16 threads that
 // share a row sit in one half-warp and reduce it with shuffles. Of a
-// (64 x Dh) output tile it owns the same four rows and Dh / 16 columns
-// (`Shape<DH>::col`): runs of four at Dh 64 and 128, of two at Dh 32.
+// (64 x Dh) output tile it owns the same four rows and DP / 16 columns
+// (`Shape<DH>::col`), DP = Dh rounded up to a multiple of 16: runs of
+// four at DP 64 and 128, of two at 32, single columns at 16 and 48.
 //
 // Operand tiles live in shared memory in fp32, row-major, rows padded by
-// 4 floats: a row stride of Dh + 4 puts the 16 rows a half-warp reads at
+// 4 floats: a row stride of DP + 4 puts the 16 rows a half-warp reads at
 // once on distinct groups of four banks, so the float4 reads along Dh in
 // `dot_tile` are free of bank conflicts, and the float4 reads of
-// `acc_tile` along a score row or an operand row are contiguous.
+// `acc_tile` along a score row or an operand row are contiguous. Head
+// dims that are no multiple of 16 (Graphormer-Slim's 8, -Large's 24)
+// leave columns Dh..DP-1 of a tile unused: the loads never write them,
+// the kernels clear them once (`clear_smem`), `dot_tile` stops at Dh and
+// the stores skip them.
 
 #pragma once
 
@@ -30,16 +35,29 @@ constexpr float kNegInf = -1e30f;   // finite sentinel, as the TPU kernels
 
 template <int DH>
 struct Shape {
-  static_assert(DH == 32 || DH == 64 || DH == 128, "Dh in {32, 64, 128}");
-  static constexpr int LD = DH + 4;                 // padded operand row
-  static constexpr int VW = DH >= 64 ? 4 : 2;       // owned in runs of VW
-  static constexpr int NG = DH / (16 * VW);         // runs per thread
+  static_assert(DH % 8 == 0 && ((DH >= 8 && DH <= 64) || DH == 128),
+                "Dh a multiple of 8 up to 64, or 128");
+  static constexpr int DP = (DH + 15) / 16 * 16;    // padded to 16 columns
+  static constexpr int LD = DP + 4;                 // padded operand row
+  static constexpr int VW = DP % 64 == 0 ? 4 : DP % 32 == 0 ? 2 : 1;
+  static constexpr int NG = DP / (16 * VW);         // runs per thread
   // first column of run g of thread column tc: runs of neighbouring
   // threads are contiguous
   static __device__ __forceinline__ int col(int g, int tc) {
     return g * 16 * VW + tc * VW;
   }
+  // a column the stores write (every one but the pad)
+  static __device__ __forceinline__ bool live(int c) {
+    return DH == DP || c < DH;
+  }
 };
+
+// zero `n` floats of shared memory (the pad columns of the tiles of a
+// head dim that is no multiple of 16, before any load)
+__device__ __forceinline__ void clear_smem(float* p, int n) {
+  for (int e = threadIdx.x; e < n; e += kThreads) p[e] = 0.f;
+  __syncthreads();
+}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -99,7 +117,7 @@ __device__ __forceinline__ void load_rows_upto(float* dst, const T* src,
 }
 
 // acc[i][j] += A[ra + 16 i, :] . B[rb + 16 j, :] over Dh, both padded
-// (rows x Dh) tiles.
+// (rows x DP) tiles.
 template <int DH>
 __device__ __forceinline__ void dot_tile(const float* __restrict__ A,
                                          int ra,
@@ -131,7 +149,7 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ A,
 }
 
 // acc[i][g][e] += sum_c P[rp + 16 i, c] * V[c, col(g, tc) + e]: P a
-// (64 x 64) score tile (row stride kLP), V a padded (64 x Dh) tile.
+// (64 x 64) score tile (row stride kLP), V a padded (64 x DP) tile.
 template <int DH>
 __device__ __forceinline__ void acc_tile(
     const float* __restrict__ P, int rp, const float* __restrict__ V,
@@ -179,8 +197,9 @@ __device__ __forceinline__ void acc_tile(
   }
 }
 
-// Write the (64 x Dh) tile `acc * mul` to rows `row0 + tr + 16 i` of a
-// (B, S, heads, Dh) tensor whose row `r` starts at `base + r * stride`.
+// Write the (64 x Dh) tile `acc * mul` (its live columns) to rows
+// `row0 + tr + 16 i` of a (B, S, heads, Dh) tensor whose row `r` starts
+// at `base + r * stride`.
 template <int DH, typename T>
 __device__ __forceinline__ void store_rows(
     T* base, size_t stride, int tr, int tc,
@@ -193,7 +212,8 @@ __device__ __forceinline__ void store_rows(
     for (int g = 0; g < Sh::NG; ++g)
 #pragma unroll
       for (int e = 0; e < Sh::VW; ++e)
-        row[Sh::col(g, tc) + e] = from_f32<T>(acc[i][g][e] * mul);
+        if (Sh::live(Sh::col(g, tc) + e))
+          row[Sh::col(g, tc) + e] = from_f32<T>(acc[i][g][e] * mul);
   }
 }
 
@@ -213,7 +233,8 @@ __device__ __forceinline__ void store_rows_upto(
     for (int g = 0; g < Sh::NG; ++g)
 #pragma unroll
       for (int e = 0; e < Sh::VW; ++e)
-        row[Sh::col(g, tc) + e] = from_f32<T>(acc[i][g][e] * mul);
+        if (Sh::live(Sh::col(g, tc) + e))
+          row[Sh::col(g, tc) + e] = from_f32<T>(acc[i][g][e] * mul);
   }
 }
 

@@ -207,36 +207,42 @@ def test_op_rejects_a_bias_table_without_buckets():
                                torch.zeros(4, 3), causal=True)
 
 
-@pytest.mark.parametrize("dtype,d_head,bq,shared,backward,reason", [
-    # the bf16 forward (tensor cores) takes the LM's 128-row blocks only
-    (torch.bfloat16, 128, 128, True, False, None),
-    (torch.bfloat16, 64, 128, True, False, None),
-    (torch.bfloat16, 128, 64, True, False, "bq = bk = 128"),
-    (torch.bfloat16, 64, 256, True, False, "bq = bk = 128"),
-    (torch.bfloat16, 32, 128, True, False, "Dh=32"),
-    (torch.bfloat16, 128, 128, False, False, "batch-shared"),
+@pytest.mark.parametrize("dtype,d_head,bq,backward,reason", [
+    # the bf16 forward (tensor cores) takes the 128-row blocks only
+    (torch.bfloat16, 128, 128, False, None),
+    (torch.bfloat16, 64, 128, False, None),
+    (torch.bfloat16, 128, 64, False, "bq = bk = 128"),
+    (torch.bfloat16, 64, 256, False, "bq = bk = 128"),
+    (torch.bfloat16, 32, 128, False, None),
+    (torch.bfloat16, 12, 128, False, "Dh=12"),
+    # the graph models' head dims: Slim's 8, Large's 24
+    (torch.bfloat16, 8, 128, False, None),
+    (torch.bfloat16, 24, 128, True, None),
+    (torch.bfloat16, 8, 64, False, "bq = bk = 128"),
     # the bf16 backward (tensor cores) takes what the bf16 forward takes
-    (torch.bfloat16, 128, 64, True, True, "bq = bk = 128"),
-    (torch.bfloat16, 64, 96, True, True, "bq = bk = 128"),
-    (torch.bfloat16, 128, 128, True, True, None),
-    (torch.bfloat16, 64, 128, True, True, None),
-    (torch.bfloat16, 128, 256, True, True, "bq = bk = 128"),
-    (torch.bfloat16, 32, 128, True, True, "Dh=32"),
-    (torch.bfloat16, 128, 128, False, True, "batch-shared"),
+    (torch.bfloat16, 128, 64, True, "bq = bk = 128"),
+    (torch.bfloat16, 64, 96, True, "bq = bk = 128"),
+    (torch.bfloat16, 128, 128, True, None),
+    (torch.bfloat16, 64, 128, True, None),
+    (torch.bfloat16, 128, 256, True, "bq = bk = 128"),
+    (torch.bfloat16, 32, 128, True, None),
+    (torch.bfloat16, 96, 128, True, "Dh=96"),
+    (torch.bfloat16, 12, 128, True, "Dh=12"),
     # fp32, forward and backward, as before: multiples of 64
-    (torch.float32, 128, 64, True, False, None),
-    (torch.float32, 64, 256, True, False, None),
-    (torch.float32, 128, 128, True, True, None),
-    (torch.float32, 128, 96, True, False, "a multiple of 64"),
-    (torch.float32, 48, 128, True, False, "Dh=48"),
-    (torch.float32, 128, 128, False, True, "batch-shared"),
+    (torch.float32, 128, 64, False, None),
+    (torch.float32, 64, 256, False, None),
+    (torch.float32, 128, 128, True, None),
+    (torch.float32, 128, 96, False, "a multiple of 64"),
+    (torch.float32, 48, 128, False, None),
+    (torch.float32, 12, 128, False, "Dh=12"),
+    (torch.float32, 8, 128, True, None),
 ])
-def test_unbiased_kernel_reason_per_dtype(dtype, d_head, bq, shared,
-                                          backward, reason):
+def test_unbiased_kernel_reason_per_dtype(dtype, d_head, bq, backward,
+                                          reason):
     """What each dtype's unbiased kernels take, and the reason they give
-    for what they refuse."""
-    got = tca.unbiased_kernel_reason(dtype, d_head, bq, shared,
-                                     backward=backward)
+    for what they refuse: Dh a multiple of 8 up to 64, or 128; bf16 the
+    128-row blocks, fp32 multiples of 64."""
+    got = tca.unbiased_kernel_reason(dtype, d_head, bq, backward=backward)
     if reason is None:
         assert got is None
     else:

@@ -2,8 +2,10 @@
 cluster-attention kernels (the biased forward, dQ and dK/dV kernels of
 the graph path, in bf16 on the tensor cores at 32 x 32 and at the
 graph-level task's 16 x 16 blocks; and
-the unbiased, optionally causal ones of the LM path, in bf16 the
-forward, dQ and dK/dV on the tensor cores; each under every value of
+the unbiased, optionally causal ones of the LM path and of the
+mask-free graph batch (a layout per sequence, head dims 8 to 64), in
+bf16 the forward, dQ and dK/dV on the tensor cores, and the scale run
+through them; each under every value of
 the schedule's ``hoist_scale`` and, biased, ``fuse_bias``),
 the dense flash
 forward, dQ and dK/dV kernels (bf16 on the tensor cores, fp32 on CUDA
@@ -29,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import graph_model as tgm
 from repro_torch.core.reformation import (lm_local_global_layout,
                                           transpose_block_idx)
 from repro_torch.kernels import cluster_attention as tca
@@ -114,39 +117,40 @@ def test_kernel_dead_rows_and_full_layout(dev):
 
 
 def test_kernel_rejects_unported_variants(dev):
-    """fp16 is no kernel's dtype; the unbiased kernels take Dh 64 or 128,
-    q-blocks in multiples of 64 rows (the bf16 forward: of 128 rows
-    exactly) and the batch-shared 2-D layout, and say so with the
-    shapes."""
+    """fp16 is no kernel's dtype; the unbiased kernels take Dh a multiple
+    of 8 up to 64, or 128, q-blocks in multiples of 64 rows (the bf16
+    forward: of 128 rows exactly), and a layout shared by the batch or
+    one per sequence, and say so with the shapes."""
     lay = graph_layout()
     q, k, v, bias = qkv(1, lay.seq_len, 4, 4, 8)
     args = [torch.from_numpy(x).to(dev) for x in (q, k, v, lay.block_idx)]
-    with pytest.raises(NotImplementedError, match="Dh in"):
+    with pytest.raises(NotImplementedError, match="a multiple of 64"):
         ops.cluster_attention(*args)
     lm = lm_local_global_layout(512, window=128, n_global=128)
     bi = torch.from_numpy(lm.block_idx).to(dev)
-    q, k, v, _ = qkv(2, lm.seq_len, 4, 2, 32)
+    q, k, v, _ = qkv(2, lm.seq_len, 4, 2, 12)
     q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
-    with pytest.raises(NotImplementedError, match="Dh in"):
+    with pytest.raises(NotImplementedError, match="Dh=12"):
         ops.cluster_attention(q, k, v, bi, causal=True)
     q, k, v, _ = qkv(2, lm.seq_len, 4, 2, 64)
     q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
-    with pytest.raises(NotImplementedError, match="batch-shared"):
-        ops.cluster_attention(q, k, v, torch.stack([bi, bi]), causal=True)
     bf = [x.bfloat16() for x in (q, k, v)]
-    with pytest.raises(NotImplementedError, match=r"batch-shared.*"
-                       r"bfloat16 q \(2, 512, 4, 64\)"):
-        ops.cluster_attention(*bf, torch.stack([bi, bi]), causal=True)
+    # a layout per sequence launches the kernels of either dtype
+    before = (tca.unbiased_launches, tca.unbiased_sm90_launches)
+    ops.cluster_attention(q, k, v, torch.stack([bi, bi]), causal=True)
+    ops.cluster_attention(*bf, torch.stack([bi, bi]), causal=True)
+    assert (tca.unbiased_launches, tca.unbiased_sm90_launches) == (
+        before[0] + 1, before[1] + 1)
     lm64 = lm_local_global_layout(512, bq=64, bk=64, window=128,
                                   n_global=64)
     bi64 = torch.from_numpy(lm64.block_idx).to(dev)
     with pytest.raises(NotImplementedError, match=r"bq=bk=64 \(the bf16 "
                        r"forward takes bq = bk = 128.*\(2, 512, 4, 64\)"):
         ops.cluster_attention(*bf, bi64, causal=True)
-    q32, k32, v32, _ = qkv(2, lm.seq_len, 4, 2, 32)
-    with pytest.raises(NotImplementedError, match=r"Dh=32.*bfloat16"):
+    q12, k12, v12, _ = qkv(2, lm.seq_len, 4, 2, 12)
+    with pytest.raises(NotImplementedError, match=r"Dh=12.*bfloat16"):
         ops.cluster_attention(*(torch.from_numpy(x).to(dev).bfloat16()
-                                for x in (q32, k32, v32)), bi, causal=True)
+                                for x in (q12, k12, v12)), bi, causal=True)
     # fp32 takes the 64-row blocks the bf16 forward refuses
     before = tca.unbiased_launches
     ops.cluster_attention(q, k, v, bi64, causal=True)
@@ -701,7 +705,7 @@ def test_unbiased_kernels_causal_call_on_a_non_causal_layout(dev, dtype):
 
 
 def test_unbiased_bf16_backward_refuses_what_its_kernels_do_not_take(dev):
-    """The bf16 backward has no fallback: 64-row blocks and Dh 32 raise
+    """The bf16 backward has no fallback: 64-row blocks and Dh 12 raise
     with the shapes, before any launch."""
     lay64 = lm_local_global_layout(512, bq=64, bk=64, window=128,
                                    n_global=64)
@@ -710,7 +714,7 @@ def test_unbiased_bf16_backward_refuses_what_its_kernels_do_not_take(dev):
             (lay64, 64, r"bq=bk=64 \(the bf16 backward takes bq = bk = "
                         r"128.*bfloat16 q \(2, 512, 4, 64\), block_idx "
                         r"\(8, 3\)"),
-            (lay, 32, r"Dh=32.*bfloat16 q \(2, 512, 4, 32\)")):
+            (lay, 12, r"Dh=12.*bfloat16 q \(2, 512, 4, 12\)")):
         q, k, v, _ = qkv(2, 512, 4, 2, Dh)
         q, k, v = (torch.from_numpy(x).to(dev).bfloat16() for x in (q, k, v))
         bi = torch.from_numpy(layout.block_idx).to(dev)
@@ -725,6 +729,74 @@ def test_unbiased_bf16_backward_refuses_what_its_kernels_do_not_take(dev):
         assert (tcab.dq_unbiased_launches, tcab.dq_unbiased_sm90_launches,
                 tcab.dkv_unbiased_launches,
                 tcab.dkv_unbiased_sm90_launches) == before
+
+
+def _per_graph_layouts(B, S, mb, seed):
+    """One layout a sequence, as the scale run draws them
+    (``graph_dryrun.block_layout``: the diagonal and ``mb - 1`` other
+    k-blocks a row, bq = bk = 128), with their tight transposed layouts
+    padded to one ``mt``."""
+    from repro_torch.launch.graph_dryrun import block_layout
+
+    rng = np.random.default_rng(seed)
+    nq = S // 128
+    bis = [block_layout(nq, mb, rng) for _ in range(B)]
+    bits = [transpose_block_idx(b, nq) for b in bis]
+    mt = max(b.shape[1] for b in bits)
+    return np.stack(bis), np.stack([
+        np.pad(b, ((0, 0), (0, mt - b.shape[1]), (0, 0)), constant_values=-1)
+        for b in bits])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,Dh", [(8, 8, 8), (4, 4, 16), (32, 32, 24),
+                                     (4, 2, 32), (4, 4, 40), (4, 4, 48),
+                                     (4, 4, 56), (4, 2, 64)])
+def test_unbiased_kernels_per_graph_layout_and_graph_head_dims(
+        dev, dtype, H, KV, Dh):
+    """Rows 2, 5 and 6 on a layout per sequence (B=2, S=2048) at every
+    head dim a multiple of 8 up to 64: Slim's 8, GT's 16, Large's 24 and
+    the rest, the bf16 ones padded to 16 columns a tile (32, 64: copied
+    as they are), non-causal, as the mask-free graph batch calls them."""
+    bi, bit = _per_graph_layouts(2, 2048, 6, seed=Dh)
+    q, k, v, _ = qkv(2, 2048, H, KV, Dh, seed=Dh)
+    _run_unbiased(dev, dtype, q, k, v, bi, bit, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unbiased_kernels_per_graph_derived_and_causal(dev, dtype):
+    """The per-sequence layout with its transposed layout derived at the
+    dense bound (``ref.derive_block_idx_t``), and a causal call on it, at
+    Large's heads (Dh 24)."""
+    bi, _ = _per_graph_layouts(2, 1024, 4, seed=5)
+    q, k, v, _ = qkv(2, 1024, 4, 4, 24, seed=6)
+    _run_unbiased(dev, dtype, q, k, v, bi, None, False)
+    _run_unbiased(dev, dtype, q, k, v, bi, None, True)
+
+
+def test_scale_run_on_the_card(dev):
+    """``graph_dryrun.run`` at Slim's published width, S=16384: rows 2, 5
+    and 6 launched as the steps say (the forward twice a layer under
+    ``remat="block"``), every loss finite, the record's device numbers
+    present; one step held to ``impl="plain"`` in loss."""
+    from repro_torch.launch import graph_dryrun as gd
+
+    tca.reset_count()
+    tcab.reset_count()
+    rec = gd.run("graphormer_slim", 16384, steps=2, device=dev)
+    layers = rec["layers"]
+    assert (tca.unbiased_sm90_launches, tcab.dq_unbiased_sm90_launches,
+            tcab.dkv_unbiased_sm90_launches) == (4 * layers, 2 * layers,
+                                                 2 * layers)
+    assert np.isfinite(rec["losses"]).all()
+    assert rec["fits"] and rec["peak_gb"] > 0 and rec["mfu"] > 0
+    assert rec["device"]["name"] == torch.cuda.get_device_name(0)
+    cfg = gd.scale_config("graphormer_slim")
+    batch = {k: v.to(dev) for k, v in gd.graph_batch(cfg, 16384).items()}
+    model = tgm.GraphModel(cfg, device=dev)
+    got = gd.loss_and_grads(model, batch)[0].item()
+    want = gd.loss_and_grads(model, batch, impl="plain")[0].item()
+    assert abs(got - want) <= 1e-2 * abs(want)
 
 
 # ------------------------------------------- flash kernels (rows 7, 8, 9)
