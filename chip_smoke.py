@@ -155,6 +155,16 @@ Phases, each failing loudly (an uncaught exception, non-zero exit):
    exactly, every loss finite, each record (peak memory, step ms, the
    roofline terms, MFU) printed with the card's name and power limit,
    then one more step at each shape profiled (device time by kind);
+9d. the fit-and-roofline sweep held to the card (slice 22, as ``python
+   -m repro_torch.launch.dryrun`` traces a cell): Qwen3-0.6B train_4k on
+   the cluster-sparse backend at batch 2 and SmolLM-135M long_500k at
+   batch 1, published widths and depths on a (1, 1) mesh, each traced
+   on fake CUDA tensors (``dryrun.run_cell``) and then run once for
+   real from the same ``steps.build_cell``: the trace's
+   ``peak_est_bytes`` within 10% of ``max_memory_allocated`` over the
+   step, its ``FlopCounterMode`` count equal to the real step's, each
+   cluster-op launch's outputs (shapes, dtypes) equal to the real
+   launches', rows 2, 5 and 6 counted, the loss or logits finite;
 10. recovery (slice 11's main path), in a child process with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and deterministic algorithms, so
    that a replay is bitwise comparable: GT graph-level at phase 8's shape,
@@ -1632,27 +1642,24 @@ def scale_phase(dev, reset_counts, read_counts, draws, compare_unbiased,
 
 
 def scale_profile(arch, S, host, dev, step_ms):
-    """Where a step of the scale run goes: a fresh seeded model and AdamW
-    at the run's shape and batch, one step to warm up, then one step
-    profiled (``device_breakdown``), its wall to a synchronisation the
-    run's median step (``step_ms``), outside the run's launch counts."""
-    import torch
-
+    """Where a step of the scale run goes: a fresh seeded model and the
+    run's own step (``steps.make_train_step`` on ``graph_loss``, as
+    ``graph_dryrun.run`` builds it) at the run's shape and batch, one
+    step to warm up, then one step profiled (``device_breakdown``), its
+    wall to a synchronisation the run's median step (``step_ms``),
+    outside the run's launch counts."""
     from repro_torch.core.graph_model import GraphModel
     from repro_torch.launch import graph_dryrun as gd
-    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.launch import steps
 
     model = GraphModel(gd.scale_config(arch), device=dev)
-    opt = AdamW(list(model.parameters()),
-                lr=warmup_cosine(gd.LR, 100, 10_000))
+    step = steps.make_train_step(model, None, None, lr=gd.LR,
+                                 loss=gd.graph_loss)
     batch = {k: v.to(dev) for k, v in host.items()}
-
-    def step():
-        opt.update(gd.loss_and_grads(model, batch)[2])
-    step()
-    out = device_breakdown(step, step_ms, tag="scale",
+    step(batch)
+    out = device_breakdown(lambda: step(batch), step_ms, tag="scale",
                            what=f"one {arch} step at S={S}", focus="cluster")
-    del model, opt, batch
+    del model, step, batch
     return out
 
 
@@ -1701,6 +1708,119 @@ def scale_sdpa(q, k, v, bi, o, dev) -> dict:
             if "library_bwd_ms" in rec else rec["library_error"]))
     del mask, leaves
     release()
+    return rec
+
+
+# phase 9d: the fit-and-roofline sweep (slice 22, ``python -m
+# repro_torch.launch.dryrun``) held to the card: each cell at the
+# sweep's published widths on a (1, 1) mesh, its batch cut to fit one
+# card, traced on fake tensors (``dryrun.run_cell``) and then run for
+# real from the same ``steps.build_cell``: (arch, shape, config
+# overrides, global batch)
+ESTIMATE_CELLS = (
+    ("qwen3_0_6b", "train_4k", {"attn_backend": "cluster_sparse"}, 2),
+    ("smollm_135m", "long_500k", None, 1),
+)
+# the trace's peak of live bytes against max_memory_allocated over the
+# same step: the caching allocator hands out whole blocks (a large one
+# up to 1 MiB past the request), and cuBLAS takes workspace the
+# dispatcher does not see
+ESTIMATE_MEM_RTOL = 0.10
+
+
+def estimate_phase(dev, reset_counts, read_counts, smi) -> dict:
+    """Phase 9d. For each of ESTIMATE_CELLS: the fake trace's record
+    (``peak_est_bytes``, ``FlopCounterMode``'s count, each cluster-op
+    launch's output shapes and dtypes) against one real step of the same
+    cell on the card, built by ``steps.build_cell`` (seeded init drawn on
+    the card, the batch from ``steps.fill_batch``): the peak within
+    ESTIMATE_MEM_RTOL of ``max_memory_allocated`` over the step (from
+    the bytes allocated before the cell was built, the peak statistics
+    reset before the step), the FLOP counts equal, the launches' outputs
+    equal, the loss (or the logits) finite. Each pair printed on its own
+    line."""
+    import torch
+
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    rec = {"cells": {}}
+    for arch, shape, over, batch in ESTIMATE_CELLS:
+        tag = f"{arch} x {shape} (batch {batch}, 1x1)"
+        est = dryrun.run_cell(arch, shape, mesh_shape=(1, 1),
+                              overrides=over, global_batch=batch,
+                              device="cuda", verbose=False)
+        fake_launches = est.pop("launches")
+        log(f"[estimate] {smi}")
+        log(f"[estimate] {json.dumps(est)}")
+        base = release()
+        with L.draw_on_device():
+            cell = steps.build_cell(arch, shape, {"data": 1, "model": 1},
+                                    overrides=over, global_batch=batch,
+                                    device=dev)
+        steps.fill_batch(cell["cfg"], cell["args"][0] if
+                         cell["shape"].kind != "decode" else
+                         {"tokens": cell["args"][1]})
+        torch.cuda.synchronize(dev)
+        args_bytes = torch.cuda.memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t1 = time.perf_counter()
+        real = dryrun.trace_step(cell)
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t1
+        counts = {n: c for n, c in read_counts().items() if c}
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        out = real["out"]
+        value = out["loss"] if isinstance(out, dict) else out[0]
+        finite = bool(torch.isfinite(value.float()).all())
+        m = est["memory"]
+        r = {"peak_est_bytes": m["peak_est_bytes"], "peak_bytes": peak,
+             "peak_rel": (m["peak_est_bytes"] - peak) / peak,
+             "argument_bytes_est": m["argument_bytes"],
+             "argument_bytes": args_bytes,
+             "peak_traced_real": real["trace"].peak,
+             "flops_counted_est": est["flops_counted"],
+             "flops_counted": real["flops"],
+             "launches_est": len(fake_launches),
+             "launches": counts, "step_s": step_s, "finite": finite,
+             "trace_s": est["compile_s"]}
+        log(f"[estimate] {tag}: peak_est_bytes {m['peak_est_bytes']} "
+            f"max_memory_allocated {peak} ({100 * r['peak_rel']:+.2f}%); "
+            f"the real step's dispatcher count {real['trace'].peak}")
+        log(f"[estimate] {tag}: argument_bytes {m['argument_bytes']} "
+            f"allocated by the build {args_bytes}")
+        log(f"[estimate] {tag}: FlopCounterMode fake "
+            f"{est['flops_counted']:.6e} real {real['flops']:.6e}")
+        log(f"[estimate] {tag}: cluster-op launches fake "
+            f"{len(fake_launches)} real {len(real['trace'].launches)} "
+            f"(counters {counts}), outputs equal "
+            f"{fake_launches == real['trace'].launches}")
+        what = "loss" if isinstance(out, dict) else "logits"
+        log(f"[estimate] {tag}: {what} finite {finite}; real step "
+            f"{step_s:.2f} s, trace "
+            f"{est['compile_s']} s")
+        bad = []
+        if abs(r["peak_rel"]) > ESTIMATE_MEM_RTOL:
+            bad.append(f"peak {m['peak_est_bytes']} vs {peak}")
+        if est["flops_counted"] != real["flops"]:
+            bad.append(f"flops {est['flops_counted']} vs {real['flops']}")
+        if fake_launches != real["trace"].launches:
+            bad.append(f"launch outputs {fake_launches[:3]} vs "
+                       f"{real['trace'].launches[:3]}")
+        if len(fake_launches) != sum(counts.values()):
+            bad.append(f"{len(fake_launches)} fake launches vs counters "
+                       f"{counts}")
+        if not finite:
+            bad.append("not finite")
+        if bad:
+            raise AssertionError(f"phase 9d {tag}: " + "; ".join(bad))
+        rec["cells"][f"{arch}_{shape}"] = r
+        del cell, real, out, value
+        release()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[estimate] phase 9d: {rec['seconds']:.1f} s")
     return rec
 
 
@@ -7483,6 +7603,10 @@ def main() -> int:
                             bound_unbiased, smi)
     draw_pool.shutdown()
 
+    # ---------- 9d. the fit-and-roofline sweep held to the card (slice 22)
+    log(f"[phase] 9d starts at {time.perf_counter() - t_start:.1f} s")
+    estimate_rec = estimate_phase(dev, reset_counts, read_counts, smi)
+
     # ------------------------------------ 10. recovery (slice 11's path)
     log(f"[phase] 10 starts at {time.perf_counter() - t_start:.1f} s")
     def recovery_run():
@@ -7830,7 +7954,8 @@ def main() -> int:
             ("cluster_attention_fwd_b16", "graph_train", graph_runs),
             ("cluster_attention_fwd_b16", "recovery", recovery),
             ("cluster_attention_fwd_unbiased_graph", "scale",
-             {k: v for k, v in scale_rec.items() if k != "kernels"})):
+             {k: v for k, v in scale_rec.items() if k != "kernels"}),
+            ("cluster_attention_fwd_unbiased", "estimate", estimate_rec)):
         by_name[name][key] = val
     # the schedule's rewrites held to the plain versions (the same kernels
     # under their flags; fp32 timed under each): rows 1, 3, 4 at the serve

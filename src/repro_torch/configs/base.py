@@ -114,6 +114,30 @@ ARCHS = (GRAPH_ARCHS + LM_ARCHS + MOE_ARCHS + SSM_ARCHS + HYBRID_ARCHS
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
+# the sweep's input shapes and archs (``launch/dryrun.py``): the
+# reference's ``SHAPES``, ``ASSIGNED_ARCHS``, ``PAPER_ARCHS`` and
+# ``ALL_ARCHS``
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+ASSIGNED_ARCHS = [
+    "smollm_135m",
+    "qwen3_0_6b",
+    "qwen3_1_7b",
+    "qwen3_4b",
+    "internvl2_76b",
+    "jamba_v0_1_52b",
+    "qwen3_moe_235b_a22b",
+    "kimi_k2_1t_a32b",
+    "seamless_m4t_medium",
+    "mamba2_2_7b",
+]
+PAPER_ARCHS = ["graphormer_slim", "graphormer_large", "gt"]
+ALL_ARCHS = ASSIGNED_ARCHS + PAPER_ARCHS
+
 
 def _module(arch: str):
     arch = _ALIASES.get(arch, arch)
@@ -128,3 +152,21 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def cells(archs=None, shapes=None) -> list:
+    """Every ``(arch, shape, note)`` cell of the sweep: ``archs`` (default
+    ``ASSIGNED_ARCHS``) times ``shapes`` (default every ``SHAPES``), 40
+    cells. ``long_500k`` runs on every arch: the attention archs with
+    the TorchGT cluster-sparse decode mask, which the note records
+    (``attn=cluster_sparse``), the SSM and the hybrid natively (the
+    reference's ``cells``)."""
+    out = []
+    for a in archs or ASSIGNED_ARCHS:
+        cfg = get_config(a)
+        for s in shapes or SHAPES:
+            note = ""
+            if s == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+                note = "attn=cluster_sparse"
+            out.append((a, s, note))
+    return out

@@ -37,6 +37,16 @@ The wrapper takes CUDA tensors only: it launches a kernel or raises.
 ``kernels/ops.py`` sends CPU tensors to the plain version
 (``kernels/ref.py``). Build and launch errors propagate: nothing falls
 back.
+
+Each launch is a ``torch.library`` custom op (``launch_fwd_biased``,
+``launch_fwd_unbiased``) with a fake implementation that gives the real
+launch's outputs, the split plan's partial slots included: a fake trace
+of a step (``repro_torch.fake``, ``launch/dryrun.py``) goes through the
+wrapper, reads no device address and launches nothing. A real call
+reaches the op through the dispatcher only under a dispatch mode
+(``fake.launch_op``); otherwise it calls the launch directly. The split plan
+of a fake layout comes from the host array it was made from
+(:func:`keep_host_copy`).
 """
 
 from __future__ import annotations
@@ -45,10 +55,12 @@ import ctypes
 import math
 import pathlib
 import weakref
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import fake
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import CudaLibrary
 
@@ -244,7 +256,7 @@ def fwd_plan(block_idx, B: int):
     if hit is not None and hit[0]() is block_idx \
             and hit[1] == block_idx._version and hit[2] == B:
         return hit[3]
-    visits = (block_idx >= 0).sum(-1).cpu().numpy()
+    visits = (host_layout(block_idx) >= 0).sum(-1)
     piece = max(SPLIT_MIN_PIECE, math.ceil(SPLIT_MEAN_FACTOR * visits.mean()))
     plan = split_plan(visits, B, piece)
     if plan is not None:
@@ -256,6 +268,29 @@ def fwd_plan(block_idx, B: int):
                                                                      None)),
                    block_idx._version, B, plan)
     return plan
+
+
+def host_layout(layout) -> np.ndarray:
+    """A layout tensor's values on the host: a real tensor's, copied (one
+    sync), or a fake one's from the host array it was made from
+    (:func:`keep_host_copy`; a fake tensor holds no values)."""
+    if fake.is_fake(layout):
+        host = getattr(layout, "host_copy", None)
+        if host is None:
+            raise NotImplementedError(
+                "a fake layout tensor needs the host array it was made "
+                "from (cluster_attention.keep_host_copy) for the split "
+                "plan")
+        return np.asarray(host)
+    return layout.cpu().numpy()
+
+
+def keep_host_copy(layout, host):
+    """``layout`` (a device tensor made from the array ``host``), holding
+    ``host`` when it is fake, for :func:`host_layout`."""
+    if fake.is_fake(layout):
+        layout.host_copy = host
+    return layout
 
 
 def check_biased_kernel(q, block_idx, buckets):
@@ -361,44 +396,81 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
         raise ValueError("the bucketed cluster kernel has no causal mask "
                          "(masking lives in the buckets)")
     check_biased_kernel(q, block_idx, buckets)
+    B = q.shape[0]
+    sm90 = q.dtype == torch.bfloat16
+    plan = fwd_plan(block_idx, B) if sm90 else None
+    pieces, splits, slots = plan or (None, None, 0)
+    bias = _ref.extend_bias_table(bias_table) if fuse_bias \
+        else bias_table.float().contiguous()
+    got = launch_fwd_biased(q, k, v, block_idx, buckets, bias, pieces,
+                            splits, slots, return_lse, hoist_scale,
+                            fuse_bias)
+    return (got[0], got[1]) if return_lse else got[0]
+
+
+def _fwd_outputs(q, return_lse: bool, part=None) -> list:
+    """The forward launches' outputs, as the kernels write them and as a
+    fake launch gives them: O like q (contiguous), the ``(B*H, S)`` fp32
+    logsumexp with ``return_lse``, and with ``part = (slots, bq)`` the
+    bf16 biased forward's partial slots of the split rows, fp32 O and
+    (max, sum) a row."""
+    B, S, H, Dh = q.shape
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)]
+    if return_lse:
+        outs.append(torch.empty((B * H, S), dtype=torch.float32,
+                                device=q.device))
+    if part is not None:
+        slots, bq = part
+        outs += [torch.empty((slots, H, bq, Dh), dtype=torch.float32,
+                             device=q.device),
+                 torch.empty((slots, H, 2, bq), dtype=torch.float32,
+                             device=q.device)]
+    return outs
+
+
+@fake.launch_op("repro_torch::cluster_fwd_biased")
+def launch_fwd_biased(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      block_idx: torch.Tensor, buckets: torch.Tensor,
+                      bias: torch.Tensor, pieces: Optional[torch.Tensor],
+                      splits: Optional[torch.Tensor], slots: int,
+                      return_lse: bool, hoist_scale: bool,
+                      fuse_bias: bool) -> list[torch.Tensor]:
+    """One launch of the biased forward kernel of q's dtype on checked
+    CUDA operands (``bias`` fp32, under ``fuse_bias`` the extended
+    table; the bf16 kernel's split plan ``pieces``, ``splits`` and its
+    ``slots``): ``[O, lse (with return_lse), the bf16 kernel's partial
+    slots]`` (:func:`_fwd_outputs`). A custom op (``fake.launch_op``),
+    so that a fake trace takes its outputs' shapes from
+    ``register_fake`` and launches nothing."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     nq, mb = block_idx.shape[-2:]
     bq, bk = S // nq, buckets.shape[-1]
-    nb = bias_table.shape[1]
+    nb = bias.shape[1] - int(fuse_bias)
     sm90 = q.dtype == torch.bfloat16
-    plan = fwd_plan(block_idx, B) if sm90 else None
     q, k, v = aligned(q), aligned(k), aligned(v)
     block_idx, buckets = aligned(block_idx), aligned(buckets)
-    bias = _ref.extend_bias_table(bias_table) if fuse_bias \
-        else bias_table.float().contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) \
-        if return_lse else None
+    outs = _fwd_outputs(q, return_lse, (slots, bq) if sm90 else None)
+    out, lse = outs[0], outs[1] if return_lse else None
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
             buckets.data_ptr(), bias.data_ptr())
-    outs = (out.data_ptr(), _ptr(lse))
     stream = torch.cuda.current_stream().cuda_stream
     global launches, sm90_launches, sm90_b16_launches
     with torch.cuda.device(q.device):
         if sm90:
-            # the split rows' partial slots: fp32 O and (max, sum) per row
-            pieces, splits, slots = plan or (None, None, 0)
-            part_o = torch.empty((slots, H, bq, Dh), dtype=torch.float32,
-                                 device=q.device)
-            part_ml = torch.empty((slots, H, 2, bq), dtype=torch.float32,
-                                  device=q.device)
+            part_o, part_ml = outs[-2:]
             err = LIBRARY_SM90.lib().cluster_attention_fwd_sm90(
-                *ptrs, _ptr(pieces), _ptr(splits), *outs, part_o.data_ptr(),
-                part_ml.data_ptr(), B, S, H, KV, Dh, nq, mb, bq, bk, nb,
-                int(block_idx.dim() == 3), len(pieces) if plan else 0,
-                len(splits) if plan else 0, int(fuse_bias), Dh ** -0.5,
-                stream)
+                *ptrs, _ptr(pieces), _ptr(splits), out.data_ptr(), _ptr(lse),
+                part_o.data_ptr(), part_ml.data_ptr(), B, S, H, KV, Dh, nq,
+                mb, bq, bk, nb, int(block_idx.dim() == 3),
+                0 if pieces is None else len(pieces),
+                0 if splits is None else len(splits), int(fuse_bias),
+                Dh ** -0.5, stream)
         else:
             err = LIBRARY.lib().cluster_attention_fwd(
-                *ptrs, *outs, _DTYPES[q.dtype], B, S, H, KV, Dh, nq, mb, bq,
-                bk, nb, int(block_idx.dim() == 3), int(hoist_scale),
-                int(fuse_bias), Dh ** -0.5, stream)
+                *ptrs, out.data_ptr(), _ptr(lse), _DTYPES[q.dtype], B, S, H,
+                KV, Dh, nq, mb, bq, bk, nb, int(block_idx.dim() == 3),
+                int(hoist_scale), int(fuse_bias), Dh ** -0.5, stream)
     if err != 0:
         # e.g. 1 (invalid value): the tiles of bq, bk, Dh and n_buckets
         # (and, in bf16, the visit list of mb slots) need more shared
@@ -412,11 +484,32 @@ def cluster_attention_fwd(q, k, v, block_idx, buckets, bias_table, *,
         sm90_b16_launches += 1
     else:
         sm90_launches += 1
-    return (out, lse) if return_lse else out
+    return outs
+
+
+@launch_fwd_biased.register_fake
+def _(q, k, v, block_idx, buckets, bias, pieces, splits, slots, return_lse,
+      hoist_scale, fuse_bias):
+    bq = q.shape[1] // block_idx.shape[-2]
+    return _fwd_outputs(q, return_lse, (slots, bq)
+                        if q.dtype == torch.bfloat16 else None)
 
 
 def _fwd_unbiased(q, k, v, block_idx, causal, return_lse, hoist_scale):
     check_unbiased_kernel(q, block_idx)
+    got = launch_fwd_unbiased(q, k, v, block_idx, causal, return_lse,
+                              hoist_scale)
+    return (got[0], got[1]) if return_lse else got[0]
+
+
+@fake.launch_op("repro_torch::cluster_fwd_unbiased")
+def launch_fwd_unbiased(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        block_idx: torch.Tensor, causal: bool,
+                        return_lse: bool,
+                        hoist_scale: bool) -> list[torch.Tensor]:
+    """One launch of the unbiased forward kernel of q's dtype on checked
+    CUDA operands: ``[O, lse (with return_lse)]``. A custom op, as
+    :func:`launch_fwd_biased`."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     nq, mb = block_idx.shape[-2:]
@@ -424,11 +517,9 @@ def _fwd_unbiased(q, k, v, block_idx, causal, return_lse, hoist_scale):
     q, k, v = aligned(q), aligned(k), aligned(v)
     block_idx = block_idx.contiguous()
     stride = layout_stride(block_idx, 2)
-    out = torch.empty_like(q)
-    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) \
-        if return_lse else None
+    outs = _fwd_outputs(q, return_lse)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
-            out.data_ptr(), lse.data_ptr() if lse is not None else None)
+            outs[0].data_ptr(), outs[1].data_ptr() if return_lse else None)
     stream = torch.cuda.current_stream().cuda_stream
     global unbiased_launches, unbiased_sm90_launches
     with torch.cuda.device(q.device):
@@ -450,4 +541,9 @@ def _fwd_unbiased(q, k, v, block_idx, causal, return_lse, hoist_scale):
         unbiased_sm90_launches += 1
     else:
         unbiased_launches += 1
-    return (out, lse) if return_lse else out
+    return outs
+
+
+@launch_fwd_unbiased.register_fake
+def _(q, k, v, block_idx, causal, return_lse, hoist_scale):
+    return _fwd_outputs(q, return_lse)

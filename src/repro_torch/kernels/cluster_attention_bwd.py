@@ -42,16 +42,20 @@ gradient keeps the table's width.
 
 The wrapper takes CUDA tensors only: it launches the kernels or raises.
 ``kernels/ops.py`` sends CPU tensors to the plain backward
-(``kernels/ref.py``).
+(``kernels/ref.py``). Each launch is a ``torch.library`` custom op with
+a fake implementation, as the forward's are
+(``cluster_attention.py``'s docstring).
 """
 
 from __future__ import annotations
 
 import ctypes
 import pathlib
+from typing import Optional
 
 import torch
 
+from repro_torch import fake
 from repro_torch.kernels import cluster_attention as _ca
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import CudaLibrary
@@ -182,38 +186,82 @@ def _sizes(q, k, block_idx, buckets, bias, fuse_bias):
 def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias, *,
               hoist_scale: bool = False, fuse_bias: bool = False):
     """Launch the dQ kernel of q's dtype (bf16: tensor cores, fp32: CUDA
-    cores) on checked, aligned CUDA operands (``bias`` fp32, under
-    ``fuse_bias`` ``ref.extend_bias_table``'s; ``delta`` from
+    cores) on checked CUDA operands, aligned at launch (``bias`` fp32,
+    under ``fuse_bias`` ``ref.extend_bias_table``'s; ``delta`` from
     ``ref.row_delta``); returns ``dq`` in q's dtype and the ``(B, H, nq,
     n_buckets)`` fp32 bucket partials of ds, at the table's width. In
     bf16 the rows the forward's plan cuts (``cluster_attention.fwd_plan``)
     run as pieces whose fp32 partials a combine kernel sums."""
+    plan = _ca.fwd_plan(block_idx, q.shape[0]) \
+        if q.dtype == torch.bfloat16 else None
+    pieces, splits, slots = plan or (None, None, 0)
+    got = launch_dq_biased(q, k, v, dout, lse, delta, block_idx, buckets,
+                           bias, pieces, splits, slots, hoist_scale,
+                           fuse_bias)
+    return got[0], got[1]
+
+
+def _dq_outputs(q, nq: int, nb: int, part=None) -> list:
+    """The dQ launches' outputs: dq like q, the ``(B, H, nq, nb)`` fp32
+    bucket partials (biased), and with ``part = (slots, bq)`` the bf16
+    biased kernel's partial slots of the split rows, fp32 dq and bucket
+    sums."""
+    B, S, H, Dh = q.shape
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)]
+    if nb:
+        outs.append(torch.empty((B, H, nq, nb), dtype=torch.float32,
+                                device=q.device))
+    if part is not None:
+        slots, bq = part
+        outs += [torch.empty((slots, H, bq, Dh), dtype=torch.float32,
+                             device=q.device),
+                 torch.empty((slots, H, nb), dtype=torch.float32,
+                             device=q.device)]
+    return outs
+
+
+def _dkv_outputs(q) -> list:
+    """The dK/dV launches' outputs: per-q-head ``(B, S, H, Dh)`` dk and dv
+    in q's dtype."""
+    return [torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            for _ in range(2)]
+
+
+@fake.launch_op("repro_torch::cluster_dq_biased")
+def launch_dq_biased(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dout: torch.Tensor, lse: torch.Tensor,
+                     delta: torch.Tensor, block_idx: torch.Tensor,
+                     buckets: torch.Tensor, bias: torch.Tensor,
+                     pieces: Optional[torch.Tensor],
+                     splits: Optional[torch.Tensor], slots: int,
+                     hoist_scale: bool,
+                     fuse_bias: bool) -> list[torch.Tensor]:
+    """One launch of the biased dQ kernel (:func:`dq_kernel`): ``[dq,
+    bucket partials, the bf16 kernel's partial slots]``. A custom op
+    with a fake implementation, as the forward's launches
+    (``cluster_attention.launch_fwd_biased``)."""
     B, S, H, KV, Dh, nq, mb, bq, bk, nb = _sizes(q, k, block_idx, buckets,
                                                  bias, fuse_bias)
-    dq = torch.empty_like(q)
-    db_part = torch.empty((B, H, nq, nb), dtype=torch.float32,
-                          device=q.device)
+    q, k, v, dout, lse, block_idx, buckets = (
+        _ca.aligned(x) for x in (q, k, v, dout, lse, block_idx, buckets))
+    sm90 = q.dtype == torch.bfloat16
+    outs = _dq_outputs(q, nq, nb, (slots, bq) if sm90 else None)
+    dq, db_part = outs[:2]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx.data_ptr(),
             buckets.data_ptr(), bias.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
-    sm90 = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         if sm90:
-            plan = _ca.fwd_plan(block_idx, B)
-            pieces, splits, slots = plan or (None, None, 0)
-            # the split rows' partial slots: fp32 dq and bucket sums
-            part_dq = torch.empty((slots, H, bq, Dh), dtype=torch.float32,
-                                  device=q.device)
-            part_db = torch.empty((slots, H, nb), dtype=torch.float32,
-                                  device=q.device)
+            part_dq, part_db = outs[2:]
             err = LIBRARY_DQ_SM90.lib().cluster_attention_bwd_dq_sm90(
                 *ptrs, _ca._ptr(pieces), _ca._ptr(splits), dq.data_ptr(),
                 db_part.data_ptr(), part_dq.data_ptr(), part_db.data_ptr(),
                 B, S, H, KV, Dh, nq, mb, bq, bk, nb,
-                int(block_idx.dim() == 3), len(pieces) if plan else 0,
-                len(splits) if plan else 0, int(fuse_bias), Dh ** -0.5,
-                stream)
+                int(block_idx.dim() == 3),
+                0 if pieces is None else len(pieces),
+                0 if splits is None else len(splits), int(fuse_bias),
+                Dh ** -0.5, stream)
         else:
             err = LIBRARY.lib().cluster_attention_bwd_dq(
                 *ptrs, dq.data_ptr(), db_part.data_ptr(),
@@ -231,20 +279,46 @@ def dq_kernel(q, k, v, dout, lse, delta, block_idx, buckets, bias, *,
         dq_sm90_b16_launches += 1
     else:
         dq_sm90_launches += 1
-    return dq, db_part
+    return outs
+
+
+@launch_dq_biased.register_fake
+def _(q, k, v, dout, lse, delta, block_idx, buckets, bias, pieces, splits,
+      slots, hoist_scale, fuse_bias):
+    nq = block_idx.shape[-2]
+    return _dq_outputs(q, nq, bias.shape[1] - int(fuse_bias),
+                       (slots, q.shape[1] // nq)
+                       if q.dtype == torch.bfloat16 else None)
 
 
 def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
                bias, *, hoist_scale: bool = False, fuse_bias: bool = False):
     """Launch the dK/dV kernel of q's dtype (bf16: tensor cores, fp32:
-    CUDA cores) on checked, aligned CUDA operands (``bias`` as for
-    :func:`dq_kernel`); returns per-q-head ``(B, S, H, Dh)`` dk and dv in
-    q's dtype. ``block_idx`` only lends its shape (the buckets' ``nq``,
+    CUDA cores) on checked CUDA operands, aligned at launch (``bias`` as
+    for :func:`dq_kernel`); returns per-q-head ``(B, S, H, Dh)`` dk and
+    dv in q's dtype. ``block_idx`` only lends its shape (the buckets' ``nq``,
     ``mb``)."""
+    got = launch_dkv_biased(q, k, v, dout, lse, delta, block_idx,
+                            block_idx_t, buckets, bias, hoist_scale,
+                            fuse_bias)
+    return got[0], got[1]
+
+
+@fake.launch_op("repro_torch::cluster_dkv_biased")
+def launch_dkv_biased(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dout: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, block_idx: torch.Tensor,
+                      block_idx_t: torch.Tensor, buckets: torch.Tensor,
+                      bias: torch.Tensor, hoist_scale: bool,
+                      fuse_bias: bool) -> list[torch.Tensor]:
+    """One launch of the biased dK/dV kernel (:func:`dkv_kernel`): ``[dk,
+    dv]`` per q head. A custom op with a fake implementation."""
     B, S, H, KV, Dh, nq, mb, bq, bk, nb = _sizes(q, k, block_idx, buckets,
                                                  bias, fuse_bias)
-    dkh = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
-    dvh = torch.empty_like(dkh)
+    q, k, v, dout, lse, block_idx_t, buckets = (
+        _ca.aligned(x) for x in (q, k, v, dout, lse, block_idx_t, buckets))
+    outs = _dkv_outputs(q)
+    dkh, dvh = outs
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx_t.data_ptr(),
             buckets.data_ptr(), bias.data_ptr(), dkh.data_ptr(),
@@ -273,23 +347,42 @@ def dkv_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets,
         dkv_sm90_b16_launches += 1
     else:
         dkv_sm90_launches += 1
-    return dkh, dvh
+    return outs
+
+
+@launch_dkv_biased.register_fake
+def _(q, k, v, dout, lse, delta, block_idx, block_idx_t, buckets, bias,
+      hoist_scale, fuse_bias):
+    return _dkv_outputs(q)
 
 
 def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal, *,
                        hoist_scale: bool = False):
     """Launch the unbiased dQ kernel of q's dtype (bf16: tensor cores,
-    fp32: CUDA cores) on checked, aligned CUDA operands; returns ``dq`` in
-    q's dtype. ``hoist_scale`` is the fp32 kernel's flag; the bf16 one
-    computes the same either way."""
+    fp32: CUDA cores) on checked CUDA operands, aligned at launch;
+    returns ``dq`` in q's dtype. ``hoist_scale`` is the fp32 kernel's
+    flag; the bf16 one computes the same either way."""
+    return launch_dq_unbiased(q, k, v, dout, lse, delta, block_idx, causal,
+                              hoist_scale)[0]
+
+
+@fake.launch_op("repro_torch::cluster_dq_unbiased")
+def launch_dq_unbiased(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, block_idx: torch.Tensor,
+                       causal: bool,
+                       hoist_scale: bool) -> list[torch.Tensor]:
+    """One launch of the unbiased dQ kernel (:func:`dq_unbiased_kernel`):
+    ``[dq]``. A custom op with a fake implementation."""
     B, S, H, Dh = q.shape
     nq, mb = block_idx.shape[-2:]
     bq = S // nq
     stride = _ca.layout_stride(block_idx, 2)
-    dq = torch.empty_like(q)
+    q, k, v, dout = (_ca.aligned(x) for x in (q, k, v, dout))
+    outs = _dq_outputs(q, nq, 0)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx.data_ptr(),
-            dq.data_ptr())
+            outs[0].data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
     sm90 = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
@@ -313,22 +406,42 @@ def dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal, *,
         dq_unbiased_sm90_launches += 1
     else:
         dq_unbiased_launches += 1
-    return dq
+    return outs
+
+
+@launch_dq_unbiased.register_fake
+def _(q, k, v, dout, lse, delta, block_idx, causal, hoist_scale):
+    return _dq_outputs(q, block_idx.shape[-2], 0)
 
 
 def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
                         causal, *, hoist_scale: bool = False):
     """Launch the unbiased dK/dV kernel of q's dtype (bf16: tensor cores,
-    fp32: CUDA cores) on checked, aligned CUDA operands; returns
+    fp32: CUDA cores) on checked CUDA operands, aligned at launch; returns
     per-q-head ``(B, S, H, Dh)`` dk and dv in q's dtype. ``block_idx``
     only lends its shape (``bq``); ``hoist_scale`` as for
     :func:`dq_unbiased_kernel`."""
+    got = launch_dkv_unbiased(q, k, v, dout, lse, delta, block_idx,
+                              block_idx_t, causal, hoist_scale)
+    return got[0], got[1]
+
+
+@fake.launch_op("repro_torch::cluster_dkv_unbiased")
+def launch_dkv_unbiased(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, block_idx: torch.Tensor,
+                        block_idx_t: torch.Tensor, causal: bool,
+                        hoist_scale: bool) -> list[torch.Tensor]:
+    """One launch of the unbiased dK/dV kernel
+    (:func:`dkv_unbiased_kernel`): ``[dk, dv]`` per q head. A custom op
+    with a fake implementation."""
     B, S, H, Dh = q.shape
     bq = S // block_idx.shape[-2]
     nk, mt = block_idx_t.shape[-3:-1]
     stride = _ca.layout_stride(block_idx_t, 3)
-    dkh = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
-    dvh = torch.empty_like(dkh)
+    q, k, v, dout = (_ca.aligned(x) for x in (q, k, v, dout))
+    outs = _dkv_outputs(q)
+    dkh, dvh = outs
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), block_idx_t.data_ptr(),
             dkh.data_ptr(), dvh.data_ptr())
@@ -355,7 +468,13 @@ def dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, block_idx_t,
         dkv_unbiased_sm90_launches += 1
     else:
         dkv_unbiased_launches += 1
-    return dkh, dvh
+    return outs
+
+
+@launch_dkv_unbiased.register_fake
+def _(q, k, v, dout, lse, delta, block_idx, block_idx_t, causal,
+      hoist_scale):
+    return _dkv_outputs(q)
 
 
 def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
@@ -391,9 +510,9 @@ def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
     delta = _ref.row_delta(dout, out)
     KV = k.shape[2]
     if buckets is None:
-        q, k, v, dout = (_ca.aligned(x) for x in (q, k, v, dout))
-        lse, block_idx, block_idx_t = (
-            x.contiguous() for x in (lse, block_idx, block_idx_t))
+        q, k, v, dout, lse, block_idx, block_idx_t = (
+            x.contiguous() for x in (q, k, v, dout, lse, block_idx,
+                                     block_idx_t))
         dq = dq_unbiased_kernel(q, k, v, dout, lse, delta, block_idx, causal,
                                 hoist_scale=hoist_scale)
         dkh, dvh = dkv_unbiased_kernel(q, k, v, dout, lse, delta, block_idx,
@@ -402,7 +521,7 @@ def cluster_attention_bwd(q, k, v, dout, out, lse, block_idx, buckets,
         return (dq, _ref.group_sum(dkh, KV).to(k.dtype),
                 _ref.group_sum(dvh, KV).to(v.dtype), None)
     q, k, v, dout, lse, block_idx, block_idx_t, buckets = (
-        _ca.aligned(x) for x in (q, k, v, dout, lse, block_idx, block_idx_t,
+        x.contiguous() for x in (q, k, v, dout, lse, block_idx, block_idx_t,
                                  buckets))
     bias = _ref.extend_bias_table(bias_table) if fuse_bias \
         else bias_table.float().contiguous()

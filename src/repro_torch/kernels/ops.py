@@ -46,6 +46,10 @@ IMPLS = (None, "plain")
 # what the flash and SSD kernels take, for the tuner's enumerator
 flash_check_launch = _fa.check_launch
 ssd_check_launch = _ssd.check_launch
+# a fake layout tensor's host array, for the split plan of a fake trace
+# and the sweep's count of the live blocks
+keep_host_copy = _ca.keep_host_copy
+host_layout = _ca.host_layout
 
 
 def _cluster_fwd(plain, q, k, v, block_idx, buckets, bias_table, causal,

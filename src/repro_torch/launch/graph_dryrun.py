@@ -8,9 +8,10 @@ compiled artifact; on the card the counterpart of compiling the step is
 running it. :func:`run` builds the config with ``graph_bias=None`` (no
 bias table: the reformed layout at 1M tokens is pure dense sub-blocks,
 the bias rides the degree encodings) and ``remat="block"`` (the
-default), and takes ``steps`` steps of the reference's
-``make_train_step``: the sparse ``graph_loss``, its gradients and
-``AdamW`` with ``warmup_cosine(3e-4, 100, 10_000)``. Its batch
+default), and takes ``steps`` steps of ``launch/steps.make_train_step``
+(the reference's ``make_train_step``): the sparse ``graph_loss``, its
+gradients summed over the ranks of a mesh, and ``AdamW`` with
+``warmup_cosine(3e-4, 100, 10_000)``. Its batch
 (:func:`graph_batch`) is the reference spec's, drawn from a numpy
 generator: no buckets, one layout for the one graph.
 
@@ -47,7 +48,6 @@ printing. It writes a file only with ``--out``.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import statistics
 import subprocess
@@ -63,11 +63,9 @@ from repro_torch.core.graph_model import GraphModel, graph_loss
 from repro_torch.core.reformation import transpose_block_idx
 from repro_torch.device import resolve
 from repro_torch.launch import mesh as lmesh
+from repro_torch.launch import steps as lsteps
 from repro_torch.launch.roofline import (PEAK_FLOPS, active_params,
                                          model_flops, roofline_terms)
-from repro_torch.optim.adamw import AdamW, warmup_cosine
-from repro_torch.parallel import axes as pax
-from repro_torch.parallel import collectives as C
 from repro_torch.parallel.sharding import recipe_for
 from repro_torch.tasks.base import shard_rows
 
@@ -132,20 +130,10 @@ def scale_config(arch: str, *, smoke: bool = False):
 
 
 def loss_and_grads(model, batch: dict, *, impl: str | None = None):
-    """The sparse ``graph_loss`` and the gradient of every parameter (a
-    zero for one the loss does not reach, as ``jax.grad``), summed over
-    the ranks on a mesh (the loss is the global mean on every rank)."""
-    params = list(model.parameters())
-    loss, metrics = graph_loss(model, batch, impl=impl)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for g, p in zip(grads, params)]
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        flat = torch.cat([g.reshape(-1).float() for g in grads])
-        C.all_reduce_(flat, None)
-        grads = [part.view(g.shape).to(g.dtype) for g, part in zip(
-            grads, flat.split([g.numel() for g in grads]))]
-    return loss, metrics, grads
+    """The sparse ``graph_loss`` and the gradient of every parameter,
+    summed over the ranks of the axis context's mesh: the train step's
+    own (``launch/steps.loss_and_grads``)."""
+    return lsteps.loss_and_grads(model, batch, loss=graph_loss, impl=impl)
 
 
 def cluster_flops(cfg, batch: dict) -> float:
@@ -213,9 +201,9 @@ def run(arch: str, S: int, *, steps: int = 3, device="cuda",
     batch = {k: shard_rows(v, mesh, seq_dim=k in SEQ_KEYS).contiguous()
              .to(dev) for k, v in batch.items()}
     model = GraphModel(cfg, device=dev)
-    params = list(model.parameters())
-    n_params = sum(p.numel() for p in params)
-    opt = AdamW(params, lr=warmup_cosine(LR, 100, 10_000))
+    n_params = sum(p.numel() for p in model.parameters())
+    step = lsteps.make_train_step(model, recipe, mesh, lr=LR,
+                                   loss=graph_loss)
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.synchronize(dev)
@@ -223,20 +211,17 @@ def run(arch: str, S: int, *, steps: int = 3, device="cuda",
     losses, times, counted = [], [], 0.0
     for i in range(steps):
         t0 = time.perf_counter()
-        with pax.axis_rules(recipe, mesh) if mesh is not None \
-                else contextlib.nullcontext():
-            if i == 0:   # count the first step's products
-                with FlopCounterMode(display=False) as fc:
-                    loss, _, grads = loss_and_grads(model, batch)
-                counted = float(fc.get_total_flops())
-            else:
-                loss, _, grads = loss_and_grads(model, batch)
-        opt.update(grads)
-        losses.append(float(loss.detach()))
+        if i == 0:   # count the first step's products
+            with FlopCounterMode(display=False) as fc:
+                out = step(batch)
+            counted = float(fc.get_total_flops())
+        else:
+            out = step(batch)
+        losses.append(float(out["loss"]))
         if on_card:
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
-        del grads
+        del out
     peak = torch.cuda.max_memory_allocated(dev) if on_card else None
     counted *= _model_ranks()
     cluster = cluster_flops(cfg, batch)

@@ -62,10 +62,10 @@ def roofline_terms(flops: float, bytes_accessed: float,
     return terms
 
 
-def param_shapes(cfg) -> list:
-    """``[(name, shape, copies)]`` of every parameter of ``cfg``'s model:
-    the family's definitions, each per-layer entry held once per layer,
-    period or stack entry, as the model holds it."""
+def family_defs(cfg) -> tuple:
+    """``(defs, stacks)`` of ``cfg``'s model: the family's definitions
+    (``{name: (shape, init)}``, one layer's for a stacked entry) and the
+    number of entries of each stack, by the names' first part."""
     fam = cfg.family
     if fam == "graph":
         from repro_torch.core.graph_model import graph_defs
@@ -87,6 +87,14 @@ def param_shapes(cfg) -> list:
         stacks = {"enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers}
     else:
         raise ValueError(f"no parameter definitions for family {fam!r}")
+    return defs, stacks
+
+
+def param_shapes(cfg) -> list:
+    """``[(name, shape, copies)]`` of every parameter of ``cfg``'s model:
+    the family's definitions, each per-layer entry held once per layer,
+    period or stack entry, as the model holds it."""
+    defs, stacks = family_defs(cfg)
     return [(name, tuple(shape), stacks.get(name.split(".", 1)[0], 1))
             for name, (shape, _) in defs.items()]
 

@@ -187,3 +187,36 @@ def ssm_cache_defs(cfg, batch: int, seq_len: int, *, device="cpu") -> dict:
     one = mamba_cache_defs(cfg, batch, device=device)
     return {"layers": {k: v.new_zeros((cfg.n_layers, *v.shape))
                        for k, v in one.items()}}
+
+
+def batch_spec(cfg, shape, *, device="cuda") -> dict:
+    """Empty stand-ins for every model input of one cell (``shape`` a
+    ``ShapeConfig``), the reference's ``models/api.batch_spec``: the
+    same names, shapes and dtypes. To train or prefill, ``tokens`` (B, S)
+    int32 (``labels`` too to train); the VLM's ``patches`` (B, Tp, D)
+    bf16 before ``S - Tp`` tokens, the encoder-decoder's ``frames`` (B,
+    Tf, D) bf16 beside S tokens; to decode, one token a sequence, (B, 1).
+    The tensors are uninitialised: the function is meant to be called
+    under a fake mode (``repro_torch.fake``), where nothing is
+    allocated."""
+    B, S, D = shape.global_batch, shape.seq_len, cfg.d_model
+
+    def ints(*dims):
+        return torch.empty(dims, dtype=torch.int32, device=device)
+
+    def bf16(*dims):
+        return torch.empty(dims, dtype=torch.bfloat16, device=device)
+
+    if shape.kind == "decode":
+        return {"tokens": ints(B, 1)}
+    T = S
+    out = {}
+    if cfg.family == "vlm":
+        out["patches"] = bf16(B, cfg.frontend_tokens, D)
+        T = S - cfg.frontend_tokens
+    elif cfg.family == "encdec":
+        out["frames"] = bf16(B, cfg.frontend_tokens, D)
+    out["tokens"] = ints(B, T)
+    if shape.kind == "train":
+        out["labels"] = ints(B, T)
+    return out

@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import fake
 from repro_torch.convert import leaf_name
 from repro_torch.parallel import collectives as C
 
@@ -443,7 +444,11 @@ def seeded_init(model: nn.Module, defs: dict, seed: int = 0) -> None:
     ``shape[0] ** -0.5``, ``normal``/``embed`` a normal scaled by 0.02;
     a float ``init`` is a normal of that scale; the random numbers are
     the port's own. A stack holding part of its experts (its
-    ``expert_part``) gets its rows of the whole stack's draw."""
+    ``expert_part``) gets its rows of the whole stack's draw. Inside a
+    fake mode (``repro_torch.fake``) nothing is drawn: a traced step
+    needs the parameters' shapes, not their values."""
+    if fake.active():
+        return
     gens = {}
     for name, p in model.named_parameters():
         shape, init = defs[_def_name(name)]

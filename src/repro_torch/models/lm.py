@@ -96,7 +96,11 @@ of the Tp + T, with placeholders (label -1) at patch positions
 (``tasks/base.BatchFnTask``), and a rank projects the patches of its
 positions below Tp and embeds the tokens of the rest; its loss counts
 the text positions by their labels. Sequence-sharded prefill
-(``return_kv`` on a mesh) raises: no reference entry point runs it.
+(``return_kv`` on a mesh) raises unless the caller asks for each rank's
+share of the caches (``shard_kv``): the reference's dry-run cells
+compile prefill with the sequence sharded and the caches' sequence over
+"model", and the sweep's prefill step (``launch/steps.py``) is its
+counterpart; no serving entry point runs it.
 
 Serving on a mesh (``ServeEngine(mesh_model=P)``, under the "decode"
 recipe): the paged pool holds KV/P kv heads a rank, and each layer of
@@ -262,7 +266,8 @@ class LMModel(nn.Module):
                                  f"blocks of {LM_BLOCK}; S={S} is not a "
                                  f"multiple")
             self._layouts[key] = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                kops.keep_host_copy(torch.from_numpy(np.ascontiguousarray(a))
+                               .to(self.device), a)
                 for a in (lay.block_idx, lay.block_idx_t))
         return self._layouts[key]
 
@@ -440,7 +445,8 @@ def _embed_inputs(model: LMModel, batch: dict, dtype, group=None):
 
 
 def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
-               return_kv: bool = False, cache_len: int | None = None):
+               return_kv: bool = False, cache_len: int | None = None,
+               shard_kv: bool = False):
     """-> (final hidden states (B, S, D) after the final norm, aux loss),
     and with ``return_kv`` also the caches: every layer's k and v in bf16
     (``lm_cache_defs``'s layout, ``cache_len`` rows, default S, the rows
@@ -449,11 +455,13 @@ def lm_forward(model: LMModel, batch: dict, *, impl: str | None = None,
     T; else S = T. The aux loss is the MoE balance term summed over the
     layers and divided by ``n_layers``: 0 for a dense model, as in the
     reference. The leading dense layers run outside the recomputation,
-    as the reference's do."""
+    as the reference's do. With the sequence sharded, ``return_kv``
+    needs ``shard_kv``: each rank's caches then hold the k and v of its
+    own positions (the reference's "kv_seq" over "model")."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
     group = pax.seq_group()
-    if group is not None and return_kv:
+    if group is not None and return_kv and not shard_kv:
         raise ValueError(
             f"{cfg.name}: sequence-sharded prefill is not run by any entry "
             f"point, here or in the reference; ServeEngine serves on a "
@@ -528,7 +536,7 @@ def lm_cache_defs(cfg, batch: int, seq_len: int, *, device="cpu") -> dict:
 
 
 def lm_prefill(model: LMModel, batch: dict, *, impl: str | None = None,
-               cache_len: int | None = None):
+               cache_len: int | None = None, shard_kv: bool = False):
     """Prefill: the forward over ``batch["tokens"]`` (B, T) (and the VLM's
     ``batch["patches"]`` before them), returning the last token's logits
     ``(B, 1, V)`` and the caches (``lm_forward``'s, ``cache_len`` rows,
@@ -536,10 +544,19 @@ def lm_prefill(model: LMModel, batch: dict, *, impl: str | None = None,
     at S). With
     ``cfg.attn_backend == "cluster_sparse"`` and S >= 256 each layer
     launches the cluster op's forward kernel once on CUDA tensors (no
-    grad); ``impl="plain"`` runs its plain version."""
+    grad); ``impl="plain"`` runs its plain version. ``shard_kv`` (the
+    sequence sharded over the model group): the caches of this rank's
+    positions, and the logits of the sequence's last token, which the
+    group's last rank holds, summed over the group."""
     h, _, caches = lm_forward(model, batch, impl=impl, return_kv=True,
-                              cache_len=cache_len)
-    return L.logits_fn(model.embed, model.cfg, h[:, -1:]), caches
+                              cache_len=cache_len, shard_kv=shard_kv)
+    logits = L.logits_fn(model.embed, model.cfg, h[:, -1:])
+    group = pax.seq_group()
+    if group is not None:
+        if C.rank(group) != C.size(group) - 1:
+            logits = torch.zeros_like(logits)
+        logits = C.all_reduce_(logits, group)
+    return logits, caches
 
 
 def _sparse_mask(cfg, sparse: bool):

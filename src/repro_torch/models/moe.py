@@ -46,6 +46,14 @@ summed. The balance term is the mean over every rank of the mesh, as
 the reference's ``pmean``; on a mesh without a model axis the dropless
 path's term is computed from the statistics of every rank's tokens, as
 the reference's one program computes it over the global batch.
+
+Under a fake mode (``repro_torch.fake``, the sweep's traced step) no
+count can be read: the counts are scattered into fixed bins instead of
+``bincount``'s data-dependent length, the dropless path takes the
+reference's static shapes (the T k rows split evenly over the experts),
+and the expert-parallel combine writes
+through a padded index instead of a boolean mask. Real tensors never
+take these branches.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import fake
 from repro_torch.models import layers as L
 from repro_torch.parallel import axes as pax
 from repro_torch.parallel import collectives as C
@@ -68,6 +77,25 @@ _local = threading.local()
 # the pairs this process's last expert-parallel call dropped on its own
 # experts (a device tensor, read when wanted)
 LAST_CALL = {"dropped": None}
+
+
+def _bincount(idx, n: int):
+    """The counts of ``idx`` (values below ``n``) in ``n`` bins; on a fake
+    tensor scattered into the bins, whose number is known."""
+    if fake.is_fake(idx):
+        return torch.zeros(n, dtype=torch.int64, device=idx.device) \
+            .scatter_add_(0, idx, torch.ones_like(idx))
+    return torch.bincount(idx, minlength=n)
+
+
+def _host_counts(idx, n: int) -> list:
+    """The counts of ``idx`` in ``n`` bins on the host; a fake tensor has
+    none, and its ``len(idx)`` rows are split evenly (the reference's
+    static shapes)."""
+    if fake.is_fake(idx):
+        q, r = divmod(idx.numel(), n)
+        return [q + (e < r) for e in range(n)]
+    return torch.bincount(idx, minlength=n).tolist()
 
 
 def moe_defs(cfg) -> dict:
@@ -173,7 +201,7 @@ def _route(router_w, xt, k: int, *, group=None):
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     E = probs.shape[-1]
     pe = probs.mean(0)
-    fe = torch.bincount(topi.reshape(-1), minlength=E).to(F32)
+    fe = _bincount(topi.reshape(-1), E).to(F32)
     if group is not None:
         pe = C.SumAcross.apply(pe / C.size(group), group)
         fe = C.all_reduce_(fe, group)
@@ -212,7 +240,7 @@ def moe_tokens(p: MoE, cfg, xt, group=None):
     topv, topi, aux = _route(p.router, xt, k, group=group)
     fe = topi.reshape(-1)                                       # (T*k,)
     order = torch.sort(fe, stable=True).indices
-    sizes = torch.bincount(fe, minlength=E).tolist()
+    sizes = _host_counts(fe, E)
     # pair j is (token j // k, slot j % k); gathering through the
     # permutation keeps every gradient row a single write
     xg = xt.unsqueeze(1).expand(T, k, D).reshape(T * k, D)[order]
@@ -264,7 +292,7 @@ def _ep_local(p: MoE, cfg, xt, *, m: int, ep: int, cf: float):
     mine = topi // e_loc == m
     fe = torch.where(mine, topi - m * e_loc, e_loc).reshape(-1)  # (T*k,)
     order = torch.sort(fe, stable=True).indices     # the pairs by expert
-    gs = torch.bincount(fe, minlength=e_loc + 1)[:e_loc]
+    gs = _bincount(fe, e_loc + 1)[:e_loc]
     LAST_CALL["dropped"] = (gs - c_e).clamp(min=0).sum()
     starts = torch.cumsum(gs, 0) - gs
     ar = torch.arange(c_e, device=dev)
@@ -280,8 +308,15 @@ def _ep_local(p: MoE, cfg, xt, *, m: int, ep: int, cf: float):
     # combine: each pair reads the slot it filled (a zero row when it
     # dropped or belongs to another rank), weighted, summed in slot order
     where = torch.full((T * k,), e_loc * c_e, dtype=torch.long, device=dev)
-    where[pair[valid]] = torch.arange(e_loc * c_e, device=dev)[
-        valid.reshape(-1)]
+    slots = torch.arange(e_loc * c_e, device=dev)
+    if fake.is_fake(valid):
+        # a mask's selection has a data-dependent length: the empty
+        # slots write to a padding row past the pairs instead
+        where = torch.cat([where, where.new_zeros(1)])
+        where[torch.where(valid, pair, T * k).reshape(-1)] = slots
+        where = where[:T * k]
+    else:
+        where[pair[valid]] = slots[valid.reshape(-1)]
     out = torch.cat([out, out.new_zeros(1, D)])
     w = torch.where(mine, topv, 0.0).to(dt)
     yp = out[where].view(T, k, D) * w[..., None]
@@ -297,8 +332,7 @@ def dropped_pairs(p: MoE, cfg, xt, ep: int, cf: float) -> int:
     routing (each expert's pairs past its capacity)."""
     with torch.no_grad():
         _, topi, _ = _route(p.router, xt, cfg.moe_top_k)
-    counts = torch.bincount(topi.reshape(-1),
-                            minlength=cfg.moe_experts).tolist()
+    counts = _host_counts(topi.reshape(-1), cfg.moe_experts)
     c_e = capacity(xt.shape[0], cfg, cf)
     return sum(max(0, n - c_e) for n in counts)
 

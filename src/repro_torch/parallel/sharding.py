@@ -136,3 +136,42 @@ def fit_sequence(recipe: Recipe, mesh, seq_len: int) -> Recipe:
     return recipe.replace(name=recipe.name + "_seq_whole",
                           acts={**recipe.acts, "seq": None,
                                 "seq_outer": None})
+
+
+def fit_spec(shape, axes_map, mesh) -> tuple:
+    """The port's copy of the reference's ``nn.param.fit_spec``: mapped
+    mesh axes (per dim None, a mesh axis name or a tuple of them) turned
+    into a partition spec (a tuple of the same kinds of entries), each
+    mesh axis kept only where its size, times the sizes kept before it
+    for that dim, divides the dim, and used for one dim only (the first
+    that keeps it). ``mesh`` is a ``DeviceMesh`` or a dict of sizes."""
+    sizes = mesh_shape(mesh)
+    out, used = [], set()
+    for dim, m in zip(shape, axes_map):
+        if m is None:
+            out.append(None)
+            continue
+        keep, sz = [], 1
+        for name in (m,) if isinstance(m, str) else tuple(m):
+            if name not in sizes or name in used:
+                continue
+            if dim % (sz * sizes[name]) == 0:
+                keep.append(name)
+                sz *= sizes[name]
+        used.update(keep)
+        out.append(None if not keep else keep[0] if len(keep) == 1
+                   else tuple(keep))
+    return tuple(out)
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    """The per-rank shape of a ``shape`` partitioned by ``spec``
+    (:func:`fit_spec`'s) on ``mesh``: each dim divided by the sizes of
+    its mesh axes (``NamedSharding.shard_shape``)."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for dim, m in zip(shape, tuple(spec) + (None,) * len(shape)):
+        for name in () if m is None else (m,) if isinstance(m, str) else m:
+            dim //= sizes[name]
+        out.append(dim)
+    return tuple(out)

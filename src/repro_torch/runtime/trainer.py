@@ -271,34 +271,9 @@ class Trainer:
                 **{k: float(v.detach()) for k, v in metrics.items()}}
 
     def _reduce(self, grads: list) -> list:
-        """The gradients summed over every rank of the mesh, the expert
-        stacks holding one rank's experts over the data group only: fp32
-        all-reduces of buckets of up to ``REDUCE_BUCKET`` elements (the
-        gradients flattened together), a larger fp32 gradient in place,
-        so the reduction's own memory is one bucket."""
-        out = list(grads)
-        reductions = [(False, None)]
-        if pax.mesh_shape(self.mesh).get("data", 1) > 1:
-            reductions.append((True, self.mesh.get_group("data")))
-        for parted, group in reductions:
-            bucket, size = [], 0
-            idx = [i for i, p in enumerate(self._parted) if p == parted]
-            for n, i in enumerate(idx):
-                g = grads[i]
-                if g.numel() >= REDUCE_BUCKET and g.dtype == torch.float32:
-                    out[i] = C.all_reduce_(g.contiguous(), group)
-                else:
-                    bucket.append(i)
-                    size += g.numel()
-                if bucket and (size >= REDUCE_BUCKET or n == len(idx) - 1):
-                    flat = torch.cat([grads[j].reshape(-1).float()
-                                      for j in bucket])
-                    C.all_reduce_(flat, group)
-                    for j, part in zip(bucket, flat.split(
-                            [grads[j].numel() for j in bucket])):
-                        out[j] = part.view(grads[j].shape).to(grads[j].dtype)
-                    bucket, size = [], 0
-        return out
+        """The gradients summed over every rank of the mesh
+        (:func:`reduce_gradients`)."""
+        return reduce_gradients(grads, self.mesh, self._parted)
 
     def _barrier(self) -> None:
         if self.mesh is not None:
@@ -702,3 +677,35 @@ class Trainer:
         elif self._rescue is not None:
             step, host, extra = self._rescue
             self.ckpt.save(step, host, blocking=True, extra=extra)
+
+
+def reduce_gradients(grads: list, mesh, parted: list) -> list:
+    """``grads`` summed over every rank of ``mesh``, those whose
+    ``parted`` flag is set (expert stacks holding one rank's experts)
+    over the "data" group only: fp32 all-reduces of buckets of up to
+    ``REDUCE_BUCKET`` elements (the gradients flattened together), a
+    larger fp32 gradient in place, so the reduction's own memory is one
+    bucket."""
+    out = list(grads)
+    reductions = [(False, None)]
+    if pax.mesh_shape(mesh).get("data", 1) > 1:
+        reductions.append((True, mesh.get_group("data")))
+    for part, group in reductions:
+        bucket, size = [], 0
+        idx = [i for i, p in enumerate(parted) if p == part]
+        for n, i in enumerate(idx):
+            g = grads[i]
+            if g.numel() >= REDUCE_BUCKET and g.dtype == torch.float32:
+                out[i] = C.all_reduce_(g.contiguous(), group)
+            else:
+                bucket.append(i)
+                size += g.numel()
+            if bucket and (size >= REDUCE_BUCKET or n == len(idx) - 1):
+                flat = torch.cat([grads[j].reshape(-1).float()
+                                  for j in bucket])
+                C.all_reduce_(flat, group)
+                for j, piece in zip(bucket, flat.split(
+                        [grads[j].numel() for j in bucket])):
+                    out[j] = piece.view(grads[j].shape).to(grads[j].dtype)
+                bucket, size = [], 0
+    return out
